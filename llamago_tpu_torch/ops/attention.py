@@ -1,0 +1,187 @@
+"""Attention over the KV cache: K2 (length-aware decode attention) and the
+plain einsum math.
+
+`flash_attention` is K2 for windows of t <= 32 query rows (decode steps
+and prefill buckets of 16 and 32). It replaces
+llamago_tpu/ops/attention.py `_attn_decode_kernel`; the CUDA kernel is
+`csrc/attn_decode.cu`, whose header note says what bounds it on the card
+(the visible cache bytes) and how its design answers that. A CPU tensor
+takes `flash_attention_plain`, the TPU kernel's online softmax over
+S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
+wrapper raises.
+
+`attention_math` is the plain einsum path that the model uses for windows
+of t > 32, where the JAX package also leaves attention to the compiler.
+
+Cache layout is [B, KV, S, hd] (runtime/kv_cache.py). Causal mask: cache
+slot j is visible to a query at absolute position p iff j <= p.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from llamago_tpu_torch.ops import _build
+
+NEG_INF = float("-inf")
+MAX_T = 32  # longest window K2 takes; longer windows go to attention_math
+_MAX_G = 8
+_HEAD_DIMS = (64, 128)
+_SB = 256  # S-block rows of the plain version, as in the TPU kernel
+_MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
+
+
+def _decode_sb(s: int) -> int:
+    """S-block rows for the plain version: 256, halved until it divides S
+    (the TPU kernel's choice); S itself when nothing down to 8 divides."""
+    sb = _SB
+    while sb > 8 and s % sb:
+        sb //= 2
+    return sb if s % sb == 0 else s
+
+
+def flash_attention_plain(q5: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, pos0: torch.Tensor) -> torch.Tensor:
+    """Plain K2 on q5 [B, t, KV, g, hd]: online softmax in f32 over S-blocks,
+    skipping blocks past each row's last visible slot; p is rounded to the
+    V dtype before the PV product. Returns q5's shape and dtype."""
+    b, t, kv, g, hd = q5.shape
+    s = k_cache.shape[2]
+    sb = _decode_sb(s)
+    n_sb = s // sb
+    rows = t * g
+    scale = 1.0 / (hd ** 0.5)
+    f32 = torch.float32
+    dev = q5.device
+    q = q5.permute(0, 2, 1, 3, 4).reshape(b, kv, rows, hd).to(f32)
+    pos0 = pos0.to(torch.int64)
+    last_blk = torch.clamp((pos0 + t - 1) // sb, max=n_sb - 1)  # [B]
+    qpos = pos0[:, None] + torch.arange(rows, device=dev)[None, :] // g  # [B, rows]
+    acc = torch.zeros((b, kv, rows, hd), dtype=f32, device=dev)
+    m = torch.full((b, kv, rows, 1), _MASK, dtype=f32, device=dev)
+    l = torch.zeros((b, kv, rows, 1), dtype=f32, device=dev)
+    for si in range(int(last_blk.max()) + 1):
+        k = k_cache[:, :, si * sb:(si + 1) * sb].to(f32)
+        v = v_cache[:, :, si * sb:(si + 1) * sb]
+        s_blk = torch.einsum("bkrd,bksd->bkrs", q, k) * scale
+        spos = si * sb + torch.arange(sb, device=dev)
+        visible = spos[None, None, None, :] <= qpos[:, None, :, None]
+        s_blk = torch.where(visible, s_blk, torch.full_like(s_blk, _MASK))
+        m_new = torch.maximum(m, s_blk.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s_blk - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bkrs,bksd->bkrd", p.to(v.dtype).to(f32), v.to(f32))
+        acc_new = acc * alpha + pv
+        upd = (si <= last_blk)[:, None, None, None]
+        acc = torch.where(upd, acc_new, acc)
+        m = torch.where(upd, m_new, m)
+        l = torch.where(upd, l_new, l)
+    out = (acc / l).reshape(b, kv, t, g, hd).permute(0, 2, 1, 3, 4)
+    return out.to(q5.dtype)
+
+
+@functools.cache
+def _lib():
+    lib = _build.library("attn_decode")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.llamago_attn_decode
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    rows = lib.llamago_attn_decode_block_rows
+    rows.argtypes = [i]
+    rows.restype = ctypes.c_int
+    return fn, rows
+
+
+def _check_cuda_args(q5, k_cache, v_cache, pos0) -> None:
+    b, t, kv, g, hd = q5.shape
+    if t > MAX_T or g > _MAX_G or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: t={t} (<= {MAX_T}), g={g} "
+                         f"(<= {_MAX_G}), hd={hd} (in {_HEAD_DIMS}) not supported")
+    if k_cache.shape != v_cache.shape or k_cache.shape[:2] != (b, kv) \
+            or k_cache.shape[3] != hd:
+        raise ValueError(f"flash_attention: cache {tuple(k_cache.shape)} does not "
+                         f"match q {tuple(q5.shape)}")
+    if q5.dtype not in (torch.bfloat16, torch.float32) \
+            or k_cache.dtype != q5.dtype or v_cache.dtype != q5.dtype:
+        raise ValueError(f"flash_attention: dtypes q {q5.dtype}, k {k_cache.dtype}, "
+                         f"v {v_cache.dtype} not supported")
+    if pos0.dtype != torch.int32 or pos0.shape != (b,):
+        raise ValueError("flash_attention: pos0 must be int32 [B]")
+    for name, x in (("q", q5), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("pos0", pos0)):
+        if x.device != q5.device:
+            raise ValueError(f"flash_attention: {name} on {x.device}, q on {q5.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and "
+                             "16-byte aligned")
+
+
+def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
+    b, t, kv, g, hd = q5.shape
+    s = k_cache.shape[2]
+    is_bf16 = int(q5.dtype == torch.bfloat16)
+    fn, block_rows = _lib()
+    nsb = -(-s // block_rows(is_bf16))
+    rows = t * g
+    dev = q5.device
+    out = torch.empty_like(q5)
+    pacc = torch.empty(b * kv * nsb * rows * hd, dtype=torch.float32, device=dev)
+    pm = torch.empty(b * kv * nsb * rows, dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    err = fn(q5.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
+             out.data_ptr(), pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+             b, t, kv, g, hd, s, 1.0 / (hd ** 0.5), is_bf16,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Causal attention of t <= 32 new queries q [B, t, H, hd] (roped)
+    against the cache [B, KV, S, hd]; positions [B, t] absolute (row 0's
+    position is what the kernel reads). Returns [B, t, H*hd] in q.dtype."""
+    b, t, h, hd = q.shape
+    kv = k_cache.shape[1]
+    q5 = q.reshape(b, t, kv, h // kv, hd)
+    pos0 = positions[:, 0].to(torch.int32)
+    if q.device.type == "cpu":
+        out = flash_attention_plain(q5, k_cache, v_cache, pos0)
+    elif q.device.type == "cuda":
+        q5 = q5.contiguous()
+        pos0 = pos0.contiguous()
+        _check_cuda_args(q5, k_cache, v_cache, pos0)
+        out = _flash_attention_cuda(q5, k_cache, v_cache, pos0)
+        flash_attention.launches += 1
+    else:
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return out.reshape(b, t, h * hd)
+
+
+flash_attention.launches = 0
+
+
+def attention_math(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Plain attention (reference: llama.go:300-336): f32 scores, -inf
+    mask, softmax, probabilities cast to q.dtype before the PV einsum.
+    q [B, T, H, hd], caches [B, KV, S, hd], positions [B, T].
+    Returns [B, T, H*hd] in q.dtype."""
+    b, t, h, hd = q.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, t, kv, g, hd)
+    scale = 1.0 / (hd ** 0.5)
+    scores = torch.einsum("btkgd,bksd->bkgts", qg.to(acc), k_cache.to(acc)) * scale
+    slot = torch.arange(s, device=q.device)
+    allowed = slot[None, None, :] <= positions[:, :, None]  # [B, T, S]
+    scores = scores.masked_fill(~allowed[:, None, None, :, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bksd->btkgd", probs.to(acc), v_cache.to(acc))
+    return out.reshape(b, t, h * hd).to(q.dtype)
