@@ -141,8 +141,6 @@ def unported_reason(args) -> str | None:
     if args.command in _UNPORTED_COMMANDS:
         return (f"the `{args.command}` subcommand is not yet ported "
                 f"({_UNPORTED_COMMANDS[args.command]} slice of the port)")
-    if args.kv_dtype == "int8":
-        return "--kv-dtype int8 is not yet ported (int8-KV slice of the port)"
     if args.weight_dtype == "int4":
         return "--weight-dtype int4 is not yet ported (int4 slice of the port)"
     if args.spec:

@@ -16,6 +16,11 @@ is updated in place (runtime/kv_cache.py).
 Attention routing follows the JAX package: windows of t <= 32 query rows
 (decode steps, prefill buckets of 16 and 32) take K2
 (ops/attention.py:flash_attention); longer windows take the einsum math.
+On the int8 cache (runtime/kv_cache.py, `cache.quantized`) a decode step
+writes its new rows through K3 (ops/cache_write.py) and a prefill window
+through quantize_kv_rows + write_rows / write_scale_rows; windows of
+t <= 32 whose S has an S-block of the TPU kernels take K4/K8
+(flash_attention_quant), the rest the scale-folded einsum math.
 """
 
 from __future__ import annotations
@@ -24,20 +29,56 @@ import torch
 import torch.nn.functional as F
 
 from llamago_tpu_torch.config import ModelConfig
-from llamago_tpu_torch.ops.attention import MAX_T, attention_math, flash_attention
+from llamago_tpu_torch.ops.attention import (
+    MAX_T,
+    attention_math,
+    flash_attention,
+    flash_attention_quant,
+    quant_fits,
+)
 from llamago_tpu_torch.ops.basic import linear, rms_norm, rope_tables, rotate, swiglu
+from llamago_tpu_torch.ops.cache_write import cache_append_quant
 from llamago_tpu_torch.ops.quant import lm_head_padded_cols
-from llamago_tpu_torch.runtime.kv_cache import KVCache, write_rows
+from llamago_tpu_torch.runtime.kv_cache import (
+    KVCache,
+    quantize_kv_rows,
+    write_rows,
+    write_scale_rows,
+)
 from llamago_tpu_torch.utils.device import torch_dtype
 
 
-def _attention(q, k_cache, v_cache, positions):
+def _attention(q, k_cache, v_cache, positions, k_scale=None, v_scale=None):
     """Causal attention of q [B, T, H, hd] against the cache; slot j is
     visible to a query at position p iff j <= p (the cache slot j always
-    holds the token at absolute position j)."""
+    holds the token at absolute position j). k_scale / v_scale are the
+    int8 cache's row scales, None for the dense cache."""
+    if k_scale is not None:
+        if quant_fits(q.shape[1], k_cache.shape[2]):
+            return flash_attention_quant(q, k_cache, v_cache, positions, k_scale, v_scale)
+        return attention_math(q, k_cache, v_cache, positions, k_scale, v_scale)
     if q.shape[1] <= MAX_T:
         return flash_attention(q, k_cache, v_cache, positions)
     return attention_math(q, k_cache, v_cache, positions)
+
+
+def _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos):
+    """Write the new rows k / v [B, T, KV, hd] into one layer of the cache
+    in place. On the int8 cache a decode step takes K3; a prefill window is
+    quantized and written by plain PyTorch, as the JAX package does (it has
+    no kernel for t > 1)."""
+    if ks_l is None:
+        write_rows(k_layer, k, write_pos)
+        write_rows(v_layer, v, write_pos)
+    elif k.shape[1] == 1:
+        cache_append_quant(k_layer, v_layer, ks_l, vs_l, k, v, write_pos)
+    else:
+        kq, ks_new = quantize_kv_rows(k)
+        vq, vs_new = quantize_kv_rows(v)
+        write_rows(k_layer, kq, write_pos)
+        write_rows(v_layer, vq, write_pos)
+        write_scale_rows(ks_l, ks_new, write_pos)
+        write_scale_rows(vs_l, vs_new, write_pos)
 
 
 def _layer_list(layers, n_layers: int) -> list[dict]:
@@ -79,8 +120,10 @@ def forward_impl(
     q_dim = config.n_heads * config.head_dim
     kv_dim = config.kv_heads * config.head_dim
     hidden = config.ffn_hidden
-    for lp, k_layer, v_layer in zip(_layer_list(params["layers"], config.n_layers),
-                                    cache.k, cache.v):
+    no_scales = [None] * config.n_layers
+    for lp, k_layer, v_layer, ks_l, vs_l in zip(
+            _layer_list(params["layers"], config.n_layers), cache.k, cache.v,
+            cache.ks or no_scales, cache.vs or no_scales):
         h = rms_norm(x, lp["attention_norm"], config.norm_eps)
         if "wqkv" in lp:
             qkv = linear(h, lp["wqkv"])
@@ -93,10 +136,8 @@ def forward_impl(
         k = rotate(k.reshape(b, t, config.kv_heads, config.head_dim), cos, sin)
         v = v.reshape(b, t, config.kv_heads, config.head_dim)
 
-        write_rows(k_layer, k, write_pos)
-        write_rows(v_layer, v, write_pos)
-
-        attn = _attention(q, k_layer, v_layer, positions)
+        _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos)
+        attn = _attention(q, k_layer, v_layer, positions, ks_l, vs_l)
         x = x + linear(attn, lp["wo"])
 
         h = rms_norm(x, lp["ffn_norm"], config.norm_eps)

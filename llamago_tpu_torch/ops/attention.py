@@ -1,5 +1,6 @@
-"""Attention over the KV cache: K2 (length-aware decode attention) and the
-plain einsum math.
+"""Attention over the KV cache: K2 (length-aware decode attention over the
+dense cache), K4 and K8 (the same over the int8 cache) and the plain
+einsum math.
 
 `flash_attention` is K2 for windows of t <= 32 query rows (decode steps
 and prefill buckets of 16 and 32). It replaces
@@ -10,8 +11,17 @@ takes `flash_attention_plain`, the TPU kernel's online softmax over
 S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
 wrapper raises.
 
+`flash_attention_quant` is the same over the int8 cache (runtime/
+kv_cache.py), for windows of t <= 32 whose S has an S-block of the TPU
+kernels (`quant_fits`). `LLAMAGO_ATTN_I8DOT` (default "1", read as the JAX
+package reads it) picks K4, which replaces `_attn_decode_kernel_quant_i8dot`
+(int8 dot products; plain version `flash_attention_quant_i8dot_plain`), or,
+with "0", K8, which replaces `_attn_decode_kernel_quant` (widening; plain
+version `flash_attention_quant_plain`). Both are `csrc/attn_decode_quant.cu`.
+
 `attention_math` is the plain einsum path that the model uses for windows
-of t > 32, where the JAX package also leaves attention to the compiler.
+of t > 32, where the JAX package also leaves attention to the compiler;
+with row scales it is the int8 cache's scale-folded math.
 
 Cache layout is [B, KV, S, hd] (runtime/kv_cache.py). Causal mask: cache
 slot j is visible to a query at absolute position p iff j <= p.
@@ -21,10 +31,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
 from llamago_tpu_torch.ops import _build
+from llamago_tpu_torch.runtime.kv_cache import quantize_kv_rows
 
 NEG_INF = float("-inf")
 MAX_T = 32  # longest window K2 takes; longer windows go to attention_math
@@ -34,13 +46,23 @@ _SB = 256  # S-block rows of the plain version, as in the TPU kernel
 _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 
-def _decode_sb(s: int) -> int:
-    """S-block rows for the plain version: 256, halved until it divides S
-    (the TPU kernel's choice); S itself when nothing down to 8 divides."""
+# int8-cache decode attention: K4 (int8 dot products) unless "0", K8
+_I8DOT = os.environ.get("LLAMAGO_ATTN_I8DOT", "1") == "1"
+
+
+def _tpu_sb(s: int) -> int | None:
+    """The TPU kernels' S-block rows: 256, halved until it divides S; None
+    when nothing down to 8 divides S."""
     sb = _SB
     while sb > 8 and s % sb:
         sb //= 2
-    return sb if s % sb == 0 else s
+    return sb if s % sb == 0 else None
+
+
+def _decode_sb(s: int) -> int:
+    """S-block rows for K2's plain version: the TPU kernel's block, or S
+    itself when the TPU kernel has none."""
+    return _tpu_sb(s) or s
 
 
 def flash_attention_plain(q5: torch.Tensor, k_cache: torch.Tensor,
@@ -166,22 +188,209 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
 flash_attention.launches = 0
 
 
+def quant_fits(t: int, s: int) -> bool:
+    """Whether K4/K8 take a window of t query rows over a cache of S slots:
+    t <= 32 and S has an S-block of the TPU kernels (their arithmetic
+    depends on it). The JAX package routes the same shapes to its kernels."""
+    return t <= MAX_T and _tpu_sb(s) is not None
+
+
+def _quant_plain(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.Tensor:
+    """The TPU kernels' online softmax over S-blocks on the int8 cache, in
+    PyTorch (see flash_attention_quant_i8dot_plain / _plain). The int8
+    products run as f32 einsums: int8 products summed over hd (<= 1024) or
+    S-block (<= 256) terms stay below 2**24, so they are exact in any order,
+    as the int32 dots are (PyTorch has no int8 matmul on the card)."""
+    b, t, kv, g, hd = q5.shape
+    s = k8.shape[2]
+    sb = _tpu_sb(s)
+    if sb is None:
+        raise ValueError(f"flash_attention_quant: S={s} has no S-block of the "
+                         "TPU kernels (take attention_math)")
+    n_sb = s // sb
+    rows = t * g
+    scale = 1.0 / (hd ** 0.5)
+    f32 = torch.float32
+    dev = q5.device
+    q = q5.permute(0, 2, 1, 3, 4).reshape(b, kv, rows, hd).to(f32)
+    if i8dot:
+        q8, sq = quantize_kv_rows(q)  # per (head, row), once
+        q, q_scale = q8.to(f32), (scale * sq)[..., None]
+    pos0 = pos0.to(torch.int64)
+    last_blk = torch.clamp((pos0 + t - 1) // sb, max=n_sb - 1)  # [B]
+    qpos = pos0[:, None] + torch.arange(rows, device=dev)[None, :] // g  # [B, rows]
+    acc = torch.zeros((b, kv, rows, hd), dtype=f32, device=dev)
+    m = torch.full((b, kv, rows, 1), _MASK, dtype=f32, device=dev)
+    l = torch.zeros((b, kv, rows, 1), dtype=f32, device=dev)
+    for si in range(int(last_blk.max()) + 1):
+        blk = slice(si * sb, (si + 1) * sb)
+        k = k8[:, :, blk].to(f32)
+        v = v8[:, :, blk].to(f32)
+        sk = ks[:, :, None, blk].to(f32)
+        sv = vs[:, :, None, blk].to(f32)
+        s_blk = torch.einsum("bkrd,bksd->bkrs", q, k)
+        s_blk = (s_blk * q_scale if i8dot else s_blk * scale) * sk
+        spos = si * sb + torch.arange(sb, device=dev)
+        visible = spos[None, None, None, :] <= qpos[:, None, :, None]
+        s_blk = torch.where(visible, s_blk, torch.full_like(s_blk, _MASK))
+        m_new = torch.maximum(m, s_blk.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s_blk - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        psv = p * sv
+        if i8dot:  # p*sv >= 0: requantized per row against its block maximum
+            p8, sp = quantize_kv_rows(psv)
+            pv = torch.einsum("bkrs,bksd->bkrd", p8.to(f32), v) * sp[..., None]
+        else:  # p*sv rounded to bf16, whatever q's dtype, as in the TPU kernel
+            pv = torch.einsum("bkrs,bksd->bkrd", psv.to(torch.bfloat16).to(f32), v)
+        acc_new = acc * alpha + pv
+        upd = (si <= last_blk)[:, None, None, None]
+        acc = torch.where(upd, acc_new, acc)
+        m = torch.where(upd, m_new, m)
+        l = torch.where(upd, l_new, l)
+    out = (acc / l).reshape(b, kv, t, g, hd).permute(0, 2, 1, 3, 4)
+    return out.to(q5.dtype)
+
+
+def flash_attention_quant_i8dot_plain(q5, k8, v8, pos0, ks, vs) -> torch.Tensor:
+    """Plain K4 on q5 [B, t, KV, g, hd] over the int8 cache k8 / v8
+    [B, KV, S, hd] with row scales ks / vs [B, KV, S]: q quantized per
+    (head, row), int8 scores times (scale * sq) * sk, online softmax in f32
+    over S-blocks, p*sv requantized to int8 per row and block, int8 PV
+    times sp. Returns q5's shape and dtype."""
+    return _quant_plain(q5, k8, v8, pos0, ks, vs, i8dot=True)
+
+
+def flash_attention_quant_plain(q5, k8, v8, pos0, ks, vs) -> torch.Tensor:
+    """Plain K8, the widening variant: f32 scores of q with the widened K
+    times scale * sk, online softmax in f32 over S-blocks, p*sv rounded to
+    bf16 before the PV product with the widened V. Returns q5's shape and
+    dtype."""
+    return _quant_plain(q5, k8, v8, pos0, ks, vs, i8dot=False)
+
+
+@functools.cache
+def _quant_lib():
+    fn = _build.library("attn_decode_quant").llamago_attn_decode_quant
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs) -> None:
+    b, t, kv, g, hd = q5.shape
+    if t > MAX_T or g > _MAX_G or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_quant: t={t} (<= {MAX_T}), g={g} "
+                         f"(<= {_MAX_G}), hd={hd} (in {_HEAD_DIMS}) not supported")
+    if k8.shape != v8.shape or k8.shape[:2] != (b, kv) or k8.shape[3] != hd:
+        raise ValueError(f"flash_attention_quant: cache {tuple(k8.shape)}, "
+                         f"{tuple(v8.shape)} does not match q {tuple(q5.shape)}")
+    if _tpu_sb(k8.shape[2]) is None:
+        raise ValueError(f"flash_attention_quant: S={k8.shape[2]} has no S-block")
+    if ks.shape != k8.shape[:3] or vs.shape != ks.shape:
+        raise ValueError(f"flash_attention_quant: scales {tuple(ks.shape)}, "
+                         f"{tuple(vs.shape)} do not match the cache {tuple(k8.shape)}")
+    if q5.dtype not in (torch.bfloat16, torch.float32) or k8.dtype != torch.int8 \
+            or v8.dtype != torch.int8 or ks.dtype != torch.float32 \
+            or vs.dtype != torch.float32:
+        raise ValueError(f"flash_attention_quant: dtypes q {q5.dtype}, cache "
+                         f"{k8.dtype}/{v8.dtype}, scales {ks.dtype}/{vs.dtype} "
+                         "not supported")
+    if pos0.dtype != torch.int32 or pos0.shape != (b,):
+        raise ValueError("flash_attention_quant: pos0 must be int32 [B]")
+    for name, x in (("q", q5), ("k8", k8), ("v8", v8), ("pos0", pos0), ("ks", ks),
+                    ("vs", vs)):
+        if x.device != q5.device:
+            raise ValueError(f"flash_attention_quant: {name} on {x.device}, q on "
+                             f"{q5.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_quant: {name} must be contiguous "
+                             "and 16-byte aligned")
+
+
+def _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.Tensor:
+    b, t, kv, g, hd = q5.shape
+    s = k8.shape[2]
+    sb = _tpu_sb(s)
+    nsb = s // sb
+    rows = t * g
+    dev = q5.device
+    out = torch.empty_like(q5)
+    pacc = torch.empty(b * kv * nsb * rows * hd, dtype=torch.float32, device=dev)
+    pm = torch.empty(b * kv * nsb * rows, dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    err = _quant_lib()(q5.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(),
+                       vs.data_ptr(), pos0.data_ptr(), out.data_ptr(), pacc.data_ptr(),
+                       pm.data_ptr(), pl.data_ptr(), b, t, kv, g, hd, s, sb,
+                       1.0 / (hd ** 0.5), int(q5.dtype == torch.bfloat16), int(i8dot),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention_quant")
+    return out
+
+
+def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                          positions: torch.Tensor, ks: torch.Tensor,
+                          vs: torch.Tensor) -> torch.Tensor:
+    """Causal attention of t <= 32 new queries q [B, t, H, hd] (roped)
+    against the int8 cache k8 / v8 [B, KV, S, hd] with f32 row scales
+    ks / vs [B, KV, S]; positions [B, t] absolute (row 0's position is what
+    the kernel reads). K4 unless LLAMAGO_ATTN_I8DOT is "0", then K8; each
+    counts its launches (`launches_i8dot`, `launches_widening`). Returns
+    [B, t, H*hd] in q.dtype."""
+    b, t, h, hd = q.shape
+    kv = k8.shape[1]
+    q5 = q.reshape(b, t, kv, h // kv, hd)
+    pos0 = positions[:, 0].to(torch.int32)
+    i8dot = _I8DOT
+    if q.device.type == "cpu":
+        plain = flash_attention_quant_i8dot_plain if i8dot else flash_attention_quant_plain
+        out = plain(q5, k8, v8, pos0, ks, vs)
+    elif q.device.type == "cuda":
+        q5 = q5.contiguous()
+        pos0 = pos0.contiguous()
+        _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs)
+        out = _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot)
+        if i8dot:
+            flash_attention_quant.launches_i8dot += 1
+        else:
+            flash_attention_quant.launches_widening += 1
+    else:
+        raise ValueError(f"flash_attention_quant: unsupported device {q.device}")
+    return out.reshape(b, t, h * hd)
+
+
+flash_attention_quant.launches_i8dot = 0  # K4
+flash_attention_quant.launches_widening = 0  # K8
+
+
 def attention_math(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, k_scale: torch.Tensor | None = None,
+                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain attention (reference: llama.go:300-336): f32 scores, -inf
     mask, softmax, probabilities cast to q.dtype before the PV einsum.
     q [B, T, H, hd], caches [B, KV, S, hd], positions [B, T].
-    Returns [B, T, H*hd] in q.dtype."""
+    With k_scale / v_scale [B, KV, S] (the int8 cache) the scales fold in
+    per cache column, as in the JAX package: scores times k_scale after the
+    1/sqrt(hd) scale, probabilities times v_scale before the cast, the int8
+    cache widened to q.dtype. Returns [B, T, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     acc = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(b, t, kv, g, hd)
     scale = 1.0 / (hd ** 0.5)
+    if k_scale is not None:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     scores = torch.einsum("btkgd,bksd->bkgts", qg.to(acc), k_cache.to(acc)) * scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, None, :].to(acc)
     slot = torch.arange(s, device=q.device)
     allowed = slot[None, None, :] <= positions[:, :, None]  # [B, T, S]
     scores = scores.masked_fill(~allowed[:, None, None, :, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, None, :].to(acc)
+    probs = probs.to(q.dtype)
     out = torch.einsum("bkgts,bksd->btkgd", probs.to(acc), v_cache.to(acc))
     return out.reshape(b, t, h * hd).to(q.dtype)

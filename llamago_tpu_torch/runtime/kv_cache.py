@@ -1,32 +1,55 @@
-"""Static-shape dense KV cache, one [B, KV, S, hd] tensor per layer.
+"""Static-shape KV cache, one [B, KV, S, hd] tensor per layer, dense or
+int8-quantized.
 
 Counterpart of the JAX package's `runtime/kv_cache.py` in its layered
 layout. JAX donates the cache buffers to each jitted step so XLA updates
 them in place; here the tensors are updated in place directly
-(`write_rows`), so a forward step returns the same cache object it was
-given.
+(`write_rows`, `write_scale_rows`, ops/cache_write.py), so a forward step
+returns the same cache object it was given.
 
 Writes reproduce `lax.dynamic_update_slice`: a start past S - T is
 CLAMPED to S - T. The engine's `_fits` check and its parking of inactive
 rows (runtime/engine.py) are written against exactly that behaviour.
 
-The int8 cache comes with the int8-KV slice of the port.
+Quantized mode (`kv_dtype="int8"`): K/V rows are stored int8 with one f32
+scale per (batch, head, position) row of head_dim elements, q = round(x/s)
+for s = absmax/127 (`quantize_kv_rows`). The scale planes `ks`/`vs` are
+[B, KV, S] per layer, zero-initialized, and the attention folds them into
+its scores and probabilities (ops/attention.py).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 
 from llamago_tpu_torch.config import ModelConfig
-from llamago_tpu_torch.utils.device import torch_dtype
+from llamago_tpu_torch.utils.device import resolve_device, torch_dtype
+
+# Storage dtype of the int8 cache's scale planes, read as the JAX package
+# reads it. Only float32 (its default) is ported.
+_SCALE_DTYPE_NAME = os.environ.get("LLAMAGO_KV_SCALE_DTYPE", "float32")
+
+# 1/127 rounded to f32. The JAX package writes `absmax / 127.0`, and XLA
+# compiles a division by a constant into this multiplication, one ulp away
+# from a true division on some rows: the port multiplies too, so its scales
+# equal the JAX package's bit for bit.
+INV127 = 1.0 / 127.0
 
 
 @dataclass
 class KVCache:
     k: list  # n_layers tensors [B, KV, S, hd]
     v: list
+    # int8 mode only: n_layers f32 scale planes [B, KV, S]; None => dense
+    ks: list | None = None
+    vs: list | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
     @property
     def batch(self) -> int:
@@ -38,41 +61,83 @@ class KVCache:
 
     @staticmethod
     def create(config: ModelConfig, batch: int = 1, max_seq: int | None = None,
-               dtype: torch.dtype | None = None, device="cpu") -> "KVCache":
-        if config.kv_dtype == "int8":
-            raise NotImplementedError(
-                "the int8 KV cache is not yet ported (int8-KV slice of the port)")
-        if dtype is None:
+               dtype: torch.dtype | None = None, device="cuda") -> "KVCache":
+        device = resolve_device(device)
+        quantized = config.kv_dtype == "int8"
+        if quantized:
+            if _SCALE_DTYPE_NAME != "float32":
+                raise NotImplementedError(
+                    f"LLAMAGO_KV_SCALE_DTYPE={_SCALE_DTYPE_NAME}: only float32 "
+                    "scale planes are ported; the bf16 scale planes are not "
+                    "yet ported")
+            dtype = torch.int8
+        elif dtype is None:
             dtype = torch_dtype(config.kv_dtype if config.kv_dtype != "auto"
                                 else config.dtype)
         shape = (batch, config.kv_heads, max_seq or config.max_seq_len,
                  config.head_dim)
 
-        def mk():
-            return [torch.zeros(shape, dtype=dtype, device=device)
+        def mk(shp, dt):
+            return [torch.zeros(shp, dtype=dt, device=device)
                     for _ in range(config.n_layers)]
 
-        return KVCache(k=mk(), v=mk())
+        if not quantized:
+            return KVCache(k=mk(shape, dtype), v=mk(shape, dtype))
+        # zero scales: an unwritten row dequantizes to exactly zero
+        return KVCache(k=mk(shape, dtype), v=mk(shape, dtype),
+                       ks=mk(shape[:-1], torch.float32),
+                       vs=mk(shape[:-1], torch.float32))
 
     def slot(self, i: int) -> "KVCache":
         """Views of batch row i: writes through them land in this cache."""
-        return KVCache(k=[a[i:i + 1] for a in self.k],
-                       v=[a[i:i + 1] for a in self.v])
+        def rows(planes):
+            return None if planes is None else [a[i:i + 1] for a in planes]
+
+        return KVCache(k=rows(self.k), v=rows(self.v), ks=rows(self.ks),
+                       vs=rows(self.vs))
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization over the trailing head_dim:
+    x [..., hd] -> (int8 [..., hd], f32 scale [...]) with q = round(x/s)
+    (half to even) clipped to +-127, s = absmax/127, and s = 1 for all-zero
+    rows so the dequantized row is exactly zero."""
+    xf = x.to(torch.float32)
+    a = xf.abs().amax(dim=-1)
+    s = torch.where(a > 0, a * INV127, torch.ones_like(a))
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _starts(write_pos: torch.Tensor, s: int, t: int, dev) -> torch.Tensor:
+    """Write starts placed as JAX's dynamic_update_slice places them: a
+    negative start counts from the end, then the start is clamped to
+    [0, S - T]."""
+    start = write_pos.to(device=dev, dtype=torch.long)
+    return torch.clamp(torch.where(start < 0, start + s, start), 0, s - t)
 
 
 def write_rows(cache_layer: torch.Tensor, new: torch.Tensor,
                write_pos: torch.Tensor) -> None:
     """In place: cache_layer[b, :, p_b:p_b+T, :] = new[b] for new
-    [B, T, KV, hd] and write_pos [B] on the cache's device. Each start is
-    placed as JAX's dynamic_update_slice places it: a negative start
-    counts from the end, then the start is clamped to [0, S - T]."""
+    [B, T, KV, hd] and write_pos [B], each start placed by `_starts`."""
     b, t = new.shape[:2]
-    s = cache_layer.shape[2]
     dev = cache_layer.device
-    start = write_pos.to(device=dev, dtype=torch.long)
-    start = torch.clamp(torch.where(start < 0, start + s, start), 0, s - t)
+    start = _starts(write_pos, cache_layer.shape[2], t, dev)
     rows = torch.arange(b, device=dev)[:, None]
     cols = start[:, None] + torch.arange(t, device=dev)[None, :]
     # advanced indices around a slice put their [B, T] dims first, which
     # is new's own layout
     cache_layer[rows, :, cols, :] = new.to(cache_layer.dtype)
+
+
+def write_scale_rows(scale_layer: torch.Tensor, new: torch.Tensor,
+                     write_pos: torch.Tensor) -> None:
+    """In place: scale_layer[b, :, p_b:p_b+T] = new[b] for new [B, T, KV]
+    scales and write_pos [B], placed exactly as `write_rows` places rows."""
+    b, t = new.shape[:2]
+    dev = scale_layer.device
+    start = _starts(write_pos, scale_layer.shape[2], t, dev)
+    rows = torch.arange(b, device=dev)[:, None]
+    cols = start[:, None] + torch.arange(t, device=dev)[None, :]
+    scale_layer[rows, :, cols] = new.to(scale_layer.dtype)

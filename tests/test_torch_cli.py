@@ -68,8 +68,16 @@ def test_read_ggjt_and_host_parameters_match_jax(q8_model):
         np.testing.assert_array_equal(a, b)
 
 
+def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
+    argv = ["--model", q8_model, "--prompt", "hello world", "--temp", "0",
+            "--predict", "8", "--context", "64", "--silent", "--kv-dtype", "int8",
+            "--device", "cpu"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("hello world") and len(out.strip()) > len("hello world")
+
+
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--kv-dtype", "int8"], "int8-KV"),
     (["--weight-dtype", "int4"], "int4"),
     (["--spec"], "speculative"),
     (["--tp", "2"], "parallel"),
@@ -111,7 +119,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, q8_model):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     bad = []
-    for path in sorted(PKG.rglob("*.py")):
+    smoke = PKG.parent / "chip_smoke.py"
+    assert smoke.exists()
+    for path in sorted(PKG.rglob("*.py")) + [smoke]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -122,6 +132,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for name in names:
                 top = name.split(".")[0]
                 if top in ("jax", "jaxlib", "llamago_tpu"):
-                    bad.append(f"{path.relative_to(PKG)}: {name}")
+                    bad.append(f"{path.relative_to(PKG.parent)}: {name}")
     assert len(list(PKG.rglob("*.py"))) > 15
     assert bad == []

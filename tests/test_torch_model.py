@@ -84,7 +84,7 @@ def _run_jax(jcfg, jp, tokens, layered, **kw):
 def _run_port(jcfg, jp, tokens, **kw):
     cfg = _port_config(jcfg)
     tp = params.params_from_numpy(_np_tree(jp), device="cpu")
-    cache = KVCache.create(cfg, batch=tokens.shape[0])
+    cache = KVCache.create(cfg, batch=tokens.shape[0], device="cpu")
     out = llama.forward_impl(tp, torch.from_numpy(tokens), cache,
                              torch.zeros(tokens.shape[0], dtype=torch.long), cfg, **kw)
     return out[0].numpy()
@@ -126,9 +126,9 @@ def test_prefill_then_decode_matches_full_prefill():
     cfg = _port_config(jcfg)
     tp = params.params_from_numpy(_np_tree(jp), device="cpu")
     ids = torch.tensor([[1, 5, 42, 300, 7, 19, 250, 33]])
-    full, _ = llama.forward_impl(tp, ids, KVCache.create(cfg), torch.zeros(1), cfg,
-                                 return_all_logits=True)
-    cache = KVCache.create(cfg)
+    full, _ = llama.forward_impl(tp, ids, KVCache.create(cfg, device="cpu"),
+                                 torch.zeros(1), cfg, return_all_logits=True)
+    cache = KVCache.create(cfg, device="cpu")
     logits, cache = llama.forward_impl(tp, ids[:, :5], cache, torch.zeros(1), cfg)
     np.testing.assert_allclose(logits[0].numpy(), full[0, 4].numpy(), rtol=1e-5, atol=1e-5)
     for i in range(5, 8):
@@ -147,7 +147,7 @@ def test_prefill_into_slot_matches_jax():
         jp, jnp.asarray(toks), jcache, jnp.asarray(1, jnp.int32),
         jnp.asarray([3], jnp.int32), jnp.asarray([3], jnp.int32), jcfg)
     tp = params.params_from_numpy(_np_tree(jp), device="cpu")
-    cache = KVCache.create(cfg, batch=2)
+    cache = KVCache.create(cfg, batch=2, device="cpu")
     logits, cache = llama.prefill_into_slot(
         tp, torch.from_numpy(toks), cache, 1, torch.tensor([3]), torch.tensor([3]), cfg)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
