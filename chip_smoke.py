@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (llamago_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--out DETAIL.json]
+    python3 chip_smoke.py [--out DETAIL.json] [--only PHASE,...]
 
 Phases, each of which fails the run (exit code 1, no result line):
 
   1. print the card (nvidia-smi name and power limit) and build every
      CUDA kernel from csrc/ with nvcc (one process per source, together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the serving path gives it (K3 bit for bit), and time the
-     kernel, the plain version, one PyTorch library call computing the same
-     function where there is one (a yardstick the port never calls) and the
-     bound (the larger of bytes over 3.35 TB/s and operations over the
-     peak rate of their type: 989 TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s
-     f32; H100 SXM data sheet);
+     shapes the serving path gives it (K3 and K5's activation quantization
+     bit for bit), and time the kernel, the plain version, one PyTorch
+     library call computing the same function where there is one (a
+     yardstick the port never calls) and the bound (the larger of bytes
+     over 3.35 TB/s and operations over the peak rate of their type: 989
+     TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
+     K1 (Q8_0 and Q4_0), K2, K3, K4, K8, K5 (W4A8 decode matmul), K6 (w4x8
+     stream matmul) and K9 (scale-on-output matmul);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
-     with the dense cache, then the int8 cache under K4 and under K8;
+     with the dense cache, then the int8 cache under K4 and under K8, then
+     int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
+     no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
+     the Q4_0 format with the scale-on-output switch on (K9);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -27,10 +32,16 @@ Phases, each of which fails the run (exit code 1, no result line):
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
      16 jobs, after phase 4's engine is freed: K1, K3 and K4 must launch,
      K2 and K8 not;
+  4c. the same with random int4 weights in the w4x8 format and the bf16
+     cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
+     and K2 must launch, every other kernel stay at 0;
 
 then print the card line, the kernels line (JSON) and, last, the device
 line (JSON). `--out` names a file for the detail (per-shape kernel times,
-the serving numbers, the decode-step profile) as JSON.
+the serving numbers, the decode-step profile) as JSON. `--only` runs the
+named phases alone (after the build) for work on one of them, and prints no
+result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, small, small_int4, serve,
+serve_int8, serve_int4.
 """
 
 from __future__ import annotations
@@ -54,7 +65,12 @@ F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 K1_SHAPES = (("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
              ("w13", 4096, 22016, 32), ("w2", 11008, 4096, 32),
              ("lm_head", 4096, 32768, 1))
-K1_TOL = {"float32": 1e-4, "bfloat16": 8e-3}  # x max|ref|: f32 sum order; one bf16 rounding
+# the same with int4 weights: the head is not padded
+INT4_SHAPES = K1_SHAPES[:4] + (("lm_head", 4096, 32000, 1),)
+# x max|ref|, for every quantized matmul (K1, K5, K6, K9): the kernel's f32
+# sums run in another order than the plain version's (split K, warps, FMA);
+# a bf16 output adds one rounding
+K1_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 K2_TOL = 1e-2  # absolute, bf16 outputs of size ~1
 K2_SHAPE = dict(b=4, kv=32, g=1, hd=128, s=1024)
 K2_COPIES = 3  # 3 x 67 MB of K and V at K2_SHAPE
@@ -122,72 +138,180 @@ def bound_ms(nbytes: float, ops: float,
 
 # ---------------------------------------------------------------- phase 2
 
-def check_k1(dev, detail: dict) -> dict:
-    """K1 at the five 7B projection shapes, m=4 (decode) and m=64 (the
-    prefill bucket of the smoke's prompts), checked and timed; the other
-    row counts the serving path produces checked at the wqkv shape."""
+def _random_leaf(gen, dev, fmt: str, k: int, n: int) -> dict:
+    """A random quantized leaf with bf16 scales in (0, 0.02): "q8" (Q8_0),
+    "q4" (Q4_0) or "q4x" (w4x8, its group scales stored as duplicated rows)."""
     import torch
 
-    from llamago_tpu_torch.ops import kernels, quant
+    def scales(rows):
+        return (torch.rand((rows, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
 
-    gen = torch.Generator(device=dev).manual_seed(1)
+    if fmt == "q8":
+        return {"q8": torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8,
+                                    device=dev), "s": scales(k // 32)}
+    packed = torch.randint(0, 256, (k // 2, n), generator=gen, dtype=torch.uint8, device=dev)
+    if fmt == "q4":
+        return {"q4": packed, "s": scales(k // 32)}
+    return {"q4x": packed, "s": torch.repeat_interleave(scales(k // 128), 2, dim=0)}
+
+
+def _leaf_bytes(w: dict) -> int:
+    """Bytes the kernels read of a leaf: of a w4x8 leaf's duplicated scale
+    rows only every other one."""
+    s = w["s"].numel() * w["s"].element_size()
+    if "q4x" in w:
+        return w["q4x"].numel() + s // 2
+    return (w["q8"] if "q8" in w else w["q4"]).numel() + s
+
+
+def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
+                 other_m: tuple, ops_per_s: float, seed: int, step_m: int = 4) -> dict:
+    """One quantized matmul kernel at the five 7B projection shapes (the
+    head at its width in that format): kernel against plain version for f32
+    and bf16 x (and f32 scales at the wqkv shape, as a file brings them,
+    where the kernel takes them) at the row counts `timed_m`, which are also
+    timed in bf16, and at the wqkv shape at `other_m`. Returns the kernels
+    line's numbers: one decode step (or one pass over the five shapes) at
+    `step_m` rows."""
+    import torch
+
+    from llamago_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     max_err = 0.0
     rows = []
-    for name, k, n, per_step in K1_SHAPES:
+    for name, k, n, per_step in (K1_SHAPES if fmt == "q8" else INT4_SHAPES):
+        ws = [_random_leaf(gen, dev, fmt, k, n)]
         # copies enough that a cycle of calls streams past the 50 MB L2,
         # as the decode step's weight stream does
-        copies = max(1, -(-200_000_000 // (k * n)))
-        ws = [{"q8": torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8,
-                                   device=dev),
-               "s": (torch.rand((k // 32, n), generator=gen, device=dev) * 0.02
-                     ).to(torch.bfloat16)} for _ in range(copies)]
+        copies = max(1, -(-200_000_000 // _leaf_bytes(ws[0])))
+        ws += [_random_leaf(gen, dev, fmt, k, n) for _ in range(copies - 1)]
         cases = [("float32", ws[0]), ("bfloat16", ws[0])]
-        if name == "wqkv":  # a Q8_0 file brings f32 scales
-            cases.append(("float32", {"q8": ws[0]["q8"], "s": ws[0]["s"].float()}))
+        if name == "wqkv" and fmt != "q4x":
+            cases.append(("float32", {**ws[0], "s": ws[0]["s"].float()}))
 
         def check(m):
             nonlocal max_err
             for xdt, w in cases:
                 x = torch.randn((m, k), generator=gen, device=dev).to(getattr(torch, xdt))
-                got = kernels.dequant_matmul(x, w).float()
-                ref = kernels.dequant_matmul_plain(x, w).float()
+                got = kernel(x, w).float()
+                ref = plain(x, w).float()
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item() / ref.abs().max().item()
                 if not err <= K1_TOL[xdt]:
-                    raise AssertionError(f"K1 {name} m={m} x={xdt}: max|d|/max|ref| "
+                    raise AssertionError(f"{tag} {name} m={m} x={xdt}: max|d|/max|ref| "
                                          f"{err:.3g} > {K1_TOL[xdt]}")
                 max_err = max(max_err, err)
 
         if name == "wqkv":
-            # the serving path's other row counts: 1, 2 and 8 slots (the
-            # GEMV's other templates), the prefill buckets 16 and 32
-            for m in (1, 2, 8, 16, 32):
+            for m in other_m:
                 check(m)
-        for m in (4, 64):
+        for m in timed_m:
             check(m)
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             deqs = [quant.dequantize(w, torch.bfloat16) for w in ws]
-            kern = timed([lambda w=w: kernels.dequant_matmul(x, w) for w in ws], 20 * copies)
-            plain = timed([lambda w=w: kernels.dequant_matmul_plain(x, w) for w in ws],
-                          max(3, copies))
+            kern = timed([lambda w=w: kernel(x, w) for w in ws], 20 * copies)
+            plain_ms = timed([lambda w=w: plain(x, w) for w in ws], max(3, copies))
             lib = timed([lambda d=d: x @ d for d in deqs], 20 * copies)
             del deqs
-            bnd, by = bound_ms(k * n + (k // 32) * n * 2 + m * k * 2 + m * n * 2,
-                               2.0 * m * k * n)
-            rows.append(dict(name=name, m=m, k=k, n=n, ms=kern, plain_ms=plain,
+            bnd, by = bound_ms(_leaf_bytes(ws[0]) + m * k * 2 + m * n * 2, 2.0 * m * k * n,
+                               ops_per_s)
+            rows.append(dict(name=name, m=m, k=k, n=n, ms=kern, plain_ms=plain_ms,
                              library_ms=lib, bound_ms=bnd, bound_by=by))
-            log(f"K1 {name:8s} m={m:3d} K={k} N={n}: kernel {kern:.4f} ms, plain "
-                f"{plain:.4f} ms, x@W bf16 {lib:.4f} ms, bound {bnd:.4f} ms")
-            if m == 4:
-                for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib),
+            log(f"{tag} {name:8s} m={m:3d} K={k} N={n}: kernel {kern:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, x@W bf16 {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            if m == step_m:
+                for key, v in (("ms", kern), ("plain_ms", plain_ms), ("library_ms", lib),
                                ("bound_ms", bnd)):
                     step[key] += per_step * v
                 step["bound_by"] = by
         del ws
         torch.cuda.empty_cache()
-    detail["k1"] = rows
+    detail[tag.lower().replace(" ", "_")] = rows
     return {"max_abs_err": max_err, **step}
+
+
+def check_k1(dev, detail: dict, fmt: str = "q8") -> dict:
+    """K1 (Q8_0, or Q4_0 with fmt "q4") at m=4 (decode) and m=64 (the
+    prefill bucket of the smoke's prompts), checked and timed; the other row
+    counts the serving path produces (1, 2 and 8 slots: the GEMV's other
+    templates; the prefill buckets 16 and 32) checked at the wqkv shape. Its
+    arithmetic is f32 outside the tensor cores."""
+    from llamago_tpu_torch.ops import kernels
+
+    return check_matmul(dev, detail, "K1" if fmt == "q8" else "K1 q4", fmt,
+                        kernels.dequant_matmul, kernels.dequant_matmul_plain,
+                        timed_m=(4, 64), other_m=(1, 2, 8, 16, 32),
+                        ops_per_s=F32_OPS_PER_S, seed=1 if fmt == "q8" else 7)
+
+
+def check_k5(dev, detail: dict) -> dict:
+    """K5 at m=4 (decode) and m=16 (the warm-up prefill bucket), checked and
+    timed, other row counts (every register layout of the kernel) at the
+    wqkv shape; first its activation quantization alone, bit for bit against
+    the plain version. Both compute the same int8 activations and exact
+    integer dots, so they differ by the order of the f32 sums only. Its
+    operations are int8."""
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((16, 11008), generator=gen, device=dev) * 3).to(dt)
+        x[2, 128:256] = 0  # a zero group: sx = 1
+        x[3, :5] = torch.tensor([0.5, 1.5, 2.5, -0.5, 127.0], device=dev).to(dt)  # ties
+        x[3, 5:128] *= 0.01
+        xq, sx = kernels.w4x8_quantize_x(x)
+        pq, ps = kernels.quantize_activations_a8(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(xq, pq) and torch.equal(sx, ps)):
+            raise AssertionError(f"K5 {dt}: xq / sx differ from the plain version: "
+                                 f"{(xq != pq).sum().item()} xq, {(sx != ps).sum().item()} sx")
+        if xq[3, :5].tolist() != [0, 2, 2, 0, 127] or sx[2, 1].item() != 1.0:
+            raise AssertionError(f"K5 {dt}: ties or the zero group went wrong: "
+                                 f"{xq[3, :5].tolist()}, {sx[2, 1].item()}")
+        log(f"K5 {str(dt).split('.')[-1]}: xq and sx bit-exact against the plain version")
+    before = kernels.w4x8_matmul.launches_stream
+    out = check_matmul(dev, detail, "K5", "q4x", kernels.w4x8_matmul,
+                       kernels.w4x8_matmul_a8_plain, timed_m=(4, 16),
+                       other_m=(1, 2, 3, 8, 9), ops_per_s=INT8_OPS_PER_S, seed=9)
+    if kernels.w4x8_matmul.launches_stream != before:
+        raise AssertionError("K5: a call of at most 16 rows took the stream kernel")
+    return out
+
+
+def check_k6(dev, detail: dict) -> dict:
+    """K6 at m=64 (the prefill bucket of the smoke's prompts), checked and
+    timed; m=32 and a ragged m=17 at the wqkv shape. f32 arithmetic outside
+    the tensor cores. The kernels line takes one pass over the five shapes
+    at m=64 (a prefill chunk's 129 launches)."""
+    from llamago_tpu_torch.ops import kernels
+
+    before = kernels.w4x8_matmul.launches_a8
+    out = check_matmul(dev, detail, "K6", "q4x", kernels.w4x8_matmul,
+                       kernels.w4x8_matmul_stream_plain, timed_m=(64,), other_m=(17, 32),
+                       ops_per_s=F32_OPS_PER_S, seed=10, step_m=64)
+    if kernels.w4x8_matmul.launches_a8 != before:
+        raise AssertionError("K6: a call of more than 16 rows took the W4A8 kernel")
+    return out
+
+
+def check_k9(dev, detail: dict) -> dict:
+    """K9 at m=4 for Q8_0 and Q4_0 leaves, checked and timed; 1, 3 and 8
+    rows (its other templates, and more rows than one launch takes) at the
+    wqkv shape. f32 arithmetic outside the tensor cores. The kernels line
+    takes the Q4_0 numbers, the format of this kernel's run in phase 3."""
+    from llamago_tpu_torch.ops import kernels
+
+    out = {}
+    for fmt in ("q8", "q4"):
+        out[fmt] = check_matmul(dev, detail, f"K9 {fmt}", fmt, kernels.dequant_matmul_so,
+                                kernels.dequant_matmul_so_plain, timed_m=(4,),
+                                other_m=(1, 3, 8), ops_per_s=F32_OPS_PER_S,
+                                seed=11 if fmt == "q8" else 12)
+    return out["q4"]
 
 
 def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
@@ -523,6 +647,100 @@ def check_small_model(dev) -> int:
     return k8_launches
 
 
+INT4_LOGIT_TOL = {
+    # card vs CPU, x max|logit|. K5 rounds activations to int8: where the
+    # card's and the CPU's f32 sums leave an activation on either side of a
+    # rounding boundary, one int8 step moves an output by sx * |w|, about
+    # 1e-3 of a typical output at K=512, and later layers carry it on
+    "w4x8": 5e-3,
+    # f32 throughout: the order of the sums only, as for the Q8_0 model
+    "q4_0": 1e-3,
+    "q4_0, scale on output": 1e-3,
+}
+
+
+def check_small_model_int4(dev) -> dict:
+    """A small GQA model with random int4 weights, card (kernels) against
+    CPU (plain versions), f32 compute: logits for a 40-token window, a
+    16-token window and a decode step, and greedy tokens of a short engine
+    run; in the w4x8 format (K5 at decode, K6 in prefill; w2, whose K = 1376
+    is no multiple of 128, stays Q4_0 and takes K1 bits=4: the mixed tree),
+    in the Q4_0 format (K1 bits=4), and in the Q4_0 format with the
+    scale-on-output switch at 8 rows (K9 at decode). Returns the launch
+    counts of each run."""
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import (
+        fuse_layer_weights,
+        random_quantized_parameters,
+    )
+    from llamago_tpu_torch.config import GenerateConfig, ModelConfig
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.engine import Engine
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    cfg = ModelConfig(vocab_size=4000, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=1376, max_seq_len=256, dtype="float32", weight_dtype="int4")
+    toks = torch.randint(3, 4000, (2, 40), generator=torch.Generator().manual_seed(14))
+    vocab = _byte_vocab(cfg.vocab_size)
+    gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
+    env, so_default = os.environ.get("LLAMAGO_INT4_EXEC"), kernels.SCALE_ON_OUTPUT_MAX_M
+    counts = {}
+    try:
+        for name, fmt, so_max_m, must in (
+                ("w4x8", "w4x8", 0, ("w4x8_matmul_a8", "w4x8_matmul_stream",
+                                     "dequant_matmul_q4")),
+                ("q4_0", "q4_0", 0, ("dequant_matmul_q4",)),
+                ("q4_0, scale on output", "q4_0", 8, ("dequant_matmul_so",
+                                                      "dequant_matmul_q4"))):
+            os.environ["LLAMAGO_INT4_EXEC"] = fmt
+            kernels.SCALE_ON_OUTPUT_MAX_M = so_max_m
+            gpu = fuse_layer_weights(random_quantized_parameters(cfg, seed=13, device=dev))
+            if ("q4x" in gpu["layers"][0]["wqkv"]) != (fmt == "w4x8") \
+                    or "q4" not in gpu["layers"][0]["w2"]:
+                raise AssertionError(f"small int4 model, {name}: unexpected leaf formats")
+            cpu = _to_cpu(gpu)
+            reset_launch_counts()
+            for t in (40, 16, 1):
+                x = toks[:, :t]
+                wp = torch.tensor([0, 7])
+                lg, _ = forward_impl(gpu, x.to(dev), KVCache.create(cfg, batch=2, device=dev),
+                                     wp.to(dev), cfg)
+                lc, _ = forward_impl(cpu, x, KVCache.create(cfg, batch=2, device="cpu"), wp,
+                                     cfg)
+                lg = lg.cpu()
+                if not torch.isfinite(lg).all():
+                    raise AssertionError(f"small int4 model, {name}: non-finite logits")
+                err = (lg - lc).abs().max().item() / lc.abs().max().item()
+                log(f"small int4 model, {name}, t={t}: card vs CPU logits max|d|/max|ref| "
+                    f"{err:.2e}")
+                if not err <= INT4_LOGIT_TOL[name]:
+                    raise AssertionError(f"small int4 model, {name}, t={t}: logits differ, "
+                                         f"{err:.3g} > {INT4_LOGIT_TOL[name]}")
+            outs = []
+            for tree, d in ((gpu, dev), (cpu, "cpu")):
+                eng = Engine(cfg, tree, vocab, slots=2, decode_chunk_size=4, device=d)
+                outs.append(eng.generate("smoke test prompt", gen).output_tokens)
+            log(f"small int4 model, {name}, greedy tokens: card {outs[0]}, CPU {outs[1]}")
+            if outs[0] != outs[1]:
+                raise AssertionError(f"small int4 model, {name}: greedy tokens differ "
+                                     "between card and CPU")
+            counts[name] = launch_counts()
+            log(f"small int4 model, {name}: launches {counts[name]}")
+            idle = [k for k in must if counts[name][k] == 0]
+            if idle or counts[name]["dequant_matmul"] > 0:
+                raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
+                                     f"the Q8_0 kernel did: {counts[name]}")
+    finally:
+        kernels.SCALE_ON_OUTPUT_MAX_M = so_default
+        if env is None:
+            os.environ.pop("LLAMAGO_INT4_EXEC", None)
+        else:
+            os.environ["LLAMAGO_INT4_EXEC"] = env
+    return counts
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _byte_vocab(vocab_size: int):
@@ -541,6 +759,10 @@ def _launch_counters():
     from llamago_tpu_torch.ops import attention, cache_write, kernels
 
     return {"dequant_matmul": (kernels.dequant_matmul, "launches"),
+            "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
+            "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
+            "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
+            "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "flash_attention": (attention.flash_attention, "launches"),
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
@@ -558,9 +780,9 @@ def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
 
 
-def make_7b_params(dev):
-    """Full-width, full-depth LLaMA-7B with random Q8_0 weights (seed 0),
-    fused wqkv/w13, bf16 compute."""
+def make_7b_params(dev, weight_dtype: str = "int8"):
+    """Full-width, full-depth LLaMA-7B with random Q8_0 weights, or int4
+    weights in the w4x8 format (seed 0), fused wqkv/w13, bf16 compute."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -569,20 +791,28 @@ def make_7b_params(dev):
     )
     from llamago_tpu_torch.config import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["7B"].replace(weight_dtype="int8", dtype="bfloat16")
+    cfg = MODEL_PRESETS["7B"].replace(weight_dtype=weight_dtype, dtype="bfloat16")
+    env = os.environ.get("LLAMAGO_INT4_EXEC")
+    os.environ["LLAMAGO_INT4_EXEC"] = "w4x8"
     t0 = time.time()
-    params = fuse_layer_weights(random_quantized_parameters(cfg, seed=0, device=dev))
+    try:
+        params = fuse_layer_weights(random_quantized_parameters(cfg, seed=0, device=dev))
+    finally:
+        if env is None:
+            del os.environ["LLAMAGO_INT4_EXEC"]
+        else:
+            os.environ["LLAMAGO_INT4_EXEC"] = env
     torch.cuda.synchronize()
-    log(f"7B int8 params in {time.time() - t0:.1f} s, "
+    log(f"7B {weight_dtype} params in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return cfg, params
 
 
-def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple, stay: tuple) -> dict:
+def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
     """Serve n_jobs sampled HTTP jobs on `slots` decode slots, then the
     repeated greedy job, then profile one decode chunk. Every launch count
     is set to 0 before the engine warms up; those named in `rise` must have
-    risen by the end of the sampled jobs, those in `stay` must still be 0."""
+    risen by the end of the sampled jobs, every other one must still be 0."""
     import torch
 
     from llamago_tpu_torch.config import GenerateConfig, ServerConfig
@@ -594,7 +824,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple, stay: tuple) -
                     decode_chunk_size=chunk, prefill_chunk=256, device=dev)
     gen = GenerateConfig(max_tokens=predict, ctx_size=cfg.max_seq_len, temp=0.8, seed=11)
     server = JobServer(engine, ServerConfig(host="127.0.0.1", port=0), gen,
-                       model_name="7B-int8")
+                       model_name=f"7B-{cfg.weight_dtype}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -644,9 +874,9 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple, stay: tuple) -
             raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
         if any(not 0 <= x < cfg.vocab_size for t in toks for x in t):
             raise AssertionError("serve: a token id out of the vocabulary")
-        if min(launches[k] for k in rise) == 0 or max(launches[k] for k in stay) > 0:
+        if any((launches[k] > 0) != (k in rise) for k in launches):
             raise AssertionError(f"serve: launches {launches}; each of {rise} must rise "
-                                 f"and each of {stay} stay 0")
+                                 "and every other count stay 0")
         generated = metrics["generated_tokens"]
 
         # The greedy job runs twice into slot 0 with the same cache layout:
@@ -672,7 +902,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple, stay: tuple) -
         server.shutdown()
     step = profile_decode(engine, chunk)
     result = {
-        "model": "7B int8 (random Q8_0, seed 0)", "kv_dtype": cfg.kv_dtype,
+        "model": f"7B {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
         "slots": slots, "jobs": n_jobs,
         "predict": predict, "prompt_tokens": prompt_tokens, "decode_chunk": chunk,
         "warmup_s": warm_s, "served_tokens": generated, "seconds": t_total,
@@ -681,9 +911,11 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple, stay: tuple) -
         "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "decode_step": step,
     }
-    log(f"{cfg.kv_dtype} cache, {slots} slots: served {generated} tokens in {t_total:.2f} s = "
+    log(f"{cfg.weight_dtype} weights, {cfg.kv_dtype} cache, {slots} slots: served "
+        f"{generated} tokens in {t_total:.2f} s = "
         f"{result['served_tokens_per_s']:.1f} tok/s, TTFT p50 {result['ttft_ms_p50']} ms "
-        f"p95 {result['ttft_ms_p95']} ms, launches {launches}")
+        f"p95 {result['ttft_ms_p95']} ms, peak {result['peak_gib']:.2f} GiB on the card, "
+        f"launches {launches}")
     return result
 
 
@@ -751,6 +983,8 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--out", default="", help="write the run's detail here as JSON")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run alone (prints no result lines)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -775,24 +1009,47 @@ def main(argv: list[str]) -> int:
     log("TF32 off for matmul and cuDNN")
 
     detail: dict = {"card": card}
-    k1 = check_k1(dev, detail)
-    k2 = check_k2(dev, detail)
-    k3 = check_k3(dev, detail)
-    k4, k8 = check_k4_k8(dev, detail)
-    k8_launches = check_small_model(dev)
-    cfg, params = make_7b_params(dev)
-    # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
-    served = serve(dev, cfg, params, slots=4, n_jobs=8,
-                   rise=("dequant_matmul", "flash_attention"),
-                   stay=("cache_append_quant", "flash_attention_quant_i8dot",
-                         "flash_attention_quant_widening"))
-    gc.collect()  # the phase 4 engine and its cache
-    torch.cuda.empty_cache()
-    served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
-                     rise=("dequant_matmul", "cache_append_quant",
-                           "flash_attention_quant_i8dot"),
-                     stay=("flash_attention", "flash_attention_quant_widening"))
-    detail["serve"], detail["serve_int8"] = served, served_q
+    only = set(args.only.split(",")) if args.only else None
+
+    def want(phase: str) -> bool:
+        return only is None or phase in only
+
+    k1 = check_k1(dev, detail) if want("k1") else {}
+    k2 = check_k2(dev, detail) if want("k2") else {}
+    k3 = check_k3(dev, detail) if want("k3") else {}
+    k4, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {})
+    k1q4 = check_k1(dev, detail, "q4") if want("k1q4") else {}
+    k5 = check_k5(dev, detail) if want("k5") else {}
+    k6 = check_k6(dev, detail) if want("k6") else {}
+    k9 = check_k9(dev, detail) if want("k9") else {}
+    k8_launches = check_small_model(dev) if want("small") else 0
+    small4 = check_small_model_int4(dev) if want("small_int4") else {}
+    detail["small_int4_launches"] = small4
+    none = {"launches": launch_counts()}  # all 0: a phase that --only left out
+    served = served_q = served_4 = none
+    if want("serve") or want("serve_int8"):
+        cfg, params = make_7b_params(dev)
+        # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
+        if want("serve"):
+            served = serve(dev, cfg, params, slots=4, n_jobs=8,
+                           rise=("dequant_matmul", "flash_attention"))
+            gc.collect()  # the phase 4 engine and its cache
+            torch.cuda.empty_cache()
+        if want("serve_int8"):
+            served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
+                             rise=("dequant_matmul", "cache_append_quant",
+                                   "flash_attention_quant_i8dot"))
+        del params
+        gc.collect()  # the int8 weights, the phase 4b engine and its cache
+        torch.cuda.empty_cache()
+    if want("serve_int4"):
+        # phase 4c: int4 weights (w4x8), the bf16 cache on 4 slots
+        cfg, params = make_7b_params(dev, "int4")
+        served_4 = serve(dev, cfg, params, slots=4, n_jobs=8,
+                         rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "flash_attention"))
+        del params
+    detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
+    q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
         {"name": "dequant_matmul", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
@@ -814,12 +1071,34 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:342",
          "launches": k8_launches, **k8},
+        {"name": "w4x8_matmul_a8", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:308",
+         "launches": served_4["launches"]["w4x8_matmul_a8"], **k5},
+        {"name": "w4x8_matmul_stream", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:334",
+         "launches": served_4["launches"]["w4x8_matmul_stream"], **k6},
+        # K1 bits=4 and K9 run in the Q4_0 format, which phase 3 drives
+        {"name": "dequant_matmul_q4", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": q4_run.get("dequant_matmul_q4", 0), **k1q4},
+        {"name": "dequant_matmul_so", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:183",
+         "launches": so_run.get("dequant_matmul_so", 0), **k9},
     ]}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(detail, f, indent=1)
+    if only is not None:
+        log(f"ran only {sorted(only)}: no result lines")
+        return 0
+    if any(k["launches"] == 0 for k in kernels_line["kernels"]):
+        raise AssertionError(f"a kernel was never launched on its path: {kernels_line}")
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,8 @@ The port's own copy of the reading half of the JAX package's
                       raw data } until EOF
 
 A 2-D tensor with file dims ne=[in, out] is row-major [out, in] as a numpy
-array. F32, F16 and Q8_0 tensors load; Q4_0/Q4_1 files belong to the int4
-slice of the port and GGUF files to its GGUF/BPE slice.
+array. F32, F16, Q8_0, Q4_0 and Q4_1 tensors load; GGUF files belong to the
+GGUF/BPE slice of the port.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ DTYPE_Q4_0 = 2
 DTYPE_Q4_1 = 3
 DTYPE_Q8_0 = 8
 _DTYPE_TO_NP = {DTYPE_F32: np.float32, DTYPE_F16: np.float16}
+_QUANT_KINDS = {DTYPE_Q4_0: "q4_0", DTYPE_Q4_1: "q4_1", DTYPE_Q8_0: "q8_0"}
 
 
 @dataclass
@@ -118,19 +119,16 @@ def read_ggjt(path: str, max_seq_len: int = 1024) -> GGJTCheckpoint:
         pos += name_len
         pos = (pos + ALIGNMENT - 1) // ALIGNMENT * ALIGNMENT
 
-        if dtype in (DTYPE_Q4_0, DTYPE_Q4_1):
-            raise NotImplementedError(
-                f"{path}: tensor '{name}' is Q4_{dtype - 2}; int4 weights are "
-                "not yet ported (int4 slice of the port)")
-        if dtype == DTYPE_Q8_0:
+        if dtype in _QUANT_KINDS:
             from llamago_tpu_torch.checkpoint.quant_file import QuantTensor, row_bytes
 
+            kind = _QUANT_KINDS[dtype]
             in_dim, out_dim = ne[0], (ne[1] if n_dims == 2 else 1)
-            rb = row_bytes("q8_0", in_dim)
+            rb = row_bytes(kind, in_dim)
             nbytes = out_dim * rb
             raw = buf[pos: pos + nbytes].reshape(out_dim, rb)
             pos += nbytes
-            tensors[name] = QuantTensor(kind="q8_0", raw=np.asarray(raw),
+            tensors[name] = QuantTensor(kind=kind, raw=np.asarray(raw),
                                         shape=(out_dim, in_dim))
             continue
         np_dtype = _DTYPE_TO_NP.get(dtype)
@@ -147,11 +145,10 @@ def read_ggjt(path: str, max_seq_len: int = 1024) -> GGJTCheckpoint:
         if missing:
             raise ValueError(f"{path}: missing tensors: {sorted(missing)[:5]}...")
 
-    if ftype in (2, 3):
-        raise NotImplementedError(
-            f"{path}: Q4 files are not yet ported (int4 slice of the port)")
-    # ftype -> weight storage (llama.cpp codes: 0 f32, 1 f16, 7 Q8_0)
-    weight_dtype = {0: "float32", 1: "bfloat16", 7: "int8"}.get(ftype, "bfloat16")
+    # ftype -> weight storage (llama.cpp codes: 0 f32, 1 f16, 2 Q4_0,
+    # 3 Q4_1, 7 Q8_0)
+    weight_dtype = {0: "float32", 1: "bfloat16", 2: "int4", 3: "int4",
+                    7: "int8"}.get(ftype, "bfloat16")
     # The v1 header predates GQA and non-default RoPE: n_kv_heads and the
     # FFN width are inferred from tensor shapes, and rope_theta/norm_eps
     # ride an optional `<model>.meta.json` sidecar.

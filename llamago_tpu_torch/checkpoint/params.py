@@ -9,11 +9,15 @@ the JAX layout, so a tree built by either package means the same:
   layers/w1 [L, D, F]     w2 [L, F, D]      w3 [L, D, F]
 
 2-D weights are transposed from the checkpoint's [out, in] to [in, out].
-A Q8_0 leaf is {"q8": int8 [K, N], "s": [K/32, N]}; `s` keeps its dtype
-(bf16 from `quantize`, f32 from a Q8_0 file). `unstack_layer_params`
-turns the stacked layers into a tuple of per-layer dicts and
-`fuse_layer_weights` concatenates wq/wk/wv -> wqkv and w1/w3 -> w13, the
-layout the engine serves from.
+A quantized leaf is a dict (ops/quant.py): Q8_0 {"q8": int8 [K, N], "s":
+[K/32, N]}, Q4_0 {"q4": uint8 [K/2, N], "s"}, Q4_1 the same with mins "m",
+w4x8 {"q4x": uint8 [K/2, N], "s": bf16 [K/64, N]}; `s` keeps its dtype (bf16
+from `quantize`, f32 from a file). int4 weights run in the format
+`int4_exec_format` names for the device: under "w4x8" a leaf whose K is a
+multiple of 128 is re-laid or quantized into w4x8, the others stay Q4_0, so
+one tree may mix both. `unstack_layer_params` turns the stacked layers
+into a tuple of per-layer dicts and `fuse_layer_weights` concatenates
+wq/wk/wv -> wqkv and w1/w3 -> w13, the layout the engine serves from.
 """
 
 from __future__ import annotations
@@ -25,11 +29,15 @@ import torch
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.quant import (
+    G4X8,
     QK,
     QUANT_LEAVES,
+    int4_exec_format,
     is_quantized,
     pad_lm_head,
     quantize,
+    quantize_w4x8,
+    w4x8_from_leaf,
 )
 from llamago_tpu_torch.utils.device import resolve_device, torch_dtype
 
@@ -53,11 +61,16 @@ def _is_file_quant(x) -> bool:
 
 
 def _qt_to_host_leaf(qt) -> dict:
-    """File Q8_0 tensor -> host leaf {q8 [in, out], s f32 [in/32, out]}."""
+    """File-quantized tensor -> host leaf {q8 [in, out] | q4 [in/2, out], s
+    f32 [in/32, out]} (and m for Q4_1): a transpose of the blocks."""
     from llamago_tpu_torch.checkpoint.quant_file import split_blocks
 
-    q, d = split_blocks(qt)
-    return {"q8": np.ascontiguousarray(q.T), "s": np.ascontiguousarray(d.T)}
+    parts = split_blocks(qt)
+    key = "q8" if qt.kind == "q8_0" else "q4"
+    leaf = {key: np.ascontiguousarray(parts[0].T), "s": np.ascontiguousarray(parts[1].T)}
+    if qt.kind == "q4_1":
+        leaf["m"] = np.ascontiguousarray(parts[2].T)
+    return leaf
 
 
 def _stack_layers(tensors: dict, n_layers: int, key: str):
@@ -73,9 +86,9 @@ def _stack_layers(tensors: dict, n_layers: int, key: str):
 
 
 def host_parameters(config: ModelConfig, tensors: dict) -> Params:
-    """Host-side (numpy) parameter tree from checkpoint tensors. Q8_0 file
-    tensors become quantized leaves; a quantized embedding table is
-    dequantized (the lookup needs dense rows)."""
+    """Host-side (numpy) parameter tree from checkpoint tensors. Q8_0, Q4_0
+    and Q4_1 file tensors become quantized leaves; a quantized embedding
+    table is dequantized (the lookup needs dense rows)."""
     from llamago_tpu_torch.checkpoint.quant_file import dequantize_rows
 
     if "tok_embeddings.weight" not in tensors:
@@ -109,8 +122,9 @@ def to_torch(arr, device, dtype: torch.dtype | None = None) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cuda") -> Params:
     """Carry a parameter tree across from the JAX package: dense arrays or
-    {q8, s} leaves as numpy, stacked or layered, fused or not. The layout
-    and every leaf's dtype stay as they are (f32 file scales stay f32)."""
+    quantized leaves ({q8 | q4 | q4x, s[, m]}) as numpy, stacked or layered,
+    fused or not. The layout and every leaf's dtype stay as they are (f32
+    file scales stay f32, packed nibbles stay uint8)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -125,15 +139,14 @@ def params_from_numpy(tree, device="cuda") -> Params:
 
 def load_parameters(config: ModelConfig, tensors: dict, device="cuda") -> Params:
     """Checkpoint tensors -> device tree in the configured dtypes: matmul
-    weights Q8_0 when the file or `weight_dtype` says int8, everything
-    else in the compute dtype (dense weights in `weight_dtype`)."""
+    weights quantized when the file or `weight_dtype` says int8 or int4,
+    everything else in the compute dtype (dense weights in
+    `weight_dtype`)."""
     dev = resolve_device(device)
     host = host_parameters(config, tensors)
     has_prequant = is_quantized(host["output"]) or any(
         is_quantized(v) for v in host["layers"].values())
-    if config.weight_dtype == "int4":
-        raise NotImplementedError("int4 weights are not yet ported (int4 slice of the port)")
-    if config.weight_dtype == "int8" or has_prequant:
+    if config.weight_dtype in ("int8", "int4") or has_prequant:
         return _quantize_params(config, host, dev)
     wdt = torch_dtype(config.weight_dtype)
 
@@ -145,16 +158,42 @@ def load_parameters(config: ModelConfig, tensors: dict, device="cuda") -> Params
     return put(host)
 
 
+def _per_layer(fn, leaf):
+    """fn (a quantizer: tensor or leaf -> leaf) over a stacked [L, ...] leaf
+    one layer at a time, so that its f32 transients are one layer's, not the
+    stack's; the results are stacked again. The same bits as fn on the
+    whole stack: blocks never span layers."""
+    first = next(iter(leaf.values())) if isinstance(leaf, dict) else leaf
+    if first.dim() < 3:
+        return fn(leaf)
+
+    def at(i):
+        return {k: v[i] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[i]
+
+    outs = [fn(at(i)) for i in range(first.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def _quantize_params(config: ModelConfig, host: Params, dev: torch.device) -> Params:
-    """Q8_0 for matmul leaves (file leaves kept as they are), the compute
-    dtype for the rest; the int8 lm head is column-padded."""
+    """Quantized matmul leaves, the compute dtype for the rest. int8: Q8_0
+    (file leaves kept as they are), the lm head column-padded. int4: Q4_0,
+    or under the w4x8 exec format w4x8 for every leaf whose in-dim is a
+    multiple of 128 (Q4_0 file leaves re-laid by `w4x8_from_leaf`; Q4_1 and
+    Q8_0 file leaves kept). A leaf whose in-dim is no multiple of 32 stays
+    dense."""
     dtype = torch_dtype(config.dtype)
+    bits = 4 if config.weight_dtype == "int4" else 8
+    exec_w4x8 = bits == 4 and int4_exec_format(dev) == "w4x8"
 
     def handle(key, leaf):
         if is_quantized(leaf):
-            return {k: to_torch(v, dev) for k, v in leaf.items()}
+            leaf = {k: to_torch(v, dev) for k, v in leaf.items()}
+            return _per_layer(w4x8_from_leaf, leaf) if exec_w4x8 else leaf
         if key in QUANT_LEAVES and np.shape(leaf)[-2] % QK == 0:
-            return quantize(to_torch(leaf, dev, dtype), 8)
+            arr = to_torch(leaf, dev, dtype)
+            if exec_w4x8 and arr.shape[-2] % G4X8 == 0:
+                return _per_layer(quantize_w4x8, arr)
+            return _per_layer(lambda a: quantize(a, bits), arr)
         return to_torch(leaf, dev, dtype)
 
     out = {k: handle(k, host[k]) for k in ("tok_embeddings", "norm", "output")}
@@ -178,13 +217,15 @@ def unstack_layer_params(params: Params, n_layers: int) -> Params:
 
 
 def _concat_weights(ws: list, dim: int = -1):
-    """Concatenate dense or Q8_0 leaves along the output dim, dropping the
-    sources as they are consumed."""
+    """Concatenate dense or quantized leaves along the output dim, dropping
+    the sources as they are consumed. Every sub-leaf concatenates along that
+    dim: the packed values, the scales and (Q4_1) the mins. Leaves of unlike
+    formats are refused."""
+    kinds = {tuple(sorted(w)) if isinstance(w, dict) else None for w in ws}
+    if len(kinds) != 1:
+        raise ValueError(f"cannot fuse weights of unlike formats: {sorted(map(str, kinds))}")
     if isinstance(ws[0], dict):
-        out: dict = {}
-        for key in ("q8", "s"):
-            out[key] = torch.cat([w.pop(key) for w in ws], dim=dim)
-        return out
+        return {key: torch.cat([w.pop(key) for w in ws], dim=dim) for key in list(ws[0])}
     return torch.cat(list(ws), dim=dim)
 
 
@@ -208,17 +249,20 @@ def fuse_layer_weights(params: Params) -> Params:
 
 def random_quantized_parameters(config: ModelConfig, seed: int = 0,
                                 layered: bool = True, device="cuda") -> Params:
-    """Random int8 parameters created directly as Q8_0 leaves on the device
-    (uniform int8 weights, constant 0.01 bf16 scales; dense leaves normal
-    * 0.02 in bf16, norm gains ones) from one torch.Generator seeded with
-    `seed`: the production memory layout and byte footprint without a
-    dense transient or a quantize pass. The numbers differ from the JAX
-    package's threefry draws."""
-    if config.weight_dtype != "int8":
-        raise NotImplementedError(
-            f"random_quantized_parameters: weight_dtype {config.weight_dtype!r}; "
-            "only int8 is ported (int4 slice of the port)")
+    """Random int8 or int4 parameters created directly as quantized leaves
+    on the device (uniform random bytes, constant 0.01 bf16 scales; dense
+    leaves normal * 0.02 in bf16, norm gains ones) from one torch.Generator
+    seeded with `seed`: the production memory layout and byte footprint
+    without a dense transient or a quantize pass. int4 leaves come in the
+    device's exec format (`int4_exec_format`): w4x8 leaves with [K/64, N]
+    scales where K is a multiple of 128, else Q4_0 leaves. The numbers
+    differ from the JAX package's threefry draws."""
+    if config.weight_dtype not in ("int8", "int4"):
+        raise ValueError(f"random_quantized_parameters: weight_dtype "
+                         f"{config.weight_dtype!r} is not a quantized one")
     dev = resolve_device(device)
+    int4 = config.weight_dtype == "int4"
+    w4x8 = int4 and int4_exec_format(dev) == "w4x8"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     d, v, f = config.dim, config.vocab_size, config.ffn_hidden
@@ -226,9 +270,19 @@ def random_quantized_parameters(config: ModelConfig, seed: int = 0,
 
     def qleaf(shape):
         *lead, k, n = shape
-        q8 = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8, device=dev)
-        s = torch.full((*lead, k // QK, n), 0.01, dtype=torch.bfloat16, device=dev)
-        return {"q8": q8, "s": s}
+
+        def scales(rows):
+            return torch.full((*lead, rows, n), 0.01, dtype=torch.bfloat16, device=dev)
+
+        if not int4:
+            q8 = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8,
+                               device=dev)
+            return {"q8": q8, "s": scales(k // QK)}
+        packed = torch.randint(0, 256, (*lead, k // 2, n), generator=gen,
+                               dtype=torch.uint8, device=dev)
+        if w4x8 and k % G4X8 == 0:
+            return {"q4x": packed, "s": scales(k // 64)}
+        return {"q4": packed, "s": scales(k // QK)}
 
     def dense(shape):
         if len(shape) == 1:

@@ -1,13 +1,21 @@
-"""ggml-bit-compatible Q8_0 tensor blocks in ggjt files (numpy only).
+"""ggml-bit-compatible Q8_0 / Q4_0 / Q4_1 tensor blocks in ggjt files (numpy
+only).
 
-The port's own copy of the Q8_0 subset of the JAX package's
-`checkpoint/quant_file.py`:
+The port's own copy of the reading half of the JAX package's
+`checkpoint/quant_file.py` (the writers come with the checkpoint-tools
+slice of the port):
 
   Q8_0 block (34 bytes / 32 elems): f16 d, int8 qs[32];  x = qs*d
+  Q4_0 block (18 bytes / 32 elems): f16 d, uint8 qs[16];
+      qs[j] holds elem j (lo nibble) and elem j+16 (hi nibble),
+      x = (nibble - 8) * d
+  Q4_1 block (20 bytes / 32 elems): f16 d, f16 m, uint8 qs[16];
+      x = nibble * d + m
 
 Blocks run along the file's contiguous dim (in_features); the device
-layout ({"q8": int8 [in, out], "s": f32 [in/32, out]}) is a transpose.
-Q4_0/Q4_1 blocks come with the int4 slice of the port.
+layout ({"q8": int8 [in, out] | "q4": uint8 [in/2, out], "s": f32
+[in/32, out], and "m" for Q4_1; ops/quant.py) is a transpose, because the
+in-memory nibble pairing matches ggml's (j, j+16).
 """
 
 from __future__ import annotations
@@ -18,9 +26,15 @@ import numpy as np
 
 QK = 32
 Q8_BLOCK_BYTES = 2 + QK  # f16 scale + 32 int8
-DTYPE_Q8_0 = 8  # ggml type id
+Q4_BLOCK_BYTES = 2 + QK // 2
+Q41_BLOCK_BYTES = 4 + QK // 2  # f16 d + f16 m + 16 nibble bytes
 
-_BLOCK_BYTES = {"q8_0": Q8_BLOCK_BYTES}
+DTYPE_Q4_0 = 2  # ggml type ids
+DTYPE_Q4_1 = 3
+DTYPE_Q8_0 = 8
+
+_BLOCK_BYTES = {"q8_0": Q8_BLOCK_BYTES, "q4_0": Q4_BLOCK_BYTES,
+                "q4_1": Q41_BLOCK_BYTES}
 
 
 @dataclass
@@ -28,7 +42,7 @@ class QuantTensor:
     """A quantized tensor as stored in a ggjt file: raw blocks, row-major
     [out, in] logical shape."""
 
-    kind: str  # "q8_0"
+    kind: str  # "q8_0" | "q4_0" | "q4_1"
     raw: np.ndarray  # uint8 [out, row_bytes]
     shape: tuple[int, int]  # (out, in)
 
@@ -42,21 +56,37 @@ def row_bytes(kind: str, in_dim: int) -> int:
 
 
 def split_blocks(qt: QuantTensor):
-    """raw Q8_0 blocks -> (q int8 [out, in], d float32 [out, in/32])."""
-    if qt.kind != "q8_0":
-        raise NotImplementedError(
-            f"{qt.kind} blocks are not yet ported (int4 slice of the port)")
+    """raw blocks -> (q, d[, m]): q int8 [out, in] (q8) or uint8
+    [out, in/2] (q4), d float32 [out, in/32]; Q4_1 also returns m (mins)."""
     out, k = qt.shape
     nb = k // QK
-    blocks = qt.raw.reshape(out, nb, Q8_BLOCK_BYTES)
+    hdr = 4 if qt.kind == "q4_1" else 2
+    blocks = qt.raw.reshape(out, nb, _BLOCK_BYTES[qt.kind])
     d = np.ascontiguousarray(blocks[:, :, :2]).view(np.float16).astype(np.float32)
-    qs = np.ascontiguousarray(blocks[:, :, 2:])
-    return qs.view(np.int8).reshape(out, k), d.reshape(out, nb)
+    d = d.reshape(out, nb)
+    qs = np.ascontiguousarray(blocks[:, :, hdr:])
+    if qt.kind == "q8_0":
+        return qs.view(np.int8).reshape(out, k), d
+    if qt.kind == "q4_1":
+        m = np.ascontiguousarray(blocks[:, :, 2:4]).view(np.float16)
+        return qs.reshape(out, k // 2), d, m.astype(np.float32).reshape(out, nb)
+    return qs.reshape(out, k // 2), d
 
 
 def dequantize_rows(qt: QuantTensor) -> np.ndarray:
     """Numpy reference dequantization -> f32 [out, in]."""
-    q, d = split_blocks(qt)
+    parts = split_blocks(qt)
+    q, d = parts[0], parts[1]
     out, k = qt.shape
-    return (q.astype(np.float32).reshape(out, k // QK, QK)
-            * d[..., None]).reshape(out, k)
+    nb = k // QK
+    if qt.kind == "q8_0":
+        return (q.astype(np.float32).reshape(out, nb, QK)
+                * d[..., None]).reshape(out, k)
+    lo = (q & 0xF).astype(np.int16)
+    hi = ((q >> 4) & 0xF).astype(np.int16)
+    qf = np.concatenate(
+        [lo.reshape(out, nb, 16), hi.reshape(out, nb, 16)], axis=-1
+    ).astype(np.float32)
+    if qt.kind == "q4_1":
+        return (qf * d[..., None] + parts[2][..., None]).reshape(out, k)
+    return ((qf - 8.0) * d[..., None]).reshape(out, k)

@@ -141,8 +141,6 @@ def unported_reason(args) -> str | None:
     if args.command in _UNPORTED_COMMANDS:
         return (f"the `{args.command}` subcommand is not yet ported "
                 f"({_UNPORTED_COMMANDS[args.command]} slice of the port)")
-    if args.weight_dtype == "int4":
-        return "--weight-dtype int4 is not yet ported (int4 slice of the port)"
     if args.spec:
         return "--spec is not yet ported (speculative-decoding slice of the port)"
     if args.tp > 1 or args.dp != 1 or args.sp != 1:
@@ -221,7 +219,7 @@ def _load_engine(args):
     if not args.silent:
         log("info", f"loading model {args.model} ...")
     ckpt = read_ggjt(args.model, max_seq_len=args.context)
-    file_quantized = ckpt.ftype == 7  # Q8_0
+    file_quantized = ckpt.ftype in (2, 3, 7)  # Q4_0 / Q4_1 / Q8_0
     config = ckpt.config.replace(
         dtype=args.dtype,
         # a pre-quantized file dictates the weight storage

@@ -36,7 +36,7 @@ class ModelConfig:
     # Weight storage: "float32" | "bfloat16" | "int8" | "int4".
     weight_dtype: str = "bfloat16"
     # KV-cache storage: "auto" (= compute dtype) | "bfloat16" | "float32"
-    # | "int8" (int8 belongs to a later slice of the port).
+    # | "int8".
     kv_dtype: str = "auto"
 
     @property

@@ -1,24 +1,28 @@
-// K1: Q8_0 dequant-matmul for Hopper (sm_90a).
+// K1: Q8_0 / Q4_0 dequant-matmul for Hopper (sm_90a).
 //
-//   out[m, n] = sum_k x[m, k] * (q[k, n] * s[k / 32, n])
+//   out[m, n] = sum_k x[m, k] * (w[k, n] * s[k / 32, n])
 //
-// x: f32 or bf16 [M, K] row-major; q: int8 [K, N] row-major; s: f32 or
-// bf16 [K/32, N]; out: x's dtype [M, N]. The weight is dequantized to f32
-// and every product is accumulated in f32.
+// x: f32 or bf16 [M, K] row-major; s: f32 or bf16 [K/32, N]; out: x's dtype
+// [M, N]. bits=8: q int8 [K, N] row-major, w = q. bits=4: q uint8 [K/2, N],
+// where byte j of a 32-row block (packed rows 16b .. 16b+15) holds row
+// 32b+j in its low nibble and row 32b+j+16 in its high nibble, w = nibble
+// - 8. The weight is dequantized to f32 and every product is accumulated in
+// f32.
 //
-// Replaces llamago_tpu/ops/kernels.py _dequant_mm_kernel (bits=8),
+// Replaces llamago_tpu/ops/kernels.py _dequant_mm_kernel (bits 8 and 4),
 // reached through _dequant_matmul_2d and dequant_matmul.
 //
 // What bounds it: at decode (M = number of slots, <= 8) the work is about
-// 2*M flops per weight byte, far below the card's ~295 flops/byte ridge,
-// so the bound is the int8 weight stream (K*N bytes) plus its scales over
-// device-memory bandwidth. Prefill (M >= 16) moves the same weight bytes
-// with M times the flops.
+// 2*M flops per weight element, far below the card's ~295 flops/byte ridge,
+// so the bound is the weight stream (K*N bytes, or K*N/2) plus its scales
+// over device-memory bandwidth. Prefill (M >= 16) moves the same weight
+// bytes with M times the flops.
 //
 // What the design does about it:
 //  * M <= 8 takes a weight-streaming GEMV-class kernel: each thread owns 16
 //    neighbouring columns and reads one 16-byte vector of a weight row per
-//    step, so a warp reads 512 contiguous bytes of a row. Eight warps of a
+//    step (two rows of the block in the packed Q4_0 layout), so a warp
+//    reads 512 contiguous bytes of a row. Eight warps of a
 //    block split the rows of the block's K range by whole 32-row quant
 //    blocks (one scale per column per quant block), the x values of a quant
 //    block arrive in one coalesced load and are broadcast by warp shuffles,
@@ -87,7 +91,7 @@ constexpr int kGemvCols = 32 * 16;  // columns per block: 32 lanes x 16
 
 // Split-K GEMV-class kernel for M <= MT. grid = (ceil(N/512), ksplit),
 // block = 256 threads. Block y covers quant blocks [y*bpb, (y+1)*bpb).
-template <typename XT, typename ST, int MT>
+template <typename XT, typename ST, int MT, int BITS>
 __global__ void __launch_bounds__(256) dq_gemv(const XT* __restrict__ x,
                                                const int8_t* __restrict__ q,
                                                const ST* __restrict__ s,
@@ -114,20 +118,47 @@ __global__ void __launch_bounds__(256) dq_gemv(const XT* __restrict__ x,
       xr[m] = (m < M) ? to_f(x[(size_t)m * K + kb * 32 + lane]) : 0.f;
     float sc[16];
     if (valid) load_scales16(s + (size_t)kb * N + n, sc);
-    const int8_t* qrow = q + (size_t)kb * 32 * N + n;
+    if constexpr (BITS == 8) {
+      const int8_t* qrow = q + (size_t)kb * 32 * N + n;
 #pragma unroll 8
-    for (int r = 0; r < 32; ++r) {
-      float xv[MT];
+      for (int r = 0; r < 32; ++r) {
+        float xv[MT];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) xv[m] = __shfl_sync(0xffffffffu, xr[m], r);
-      if (valid) {
-        Q16 w;
-        w.v = __ldg(reinterpret_cast<const int4*>(qrow + (size_t)r * N));
+        for (int m = 0; m < MT; ++m) xv[m] = __shfl_sync(0xffffffffu, xr[m], r);
+        if (valid) {
+          Q16 w;
+          w.v = __ldg(reinterpret_cast<const int4*>(qrow + (size_t)r * N));
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const float wj = (float)w.b[j] * sc[j];
+          for (int j = 0; j < 16; ++j) {
+            const float wj = (float)w.b[j] * sc[j];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[m], wj, acc[m][j]);
+            for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[m], wj, acc[m][j]);
+          }
+        }
+      }
+    } else {
+      // packed row r of the block: rows r (low nibbles) and r+16 (high)
+      const int8_t* qrow = q + (size_t)kb * 16 * N + n;
+#pragma unroll 8
+      for (int r = 0; r < 16; ++r) {
+        float xlo[MT], xhi[MT];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          xlo[m] = __shfl_sync(0xffffffffu, xr[m], r);
+          xhi[m] = __shfl_sync(0xffffffffu, xr[m], r + 16);
+        }
+        if (valid) {
+          Q16 w;
+          w.v = __ldg(reinterpret_cast<const int4*>(qrow + (size_t)r * N));
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int byte = (uint8_t)w.b[j];
+            const float wlo = (float)((byte & 0xF) - 8) * sc[j];
+            const float whi = (float)((byte >> 4) - 8) * sc[j];
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              acc[m][j] = fmaf(xhi[m], whi, fmaf(xlo[m], wlo, acc[m][j]));
+          }
         }
       }
     }
@@ -173,7 +204,7 @@ constexpr int kTM = 64, kTN = 64, kTK = 32;
 
 // Shared-memory tiled f32 kernel for M > 8. grid = (ceil(N/64),
 // ceil(M/64)), block = 256 threads (16 x 16), 4 x 4 outputs each.
-template <typename XT, typename ST>
+template <typename XT, typename ST, int BITS>
 __global__ void __launch_bounds__(256) dq_tiled(const XT* __restrict__ x,
                                                 const int8_t* __restrict__ q,
                                                 const ST* __restrict__ s,
@@ -204,8 +235,17 @@ __global__ void __launch_bounds__(256) dq_tiled(const XT* __restrict__ x,
       const int idx = tid + 256 * i;
       const int r = idx / kTN, c = idx % kTN;
       const int n = n0 + c;
-      wsh[r][c] = (n < N) ? (float)q[(size_t)(k0 + r) * N + n] * to_f(s[(size_t)kb * N + n])
-                          : 0.f;
+      float w = 0.f;
+      if (n < N) {
+        if constexpr (BITS == 8) {
+          w = (float)q[(size_t)(k0 + r) * N + n];
+        } else {
+          const int byte = (uint8_t)q[(size_t)(kb * 16 + (r & 15)) * N + n];
+          w = (float)((r < 16 ? byte & 0xF : byte >> 4) - 8);
+        }
+        w *= to_f(s[(size_t)kb * N + n]);
+      }
+      wsh[r][c] = w;
     }
     __syncthreads();
 #pragma unroll 8
@@ -234,13 +274,13 @@ __global__ void __launch_bounds__(256) dq_tiled(const XT* __restrict__ x,
   }
 }
 
-template <typename XT, typename ST, int MT>
+template <typename XT, typename ST, int MT, int BITS>
 void launch_gemv(const void* x, const void* q, const void* s, void* out, float* ws,
                  int M, int K, int N, int ksplit, cudaStream_t st) {
   const int nb = K / 32;
   const int bpb = (nb + ksplit - 1) / ksplit;
   dim3 grid((N + kGemvCols - 1) / kGemvCols, ksplit);
-  dq_gemv<XT, ST, MT><<<grid, 256, 0, st>>>(
+  dq_gemv<XT, ST, MT, BITS><<<grid, 256, 0, st>>>(
       static_cast<const XT*>(x), static_cast<const int8_t*>(q),
       static_cast<const ST*>(s), ws, M, K, N, bpb);
   const size_t mn = (size_t)M * N;
@@ -248,38 +288,47 @@ void launch_gemv(const void* x, const void* q, const void* s, void* out, float* 
                                                               mn, ksplit);
 }
 
+template <typename XT, typename ST, int BITS>
+void launch_bits(const void* x, const void* q, const void* s, void* out, float* ws, int M,
+                 int K, int N, int ksplit, cudaStream_t st) {
+  if (M <= 1) return launch_gemv<XT, ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  if (M <= 2) return launch_gemv<XT, ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  if (M <= 4) return launch_gemv<XT, ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  if (M <= 8) return launch_gemv<XT, ST, 8, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
+  dq_tiled<XT, ST, BITS><<<grid, 256, 0, st>>>(static_cast<const XT*>(x),
+                                               static_cast<const int8_t*>(q),
+                                               static_cast<const ST*>(s),
+                                               static_cast<XT*>(out), M, K, N);
+}
+
 template <typename XT, typename ST>
 void launch(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-            int K, int N, int ksplit, cudaStream_t st) {
-  if (M <= 1) return launch_gemv<XT, ST, 1>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 2) return launch_gemv<XT, ST, 2>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 4) return launch_gemv<XT, ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 8) return launch_gemv<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
-  dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-  dq_tiled<XT, ST><<<grid, 256, 0, st>>>(static_cast<const XT*>(x),
-                                         static_cast<const int8_t*>(q),
-                                         static_cast<const ST*>(s),
-                                         static_cast<XT*>(out), M, K, N);
+            int K, int N, int bits, int ksplit, cudaStream_t st) {
+  if (bits == 8)
+    launch_bits<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
+  else
+    launch_bits<XT, ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
 }
 
 }  // namespace
 
-// x_bf16 / s_bf16: 1 for bfloat16, 0 for float32. `ws` is an f32
-// workspace of ksplit*M*N elements, used when M <= 8. Returns
-// cudaGetLastError() after the launches.
+// bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
+// bfloat16, 0 for float32. `ws` is an f32 workspace of ksplit*M*N elements,
+// used when M <= 8. Returns cudaGetLastError() after the launches.
 extern "C" int llamago_dequant_matmul(const void* x, const void* q, const void* s,
-                                      void* out, void* ws, int M, int K, int N,
-                                      int x_bf16, int s_bf16, int ksplit,
-                                      void* stream) {
+                                      void* out, void* ws, int M, int K, int N, int bits,
+                                      int x_bf16, int s_bf16, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   if (x_bf16 && s_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, ksplit, st);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, ksplit, st);
+    launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
   else if (s_bf16)
-    launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, ksplit, st);
+    launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
   else
-    launch<float, float>(x, q, s, out, w, M, K, N, ksplit, st);
+    launch<float, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
   return (int)cudaGetLastError();
 }

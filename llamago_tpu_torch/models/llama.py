@@ -8,7 +8,7 @@ layered path (reference: Eval, pkg/llama/llama.go:211-426). Per layer:
 final: logits = output @ (RMSNorm(x)*norm)   (llama.go:374-384)
 
 Parameter tree (checkpoint/params.py): {"tok_embeddings" [V, D], "norm"
-[D], "output" [D, V] or a Q8_0 leaf, "layers": a tuple of per-layer dicts,
+[D], "output" [D, V] or a quantized leaf, "layers": a tuple of per-layer dicts,
 or one dict of [L, ...] stacked leaves}, with fused "wqkv"/"w13" leaves or
 separate "wq"/"wk"/"wv"/"w1"/"w3". Rotated K is cached once; the KV cache
 is updated in place (runtime/kv_cache.py).

@@ -2,8 +2,9 @@
 
 Counterparts of the JAX package's `ops/basic.py` (reference kernels:
 RMSNorm ml.go:1753-1812, RoPE ml.go:2253-2328, SiLU ml.go:2599). `linear`
-is the seam where block-quantized weights dispatch to the int8
-dequant-matmul kernel (ops/kernels.py).
+is the seam where block-quantized weights (Q8_0, Q4_0, Q4_1, w4x8)
+dispatch to the quantized matmuls (ops/quant.py:quant_matmul,
+ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def linear(x: torch.Tensor, w, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x @ w. `w` is a dense [in, out] tensor or a quantized leaf
-    {"q8", "s"} (ops/quant.py), which goes to the dequant-matmul."""
+    ({"q8" | "q4" | "q4x", "s"[, "m"]}, ops/quant.py), which goes to
+    `quant_matmul`."""
     if isinstance(w, dict):
         from llamago_tpu_torch.ops.quant import quant_matmul
 

@@ -68,6 +68,41 @@ def test_read_ggjt_and_host_parameters_match_jax(q8_model):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def f32_and_q4_models(tmp_path_factory):
+    d = tmp_path_factory.mktemp("q4")
+    cfg = JPRESETS["tiny-gqa"]
+    f32 = str(d / "tiny-f32.bin")
+    write_ggjt(f32, cfg, make_test_vocab(), random_ggjt_tensors(cfg, seed=7))
+    return {"f32": f32, "q4_0": quantize_ggjt(f32, str(d / "tiny-q4_0.bin"), "q4_0"),
+            "q4_1": quantize_ggjt(f32, str(d / "tiny-q4_1.bin"), "q4_1")}
+
+
+@pytest.mark.parametrize("model,flags", [("f32", ["--weight-dtype", "int4"]),
+                                         ("q4_0", []), ("q4_1", [])])
+def test_oneshot_int4_greedy_output_matches_jax_cli(f32_and_q4_models, model, flags,
+                                                    capsys, monkeypatch):
+    """`--weight-dtype int4` on a dense file, and Q4_0 / Q4_1 files, in the
+    file's own format on both sides (the CPU default of both packages)."""
+    monkeypatch.setenv("LLAMAGO_INT4_EXEC", "q4_0")
+    argv = ["--model", f32_and_q4_models[model], "--prompt", "hello world", "--temp", "0",
+            "--predict", "12", "--context", "64", "--silent"] + flags
+    assert jcli.main(argv + ["--tp", "1"]) == 0
+    want = capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and got.startswith("hello world")
+    assert len(got.strip()) > len("hello world")
+
+
+def test_int4_needs_cuda_unless_cpu_is_asked(monkeypatch, f32_and_q4_models):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--model", f32_and_q4_models["q4_0"], "--prompt", "x", "--silent"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params.random_quantized_parameters(MODEL_PRESETS["tiny"].replace(weight_dtype="int4"))
+
+
 def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
     argv = ["--model", q8_model, "--prompt", "hello world", "--temp", "0",
             "--predict", "8", "--context", "64", "--silent", "--kv-dtype", "int8",
@@ -78,7 +113,7 @@ def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--weight-dtype", "int4"], "int4"),
+    (["--sp", "2"], "parallel"),
     (["--spec"], "speculative"),
     (["--tp", "2"], "parallel"),
     (["--dp", "2"], "parallel"),
