@@ -14,11 +14,15 @@ Phases, each of which fails the run (exit code 1, no result line):
      yardstick the port never calls) and the bound (the larger of bytes
      over 3.35 TB/s and operations over the peak rate of their type: 989
      TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
-     K1 (Q8_0 and Q4_0), K2, K3, K4, K8, K5 (W4A8 decode matmul), K6 (w4x8
-     stream matmul) and K9 (scale-on-output matmul);
+     K1 (Q8_0 and Q4_0), K2, K3, K4, K8 (the three of the int8 cache with
+     f32 and with bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8
+     stream matmul), K9 (scale-on-output matmul), K7 (flash prefill
+     attention) and K10 (fused RMSNorm);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
+     the dense cache with the opt-in routes on (prefill floor 0: K7;
+     USE_FUSED_NORM: K10) and the int8 cache with bf16 scale planes, then
      int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
      the Q4_0 format with the scale-on-output switch on (K9);
@@ -35,20 +39,31 @@ Phases, each of which fails the run (exit code 1, no result line):
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
      and K2 must launch, every other kernel stay at 0;
+  4d. Q8_0 weights and the bf16 cache on 4 slots again, now with 8 jobs of
+     which four bring prompts of about 600 tokens (prefill chunks of 256,
+     256 and 128 tokens), run twice: with the default routes (the einsum
+     attention materializes the scores; K1 and K2 launch, as in phase 4),
+     then with the opt-in routes on (LLAMAGO_ATTN_PREFILL_FLOOR=0 and
+     ops.kernels.USE_FUSED_NORM, switched as module attributes): K1, K2, K7
+     and K10 must launch, every other kernel stay at 0. In every other
+     serving phase K7 and K10 stay at 0;
 
-then print the card line, the kernels line (JSON) and, last, the device
+then print the serving line (tokens/s, TTFT and peak memory of phases 4 and
+4d side by side, JSON), the card line, the kernels line (JSON) and, last, the device
 line (JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
-result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, small, small_int4, serve,
-serve_int8, serve_int4.
+result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, small,
+small_int4, serve, serve_prefill, serve_int8, serve_int4.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -81,6 +96,19 @@ K3_SHAPE = dict(b=8, kv=32, hd=128, s=1024)  # the int8 serving phase's decode s
 K4_TOL = 1e-2
 K4_SHAPE = dict(b=8, kv=32, g=1, hd=128, s=1024)
 K4_COPIES = 3  # 3 x 68 MB of int8 K and V and their scales at K4_SHAPE
+# K7 at the 7B prefill shapes: (t, pos0) of the buckets and chunks phase 4d
+# runs. As K2's, but |d| / max(1, |ref|): one bf16 rounding of the output,
+# and the kernel rounds p to bf16 against a running maximum where the plain
+# version rounds the normalized p against the final one; a row near
+# position 0 sees a few slots only and returns values of V's own size (up to
+# 4 here, where one bf16 step is 0.016), so the error scales with the output
+K7_TOL = K2_TOL
+K7_SHAPE = dict(b=1, kv=32, g=1, hd=128, s=1024)
+K7_WINDOWS = ((64, 0), (256, 0), (256, 512), (128, 640))
+K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
+# K10, f32: the order of the f32 sum of squares, and 1 / sqrt against rsqrt
+K10_RTOL_F32 = 1e-5
+K10_D = 4096
 
 
 def log(msg: str) -> None:
@@ -112,21 +140,24 @@ def timed(fns, iters: int) -> float:
     """Device time in ms per call over `iters` calls cycling through `fns`,
     after one warm-up pass: the card's busy time in a torch.profiler
     trace, so the host's launch cost between small kernels does not count
-    as kernel time."""
+    as kernel time. A trace that comes back without device events (seen
+    once in many) is taken again, at most twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    busy = device_busy_us(prof.events())
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device activity")
-    return busy / 1e3 / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        busy = device_busy_us(prof.events())
+        if busy > 0:
+            return busy / 1e3 / iters
+        log(f"timed: the trace holds no device events (attempt {attempt + 1})")
+    raise AssertionError("the profiler recorded no device activity")
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -409,9 +440,11 @@ def check_k2(dev, detail: dict) -> dict:
 
 def check_k3(dev, detail: dict) -> dict:
     """K3 at b=8, KV=32, hd=128, S=1024 (the int8 serving phase's decode
-    step), bf16 and f32 new rows, write positions 0, S-1, overrunning and
-    negative starts among them: bit-exact against the plain version, every
-    other row untouched. Timed in bf16; no one PyTorch call computes it."""
+    step), bf16 and f32 new rows, f32 and bf16 scale planes, write positions
+    0, S-1, overrunning and negative starts among them: bit-exact against
+    the plain version, every other row untouched. Timed with bf16 new rows;
+    no one PyTorch call computes it. The kernels line takes the f32 planes,
+    the default."""
     import torch
 
     from llamago_tpu_torch.ops import cache_write
@@ -420,46 +453,55 @@ def check_k3(dev, detail: dict) -> dict:
     c = K3_SHAPE
     b, kv, hd, s = c["b"], c["kv"], c["hd"], c["s"]
     shape = (b, kv, s, hd)
-    cache = [torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device=dev)
+    rows8 = [torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device=dev)
              for _ in range(2)]
-    cache += [torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    scales = [torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
     pos = torch.tensor([0, s - 1, s + 500, -5, 1, 512, 700, 2 * s - 1], dtype=torch.int32,
                        device=dev)
     slot = torch.tensor([0, s - 1, s - 1, s - 5, 1, 512, 700, s - 1], device=dev)
     written = torch.zeros((b, s), dtype=torch.bool, device=dev)
     written[torch.arange(b, device=dev), slot] = True
-    for dtype in (torch.bfloat16, torch.float32):
-        new = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(dtype)
-               for _ in range(2)]
-        new[1][0, 0, 3] = 0  # a zero row: scale 1, row 0
-        got = [a.clone() for a in cache]
-        want = [a.clone() for a in cache]
-        cache_write.cache_append_quant(*got, *new, pos)
-        cache_write.cache_append_quant_plain(*want, *new, pos)
-        torch.cuda.synchronize()
-        for name, g, w, orig in zip(("k", "v", "ks", "vs"), got, want, cache):
-            if not torch.equal(g, w):
-                raise AssertionError(f"K3 {dtype}: {name} differs from the plain version")
-            keep = ~written[:, None, :].expand(b, kv, s)
-            if not torch.equal(g[keep], orig[keep]):
-                raise AssertionError(f"K3 {dtype}: {name} changed a row it must not write")
-        log(f"K3 {str(dtype).split('.')[-1]}: bit-exact against the plain version, "
-            "other rows untouched")
-    new = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
-           for _ in range(2)]
-    pos = torch.full((b,), 700, dtype=torch.int32, device=dev)
-    kern = timed([lambda: cache_write.cache_append_quant(*cache, *new, pos)], 200)
-    plain = timed([lambda: cache_write.cache_append_quant_plain(*cache, *new, pos)], 20)
+    new_t = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2)]
+    pos_t = torch.full((b,), 700, dtype=torch.int32, device=dev)
     n = b * kv * hd  # values per new K (or V) tensor
-    # read the bf16 rows and the positions, write the int8 rows and f32 scales;
-    # abs, max, divide and round per value in f32
-    bnd, by = bound_ms(2 * n * 2 + 4 * b + 2 * n + 2 * b * kv * 4, 4.0 * 2 * n, F32_OPS_PER_S)
-    row = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
-    detail["k3"] = row
-    log(f"K3 b={b}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {bnd:.6f} ms "
-        "(one layer)")
+    out = {}
+    for sdt in (torch.float32, torch.bfloat16):
+        sname = str(sdt).split(".")[-1]
+        cache = rows8 + [a.to(sdt) for a in scales]
+        for dtype in (torch.bfloat16, torch.float32):
+            new = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(dtype)
+                   for _ in range(2)]
+            new[1][0, 0, 3] = 0  # a zero row: scale 1, row 0
+            got = [a.clone() for a in cache]
+            want = [a.clone() for a in cache]
+            cache_write.cache_append_quant(*got, *new, pos)
+            cache_write.cache_append_quant_plain(*want, *new, pos)
+            torch.cuda.synchronize()
+            for name, g, w, orig in zip(("k", "v", "ks", "vs"), got, want, cache):
+                if g.dtype != orig.dtype or not torch.equal(g, w):
+                    raise AssertionError(f"K3 {dtype}, {sname} scales: {name} differs from "
+                                         "the plain version")
+                keep = ~written[:, None, :].expand(b, kv, s)
+                if not torch.equal(g[keep], orig[keep]):
+                    raise AssertionError(f"K3 {dtype}, {sname} scales: {name} changed a row "
+                                         "it must not write")
+            log(f"K3 {str(dtype).split('.')[-1]}, {sname} scales: bit-exact against the "
+                "plain version, other rows untouched")
+        kern = timed([lambda: cache_write.cache_append_quant(*cache, *new_t, pos_t)], 200)
+        plain = timed([lambda: cache_write.cache_append_quant_plain(*cache, *new_t, pos_t)],
+                      20)
+        # read the bf16 rows and the positions, write the int8 rows and the
+        # scales; abs, max, divide and round per value in f32
+        bnd, by = bound_ms(2 * n * 2 + 4 * b + 2 * n + 2 * b * kv * cache[2].element_size(),
+                           4.0 * 2 * n, F32_OPS_PER_S)
+        out[sname] = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
+        log(f"K3 b={b}, {sname} scales: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bnd:.6f} ms (one layer)")
+    detail["k3"], detail["k3_bf16_scales"] = out["float32"], out["bfloat16"]
+    row = out["float32"]
     # one decode step: one launch per layer (32)
-    return {"max_abs_err": 0.0, "bound_by": by, "library_ms": None,
+    return {"max_abs_err": 0.0, "bound_by": row["bound_by"], "library_ms": None,
             **{k: 32 * row[k] for k in ("ms", "plain_ms", "bound_ms")}}
 
 
@@ -489,9 +531,11 @@ def _k4_error(q, k8, v8, positions, ks, vs, plain) -> float:
 def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
     """K4 (i8dot) and K8 (widening) at b=8, KV=32, hd=128, S=1024 for fills
     1, 300 and 1024 and windows t=1 (decode) and t=32 (prefill bucket), q in
-    bf16, checked and timed; a GQA geometry (g=8, hd=64, S=512) checked only.
-    The yardstick is SDPA over a bf16 dequantized copy of the visible cache:
-    the same function, reading twice the cache bytes."""
+    bf16, with f32 and then with bf16 scale planes, checked and timed; a GQA
+    geometry (g=8, hd=64, S=512) checked only. The yardstick is SDPA over a
+    bf16 dequantized copy of the visible cache: the same function, reading
+    twice the cache bytes. The kernels line takes the f32 planes, the
+    default."""
     import torch
     import torch.nn.functional as F
 
@@ -501,72 +545,269 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
     c = K4_SHAPE
     b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
     h = kv * g
-    caches = [(*_quant_cache(dev, gen, b, kv, s, hd), *_quant_cache(dev, gen, b, kv, s, hd))
-              for _ in range(K4_COPIES)]  # (k8, ks, v8, vs)
-    deq = [((k8.float() * ks[..., None]).to(torch.bfloat16),
-            (v8.float() * vs[..., None]).to(torch.bfloat16)) for k8, ks, v8, vs in caches]
+    caches32 = [(*_quant_cache(dev, gen, b, kv, s, hd), *_quant_cache(dev, gen, b, kv, s, hd))
+                for _ in range(K4_COPIES)]  # (k8, ks, v8, vs)
+    gb, gkv, gg, ghd, gs = 2, 2, 8, 64, 512
+    gcache32 = (*_quant_cache(dev, gen, gb, gkv, gs, ghd),
+                *_quant_cache(dev, gen, gb, gkv, gs, ghd))
     out, default = [], attention._I8DOT
-    for i8dot, name, plain, rate in (
-            (True, "K4", attention.flash_attention_quant_i8dot_plain, INT8_OPS_PER_S),
-            (False, "K8", attention.flash_attention_quant_plain, BF16_OPS_PER_S)):
-        attention._I8DOT = i8dot
-        rows, max_err, record = [], 0.0, None
-        gb, gkv, gg, ghd, gs = 2, 2, 8, 64, 512
-        gk8, gks = _quant_cache(dev, gen, gb, gkv, gs, ghd)
-        gv8, gvs = _quant_cache(dev, gen, gb, gkv, gs, ghd)
-        for t in (1, 16):
-            gq = torch.randn((gb, t, gkv * gg, ghd), generator=gen, device=dev).bfloat16()
-            gpos = torch.tensor([[190], [480]], device=dev) + torch.arange(t, device=dev)
-            err = _k4_error(gq, gk8, gv8, gpos, gks, gvs, plain)
-            if not err <= K4_TOL:
-                raise AssertionError(f"{name} GQA t={t}: max|d| {err:.3g} > {K4_TOL}")
-            max_err = max(max_err, err)
-            log(f"{name} GQA g={gg} hd={ghd} S={gs} t={t}: max|d| {err:.2e}")
-        for t in (1, 32):
-            for fill in (1, 300, 1024):
-                q = torch.randn((b, t, h, hd), generator=gen, device=dev).bfloat16()
-                positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
-                             + torch.arange(t, device=dev)[None, :])
-                k8, ks, v8, vs = caches[0]
-                err = _k4_error(q, k8, v8, positions, ks, vs, plain)
+    for sdt in (torch.float32, torch.bfloat16):
+        sname = str(sdt).split(".")[-1]
+        caches = [(k8, ks.to(sdt), v8, vs.to(sdt)) for k8, ks, v8, vs in caches32]
+        gk8, gks, gv8, gvs = (a if a.dtype == torch.int8 else a.to(sdt) for a in gcache32)
+        deq = [((k8.float() * ks.float()[..., None]).to(torch.bfloat16),
+                (v8.float() * vs.float()[..., None]).to(torch.bfloat16))
+               for k8, ks, v8, vs in caches]
+        for i8dot, name, plain, rate in (
+                (True, "K4", attention.flash_attention_quant_i8dot_plain, INT8_OPS_PER_S),
+                (False, "K8", attention.flash_attention_quant_plain, BF16_OPS_PER_S)):
+            attention._I8DOT = i8dot
+            rows, max_err, record = [], 0.0, None
+            for t in (1, 16):
+                gq = torch.randn((gb, t, gkv * gg, ghd), generator=gen, device=dev).bfloat16()
+                gpos = torch.tensor([[190], [480]], device=dev) + torch.arange(t, device=dev)
+                err = _k4_error(gq, gk8, gv8, gpos, gks, gvs, plain)
                 if not err <= K4_TOL:
-                    raise AssertionError(f"{name} t={t} fill={fill}: max|d| {err:.3g} "
-                                         f"> {K4_TOL}")
+                    raise AssertionError(f"{name} GQA t={t}, {sname} scales: max|d| "
+                                         f"{err:.3g} > {K4_TOL}")
                 max_err = max(max_err, err)
-                visible = min(max(fill, t), s)  # slots seen by the last query row
-                q5 = q.reshape(b, t, kv, g, hd)
-                pos0 = positions[:, 0].to(torch.int32)
-                kern = timed([lambda c_=c_: attention.flash_attention_quant(
-                    q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
-                    50 * K4_COPIES)
-                plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
-                                  for c_ in caches], 2 * K4_COPIES)
-                qh = q.transpose(1, 2)
-                mask = None
-                if t > 1:
-                    mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
-                lib = timed([lambda d=d: F.scaled_dot_product_attention(
-                    qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
-                    for d in deq], 50 * K4_COPIES)
-                nbytes = (2 * b * kv * visible * (hd + 4) + 2 * b * t * h * hd * 2 + b * 4)
-                bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
-                row = dict(t=t, fill=fill, visible=visible, ms=kern, plain_ms=plain_ms,
-                           library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
-                rows.append(row)
-                log(f"{name} t={t:2d} fill={fill:4d}: kernel {kern:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, sdpa on a bf16 copy {lib:.4f} ms, bound "
-                    f"{bnd:.4f} ms, max|d| {err:.2e}")
-                if t == 1 and fill == s:
-                    record = row
-        detail[name.lower()] = rows
-        # one decode step at full fill: one launch per layer (32)
-        out.append({"max_abs_err": max_err, "bound_by": record["bound_by"],
-                    **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms",
-                                                    "bound_ms")}})
+                log(f"{name} GQA g={gg} hd={ghd} S={gs} t={t}, {sname} scales: max|d| "
+                    f"{err:.2e}")
+            for t in (1, 32):
+                for fill in (1, 300, 1024):
+                    q = torch.randn((b, t, h, hd), generator=gen, device=dev).bfloat16()
+                    positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                                 + torch.arange(t, device=dev)[None, :])
+                    k8, ks, v8, vs = caches[0]
+                    err = _k4_error(q, k8, v8, positions, ks, vs, plain)
+                    if not err <= K4_TOL:
+                        raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: "
+                                             f"max|d| {err:.3g} > {K4_TOL}")
+                    max_err = max(max_err, err)
+                    visible = min(max(fill, t), s)  # slots seen by the last query row
+                    q5 = q.reshape(b, t, kv, g, hd)
+                    pos0 = positions[:, 0].to(torch.int32)
+                    kern = timed([lambda c_=c_: attention.flash_attention_quant(
+                        q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
+                        50 * K4_COPIES)
+                    plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
+                                      for c_ in caches], 2 * K4_COPIES)
+                    qh = q.transpose(1, 2)
+                    mask = None
+                    if t > 1:
+                        mask = (torch.arange(visible, device=dev)[None, :]
+                                <= positions[0][:, None])
+                    lib = timed([lambda d=d: F.scaled_dot_product_attention(
+                        qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
+                        for d in deq], 50 * K4_COPIES)
+                    nbytes = (2 * b * kv * visible * (hd + ks.element_size())
+                              + 2 * b * t * h * hd * 2 + b * 4)
+                    bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
+                    row = dict(t=t, fill=fill, visible=visible, ms=kern, plain_ms=plain_ms,
+                               library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+                    rows.append(row)
+                    log(f"{name} t={t:2d} fill={fill:4d}, {sname} scales: kernel {kern:.4f} "
+                        f"ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy {lib:.4f} ms, "
+                        f"bound {bnd:.4f} ms, max|d| {err:.2e}")
+                    if t == 1 and fill == s:
+                        record = row
+            if sdt == torch.float32:
+                detail[name.lower()] = rows
+                # one decode step at full fill: one launch per layer (32)
+                out.append({"max_abs_err": max_err, "bound_by": record["bound_by"],
+                            **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms")}})
+            else:
+                detail[f"{name.lower()}_bf16_scales"] = rows
+        del caches, deq
     attention._I8DOT = default
-    del caches, deq
+    del caches32
     torch.cuda.empty_cache()
     return out[0], out[1]
+
+
+def _k7_inputs(dev, gen, t, pos0, c, dtype):
+    """q [B, t, H, hd], K and V caches [B, KV, S, hd] and positions [B, t];
+    `pos0` is one start or one per batch row."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((c["b"], t, c["kv"] * c["g"], c["hd"]), generator=gen, device=dev).to(dt)
+    cache_shape = (c["b"], c["kv"], c["s"], c["hd"])
+    kc = torch.randn(cache_shape, generator=gen, device=dev).to(dt)
+    vc = torch.randn(cache_shape, generator=gen, device=dev).to(dt)
+    starts = torch.tensor(pos0 if isinstance(pos0, (list, tuple)) else [pos0] * c["b"],
+                          device=dev)
+    return q, kc, vc, starts[:, None] + torch.arange(t, device=dev)[None, :]
+
+
+def _k7_error(q, kc, vc, positions, c) -> float:
+    """max |kernel - plain| / max(1, |plain|) over one call that must take K7."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+
+    before = attention.flash_attention.launches_prefill
+    got = attention.flash_attention(q, kc, vc, positions).float()
+    if attention.flash_attention.launches_prefill != before + 1:
+        raise AssertionError("K7: flash_attention did not take the prefill kernel")
+    q5 = q.reshape(c["b"], q.shape[1], c["kv"], c["g"], c["hd"])
+    ref = attention.flash_attention_prefill_plain(q5, kc, vc, positions[:, 0].to(torch.int32))
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("K7: non-finite output")
+    ref = ref.reshape(got.shape).float()
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+
+def check_k7(dev, detail: dict) -> dict:
+    """K7 at b=1, KV=32, hd=128, S=1024 in bf16 for the windows (t, pos0) of
+    the 7B prefill (buckets 64, 128, 256; chunks at positions 0, 512, 640),
+    checked and timed beside its plain version, the port's einsum math (the
+    default route of these windows) and SDPA with a boolean mask over the
+    visible prefix; GQA geometries in f32 and bf16 (ragged t, ragged S, hd
+    64) and a t=16 window with LLAMAGO_ATTN_LENAWARE off checked only. The
+    kernels line takes one prefill pass of 256 tokens at position 512 (32
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows, max_err, record = [], 0.0, None
+    for shape, dtype, t, pos0, tol in (
+            (dict(b=2, kv=2, g=4, hd=64, s=512), "float32", 40, [100, 300], 1e-4),
+            (dict(b=2, kv=2, g=2, hd=128, s=200), "float32", 70, [0, 130], 1e-4),
+            (dict(b=2, kv=2, g=2, hd=64, s=500), "bfloat16", 70, [0, 430], K7_TOL),
+            (dict(b=2, kv=4, g=8, hd=128, s=512), "bfloat16", 33, [7, 479], K7_TOL)):
+        err = _k7_error(*_k7_inputs(dev, gen, t, pos0, shape, dtype), shape)
+        if not err <= tol:
+            raise AssertionError(f"K7 {shape} {dtype} t={t}: max|d| {err:.3g} > {tol}")
+        max_err = max(max_err, err) if dtype == "bfloat16" else max_err
+        log(f"K7 {shape} {dtype} t={t} pos0={pos0}: max|d| {err:.2e}")
+    c = K7_SHAPE
+    lenaware = attention._LENAWARE
+    attention._LENAWARE = False  # windows of t <= 32 take K7 too
+    try:
+        err = _k7_error(*_k7_inputs(dev, gen, 16, 100, c, "bfloat16"), c)
+    finally:
+        attention._LENAWARE = lenaware
+    if not err <= K7_TOL:
+        raise AssertionError(f"K7 t=16 with LENAWARE off: max|d| {err:.3g} > {K7_TOL}")
+    max_err = max(max_err, err)
+    log(f"K7 t=16 pos0=100 with LLAMAGO_ATTN_LENAWARE off: max|d| {err:.2e}")
+    h = c["kv"] * c["g"]
+    for t, pos0 in K7_WINDOWS:
+        q, kc, vc, positions = _k7_inputs(dev, gen, t, pos0, c, "bfloat16")
+        err = _k7_error(q, kc, vc, positions, c)
+        if not err <= K7_TOL:
+            raise AssertionError(f"K7 t={t} pos0={pos0}: max|d| {err:.3g} > {K7_TOL}")
+        max_err = max(max_err, err)
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        p0 = positions[:, 0].to(torch.int32)
+        # caches enough that a cycle of calls streams past the 50 MB L2, as a
+        # prefill pass's 32 layers do
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K7_COPIES - 1)]
+        visible = pos0 + t
+        kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                      for kv in caches], 25 * K7_COPIES)
+        plain = timed([lambda kv=kv: attention.flash_attention_prefill_plain(q5, *kv, p0)
+                       for kv in caches], 2 * K7_COPIES)
+        math = timed([lambda kv=kv: attention.attention_math(q, *kv, positions)
+                      for kv in caches], 2 * K7_COPIES)
+        qh = q.transpose(1, 2)
+        mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
+        lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 25 * K7_COPIES)
+        del caches
+        nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 2
+                  + 2 * c["b"] * t * h * c["hd"] * 2 + c["b"] * 4)
+        ops = 4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2)
+        bnd, by = bound_ms(nbytes, ops)
+        row = dict(t=t, pos0=pos0, visible=visible, ms=kern, plain_ms=plain, math_ms=math,
+                   library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+        rows.append(row)
+        log(f"K7 t={t:3d} pos0={pos0:3d}: kernel {kern:.4f} ms, plain {plain:.4f} ms, einsum "
+            f"math {math:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| "
+            f"{err:.2e}")
+        if (t, pos0) == (256, 512):
+            record = row
+    detail["k7"] = rows
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "bound_by": record["bound_by"],
+            **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
+
+def check_k10(dev, detail: dict) -> dict:
+    """K10 at d=4096 for 4 rows (a decode step of 4 slots) and 64 and 256
+    rows (prefill), bf16 x (within one bf16 ulp of the plain version) and
+    f32 x, weights in bf16 and f32; a ragged d=1000 and a d=5000 longer than
+    a thread's registers hold checked only. Timed in bf16 beside its plain
+    version, the unfused rms_norm (what the port runs by default) and
+    F.rms_norm where PyTorch has it (else the library time is the unfused
+    one's). The kernels line takes the 65 launches of one decode forward at
+    4 rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import basic, kernels
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    eps = 1e-5
+    rows, max_err, record = [], 0.0, None
+
+    def error(x, w):
+        before = kernels.fused_rms_norm.launches
+        got = kernels.fused_rms_norm(x, w, eps)
+        if kernels.fused_rms_norm.launches != before + 1 or got.dtype != x.dtype \
+                or got.shape != x.shape:
+            raise AssertionError("K10: no launch counted, or a wrong dtype or shape")
+        ref = kernels.fused_rms_norm_plain(x, w, eps).float()
+        torch.cuda.synchronize()
+        d = (got.float() - ref).abs()
+        # bf16 spaces its values by at most 2^-7 of their size
+        lim = ref.abs() * (2.0 ** -7 if x.dtype == torch.bfloat16 else K10_RTOL_F32)
+        if not (d <= lim + 1e-30).all():
+            raise AssertionError(f"K10 x {tuple(x.shape)} {x.dtype} w {w.dtype}: "
+                                 f"{(d > lim + 1e-30).sum().item()} values off by more than "
+                                 "one bf16 ulp (bf16) or 1e-5 (f32)")
+        return (d.max() / ref.abs().max()).item()
+
+    for n_rows, d in ((4, K10_D), (64, K10_D), (256, K10_D), (3, 1000), (5, 5000)):
+        for xdt in (torch.bfloat16, torch.float32):
+            for wdt in (torch.bfloat16, torch.float32):
+                x = (torch.randn((n_rows, d), generator=gen, device=dev) * 2).to(xdt)
+                w = (torch.rand((d,), generator=gen, device=dev) + 0.5).to(wdt)
+                err = error(x.reshape(1, n_rows, d), w)
+                if xdt == torch.bfloat16:
+                    max_err = max(max_err, err)
+        log(f"K10 rows={n_rows} d={d}: bf16 and f32 x, bf16 and f32 w: within one bf16 ulp "
+            f"and {K10_RTOL_F32} of the plain version")
+    has_lib = hasattr(F, "rms_norm")
+    for n_rows in (4, 64, 256):
+        # activations enough that a cycle of calls does not find them in L1
+        xs = [(torch.randn((1, n_rows, K10_D), generator=gen, device=dev)).bfloat16()
+              for _ in range(4)]
+        w = (torch.rand((K10_D,), generator=gen, device=dev) + 0.5).bfloat16()
+        kern = timed([lambda x=x: kernels.fused_rms_norm(x, w, eps) for x in xs], 200)
+        plain = timed([lambda x=x: kernels.fused_rms_norm_plain(x, w, eps) for x in xs], 40)
+        unfused = timed([lambda x=x: basic.rms_norm(x, w, eps) for x in xs], 40)
+        lib = (timed([lambda x=x: F.rms_norm(x, (K10_D,), w, eps) for x in xs], 200)
+               if has_lib else unfused)
+        bnd, by = bound_ms((2 * n_rows + 1) * K10_D * 2, 4.0 * n_rows * K10_D, F32_OPS_PER_S)
+        row = dict(rows=n_rows, d=K10_D, ms=kern, plain_ms=plain, unfused_ms=unfused,
+                   library_ms=lib, library="F.rms_norm" if has_lib else "unfused rms_norm",
+                   bound_ms=bnd, bound_by=by)
+        rows.append(row)
+        log(f"K10 rows={n_rows:3d}: kernel {kern:.5f} ms, plain {plain:.5f} ms, unfused "
+            f"rms_norm {unfused:.5f} ms, {row['library']} {lib:.5f} ms, bound {bnd:.6f} ms")
+        if n_rows == 4:
+            record = row
+    detail["k10"] = rows
+    return {"max_abs_err": max_err, "bound_by": record["bound_by"],
+            **{k: 65 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -583,8 +824,11 @@ def check_small_model(dev) -> int:
     """A small Q8_0 GQA model with head_dim 128: logits through the kernels
     on the card against the plain versions on the CPU (f32 compute), and
     greedy tokens of a short engine run on both; with the dense cache, then
-    the int8 cache under K4 and under K8 (LLAMAGO_ATTN_I8DOT off). Returns
-    the launches of K8 in its run."""
+    the int8 cache under K4 and under K8 (LLAMAGO_ATTN_I8DOT off), then the
+    dense cache with the prefill floor at 0 and USE_FUSED_NORM on (K7 and
+    K10 must launch; the prompt fills a 64-token bucket), then the int8
+    cache with bf16 scale planes (card and CPU under the same scale dtype).
+    Returns the launches of K8 in its run."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -593,7 +837,8 @@ def check_small_model(dev) -> int:
     )
     from llamago_tpu_torch.config import GenerateConfig, ModelConfig
     from llamago_tpu_torch.models.llama import forward_impl
-    from llamago_tpu_torch.ops import attention
+    from llamago_tpu_torch.ops import attention, kernels
+    from llamago_tpu_torch.runtime import kv_cache
     from llamago_tpu_torch.runtime.engine import Engine
     from llamago_tpu_torch.runtime.kv_cache import KVCache
 
@@ -609,14 +854,23 @@ def check_small_model(dev) -> int:
     toks = torch.randint(3, 4000, (2, 40), generator=torch.Generator().manual_seed(4))
     vocab = _byte_vocab(dense.vocab_size)
     gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
+    int8 = dense.replace(kv_dtype="int8")
     default, k8_launches = attention._I8DOT, 0
-    # t=40: einsum-math prefill; t=16: K2/K4/K8 prefill bucket; t=1: decode
-    # (K2, or K3 and K4/K8)
-    for name, cfg, i8dot in (("dense cache", dense, default),
-                             ("int8 cache, K4", dense.replace(kv_dtype="int8"), True),
-                             ("int8 cache, K8", dense.replace(kv_dtype="int8"), False)):
+    floor, fused, scale_name = (attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM,
+                                kv_cache._SCALE_DTYPE_NAME)
+    # t=40: einsum-math prefill, or K7; t=16: K2/K4/K8 prefill bucket; t=1:
+    # decode (K2, or K3 and K4/K8)
+    for name, cfg, i8dot, opt_in, scales in (
+            ("dense cache", dense, default, False, "float32"),
+            ("int8 cache, K4", int8, True, False, "float32"),
+            ("int8 cache, K8", int8, False, False, "float32"),
+            ("dense cache, K7 and K10", dense, default, True, "float32"),
+            ("int8 cache, K4, bf16 scales", int8, True, False, "bfloat16")):
         attention._I8DOT = i8dot
-        attention.flash_attention_quant.launches_widening = 0
+        attention._MIN_PREFILL_SCORES = 0 if opt_in else floor
+        kernels.USE_FUSED_NORM = opt_in
+        kv_cache._SCALE_DTYPE_NAME = scales
+        reset_launch_counts()
         for t in (40, 16, 1):
             x = toks[:, :t]
             wp = torch.tensor([0, 7])
@@ -632,16 +886,33 @@ def check_small_model(dev) -> int:
                 raise AssertionError(f"small model, {name}, t={t}: logits differ, "
                                      f"{err:.3g} > 1e-3")
         outs = []
+        prompt = "smoke test prompt" + (", long enough for a 64-token bucket" if opt_in
+                                        else "")
         for params, d in ((gpu, dev), (cpu, "cpu")):
             eng = Engine(cfg, params, vocab, slots=2, decode_chunk_size=4, device=d)
-            outs.append(eng.generate("smoke test prompt", gen).output_tokens)
+            if scales == "bfloat16" and eng.cache.ks[0].dtype != torch.bfloat16:
+                raise AssertionError(f"small model, {name}: the scale planes are "
+                                     f"{eng.cache.ks[0].dtype}")
+            outs.append(eng.generate(prompt, gen).output_tokens)
         log(f"small model, {name}, greedy tokens: card {outs[0]}, CPU {outs[1]}")
         if outs[0] != outs[1]:
             raise AssertionError(f"small model, {name}: greedy tokens differ between "
                                  "card and CPU")
+        counts = launch_counts()
+        log(f"small model, {name}: launches {counts}")
         if not i8dot:
-            k8_launches = attention.flash_attention_quant.launches_widening
+            k8_launches = counts["flash_attention_quant_widening"]
+        if any((counts[k] > 0) != opt_in
+               for k in ("flash_attention_prefill", "fused_rms_norm")):
+            raise AssertionError(f"small model, {name}: K7 and K10 must launch with the "
+                                 f"opt-in routes on and only then: {counts}")
+        if cfg.kv_dtype == "int8" and i8dot and (
+                counts["cache_append_quant"] == 0
+                or counts["flash_attention_quant_i8dot"] == 0):
+            raise AssertionError(f"small model, {name}: K3 or K4 never launched: {counts}")
     attention._I8DOT = default
+    attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = floor, fused
+    kv_cache._SCALE_DTYPE_NAME = scale_name
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
     return k8_launches
@@ -764,6 +1035,8 @@ def _launch_counters():
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "flash_attention": (attention.flash_attention, "launches"),
+            "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
+            "fused_rms_norm": (kernels.fused_rms_norm, "launches"),
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
                                             "launches_i8dot"),
@@ -808,18 +1081,36 @@ def make_7b_params(dev, weight_dtype: str = "int8"):
     return cfg, params
 
 
-def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
+@contextlib.contextmanager
+def opt_in_routes():
+    """The port's two opt-in kernel routes on, as LLAMAGO_ATTN_PREFILL_FLOOR=0
+    in the environment and ops.kernels.USE_FUSED_NORM = True set them: every
+    prefill window of t > 32 takes K7, every RMSNorm K10."""
+    from llamago_tpu_torch.ops import attention, kernels
+
+    floor, fused = attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM
+    attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = 0, True
+    try:
+        yield
+    finally:
+        attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = floor, fused
+
+
+def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
+          long_prompts: bool = False) -> dict:
     """Serve n_jobs sampled HTTP jobs on `slots` decode slots, then the
     repeated greedy job, then profile one decode chunk. Every launch count
     is set to 0 before the engine warms up; those named in `rise` must have
-    risen by the end of the sampled jobs, every other one must still be 0."""
+    risen by the end of the sampled jobs, every other one must still be 0.
+    With `long_prompts` every other job brings a prompt of 600 tokens
+    (prefill chunks of 256, 256 and 88 tokens, the last in a 128 bucket)."""
     import torch
 
     from llamago_tpu_torch.config import GenerateConfig, ServerConfig
     from llamago_tpu_torch.runtime.engine import Engine
     from llamago_tpu_torch.server.api import JobServer
 
-    predict, prompt_tokens, chunk = 64, 48, 32
+    predict, prompt_tokens, long_tokens, chunk = 64, 48, 600, 32
     engine = Engine(cfg, params, _byte_vocab(cfg.vocab_size), slots=slots,
                     decode_chunk_size=chunk, prefill_chunk=256, device=dev)
     gen = GenerateConfig(max_tokens=predict, ctx_size=cfg.max_seq_len, temp=0.8, seed=11)
@@ -828,8 +1119,8 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    warm_s = engine.warmup(max_bucket=engine._bucket(prompt_tokens + 2),
-                           include_embed=False)
+    longest = min(long_tokens, engine.prefill_chunk) if long_prompts else prompt_tokens + 2
+    warm_s = engine.warmup(max_bucket=engine._bucket(longest), include_embed=False)
     server.start_background()
     port = server.port
     try:
@@ -857,8 +1148,11 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
                 raise AssertionError(f"serve: {len(bodies) - len(done)} jobs did not finish")
             return [done[b["id"]] for b in bodies]
 
-        prompts = [(f"request {i:03d}: " + "abcdefgh" * 40)[: prompt_tokens - 1]
+        # one token per byte, plus BOS and the leading space
+        lengths = [long_tokens if long_prompts and i % 2 else prompt_tokens + 1
                    for i in range(n_jobs)]
+        prompts = [(f"request {i:03d}: " + "abcdefgh" * 80)[: n - 2]
+                   for i, n in enumerate(lengths)]
         bodies = [{"id": str(uuid.uuid4()), "prompt": p, "seed": 11 + i}
                   for i, p in enumerate(prompts)]
         t_start = time.time()
@@ -870,6 +1164,12 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
         if failed:
             raise AssertionError(f"serve: {len(failed)} jobs failed: {failed[0].get('error')}")
         toks = [server.jobs[b["id"]].output_tokens for b in bodies]
+        if [server.jobs[b["id"]].prompt_tokens for b in bodies] != lengths:
+            raise AssertionError("serve: prompt token counts "
+                                 f"{[server.jobs[b['id']].prompt_tokens for b in bodies]}")
+        ttft = {n: statistics.median(server.jobs[b["id"]].ttft_ms
+                                     for b, m in zip(bodies, lengths) if m == n)
+                for n in sorted(set(lengths))}
         if any(len(t) != predict for t in toks):
             raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
         if any(not 0 <= x < cfg.vocab_size for t in toks for x in t):
@@ -904,7 +1204,8 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
     result = {
         "model": f"7B {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
         "slots": slots, "jobs": n_jobs,
-        "predict": predict, "prompt_tokens": prompt_tokens, "decode_chunk": chunk,
+        "predict": predict, "prompt_tokens": lengths, "decode_chunk": chunk,
+        "ttft_ms_p50_by_prompt_tokens": ttft,
         "warmup_s": warm_s, "served_tokens": generated, "seconds": t_total,
         "served_tokens_per_s": generated / t_total,
         "ttft_ms_p50": metrics["ttft_ms"]["p50"], "ttft_ms_p95": metrics["ttft_ms"]["p95"],
@@ -914,7 +1215,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple) -> dict:
     log(f"{cfg.weight_dtype} weights, {cfg.kv_dtype} cache, {slots} slots: served "
         f"{generated} tokens in {t_total:.2f} s = "
         f"{result['served_tokens_per_s']:.1f} tok/s, TTFT p50 {result['ttft_ms_p50']} ms "
-        f"p95 {result['ttft_ms_p95']} ms, peak {result['peak_gib']:.2f} GiB on the card, "
+        f"p95 {result['ttft_ms_p95']} ms (p50 by prompt tokens {ttft}), peak {result['peak_gib']:.2f} GiB on the card, "
         f"launches {launches}")
     return result
 
@@ -1022,18 +1323,32 @@ def main(argv: list[str]) -> int:
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6 = check_k6(dev, detail) if want("k6") else {}
     k9 = check_k9(dev, detail) if want("k9") else {}
+    k7 = check_k7(dev, detail) if want("k7") else {}
+    k10 = check_k10(dev, detail) if want("k10") else {}
     k8_launches = check_small_model(dev) if want("small") else 0
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
-    served = served_q = served_4 = none
-    if want("serve") or want("serve_int8"):
+    served = served_d = served_p = served_q = served_4 = none
+    if want("serve") or want("serve_prefill") or want("serve_int8"):
         cfg, params = make_7b_params(dev)
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
         if want("serve"):
             served = serve(dev, cfg, params, slots=4, n_jobs=8,
                            rise=("dequant_matmul", "flash_attention"))
             gc.collect()  # the phase 4 engine and its cache
+            torch.cuda.empty_cache()
+        if want("serve_prefill"):
+            # phase 4d: long prompts, the default routes and then the opt-in ones
+            served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
+                             rise=("dequant_matmul", "flash_attention"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            with opt_in_routes():
+                served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
+                                 rise=("dequant_matmul", "flash_attention",
+                                       "flash_attention_prefill", "fused_rms_norm"))
+            gc.collect()
             torch.cuda.empty_cache()
         if want("serve_int8"):
             served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
@@ -1049,6 +1364,7 @@ def main(argv: list[str]) -> int:
                          rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "flash_attention"))
         del params
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
+    detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
         {"name": "dequant_matmul", "route": "cuda",
@@ -1088,7 +1404,22 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
          "replaces": "llamago_tpu/ops/kernels.py:183",
          "launches": so_run.get("dequant_matmul_so", 0), **k9},
+        {"name": "flash_attention_prefill", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
+         "replaces": "llamago_tpu/ops/attention.py:577",
+         "launches": served_p["launches"]["flash_attention_prefill"], **k7},
+        {"name": "fused_rms_norm", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/rms_norm.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:599",
+         "launches": served_p["launches"]["fused_rms_norm"], **k10},
     ]}
+    keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
+            "ttft_ms_p50_by_prompt_tokens", "peak_gib")
+    serving_line = {"serving": {
+        name: {k: run.get(k) for k in keys}
+        for name, run in (("4: 48-token prompts, default routes", served),
+                          ("4d: half 600-token prompts, default routes", served_d),
+                          ("4d: half 600-token prompts, K7 and K10 on", served_p))}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1099,6 +1430,7 @@ def main(argv: list[str]) -> int:
         return 0
     if any(k["launches"] == 0 for k in kernels_line["kernels"]):
         raise AssertionError(f"a kernel was never launched on its path: {kernels_line}")
+    print(json.dumps(serving_line))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

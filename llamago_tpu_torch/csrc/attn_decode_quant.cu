@@ -2,9 +2,9 @@
 // for Hopper (sm_90a).
 //
 // q: [B, t, KV, g, hd] (roped; t <= 32, g <= 8, hd in {64, 128}) in bf16
-// or f32; k8 / v8: [B, KV, S, hd] int8; ks / vs: [B, KV, S] f32 row
-// scales; pos0: int32 [B] (absolute position of query row t=0); out: q's
-// shape and dtype. Rows are laid out t-major then g; row r sees cache slot
+// or f32; k8 / v8: [B, KV, S, hd] int8; ks / vs: [B, KV, S] row scales,
+// f32 or bf16 planes, widened to f32 as they are staged; pos0: int32 [B]
+// (absolute position of query row t=0); out: q's shape and dtype. Rows are laid out t-major then g; row r sees cache slot
 // j iff j <= pos0 + r / g. The scales fold per score column,
 // q.(k8*sk) = (q.k8)*sk and p.(v8*sv) = (p*sv).v8, so the cache is never
 // dequantized element by element. Masked scores are the finite -1e9.
@@ -25,7 +25,8 @@
 // wrapper passes it, and the plain versions in ops/attention.py use it too.
 //
 // What bounds it: per (batch, kv head) the kernel reads the visible int8
-// rows of K and V and their f32 scales once, 2 * fill * (hd + 4) bytes, and
+// rows of K and V and their scales once, 2 * fill * (hd + 4) bytes with f32
+// scales, and
 // does 4 * rows * fill * hd operations on them: at most 8 per cache byte at
 // decode (rows = g), far under the card's int8 or bf16 rate per byte of
 // device memory. Bandwidth over the visible cache bytes is the bound, half
@@ -99,10 +100,10 @@ size_t smem_bytes(int SB, int hd, int rch) {
          (size_t)rch * SB * sizeof(float) + (size_t)rch * hd;
 }
 
-template <typename T, bool I8DOT>
+template <typename T, typename TS, bool I8DOT>
 __global__ void __launch_bounds__(kThreads) quant_partial(
     const T* __restrict__ q, const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
-    const float* __restrict__ ks, const float* __restrict__ vs,
+    const TS* __restrict__ ks, const TS* __restrict__ vs,
     const int* __restrict__ pos0, float* __restrict__ pacc, float* __restrict__ pm,
     float* __restrict__ pl, int t, int KV, int g, int hd, int S, int SB, int rch,
     float scale, int nsb) {
@@ -153,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) quant_partial(
   }
   for (int j = threadIdx.x; j < SB; j += kThreads) {
     const bool in = j < nvis;
-    sk[j] = in ? __ldg(ks + (size_t)bh * S + j0 + j) : 0.f;
-    sv[j] = in ? __ldg(vs + (size_t)bh * S + j0 + j) : 0.f;
+    sk[j] = in ? to_f(ks[(size_t)bh * S + j0 + j]) : 0.f;
+    sv[j] = in ? to_f(vs[(size_t)bh * S + j0 + j]) : 0.f;
   }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -283,22 +284,22 @@ __global__ void __launch_bounds__(kThreads) quant_combine(
   }
 }
 
-template <typename T, bool I8DOT>
-int launch(const void* q, const int8_t* k, const int8_t* v, const float* ks,
-           const float* vs, const int* pos0, void* out, float* pacc, float* pm, float* pl,
+template <typename T, typename TS, bool I8DOT>
+int launch(const void* q, const int8_t* k, const int8_t* v, const void* ks,
+           const void* vs, const int* pos0, void* out, float* pacc, float* pm, float* pl,
            int B, int t, int KV, int g, int hd, int S, int SB, float scale,
            cudaStream_t st) {
   const int nsb = S / SB;
   const int rch = min(t * g, kRowChunk);
   const size_t smem = smem_bytes(SB, hd, rch);
-  cudaError_t e = cudaFuncSetAttribute(quant_partial<T, I8DOT>,
+  cudaError_t e = cudaFuncSetAttribute(quant_partial<T, TS, I8DOT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * KV, nsb);
-  quant_partial<T, I8DOT><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), k, v, ks, vs, pos0, pacc, pm, pl, t, KV, g, hd, S, SB, rch,
-      scale, nsb);
+  quant_partial<T, TS, I8DOT><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), k, v, static_cast<const TS*>(ks), static_cast<const TS*>(vs),
+      pos0, pacc, pm, pl, t, KV, g, hd, S, SB, rch, scale, nsb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   quant_combine<T><<<B * KV, kThreads, 0, st>>>(pacc, pm, pl, pos0, static_cast<T*>(out),
@@ -306,35 +307,47 @@ int launch(const void* q, const int8_t* k, const int8_t* v, const float* ks,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename TS>
+int launch_variant(bool i8dot, const void* q, const int8_t* k, const int8_t* v,
+                   const void* ks, const void* vs, const int* pos0, void* out, float* pacc,
+                   float* pm, float* pl, int B, int t, int KV, int g, int hd, int S, int SB,
+                   float scale, cudaStream_t st) {
+  if (i8dot)
+    return launch<T, TS, true>(q, k, v, ks, vs, pos0, out, pacc, pm, pl, B, t, KV, g, hd, S,
+                               SB, scale, st);
+  return launch<T, TS, false>(q, k, v, ks, vs, pos0, out, pacc, pm, pl, B, t, KV, g, hd, S,
+                              SB, scale, st);
+}
+
 }  // namespace
 
 // SB (the S-block rows) must divide S. Workspaces: pacc [B*KV, S/SB, t*g,
-// hd], pm / pl [B*KV, S/SB, t*g], f32. i8dot selects K4 (1) or K8 (0).
-// Returns cudaGetLastError() after the launches.
+// hd], pm / pl [B*KV, S/SB, t*g], f32. i8dot selects K4 (1) or K8 (0);
+// scale_bf16 says which type the scale planes ks / vs hold. Returns
+// cudaGetLastError() after the launches.
 extern "C" int llamago_attn_decode_quant(const void* q, const void* k8, const void* v8,
                                          const void* ks, const void* vs, const void* pos0,
                                          void* out, void* pacc, void* pm, void* pl, int B,
                                          int t, int KV, int g, int hd, int S, int SB,
-                                         float scale, int is_bf16, int i8dot,
+                                         float scale, int is_bf16, int i8dot, int scale_bf16,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* k = static_cast<const int8_t*>(k8);
   const int8_t* v = static_cast<const int8_t*>(v8);
-  const float* sk = static_cast<const float*>(ks);
-  const float* sv = static_cast<const float*>(vs);
   const int* p = static_cast<const int*>(pos0);
   float* a = static_cast<float*>(pacc);
   float* m = static_cast<float*>(pm);
   float* l = static_cast<float*>(pl);
-  if (is_bf16 && i8dot)
-    return launch<__nv_bfloat16, true>(q, k, v, sk, sv, p, out, a, m, l, B, t, KV, g, hd,
-                                       S, SB, scale, st);
+  using bf16 = __nv_bfloat16;
+  if (is_bf16 && scale_bf16)
+    return launch_variant<bf16, bf16>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
+                                      hd, S, SB, scale, st);
   if (is_bf16)
-    return launch<__nv_bfloat16, false>(q, k, v, sk, sv, p, out, a, m, l, B, t, KV, g, hd,
-                                        S, SB, scale, st);
-  if (i8dot)
-    return launch<float, true>(q, k, v, sk, sv, p, out, a, m, l, B, t, KV, g, hd, S, SB,
-                               scale, st);
-  return launch<float, false>(q, k, v, sk, sv, p, out, a, m, l, B, t, KV, g, hd, S, SB,
-                              scale, st);
+    return launch_variant<bf16, float>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
+                                       hd, S, SB, scale, st);
+  if (scale_bf16)
+    return launch_variant<float, bf16>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
+                                       hd, S, SB, scale, st);
+  return launch_variant<float, float>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
+                                      hd, S, SB, scale, st);
 }

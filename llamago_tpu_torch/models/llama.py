@@ -13,9 +13,13 @@ or one dict of [L, ...] stacked leaves}, with fused "wqkv"/"w13" leaves or
 separate "wq"/"wk"/"wv"/"w1"/"w3". Rotated K is cached once; the KV cache
 is updated in place (runtime/kv_cache.py).
 
-Attention routing follows the JAX package: windows of t <= 32 query rows
-(decode steps, prefill buckets of 16 and 32) take K2
-(ops/attention.py:flash_attention); longer windows take the einsum math.
+Attention routing follows the JAX package (ops/attention.py
+can_fuse_attention): windows of t <= 32 query rows (decode steps, prefill
+buckets of 16 and 32) take K2 through `flash_attention`; longer windows
+take the einsum math by default, and K7, the flash prefill kernel, also
+through `flash_attention`, once their f32 scores reach
+LLAMAGO_ATTN_PREFILL_FLOOR bytes (0: every prefill). RMSNorm is the plain
+one unless ops.kernels.USE_FUSED_NORM is set, then K10 (ops/basic.py).
 On the int8 cache (runtime/kv_cache.py, `cache.quantized`) a decode step
 writes its new rows through K3 (ops/cache_write.py) and a prefill window
 through quantize_kv_rows + write_rows / write_scale_rows; windows of
@@ -30,8 +34,8 @@ import torch.nn.functional as F
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.attention import (
-    MAX_T,
     attention_math,
+    can_fuse_attention,
     flash_attention,
     flash_attention_quant,
     quant_fits,
@@ -57,7 +61,7 @@ def _attention(q, k_cache, v_cache, positions, k_scale=None, v_scale=None):
         if quant_fits(q.shape[1], k_cache.shape[2]):
             return flash_attention_quant(q, k_cache, v_cache, positions, k_scale, v_scale)
         return attention_math(q, k_cache, v_cache, positions, k_scale, v_scale)
-    if q.shape[1] <= MAX_T:
+    if can_fuse_attention(q, k_cache):
         return flash_attention(q, k_cache, v_cache, positions)
     return attention_math(q, k_cache, v_cache, positions)
 

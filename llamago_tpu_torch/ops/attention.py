@@ -1,6 +1,7 @@
 """Attention over the KV cache: K2 (length-aware decode attention over the
-dense cache), K4 and K8 (the same over the int8 cache) and the plain
-einsum math.
+dense cache), K7 (flash attention of a prefill window over the dense
+cache), K4 and K8 (K2's function over the int8 cache) and the plain einsum
+math.
 
 `flash_attention` is K2 for windows of t <= 32 query rows (decode steps
 and prefill buckets of 16 and 32). It replaces
@@ -11,6 +12,21 @@ takes `flash_attention_plain`, the TPU kernel's online softmax over
 S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
 wrapper raises.
 
+For longer windows, and for every window when LLAMAGO_ATTN_LENAWARE is
+"0", `flash_attention` is K7. It replaces `_attn_kernel`; the CUDA kernel
+is `csrc/attn_prefill.cu` (an online softmax over S-tiles that stops at the
+last visible slot; the TPU kernel holds the whole S plane on chip, and its
+tile budgets are not carried over). A CPU tensor takes
+`flash_attention_prefill_plain`: -inf mask and one softmax over the whole
+row, as the TPU kernel computes it.
+
+`can_fuse_attention` is the JAX package's gate under its names and
+defaults, read at import: LLAMAGO_ATTN_PREFILL_FLOOR (bytes of f32 scores
+4*b*kv*g*t*s from which a window of t > 32 takes K7; default 1024 GiB, so
+prefill takes the einsum math, and 0 sends every prefill to K7),
+LLAMAGO_ATTN_DECODE_FLOOR (bytes of cache from which t <= 32 takes a
+kernel; default 0) and LLAMAGO_ATTN_LENAWARE (default "1").
+
 `flash_attention_quant` is the same over the int8 cache (runtime/
 kv_cache.py), for windows of t <= 32 whose S has an S-block of the TPU
 kernels (`quant_fits`). `LLAMAGO_ATTN_I8DOT` (default "1", read as the JAX
@@ -19,9 +35,11 @@ package reads it) picks K4, which replaces `_attn_decode_kernel_quant_i8dot`
 with "0", K8, which replaces `_attn_decode_kernel_quant` (widening; plain
 version `flash_attention_quant_plain`). Both are `csrc/attn_decode_quant.cu`.
 
-`attention_math` is the plain einsum path that the model uses for windows
-of t > 32, where the JAX package also leaves attention to the compiler;
-with row scales it is the int8 cache's scale-folded math.
+`attention_math` is the plain einsum path that the model uses where the
+gate says no (by default every window of t > 32, where the JAX package
+also leaves attention to the compiler); with row scales it is the int8
+cache's scale-folded math, which every window of t > 32 over the int8 cache
+takes (the JAX package has no quantized K7).
 
 Cache layout is [B, KV, S, hd] (runtime/kv_cache.py). Causal mask: cache
 slot j is visible to a query at absolute position p iff j <= p.
@@ -39,7 +57,7 @@ from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.runtime.kv_cache import quantize_kv_rows
 
 NEG_INF = float("-inf")
-MAX_T = 32  # longest window K2 takes; longer windows go to attention_math
+MAX_T = 32  # longest window K2 takes; longer windows go to K7 or attention_math
 _MAX_G = 8
 _HEAD_DIMS = (64, 128)
 _SB = 256  # S-block rows of the plain version, as in the TPU kernel
@@ -48,6 +66,29 @@ _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 # int8-cache decode attention: K4 (int8 dot products) unless "0", K8
 _I8DOT = os.environ.get("LLAMAGO_ATTN_I8DOT", "1") == "1"
+
+# The gate's switches (module docstring), as the JAX package reads them.
+_GB = 1024 * 1024 * 1024
+_MIN_DECODE_TRAFFIC = int(os.environ.get("LLAMAGO_ATTN_DECODE_FLOOR", 0))
+_MIN_PREFILL_SCORES = int(os.environ.get("LLAMAGO_ATTN_PREFILL_FLOOR", 1024 * _GB))
+_LENAWARE = os.environ.get("LLAMAGO_ATTN_LENAWARE", "1") == "1"
+
+
+def can_fuse_attention(q: torch.Tensor, k_cache: torch.Tensor) -> bool:
+    """Whether `flash_attention` (K2 or K7) takes q [B, T, H, hd] over the
+    dense cache [B, KV, S, hd], or the window goes to `attention_math`: the
+    JAX package's gate. A geometry the CUDA kernels do not take (K2 and K7
+    share it) is refused on the card only; the plain versions take any."""
+    b, t, h, hd = q.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    if q.device.type != "cpu" and not (
+            q.dtype in (torch.bfloat16, torch.float32) and k_cache.dtype == q.dtype
+            and 1 <= g <= _MAX_G and hd in _HEAD_DIMS):
+        return False
+    if t <= MAX_T:
+        return 2 * b * kv * s * hd * k_cache.element_size() >= _MIN_DECODE_TRAFFIC
+    return 4 * b * kv * g * t * s >= _MIN_PREFILL_SCORES
 
 
 def _tpu_sb(s: int) -> int | None:
@@ -106,6 +147,27 @@ def flash_attention_plain(q5: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q5.dtype)
 
 
+def flash_attention_prefill_plain(q5: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, pos0: torch.Tensor) -> torch.Tensor:
+    """Plain K7 on q5 [B, t, KV, g, hd]: f32 scores times 1/sqrt(hd), -inf
+    mask (slot <= pos0 + row // g), one f32 softmax over the whole row,
+    probabilities rounded to the V dtype, PV summed in f32. A row that sees
+    no slot gives NaN, as in the TPU kernel. Returns q5's shape and dtype."""
+    b, t, kv, g, hd = q5.shape
+    s = k_cache.shape[2]
+    rows = t * g
+    f32 = torch.float32
+    dev = q5.device
+    q = q5.permute(0, 2, 1, 3, 4).reshape(b, kv, rows, hd).to(f32)
+    scores = torch.einsum("bkrd,bksd->bkrs", q, k_cache.to(f32)) * (1.0 / (hd ** 0.5))
+    qpos = pos0.to(torch.int64)[:, None] + torch.arange(rows, device=dev)[None, :] // g
+    visible = torch.arange(s, device=dev)[None, None, :] <= qpos[:, :, None]  # [B, rows, S]
+    scores = scores.masked_fill(~visible[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkrs,bksd->bkrd", probs.to(f32), v_cache.to(f32))
+    return out.reshape(b, kv, t, g, hd).permute(0, 2, 1, 3, 4).to(q5.dtype)
+
+
 @functools.cache
 def _lib():
     lib = _build.library("attn_decode")
@@ -119,10 +181,20 @@ def _lib():
     return fn, rows
 
 
-def _check_cuda_args(q5, k_cache, v_cache, pos0) -> None:
+@functools.cache
+def _prefill_lib():
+    fn = _build.library("attn_prefill").llamago_attn_prefill
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_args(q5, k_cache, v_cache, pos0, max_t: int | None = MAX_T) -> None:
+    """What K2 (t <= 32) and K7 (`max_t` None: any t) take."""
     b, t, kv, g, hd = q5.shape
-    if t > MAX_T or g > _MAX_G or hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: t={t} (<= {MAX_T}), g={g} "
+    if t < 1 or (max_t is not None and t > max_t) or g > _MAX_G or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: t={t} (1 to {max_t or 'any'}), g={g} "
                          f"(<= {_MAX_G}), hd={hd} (in {_HEAD_DIMS}) not supported")
     if k_cache.shape != v_cache.shape or k_cache.shape[:2] != (b, kv) \
             or k_cache.shape[3] != hd:
@@ -163,36 +235,59 @@ def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
     return out
 
 
+def _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
+    b, t, kv, g, hd = q5.shape
+    out = torch.empty_like(q5)
+    err = _prefill_lib()(q5.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                         pos0.data_ptr(), out.data_ptr(), b, t, kv, g, hd,
+                         k_cache.shape[2], 1.0 / (hd ** 0.5),
+                         int(q5.dtype == torch.bfloat16),
+                         torch.cuda.current_stream(q5.device).cuda_stream)
+    _build.check(err, "flash_attention (prefill)")
+    return out
+
+
 def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
-    """Causal attention of t <= 32 new queries q [B, t, H, hd] (roped)
-    against the cache [B, KV, S, hd]; positions [B, t] absolute (row 0's
-    position is what the kernel reads). Returns [B, t, H*hd] in q.dtype."""
+    """Causal attention of the new queries q [B, t, H, hd] (roped) against
+    the cache [B, KV, S, hd]; positions [B, t] absolute and contiguous (row
+    0's position is what the kernels read). K2 for t <= 32 unless
+    LLAMAGO_ATTN_LENAWARE is "0", else K7; each counts its launches
+    (`launches`, `launches_prefill`). Returns [B, t, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv = k_cache.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
     pos0 = positions[:, 0].to(torch.int32)
+    lenaware = _LENAWARE and t <= MAX_T
     if q.device.type == "cpu":
-        out = flash_attention_plain(q5, k_cache, v_cache, pos0)
+        plain = flash_attention_plain if lenaware else flash_attention_prefill_plain
+        out = plain(q5, k_cache, v_cache, pos0)
     elif q.device.type == "cuda":
         q5 = q5.contiguous()
         pos0 = pos0.contiguous()
-        _check_cuda_args(q5, k_cache, v_cache, pos0)
-        out = _flash_attention_cuda(q5, k_cache, v_cache, pos0)
-        flash_attention.launches += 1
+        if lenaware:
+            _check_cuda_args(q5, k_cache, v_cache, pos0)
+            out = _flash_attention_cuda(q5, k_cache, v_cache, pos0)
+            flash_attention.launches += 1
+        else:
+            _check_cuda_args(q5, k_cache, v_cache, pos0, max_t=None)
+            out = _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0)
+            flash_attention.launches_prefill += 1
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return out.reshape(b, t, h * hd)
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # K2
+flash_attention.launches_prefill = 0  # K7
 
 
 def quant_fits(t: int, s: int) -> bool:
     """Whether K4/K8 take a window of t query rows over a cache of S slots:
-    t <= 32 and S has an S-block of the TPU kernels (their arithmetic
-    depends on it). The JAX package routes the same shapes to its kernels."""
-    return t <= MAX_T and _tpu_sb(s) is not None
+    t <= 32 (and LLAMAGO_ATTN_LENAWARE not "0") and S has an S-block of the
+    TPU kernels (their arithmetic depends on it). The JAX package routes the
+    same shapes to its kernels."""
+    return _LENAWARE and t <= MAX_T and _tpu_sb(s) is not None
 
 
 def _quant_plain(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.Tensor:
@@ -273,7 +368,7 @@ def flash_attention_quant_plain(q5, k8, v8, pos0, ks, vs) -> torch.Tensor:
 def _quant_lib():
     fn = _build.library("attn_decode_quant").llamago_attn_decode_quant
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, p]
+    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -292,8 +387,8 @@ def _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs) -> None:
         raise ValueError(f"flash_attention_quant: scales {tuple(ks.shape)}, "
                          f"{tuple(vs.shape)} do not match the cache {tuple(k8.shape)}")
     if q5.dtype not in (torch.bfloat16, torch.float32) or k8.dtype != torch.int8 \
-            or v8.dtype != torch.int8 or ks.dtype != torch.float32 \
-            or vs.dtype != torch.float32:
+            or v8.dtype != torch.int8 or ks.dtype not in (torch.bfloat16, torch.float32) \
+            or vs.dtype != ks.dtype:
         raise ValueError(f"flash_attention_quant: dtypes q {q5.dtype}, cache "
                          f"{k8.dtype}/{v8.dtype}, scales {ks.dtype}/{vs.dtype} "
                          "not supported")
@@ -324,6 +419,7 @@ def _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.
                        vs.data_ptr(), pos0.data_ptr(), out.data_ptr(), pacc.data_ptr(),
                        pm.data_ptr(), pl.data_ptr(), b, t, kv, g, hd, s, sb,
                        1.0 / (hd ** 0.5), int(q5.dtype == torch.bfloat16), int(i8dot),
+                       int(ks.dtype == torch.bfloat16),
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention_quant")
     return out
@@ -333,8 +429,8 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                           positions: torch.Tensor, ks: torch.Tensor,
                           vs: torch.Tensor) -> torch.Tensor:
     """Causal attention of t <= 32 new queries q [B, t, H, hd] (roped)
-    against the int8 cache k8 / v8 [B, KV, S, hd] with f32 row scales
-    ks / vs [B, KV, S]; positions [B, t] absolute (row 0's position is what
+    against the int8 cache k8 / v8 [B, KV, S, hd] with row scales ks / vs
+    [B, KV, S] in f32 or bf16; positions [B, t] absolute (row 0's position is what
     the kernel reads). K4 unless LLAMAGO_ATTN_I8DOT is "0", then K8; each
     counts its launches (`launches_i8dot`, `launches_widening`). Returns
     [B, t, H*hd] in q.dtype."""

@@ -21,7 +21,12 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with the reduction in f32. The normalized activations are
     cast back to the activation dtype BEFORE the weight multiply, and the
-    weight is cast to the activation dtype, as the JAX package does."""
+    weight is cast to the activation dtype, as the JAX package does. With
+    ops.kernels.USE_FUSED_NORM it is K10 instead (one rounding)."""
+    from llamago_tpu_torch.ops import kernels
+
+    if kernels.can_fuse_norm(x):
+        return kernels.fused_rms_norm(x, weight, eps)
     xf = x.to(_acc_dtype(x.dtype))
     rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf / rms).to(x.dtype) * weight.to(x.dtype)

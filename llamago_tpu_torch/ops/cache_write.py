@@ -4,8 +4,9 @@ the int8 KV cache, its plain version and its launch count.
 `cache_append_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, write_pos)`
 quantizes the new rows k_new / v_new [B, 1, KV, hd] per (batch, head)
 (runtime/kv_cache.py quantize_kv_rows) and writes the int8 rows into
-k_l / v_l [B, KV, S, hd] and their f32 scales into ks_l / vs_l [B, KV, S],
-in place, at write_pos [B], placed as `write_rows` places a row.
+k_l / v_l [B, KV, S, hd] and their scales into ks_l / vs_l [B, KV, S] (f32
+planes, or bf16 ones, which take the f32 scale rounded), in place, at
+write_pos [B], placed as `write_rows` places a row.
 
 Replaces llamago_tpu/ops/cache_write.py `_append_kernel`. The CUDA kernel
 is `csrc/cache_append.cu`; its header note says what bounds it on the card
@@ -44,7 +45,7 @@ def cache_append_quant_plain(k_l, v_l, ks_l, vs_l, k_new, v_new, write_pos) -> N
 def _lib():
     fn = _build.library("cache_append").llamago_cache_append_quant
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -65,7 +66,8 @@ def _check_cuda_args(k_l, v_l, ks_l, vs_l, k_new, v_new, pos) -> None:
                          f"{tuple(k_l.shape)}")
     if k_new.dtype not in (torch.bfloat16, torch.float32) or v_new.dtype != k_new.dtype \
             or k_l.dtype != torch.int8 or v_l.dtype != torch.int8 \
-            or ks_l.dtype != torch.float32 or vs_l.dtype != torch.float32:
+            or ks_l.dtype not in (torch.bfloat16, torch.float32) \
+            or vs_l.dtype != ks_l.dtype:
         raise ValueError(f"cache_append_quant: dtypes new {k_new.dtype}/{v_new.dtype}, "
                          f"cache {k_l.dtype}/{v_l.dtype}, scales {ks_l.dtype}/"
                          f"{vs_l.dtype} not supported")
@@ -95,7 +97,7 @@ def cache_append_quant(k_l, v_l, ks_l, vs_l, k_new, v_new, write_pos) -> None:
     b, _, kv, hd = k_new.shape
     err = _lib()(k_new.data_ptr(), v_new.data_ptr(), k_l.data_ptr(), v_l.data_ptr(),
                  ks_l.data_ptr(), vs_l.data_ptr(), pos.data_ptr(), b, kv, k_l.shape[2],
-                 hd, int(k_new.dtype == torch.bfloat16),
+                 hd, int(k_new.dtype == torch.bfloat16), int(ks_l.dtype == torch.bfloat16),
                  torch.cuda.current_stream(k_new.device).cuda_stream)
     _build.check(err, "cache_append_quant")
     cache_append_quant.launches += 1

@@ -1,5 +1,5 @@
-"""The quantized matmuls: K1, K5, K6 and K9, their plain versions and their
-launch counts.
+"""The quantized matmuls (K1, K5, K6 and K9) and the fused RMSNorm (K10),
+their plain versions and their launch counts.
 
 `dequant_matmul(x, w)` computes x [..., K] @ dequantized w -> [..., N] in
 x.dtype and dispatches on the leaf as the JAX package's `dequant_matmul`
@@ -29,6 +29,15 @@ design does about it. A CPU tensor takes the kernel's plain version
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
 `.launches_q4` for Q4_0, `w4x8_matmul.launches_a8` and `.launches_stream`,
 `dequant_matmul_so.launches`).
+
+`fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
+(CUDA: `csrc/rms_norm.cu`): the whole norm in f32 with one rounding to
+x.dtype, which in bf16 is not the unfused `ops/basic.py:rms_norm` (two
+roundings). `USE_FUSED_NORM` (a module attribute, off by default, as in the
+JAX package: there is no environment variable) makes `rms_norm` take it;
+`can_fuse_norm` is the gate. The TPU launcher's row tiles and its rule that
+d be a multiple of 128 are not carried over. It counts
+`fused_rms_norm.launches`.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ SCALE_ON_OUTPUT_MAX_M = int(os.environ.get("LLAMAGO_KERNEL_SO_MAX_M", "0"))
 
 # 1/127 rounded to f32: XLA compiles JAX's `amax / 127.0` to this product
 _INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
+
+# rms_norm takes K10 when set (module docstring).
+USE_FUSED_NORM = False
 
 
 # ------------------------------------------------------------ plain versions
@@ -350,3 +362,55 @@ def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 dequant_matmul.launches = 0
 dequant_matmul.launches_q4 = 0
+
+
+# ------------------------------------------------------------------ RMSNorm
+
+def fused_rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch K10: in f32, x * rsqrt(mean(x^2) + eps) * w, rounded
+    once to x.dtype."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def can_fuse_norm(x: torch.Tensor) -> bool:
+    """Whether `rms_norm` takes K10 for x [..., d]: the switch is on and, on
+    the card, x is bf16 or f32 (the plain version takes any float dtype)."""
+    if not USE_FUSED_NORM or x.numel() == 0:
+        return False
+    return x.device.type == "cpu" or x.dtype in (torch.bfloat16, torch.float32)
+
+
+@functools.cache
+def _lib_norm():
+    fn = _build.library("rms_norm").llamago_rms_norm
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """K10: RMSNorm of x [..., d] times w [d] as one pass, in x.dtype."""
+    if x.device.type == "cpu":
+        return fused_rms_norm_plain(x, w, eps)
+    _cuda_or_raise(x, "fused_rms_norm")
+    x2 = _rows(x)
+    rows, d = x2.shape
+    if x2.dtype not in (torch.bfloat16, torch.float32) \
+            or w.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_rms_norm: dtypes x {x.dtype}, w {w.dtype} not supported")
+    if w.shape != (d,) or rows < 1 or w.device != x2.device or not w.is_contiguous():
+        raise ValueError(f"fused_rms_norm: w {tuple(w.shape)} on {w.device} does not match "
+                         f"x {tuple(x.shape)} on {x.device}, or is not contiguous")
+    out = torch.empty_like(x2)
+    err = _lib_norm()(x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, eps,
+                      int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+                      _stream(x2))
+    _build.check(err, "fused_rms_norm")
+    fused_rms_norm.launches += 1
+    return out.reshape(x.shape)
+
+
+fused_rms_norm.launches = 0

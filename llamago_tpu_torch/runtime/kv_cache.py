@@ -11,11 +11,13 @@ Writes reproduce `lax.dynamic_update_slice`: a start past S - T is
 CLAMPED to S - T. The engine's `_fits` check and its parking of inactive
 rows (runtime/engine.py) are written against exactly that behaviour.
 
-Quantized mode (`kv_dtype="int8"`): K/V rows are stored int8 with one f32
+Quantized mode (`kv_dtype="int8"`): K/V rows are stored int8 with one
 scale per (batch, head, position) row of head_dim elements, q = round(x/s)
-for s = absmax/127 (`quantize_kv_rows`). The scale planes `ks`/`vs` are
-[B, KV, S] per layer, zero-initialized, and the attention folds them into
-its scores and probabilities (ops/attention.py).
+for the f32 s = absmax/127 (`quantize_kv_rows`). The scale planes `ks`/`vs`
+are [B, KV, S] per layer, zero-initialized, and the attention folds them
+into its scores and probabilities (ops/attention.py). They hold f32, or
+bf16 under LLAMAGO_KV_SCALE_DTYPE=bfloat16: a row is still quantized against
+its f32 scale, and the scale is rounded as it is written into the plane.
 """
 
 from __future__ import annotations
@@ -29,8 +31,15 @@ from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.utils.device import resolve_device, torch_dtype
 
 # Storage dtype of the int8 cache's scale planes, read as the JAX package
-# reads it. Only float32 (its default) is ported.
+# reads it: float32 (the default) or bfloat16.
 _SCALE_DTYPE_NAME = os.environ.get("LLAMAGO_KV_SCALE_DTYPE", "float32")
+
+
+def scale_dtype() -> torch.dtype:
+    if _SCALE_DTYPE_NAME not in ("float32", "bfloat16"):
+        raise ValueError(f"LLAMAGO_KV_SCALE_DTYPE={_SCALE_DTYPE_NAME}: the scale "
+                         "planes hold float32 or bfloat16")
+    return torch_dtype(_SCALE_DTYPE_NAME)
 
 # 1/127 rounded to f32. The JAX package writes `absmax / 127.0`, and XLA
 # compiles a division by a constant into this multiplication, one ulp away
@@ -43,7 +52,7 @@ INV127 = 1.0 / 127.0
 class KVCache:
     k: list  # n_layers tensors [B, KV, S, hd]
     v: list
-    # int8 mode only: n_layers f32 scale planes [B, KV, S]; None => dense
+    # int8 mode only: n_layers scale planes [B, KV, S]; None => dense
     ks: list | None = None
     vs: list | None = None
 
@@ -65,11 +74,6 @@ class KVCache:
         device = resolve_device(device)
         quantized = config.kv_dtype == "int8"
         if quantized:
-            if _SCALE_DTYPE_NAME != "float32":
-                raise NotImplementedError(
-                    f"LLAMAGO_KV_SCALE_DTYPE={_SCALE_DTYPE_NAME}: only float32 "
-                    "scale planes are ported; the bf16 scale planes are not "
-                    "yet ported")
             dtype = torch.int8
         elif dtype is None:
             dtype = torch_dtype(config.kv_dtype if config.kv_dtype != "auto"
@@ -85,8 +89,8 @@ class KVCache:
             return KVCache(k=mk(shape, dtype), v=mk(shape, dtype))
         # zero scales: an unwritten row dequantizes to exactly zero
         return KVCache(k=mk(shape, dtype), v=mk(shape, dtype),
-                       ks=mk(shape[:-1], torch.float32),
-                       vs=mk(shape[:-1], torch.float32))
+                       ks=mk(shape[:-1], scale_dtype()),
+                       vs=mk(shape[:-1], scale_dtype()))
 
     def slot(self, i: int) -> "KVCache":
         """Views of batch row i: writes through them land in this cache."""
@@ -134,7 +138,8 @@ def write_rows(cache_layer: torch.Tensor, new: torch.Tensor,
 def write_scale_rows(scale_layer: torch.Tensor, new: torch.Tensor,
                      write_pos: torch.Tensor) -> None:
     """In place: scale_layer[b, :, p_b:p_b+T] = new[b] for new [B, T, KV]
-    scales and write_pos [B], placed exactly as `write_rows` places rows."""
+    scales and write_pos [B], placed exactly as `write_rows` places rows,
+    cast to the plane's dtype."""
     b, t = new.shape[:2]
     dev = scale_layer.device
     start = _starts(write_pos, scale_layer.shape[2], t, dev)

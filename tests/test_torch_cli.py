@@ -170,3 +170,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     bad.append(f"{path.relative_to(PKG.parent)}: {name}")
     assert len(list(PKG.rglob("*.py"))) > 15
     assert bad == []
+
+
+def test_every_cuda_source_is_built_and_says_what_it_replaces():
+    from llamago_tpu_torch.ops import _build
+
+    sources = {p.stem: p.read_text() for p in (PKG / "csrc").glob("*.cu")}
+    assert set(_build.SOURCES) == set(sources) and len(sources) >= 8
+    for name, text in sources.items():
+        low = text.lower()
+        assert "replaces llamago_tpu/" in low and "bound" in low, name
+        assert 'extern "C"' in text and "#include <torch" not in text, name

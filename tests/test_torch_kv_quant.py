@@ -9,8 +9,9 @@ and the Engine with `kv_dtype="int8"`. Inputs are made from numpy seeds.
 The JAX kernels run in interpret mode (`FORCE_INTERPRET`): without it the
 JAX package takes `attention_math` for the int8 cache off the TPU, another
 function than its kernels. The port's wrappers take their plain PyTorch
-versions on CPU tensors. Tolerances: quantized values and scales exactly;
-attention 2e-5 absolute in f32, as the JAX package's kernel tests use;
+versions on CPU tensors. Tolerances: quantized values and scales exactly
+(bf16 scale planes, LLAMAGO_KV_SCALE_DTYPE=bfloat16, exactly too where the
+f32 scales agree exactly); attention 2e-5 absolute in f32, as the JAX package's kernel tests use;
 logits 1e-4 (other summation orders through two layers).
 """
 
@@ -27,6 +28,7 @@ from llamago_tpu.ops import attention as jattention
 from llamago_tpu.ops import kernels as jkernels
 from llamago_tpu.ops.cache_write import cache_append_quant as jcache_append_quant
 from llamago_tpu.ops.cache_write import can_fuse_cache_append
+from llamago_tpu.runtime import kv_cache as jkv_cache
 from llamago_tpu.runtime.kv_cache import KVCache as JKVCache
 from llamago_tpu.runtime.kv_cache import quantize_kv_rows as jquantize_kv_rows
 from llamago_tpu_torch.checkpoint.params import params_from_numpy
@@ -121,12 +123,43 @@ def test_kv_cache_needs_cuda_unless_cpu_is_asked(monkeypatch):
         KVCache.create(MODEL_PRESETS["tiny"])
 
 
-def test_bf16_scale_planes_are_not_yet_ported(monkeypatch):
+@pytest.fixture
+def bf16_scales(monkeypatch):
+    """Both packages under LLAMAGO_KV_SCALE_DTYPE=bfloat16. JAX reads the
+    planes' dtype when it traces, so its compiled functions are dropped
+    around the test."""
     monkeypatch.setattr(kv_cache, "_SCALE_DTYPE_NAME", "bfloat16")
+    monkeypatch.setattr(jkv_cache, "_SCALE_DTYPE_NAME", "bfloat16")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def test_kv_cache_bf16_scale_planes(bf16_scales, monkeypatch):
     cfg = MODEL_PRESETS["tiny"].replace(kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="bf16 scale planes are not yet ported"):
+    jcache = JKVCache.create(JPRESETS["tiny"].replace(kv_dtype="int8"), batch=2, layered=True)
+    cache = KVCache.create(cfg, batch=2, device="cpu")
+    assert jcache.ks[0].dtype == jnp.bfloat16
+    for planes in (cache.ks, cache.vs):
+        assert all(a.dtype == torch.bfloat16 and a.shape == jcache.ks[0].shape
+                   and not a.any() for a in planes)
+    assert cache.k[0].dtype == torch.int8 and cache.slot(1).vs[0].dtype == torch.bfloat16
+    dense = KVCache.create(cfg.replace(kv_dtype="auto"), device="cpu")  # dense: unaffected
+    assert not dense.quantized
+    monkeypatch.setattr(kv_cache, "_SCALE_DTYPE_NAME", "float16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         KVCache.create(cfg, device="cpu")
-    KVCache.create(cfg.replace(kv_dtype="auto"), device="cpu")  # dense: unaffected
+
+
+def test_write_scale_rows_rounds_to_a_bf16_plane_like_jax():
+    layer = _rng(3).standard_normal((2, 2, 64)).astype(np.float32)
+    new = _rng(4).standard_normal((2, 4, 2)).astype(np.float32)
+    want = jllama._update_scale(jnp.asarray(layer, jnp.bfloat16), jnp.asarray(new),
+                                jnp.asarray([3, 62], jnp.int32))
+    got = torch.from_numpy(layer).to(torch.bfloat16)
+    write_scale_rows(got, torch.from_numpy(new), torch.tensor([3, 62]))
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
 
 
 @pytest.mark.parametrize("starts", [[60, 2], [64, -3], [63, 0]])
@@ -203,6 +236,29 @@ def test_k3_plain_places_like_write_rows(pos):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k3_plain_matches_jax_kernel_bit_for_bit_with_bf16_scale_planes(dtype):
+    """The row is quantized against its f32 scale; the plane takes the scale
+    rounded to bf16, in both."""
+    b, kv, s, hd = 4, 2, 128, 32
+    caches, jn, tn = _k3_inputs(9, b, kv, s, hd, dtype)
+    pos = [0, s - 1, -3, 2 * s - 1]
+    jcaches = [jnp.asarray(caches[0]), jnp.asarray(caches[1]),
+               jnp.asarray(caches[2], jnp.bfloat16), jnp.asarray(caches[3], jnp.bfloat16)]
+    want = jcache_append_quant(*jcaches, *jn, jnp.asarray(pos, jnp.int32))
+    got = [torch.from_numpy(a.copy()) for a in caches]
+    got[2], got[3] = got[2].to(torch.bfloat16), got[3].to(torch.bfloat16)
+    cache_write.cache_append_quant(*got, *tn, torch.tensor(pos))
+    assert got[2].dtype == torch.bfloat16 and want[2].dtype == jnp.bfloat16
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
+    # against the f32 planes: the same int8 rows, the scale one rounding away
+    f32 = _port_k3(caches, tn, pos)
+    np.testing.assert_array_equal(got[0].numpy(), f32[0])
+    np.testing.assert_array_equal(got[2].float().numpy(),
+                                  torch.from_numpy(f32[2]).to(torch.bfloat16).float().numpy())
+
+
 @pytest.mark.parametrize("case", ["t", "hd", "dtype", "scales", "pos", "contiguous"])
 def test_k3_cuda_arg_checks_reject_unsupported_inputs(case):
     b, kv, s, hd = 2, 2, 64, 64
@@ -263,6 +319,35 @@ def test_k4_k8_plain_small_cache_block(i8dot):
     want = np.asarray(jattention.flash_attention_quant(*map(jnp.asarray, args)))
     got = attention.flash_attention_quant(*map(torch.from_numpy, args))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def _bf16_scales(args):
+    """(numpy args with the scales rounded to bf16, JAX args, port args)."""
+    q, k8, v8, pos, ks, vs = args
+    jargs = (jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(pos),
+             jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16))
+    targs = (*map(torch.from_numpy, (q, k8, v8, pos)),
+             torch.from_numpy(ks).to(torch.bfloat16), torch.from_numpy(vs).to(torch.bfloat16))
+    return jargs, targs
+
+
+@pytest.mark.parametrize("i8dot", [True, False], ids=["k4", "k8"], indirect=True)
+@pytest.mark.parametrize("t", [1, 32])
+def test_k4_k8_plain_match_jax_kernels_with_bf16_scale_planes(i8dot, t):
+    """Both widen the bf16 scales to f32 as they read them."""
+    jargs, targs = _bf16_scales(_attn_inputs(3, t, 4, 2, 16, S, [0, 300, S - 1],
+                                             seed=40 + t + i8dot))
+    assert jattention.can_fuse_attention_quant(jargs[0], jargs[1])
+    want = np.asarray(jattention.flash_attention_quant(*jargs))
+    got = attention.flash_attention_quant(*targs)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_attention_math_with_bf16_scales_matches_jax():
+    jargs, targs = _bf16_scales(_attn_inputs(2, 40, 4, 2, 16, 64, [0, 8], seed=41))
+    want = np.asarray(jattention.attention_math(*jargs))
+    np.testing.assert_allclose(attention.attention_math(*targs).numpy(), want, atol=2e-5)
 
 
 @pytest.mark.parametrize("t,pos0", [(1, [3, 60]), (40, [0, 8])])
@@ -417,6 +502,35 @@ def test_prefill_into_slot_int8_matches_jax():
     for planes in (cache.k, cache.v, cache.ks, cache.vs):  # slots 0 and 2 untouched
         assert not planes[0][0].any() and not planes[1][2].any()
     assert (cache.ks[0][1, :, :16] > 0).all()
+
+
+def test_forward_int8_with_bf16_scale_planes_matches_jax(bf16_scales):
+    """Prefill (plain quantize-and-write, cast on the write) then greedy
+    decode (K3 writes, K4 attends) under LLAMAGO_KV_SCALE_DTYPE=bfloat16."""
+    jcfg, jp, cfg, tp = _dense("tiny-gqa", kv_dtype="int8")
+    toks = _rng(5).integers(1, 500, (2, 9)).astype(np.int32)
+    jcache = JKVCache.create(jcfg, batch=2, layered=True)
+    cache = KVCache.create(cfg, batch=2, device="cpu")
+    assert cache.ks[0].dtype == torch.bfloat16 and jcache.ks[0].dtype == jnp.bfloat16
+    jl, jcache = jllama.forward(jp, jnp.asarray(toks), jcache, jnp.zeros(2, jnp.int32), jcfg)
+    tl, cache = llama.forward_impl(tp, torch.from_numpy(toks), cache,
+                                   torch.zeros(2, dtype=torch.long), cfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+    for i in range(4):
+        jt = jnp.argmax(jl, -1).astype(jnp.int32)
+        tt = torch.argmax(tl, -1)
+        assert tt.tolist() == np.asarray(jt).tolist()
+        pos = 9 + i
+        jl, jcache = jllama.forward(jp, jt[:, None], jcache, jnp.full((2,), pos, jnp.int32),
+                                    jcfg)
+        tl, cache = llama.forward_impl(tp, tt[:, None], cache, torch.full((2,), pos), cfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+    for layer in range(cfg.n_layers):
+        assert cache.vs[layer].dtype == torch.bfloat16
+        # f32 scales 1e-5 apart may round to neighbouring bf16 values
+        np.testing.assert_allclose(cache.ks[layer].float().numpy(),
+                                   np.asarray(jcache.ks[layer], np.float32), rtol=2.0 ** -7)
+        assert (cache.ks[layer][:, :, :13] > 0).all()
 
 
 def test_engine_int8_cache_greedy_tokens_match_dense_cache():
