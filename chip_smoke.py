@@ -47,13 +47,25 @@ Phases, each of which fails the run (exit code 1, no result line):
      ops.kernels.USE_FUSED_NORM, switched as module attributes): K1, K2, K7
      and K10 must launch, every other kernel stay at 0. In every other
      serving phase K7 and K10 stay at 0;
+  5. run the kernel lab (`python -m llamago_tpu_torch.kernel_lab`, all 32
+     variants of the small-m int4/int8 matmul) at its full shape, K = 8192,
+     N = 7168, m = 8, 24 layers of distinct weights: each of its nine
+     kernels (rows L2, L3, L6 to L12 of its table) against its plain version
+     for every variant name of its row (activation quantization and the
+     byte-sum probes bit for bit); the lab's own check of every name
+     against x @ dequantize(w) (19 pass, 12 are not checked, `decode_bitcast`
+     is dropped, as in the JAX lab); every name timed on the device side of
+     a trace beside its bound, no reading above 100% of it; the plain
+     versions' times and `x @ W` on a bf16 copy as the library yardstick.
+     The launch counts of the nine kernels and of K1 (both formats) and K9,
+     which carry the lab's other rows, must rise in the lab's run;
 
 then print the serving line (tokens/s, TTFT and peak memory of phases 4 and
 4d side by side, JSON), the card line, the kernels line (JSON) and, last, the device
 line (JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
-result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, small,
+result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
 small_int4, serve, serve_prefill, serve_int8, serve_int4.
 """
 
@@ -71,10 +83,14 @@ import traceback
 import urllib.request
 import uuid
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
-F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+from llamago_tpu_torch.utils.timing import (
+    BF16_OPS_PER_S,
+    F32_OPS_PER_S,
+    INT8_OPS_PER_S,
+    bound_ms,
+    device_busy_us,
+    timed,
+)
 
 # the 7B projections of one decode step: (name, K, N, launches per step)
 K1_SHAPES = (("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
@@ -120,51 +136,6 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def device_busy_us(events) -> float:
-    """Length of the union of the device-side activity spans in a trace."""
-    import torch
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-def timed(fns, iters: int) -> float:
-    """Device time in ms per call over `iters` calls cycling through `fns`,
-    after one warm-up pass: the card's busy time in a torch.profiler
-    trace, so the host's launch cost between small kernels does not count
-    as kernel time. A trace that comes back without device events (seen
-    once in many) is taken again, at most twice."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fns[i % len(fns)]()
-            torch.cuda.synchronize()
-        busy = device_busy_us(prof.events())
-        if busy > 0:
-            return busy / 1e3 / iters
-        log(f"timed: the trace holds no device events (attempt {attempt + 1})")
-    raise AssertionError("the profiler recorded no device activity")
-
-
-def bound_ms(nbytes: float, ops: float,
-             ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
-    """The least time for the work, and which of bytes/operations bound it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -810,6 +781,154 @@ def check_k10(dev, detail: dict) -> dict:
             **{k: 65 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
+# ---------------------------------------------------------------- phase 5
+
+LAB_SHAPE = dict(k=8192, n=7168, m=8, layers=24)
+LAB_STEPS, LAB_REPS = 2, 2  # 96 timed launches of every variant
+# The lab's nine kernels: (row, wrapper's name in the kernels line, the variant
+# whose numbers the line takes, the TPU kernel it replaces).
+LAB_KERNELS = (
+    ("L2", "lab_i4_matmul", "i4native", "scripts/kernel_lab.py:762"),
+    ("L3", "lab_bf16_dequant_matmul", "bf16dot", "scripts/kernel_lab.py:137"),
+    ("L6", "lab_w4a8_matmul", "w4a8", "scripts/kernel_lab.py:497"),
+    ("L7", "lab_w8a8_matmul", "w8a8", "scripts/kernel_lab.py:582"),
+    ("L8", "lab_fulltk_matmul", "w8a8_fulltk", "scripts/kernel_lab.py:609"),
+    ("L9", "lab_bitcast_i4_matmul", "bitcast_i4", "scripts/kernel_lab.py:278"),
+    ("L10", "lab_bitcast_i4_i8dot", "bitcast_i4_i8dot", "scripts/kernel_lab.py:321"),
+    ("L11", "lab_probe", "dma_only", "scripts/kernel_lab.py:245"),
+    ("L12", "lab_w16_matmul", "w16dot", "scripts/kernel_lab.py:209"),
+)
+# x max|ref|, kernel against plain version at the lab's full shape. Both
+# decode a weight to the same bits (the bf16 roundings of L3, L9 and L12
+# included) and both take exact integer dots of the same xq, so they differ
+# by the order of their f32 sums alone (split K, warps, FMA).
+LAB_TOL = {"L2": K1_TOL["float32"], "L3": K1_TOL["float32"], "L9": K1_TOL["float32"],
+           "L12": K1_TOL["float32"], "L6": 1e-5, "L7": 1e-5, "L8": 1e-5, "L10": 1e-5}
+# L11's column sums, x K * 8 * max|s| (the most a column's terms can add up
+# to): the order of the f32 sums; the two byte-sum probes are exact
+LAB_PROBE_TOL = {"decode_only": 1e-5, "decode_bitcast": 1e-5, "dma_only": 0.0,
+                 "dma_pure": 0.0}
+
+
+def check_lab(dev, detail: dict) -> dict:
+    """Phase 5 (module docstring). Returns the kernels-line numbers of the
+    lab's nine kernels by wrapper name; the launch counts are set to 0 just
+    before the lab's run and read just after it."""
+    import torch
+
+    from llamago_tpu_torch import kernel_lab
+    from llamago_tpu_torch.ops import lab_kernels as lk
+
+    k, n, m, layers = (LAB_SHAPE[key] for key in ("k", "n", "m", "layers"))
+    tk = lk.default_tk(k)
+    new_rows = {row for row, *_ in LAB_KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((max(8, m), k), generator=gen, device=dev).to(torch.bfloat16)
+    x[1, 64:96] = 0  # a zero block: sx = 1
+    leaves = {fmt: kernel_lab.make_layers(fmt, k, n, 1, dev, seed=18)[0]
+              for fmt in ("q4", "q8", "w16")}
+    leaves["i4"] = lk.to_i4(leaves["q4"])
+
+    # (a) the activation quantization, then every name of the nine rows
+    xq, sx = lk.quantize_x_blocks_cuda(x)
+    pq, ps = lk.hoist_a8(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(sx, ps) and torch.equal(xq, pq.transpose(0, 1).reshape(xq.shape))):
+        raise AssertionError("lab: xq / sx of the quantization kernel differ from hoist_a8")
+    if sx[2, 1].item() != 1.0:
+        raise AssertionError(f"lab: the zero block's scale is {sx[2, 1].item()}")
+    log("lab: xq and sx of the quantization kernel bit-exact against the plain version")
+    errs: dict[str, float] = {}
+    for name, v in kernel_lab.VARIANTS.items():
+        if v.row not in new_rows or v.counter is None:
+            continue
+        leaf = leaves[v.fmt]
+        ops = kernel_lab.HOISTS[v.hoist](x, tk)
+        before = getattr(*v.counter)
+        got = v.fn(ops, leaf, tk)
+        ref = v.plain(ops, leaf, tk)
+        torch.cuda.synchronize()
+        if getattr(*v.counter) != before + 1 or got.shape != (max(8, m), n) \
+                or got.dtype != torch.float32 or not torch.isfinite(got).all():
+            raise AssertionError(f"lab {name}: no launch counted, or a wrong or non-finite "
+                                 "output")
+        if v.row == "L11":
+            scale = k * 8 * leaf["s"].float().abs().max().item()
+            tol = LAB_PROBE_TOL[name]
+        else:
+            scale, tol = ref.abs().max().item(), LAB_TOL[v.row]
+        err = (got - ref).abs().max().item() / scale
+        if not err <= tol:
+            raise AssertionError(f"lab {name} ({v.row}): max|d| / {scale:.3g} = {err:.3g} > "
+                                 f"{tol}")
+        errs[name] = err
+        log(f"lab {name:28s} ({v.row}): kernel vs plain max|d|/scale {err:.2e} (tol {tol})")
+    del leaves
+    torch.cuda.empty_cache()
+
+    # (b), (c) the lab itself, through its entry point's sweep; decode_bitcast
+    # fails the lab's check by design and is timed all the same
+    reset_launch_counts()
+    result = kernel_lab.run(list(kernel_lab.VARIANTS), dev, k=k, n=n, m=m, layers=layers,
+                            steps=LAB_STEPS, reps=LAB_REPS, time_dropped=True)
+    if len(result["checked"]) != 19 or sorted(result["skipped"]) != sorted(
+            kernel_lab.SKIP_CHECK) or list(result["dropped"]) != ["decode_bitcast"]:
+        raise AssertionError(f"lab: the check passed {sorted(result['checked'])}, skipped "
+                             f"{result['skipped']}, dropped {result['dropped']}; expected 19 "
+                             "passes, the 12 of the skip list, and decode_bitcast dropped")
+    timed_rows = {r["name"]: r for r in result["timed"]}
+    by_fmt = result.pop("layers")  # the 24 layers of each weight format
+    launches = launch_counts()
+    over = {nm: r["bound_share"] for nm, r in timed_rows.items() if r["bound_share"] > 1.0}
+    if len(timed_rows) != 32 or over:
+        raise AssertionError(f"lab: {len(timed_rows)} names timed; readings above 100% of "
+                             f"the bound: {over}")
+    idle = [key for key in ("dequant_matmul", "dequant_matmul_q4", "dequant_matmul_so",
+                            *(nm for _, nm, *_ in LAB_KERNELS)) if launches[key] == 0]
+    if idle:
+        raise AssertionError(f"lab: {idle} never launched in the lab's run: {launches}")
+
+    # plain versions and the library yardstick at the same shape: x @ W on the
+    # bf16 layers is one number for every product row; the byte probes are one
+    # column sum each (of all the packed rows, of the corner of every span);
+    # the two decode probes are no single call
+    lib_ms = timed([lambda w=w: x @ w["w16"] for w in by_fmt["w16"]], 4 * layers)
+    lib_probe = {
+        "decode_only": None, "decode_bitcast": None,
+        "dma_only": timed([lambda w=w: w["q4"].sum(0, dtype=torch.float32)
+                           for w in by_fmt["q4"]], 4 * layers),
+        "dma_pure": timed([lambda w=w: w["q4"].view(k // tk, tk // 2, n)[:, :8].sum(
+            (0, 1), dtype=torch.float32) for w in by_fmt["q4"]], 4 * layers)}
+    for name, v in kernel_lab.VARIANTS.items():
+        ops = kernel_lab.HOISTS[v.hoist](x, tk)
+        row = timed_rows[name]
+        row["plain_ms"] = timed([lambda w=w: v.plain(ops, w, tk) for w in by_fmt[v.fmt][:4]], 4)
+        row["library_ms"] = lib_probe[name] if v.row == "L11" else lib_ms
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        log(f"lab {name:28s} ({v.row}): kernel {row['kernel_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library ({'x@W bf16' if v.row != 'L11' else 'sum'}) "
+            f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+            f"{row['bound_share']:.1%}, other device {row['other_device_ms']:.4f} ms")
+    del by_fmt
+    torch.cuda.empty_cache()
+    detail["lab"] = {"shape": {**LAB_SHAPE, "tk": tk, "steps": LAB_STEPS, "reps": LAB_REPS},
+                     "checked": result["checked"], "skipped": result["skipped"],
+                     "dropped": result["dropped"], "kernel_vs_plain": errs,
+                     "launches": launches, "variants": list(timed_rows.values())}
+    out = {}
+    for row, wrapper, variant, replaces in LAB_KERNELS:
+        r = timed_rows[variant]
+        out[wrapper] = {
+            "name": wrapper, "route": "cuda",
+            "source": "llamago_tpu_torch/csrc/lab_matmul.cu", "replaces": replaces,
+            "launches": launches[wrapper],
+            "max_abs_err": max(e for nm, e in errs.items()
+                               if kernel_lab.VARIANTS[nm].row == row),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
 
 def _to_cpu(tree):
@@ -1028,6 +1147,7 @@ def _byte_vocab(vocab_size: int):
 def _launch_counters():
     """(wrapper, attribute) holding each kernel's launch count, by name."""
     from llamago_tpu_torch.ops import attention, cache_write, kernels
+    from llamago_tpu_torch.ops import lab_kernels as lk
 
     return {"dequant_matmul": (kernels.dequant_matmul, "launches"),
             "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
@@ -1041,7 +1161,16 @@ def _launch_counters():
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
                                             "launches_i8dot"),
             "flash_attention_quant_widening": (attention.flash_attention_quant,
-                                               "launches_widening")}
+                                               "launches_widening"),
+            "lab_i4_matmul": (lk.i4_matmul, "launches"),
+            "lab_bf16_dequant_matmul": (lk.bf16_dequant_matmul, "launches"),
+            "lab_w4a8_matmul": (lk.w4a8_matmul, "launches"),
+            "lab_w8a8_matmul": (lk.w8a8_matmul, "launches"),
+            "lab_fulltk_matmul": (lk.fulltk_matmul, "launches"),
+            "lab_bitcast_i4_matmul": (lk.bitcast_i4_matmul, "launches"),
+            "lab_bitcast_i4_i8dot": (lk.bitcast_i4_i8dot, "launches"),
+            "lab_probe": (lk.probe, "launches"),
+            "lab_w16_matmul": (lk.w16_matmul, "launches")}
 
 
 def reset_launch_counts() -> None:
@@ -1325,6 +1454,7 @@ def main(argv: list[str]) -> int:
     k9 = check_k9(dev, detail) if want("k9") else {}
     k7 = check_k7(dev, detail) if want("k7") else {}
     k10 = check_k10(dev, detail) if want("k10") else {}
+    lab = check_lab(dev, detail) if want("lab") else {}
     k8_launches = check_small_model(dev) if want("small") else 0
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
@@ -1412,6 +1542,9 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/rms_norm.cu",
          "replaces": "llamago_tpu/ops/kernels.py:599",
          "launches": served_p["launches"]["fused_rms_norm"], **k10},
+        # the lab's nine kernels, launches counted in the lab's run (phase 5)
+        *(lab.get(wrapper, {"name": wrapper, "launches": 0})
+          for _, wrapper, *_ in LAB_KERNELS),
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 SOURCES = ("dequant_matmul", "attn_decode", "cache_append", "attn_decode_quant",
-           "w4x8_matmul", "dequant_matmul_so", "attn_prefill", "rms_norm")
+           "w4x8_matmul", "dequant_matmul_so", "attn_prefill", "rms_norm", "lab_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,82 @@
+"""Device-side timing and roofline bounds, shared by `chip_smoke.py` and the
+kernel lab.
+
+Times come from the device side of a torch.profiler trace, so the host's
+launch cost between small kernels does not count as kernel time. Bounds are
+against the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
+dense bf16 and 1,979 TOP/s dense int8 in the tensor cores, 67 TFLOP/s f32
+outside them.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+
+
+def _device_events(events):
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_busy_us(events) -> float:
+    """Length of the union of the device-side activity spans in a trace."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in _device_events(events))
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def device_us_by_name(events) -> dict[str, float]:
+    """Device time of a trace summed by kernel (or copy) name."""
+    by_name: dict[str, float] = {}
+    for e in _device_events(events):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return by_name
+
+
+def profiled(fn, attempts: int = 3):
+    """Run fn() under a device-side torch.profiler trace, synchronize, and
+    return the trace's events. A trace that comes back without device events
+    (seen once in many) is taken again, at most `attempts` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if device_busy_us(events) > 0:
+            return events
+        print(f"[timing] the trace holds no device events (attempt {attempt + 1})",
+              file=sys.stderr, flush=True)
+    raise AssertionError("the profiler recorded no device activity")
+
+
+def timed(fns, iters: int) -> float:
+    """Device time in ms per call over `iters` calls cycling through `fns`,
+    after one warm-up pass: the card's busy time in a torch.profiler trace."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(iters):
+            fns[i % len(fns)]()
+
+    return device_busy_us(profiled(run)) / 1e3 / iters
+
+
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    """The least time for the work, and which of bytes/operations bound it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
