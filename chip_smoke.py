@@ -14,10 +14,12 @@ Phases, each of which fails the run (exit code 1, no result line):
      yardstick the port never calls) and the bound (the larger of bytes
      over 3.35 TB/s and operations over the peak rate of their type: 989
      TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
-     K1 (Q8_0 and Q4_0), K2, K3, K4, K8 (the three of the int8 cache with
-     f32 and with bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8
-     stream matmul), K9 (scale-on-output matmul), K7 (flash prefill
-     attention) and K10 (fused RMSNorm);
+     K1 (Q8_0 and Q4_0, each of its three forms: the GEMV up to 8 rows,
+     above that the tensor-core tile for bf16 x and the f32 tile for f32
+     x), K2, K3, K4, K8 (the three of the int8 cache with f32 and with
+     bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8 stream matmul),
+     K9 (scale-on-output matmul), K7 (flash prefill attention) and K10
+     (fused RMSNorm);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -25,24 +27,29 @@ Phases, each of which fails the run (exit code 1, no result line):
      USE_FUSED_NORM: K10) and the int8 cache with bf16 scale planes, then
      int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
-     the Q4_0 format with the scale-on-output switch on (K9);
+     the Q4_0 format with the scale-on-output switch on (K9); then the
+     dense cache in bf16 on the card against the CPU's f32 (K1's
+     tensor-core tile must launch);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
-     greedy job twice. The launch counts of K1 and K2 must rise while
-     serving, those of the int8 cache's kernels stay 0. Then one decode
-     chunk of the 4 slots is timed and traced for where a decode step's
-     time goes (device busy share, top kernels and host ops);
+     greedy job twice. The launch counts of K1 (its tensor-core tile too:
+     every prompt's prefill) and K2 must rise while serving, those of the
+     int8 cache's kernels stay 0. Then one 64-token prefill chunk is timed
+     and traced (device busy time, K1's share of it) and one decode chunk
+     of the 4 slots for where a decode step's time goes (device busy
+     share, top kernels and host ops);
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
-     16 jobs, after phase 4's engine is freed: K1, K3 and K4 must launch,
-     K2 and K8 not;
+     16 jobs, after phase 4's engine is freed: K1 (and its tensor-core
+     tile), K3 and K4 must launch, K2 and K8 not;
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
-     and K2 must launch, every other kernel stay at 0;
+     and K2 must launch, every other kernel (K1's tile too) stay at 0;
   4d. Q8_0 weights and the bf16 cache on 4 slots again, now with 8 jobs of
      which four bring prompts of about 600 tokens (prefill chunks of 256,
      256 and 128 tokens), run twice: with the default routes (the einsum
-     attention materializes the scores; K1 and K2 launch, as in phase 4),
+     attention materializes the scores; K1 and K2 launch, as in phase 4;
+     a 256-token prefill chunk is profiled beside the 64-token one),
      then with the opt-in routes on (LLAMAGO_ATTN_PREFILL_FLOOR=0 and
      ops.kernels.USE_FUSED_NORM, switched as module attributes): K1, K2, K7
      and K10 must launch, every other kernel stay at 0. In every other
@@ -60,8 +67,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      The launch counts of the nine kernels and of K1 (both formats) and K9,
      which carry the lab's other rows, must rise in the lab's run;
 
-then print the serving line (tokens/s, TTFT and peak memory of phases 4 and
-4d side by side, JSON), the card line, the kernels line (JSON) and, last, the device
+then print the serving line (tokens/s, TTFT, peak memory and the prefill
+chunks' device time of phases 4 and 4d side by side, JSON), the card line, the kernels line (JSON) and, last, the device
 line (JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
@@ -75,6 +82,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -89,6 +97,7 @@ from llamago_tpu_torch.utils.timing import (
     INT8_OPS_PER_S,
     bound_ms,
     device_busy_us,
+    device_us_by_name,
     timed,
 )
 
@@ -131,6 +140,16 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
+def _kernel_name(symbol: str) -> str:
+    """A kernel's name and the start of its template arguments from its
+    mangled symbol in a source's anonymous namespace (else the symbol)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", symbol)
+    if m is None:
+        return symbol[:60]
+    n = int(m.group(1))
+    return symbol[m.end():m.end() + n] + " " + symbol[m.end() + n:m.end() + n + 16]
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -167,21 +186,24 @@ def _leaf_bytes(w: dict) -> int:
 
 
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
-                 other_m: tuple, ops_per_s: float, seed: int, step_m: int = 4) -> dict:
+                 other_m: tuple, ops_per_s, seed: int) -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
-    and bf16 x (and f32 scales at the wqkv shape, as a file brings them,
-    where the kernel takes them) at the row counts `timed_m`, which are also
-    timed in bf16, and at the wqkv shape at `other_m`. Returns the kernels
-    line's numbers: one decode step (or one pass over the five shapes) at
-    `step_m` rows."""
+    and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
+    with both x dtypes, where the kernel takes them) at the row counts
+    `timed_m`, which are also timed in bf16, and at the wqkv shape at
+    `other_m`. `ops_per_s(m)` is the peak rate of the kernel's operations
+    at m rows. Returns the largest error by (m, x dtype) and, for each
+    timed m, the kernels line's numbers over one pass of the five shapes
+    (one decode step at decode rows, one prefill pass at prefill rows)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    max_err = 0.0
+    steps = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+             for m in timed_m}
+    errs: dict = {}
     rows = []
     for name, k, n, per_step in (K1_SHAPES if fmt == "q8" else INT4_SHAPES):
         ws = [_random_leaf(gen, dev, fmt, k, n)]
@@ -191,10 +213,10 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
         ws += [_random_leaf(gen, dev, fmt, k, n) for _ in range(copies - 1)]
         cases = [("float32", ws[0]), ("bfloat16", ws[0])]
         if name == "wqkv" and fmt != "q4x":
-            cases.append(("float32", {**ws[0], "s": ws[0]["s"].float()}))
+            f32_scales = {**ws[0], "s": ws[0]["s"].float()}
+            cases += [("float32", f32_scales), ("bfloat16", f32_scales)]
 
         def check(m):
-            nonlocal max_err
             for xdt, w in cases:
                 x = torch.randn((m, k), generator=gen, device=dev).to(getattr(torch, xdt))
                 got = kernel(x, w).float()
@@ -204,7 +226,7 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
                 if not err <= K1_TOL[xdt]:
                     raise AssertionError(f"{tag} {name} m={m} x={xdt}: max|d|/max|ref| "
                                          f"{err:.3g} > {K1_TOL[xdt]}")
-                max_err = max(max_err, err)
+                errs[(m, xdt)] = max(errs.get((m, xdt), 0.0), err)
 
         if name == "wqkv":
             for m in other_m:
@@ -218,34 +240,65 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
             lib = timed([lambda d=d: x @ d for d in deqs], 20 * copies)
             del deqs
             bnd, by = bound_ms(_leaf_bytes(ws[0]) + m * k * 2 + m * n * 2, 2.0 * m * k * n,
-                               ops_per_s)
+                               ops_per_s(m))
             rows.append(dict(name=name, m=m, k=k, n=n, ms=kern, plain_ms=plain_ms,
                              library_ms=lib, bound_ms=bnd, bound_by=by))
             log(f"{tag} {name:8s} m={m:3d} K={k} N={n}: kernel {kern:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, x@W bf16 {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-            if m == step_m:
-                for key, v in (("ms", kern), ("plain_ms", plain_ms), ("library_ms", lib),
-                               ("bound_ms", bnd)):
-                    step[key] += per_step * v
-                step["bound_by"] = by
+            for key, v in (("ms", kern), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("bound_ms", bnd)):
+                steps[m][key] += per_step * v
+            steps[m]["bound_by"] = by
         del ws
         torch.cuda.empty_cache()
+    for m, step in steps.items():
+        log(f"{tag} one pass at m={m}: kernel {step['ms']:.3f} ms, plain "
+            f"{step['plain_ms']:.3f} ms, x@W bf16 {step['library_ms']:.3f} ms, bound "
+            f"{step['bound_ms']:.3f} ms ({step['bound_by']})")
     detail[tag.lower().replace(" ", "_")] = rows
-    return {"max_abs_err": max_err, **step}
+    return errs, steps
 
 
-def check_k1(dev, detail: dict, fmt: str = "q8") -> dict:
-    """K1 (Q8_0, or Q4_0 with fmt "q4") at m=4 (decode) and m=64 (the
-    prefill bucket of the smoke's prompts), checked and timed; the other row
-    counts the serving path produces (1, 2 and 8 slots: the GEMV's other
-    templates; the prefill buckets 16 and 32) checked at the wqkv shape. Its
-    arithmetic is f32 outside the tensor cores."""
+def _line(errs: dict, steps: dict, m: int, keep=lambda m, xdt: True) -> dict:
+    """A kernels-line entry: the largest error over the (m, x dtype) cases
+    `keep` names, and the pass at m rows."""
+    return {"max_abs_err": max(e for key, e in errs.items() if keep(*key)), **steps[m]}
+
+
+def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict]:
+    """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms: checked and
+    timed at m=4 (decode: the GEMV, f32 FMA), m=64 (the prefill bucket of
+    the smoke's prompts) and m=256 (the long prompts' chunks), both on the
+    tensor-core tile for bf16 x (bf16 operations) and on the f32 tile for
+    f32 x; the other row counts the serving path produces (1, 2 and 8
+    slots: the GEMV's other templates; 9, 16, 17, 32 and 100 rows: every
+    row tiling of the tensor-core form and ragged ones) checked at the wqkv
+    shape. Every call must take the form `k1_form` names (`launches_tc`
+    counts the tensor-core tile). Returns the kernels line's numbers of the
+    GEMV and f32 tile (one decode step at m=4) and of the tensor-core tile
+    (one prefill pass at m=64)."""
     from llamago_tpu_torch.ops import kernels
 
-    return check_matmul(dev, detail, "K1" if fmt == "q8" else "K1 q4", fmt,
-                        kernels.dequant_matmul, kernels.dequant_matmul_plain,
-                        timed_m=(4, 64), other_m=(1, 2, 8, 16, 32),
-                        ops_per_s=F32_OPS_PER_S, seed=1 if fmt == "q8" else 7)
+    def k1(x, w):
+        before = kernels.dequant_matmul.launches_tc
+        out = kernels.dequant_matmul(x, w)
+        tc = kernels.k1_form(x.shape[0], x.dtype) == "tensor_core"
+        if kernels.dequant_matmul.launches_tc - before != int(tc):
+            raise AssertionError(f"K1 m={x.shape[0]} x={x.dtype}: the tensor-core count "
+                                 f"went from {before} to {kernels.dequant_matmul.launches_tc}")
+        return out
+
+    errs, steps = check_matmul(
+        dev, detail, "K1" if fmt == "q8" else "K1 q4", fmt, k1,
+        kernels.dequant_matmul_plain, timed_m=(4, 64, 256),
+        other_m=(1, 2, 8, 9, 16, 17, 32, 100),
+        ops_per_s=lambda m: F32_OPS_PER_S if m <= 8 else BF16_OPS_PER_S,
+        seed=1 if fmt == "q8" else 7)
+    if not any(m > 8 and xdt == "float32" for m, xdt in errs):
+        raise AssertionError("K1: the f32 tile was not checked")
+    tc = lambda m, xdt: m > 8 and xdt == "bfloat16"  # noqa: E731
+    return (_line(errs, steps, 4, lambda m, xdt: not tc(m, xdt)),
+            _line(errs, steps, 64, tc))
 
 
 def check_k5(dev, detail: dict) -> dict:
@@ -276,12 +329,13 @@ def check_k5(dev, detail: dict) -> dict:
                                  f"{xq[3, :5].tolist()}, {sx[2, 1].item()}")
         log(f"K5 {str(dt).split('.')[-1]}: xq and sx bit-exact against the plain version")
     before = kernels.w4x8_matmul.launches_stream
-    out = check_matmul(dev, detail, "K5", "q4x", kernels.w4x8_matmul,
-                       kernels.w4x8_matmul_a8_plain, timed_m=(4, 16),
-                       other_m=(1, 2, 3, 8, 9), ops_per_s=INT8_OPS_PER_S, seed=9)
+    errs, steps = check_matmul(dev, detail, "K5", "q4x", kernels.w4x8_matmul,
+                               kernels.w4x8_matmul_a8_plain, timed_m=(4, 16),
+                               other_m=(1, 2, 3, 8, 9), ops_per_s=lambda m: INT8_OPS_PER_S,
+                               seed=9)
     if kernels.w4x8_matmul.launches_stream != before:
         raise AssertionError("K5: a call of at most 16 rows took the stream kernel")
-    return out
+    return _line(errs, steps, 4)
 
 
 def check_k6(dev, detail: dict) -> dict:
@@ -292,12 +346,12 @@ def check_k6(dev, detail: dict) -> dict:
     from llamago_tpu_torch.ops import kernels
 
     before = kernels.w4x8_matmul.launches_a8
-    out = check_matmul(dev, detail, "K6", "q4x", kernels.w4x8_matmul,
-                       kernels.w4x8_matmul_stream_plain, timed_m=(64,), other_m=(17, 32),
-                       ops_per_s=F32_OPS_PER_S, seed=10, step_m=64)
+    errs, steps = check_matmul(dev, detail, "K6", "q4x", kernels.w4x8_matmul,
+                               kernels.w4x8_matmul_stream_plain, timed_m=(64,),
+                               other_m=(17, 32), ops_per_s=lambda m: F32_OPS_PER_S, seed=10)
     if kernels.w4x8_matmul.launches_a8 != before:
         raise AssertionError("K6: a call of more than 16 rows took the W4A8 kernel")
-    return out
+    return _line(errs, steps, 64)
 
 
 def check_k9(dev, detail: dict) -> dict:
@@ -309,10 +363,11 @@ def check_k9(dev, detail: dict) -> dict:
 
     out = {}
     for fmt in ("q8", "q4"):
-        out[fmt] = check_matmul(dev, detail, f"K9 {fmt}", fmt, kernels.dequant_matmul_so,
-                                kernels.dequant_matmul_so_plain, timed_m=(4,),
-                                other_m=(1, 3, 8), ops_per_s=F32_OPS_PER_S,
-                                seed=11 if fmt == "q8" else 12)
+        errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, kernels.dequant_matmul_so,
+                                   kernels.dequant_matmul_so_plain, timed_m=(4,),
+                                   other_m=(1, 3, 8), ops_per_s=lambda m: F32_OPS_PER_S,
+                                   seed=11 if fmt == "q8" else 12)
+        out[fmt] = _line(errs, steps, 4)
     return out["q4"]
 
 
@@ -939,6 +994,12 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# card (bf16 compute) against CPU (f32), x max|logit|: bf16 activations,
+# norms and attention round at every layer. On an H100 this phase logs
+# 9.7e-3 (t=1), 4.6e-2 (t=16) and 2.9e-2 (t=40); about twice the largest.
+SMALL_BF16_LOGIT_TOL = 0.1
+
+
 def check_small_model(dev) -> int:
     """A small Q8_0 GQA model with head_dim 128: logits through the kernels
     on the card against the plain versions on the CPU (f32 compute), and
@@ -946,7 +1007,9 @@ def check_small_model(dev) -> int:
     the int8 cache under K4 and under K8 (LLAMAGO_ATTN_I8DOT off), then the
     dense cache with the prefill floor at 0 and USE_FUSED_NORM on (K7 and
     K10 must launch; the prompt fills a 64-token bucket), then the int8
-    cache with bf16 scale planes (card and CPU under the same scale dtype).
+    cache with bf16 scale planes (card and CPU under the same scale dtype);
+    last, logits of the dense cache with bf16 compute on the card against
+    the CPU's f32 ones (K1's tensor-core tile takes the prefill windows).
     Returns the launches of K8 in its run."""
     import torch
 
@@ -1032,6 +1095,29 @@ def check_small_model(dev) -> int:
     attention._I8DOT = default
     attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = floor, fused
     kv_cache._SCALE_DTYPE_NAME = scale_name
+    # bf16 compute on the card (dense cache) against the CPU's f32 logits:
+    # the prefill windows (80 and 32 rows) take K1's tensor-core tile
+    bf16 = dense.replace(dtype="bfloat16")
+    reset_launch_counts()
+    for t in (40, 16, 1):
+        x = toks[:, :t]
+        wp = torch.tensor([0, 7])
+        lg, _ = forward_impl(gpu, x.to(dev), KVCache.create(bf16, batch=2, device=dev),
+                             wp.to(dev), bf16)
+        lc, _ = forward_impl(cpu, x, KVCache.create(dense, batch=2, device="cpu"), wp, dense)
+        lg = lg.float().cpu()
+        if not torch.isfinite(lg).all():
+            raise AssertionError("small model, bf16: non-finite logits on the card")
+        err = (lg - lc).abs().max().item() / lc.abs().max().item()
+        log(f"small model, bf16 on the card, t={t}: vs CPU f32 logits max|d|/max|ref| "
+            f"{err:.2e}")
+        if not err <= SMALL_BF16_LOGIT_TOL:
+            raise AssertionError(f"small model, bf16, t={t}: logits differ, "
+                                 f"{err:.3g} > {SMALL_BF16_LOGIT_TOL}")
+    counts = launch_counts()
+    log(f"small model, bf16: launches {counts}")
+    if counts["dequant_matmul_tc"] == 0:
+        raise AssertionError(f"small model, bf16: K1's tensor-core tile never launched: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
     return k8_launches
@@ -1151,6 +1237,7 @@ def _launch_counters():
 
     return {"dequant_matmul": (kernels.dequant_matmul, "launches"),
             "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
+            "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
             "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
@@ -1329,6 +1416,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
                                  f"{first[1]} vs {second[1]}")
     finally:
         server.shutdown()
+    prefill = {t: profile_prefill(engine, t) for t in ((64, 256) if long_prompts else (64,))}
     step = profile_decode(engine, chunk)
     result = {
         "model": f"7B {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
@@ -1339,7 +1427,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
         "served_tokens_per_s": generated / t_total,
         "ttft_ms_p50": metrics["ttft_ms"]["p50"], "ttft_ms_p95": metrics["ttft_ms"]["p95"],
         "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "decode_step": step,
+        "prefill_chunk": prefill, "decode_step": step,
     }
     log(f"{cfg.weight_dtype} weights, {cfg.kv_dtype} cache, {slots} slots: served "
         f"{generated} tokens in {t_total:.2f} s = "
@@ -1347,6 +1435,45 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
         f"p95 {result['ttft_ms_p95']} ms (p50 by prompt tokens {ttft}), peak {result['peak_gib']:.2f} GiB on the card, "
         f"launches {launches}")
     return result
+
+
+def profile_prefill(engine, t: int, traced: int = 3) -> dict:
+    """Where a prefill chunk's time goes, apart from the host noise of
+    TTFT: one t-token prefill into slot 0 (bucket t), timed by the host
+    clock (synchronized), then `traced` more under torch.profiler for the
+    device busy time per chunk and the share of it that K1's kernels (named
+    dq_*: the tensor-core tile, its reduce, the head's GEMV) take."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = [5] * t
+
+    def run():
+        engine._prefill(0, ids, write_pos=0)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            run()
+    busy = device_busy_us(prof.events())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device activity")
+    by_name = device_us_by_name(prof.events())
+    k1 = sum(v for k, v in by_name.items() if "dq_" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"tokens": t, "host_ms": host_ms, "device_busy_ms": busy / 1e3 / traced,
+           "k1_ms": k1 / 1e3 / traced, "k1_share_of_busy": k1 / busy,
+           "top_kernels_ms": {k: v / 1e3 / traced for k, v in top}}
+    log(f"prefill chunk of {t} tokens: {host_ms:.2f} ms host-timed, device busy "
+        f"{out['device_busy_ms']:.3f} ms, K1 {out['k1_ms']:.3f} ms "
+        f"({out['k1_share_of_busy']:.1%} of busy)")
+    for k, v in out["top_kernels_ms"].items():
+        log(f"  device {v:8.3f} ms/chunk  {k[:100]}")
+    return out
 
 
 def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
@@ -1430,9 +1557,12 @@ def main(argv: list[str]) -> int:
     ptxas = _build.build_all(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
     for name, text in ptxas.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = _kernel_name(line.split("Function properties for")[-1].strip())
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {fn}: {line.strip()}")
     # float32 products in the references run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1444,11 +1574,11 @@ def main(argv: list[str]) -> int:
     def want(phase: str) -> bool:
         return only is None or phase in only
 
-    k1 = check_k1(dev, detail) if want("k1") else {}
+    k1, k1tc = check_k1(dev, detail) if want("k1") else ({}, {})
     k2 = check_k2(dev, detail) if want("k2") else {}
     k3 = check_k3(dev, detail) if want("k3") else {}
     k4, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {})
-    k1q4 = check_k1(dev, detail, "q4") if want("k1q4") else {}
+    k1q4, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6 = check_k6(dev, detail) if want("k6") else {}
     k9 = check_k9(dev, detail) if want("k9") else {}
@@ -1465,25 +1595,26 @@ def main(argv: list[str]) -> int:
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
         if want("serve"):
             served = serve(dev, cfg, params, slots=4, n_jobs=8,
-                           rise=("dequant_matmul", "flash_attention"))
+                           rise=("dequant_matmul", "dequant_matmul_tc", "flash_attention"))
             gc.collect()  # the phase 4 engine and its cache
             torch.cuda.empty_cache()
         if want("serve_prefill"):
             # phase 4d: long prompts, the default routes and then the opt-in ones
             served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
-                             rise=("dequant_matmul", "flash_attention"))
+                             rise=("dequant_matmul", "dequant_matmul_tc", "flash_attention"))
             gc.collect()
             torch.cuda.empty_cache()
             with opt_in_routes():
                 served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
-                                 rise=("dequant_matmul", "flash_attention",
-                                       "flash_attention_prefill", "fused_rms_norm"))
+                                 rise=("dequant_matmul", "dequant_matmul_tc",
+                                       "flash_attention", "flash_attention_prefill",
+                                       "fused_rms_norm"))
             gc.collect()
             torch.cuda.empty_cache()
         if want("serve_int8"):
             served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
-                             rise=("dequant_matmul", "cache_append_quant",
-                                   "flash_attention_quant_i8dot"))
+                             rise=("dequant_matmul", "dequant_matmul_tc",
+                                   "cache_append_quant", "flash_attention_quant_i8dot"))
         del params
         gc.collect()  # the int8 weights, the phase 4b engine and its cache
         torch.cuda.empty_cache()
@@ -1501,6 +1632,11 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": served["launches"]["dequant_matmul"], **k1},
+        # K1's tensor-core tile: its launches in phase 4, one prefill pass at m=64
+        {"name": "dequant_matmul_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
         {"name": "flash_attention", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode.cu",
          "replaces": "llamago_tpu/ops/attention.py:230",
@@ -1548,8 +1684,11 @@ def main(argv: list[str]) -> int:
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
+    prefill_keys = ("device_busy_ms", "k1_ms", "k1_share_of_busy")
     serving_line = {"serving": {
-        name: {k: run.get(k) for k in keys}
+        name: {**{k: run.get(k) for k in keys},
+               "prefill_chunk": {t: {k: p[k] for k in prefill_keys}
+                                 for t, p in run.get("prefill_chunk", {}).items()}}
         for name, run in (("4: 48-token prompts, default routes", served),
                           ("4d: half 600-token prompts, default routes", served_d),
                           ("4d: half 600-token prompts, K7 and K10 on", served_p))}}

@@ -30,9 +30,38 @@
 //    fill the card. Partial sums go to an f32 workspace and a second small
 //    kernel adds them in a fixed order, so results are the same from run
 //    to run (no atomics).
-//  * M > 8 takes a plain shared-memory tiled f32 kernel (64x64 output tile,
-//    one quant block of K per step, 4x4 outputs per thread). Tensor cores,
-//    TMA and wgmma are later work.
+//  * M > 8 with bf16 x takes the tensor-core tile (dq_tc). At a prefill
+//    chunk (M = 64) the work is still bound by the weight stream (128
+//    operations per weight byte, under the card's bf16 ridge of ~295), at
+//    M = 256 by the bf16 operations; f32 FMA (67 TFLOP/s) would bound it at
+//    five times either. So the block's dot runs on mma.sync.m16n8k16 (bf16
+//    in, f32 accumulate). The weights are exact in bf16 (int8, or a nibble
+//    - 8) and so is x; every product is exact in f32. Per 32-row quant block
+//    two k16 mma steps go into a zeroed block sum, which is then multiplied
+//    by the block's scale and added to the output sum: out = sum_b s_b *
+//    (x_b . q_b), the TPU kernel's function with its f32 sums in another
+//    order, and no q * s product is rounded to bf16. A block owns 64 rows
+//    (fewer for M <= 32) by 128 columns and a split of K by whole quant
+//    blocks: raw weight bytes, scales and x go from device memory to shared
+//    memory by 16-byte cp.async in a ring of four quant blocks, so the next
+//    ones load while this one is multiplied. The B fragments are built in
+//    registers from 32-bit shared-memory reads of the raw bytes (no bf16
+//    copy of the tile, no second pass through shared memory): a thread's
+//    word holds 4 neighbouring columns of one row, which become column gid
+//    of 4 n8 tiles, so a thread owns 8 neighbouring output columns and
+//    their 8 scales. Where the output tiles give fewer than two blocks per
+//    SM, K is split (ops/kernels.py, tc_split_for) and the splits write f32
+//    partials that dq_reduce adds in a fixed order (no atomics), as the
+//    GEMV does. The M tiles of one column strip have neighbouring block
+//    indices, so for M > 64 the strip comes from device memory once and
+//    from L2 after that. wgmma and TMA are later work.
+//  * M > 8 with f32 x takes a plain shared-memory tiled f32 kernel (64x64
+//    output tile, one quant block of K per step, 4x4 outputs per thread):
+//    the bf16 tensor cores cannot take f32 x without rounding it.
+//
+// The caller (llamago_tpu_torch/ops/kernels.py, k1_form) picks the form and
+// passes it in; the entry point refuses a form the shapes or dtypes do not
+// allow.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -274,6 +303,291 @@ __global__ void __launch_bounds__(256) dq_tiled(const XT* __restrict__ x,
   }
 }
 
+// --------------------------------------------------- tensor cores (dq_tc)
+
+constexpr int kTcThreads = 128;       // four warps, 32 columns each
+constexpr int kTcCols = 128;          // columns per block
+constexpr int kTcStages = 4;          // quant blocks in the cp.async ring
+constexpr int kTcWLd = kTcCols + 16;  // weight row stride (bytes): conflict-free 32-bit reads
+constexpr int kTcXLd = 32 + 8;        // x row stride (bf16, 80 bytes): conflict-free ldmatrix
+
+// Shared-memory rows of one quant block's weights: 32 int8 rows, or 16
+// packed Q4_0 rows.
+template <int BITS> __host__ __device__ constexpr int tc_w_rows() { return BITS == 8 ? 32 : 16; }
+
+// One ring stage: weights, scales, then x (16 * MT rows).
+template <typename ST, int MT, int BITS> __host__ __device__ constexpr int tc_stage_bytes() {
+  return tc_w_rows<BITS>() * kTcWLd + kTcCols * (int)sizeof(ST) + 16 * MT * kTcXLd * 2;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N_> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_) : "memory");
+}
+
+// Fragment layouts of mma.m16n8k16 with gid = lane / 4, tig = lane % 4: A
+// regs hold (row gid | gid+8, k 2*tig+{0,1} | +8); B regs hold (k
+// 2*tig+{0,1} | +8, n gid), the lower k in the low half; C holds (row gid,
+// n 2*tig+{0,1}) in c0, c1 and (row gid+8, the same n) in c2, c3.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices: lanes 8i..8i+7 give the row addresses of matrix
+// i; lane l receives M_i[l / 4][2 * (l % 4) + {0, 1}] in r[i].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte J of two words of int8 weights (each already XORed with 0x80808080,
+// so a byte holds q + 128) as a bf16 pair, exactly: 0x4B0000uu is the f32
+// 2^23 + uu, and 2^23 + 128 comes off in f32.
+template <int J> __device__ __forceinline__ uint32_t i8_pair(uint32_t lo, uint32_t hi) {
+  const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7440 | J)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7440 | J)) - 8388736.f;
+  return pack_bf16(a, b);
+}
+
+// The nibble at SHIFT (0: low, 4: high) of byte J of two packed Q4_0 words,
+// minus 8, as a bf16 pair, exactly: 0x43nn is the bf16 128 + n (n < 16),
+// and 136 (0x4308) comes off in bf16.
+template <int J, int SHIFT> __device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
+  const uint32_t t = __byte_perm(lo, hi, J | ((4 + J) << 8));  // bytes 0 and 2
+  uint32_t v = ((t >> SHIFT) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t c = 0x43084308u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ void smem_scales8(const float* p, float (&out)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
+}
+
+__device__ __forceinline__ void smem_scales8(const __nv_bfloat16* p, float (&out)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
+  }
+}
+
+// grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic
+// shared memory kTcStages * tc_stage_bytes. Block x covers column strip
+// x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the quant blocks
+// [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip and all
+// 16*MT rows. Writes bf16 to out, or f32 partials to ws[y] when ws is set.
+template <typename ST, int MT, int BITS>
+__global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restrict__ x,
+                                                    const uint8_t* __restrict__ q,
+                                                    const ST* __restrict__ s,
+                                                    __nv_bfloat16* __restrict__ out,
+                                                    float* __restrict__ ws, int M, int K,
+                                                    int N, int per, int m_tiles) {
+  constexpr int WR = tc_w_rows<BITS>();
+  constexpr int BM = 16 * MT;
+  constexpr int W_BYTES = WR * kTcWLd;
+  constexpr int S_BYTES = kTcCols * (int)sizeof(ST);
+  constexpr int STAGE = tc_stage_bytes<ST, MT, BITS>();
+  constexpr int SV = 16 / (int)sizeof(ST);  // scales per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int n0 = (blockIdx.x / m_tiles) * kTcCols;
+  const int m0 = (blockIdx.x % m_tiles) * BM;
+  const int kb0 = blockIdx.y * per;
+  const int n_it = min(per, K / 32 - kb0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // Quant block kb into ring slot `slot`. Columns past N are not copied
+  // (their outputs are not stored); rows past M repeat row M-1 (likewise).
+  auto load = [&](int slot, int kb) {
+    unsigned char* st = smem + slot * STAGE;
+#pragma unroll
+    for (int i = 0; i < (WR * 8 + kTcThreads - 1) / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 8 copies of 16 bytes per row
+      const int r = c >> 3, n = n0 + (c & 7) * 16;
+      if (c < WR * 8 && n < N)
+        cp_async16(st + r * kTcWLd + (c & 7) * 16, q + (size_t)(kb * WR + r) * N + n);
+    }
+    if (tid < kTcCols / SV) {
+      const int n = n0 + tid * SV;
+      if (n < N) cp_async16(st + W_BYTES + tid * 16, s + (size_t)kb * N + n);
+    }
+#pragma unroll
+    for (int i = 0; i < (BM * 4 + kTcThreads - 1) / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 4 copies of 16 bytes per row
+      const int r = c >> 2, m = min(m0 + r, M - 1);
+      if (c < BM * 4)
+        cp_async16(st + W_BYTES + S_BYTES + r * (kTcXLd * 2) + (c & 3) * 16,
+                   x + (size_t)m * K + kb * 32 + (c & 3) * 8);
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < n_it) load(i, kb0 + i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // quant block `it` has landed; slot (it-1) % stages is free
+    if (it + kTcStages - 1 < n_it) load((it + kTcStages - 1) % kTcStages, kb0 + it + kTcStages - 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (it % kTcStages) * STAGE;
+    // this thread's 4 columns 32*warp + 4*gid .. +3 of the weight rows
+    const unsigned char* wt = st + warp * 32 + gid * 4;
+    auto row = [&](int r) { return *reinterpret_cast<const uint32_t*>(wt + r * kTcWLd); };
+    // b[step][reg][j]: n8 tile j (column 4*gid + j), k16 step `step`
+    uint32_t b[2][2][4];
+    if constexpr (BITS == 8) {
+#pragma unroll
+      for (int step = 0; step < 2; ++step) {
+        const int r = step * 16 + 2 * tig;
+        const uint32_t w0 = row(r) ^ 0x80808080u, w1 = row(r + 1) ^ 0x80808080u;
+        const uint32_t w2 = row(r + 8) ^ 0x80808080u, w3 = row(r + 9) ^ 0x80808080u;
+        b[step][0][0] = i8_pair<0>(w0, w1), b[step][1][0] = i8_pair<0>(w2, w3);
+        b[step][0][1] = i8_pair<1>(w0, w1), b[step][1][1] = i8_pair<1>(w2, w3);
+        b[step][0][2] = i8_pair<2>(w0, w1), b[step][1][2] = i8_pair<2>(w2, w3);
+        b[step][0][3] = i8_pair<3>(w0, w1), b[step][1][3] = i8_pair<3>(w2, w3);
+      }
+    } else {
+      // packed row r holds rows r (low nibbles: step 0) and r + 16 (high: step 1)
+      const uint32_t p0 = row(2 * tig), p1 = row(2 * tig + 1);
+      const uint32_t p2 = row(2 * tig + 8), p3 = row(2 * tig + 9);
+      b[0][0][0] = q4_pair<0, 0>(p0, p1), b[0][1][0] = q4_pair<0, 0>(p2, p3);
+      b[0][0][1] = q4_pair<1, 0>(p0, p1), b[0][1][1] = q4_pair<1, 0>(p2, p3);
+      b[0][0][2] = q4_pair<2, 0>(p0, p1), b[0][1][2] = q4_pair<2, 0>(p2, p3);
+      b[0][0][3] = q4_pair<3, 0>(p0, p1), b[0][1][3] = q4_pair<3, 0>(p2, p3);
+      b[1][0][0] = q4_pair<0, 4>(p0, p1), b[1][1][0] = q4_pair<0, 4>(p2, p3);
+      b[1][0][1] = q4_pair<1, 4>(p0, p1), b[1][1][1] = q4_pair<1, 4>(p2, p3);
+      b[1][0][2] = q4_pair<2, 4>(p0, p1), b[1][1][2] = q4_pair<2, 4>(p2, p3);
+      b[1][0][3] = q4_pair<3, 4>(p0, p1), b[1][1][3] = q4_pair<3, 4>(p2, p3);
+    }
+
+    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(st + W_BYTES + S_BYTES);
+    float part[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xt + (i * 16 + (lane & 15)) * kTcXLd + step * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[step][0][j], b[step][1][j]);
+      }
+    }
+
+    // c0 / c2 of tile j are column 8*tig + j, c1 / c3 column 8*tig + 4 + j
+    float sc[8];
+    smem_scales8(reinterpret_cast<const ST*>(st + W_BYTES) + warp * 32 + tig * 8, sc);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j][0] = fmaf(sc[j], part[i][j][0], acc[i][j][0]);
+        acc[i][j][1] = fmaf(sc[4 + j], part[i][j][1], acc[i][j][1]);
+        acc[i][j][2] = fmaf(sc[j], part[i][j][2], acc[i][j][2]);
+        acc[i][j][3] = fmaf(sc[4 + j], part[i][j][3], acc[i][j][3]);
+      }
+  }
+
+  const int n = n0 + warp * 32 + tig * 8;  // N is a multiple of 16: all 8 in or out
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + i * 16 + gid + 8 * h;
+      if (m >= M) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][j][2 * h];
+        v[4 + j] = acc[i][j][2 * h + 1];
+      }
+      if (ws != nullptr) {
+        float4* p = reinterpret_cast<float4*>(ws + (size_t)blockIdx.y * M * N + (size_t)m * N + n);
+        p[0] = make_float4(v[0], v[1], v[2], v[3]);
+        p[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                       pack_bf16(v[6], v[7]));
+      }
+    }
+}
+
+template <typename ST, int MT, int BITS>
+void launch_tc_rows(const void* x, const void* q, const void* s, void* out, float* ws, int M,
+                    int K, int N, int ksplit, cudaStream_t st) {
+  constexpr int smem = kTcStages * tc_stage_bytes<ST, MT, BITS>();
+  static_assert(smem <= 48 * 1024, "the ring fits the default dynamic shared memory");
+  const int m_tiles = (M + 16 * MT - 1) / (16 * MT);
+  const int nb = K / 32;
+  const int per = (nb + ksplit - 1) / ksplit;
+  dim3 grid(((N + kTcCols - 1) / kTcCols) * m_tiles, ksplit);
+  dq_tc<ST, MT, BITS><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(out), ksplit > 1 ? ws : nullptr,
+      M, K, N, per, m_tiles);
+  if (ksplit > 1) {
+    const size_t mn = (size_t)M * N;
+    dq_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+        ws, static_cast<__nv_bfloat16*>(out), mn, ksplit);
+  }
+}
+
+// 16 rows per block up to M = 16, 32 up to 32, else 64 (several M tiles).
+template <typename ST, int BITS>
+void launch_tc(const void* x, const void* q, const void* s, void* out, float* ws, int M, int K,
+               int N, int ksplit, cudaStream_t st) {
+  if (M <= 16) return launch_tc_rows<ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  if (M <= 32) return launch_tc_rows<ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  launch_tc_rows<ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+}
+
 template <typename XT, typename ST, int MT, int BITS>
 void launch_gemv(const void* x, const void* q, const void* s, void* out, float* ws,
                  int M, int K, int N, int ksplit, cudaStream_t st) {
@@ -288,13 +602,22 @@ void launch_gemv(const void* x, const void* q, const void* s, void* out, float* 
                                                               mn, ksplit);
 }
 
+// The forms, as ops/kernels.py's K1_FORMS numbers them.
+enum Form { kGemv = 0, kTiledF32 = 1, kTensorCore = 2 };
+
 template <typename XT, typename ST, int BITS>
 void launch_bits(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-                 int K, int N, int ksplit, cudaStream_t st) {
-  if (M <= 1) return launch_gemv<XT, ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 2) return launch_gemv<XT, ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 4) return launch_gemv<XT, ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 8) return launch_gemv<XT, ST, 8, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+                 int K, int N, int form, int ksplit, cudaStream_t st) {
+  if (form == kTensorCore) {
+    if constexpr (sizeof(XT) == 2) launch_tc<ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+    return;
+  }
+  if (form == kGemv) {
+    if (M <= 1) return launch_gemv<XT, ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+    if (M <= 2) return launch_gemv<XT, ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+    if (M <= 4) return launch_gemv<XT, ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+    return launch_gemv<XT, ST, 8, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  }
   dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
   dq_tiled<XT, ST, BITS><<<grid, 256, 0, st>>>(static_cast<const XT*>(x),
                                                static_cast<const int8_t*>(q),
@@ -304,31 +627,39 @@ void launch_bits(const void* x, const void* q, const void* s, void* out, float* 
 
 template <typename XT, typename ST>
 void launch(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-            int K, int N, int bits, int ksplit, cudaStream_t st) {
+            int K, int N, int bits, int form, int ksplit, cudaStream_t st) {
   if (bits == 8)
-    launch_bits<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
+    launch_bits<XT, ST, 8>(x, q, s, out, ws, M, K, N, form, ksplit, st);
   else
-    launch_bits<XT, ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
+    launch_bits<XT, ST, 4>(x, q, s, out, ws, M, K, N, form, ksplit, st);
 }
 
 }  // namespace
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
-// bfloat16, 0 for float32. `ws` is an f32 workspace of ksplit*M*N elements,
-// used when M <= 8. Returns cudaGetLastError() after the launches.
+// bfloat16, 0 for float32. form: 0 the split-K GEMV (M <= 8), 1 the f32
+// tile, 2 the tensor-core tile (bf16 x). `ws` is an f32 workspace of
+// ksplit*M*N elements, used by the GEMV and by the tensor-core tile when
+// ksplit > 1; a split holds ceil(K/32 / ksplit) quant blocks. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
+// form the arguments do not allow.
 extern "C" int llamago_dequant_matmul(const void* x, const void* q, const void* s,
                                       void* out, void* ws, int M, int K, int N, int bits,
-                                      int x_bf16, int s_bf16, int ksplit, void* stream) {
+                                      int x_bf16, int s_bf16, int form, int ksplit,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  if ((bits != 8 && bits != 4) || form < kGemv || form > kTensorCore ||
+      (form == kGemv && M > 8) || (form == kTensorCore && !x_bf16) || ksplit < 1 ||
+      (ksplit > 1 && w == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (x_bf16 && s_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else if (s_bf16)
-    launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else
-    launch<float, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    launch<float, float>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   return (int)cudaGetLastError();
 }

@@ -225,14 +225,17 @@ void launch(const void* x, const void* q, const void* s, void* out, float* ws, i
 }  // namespace
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
-// bfloat16, 0 for float32. `ws` is an f32 workspace of ksplit*M*N elements.
-// Returns cudaGetLastError() after the launches.
+// bfloat16, 0 for float32. form: K1's argument of the same name (the two
+// entry points share one launcher); this kernel has the split-K GEMV form
+// (0) only. `ws` is an f32 workspace of ksplit*M*N elements. Returns
+// cudaGetLastError() after the launches.
 extern "C" int llamago_dequant_matmul_so(const void* x, const void* q, const void* s,
                                          void* out, void* ws, int M, int K, int N, int bits,
-                                         int x_bf16, int s_bf16, int ksplit, void* stream) {
+                                         int x_bf16, int s_bf16, int form, int ksplit,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  if ((bits != 8 && bits != 4) || form != 0) return (int)cudaErrorInvalidValue;
   if (x_bf16 && s_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
   else if (x_bf16)

@@ -16,7 +16,9 @@ does (llamago_tpu/ops/kernels.py):
                 `SCALE_ON_OUTPUT_MAX_M` (0 = off, env
                 LLAMAGO_KERNEL_SO_MAX_M); else K1, the dequant-matmul
                 (replacing `_dequant_mm_kernel`, bits 8 and 4, CUDA:
-                `csrc/dequant_matmul.cu`).
+                `csrc/dequant_matmul.cu`) in the form `k1_form` picks:
+                the split-K GEMV up to 8 rows, above that the bf16
+                tensor-core tile for bf16 x and the f32 tile for f32 x.
 
 A Q4_1 leaf (with mins "m") never comes here: `ops/quant.py:quant_matmul`
 dequantizes it, as the JAX package does. The TPU launchers' VMEM gates
@@ -27,8 +29,8 @@ Each `.cu` header says what bounds its kernel on the card and what the
 design does about it. A CPU tensor takes the kernel's plain version
 (`*_plain`); a CUDA tensor takes the kernel, or the wrapper raises. Each
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
-`.launches_q4` for Q4_0, `w4x8_matmul.launches_a8` and `.launches_stream`,
-`dequant_matmul_so.launches`).
+`.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile,
+`w4x8_matmul.launches_a8` and `.launches_stream`, `dequant_matmul_so.launches`).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`): the whole norm in f32 with one rounding to
@@ -55,6 +57,14 @@ from llamago_tpu_torch.ops.quant import G4X8, QK, dequantize, unpack_q4, unpack_
 _TARGET_BLOCKS = 4 * 132
 _GEMV_MAX_M = 8
 _GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
+# K1's tensor-core tile (csrc/dequant_matmul.cu): rows and columns per
+# block, the blocks below which it splits K, and how many it then aims for
+# (two and four per SM: on the card four per SM took 5% off a prefill pass
+# at m = 64 against two)
+_TC_ROWS, _TC_COLS = 64, 128
+_TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * 132, 4 * 132
+# K1's forms, numbered as the C entry point takes them
+K1_FORMS = ("gemv", "tiled_f32", "tensor_core")
 
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
@@ -141,13 +151,52 @@ def w4x8_matmul_stream_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 # ------------------------------------------------------------------ launchers
 
-def ksplit_for(m: int, k: int, n: int) -> int:
+def ksplit_for(k: int, n: int) -> int:
     """K-split of the K1 / K9 GEMV path: enough blocks to fill the card, and
     at least eight quant blocks (one per warp) in each split."""
-    if m > _GEMV_MAX_M:
-        return 1
     col_blocks = -(-n // _GEMV_COLS)
     return max(1, min((k // QK) // 8, -(-_TARGET_BLOCKS // col_blocks)))
+
+
+def k1_form(m: int, x_dtype: torch.dtype) -> str:
+    """K1's kernel on the card for m rows of x: "gemv" (the split-K GEMV)
+    up to 8 rows; above, "tensor_core" (bf16 mma.sync) for bf16 x and
+    "tiled_f32" for f32 x, which the bf16 tensor cores cannot take without
+    rounding it."""
+    if m <= _GEMV_MAX_M:
+        return "gemv"
+    return "tensor_core" if x_dtype == torch.bfloat16 else "tiled_f32"
+
+
+def tc_split_for(m: int, k: int, n: int) -> tuple[int, int]:
+    """(ksplit, quant blocks per split) of K1's tensor-core tile: no split
+    when the output tiles alone give 264 blocks (two per SM), else enough
+    splits for about 528, each of at least 8 whole 32-row quant blocks
+    where K allows, none empty. The C side takes ksplit and cuts the splits
+    at ceil(K/32 / ksplit), which is the second number."""
+    nb = k // QK
+    blocks = -(-n // _TC_COLS) * -(-m // _TC_ROWS)
+    if blocks >= _TC_MIN_BLOCKS:
+        return 1, nb
+    ksplit = max(1, min(nb // 8, -(-_TC_TARGET_BLOCKS // blocks)))
+    per = -(-nb // ksplit)
+    return -(-nb // per), per
+
+
+def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype,
+            gemv_rows: int | None = None) -> tuple[str, int, int]:
+    """(form, ksplit, f32 workspace elements) of one launch over m rows.
+    `gemv_rows` (default m) is the row count the form and the GEMV's split
+    are planned for: K9 plans with 1 and walks all m rows."""
+    rows = m if gemv_rows is None else gemv_rows
+    form = k1_form(rows, x_dtype)
+    if form == "gemv":
+        ksplit = ksplit_for(k, n)
+        return form, ksplit, ksplit * m * n
+    if form == "tensor_core":
+        ksplit = tc_split_for(m, k, n)[0]
+        return form, ksplit, ksplit * m * n if ksplit > 1 else 0
+    return form, 1, 0
 
 
 def a8_cols_per_thread(m: int) -> int:
@@ -170,7 +219,7 @@ def a8_split_for(m: int, k: int, n: int) -> tuple[int, int]:
 def _lib():
     fn = _build.library("dequant_matmul").llamago_dequant_matmul
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -179,7 +228,7 @@ def _lib():
 def _lib_so():
     fn = _build.library("dequant_matmul_so").llamago_dequant_matmul_so
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -304,26 +353,27 @@ w4x8_matmul.launches_a8 = 0
 w4x8_matmul.launches_stream = 0
 
 
-def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, gemv_rows: int) -> torch.Tensor:
+def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict,
+              gemv_rows: int) -> tuple[torch.Tensor, str]:
     """Shared launcher of K1 and K9: both C entry points take the same
-    arguments (x, q, s, out, workspace, m, K, N, bits, dtypes, ksplit).
-    `gemv_rows`: the row count the split-K GEMV is launched with (K1 takes
-    its tiled kernel above 8 rows; K9 walks all rows a few at a time)."""
+    arguments (x, q, s, out, workspace, m, K, N, bits, dtypes, form,
+    ksplit). `gemv_rows`: the row count the launch is planned for
+    (`k1_plan`): K1 plans with its own, K9 with 1, since it walks all rows a
+    few at a time in its GEMV. Returns the output and the form launched."""
     key = "q8" if "q8" in w else "q4"
     q, s = w[key], w["s"]
     x2 = _rows(x)
     _check_cuda_args(x2, q, s, key)
     (m, k), n = x2.shape, q.shape[1]
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    ksplit = ksplit_for(gemv_rows, k, n)
-    ws = (torch.empty(ksplit * m * n, dtype=torch.float32, device=x2.device)
-          if gemv_rows <= _GEMV_MAX_M else out)
+    form, ksplit, ws_elems = k1_plan(m, k, n, x2.dtype, gemv_rows)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=x2.device) if ws_elems else out
     err = lib_fn()(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                    ws.data_ptr(), m, k, n, 8 if key == "q8" else 4,
                    int(x2.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16),
-                   ksplit, _stream(x2))
+                   K1_FORMS.index(form), ksplit, _stream(x2))
     _build.check(err, what)
-    return out.reshape(*x.shape[:-1], n)
+    return out.reshape(*x.shape[:-1], n), form
 
 
 def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -332,7 +382,7 @@ def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return dequant_matmul_so_plain(x, w)
     _cuda_or_raise(x, "dequant_matmul_so")
-    out = _launch_q(_lib_so, "dequant_matmul_so", x, w, gemv_rows=1)
+    out, _ = _launch_q(_lib_so, "dequant_matmul_so", x, w, gemv_rows=1)
     dequant_matmul_so.launches += 1
     return out
 
@@ -352,16 +402,19 @@ def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, w)
     _cuda_or_raise(x, "dequant_matmul")
-    out = _launch_q(_lib, "dequant_matmul", x, w, gemv_rows=x.numel() // k)
+    out, form = _launch_q(_lib, "dequant_matmul", x, w, gemv_rows=x.numel() // k)
     if "q8" in w:
         dequant_matmul.launches += 1
     else:
         dequant_matmul.launches_q4 += 1
+    if form == "tensor_core":
+        dequant_matmul.launches_tc += 1
     return out
 
 
 dequant_matmul.launches = 0
 dequant_matmul.launches_q4 = 0
+dequant_matmul.launches_tc = 0
 
 
 # ------------------------------------------------------------------ RMSNorm
