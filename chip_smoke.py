@@ -17,9 +17,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      K1 (Q8_0 and Q4_0, each of its three forms: the GEMV up to 8 rows,
      above that the tensor-core tile for bf16 x and the f32 tile for f32
      x), K2, K3, K4, K8 (the three of the int8 cache with f32 and with
-     bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8 stream matmul),
-     K9 (scale-on-output matmul), K7 (flash prefill attention) and K10
-     (fused RMSNorm);
+     bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8 stream matmul,
+     each of its forms: the tensor-core tile for bf16 x, the f32 tile for
+     f32 x), K9 (scale-on-output matmul), K7 (flash prefill attention) and
+     K10 (fused RMSNorm);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -28,8 +29,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
      the Q4_0 format with the scale-on-output switch on (K9); then the
-     dense cache in bf16 on the card against the CPU's f32 (K1's
-     tensor-core tile must launch);
+     dense cache and the w4x8 model in bf16 on the card against the CPU's
+     f32 (K1's and K6's tensor-core tiles must launch);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -44,7 +45,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      tile), K3 and K4 must launch, K2 and K8 not;
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
-     and K2 must launch, every other kernel (K1's tile too) stay at 0;
+     (its tensor-core tile: every prompt's prefill) and K2 must launch,
+     every other kernel (K1's tile too) stay at 0; K6's tensor-core tile
+     stays at 0 in every other serving phase;
   4d. Q8_0 weights and the bf16 cache on 4 slots again, now with 8 jobs of
      which four bring prompts of about 600 tokens (prefill chunks of 256,
      256 and 128 tokens), run twice: with the default routes (the einsum
@@ -68,8 +71,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      which carry the lab's other rows, must rise in the lab's run;
 
 then print the serving line (tokens/s, TTFT, peak memory and the prefill
-chunks' device time of phases 4 and 4d side by side, JSON), the card line, the kernels line (JSON) and, last, the device
-line (JSON). `--out` names a file for the detail (per-shape kernel times,
+chunks' device time and matmul share of phases 4, 4d and 4c side by side,
+JSON), the card line, the kernels line (JSON) and, last, the device line
+(JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
@@ -186,16 +190,19 @@ def _leaf_bytes(w: dict) -> int:
 
 
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
-                 other_m: tuple, ops_per_s, seed: int) -> tuple[dict, dict]:
+                 other_m: tuple, ops_per_s, seed: int, other_shapes: tuple = ("wqkv",),
+                 timed_dtype: str = "bfloat16") -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
     and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
     with both x dtypes, where the kernel takes them) at the row counts
-    `timed_m`, which are also timed in bf16, and at the wqkv shape at
-    `other_m`. `ops_per_s(m)` is the peak rate of the kernel's operations
-    at m rows. Returns the largest error by (m, x dtype) and, for each
-    timed m, the kernels line's numbers over one pass of the five shapes
-    (one decode step at decode rows, one prefill pass at prefill rows)."""
+    `timed_m`, which are also timed with x in `timed_dtype` (the library
+    call on a copy of the weights in that dtype), and at the shapes
+    `other_shapes` names at `other_m`. `ops_per_s(m)` is the peak rate of
+    the kernel's operations at m rows. Returns the largest error by (m, x
+    dtype) and, for each timed m, the kernels line's numbers over one pass
+    of the five shapes (one decode step at decode rows, one prefill pass at
+    prefill rows)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
@@ -228,23 +235,23 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
                                          f"{err:.3g} > {K1_TOL[xdt]}")
                 errs[(m, xdt)] = max(errs.get((m, xdt), 0.0), err)
 
-        if name == "wqkv":
+        if name in other_shapes:
             for m in other_m:
                 check(m)
         for m in timed_m:
             check(m)
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            deqs = [quant.dequantize(w, torch.bfloat16) for w in ws]
+            x = torch.randn((m, k), generator=gen, device=dev).to(getattr(torch, timed_dtype))
+            deqs = [quant.dequantize(w, x.dtype) for w in ws]
             kern = timed([lambda w=w: kernel(x, w) for w in ws], 20 * copies)
             plain_ms = timed([lambda w=w: plain(x, w) for w in ws], max(3, copies))
             lib = timed([lambda d=d: x @ d for d in deqs], 20 * copies)
             del deqs
-            bnd, by = bound_ms(_leaf_bytes(ws[0]) + m * k * 2 + m * n * 2, 2.0 * m * k * n,
-                               ops_per_s(m))
+            bnd, by = bound_ms(_leaf_bytes(ws[0]) + (m * k + m * n) * x.element_size(),
+                               2.0 * m * k * n, ops_per_s(m))
             rows.append(dict(name=name, m=m, k=k, n=n, ms=kern, plain_ms=plain_ms,
                              library_ms=lib, bound_ms=bnd, bound_by=by))
             log(f"{tag} {name:8s} m={m:3d} K={k} N={n}: kernel {kern:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, x@W bf16 {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+                f"{plain_ms:.4f} ms, x@W {timed_dtype} {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
             for key, v in (("ms", kern), ("plain_ms", plain_ms), ("library_ms", lib),
                            ("bound_ms", bnd)):
                 steps[m][key] += per_step * v
@@ -253,7 +260,7 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
         torch.cuda.empty_cache()
     for m, step in steps.items():
         log(f"{tag} one pass at m={m}: kernel {step['ms']:.3f} ms, plain "
-            f"{step['plain_ms']:.3f} ms, x@W bf16 {step['library_ms']:.3f} ms, bound "
+            f"{step['plain_ms']:.3f} ms, x@W {timed_dtype} {step['library_ms']:.3f} ms, bound "
             f"{step['bound_ms']:.3f} ms ({step['bound_by']})")
     detail[tag.lower().replace(" ", "_")] = rows
     return errs, steps
@@ -338,20 +345,45 @@ def check_k5(dev, detail: dict) -> dict:
     return _line(errs, steps, 4)
 
 
-def check_k6(dev, detail: dict) -> dict:
-    """K6 at m=64 (the prefill bucket of the smoke's prompts), checked and
-    timed; m=32 and a ragged m=17 at the wqkv shape. f32 arithmetic outside
-    the tensor cores. The kernels line takes one pass over the five shapes
-    at m=64 (a prefill chunk's 129 launches)."""
+def check_k6(dev, detail: dict) -> tuple[dict, dict]:
+    """K6 in each of its forms at the five 7B int4 shapes: the tensor-core
+    tile for bf16 x and the f32 tile for f32 x, checked at m=17, 32, 64, 100
+    and 256 (every row tiling of the tensor-core tile, and ragged ones);
+    timed at m=64 (the prefill bucket of the smoke's prompts) and m=256 (a
+    long prompt's chunk), the tensor-core tile against bf16 operations and
+    the f32 tile with f32 x against f32 operations. Every call must take
+    the form `w4x8_form` names (`launches_tc` counts the tensor-core tile).
+    Returns the kernels line's numbers of the f32 tile and of the
+    tensor-core tile, each over one prefill pass at m=64 (a prefill chunk's
+    129 launches)."""
     from llamago_tpu_torch.ops import kernels
 
+    def k6(x, w):
+        before = kernels.w4x8_matmul.launches_tc
+        out = kernels.w4x8_matmul(x, w)
+        tc = kernels.w4x8_form(x.shape[0], x.dtype) == "tensor_core"
+        if kernels.w4x8_matmul.launches_tc - before != int(tc):
+            raise AssertionError(f"K6 m={x.shape[0]} x={x.dtype}: the tensor-core count "
+                                 f"went from {before} to {kernels.w4x8_matmul.launches_tc}")
+        return out
+
     before = kernels.w4x8_matmul.launches_a8
-    errs, steps = check_matmul(dev, detail, "K6", "q4x", kernels.w4x8_matmul,
-                               kernels.w4x8_matmul_stream_plain, timed_m=(64,),
-                               other_m=(17, 32), ops_per_s=lambda m: F32_OPS_PER_S, seed=10)
+    errs, steps = check_matmul(dev, detail, "K6", "q4x", k6, kernels.w4x8_matmul_stream_plain,
+                               timed_m=(64, 256), other_m=(17, 32, 100),
+                               ops_per_s=lambda m: BF16_OPS_PER_S, seed=10,
+                               other_shapes=tuple(name for name, *_ in INT4_SHAPES))
+    errs32, steps32 = check_matmul(dev, detail, "K6 f32", "q4x", k6,
+                                   kernels.w4x8_matmul_stream_plain, timed_m=(64, 256),
+                                   other_m=(), ops_per_s=lambda m: F32_OPS_PER_S, seed=19,
+                                   timed_dtype="float32")
     if kernels.w4x8_matmul.launches_a8 != before:
         raise AssertionError("K6: a call of more than 16 rows took the W4A8 kernel")
-    return _line(errs, steps, 64)
+    for m in (64, 256):
+        log(f"K6 at m={m}: the tensor-core tile {steps[m]['ms']:.3f} ms per pass (bf16 x), "
+            f"the f32 tile {steps32[m]['ms']:.3f} ms (f32 x)")
+    f32 = lambda m, xdt: xdt == "float32"  # noqa: E731
+    return (_line(errs32, steps32, 64, f32),
+            _line(errs, steps, 64, lambda m, xdt: not f32(m, xdt)))
 
 
 def check_k9(dev, detail: dict) -> dict:
@@ -1097,30 +1129,43 @@ def check_small_model(dev) -> int:
     kv_cache._SCALE_DTYPE_NAME = scale_name
     # bf16 compute on the card (dense cache) against the CPU's f32 logits:
     # the prefill windows (80 and 32 rows) take K1's tensor-core tile
-    bf16 = dense.replace(dtype="bfloat16")
+    counts = _small_bf16_logits(dev, dense, gpu, cpu, toks, "small model")
+    if counts["dequant_matmul_tc"] == 0:
+        raise AssertionError(f"small model, bf16: K1's tensor-core tile never launched: {counts}")
+    if k8_launches == 0:
+        raise AssertionError("small model: K8 was never launched in its run")
+    return k8_launches
+
+
+def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
+    """Logits of a 40-token window, a 16-token window and a decode step of
+    a small model (dense cache) with bf16 compute on the card against f32
+    compute on the CPU, within SMALL_BF16_LOGIT_TOL. Returns the launch
+    counts of the card's runs."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    bf16, f32 = cfg.replace(dtype="bfloat16"), cfg.replace(dtype="float32")
     reset_launch_counts()
     for t in (40, 16, 1):
         x = toks[:, :t]
         wp = torch.tensor([0, 7])
         lg, _ = forward_impl(gpu, x.to(dev), KVCache.create(bf16, batch=2, device=dev),
                              wp.to(dev), bf16)
-        lc, _ = forward_impl(cpu, x, KVCache.create(dense, batch=2, device="cpu"), wp, dense)
+        lc, _ = forward_impl(cpu, x, KVCache.create(f32, batch=2, device="cpu"), wp, f32)
         lg = lg.float().cpu()
         if not torch.isfinite(lg).all():
-            raise AssertionError("small model, bf16: non-finite logits on the card")
+            raise AssertionError(f"{what}, bf16: non-finite logits on the card")
         err = (lg - lc).abs().max().item() / lc.abs().max().item()
-        log(f"small model, bf16 on the card, t={t}: vs CPU f32 logits max|d|/max|ref| "
-            f"{err:.2e}")
+        log(f"{what}, bf16 on the card, t={t}: vs CPU f32 logits max|d|/max|ref| {err:.2e}")
         if not err <= SMALL_BF16_LOGIT_TOL:
-            raise AssertionError(f"small model, bf16, t={t}: logits differ, "
+            raise AssertionError(f"{what}, bf16, t={t}: logits differ, "
                                  f"{err:.3g} > {SMALL_BF16_LOGIT_TOL}")
     counts = launch_counts()
-    log(f"small model, bf16: launches {counts}")
-    if counts["dequant_matmul_tc"] == 0:
-        raise AssertionError(f"small model, bf16: K1's tensor-core tile never launched: {counts}")
-    if k8_launches == 0:
-        raise AssertionError("small model: K8 was never launched in its run")
-    return k8_launches
+    log(f"{what}, bf16: launches {counts}")
+    return counts
 
 
 INT4_LOGIT_TOL = {
@@ -1139,11 +1184,14 @@ def check_small_model_int4(dev) -> dict:
     """A small GQA model with random int4 weights, card (kernels) against
     CPU (plain versions), f32 compute: logits for a 40-token window, a
     16-token window and a decode step, and greedy tokens of a short engine
-    run; in the w4x8 format (K5 at decode, K6 in prefill; w2, whose K = 1376
-    is no multiple of 128, stays Q4_0 and takes K1 bits=4: the mixed tree),
-    in the Q4_0 format (K1 bits=4), and in the Q4_0 format with the
-    scale-on-output switch at 8 rows (K9 at decode). Returns the launch
-    counts of each run."""
+    run; in the w4x8 format (K5 at decode, K6's f32 tile in prefill; w2,
+    whose K = 1376 is no multiple of 128, stays Q4_0 and takes K1 bits=4:
+    the mixed tree), in the Q4_0 format (K1 bits=4), and in the Q4_0 format
+    with the scale-on-output switch at 8 rows (K9 at decode). Then the w4x8
+    model's logits with bf16 compute on the card against the CPU's f32 ones,
+    its layers' scales set to 0.002 as the dense model's are (the prefill
+    windows, 80 and 32 rows, take K6's tensor-core tile).
+    Returns the launch counts of each run."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1205,9 +1253,24 @@ def check_small_model_int4(dev) -> dict:
             counts[name] = launch_counts()
             log(f"small int4 model, {name}: launches {counts[name]}")
             idle = [k for k in must if counts[name][k] == 0]
-            if idle or counts[name]["dequant_matmul"] > 0:
+            if idle or counts[name]["dequant_matmul"] > 0 or counts[name]["w4x8_matmul_tc"] > 0:
                 raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
-                                     f"the Q8_0 kernel did: {counts[name]}")
+                                     f"the Q8_0 kernel or K6's tensor-core tile (f32 x) did: "
+                                     f"{counts[name]}")
+            if fmt == "w4x8":
+                # small scales, as for the dense model: with 0.01 bf16 rounding
+                # alone moved this model's logits by 0.29 of max|logit| at
+                # t=40 on an H100, its kernels within one rounding of their
+                # plain versions
+                for tree in (gpu, cpu):
+                    for lp in tree["layers"]:
+                        for leaf in ("wqkv", "wo", "w13", "w2"):
+                            lp[leaf]["s"] = torch.full_like(lp[leaf]["s"], 0.002)
+                counts["w4x8, bf16"] = _small_bf16_logits(dev, cfg, gpu, cpu, toks,
+                                                          "small int4 model, w4x8")
+                if counts["w4x8, bf16"]["w4x8_matmul_tc"] == 0:
+                    raise AssertionError("small int4 model, w4x8, bf16: K6's tensor-core tile "
+                                         f"never launched: {counts['w4x8, bf16']}")
     finally:
         kernels.SCALE_ON_OUTPUT_MAX_M = so_default
         if env is None:
@@ -1240,6 +1303,7 @@ def _launch_counters():
             "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
             "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
+            "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
@@ -1441,8 +1505,10 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     """Where a prefill chunk's time goes, apart from the host noise of
     TTFT: one t-token prefill into slot 0 (bucket t), timed by the host
     clock (synchronized), then `traced` more under torch.profiler for the
-    device busy time per chunk and the share of it that K1's kernels (named
-    dq_*: the tensor-core tile, its reduce, the head's GEMV) take."""
+    device busy time per chunk and the share of it that the route's matmul
+    kernels take: K1's (named dq_*: the tensor-core tile, its reduce, the
+    head's GEMV) or K6's (w4x8_*: the tensor-core tile and its reduce; K5's
+    w4x8_quant_x and w4x8_a8 do not count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1463,14 +1529,15 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
     by_name = device_us_by_name(prof.events())
-    k1 = sum(v for k, v in by_name.items() if "dq_" in k)
+    mm = sum(v for k, v in by_name.items() if "dq_" in k or (
+        "w4x8_" in k and "w4x8_quant_x" not in k and "w4x8_a8" not in k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"tokens": t, "host_ms": host_ms, "device_busy_ms": busy / 1e3 / traced,
-           "k1_ms": k1 / 1e3 / traced, "k1_share_of_busy": k1 / busy,
+           "matmul_ms": mm / 1e3 / traced, "matmul_share_of_busy": mm / busy,
            "top_kernels_ms": {k: v / 1e3 / traced for k, v in top}}
     log(f"prefill chunk of {t} tokens: {host_ms:.2f} ms host-timed, device busy "
-        f"{out['device_busy_ms']:.3f} ms, K1 {out['k1_ms']:.3f} ms "
-        f"({out['k1_share_of_busy']:.1%} of busy)")
+        f"{out['device_busy_ms']:.3f} ms, matmul kernels {out['matmul_ms']:.3f} ms "
+        f"({out['matmul_share_of_busy']:.1%} of busy)")
     for k, v in out["top_kernels_ms"].items():
         log(f"  device {v:8.3f} ms/chunk  {k[:100]}")
     return out
@@ -1580,7 +1647,7 @@ def main(argv: list[str]) -> int:
     k4, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {})
     k1q4, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
-    k6 = check_k6(dev, detail) if want("k6") else {}
+    k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
     k9 = check_k9(dev, detail) if want("k9") else {}
     k7 = check_k7(dev, detail) if want("k7") else {}
     k10 = check_k10(dev, detail) if want("k10") else {}
@@ -1622,7 +1689,8 @@ def main(argv: list[str]) -> int:
         # phase 4c: int4 weights (w4x8), the bf16 cache on 4 slots
         cfg, params = make_7b_params(dev, "int4")
         served_4 = serve(dev, cfg, params, slots=4, n_jobs=8,
-                         rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "flash_attention"))
+                         rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_tc",
+                               "flash_attention"))
         del params
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
@@ -1657,10 +1725,16 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:308",
          "launches": served_4["launches"]["w4x8_matmul_a8"], **k5},
+        # K6: every call in phase 4c, the f32 tile's numbers (f32 x)
         {"name": "w4x8_matmul_stream", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:334",
          "launches": served_4["launches"]["w4x8_matmul_stream"], **k6},
+        # K6's tensor-core tile: its launches in phase 4c, one prefill pass at m=64
+        {"name": "w4x8_matmul_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:334",
+         "launches": served_4["launches"]["w4x8_matmul_tc"], **k6tc},
         # K1 bits=4 and K9 run in the Q4_0 format, which phase 3 drives
         {"name": "dequant_matmul_q4", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
@@ -1684,14 +1758,15 @@ def main(argv: list[str]) -> int:
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
-    prefill_keys = ("device_busy_ms", "k1_ms", "k1_share_of_busy")
+    prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy")
     serving_line = {"serving": {
         name: {**{k: run.get(k) for k in keys},
                "prefill_chunk": {t: {k: p[k] for k in prefill_keys}
                                  for t, p in run.get("prefill_chunk", {}).items()}}
         for name, run in (("4: 48-token prompts, default routes", served),
                           ("4d: half 600-token prompts, default routes", served_d),
-                          ("4d: half 600-token prompts, K7 and K10 on", served_p))}}
+                          ("4d: half 600-token prompts, K7 and K10 on", served_p),
+                          ("4c: int4 (w4x8), 48-token prompts", served_4))}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

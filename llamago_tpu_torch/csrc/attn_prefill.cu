@@ -49,6 +49,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr int kBN = 64;  // cache slots per tile
@@ -65,15 +67,6 @@ constexpr int kMmaThreads = 128;
 constexpr int kMmaBM = 64;  // query rows per block: 16 per warp
 constexpr int kPadB = 8;    // bf16 elements of padding per tile row (16 bytes)
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row addresses
 // of matrix i; lane l receives M_i[2 * (l % 4) + {0, 1}][l / 4] in r[i].
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
@@ -81,11 +74,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 size_t mma_smem_bytes(int hd) {

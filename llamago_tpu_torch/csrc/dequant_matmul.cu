@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -320,45 +322,6 @@ template <typename ST, int MT, int BITS> __host__ __device__ constexpr int tc_st
   return tc_w_rows<BITS>() * kTcWLd + kTcCols * (int)sizeof(ST) + 16 * MT * kTcXLd * 2;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N_> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_) : "memory");
-}
-
-// Fragment layouts of mma.m16n8k16 with gid = lane / 4, tig = lane % 4: A
-// regs hold (row gid | gid+8, k 2*tig+{0,1} | +8); B regs hold (k
-// 2*tig+{0,1} | +8, n gid), the lower k in the low half; C holds (row gid,
-// n 2*tig+{0,1}) in c0, c1 and (row gid+8, the same n) in c2, c3.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices: lanes 8i..8i+7 give the row addresses of matrix
-// i; lane l receives M_i[l / 4][2 * (l % 4) + {0, 1}] in r[i].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Byte J of two words of int8 weights (each already XORed with 0x80808080,
 // so a byte holds q + 128) as a bf16 pair, exactly: 0x4B0000uu is the f32
 // 2^23 + uu, and 2^23 + 128 comes off in f32.
@@ -378,24 +341,6 @@ template <int J, int SHIFT> __device__ __forceinline__ uint32_t q4_pair(uint32_t
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
                                    *reinterpret_cast<const __nv_bfloat162*>(&c));
   return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ void smem_scales8(const float* p, float (&out)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
-  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
-}
-
-__device__ __forceinline__ void smem_scales8(const __nv_bfloat16* p, float (&out)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
 }
 
 // grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic

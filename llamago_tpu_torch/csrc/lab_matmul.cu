@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -505,18 +507,6 @@ __global__ void __launch_bounds__(kThreads) lab_probe(const uint8_t* __restrict_
 
 constexpr int kStages = 4;
 constexpr int kStageRows = 32;  // packed rows of 128 bytes per stage: 256 x 16 bytes
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N_>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_) : "memory");
-}
 
 // dma_pure: grid = (ceil(N/128), K/tk). The block copies its whole span of
 // tk/2 packed rows by 128 columns from device memory into a ring of four

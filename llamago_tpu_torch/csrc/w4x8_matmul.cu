@@ -14,9 +14,19 @@
 //   out[m, n] = sum_g f32(sum_{k in g} xq[m, k] * w[k, n]) * sx[m, g] * s[g, n]
 // with an exact int32 dot per group and the sum over groups in f32.
 //
-// K6, stream matmul for more rows (replaces _w4x8_stream_kernel):
+// K6, stream matmul for more rows (replaces _w4x8_stream_kernel, launched
+// at llamago_tpu/ops/kernels.py:465-479):
 //   out[m, n] = sum_k f32(x[m, k]) * (f32(w[k, n]) * f32(s[k / 128, n]))
-// in f32 throughout, no activation quantization.
+// in f32, no activation quantization. bf16 x takes the tensor-core tile
+// (w4x8_tc), which computes
+//   out[m, n] = sum_g s[g, n] * f32(x_g[m, :] . w_g[:, n])
+// over the 128-row groups g: bf16 x and the int4 values are exact in bf16,
+// every product is exact in f32 and each group's dot is summed in f32, so
+// this is the function above with its f32 sums in another order; no w * s
+// is rounded to bf16, and the output is rounded to bf16 once. f32 x takes
+// the f32 tile (w4x8_stream): the bf16 tensor cores cannot take it without
+// rounding it. The caller (ops/kernels.py, w4x8_form) picks the form and
+// passes it in; the entry point refuses a form the dtype does not allow.
 //
 // x: f32 or bf16 [M, K] row-major; out: x's dtype [M, N]. K % 128 == 0,
 // N % 16 == 0.
@@ -24,9 +34,11 @@
 // What bounds them: K5 runs every decode step at M = number of slots
 // (<= 16): 4*M integer operations per weight byte, far below the card's
 // ridge, so its bound is the packed weight stream (K*N/2 bytes) plus the
-// scales over device-memory bandwidth. K6 runs prefill windows (M > 16): the
-// same bytes with M times the work, done in f32 outside the tensor cores,
-// so it is bound by f32 operations.
+// scales over device-memory bandwidth. K6 runs prefill windows (M > 16):
+// the same bytes with 4*M bf16 operations per byte, 256 at a 64-token
+// chunk, under the card's bf16 ridge of ~295, so bytes bound it there; at
+// M = 256 the bf16 operations do. On f32 FMA (67 TFLOP/s) the operations
+// would bound it at fifteen times the bf16 time.
 //
 // What the design does about it:
 //  * K5 is three launches from one entry point. w4x8_quant_x quantizes x
@@ -45,9 +57,35 @@
 //    groups, the grid splits K at whole groups so that enough blocks are in
 //    flight, and w4x8_reduce adds the partial sums in a fixed order (no
 //    atomics: the same result from run to run).
-//  * K6 is a plain shared-memory tiled f32 kernel (64x64 output tile, 32
-//    rows of K per step, 4x4 outputs per thread); each packed byte is read
-//    once and gives two rows of the tile. Tensor cores are later work.
+//  * K6's tensor-core tile is K1's dq_tc skeleton (dequant_matmul.cu; the
+//    PTX wrappers in tc_common.cuh) on the w4x8 layout, its dot on
+//    mma.sync.m16n8k16 (bf16 in, f32 accumulate). 128 threads own 128
+//    columns and 16, 32 or 64 rows; a two-deep cp.async ring stages whole
+//    128-row groups (64 packed rows, the scale row 2g, x's 128 columns of
+//    the block's rows), and A fragments come by ldmatrix from padded x
+//    rows. A byte holds rows 2r and 2r+1 of one column, the (k, k+1) pair
+//    of one mma B register: at k16 step t of a group a thread's b0 is
+//    packed row 8t + tig and its b1 packed row 8t + tig + 4, and one 32-bit
+//    shared-memory read gives 4 neighbouring columns, each column gid of
+//    one n8 tile (output columns permuted as in dq_tc, so a thread owns 8
+//    neighbours and their 8 scales). A byte becomes its bf16 pair exactly
+//    in one PRMT, one LOP3 and one HSUB2. The group's 8 k16 steps sum into
+//    a zeroed f32 group sum, which is then multiplied by the group's scale
+//    and added to the output sum: one fold and one barrier per 128 rows of
+//    K, where dq_tc has them per 32. A stage at 64 rows is 27.9 KB, so the
+//    ring (55.8 KB) is more than the default 48 KB of dynamic shared memory
+//    and the kernel opts in once per template instance
+//    (cudaFuncAttributeMaxDynamicSharedMemorySize); stages of half a group
+//    would fit under 48 KB but bring back a barrier every 64 rows. Two
+//    stages, not three, let three blocks share an SM (its registers hold
+//    three of 167 a thread): on the card that took 7% off a 7B pass at
+//    M = 64 and 11% at M = 256. Where the output tiles give fewer than two
+//    blocks per SM, K is split at whole groups for one wave of three
+//    blocks per SM (ops/kernels.py, tc_split_for) and w4x8_reduce adds the
+//    partials in a fixed order. wgmma and TMA are later work.
+//  * K6's f32 tile (f32 x only) is a plain shared-memory tiled f32 kernel
+//    (64x64 output tile, 32 rows of K per step, 4x4 outputs per thread);
+//    each packed byte is read once and gives two rows of the tile.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -56,6 +94,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -258,17 +298,16 @@ void quant_x(const void* x, int8_t* xq, float* sx, int M, int K, cudaStream_t st
   w4x8_quant_x<XT><<<(items + 3) / 4, 128, 0, st>>>(static_cast<const XT*>(x), xq, sx, M, K);
 }
 
-// ------------------------------------------------------------------------ K6
+// ----------------------------------------------------- K6: the f32 tile
 
 constexpr int kTM = 64, kTN = 64, kTK = 32;
 
-// grid = (ceil(N/64), ceil(M/64)), block = 256 threads (16 x 16), 4 x 4
-// outputs each.
-template <typename XT>
-__global__ void __launch_bounds__(256) w4x8_stream(const XT* __restrict__ x,
+// f32 x and out. grid = (ceil(N/64), ceil(M/64)), block = 256 threads
+// (16 x 16), 4 x 4 outputs each.
+__global__ void __launch_bounds__(256) w4x8_stream(const float* __restrict__ x,
                                                    const uint8_t* __restrict__ q,
                                                    const __nv_bfloat16* __restrict__ s,
-                                                   XT* __restrict__ out, int M, int K,
+                                                   float* __restrict__ out, int M, int K,
                                                    int N) {
   __shared__ float xs[kTK][kTM + 4];
   __shared__ float wsh[kTK][kTN + 4];
@@ -287,7 +326,7 @@ __global__ void __launch_bounds__(256) w4x8_stream(const XT* __restrict__ x,
       const int idx = tid + 256 * i;
       const int r = idx / kTK, c = idx % kTK;
       const int m = m0 + r;
-      xs[c][r] = (m < M) ? to_f(x[(size_t)m * K + k0 + c]) : 0.f;
+      xs[c][r] = (m < M) ? x[(size_t)m * K + k0 + c] : 0.f;
     }
     const size_t srow = (size_t)(2 * (k0 / kGroup)) * N;  // a tile lies in one group
 #pragma unroll
@@ -327,10 +366,218 @@ __global__ void __launch_bounds__(256) w4x8_stream(const XT* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = from_f<XT>(acc[i][j]);
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
     }
   }
 }
+
+// ------------------------------------------------ K6: tensor cores (w4x8_tc)
+
+constexpr int kTcThreads = 128;       // four warps, 32 columns each
+constexpr int kTcCols = 128;          // columns per block
+constexpr int kTcStages = 2;          // 128-row groups in the cp.async ring
+constexpr int kTcWRows = kGroup / 2;  // packed weight rows of a group
+// weight row stride (bytes): the packed rows 8t + tig (tig = 0..3) a warp
+// reads at once fall in disjoint 8-bank windows, so its 32-bit reads are
+// free of bank conflicts
+constexpr int kTcWLd = kTcCols + 32;
+constexpr int kTcXLd = kGroup + 8;  // x row stride (bf16, 272 bytes): conflict-free ldmatrix
+
+// One ring stage: a group's packed weights, its scale row, then x (16 * MT rows).
+template <int MT> __host__ __device__ constexpr int tc_stage_bytes() {
+  return kTcWRows * kTcWLd + kTcCols * 2 + 16 * MT * kTcXLd * 2;
+}
+
+// The four bytes of a packed word (4 neighbouring columns of packed row r:
+// row 2r in the low nibbles, 2r+1 in the high, two's-complement int4) as
+// four bf16 pairs, pair j from byte j, row 2r in the low half: the layout of
+// an mma B register. Exact: (nibble & 0xF) ^ 0x4308 is the bf16 128 + (n +
+// 8) for the int4 value n, and 136 (0x4308) comes off in bf16.
+__device__ __forceinline__ void w4_pairs(uint32_t w, uint32_t (&b)[4]) {
+  const uint32_t h = w >> 4;  // byte j of h holds byte j's high nibble in its low bits
+  const uint32_t c = 0x43084308u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t t = __byte_perm(w, h, j | ((4 + j) << 8));  // bytes 0 and 2
+    const uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;
+    const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&c));
+    b[j] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+}
+
+// grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic
+// shared memory kTcStages * tc_stage_bytes<MT>. Block x covers column
+// strip x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the groups
+// [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip and all
+// 16*MT rows. Writes bf16 to out, or f32 partials to ws[y] when ws is set.
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __restrict__ x,
+                                                      const uint8_t* __restrict__ q,
+                                                      const __nv_bfloat16* __restrict__ s,
+                                                      __nv_bfloat16* __restrict__ out,
+                                                      float* __restrict__ ws, int M, int K,
+                                                      int N, int per, int m_tiles) {
+  constexpr int BM = 16 * MT;
+  constexpr int W_BYTES = kTcWRows * kTcWLd;
+  constexpr int S_BYTES = kTcCols * 2;
+  constexpr int STAGE = tc_stage_bytes<MT>();
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int n0 = (blockIdx.x / m_tiles) * kTcCols;
+  const int m0 = (blockIdx.x % m_tiles) * BM;
+  const int g0 = blockIdx.y * per;
+  const int n_it = min(per, K / kGroup - g0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // Group g into ring slot `slot`. Columns past N are not copied (their
+  // outputs are not stored); rows past M repeat row M-1 (likewise).
+  auto load = [&](int slot, int g) {
+    unsigned char* st = smem + slot * STAGE;
+#pragma unroll
+    for (int i = 0; i < kTcWRows * 8 / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 8 copies of 16 bytes per packed row
+      const int r = c >> 3, n = n0 + (c & 7) * 16;
+      if (n < N)
+        cp_async16(st + r * kTcWLd + (c & 7) * 16, q + (size_t)(g * kTcWRows + r) * N + n);
+    }
+    if (tid < kTcCols / 8) {
+      const int n = n0 + tid * 8;
+      if (n < N) cp_async16(st + W_BYTES + tid * 16, s + (size_t)(2 * g) * N + n);
+    }
+#pragma unroll
+    for (int i = 0; i < BM * 16 / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 16 copies of 16 bytes per row
+      const int r = c >> 4, m = min(m0 + r, M - 1);
+      cp_async16(st + W_BYTES + S_BYTES + r * (kTcXLd * 2) + (c & 15) * 16,
+                 x + (size_t)m * K + (size_t)g * kGroup + (c & 15) * 8);
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < n_it) load(i, g0 + i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // group `it` has landed; slot (it-1) % stages is free
+    if (it + kTcStages - 1 < n_it) load((it + kTcStages - 1) % kTcStages, g0 + it + kTcStages - 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (it % kTcStages) * STAGE;
+    // this thread's 4 columns 32*warp + 4*gid .. +3 of packed row tig
+    const unsigned char* wt = st + tig * kTcWLd + warp * 32 + gid * 4;
+    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(st + W_BYTES + S_BYTES);
+    float part[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kGroup / 16; ++t) {
+      // b0[j] / b1[j]: rows 16t + 2*tig + {0, 1} / + {8, 9} of n8 tile j
+      uint32_t b0[4], b1[4];
+      w4_pairs(*reinterpret_cast<const uint32_t*>(wt + 8 * t * kTcWLd), b0);
+      w4_pairs(*reinterpret_cast<const uint32_t*>(wt + (8 * t + 4) * kTcWLd), b1);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xt + (i * 16 + (lane & 15)) * kTcXLd + t * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b0[j], b1[j]);
+      }
+    }
+
+    // c0 / c2 of tile j are column 8*tig + j, c1 / c3 column 8*tig + 4 + j
+    float sc[8];
+    smem_scales8(reinterpret_cast<const __nv_bfloat16*>(st + W_BYTES) + warp * 32 + tig * 8, sc);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j][0] = fmaf(sc[j], part[i][j][0], acc[i][j][0]);
+        acc[i][j][1] = fmaf(sc[4 + j], part[i][j][1], acc[i][j][1]);
+        acc[i][j][2] = fmaf(sc[j], part[i][j][2], acc[i][j][2]);
+        acc[i][j][3] = fmaf(sc[4 + j], part[i][j][3], acc[i][j][3]);
+      }
+  }
+
+  const int n = n0 + warp * 32 + tig * 8;  // N is a multiple of 16: all 8 in or out
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + i * 16 + gid + 8 * h;
+      if (m >= M) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][j][2 * h];
+        v[4 + j] = acc[i][j][2 * h + 1];
+      }
+      if (ws != nullptr) {
+        float4* p = reinterpret_cast<float4*>(ws + (size_t)blockIdx.y * M * N + (size_t)m * N + n);
+        p[0] = make_float4(v[0], v[1], v[2], v[3]);
+        p[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                       pack_bf16(v[6], v[7]));
+      }
+    }
+}
+
+template <int MT>
+cudaError_t launch_tc_rows(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloat16* s,
+                           __nv_bfloat16* out, float* ws, int M, int K, int N, int ksplit,
+                           cudaStream_t st) {
+  constexpr int smem = kTcStages * tc_stage_bytes<MT>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(w4x8_tc<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int m_tiles = (M + 16 * MT - 1) / (16 * MT);
+  const int G = K / kGroup;
+  const int per = (G + ksplit - 1) / ksplit;
+  dim3 grid(((N + kTcCols - 1) / kTcCols) * m_tiles, ksplit);
+  w4x8_tc<MT><<<grid, kTcThreads, smem, st>>>(x, q, s, out, ksplit > 1 ? ws : nullptr, M, K, N,
+                                              per, m_tiles);
+  if (ksplit > 1) {
+    const size_t mn = (size_t)M * N;
+    w4x8_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, out, mn, ksplit);
+  }
+  return cudaSuccess;
+}
+
+// 16 rows per block up to M = 16, 32 up to 32, else 64 (several M tiles).
+cudaError_t launch_tc(const void* x, const void* q, const void* s, void* out, float* ws, int M,
+                      int K, int N, int ksplit, cudaStream_t st) {
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* qq = static_cast<const uint8_t*>(q);
+  const auto* ss = static_cast<const __nv_bfloat16*>(s);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (M <= 16) return launch_tc_rows<1>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
+  if (M <= 32) return launch_tc_rows<2>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
+  return launch_tc_rows<4>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
+}
+
+// The forms, as ops/kernels.py's W4X8_FORMS numbers them. K5 ("a8") has an
+// entry point of its own.
+enum W4x8Form { kA8 = 0, kTiledF32 = 1, kTensorCore = 2 };
 
 }  // namespace
 
@@ -388,20 +635,27 @@ extern "C" int llamago_w4x8_matmul_a8(const void* x, const void* q, const void* 
   return (int)cudaGetLastError();
 }
 
-// K6. x_bf16: 1 for bfloat16, 0 for float32.
+// K6. x_bf16: 1 for bfloat16, 0 for float32. form: 1 the f32 tile (f32 x,
+// ksplit 1), 2 the tensor-core tile (bf16 x). `ws` is an f32 workspace of
+// ksplit*M*N elements, used by the tensor-core tile when ksplit > 1; a split
+// holds ceil(K/128 / ksplit) groups. Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for a form the arguments do not allow.
 extern "C" int llamago_w4x8_matmul_stream(const void* x, const void* q, const void* s,
-                                          void* out, int M, int K, int N, int x_bf16,
-                                          void* stream) {
+                                          void* out, void* ws, int M, int K, int N, int x_bf16,
+                                          int form, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  if ((form != kTiledF32 && form != kTensorCore) || (form == kTensorCore) != (x_bf16 != 0) ||
+      M < 1 || ksplit < 1 || (form == kTiledF32 && ksplit != 1) || (ksplit > 1 && w == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (form == kTensorCore) {
+    const cudaError_t e = launch_tc(x, q, s, out, w, M, K, N, ksplit, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-  const uint8_t* qq = static_cast<const uint8_t*>(q);
-  const __nv_bfloat16* ss = static_cast<const __nv_bfloat16*>(s);
-  if (x_bf16)
-    w4x8_stream<__nv_bfloat16><<<grid, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x), qq,
-                                                     ss, static_cast<__nv_bfloat16*>(out), M,
-                                                     K, N);
-  else
-    w4x8_stream<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x), qq, ss,
-                                             static_cast<float*>(out), M, K, N);
+  w4x8_stream<<<grid, 256, 0, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(q),
+                                    static_cast<const __nv_bfloat16*>(s),
+                                    static_cast<float*>(out), M, K, N);
   return (int)cudaGetLastError();
 }

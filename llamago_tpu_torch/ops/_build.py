@@ -1,10 +1,11 @@
 """Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into `build/lib<name>-<hash>.so`
-at the repository root, where `<hash>` covers the source and the flags: a
-changed source builds anew at its first use, an unchanged one loads the
-library already built. The sources have a plain C interface and include
-no PyTorch headers, so one build takes seconds.
+at the repository root, where `<hash>` covers the source, every header it
+includes from `csrc/` (`#include "..."`, followed into headers too) and the
+flags: a changed source or header builds anew at its first use, an
+unchanged one loads the library already built. The sources have a plain C
+interface and include no PyTorch headers, so one build takes seconds.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +31,8 @@ SOURCES = ("dequant_matmul", "attn_decode", "cache_append", "attn_decode_quant",
            "w4x8_matmul", "dequant_matmul_so", "attn_prefill", "rms_norm", "lab_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -46,11 +50,28 @@ def nvcc_path() -> str:
     return found
 
 
+def source_files(name: str) -> list[str]:
+    """csrc/<name>.cu and the headers it includes from csrc/, directly or
+    through another header, as paths relative to csrc/ in the order first
+    met."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in files:
+            continue
+        files.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            text = f.read()
+        todo += [inc.decode() for inc in _INCLUDE.findall(text)
+                 if os.path.isfile(os.path.join(CSRC, inc.decode()))]
+    return files
+
+
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for rel in source_files(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -5,11 +5,12 @@ their plain versions and their launch counts.
 x.dtype and dispatches on the leaf as the JAX package's `dequant_matmul`
 does (llamago_tpu/ops/kernels.py):
 
-  {"q4x", "s"}  w4x8 leaf -> `w4x8_matmul`: K5, the W4A8 decode matmul, when
-                the row count m is at most `_W4X8_A8_MAX_M` (16, env
-                LLAMAGO_W4X8_A8_MAX_M), replacing `_w4x8_decode_kernel`;
-                else K6, the f32 stream matmul, replacing
-                `_w4x8_stream_kernel`. CUDA: `csrc/w4x8_matmul.cu`.
+  {"q4x", "s"}  w4x8 leaf -> `w4x8_matmul` in the form `w4x8_form` picks:
+                K5, the W4A8 decode matmul, when the row count m is at most
+                `_W4X8_A8_MAX_M` (16, env LLAMAGO_W4X8_A8_MAX_M), replacing
+                `_w4x8_decode_kernel`; else K6, the stream matmul, replacing
+                `_w4x8_stream_kernel`: the bf16 tensor-core tile for bf16 x
+                and the f32 tile for f32 x. CUDA: `csrc/w4x8_matmul.cu`.
   {"q8"|"q4", "s"}  Q8_0 / Q4_0 leaf -> K9, the scale-on-output matmul
                 (`dequant_matmul_so`, replacing `_dequant_mm_kernel_so`,
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
@@ -30,7 +31,8 @@ design does about it. A CPU tensor takes the kernel's plain version
 (`*_plain`); a CUDA tensor takes the kernel, or the wrapper raises. Each
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
 `.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile,
-`w4x8_matmul.launches_a8` and `.launches_stream`, `dequant_matmul_so.launches`).
+`w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
+`.launches_tc` took the tensor-core tile), `dequant_matmul_so.launches`).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`): the whole norm in f32 with one rounding to
@@ -57,12 +59,17 @@ from llamago_tpu_torch.ops.quant import G4X8, QK, dequantize, unpack_q4, unpack_
 _TARGET_BLOCKS = 4 * 132
 _GEMV_MAX_M = 8
 _GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
-# K1's tensor-core tile (csrc/dequant_matmul.cu): rows and columns per
-# block, the blocks below which it splits K, and how many it then aims for
-# (two and four per SM: on the card four per SM took 5% off a prefill pass
-# at m = 64 against two)
+# The tensor-core tiles of K1 (csrc/dequant_matmul.cu) and K6
+# (csrc/w4x8_matmul.cu): rows and columns per block, the blocks below which
+# they split K (two per SM), how many they then aim for, and the fewest rows
+# of K in a split (where K allows). K1 aims for four blocks per SM (on the
+# card four took 5% off its prefill pass at m = 64 against two); K6 for one
+# wave of the three its shared-memory ring lets an SM hold (on the card 5-6%
+# off its pass at m = 64 against four)
 _TC_ROWS, _TC_COLS = 64, 128
 _TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * 132, 4 * 132
+_W4X8_TC_TARGET_BLOCKS = 3 * 132
+_TC_MIN_SPLIT_ROWS = 256
 # K1's forms, numbered as the C entry point takes them
 K1_FORMS = ("gemv", "tiled_f32", "tensor_core")
 
@@ -70,6 +77,9 @@ K1_FORMS = ("gemv", "tiled_f32", "tensor_core")
 # changes the numerics; above it K6 (exact given the format).
 _W4X8_A8_MAX_M = int(os.environ.get("LLAMAGO_W4X8_A8_MAX_M", "16"))
 _A8_WARPS = 4  # warps per K5 block, one scale group each (csrc/w4x8_matmul.cu)
+# The w4x8 forms, numbered as the C entry points take them: K5, and K6's
+# f32 and tensor-core tiles
+W4X8_FORMS = ("a8", "tiled_f32", "tensor_core")
 
 # Rows (padded up to 8, as the TPU launcher pads them) at or below which a
 # Q8_0 / Q4_0 leaf takes K9. Off by default, as in the JAX package.
@@ -168,17 +178,21 @@ def k1_form(m: int, x_dtype: torch.dtype) -> str:
     return "tensor_core" if x_dtype == torch.bfloat16 else "tiled_f32"
 
 
-def tc_split_for(m: int, k: int, n: int) -> tuple[int, int]:
-    """(ksplit, quant blocks per split) of K1's tensor-core tile: no split
-    when the output tiles alone give 264 blocks (two per SM), else enough
-    splits for about 528, each of at least 8 whole 32-row quant blocks
-    where K allows, none empty. The C side takes ksplit and cuts the splits
-    at ceil(K/32 / ksplit), which is the second number."""
-    nb = k // QK
+def tc_split_for(m: int, k: int, n: int, unit: int = QK,
+                 target: int = _TC_TARGET_BLOCKS) -> tuple[int, int]:
+    """(ksplit, units per split) of a tensor-core tile whose K comes in
+    units of `unit` rows, each with its own scale (K1: 32-row quant blocks;
+    K6: 128-row groups): no split when the output tiles alone give 264
+    blocks (two per SM), else enough splits for about `target` blocks, each
+    of at least 256 rows of K (8 quant blocks, 2 groups) where K allows,
+    none empty. The C side takes ksplit and cuts the splits at ceil(K/unit
+    / ksplit), which is the second number."""
+    nb = k // unit
     blocks = -(-n // _TC_COLS) * -(-m // _TC_ROWS)
     if blocks >= _TC_MIN_BLOCKS:
         return 1, nb
-    ksplit = max(1, min(nb // 8, -(-_TC_TARGET_BLOCKS // blocks)))
+    min_units = max(1, _TC_MIN_SPLIT_ROWS // unit)
+    ksplit = max(1, min(nb // min_units, -(-target // blocks)))
     per = -(-nb // ksplit)
     return -(-nb // per), per
 
@@ -203,6 +217,29 @@ def a8_cols_per_thread(m: int) -> int:
     """Columns each K5 thread owns: 8 up to 8 rows, 4 above (the integer and
     f32 sums of every row and column live in registers)."""
     return 8 if m <= 8 else 4
+
+
+def w4x8_form(m: int, x_dtype: torch.dtype) -> str:
+    """The w4x8 matmul's kernel on the card for m rows of x: "a8" (K5) when
+    max(8, m) is at most `_W4X8_A8_MAX_M` (the TPU launcher pads m up to 8);
+    above, K6: "tensor_core" (bf16 mma.sync) for bf16 x and "tiled_f32" for
+    f32 x, which the bf16 tensor cores cannot take without rounding it."""
+    if max(8, m) <= _W4X8_A8_MAX_M:
+        return "a8"
+    return "tensor_core" if x_dtype == torch.bfloat16 else "tiled_f32"
+
+
+def w4x8_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
+    """(form, ksplit, f32 workspace elements of the split-K partials) of one
+    w4x8 launch over m rows."""
+    form = w4x8_form(m, x_dtype)
+    if form == "a8":
+        ksplit = a8_split_for(m, k, n)[0]
+        return form, ksplit, ksplit * m * n
+    if form == "tensor_core":
+        ksplit = tc_split_for(m, k, n, G4X8, _W4X8_TC_TARGET_BLOCKS)[0]
+        return form, ksplit, ksplit * m * n if ksplit > 1 else 0
+    return form, 1, 0
 
 
 def a8_split_for(m: int, k: int, n: int) -> tuple[int, int]:
@@ -239,7 +276,7 @@ def _lib_w4x8():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.llamago_w4x8_quantize_x.argtypes = [p, p, p, i, i, i, p]
     lib.llamago_w4x8_matmul_a8.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.llamago_w4x8_matmul_stream.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.llamago_w4x8_matmul_stream.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.llamago_w4x8_quantize_x, lib.llamago_w4x8_matmul_a8,
                lib.llamago_w4x8_matmul_stream):
         fn.restype = ctypes.c_int
@@ -312,11 +349,12 @@ def w4x8_quantize_x(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def w4x8_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     """x [..., K] @ w4x8 w {"q4x": uint8 [K/2, N], "s": bf16 [K/64, N]} ->
-    [..., N] in x.dtype: K5 up to `_W4X8_A8_MAX_M` rows, K6 above."""
+    [..., N] in x.dtype, in the form `w4x8_form` names: K5 up to
+    `_W4X8_A8_MAX_M` rows, K6 above."""
     k = x.shape[-1]
     m = x.numel() // k
-    a8 = max(8, m) <= _W4X8_A8_MAX_M  # the TPU launcher pads m up to 8
     if x.device.type == "cpu":
+        a8 = w4x8_form(m, x.dtype) == "a8"
         return (w4x8_matmul_a8_plain if a8 else w4x8_matmul_stream_plain)(x, w)
     _cuda_or_raise(x, "w4x8_matmul")
     q, s = w["q4x"], w["s"]
@@ -326,11 +364,12 @@ def w4x8_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     x_bf16 = int(x2.dtype == torch.bfloat16)
     lib = _lib_w4x8()
-    if a8:
-        ksplit, per = a8_split_for(m, k, n)
+    form, ksplit, ws_elems = w4x8_plan(m, k, n, x2.dtype)
+    if form == "a8":
+        per = a8_split_for(m, k, n)[1]
         # one scratch allocation: sx f32 [m, K/128], the split-K partial sums
         # f32 [ksplit, m, N], then xq int8 [m, K]
-        sx_bytes, ws_bytes = 4 * m * (k // G4X8), 4 * ksplit * m * n
+        sx_bytes, ws_bytes = 4 * m * (k // G4X8), 4 * ws_elems
         scratch = torch.empty(sx_bytes + ws_bytes + m * k, dtype=torch.uint8,
                               device=x2.device)
         sx_ptr = scratch.data_ptr()
@@ -341,16 +380,20 @@ def w4x8_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
         _build.check(err, "w4x8_matmul (W4A8)")
         w4x8_matmul.launches_a8 += 1
     else:
+        ws = torch.empty(ws_elems, dtype=torch.float32, device=x2.device) if ws_elems else out
         err = lib.llamago_w4x8_matmul_stream(
-            x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, x_bf16,
-            _stream(x2))
-        _build.check(err, "w4x8_matmul (stream)")
+            x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, n,
+            x_bf16, W4X8_FORMS.index(form), ksplit, _stream(x2))
+        _build.check(err, f"w4x8_matmul ({form})")
         w4x8_matmul.launches_stream += 1
+        if form == "tensor_core":
+            w4x8_matmul.launches_tc += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 w4x8_matmul.launches_a8 = 0
 w4x8_matmul.launches_stream = 0
+w4x8_matmul.launches_tc = 0
 
 
 def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict,
