@@ -14,13 +14,15 @@ Phases, each of which fails the run (exit code 1, no result line):
      yardstick the port never calls) and the bound (the larger of bytes
      over 3.35 TB/s and operations over the peak rate of their type: 989
      TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
-     K1 (Q8_0 and Q4_0, each of its three forms: the GEMV up to 8 rows,
-     above that the tensor-core tile for bf16 x and the f32 tile for f32
-     x), K2, K3, K4, K8 (the three of the int8 cache with f32 and with
-     bf16 scale planes), K5 (W4A8 decode matmul), K6 (w4x8 stream matmul,
-     each of its forms: the tensor-core tile for bf16 x, the f32 tile for
-     f32 x), K9 (scale-on-output matmul), K7 (flash prefill attention) and
-     K10 (fused RMSNorm);
+     K1 (Q8_0 and Q4_0, each of its four forms: up to 8 rows the
+     tensor-core decode form for bf16 x, checked at m = 1, 2, 3, 4, 5 and
+     8 and timed at 4 and 8, and the GEMV for f32 x; above that the
+     tensor-core tile for bf16 x and the f32 tile for f32 x), K2, K3, K4,
+     K8 (the three of the int8 cache with f32 and with bf16 scale planes),
+     K5 (W4A8 decode matmul), K6 (w4x8 stream matmul, each of its forms:
+     the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
+     (scale-on-output matmul), K7 (flash prefill attention) and K10 (fused
+     RMSNorm);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -30,28 +32,32 @@ Phases, each of which fails the run (exit code 1, no result line):
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
      the Q4_0 format with the scale-on-output switch on (K9); then the
      dense cache and the w4x8 model in bf16 on the card against the CPU's
-     f32 (K1's and K6's tensor-core tiles must launch);
+     f32 (K1's and K6's tensor-core tiles and K1's decode form must
+     launch; with f32 x K1 takes only its f32 forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
-     greedy job twice. The launch counts of K1 (its tensor-core tile too:
-     every prompt's prefill) and K2 must rise while serving, those of the
-     int8 cache's kernels stay 0. Then one 64-token prefill chunk is timed
-     and traced (device busy time, K1's share of it) and one decode chunk
-     of the 4 slots for where a decode step's time goes (device busy
-     share, top kernels and host ops);
+     greedy job twice. The launch counts of K1, its tensor-core decode
+     form (`launches_decode_tc`: every decode step), its tensor-core tile
+     (`launches_tc`: every prompt's prefill) and K2 must rise while
+     serving, those of the int8 cache's kernels stay 0. Then one 64-token
+     prefill chunk is timed and traced (device busy time, K1's share of
+     it) and one decode chunk of the 4 slots for where a decode step's
+     time goes (device busy share, the matmul kernels, top kernels and
+     host ops);
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
-     16 jobs, after phase 4's engine is freed: K1 (and its tensor-core
-     tile), K3 and K4 must launch, K2 and K8 not;
+     16 jobs, after phase 4's engine is freed: K1 (its tensor-core decode
+     form and tile), K3 and K4 must launch, K2 and K8 not;
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
      (its tensor-core tile: every prompt's prefill) and K2 must launch,
-     every other kernel (K1's tile too) stay at 0; K6's tensor-core tile
+     every other kernel (K1's forms too) stay at 0; K6's tensor-core tile
      stays at 0 in every other serving phase;
   4d. Q8_0 weights and the bf16 cache on 4 slots again, now with 8 jobs of
      which four bring prompts of about 600 tokens (prefill chunks of 256,
      256 and 128 tokens), run twice: with the default routes (the einsum
-     attention materializes the scores; K1 and K2 launch, as in phase 4;
+     attention materializes the scores; K1 (its decode form and tile) and
+     K2 launch, as in phase 4;
      a 256-token prefill chunk is profiled beside the 64-token one),
      then with the opt-in routes on (LLAMAGO_ATTN_PREFILL_FLOOR=0 and
      ops.kernels.USE_FUSED_NORM, switched as module attributes): K1, K2, K7
@@ -272,40 +278,55 @@ def _line(errs: dict, steps: dict, m: int, keep=lambda m, xdt: True) -> dict:
     return {"max_abs_err": max(e for key, e in errs.items() if keep(*key)), **steps[m]}
 
 
-def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict]:
-    """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms: checked and
-    timed at m=4 (decode: the GEMV, f32 FMA), m=64 (the prefill bucket of
-    the smoke's prompts) and m=256 (the long prompts' chunks), both on the
-    tensor-core tile for bf16 x (bf16 operations) and on the f32 tile for
-    f32 x; the other row counts the serving path produces (1, 2 and 8
-    slots: the GEMV's other templates; 9, 16, 17, 32 and 100 rows: every
-    row tiling of the tensor-core form and ragged ones) checked at the wqkv
-    shape. Every call must take the form `k1_form` names (`launches_tc`
-    counts the tensor-core tile). Returns the kernels line's numbers of the
-    GEMV and f32 tile (one decode step at m=4) and of the tensor-core tile
-    (one prefill pass at m=64)."""
+def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict]:
+    """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms, at the five
+    7B shapes, against the plain version with f32 and bf16 x: at m = 1, 2,
+    3, 4, 5 and 8 (decode: the tensor-core decode form for bf16 x, the GEMV
+    for f32 x), and 9, 16, 17, 32, 64, 100 and 256 (every row tiling of the
+    tensor-core tile for bf16 x, ragged ones, and the f32 tile for f32 x).
+    Timed with bf16 x at m=4 and 8 (the decode form at 4 and 8 slots), 64
+    (the prefill bucket of the smoke's prompts) and 256 (the long prompts'
+    chunks), all against the bf16 rate; and with f32 x at m=4 (the GEMV,
+    against the f32 rate). Every call must take the form `k1_form` names
+    (`launches_tc` counts the tensor-core tile, `launches_decode_tc` the
+    decode form). Returns the kernels line's numbers of the f32 forms (the
+    GEMV: one decode step at m=4, f32 x), of the tensor-core tile (one
+    prefill pass at m=64) and of the decode form (one decode step at
+    m=4)."""
     from llamago_tpu_torch.ops import kernels
 
     def k1(x, w):
-        before = kernels.dequant_matmul.launches_tc
+        before = (kernels.dequant_matmul.launches_tc, kernels.dequant_matmul.launches_decode_tc)
         out = kernels.dequant_matmul(x, w)
-        tc = kernels.k1_form(x.shape[0], x.dtype) == "tensor_core"
-        if kernels.dequant_matmul.launches_tc - before != int(tc):
-            raise AssertionError(f"K1 m={x.shape[0]} x={x.dtype}: the tensor-core count "
-                                 f"went from {before} to {kernels.dequant_matmul.launches_tc}")
+        form = kernels.k1_form(x.shape[0], x.dtype)
+        after = (kernels.dequant_matmul.launches_tc, kernels.dequant_matmul.launches_decode_tc)
+        if (after[0] - before[0], after[1] - before[1]) != (int(form == "tensor_core"),
+                                                            int(form == "decode_tc")):
+            raise AssertionError(f"K1 m={x.shape[0]} x={x.dtype}: form {form}, but the "
+                                 f"tensor-core and decode counts went from {before} to {after}")
         return out
 
+    tag = "K1" if fmt == "q8" else "K1 q4"
+    shapes = tuple(name for name, *_ in K1_SHAPES)
     errs, steps = check_matmul(
-        dev, detail, "K1" if fmt == "q8" else "K1 q4", fmt, k1,
-        kernels.dequant_matmul_plain, timed_m=(4, 64, 256),
-        other_m=(1, 2, 8, 9, 16, 17, 32, 100),
-        ops_per_s=lambda m: F32_OPS_PER_S if m <= 8 else BF16_OPS_PER_S,
-        seed=1 if fmt == "q8" else 7)
+        dev, detail, tag, fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 8, 64, 256),
+        other_m=(1, 2, 3, 5, 9, 16, 17, 32, 100), ops_per_s=lambda m: BF16_OPS_PER_S,
+        seed=1 if fmt == "q8" else 7, other_shapes=shapes)
+    errs32, steps32 = check_matmul(
+        dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain, timed_m=(4,),
+        other_m=(), ops_per_s=lambda m: F32_OPS_PER_S, seed=2 if fmt == "q8" else 8,
+        timed_dtype="float32")
     if not any(m > 8 and xdt == "float32" for m, xdt in errs):
         raise AssertionError("K1: the f32 tile was not checked")
-    tc = lambda m, xdt: m > 8 and xdt == "bfloat16"  # noqa: E731
-    return (_line(errs, steps, 4, lambda m, xdt: not tc(m, xdt)),
-            _line(errs, steps, 64, tc))
+    for m in (4, 8):
+        log(f"{tag} at m={m}: the decode form {steps[m]['ms']:.3f} ms per step (bf16 x), "
+            f"x@W {steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms")
+    log(f"{tag} at m=4: the GEMV {steps32[4]['ms']:.3f} ms per step (f32 x)")
+    f32 = lambda m, xdt: xdt == "float32"  # noqa: E731
+    both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
+    return (_line(both, steps32, 4, f32),
+            _line(errs, steps, 64, lambda m, xdt: m > 8 and not f32(m, xdt)),
+            _line(errs, steps, 4, lambda m, xdt: m <= 8 and not f32(m, xdt)))
 
 
 def check_k5(dev, detail: dict) -> dict:
@@ -1041,8 +1062,10 @@ def check_small_model(dev) -> int:
     K10 must launch; the prompt fills a 64-token bucket), then the int8
     cache with bf16 scale planes (card and CPU under the same scale dtype);
     last, logits of the dense cache with bf16 compute on the card against
-    the CPU's f32 ones (K1's tensor-core tile takes the prefill windows).
-    Returns the launches of K8 in its run."""
+    the CPU's f32 ones (K1's tensor-core tile takes the prefill windows,
+    its decode form the decode step). Returns the launches of K8 in its run
+    and of K1's f32 forms (the GEMV and the f32 tile: f32 x) in the dense
+    cache's."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1069,7 +1092,7 @@ def check_small_model(dev) -> int:
     vocab = _byte_vocab(dense.vocab_size)
     gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
     int8 = dense.replace(kv_dtype="int8")
-    default, k8_launches = attention._I8DOT, 0
+    default, k8_launches, k1_f32_launches = attention._I8DOT, 0, 0
     floor, fused, scale_name = (attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM,
                                 kv_cache._SCALE_DTYPE_NAME)
     # t=40: einsum-math prefill, or K7; t=16: K2/K4/K8 prefill bucket; t=1:
@@ -1116,6 +1139,12 @@ def check_small_model(dev) -> int:
         log(f"small model, {name}: launches {counts}")
         if not i8dot:
             k8_launches = counts["flash_attention_quant_widening"]
+        if name == "dense cache":
+            k1_f32_launches = counts["dequant_matmul"]
+        if counts["dequant_matmul"] == 0 or counts["dequant_matmul_tc"] > 0 \
+                or counts["dequant_matmul_decode_tc"] > 0:
+            raise AssertionError(f"small model, {name}: with f32 x K1 must take its f32 forms "
+                                 f"only: {counts}")
         if any((counts[k] > 0) != opt_in
                for k in ("flash_attention_prefill", "fused_rms_norm")):
             raise AssertionError(f"small model, {name}: K7 and K10 must launch with the "
@@ -1130,11 +1159,12 @@ def check_small_model(dev) -> int:
     # bf16 compute on the card (dense cache) against the CPU's f32 logits:
     # the prefill windows (80 and 32 rows) take K1's tensor-core tile
     counts = _small_bf16_logits(dev, dense, gpu, cpu, toks, "small model")
-    if counts["dequant_matmul_tc"] == 0:
-        raise AssertionError(f"small model, bf16: K1's tensor-core tile never launched: {counts}")
+    if counts["dequant_matmul_tc"] == 0 or counts["dequant_matmul_decode_tc"] == 0:
+        raise AssertionError(f"small model, bf16: K1's tensor-core tile or decode form never "
+                             f"launched: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
-    return k8_launches
+    return k8_launches, k1_f32_launches
 
 
 def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
@@ -1301,6 +1331,7 @@ def _launch_counters():
     return {"dequant_matmul": (kernels.dequant_matmul, "launches"),
             "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
             "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
+            "dequant_matmul_decode_tc": (kernels.dequant_matmul, "launches_decode_tc"),
             "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
@@ -1580,17 +1611,19 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
     device_ms = busy / 1e3 / traced
+    # the decode matmuls: K1's dq_* (the decode form and its reduce) or K5's w4x8_*
+    mm_ms = sum(v for k, v in by_name.items() if "dq_" in k or "w4x8_" in k) / 1e3 / traced
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]
     out = {"slots": n, "step_ms": step_ms, "traced_step_ms": traced_ms,
            "device_busy_ms": device_ms,
-           "device_busy_share": device_ms / step_ms,
+           "device_busy_share": device_ms / step_ms, "matmul_ms": mm_ms,
            "top_kernels_ms_per_step": {k: v / 1e3 / traced for k, v in top},
            "top_host_ops_ms_per_step": {a.key: a.self_cpu_time_total / 1e3 / traced
                                         for a in host},
            "host_op_calls_per_step": sum(a.count for a in prof.key_averages()) / traced}
     log(f"decode step ({n} slots): {step_ms:.2f} ms host-timed, {traced_ms:.2f} ms traced, "
-        f"device busy {device_ms:.3f} ms/step")
+        f"device busy {device_ms:.3f} ms/step, matmul kernels {mm_ms:.3f} ms/step")
     for k, v in out["top_kernels_ms_per_step"].items():
         log(f"  device {v:8.3f} ms/step  {k[:100]}")
     for k, v in out["top_host_ops_ms_per_step"].items():
@@ -1641,18 +1674,18 @@ def main(argv: list[str]) -> int:
     def want(phase: str) -> bool:
         return only is None or phase in only
 
-    k1, k1tc = check_k1(dev, detail) if want("k1") else ({}, {})
+    k1, k1tc, k1dt = check_k1(dev, detail) if want("k1") else ({}, {}, {})
     k2 = check_k2(dev, detail) if want("k2") else {}
     k3 = check_k3(dev, detail) if want("k3") else {}
     k4, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {})
-    k1q4, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {})
+    k1q4, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
     k9 = check_k9(dev, detail) if want("k9") else {}
     k7 = check_k7(dev, detail) if want("k7") else {}
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
-    k8_launches = check_small_model(dev) if want("small") else 0
+    k8_launches, k1_f32_launches = check_small_model(dev) if want("small") else (0, 0)
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
@@ -1662,26 +1695,30 @@ def main(argv: list[str]) -> int:
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
         if want("serve"):
             served = serve(dev, cfg, params, slots=4, n_jobs=8,
-                           rise=("dequant_matmul", "dequant_matmul_tc", "flash_attention"))
+                           rise=("dequant_matmul", "dequant_matmul_tc",
+                                 "dequant_matmul_decode_tc", "flash_attention"))
             gc.collect()  # the phase 4 engine and its cache
             torch.cuda.empty_cache()
         if want("serve_prefill"):
             # phase 4d: long prompts, the default routes and then the opt-in ones
             served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
-                             rise=("dequant_matmul", "dequant_matmul_tc", "flash_attention"))
+                             rise=("dequant_matmul", "dequant_matmul_tc",
+                                 "dequant_matmul_decode_tc", "flash_attention"))
             gc.collect()
             torch.cuda.empty_cache()
             with opt_in_routes():
                 served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
                                  rise=("dequant_matmul", "dequant_matmul_tc",
-                                       "flash_attention", "flash_attention_prefill",
+                                       "dequant_matmul_decode_tc", "flash_attention",
+                                       "flash_attention_prefill",
                                        "fused_rms_norm"))
             gc.collect()
             torch.cuda.empty_cache()
         if want("serve_int8"):
             served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
                              rise=("dequant_matmul", "dequant_matmul_tc",
-                                   "cache_append_quant", "flash_attention_quant_i8dot"))
+                                   "dequant_matmul_decode_tc", "cache_append_quant",
+                                   "flash_attention_quant_i8dot"))
         del params
         gc.collect()  # the int8 weights, the phase 4b engine and its cache
         torch.cuda.empty_cache()
@@ -1696,15 +1733,22 @@ def main(argv: list[str]) -> int:
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
-        {"name": "dequant_matmul", "route": "cuda",
+        # K1's tensor-core decode form: its launches in phase 4, one decode step at m=4
+        {"name": "dequant_matmul_decode_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": served["launches"]["dequant_matmul"], **k1},
+         "launches": served["launches"]["dequant_matmul_decode_tc"], **k1dt},
         # K1's tensor-core tile: its launches in phase 4, one prefill pass at m=64
         {"name": "dequant_matmul_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
+        # K1's f32 forms (the GEMV and the f32 tile) run f32 x, which phase 3
+        # drives; the GEMV's numbers, one decode step at m=4
+        {"name": "dequant_matmul", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": k1_f32_launches, **k1},
         {"name": "flash_attention", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode.cu",
          "replaces": "llamago_tpu/ops/attention.py:230",

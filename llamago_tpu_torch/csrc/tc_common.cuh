@@ -1,8 +1,9 @@
-// PTX wrappers shared by the bf16 tensor-core tiles of K1 (dq_tc,
-// dequant_matmul.cu) and K6 (w4x8_tc, w4x8_matmul.cu), and used by K7's
+// PTX wrappers shared by the bf16 tensor-core kernels of K1 (dq_tc and
+// dq_decode_tc, dequant_matmul.cu) and K6 (w4x8_tc, w4x8_matmul.cu), and used by K7's
 // mma path (attn_prefill.cu) and the lab's cp.async probe (lab_matmul.cu):
 // cp.async staging, ldmatrix A fragments, mma.sync.m16n8k16 with f32
-// accumulation, bf16 packing and scale reads from shared memory. Each
+// accumulation, bf16 packing and scale reads from shared memory, TMA bulk
+// copies on mbarriers, and the exact bf16 pairs of int8 and Q4_0 weights. Each
 // source builds into its own library, so the functions live in an
 // anonymous namespace.
 
@@ -23,6 +24,56 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N_> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N_) : "memory");
+}
+
+// Bulk copies by the TMA unit, completing on an mbarrier in shared memory:
+// one thread arms the barrier with the bytes it expects (mbar_expect, one
+// arrival), any threads start copies that count their bytes off it, and
+// every reader waits for the phase (mbar_wait, parity 0, 1, 0, ... as the
+// barrier is reused). The copy's size is a multiple of 16, both addresses
+// 16-byte aligned. `policy` (l2_evict_first) marks data read once, so that
+// it leaves L2 before data read again.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+}
+// After mbar_init and before any thread's first use of the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(a), "r"(parity) : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(d), "l"(src), "r"(bytes), "r"(b), "l"(policy)
+      : "memory");
 }
 
 // Fragment layouts of mma.m16n8k16 with gid = lane / 4, tig = lane % 4: A
@@ -51,6 +102,27 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_r
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte J of two words of int8 weights (each already XORed with 0x80808080,
+// so a byte holds q + 128) as a bf16 pair, exactly: 0x4B0000uu is the f32
+// 2^23 + uu, and 2^23 + 128 comes off in f32. `lo` gives the low half.
+template <int J> __device__ __forceinline__ uint32_t i8_pair(uint32_t lo, uint32_t hi) {
+  const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7440 | J)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7440 | J)) - 8388736.f;
+  return pack_bf16(a, b);
+}
+
+// The nibble at SHIFT (0: low, 4: high) of byte J of two packed Q4_0 words,
+// minus 8, as a bf16 pair, exactly: 0x43nn is the bf16 128 + n (n < 16),
+// and 136 (0x4308) comes off in bf16. `lo` gives the low half.
+template <int J, int SHIFT> __device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
+  const uint32_t t = __byte_perm(lo, hi, J | ((4 + J) << 8));  // bytes 0 and 2
+  uint32_t v = ((t >> SHIFT) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t c = 0x43084308u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // 8 consecutive scales in shared memory (16-byte aligned) -> f32.

@@ -5,10 +5,12 @@ GPU.
 
 Counterpart of the JAX package's `scripts/kernel_lab.py`, with the same 32
 variant names. Which FUNCTION should a quantized matmul of a few rows
-compute: dequantize and dot in f32 (rows L1, L2, L5 of the table below), in
-bf16 (L3), integer dots with the scales folded into the output per 32-block
-(L4, L6, L7), per k-tile or 128-group (L8, L10), and what do the floor
-probes read (L11, L12)? For each name the lab first checks the variant
+compute: dequantize and dot in f32 (row L2 of the table below), in bf16
+(L3), the integer weights in bf16 dotted per 32-block with the scales
+folded on the f32 sums (L1, L5: K1's tensor-core forms), integer dots
+with the scales folded into the output per 32-block (L4, L6, L7), per
+k-tile or 128-group (L8, L10), and what do the floor probes read (L11,
+L12)? For each name the lab first checks the variant
 against `x @ dequantize(w)` at K = N = 512 (`correctness`: the JAX lab's
 skip list and tolerances), then times it at the dominant 70B-shard shape
 (K = 8192, N = 7168, m = 8) over 24 layers of distinct weights chained
@@ -102,13 +104,15 @@ def _whole_x(ops):
 
 def _l1(hoist=None, fmt="q4"):
     """L1 / L5: K1 on the Q4_0 / Q8_0 leaf. K1 gathers x itself, so the
-    halves of a hoisted variant are joined back."""
+    halves of a hoisted variant are joined back. x is bf16, so on the card
+    K1 runs a bf16 tensor-core form (`kernels.k1_form`: the decode form up
+    to 8 rows, the tile above): its products are bf16."""
     attr = "launches_q4" if fmt == "q4" else "launches"
     return Variant(
         "L1" if fmt == "q4" else "L5", fmt, hoist,
         lambda ops, w, tk: kernels.dequant_matmul(_whole_x(ops), w).to(torch.float32),
         lambda ops, w, tk: kernels.dequant_matmul_plain(_whole_x(ops), w).to(torch.float32),
-        "f32", (kernels.dequant_matmul, attr), ("dq_",))
+        "bf16", (kernels.dequant_matmul, attr), ("dq_",))
 
 
 def _probe(kind):

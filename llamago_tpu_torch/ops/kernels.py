@@ -18,7 +18,8 @@ does (llamago_tpu/ops/kernels.py):
                 LLAMAGO_KERNEL_SO_MAX_M); else K1, the dequant-matmul
                 (replacing `_dequant_mm_kernel`, bits 8 and 4, CUDA:
                 `csrc/dequant_matmul.cu`) in the form `k1_form` picks:
-                the split-K GEMV up to 8 rows, above that the bf16
+                up to 8 rows the bf16 tensor-core decode form for bf16 x
+                and the split-K GEMV for f32 x, above that the bf16
                 tensor-core tile for bf16 x and the f32 tile for f32 x.
 
 A Q4_1 leaf (with mins "m") never comes here: `ops/quant.py:quant_matmul`
@@ -30,7 +31,8 @@ Each `.cu` header says what bounds its kernel on the card and what the
 design does about it. A CPU tensor takes the kernel's plain version
 (`*_plain`); a CUDA tensor takes the kernel, or the wrapper raises. Each
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
-`.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile,
+`.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile
+and `.launches_decode_tc` the tensor-core decode form,
 `w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
 `.launches_tc` took the tensor-core tile), `dequant_matmul_so.launches`).
 
@@ -70,8 +72,15 @@ _TC_ROWS, _TC_COLS = 64, 128
 _TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * 132, 4 * 132
 _W4X8_TC_TARGET_BLOCKS = 3 * 132
 _TC_MIN_SPLIT_ROWS = 256
+# K1's tensor-core decode form (csrc/dequant_matmul.cu, dq_decode_tc):
+# columns per block, the most blocks it launches (one wave of the three an
+# SM holds: on the card a second, partial wave cost 2-3% of a 7B step) and
+# the fewest quant blocks in a split
+_DT_COLS = 512
+_DT_MAX_BLOCKS = 3 * 132
+_DT_MIN_SPLIT_BLOCKS = 4
 # K1's forms, numbered as the C entry point takes them
-K1_FORMS = ("gemv", "tiled_f32", "tensor_core")
+K1_FORMS = ("gemv", "tiled_f32", "tensor_core", "decode_tc")
 
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
@@ -169,13 +178,27 @@ def ksplit_for(k: int, n: int) -> int:
 
 
 def k1_form(m: int, x_dtype: torch.dtype) -> str:
-    """K1's kernel on the card for m rows of x: "gemv" (the split-K GEMV)
-    up to 8 rows; above, "tensor_core" (bf16 mma.sync) for bf16 x and
-    "tiled_f32" for f32 x, which the bf16 tensor cores cannot take without
-    rounding it."""
+    """K1's kernel on the card for m rows of x. bf16 x takes bf16 mma.sync:
+    "decode_tc" (the slots are the n8 columns of B) up to 8 rows,
+    "tensor_core" (the prefill tile) above. f32 x, which the bf16 tensor
+    cores cannot take without rounding it, takes "gemv" (the split-K GEMV)
+    up to 8 rows and "tiled_f32" above."""
+    bf16 = x_dtype == torch.bfloat16
     if m <= _GEMV_MAX_M:
-        return "gemv"
-    return "tensor_core" if x_dtype == torch.bfloat16 else "tiled_f32"
+        return "decode_tc" if bf16 else "gemv"
+    return "tensor_core" if bf16 else "tiled_f32"
+
+
+def decode_tc_split_for(k: int, n: int) -> tuple[int, int]:
+    """(ksplit, quant blocks per split) of K1's tensor-core decode form: as
+    many splits as one wave of `_DT_MAX_BLOCKS` blocks of 512 columns holds,
+    each of at least 4 quant blocks where K allows, none empty. The C side
+    cuts the splits at ceil(K/32 / ksplit), which is the second number."""
+    nb = k // QK
+    strips = -(-n // _DT_COLS)
+    ksplit = max(1, min(nb // _DT_MIN_SPLIT_BLOCKS, _DT_MAX_BLOCKS // strips))
+    per = -(-nb // ksplit)
+    return -(-nb // per), per
 
 
 def tc_split_for(m: int, k: int, n: int, unit: int = QK,
@@ -197,20 +220,25 @@ def tc_split_for(m: int, k: int, n: int, unit: int = QK,
     return -(-nb // per), per
 
 
-def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype,
-            gemv_rows: int | None = None) -> tuple[str, int, int]:
-    """(form, ksplit, f32 workspace elements) of one launch over m rows.
-    `gemv_rows` (default m) is the row count the form and the GEMV's split
-    are planned for: K9 plans with 1 and walks all m rows."""
-    rows = m if gemv_rows is None else gemv_rows
-    form = k1_form(rows, x_dtype)
+def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
+    """(form, ksplit, f32 workspace elements) of one K1 launch over m rows."""
+    form = k1_form(m, x_dtype)
     if form == "gemv":
-        ksplit = ksplit_for(k, n)
-        return form, ksplit, ksplit * m * n
-    if form == "tensor_core":
-        ksplit = tc_split_for(m, k, n)[0]
-        return form, ksplit, ksplit * m * n if ksplit > 1 else 0
-    return form, 1, 0
+        return gemv_plan(m, k, n)
+    if form == "tiled_f32":
+        return form, 1, 0
+    ksplit = (tc_split_for(m, k, n) if form == "tensor_core" else decode_tc_split_for(k, n))[0]
+    return form, ksplit, ksplit * m * n if ksplit > 1 else 0
+
+
+def gemv_plan(m: int, k: int, n: int) -> tuple[str, int, int]:
+    """(form, ksplit, f32 workspace elements) of the split-K GEMV over m
+    rows: K1's form for f32 x up to 8 rows, and K9's plan for any x and m
+    (its entry point has this form only and walks all m rows a few at a
+    time). The GEMV's reduce writes the output: one partial per split,
+    always."""
+    ksplit = ksplit_for(k, n)
+    return "gemv", ksplit, ksplit * m * n
 
 
 def a8_cols_per_thread(m: int) -> int:
@@ -396,20 +424,19 @@ w4x8_matmul.launches_stream = 0
 w4x8_matmul.launches_tc = 0
 
 
-def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict,
-              gemv_rows: int) -> tuple[torch.Tensor, str]:
+def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, plan) -> tuple[torch.Tensor, str]:
     """Shared launcher of K1 and K9: both C entry points take the same
     arguments (x, q, s, out, workspace, m, K, N, bits, dtypes, form,
-    ksplit). `gemv_rows`: the row count the launch is planned for
-    (`k1_plan`): K1 plans with its own, K9 with 1, since it walks all rows a
-    few at a time in its GEMV. Returns the output and the form launched."""
+    ksplit). `plan(m, k, n, x_dtype)` gives (form, ksplit, workspace
+    elements): `k1_plan` for K1, `gemv_plan` for K9. Returns the output and
+    the form launched."""
     key = "q8" if "q8" in w else "q4"
     q, s = w[key], w["s"]
     x2 = _rows(x)
     _check_cuda_args(x2, q, s, key)
     (m, k), n = x2.shape, q.shape[1]
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    form, ksplit, ws_elems = k1_plan(m, k, n, x2.dtype, gemv_rows)
+    form, ksplit, ws_elems = plan(m, k, n, x2.dtype)
     ws = torch.empty(ws_elems, dtype=torch.float32, device=x2.device) if ws_elems else out
     err = lib_fn()(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                    ws.data_ptr(), m, k, n, 8 if key == "q8" else 4,
@@ -425,7 +452,8 @@ def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return dequant_matmul_so_plain(x, w)
     _cuda_or_raise(x, "dequant_matmul_so")
-    out, _ = _launch_q(_lib_so, "dequant_matmul_so", x, w, gemv_rows=1)
+    out, _ = _launch_q(_lib_so, "dequant_matmul_so", x, w,
+                       lambda m, k, n, x_dtype: gemv_plan(m, k, n))
     dequant_matmul_so.launches += 1
     return out
 
@@ -445,19 +473,22 @@ def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, w)
     _cuda_or_raise(x, "dequant_matmul")
-    out, form = _launch_q(_lib, "dequant_matmul", x, w, gemv_rows=x.numel() // k)
+    out, form = _launch_q(_lib, "dequant_matmul", x, w, k1_plan)
     if "q8" in w:
         dequant_matmul.launches += 1
     else:
         dequant_matmul.launches_q4 += 1
     if form == "tensor_core":
         dequant_matmul.launches_tc += 1
+    elif form == "decode_tc":
+        dequant_matmul.launches_decode_tc += 1
     return out
 
 
 dequant_matmul.launches = 0
 dequant_matmul.launches_q4 = 0
 dequant_matmul.launches_tc = 0
+dequant_matmul.launches_decode_tc = 0
 
 
 # ------------------------------------------------------------------ RMSNorm

@@ -1,7 +1,7 @@
 """K1's tensor-core form (bf16 x, more than 8 rows): its route, its split of
 K and its order of sums, against the JAX package on the CPU.
 
-On the card K1 takes one of three kernels (`ops/kernels.py:k1_form`); the
+On the card K1 takes one of four kernels (`ops/kernels.py:k1_form`); the
 tensor-core tile computes sum_b s_b * (x_b . q_b) over the 32-row quant
 blocks b, the TPU kernel's f32 function with its sums in another order.
 Here, without a card, the wrapper takes the plain version; the tests pin
@@ -70,17 +70,20 @@ def jax_k1(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 16, 17, 64, 100, 256])
 def test_k1_form_routes_by_rows_and_dtype(m, dtype):
-    want = ("gemv" if m <= 8 else
-            "tensor_core" if dtype == torch.bfloat16 else "tiled_f32")
+    bf16 = dtype == torch.bfloat16
+    want = (("decode_tc" if bf16 else "gemv") if m <= 8 else
+            "tensor_core" if bf16 else "tiled_f32")
     assert kernels.k1_form(m, dtype) == want
 
 
 def test_k1_form_codes_match_the_c_entry_point():
     src = (pathlib.Path(kernels.__file__).parents[1] / "csrc" / "dequant_matmul.cu").read_text()
-    enum = re.search(r"enum Form \{ kGemv = (\d), kTiledF32 = (\d), kTensorCore = (\d) \}", src)
+    enum = re.search(r"enum Form \{ kGemv = (\d), kTiledF32 = (\d), kTensorCore = (\d), "
+                     r"kDecodeTc = (\d) \}", src)
     assert enum is not None
     assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f) for f in
-                                               ("gemv", "tiled_f32", "tensor_core")]
+                                               ("gemv", "tiled_f32", "tensor_core",
+                                                "decode_tc")]
 
 
 # ------------------------------------------------------------- split plan
@@ -122,12 +125,15 @@ def test_tc_split_never_leaves_an_empty_split(m, k, n):
 
 def test_k1_plan_workspace_by_form():
     k, n = 4096, 12288
-    # GEMV: one f32 partial per split, always (its reduce writes the output)
-    form, ksplit, ws = kernels.k1_plan(4, k, n, torch.bfloat16)
+    # GEMV (f32 x): one f32 partial per split, always (its reduce writes the output)
+    form, ksplit, ws = kernels.k1_plan(4, k, n, torch.float32)
     assert (form, ksplit, ws) == ("gemv", kernels.ksplit_for(k, n),
                                   kernels.ksplit_for(k, n) * 4 * n)
-    # K9 plans as a one-row GEMV and walks all of its rows
-    form, ksplit, ws = kernels.k1_plan(8, k, n, torch.float32, gemv_rows=1)
+    # bf16 x at decode: the tensor-core decode form, partials when it splits K
+    ks = kernels.decode_tc_split_for(k, n)[0]
+    assert kernels.k1_plan(4, k, n, torch.bfloat16) == ("decode_tc", ks, ks * 4 * n)
+    # K9 plans as a one-row GEMV and walks all of its rows, for either x
+    form, ksplit, ws = kernels.gemv_plan(8, k, n)
     assert (form, ksplit, ws) == ("gemv", kernels.ksplit_for(k, n),
                                   kernels.ksplit_for(k, n) * 8 * n)
     # the f32 tile writes the output itself
