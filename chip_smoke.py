@@ -17,7 +17,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      K1 (Q8_0 and Q4_0, each of its four forms: up to 8 rows the
      tensor-core decode form for bf16 x, checked at m = 1, 2, 3, 4, 5 and
      8 and timed at 4 and 8, and the GEMV for f32 x; above that the
-     tensor-core tile for bf16 x and the f32 tile for f32 x), K2, K3, K4,
+     tensor-core tile for bf16 x and the f32 tile for f32 x), K2 (its
+     tensor-core form for a bf16 cache, checked and timed at t = 1 for
+     fills 1 to 1024 with the serving fill 101 and the split's edges, and
+     at t = 32; GQA at hd = 64 and its f32 form checked), K3, K4,
      K8 (the three of the int8 cache with f32 and with bf16 scale planes),
      K5 (W4A8 decode matmul), K6 (w4x8 stream matmul, each of its forms:
      the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
@@ -32,19 +35,21 @@ Phases, each of which fails the run (exit code 1, no result line):
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
      the Q4_0 format with the scale-on-output switch on (K9); then the
      dense cache and the w4x8 model in bf16 on the card against the CPU's
-     f32 (K1's and K6's tensor-core tiles and K1's decode form must
-     launch; with f32 x K1 takes only its f32 forms);
+     f32 (K1's and K6's tensor-core tiles, K1's decode form and K2's
+     tensor-core form must launch; with f32 x K1 and K2 take only their
+     f32 forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
      greedy job twice. The launch counts of K1, its tensor-core decode
      form (`launches_decode_tc`: every decode step), its tensor-core tile
-     (`launches_tc`: every prompt's prefill) and K2 must rise while
-     serving, those of the int8 cache's kernels stay 0. Then one 64-token
-     prefill chunk is timed and traced (device busy time, K1's share of
-     it) and one decode chunk of the 4 slots for where a decode step's
-     time goes (device busy share, the matmul kernels, top kernels and
-     host ops);
+     (`launches_tc`: every prompt's prefill) and K2 (its tensor-core form,
+     `launches_decode_tc`) must rise while serving, those of the int8
+     cache's kernels stay 0. Then one 64-token prefill chunk is timed and
+     traced (device busy time, K1's share of it, the attention kernels'
+     time) and one decode chunk of the 4 slots for where a decode step's
+     time goes (device busy share, the matmul and attention kernels, top
+     kernels and host ops);
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
      16 jobs, after phase 4's engine is freed: K1 (its tensor-core decode
      form and tile), K3 and K4 must launch, K2 and K8 not;
@@ -439,23 +444,49 @@ def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
     return q, kc, vc, positions
 
 
-def _k2_error(q, kc, vc, positions, c) -> float:
-    """max |kernel - plain| over one call."""
+def _k2_call(q, kc, vc, positions):
+    """One K2 call, which must take the form `k2_form` names for the
+    cache's dtype. The memory its output will take is filled with NaN
+    first (the caching allocator hands the block just freed to the next
+    request of its size), so a row the kernels leave unwritten shows."""
     import torch
 
     from llamago_tpu_torch.ops import attention
 
-    got = attention.flash_attention(q, kc, vc, positions).float()
+    fn = attention.flash_attention
+    poison = torch.full_like(q, float("nan"))
+    del poison
+    before = (fn.launches, fn.launches_decode_tc)
+    got = fn(q, kc, vc, positions)
+    tc = int(attention.k2_form(kc.dtype) == "decode_tc")
+    if (fn.launches, fn.launches_decode_tc) != (before[0] + 1, before[1] + tc):
+        raise AssertionError(f"K2: a {kc.dtype} cache did not take the "
+                             f"{attention.k2_form(kc.dtype)} form")
+    return got
+
+
+def _k2_error(q, kc, vc, positions, c, got=None) -> float:
+    """max |kernel - plain| over one call (or over `got`, its output)."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+
+    if got is None:
+        got = _k2_call(q, kc, vc, positions)
     q5 = q.reshape(c["b"], q.shape[1], c["kv"], c["g"], c["hd"])
     ref = attention.flash_attention_plain(q5, kc, vc, positions[:, 0].to(torch.int32))
     torch.cuda.synchronize()
-    return (got - ref.reshape(got.shape).float()).abs().max().item()
+    return (got.float() - ref.reshape(got.shape).float()).abs().max().item()
 
 
 def check_k2(dev, detail: dict) -> dict:
-    """K2 at b=4, KV=32, hd=128, S=1024 for fills 1, 300 and 1024 and
-    windows t=1 (decode) and t=32 (prefill bucket), in bf16, checked and
-    timed; two other geometries checked only."""
+    """K2 at b=4, KV=32, hd=128, S=1024, in bf16 (the tensor-core form),
+    checked and timed: window t=1 (decode) at fills 1, 101 (the serving
+    fill), the split's edges (its slots - 1, + 0, + 1), 300 and 1024, and
+    t=32 (prefill bucket) at fills 1, 300 and 1024; two other geometries
+    checked only: GQA g=8 at hd=64 in bf16, and the f32 form. Each timed
+    row is called once more after its timing, which must give the first
+    call's bits (the merge runs in split order)."""
     import torch
     import torch.nn.functional as F
 
@@ -467,52 +498,58 @@ def check_k2(dev, detail: dict) -> dict:
     # other geometries the kernel takes: GQA g=8 at hd=64, and f32
     for shape, dtype, tol in ((dict(b=2, kv=2, g=8, hd=64, s=512), "bfloat16", K2_TOL),
                               (dict(b=2, kv=4, g=2, hd=128, s=512), "float32", 1e-4)):
-        for t in (1, 16):
+        for t in (1, 16, 32):
             err = _k2_error(*_k2_inputs(dev, gen, t, 200, shape, dtype), shape)
             if not err <= tol:
                 raise AssertionError(f"K2 {shape} {dtype} t={t}: max|d| {err:.3g} > {tol}")
             max_err = max(max_err, err)
             log(f"K2 {shape} {dtype} t={t}: max|d| {err:.2e}")
-    for t in (1, 32):
-        for fill in (1, 300, 1024):
-            q, kc, vc, positions = _k2_inputs(dev, gen, t, fill)
-            q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
-            pos0 = positions[:, 0].to(torch.int32)
-            err = _k2_error(q, kc, vc, positions, c)
-            if not err <= K2_TOL:
-                raise AssertionError(f"K2 t={t} fill={fill}: max|d| {err:.3g} > {K2_TOL}")
-            max_err = max(max_err, err)
-            # caches enough that a cycle of calls streams past the 50 MB L2,
-            # as a decode step's 32 layers do
-            caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K2_COPIES - 1)]
-            visible = min(max(fill, t), c["s"])  # slots seen by the last query row
-            kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
-                          for kv in caches], 50 * K2_COPIES)
-            plain = timed([lambda kv=kv: attention.flash_attention_plain(q5, *kv, pos0)
-                           for kv in caches], 2 * K2_COPIES)
-            # yardstick: SDPA over the visible prefix (causal within the window)
-            qh = q.transpose(1, 2)
-            mask = None
-            if t > 1:
-                qpos = positions[0][:, None]
-                mask = torch.arange(visible, device=dev)[None, :] <= qpos
-            lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
-                qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
-                for kv in caches], 50 * K2_COPIES)
-            del caches
-            h = c["kv"] * c["g"]
-            nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 2
-                      + 2 * c["b"] * t * h * c["hd"] * 2 + c["b"] * 4)
-            bnd, by = bound_ms(nbytes, 4.0 * c["b"] * h * t * visible * c["hd"])
-            row = dict(t=t, fill=fill, visible=visible, ms=kern, plain_ms=plain,
-                       library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
-            rows.append(row)
-            log(f"K2 t={t:2d} fill={fill:4d}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
-                f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms, max|d| {err:.2e}")
-            if t == 1 and fill == c["s"]:
-                record = row
+    sps = attention.decode_attn_plan(c["b"], c["kv"], 1, c["g"], c["hd"], c["s"])[0]
+    windows = [(1, f) for f in sorted({1, 101, sps - 1, sps, sps + 1, 300, c["s"]})]
+    windows += [(32, f) for f in (1, 300, c["s"])]
+    for t, fill in windows:
+        q, kc, vc, positions = _k2_inputs(dev, gen, t, fill)
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        pos0 = positions[:, 0].to(torch.int32)
+        first = _k2_call(q, kc, vc, positions)
+        err = _k2_error(q, kc, vc, positions, c, first)
+        if not err <= K2_TOL:
+            raise AssertionError(f"K2 t={t} fill={fill}: max|d| {err:.3g} > {K2_TOL}")
+        max_err = max(max_err, err)
+        # caches enough that a cycle of calls streams past the 50 MB L2,
+        # as a decode step's 32 layers do
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K2_COPIES - 1)]
+        visible = min(max(fill, t), c["s"])  # slots seen by the last query row
+        kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                      for kv in caches], 50 * K2_COPIES)
+        plain = timed([lambda kv=kv: attention.flash_attention_plain(q5, *kv, pos0)
+                       for kv in caches], 2 * K2_COPIES)
+        # yardstick: SDPA over the visible prefix (causal within the window)
+        qh = q.transpose(1, 2)
+        mask = None
+        if t > 1:
+            qpos = positions[0][:, None]
+            mask = torch.arange(visible, device=dev)[None, :] <= qpos
+        lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 50 * K2_COPIES)
+        del caches
+        if not torch.equal(_k2_call(q, kc, vc, positions), first):
+            raise AssertionError(f"K2 t={t} fill={fill}: a second call gave other bits")
+        h = c["kv"] * c["g"]
+        nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 2
+                  + 2 * c["b"] * t * h * c["hd"] * 2 + c["b"] * 4)
+        bnd, by = bound_ms(nbytes, 4.0 * c["b"] * h * t * visible * c["hd"])
+        form = attention.k2_form(kc.dtype)
+        row = dict(t=t, fill=fill, visible=visible, form=form, ms=kern, plain_ms=plain,
+                   library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+        rows.append(row)
+        log(f"K2 t={t:2d} fill={fill:4d} ({form}): kernel {kern:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms, max|d| {err:.2e}")
+        if t == 1 and fill == c["s"]:
+            record = row
     detail["k2"] = rows
-    # one decode step at full fill: one launch per layer (32)
+    # one decode step at full fill: one call per layer (32)
     return {"max_abs_err": max_err, "bound_by": record["bound_by"],
             **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
@@ -1145,6 +1182,10 @@ def check_small_model(dev) -> int:
                 or counts["dequant_matmul_decode_tc"] > 0:
             raise AssertionError(f"small model, {name}: with f32 x K1 must take its f32 forms "
                                  f"only: {counts}")
+        if counts["flash_attention_decode_tc"] > 0 or (
+                name == "dense cache" and counts["flash_attention"] == 0):
+            raise AssertionError(f"small model, {name}: an f32 cache must take K2's f32 "
+                                 f"form only: {counts}")
         if any((counts[k] > 0) != opt_in
                for k in ("flash_attention_prefill", "fused_rms_norm")):
             raise AssertionError(f"small model, {name}: K7 and K10 must launch with the "
@@ -1159,9 +1200,10 @@ def check_small_model(dev) -> int:
     # bf16 compute on the card (dense cache) against the CPU's f32 logits:
     # the prefill windows (80 and 32 rows) take K1's tensor-core tile
     counts = _small_bf16_logits(dev, dense, gpu, cpu, toks, "small model")
-    if counts["dequant_matmul_tc"] == 0 or counts["dequant_matmul_decode_tc"] == 0:
-        raise AssertionError(f"small model, bf16: K1's tensor-core tile or decode form never "
-                             f"launched: {counts}")
+    if counts["dequant_matmul_tc"] == 0 or counts["dequant_matmul_decode_tc"] == 0 \
+            or counts["flash_attention_decode_tc"] == 0:
+        raise AssertionError(f"small model, bf16: K1's tensor-core tile or decode form, or "
+                             f"K2's tensor-core form never launched: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
     return k8_launches, k1_f32_launches
@@ -1337,6 +1379,7 @@ def _launch_counters():
             "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "flash_attention": (attention.flash_attention, "launches"),
+            "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
             "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
             "fused_rms_norm": (kernels.fused_rms_norm, "launches"),
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
@@ -1532,6 +1575,13 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     return result
 
 
+def _attention_us(by_name: dict) -> float:
+    """Device time of the attention kernels in a trace: those named attn_*
+    (K2, K7) and the int8 cache's quant_partial / quant_combine (K4, K8)."""
+    return sum(v for k, v in by_name.items()
+               if re.search(r"attn_|quant_partial|quant_combine", k))
+
+
 def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     """Where a prefill chunk's time goes, apart from the host noise of
     TTFT: one t-token prefill into slot 0 (bucket t), timed by the host
@@ -1565,10 +1615,12 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"tokens": t, "host_ms": host_ms, "device_busy_ms": busy / 1e3 / traced,
            "matmul_ms": mm / 1e3 / traced, "matmul_share_of_busy": mm / busy,
+           "attention_ms": _attention_us(by_name) / 1e3 / traced,
            "top_kernels_ms": {k: v / 1e3 / traced for k, v in top}}
     log(f"prefill chunk of {t} tokens: {host_ms:.2f} ms host-timed, device busy "
         f"{out['device_busy_ms']:.3f} ms, matmul kernels {out['matmul_ms']:.3f} ms "
-        f"({out['matmul_share_of_busy']:.1%} of busy)")
+        f"({out['matmul_share_of_busy']:.1%} of busy), attention kernels "
+        f"{out['attention_ms']:.3f} ms")
     for k, v in out["top_kernels_ms"].items():
         log(f"  device {v:8.3f} ms/chunk  {k[:100]}")
     return out
@@ -1618,12 +1670,14 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
     out = {"slots": n, "step_ms": step_ms, "traced_step_ms": traced_ms,
            "device_busy_ms": device_ms,
            "device_busy_share": device_ms / step_ms, "matmul_ms": mm_ms,
+           "attention_ms": _attention_us(by_name) / 1e3 / traced,
            "top_kernels_ms_per_step": {k: v / 1e3 / traced for k, v in top},
            "top_host_ops_ms_per_step": {a.key: a.self_cpu_time_total / 1e3 / traced
                                         for a in host},
            "host_op_calls_per_step": sum(a.count for a in prof.key_averages()) / traced}
     log(f"decode step ({n} slots): {step_ms:.2f} ms host-timed, {traced_ms:.2f} ms traced, "
-        f"device busy {device_ms:.3f} ms/step, matmul kernels {mm_ms:.3f} ms/step")
+        f"device busy {device_ms:.3f} ms/step, matmul kernels {mm_ms:.3f} ms/step, "
+        f"attention kernels {out['attention_ms']:.3f} ms/step")
     for k, v in out["top_kernels_ms_per_step"].items():
         log(f"  device {v:8.3f} ms/step  {k[:100]}")
     for k, v in out["top_host_ops_ms_per_step"].items():
@@ -1696,21 +1750,23 @@ def main(argv: list[str]) -> int:
         if want("serve"):
             served = serve(dev, cfg, params, slots=4, n_jobs=8,
                            rise=("dequant_matmul", "dequant_matmul_tc",
-                                 "dequant_matmul_decode_tc", "flash_attention"))
+                                 "dequant_matmul_decode_tc", "flash_attention",
+                                 "flash_attention_decode_tc"))
             gc.collect()  # the phase 4 engine and its cache
             torch.cuda.empty_cache()
         if want("serve_prefill"):
             # phase 4d: long prompts, the default routes and then the opt-in ones
             served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
                              rise=("dequant_matmul", "dequant_matmul_tc",
-                                 "dequant_matmul_decode_tc", "flash_attention"))
+                                 "dequant_matmul_decode_tc", "flash_attention",
+                                 "flash_attention_decode_tc"))
             gc.collect()
             torch.cuda.empty_cache()
             with opt_in_routes():
                 served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
                                  rise=("dequant_matmul", "dequant_matmul_tc",
                                        "dequant_matmul_decode_tc", "flash_attention",
-                                       "flash_attention_prefill",
+                                       "flash_attention_decode_tc", "flash_attention_prefill",
                                        "fused_rms_norm"))
             gc.collect()
             torch.cuda.empty_cache()
@@ -1727,7 +1783,7 @@ def main(argv: list[str]) -> int:
         cfg, params = make_7b_params(dev, "int4")
         served_4 = serve(dev, cfg, params, slots=4, n_jobs=8,
                          rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_tc",
-                               "flash_attention"))
+                               "flash_attention", "flash_attention_decode_tc"))
         del params
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
@@ -1749,10 +1805,12 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": k1_f32_launches, **k1},
+        # K2's tensor-core form (bf16 cache): its launches in phase 4, one
+        # decode step at b=4, full fill
         {"name": "flash_attention", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode.cu",
          "replaces": "llamago_tpu/ops/attention.py:230",
-         "launches": served["launches"]["flash_attention"], **k2},
+         "launches": served["launches"]["flash_attention_decode_tc"], **k2},
         {"name": "cache_append_quant", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/cache_append.cu",
          "replaces": "llamago_tpu/ops/cache_write.py:63",
@@ -1802,7 +1860,7 @@ def main(argv: list[str]) -> int:
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
-    prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy")
+    prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy", "attention_ms")
     serving_line = {"serving": {
         name: {**{k: run.get(k) for k in keys},
                "prefill_chunk": {t: {k: p[k] for k in prefill_keys}

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""K2 (decode attention) of several checkouts on one card, side by side.
+
+    python3 k2_pair.py [--out FILE.json] ROOT [ROOT ...]
+
+Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
+builds its kernels into ROOT/build at first use. For each ROOT, in the
+order given and each in a process of its own that imports that checkout's
+package (and this checkout's chip_smoke.py for the helpers), it reports:
+
+  - K2 at chip_smoke's geometry (b=4, KV=32, hd=128, S=1024, bf16 cache):
+    t=1 at fills 1, 63, 64, 65, 101 (the serving fill), 300 and 1024, and
+    t=32 at fills 1, 300 and 1024. Device ms per call (the busy time of
+    every kernel the call launches, chip_smoke's `timed`, over three cache
+    copies that a cycle of calls streams past the L2) and max|kernel -
+    plain|. The inputs are the same in every process (seeded per row).
+  - Phase 4's decode step: 7B Q8_0 (random, seed 0), the bf16 cache, 4
+    slots at position 100 (chip_smoke's `profile_decode`): device busy and
+    `attention_ms` (device time of the kernels named attn_*) per step.
+
+Name the roots mirrored (parent, change, change, parent) to read each
+one's spread. One JSON object per run goes to stdout and, as a list, to
+--out. Needs one card; exits 1 if a run fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+WINDOWS = [(1, f) for f in (1, 63, 64, 65, 101, 300, 1024)] + [(32, f) for f in (1, 300, 1024)]
+
+
+def _smoke():
+    """This checkout's chip_smoke.py as a module; the package it imports is
+    the first `llamago_tpu_torch` on sys.path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_one(root: str) -> dict:
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    cs = _smoke()
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    c = cs.K2_SHAPE
+    rows = []
+    for t, fill in WINDOWS:
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + fill)
+        q, kc, vc, positions = cs._k2_inputs(dev, gen, t, fill)
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        got = attention.flash_attention(q, kc, vc, positions).float()
+        ref = attention.flash_attention_plain(q5, kc, vc, positions[:, 0].to(torch.int32))
+        err = (got - ref.reshape(got.shape).float()).abs().max().item()
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(cs.K2_COPIES - 1)]
+        ms = cs.timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                       for kv in caches], 50 * cs.K2_COPIES)
+        del caches
+        rows.append(dict(t=t, fill=fill, ms=ms, max_abs_err=err))
+        cs.log(f"{root}: K2 t={t:2d} fill={fill:4d}: {ms:.4f} ms, max|d| {err:.2e}")
+    cfg, params = cs.make_7b_params(dev)
+    engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4,
+                    decode_chunk_size=32, prefill_chunk=256, device=dev)
+    step = cs.profile_decode(engine, 32)
+    return {"root": root, "card": cs.card_line(), "k2": rows,
+            "decode_step": {k: step[k] for k in ("step_ms", "device_busy_ms", "attention_ms")}}
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="*")
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(run_one(args.worker)), flush=True)
+        return 0
+    if not args.roots:
+        ap.error("name at least one checkout")
+    results = []
+    for root in args.roots:
+        proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--worker", root],
+                              stdout=subprocess.PIPE, text=True)
+        if proc.returncode != 0:
+            print(f"k2_pair: the run of {root} failed ({proc.returncode})", file=sys.stderr)
+            return 1
+        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(results[-1]), flush=True)
+    if args.out:
+        pathlib.Path(args.out).write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

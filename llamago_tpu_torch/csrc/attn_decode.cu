@@ -7,7 +7,8 @@
 // bf16 or f32. Rows are laid out t-major then g; row r sees cache slot j
 // iff j <= pos0 + r / g. Masked scores are the finite -1e9, softmax is in
 // f32, and the probabilities are rounded to the V dtype before the PV
-// product, as in the TPU kernel.
+// product, as in the TPU kernel. Slots past the last visible one are never
+// read.
 //
 // Replaces llamago_tpu/ops/attention.py _attn_decode_kernel, reached
 // through _flash_attention_lenaware and flash_attention.
@@ -16,19 +17,61 @@
 // prefix of K and V once (2 * fill * hd elements) and does 4 * rows * fill
 // * hd flops on it — at most 8 flops per cache byte at decode (rows = g),
 // so device-memory bandwidth over the cache bytes that hold visible slots
-// is the bound.
+// is the bound. A decode step's call is small (67 MB at 7B, b = 4, full
+// fill: 20 us at 3.35 TB/s), so what shows on the card is how many tile
+// loads are in flight, and each block's fixed latency: the start, the
+// tile's trip from memory, the merge.
 //
-// What the design does about it (flash-decoding in two passes):
-//  * pass 1, grid (B*KV, S-blocks): each block owns one S-block of SB rows
-//    (256 for bf16, 128 for f32) of one (batch, kv head). Blocks past the
-//    last visible slot return at once, so cache traffic follows the fill,
-//    not S; within the last block only the visible rows are read. The
-//    block stages its K and V rows in shared memory (K rows padded by one
-//    word against bank conflicts), computes the masked scores of up to 32
-//    query rows at a time, takes the block-local softmax statistics (max,
-//    sum) and the unnormalized P.V, and writes them to an f32 workspace.
-//  * pass 2, grid (B*KV): merges the S-blocks' partials with the usual
-//    max-rescaled sum and writes the output in the input dtype.
+// Two forms (ops/attention.py k2_form names them, the entry point takes the
+// code), both ending in the same merge pass, attn_combine:
+//
+//  * bf16: attn_decode_tc, then attn_combine when the plan has more than
+//    one split (every decode step's plan has). The grid is (B*KV * row
+//    groups of 64 query rows, splits); the host plans the split
+//    (decode_attn_plan: slots per split, a multiple of the 64-slot tile, and
+//    the number of splits; one tile a split at decode), and a split past
+//    its (batch, kv head)'s last visible slot returns at once, so cache
+//    traffic follows the fill.
+//    - Both products on the tensor cores: bf16 mma.sync.m16n8k16 with f32
+//      accumulation, K7's fragments (q as A fragments in registers, K's B
+//      fragments by 32-bit reads of its row-major tile, V's by
+//      ldmatrix.trans). The rows are the M side in m16 tiles. With one m16
+//      tile (every decode step: t * g <= 16) the four warps split each
+//      tile's 64 slots for Q K^T, 16 each, and its columns for P V, 32 each
+//      at hd = 128: the warps share each tile's row maxima and sums through
+//      shared memory, and P in bf16 goes through the stage's K rows, which
+//      no warp needs once every warp has its scores. An m16 tile's
+//      accumulators are then a quarter of a warp's registers (96 a thread,
+//      five blocks an SM, against 128 and four when each warp kept all the
+//      columns of its slots). With two m16 tiles two warps share a tile the
+//      same way; with more, each warp takes a tile's rows, all 64 slots and
+//      all columns, P repacked in registers as its A fragments.
+//    - A ring of 64-slot K/V tiles in shared memory, rows padded by 16
+//      bytes against bank conflicts, filled by the TMA unit: one bulk copy
+//      per K or V row (one per thread), completing on the stage's mbarrier,
+//      with the L2 policy evict_first (a step reads its cache once). With
+//      two tiles or more a split has the next tile's copies in flight while
+//      the current one is computed; a decode step's one-tile splits keep
+//      five tiles in flight an SM, one a block. V rows past the visible
+//      slots are zeroed, so p * V stays finite. When warps pass P through a
+//      stage's K rows, they fence those generic accesses against the async
+//      proxy before the barrier after which a later copy refills the stage.
+//    - Each split writes its f32 partials (row max, sum, unnormalized P.V)
+//      to the workspace, and attn_combine, a second launch, merges them in
+//      split order, so a call run twice gives the same bits. With one
+//      split the block writes the output itself.
+//  * f32: flash-decoding in two passes, on CUDA cores (the bf16 tensor
+//    cores cannot take f32 without rounding it).
+//    - pass 1, grid (B*KV, the plan's S-blocks of 128 rows): each block
+//      owns one S-block of one (batch, kv head). Blocks past the last visible slot
+//      return at once; within the last block only the visible rows are
+//      read. The block stages its K and V rows in shared memory (K rows
+//      padded by one word against bank conflicts), computes the masked
+//      scores of up to 32 query rows at a time, takes the block-local
+//      softmax statistics (max, sum) and the unnormalized P.V, and writes
+//      them to an f32 workspace.
+//    - pass 2, attn_combine: merges the S-blocks' partials with the usual
+//      max-rescaled sum and writes the output.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -36,16 +79,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
+
+// ------------------------------------------------------- f32, two passes
 
 constexpr float kMask = -1e9f;
 constexpr int kRowChunk = 32;  // query rows per score/PV pass
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -55,24 +102,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // Elements of padding per K row in shared memory: one 32-bit word.
 template <typename T> constexpr int kPad = 4 / sizeof(T);
-// S-block rows: 256 for bf16, 128 for f32 (keeps the staged tiles inside
-// shared memory).
-template <typename T> constexpr int kSB = 512 / sizeof(T);
 
 __device__ __forceinline__ float dot_row(const float* qr, const float* kr, int hd) {
   float a = 0.f;
   for (int d = 0; d < hd; ++d) a = fmaf(qr[d], kr[d], a);
-  return a;
-}
-
-__device__ __forceinline__ float dot_row(const float* qr, const __nv_bfloat16* kr, int hd) {
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(kr);
-  float a = 0.f;
-  for (int w = 0; w < hd / 2; ++w) {
-    const float2 f = __bfloat1622float2(k2[w]);
-    a = fmaf(qr[2 * w], f.x, a);
-    a = fmaf(qr[2 * w + 1], f.y, a);
-  }
   return a;
 }
 
@@ -88,9 +121,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// sb: the S-block's rows, the plan's slots per split (ops/attention.py
+// k2_plan: 128 keeps the staged tiles inside shared memory).
 template <typename T>
-size_t smem_bytes(int hd) {
-  const int sb = kSB<T>;
+size_t smem_bytes(int sb, int hd) {
   return (size_t)sb * hd * sizeof(T)                 // V tile
          + (size_t)sb * (hd + kPad<T>) * sizeof(T)   // K tile, padded rows
          + (size_t)kRowChunk * hd * sizeof(float)    // q rows
@@ -101,8 +135,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_partial(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ pos0, float* __restrict__ pacc, float* __restrict__ pm,
-    float* __restrict__ pl, int t, int KV, int g, int hd, int S, float scale, int nsb) {
-  constexpr int SB = kSB<T>;
+    float* __restrict__ pl, int t, int KV, int g, int hd, int S, float scale, int SB, int nsb) {
   constexpr int PAD = kPad<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bh = blockIdx.x;
@@ -196,22 +229,30 @@ __global__ void __launch_bounds__(kThreads) attn_partial(
   }
 }
 
+// Pass 2 of both forms: merges the splits of sps slots that row r sees,
+// 0 .. (pos0 + r / g) / sps, in split order (a call run twice gives the
+// same bits). Every split up to the last that any row of the (batch, kv
+// head) sees has partials for all its rows (a row's later ones are all
+// masked, weight 0). Grid (B*KV, blocks of 256 (row, column) pairs): a
+// thread's work is one chain of loads over the splits (t * g * hd / 256
+// chains in a row were latency-bound at t = 32).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_combine(
     const float* __restrict__ pacc, const float* __restrict__ pm,
     const float* __restrict__ pl, const int* __restrict__ pos0, T* __restrict__ out,
-    int t, int KV, int g, int hd, int nsb) {
-  constexpr int SB = kSB<T>;
+    int t, int KV, int g, int hd, int sps, int nsb) {
   const int bh = blockIdx.x;
   const int b = bh / KV, kvh = bh % KV;
   const int R = t * g;
-  const int last_blk = min((pos0[b] + t - 1) / SB, nsb - 1);
-  for (int i = threadIdx.x; i < R * hd; i += kThreads) {
+  for (int i = blockIdx.y * kThreads + threadIdx.x; i < R * hd; i += gridDim.y * kThreads) {
     const int r = i / hd, d = i % hd;
+    const int last = min((pos0[b] + r / g) / sps, nsb - 1);
     float mx = kMask;
-    for (int s = 0; s <= last_blk; ++s) mx = fmaxf(mx, pm[((size_t)bh * nsb + s) * R + r]);
+#pragma unroll 4
+    for (int s = 0; s <= last; ++s) mx = fmaxf(mx, pm[((size_t)bh * nsb + s) * R + r]);
     float num = 0.f, den = 0.f;
-    for (int s = 0; s <= last_blk; ++s) {
+#pragma unroll 4
+    for (int s = 0; s <= last; ++s) {
       const size_t pi = ((size_t)bh * nsb + s) * R + r;
       const float w = expf(pm[pi] - mx);
       num = fmaf(w, pacc[pi * hd + d], num);
@@ -222,47 +263,414 @@ __global__ void __launch_bounds__(kThreads) attn_combine(
   }
 }
 
+// The workspace of both forms: partials [B*KV, nsb, t*g, hd], then the row
+// maxima and sums [B*KV, nsb, t*g] each.
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* pos0, void* out,
-           float* pacc, float* pm, float* pl, int B, int t, int KV, int g, int hd,
-           int S, float scale, cudaStream_t st) {
-  const int nsb = (S + kSB<T> - 1) / kSB<T>;
-  const size_t smem = smem_bytes<T>(hd);
-  cudaError_t e = cudaFuncSetAttribute(attn_partial<T>,
+int launch_combine(const float* ws, const int* pos0, void* out, int B, int t, int KV, int g,
+                   int hd, int sps, int nsb, cudaStream_t st) {
+  const size_t n_part = (size_t)B * KV * nsb * t * g;
+  const float* pm = ws + n_part * hd;
+  const dim3 grid(B * KV, (t * g * hd + kThreads - 1) / kThreads);
+  attn_combine<T><<<grid, kThreads, 0, st>>>(ws, pm, pm + n_part, pos0, static_cast<T*>(out), t,
+                                             KV, g, hd, sps, nsb);
+  return (int)cudaGetLastError();
+}
+
+int launch_fma(const void* q, const void* k, const void* v, const int* pos0, void* out,
+               float* ws, int B, int t, int KV, int g, int hd, int S, float scale, int sb,
+               int nsb, cudaStream_t st) {
+  const size_t n_part = (size_t)B * KV * nsb * t * g;
+  float* pacc = ws;
+  float* pm = ws + n_part * hd;
+  float* pl = pm + n_part;
+  const size_t smem = smem_bytes<float>(sb, hd);
+  cudaError_t e = cudaFuncSetAttribute(attn_partial<float>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * KV, nsb);
-  attn_partial<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos0,
-      pacc, pm, pl, t, KV, g, hd, S, scale, nsb);
+  attn_partial<float><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), pos0, pacc, pm, pl, t, KV, g, hd, S, scale, sb, nsb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_combine<T><<<B * KV, kThreads, 0, st>>>(pacc, pm, pl, pos0, static_cast<T*>(out),
-                                              t, KV, g, hd, nsb);
-  return (int)cudaGetLastError();
+  return launch_combine<float>(ws, pos0, out, B, t, KV, g, hd, sb, nsb, st);
 }
+
+// ---------------------------------------------- bf16, tensor cores (decode_tc)
+
+constexpr int kTcThreads = 128;  // four warps
+constexpr int kTile = 64;        // cache slots per ring stage
+constexpr int kGroupRows = 64;   // query rows per block: four m16 tiles
+constexpr int kPadB = 8;         // bf16 elements of padding per tile row (16 bytes)
+constexpr int kStages = 2;       // ring stages, when the split has that many tiles
+
+template <int HD> __host__ __device__ constexpr int tc_ld() { return HD + kPadB; }
+// One stage: the K tile, then the V tile, each [kTile][HD + kPadB] bf16.
+template <int HD> __host__ __device__ constexpr int tc_stage_bytes() {
+  return 2 * kTile * tc_ld<HD>() * 2;
+}
+// Row stride of P in shared memory (bf16 elements): 64 slots and 16 bytes
+// of padding, so that the lanes' 32-bit writes and ldmatrix rows fall on
+// distinct banks.
+constexpr int kPLd = kTile + 8;
+
+// Warps that share one m16 tile of rows, each on its own part of every
+// tile's slots (Q K^T) and of the columns (P V): 4 for one m16 tile, 2 for
+// two, 1 for more.
+int tc_slot_parts(int R) {
+  const int mt = ((R < kGroupRows ? R : kGroupRows) + 15) / 16;
+  return mt == 1 ? 4 : mt == 2 ? 2 : 1;
+}
+
+// Ring stages a block holds: no more than the tiles of its split.
+__host__ __device__ __forceinline__ int tc_ring(int sps) {
+  return sps / kTile < kStages ? sps / kTile : kStages;
+}
+
+// Offset of query row r of batch b, kv head kvh in q and out.
+__device__ __forceinline__ size_t q_off(int b, int r, int t, int KV, int kvh, int g, int hd) {
+  return ((((size_t)b * t + r / g) * KV + kvh) * g + r % g) * hd;
+}
+
+// grid (B*KV * n_groups, n_split), 128 threads, dynamic shared memory
+// tc_ring(sps) * tc_stage_bytes + 8 per stage for the mbarriers. Block x
+// is (batch, kv head) x / n_groups and row group x % n_groups (rows 64 *
+// group ..), block y the split of slots [y * sps, (y + 1) * sps). Warp w
+// takes m16 tile w / WS of the group: part w % WS of every tile's slots
+// for Q K^T and part w % WS of the columns for P V. With one split the
+// block writes the output; with more, every split with work writes its
+// partials to ws, and attn_combine merges them.
+// Blocks an SM holds: five of the four-part instance (a decode step's;
+// six spill at hd = 128), fewer of the others.
+template <int HD, int WS>
+__global__ void __launch_bounds__(kTcThreads, WS == 4 ? 5 : WS == 2 ? 3 : 2) attn_decode_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos0,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int t, int KV, int g, int S,
+    float scale, int sps, int n_groups) {
+  constexpr int LD = tc_ld<HD>();
+  constexpr int KK = HD / 16;        // k-steps of Q K^T
+  constexpr int PART = kTile / WS;   // slots of a tile per warp in Q K^T
+  constexpr int NT = PART / 8;       // n-tiles of a warp's scores
+  constexpr int COLS = HD / WS;      // columns of the output per warp in P V
+  constexpr int DT = COLS / 8;       // n-tiles of a warp's output
+  constexpr int STAGE = tc_stage_bytes<HD>();
+  static_assert(STAGE % 16 == 0, "stages and barriers stay aligned");
+  static_assert(DT % 2 == 0, "ldmatrix.trans brings two n-tiles of V");
+  static_assert(2 * 16 * kPLd <= kTile * LD, "P of two m16 tiles fits where the stage's K was");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_max[4][16], red_sum[4][16];  // a tile's row maxima and sums, per warp
+
+  const int grp = blockIdx.x % n_groups;
+  const int bh = blockIdx.x / n_groups;
+  const int b = bh / KV, kvh = bh % KV;
+  const int sp = blockIdx.y, n_split = gridDim.y;
+  const int R = t * g;
+  const int r0 = grp * kGroupRows;
+  const int rows = min(kGroupRows, R - r0);
+  const int p0 = pos0[b];
+  // slots the group's last row sees, inside the cache
+  const int vis = min(S, p0 + (r0 + rows - 1) / g + 1);
+  const int j_begin = sp * sps;
+  if (j_begin >= vis) return;
+  const int j_end = min(j_begin + sps, vis);
+  const int n_it = (j_end - j_begin + kTile - 1) / kTile;
+  const int ring = tc_ring(sps);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring * STAGE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt = warp / WS, part = warp % WS;
+  const bool active = mt * 16 < rows;
+
+  const uint64_t once = l2_evict_first();
+  if (tid < ring) mbar_init(bars + tid);
+  mbar_init_fence();
+  __syncthreads();
+
+  // Tile `it` of the split into ring stage `st`: thread r < 64 copies K row
+  // r, thread 64 + r V row r, each by one bulk copy. V rows past the
+  // visible slots are zeroed instead (their scores are masked, and p * V
+  // must stay finite); K rows there keep what they held, since the mask
+  // selects -1e9 over whatever score they give.
+  const size_t cbase = (size_t)bh * S * HD;
+  auto load = [&](int st, int it) {
+    const int j0 = j_begin + it * kTile;
+    const int n = min(kTile, j_end - j0);
+    if (tid == 0) mbar_expect(bars + st, 2u * n * HD * 2);
+    const int r = tid & (kTile - 1);
+    const bool is_v = tid >= kTile;
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem + st * STAGE) +
+                         (is_v ? kTile * LD : 0) + r * LD;
+    if (r < n) {
+      bulk_copy(dst, (is_v ? vc : kc) + cbase + (size_t)(j0 + r) * HD, HD * 2, bars + st, once);
+    } else if (is_v) {
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) reinterpret_cast<uint4*>(dst)[c] = make_uint4(0, 0, 0, 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i)
+    if (i < n_it) load(i, i);
+
+  // This warp's q rows (gid and gid + 8 of its m16 tile; zeros past R) as A
+  // fragments, and their query positions.
+  const int row_lo = r0 + mt * 16 + gid, row_hi = row_lo + 8;
+  const int qp_lo = p0 + row_lo / g, qp_hi = p0 + row_hi / g;
+  uint32_t qf[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) qf[kk][0] = qf[kk][1] = qf[kk][2] = qf[kk][3] = 0u;
+  if (active && row_lo < R) {
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(q + q_off(b, row_lo, t, KV, kvh, g, HD));
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) qf[kk][0] = qw[kk * 8 + tig], qf[kk][2] = qw[kk * 8 + 4 + tig];
+  }
+  if (active && row_hi < R) {
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(q + q_off(b, row_hi, t, KV, kvh, g, HD));
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) qf[kk][1] = qw[kk * 8 + tig], qf[kk][3] = qw[kk * 8 + 4 + tig];
+  }
+
+  // The running max and sum of rows gid and gid + 8 (the same in the WS
+  // warps of an m16 tile) and this warp's columns of their P V.
+  float m_lo = kMask, m_hi = kMask, l_lo = 0.f, l_hi = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    mbar_wait(bars + st, (it / kStages) & 1);
+    __syncthreads();  // tile `it` has landed; every warp is done with stage (it - 1) % kStages
+    if (it + kStages - 1 < n_it) load((it + kStages - 1) % kStages, it + kStages - 1);
+    __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + st * STAGE);
+    const __nv_bfloat16* Vs = Ks + kTile * LD;
+    const int j0 = j_begin + it * kTile + part * PART;
+
+    // scores of 16 rows x PART slots, scaled and masked (a select: an
+    // unread K row may give any score), and their row maxima
+    float s[NT][4];
+    float mx_lo = kMask, mx_hi = kMask;
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const __nv_bfloat16* kr = Ks + (part * PART + n * 8 + gid) * LD + kk * 16 + tig * 2;
+          mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int slot = j0 + n * 8 + tig * 2 + e;
+          const bool in = slot < j_end;
+          s[n][e] = (in && slot <= qp_lo) ? s[n][e] * scale : kMask;
+          s[n][2 + e] = (in && slot <= qp_hi) ? s[n][2 + e] * scale : kMask;
+          mx_lo = fmaxf(mx_lo, s[n][e]);
+          mx_hi = fmaxf(mx_hi, s[n][2 + e]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+    }
+    if constexpr (WS > 1) {  // the tile's row maxima over the WS warps of the m16 tile
+      if (active && tig == 0) red_max[warp][gid] = mx_lo, red_max[warp][gid + 8] = mx_hi;
+      __syncthreads();  // also: every warp is done with the stage's K rows
+#pragma unroll
+      for (int p = 0; p < WS; ++p) {
+        mx_lo = fmaxf(mx_lo, red_max[mt * WS + p][gid]);
+        mx_hi = fmaxf(mx_hi, red_max[mt * WS + p][gid + 8]);
+      }
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+
+    // p = exp(s - m), summed in f32 and rounded to bf16 for P V: as A
+    // fragments in registers (WS = 1), or through the stage's K rows,
+    // where the m16 tile's WS warps put their slots side by side
+    uint32_t pf[kTile / 16][4];
+    float ps_lo = 0.f, ps_hi = 0.f;
+    __nv_bfloat16* Ps = Ks + mt * 16 * kPLd;  // [16][kPLd]: rows gid, gid + 8
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float p0_ = expf(s[n][0] - mn_lo), p1_ = expf(s[n][1] - mn_lo);
+        const float p2_ = expf(s[n][2] - mn_hi), p3_ = expf(s[n][3] - mn_hi);
+        ps_lo += p0_ + p1_;
+        ps_hi += p2_ + p3_;
+        if constexpr (WS == 1) {
+          pf[n / 2][(n & 1) * 2] = pack_bf16(p0_, p1_);
+          pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2_, p3_);
+        } else {
+          const int c = part * PART + n * 8 + tig * 2;
+          *reinterpret_cast<uint32_t*>(Ps + gid * kPLd + c) = pack_bf16(p0_, p1_);
+          *reinterpret_cast<uint32_t*>(Ps + (gid + 8) * kPLd + c) = pack_bf16(p2_, p3_);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        ps_lo += __shfl_xor_sync(0xffffffffu, ps_lo, off);
+        ps_hi += __shfl_xor_sync(0xffffffffu, ps_hi, off);
+      }
+    }
+    if constexpr (WS > 1) {  // the tile's row sums over the WS warps, and all of P
+      if (active && tig == 0) red_sum[warp][gid] = ps_lo, red_sum[warp][gid + 8] = ps_hi;
+      __syncthreads();
+      ps_lo = ps_hi = 0.f;
+#pragma unroll
+      for (int p = 0; p < WS; ++p) {
+        ps_lo += red_sum[mt * WS + p][gid];
+        ps_hi += red_sum[mt * WS + p][gid + 8];
+      }
+    }
+    if (!active) continue;
+    l_lo = fmaf(l_lo, a_lo, ps_lo);
+    l_hi = fmaf(l_hi, a_hi, ps_hi);
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      o[n][0] *= a_lo;
+      o[n][1] *= a_lo;
+      o[n][2] *= a_hi;
+      o[n][3] *= a_hi;
+    }
+
+    // O += P V over the tile's 64 slots, this warp's columns: per 16 slots,
+    // ldmatrix brings P's A fragment (WS > 1) and ldmatrix.trans the B
+    // fragments of two output n-tiles (16 columns of V) at once
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      if constexpr (WS > 1)
+        ldmatrix_x4(pf[ks], Ps + (lane & 15) * kPLd + ks * 16 + (lane >> 4) * 8);
+      const int mat = lane >> 3, mr = lane & 7;
+      const __nv_bfloat16* vrow =
+          Vs + (ks * 16 + (mat & 1) * 8 + mr) * LD + part * COLS + (mat >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vrow + n * 8);
+        mma_bf16(o[n], pf[ks], vb[0], vb[1]);
+        mma_bf16(o[n + 1], pf[ks], vb[2], vb[3]);
+      }
+    }
+    // P's generic writes and reads of the stage's K rows, ordered before
+    // the bulk copy that refills the stage (issued after the barrier at the
+    // top of a later tile)
+    if constexpr (WS > 1) fence_proxy_async();
+  }
+
+  // This warp's rows and columns: the output when there is one split, else
+  // the split's partials (the first warp of the m16 tile writes the row
+  // maxima and sums).
+  if (!active) return;
+  const size_t n_part = (size_t)(gridDim.x / n_groups) * n_split * R;
+  const size_t p_base = ((size_t)bh * n_split + sp) * R;  // + row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_hi : row_lo;
+    if (row - r0 >= rows) continue;
+    const float l = h ? l_hi : l_lo;
+    const int c0 = part * COLS + tig * 2;
+    if (n_split == 1) {
+      __nv_bfloat16* orow = out + q_off(b, row, t, KV, kvh, g, HD) + c0;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(o[n][2 * h] / l, o[n][2 * h + 1] / l);
+    } else {
+      float* wrow = ws + (p_base + row) * HD + c0;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(wrow + n * 8) = make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      if (part == 0 && tig == 0) {
+        ws[n_part * HD + p_base + row] = h ? m_hi : m_lo;
+        ws[n_part * (HD + 1) + p_base + row] = l;
+      }
+    }
+  }
+}
+
+template <int HD, int WS>
+int launch_tc(const void* q, const void* k, const void* v, const int* pos0, void* out,
+              float* ws, int B, int t, int KV, int g, int S, float scale, int sps, int n_split,
+              cudaStream_t st) {
+  constexpr int kMaxSmem = kStages * (tc_stage_bytes<HD>() + 8);
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      attn_decode_tc<HD, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int ring = tc_ring(sps);
+  const int smem = ring * (tc_stage_bytes<HD>() + 8);
+  const int n_groups = (t * g + kGroupRows - 1) / kGroupRows;
+  dim3 grid(B * KV * n_groups, n_split);
+  attn_decode_tc<HD, WS><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), pos0, static_cast<__nv_bfloat16*>(out), ws, t,
+      KV, g, S, scale, sps, n_groups);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  return launch_combine<__nv_bfloat16>(ws, pos0, out, B, t, KV, g, HD, sps, n_split, st);
+}
+
+template <int HD>
+int launch_tc_hd(const void* q, const void* k, const void* v, const int* pos0, void* out,
+                 float* ws, int B, int t, int KV, int g, int S, float scale, int sps,
+                 int n_split, cudaStream_t st) {
+  switch (tc_slot_parts(t * g)) {
+    case 4:
+      return launch_tc<HD, 4>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+    case 2:
+      return launch_tc<HD, 2>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+    default:
+      return launch_tc<HD, 1>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+  }
+}
+
+// The forms, as ops/attention.py's K2_FORMS numbers them.
+enum Form { kFma = 0, kDecodeTc = 1 };
 
 }  // namespace
 
-// Rows of one S-block for the given dtype (the workspace has
-// ceil(S / rows) blocks per (batch, kv head)).
-extern "C" int llamago_attn_decode_block_rows(int is_bf16) {
-  return is_bf16 ? kSB<__nv_bfloat16> : kSB<float>;
-}
-
-// Workspaces: pacc [B*KV, nsb, t*g, hd], pm / pl [B*KV, nsb, t*g], f32.
-// Returns cudaGetLastError() after the launches.
+// form kFma (f32 q, cache and out): slots_per_split is the S-block of pass
+// 1, which shared memory must hold (ops/attention.py k2_plan: 128), and
+// n_split ceil(S / slots_per_split). form kDecodeTc (bf16): the plan of
+// ops/attention.py decode_attn_plan, slots_per_split a multiple of 64 and
+// n_split ceil(S / slots_per_split). ws holds [B*KV, n_split, t*g] rows of
+// hd + 2 f32 values (see launch_combine), and is not read by kDecodeTc
+// with one split. Returns cudaErrorInvalidValue for arguments the form does
+// not take, else cudaGetLastError() after the launches.
 extern "C" int llamago_attn_decode(const void* q, const void* k, const void* v,
-                                   const void* pos0, void* out, void* pacc, void* pm,
-                                   void* pl, int B, int t, int KV, int g, int hd, int S,
-                                   float scale, int is_bf16, void* stream) {
+                                   const void* pos0, void* out, void* ws, int B, int t,
+                                   int KV, int g, int hd, int S, float scale, int form,
+                                   int slots_per_split, int n_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos0);
-  float* a = static_cast<float*>(pacc);
-  float* m = static_cast<float*>(pm);
-  float* l = static_cast<float*>(pl);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, p, out, a, m, l, B, t, KV, g, hd, S, scale, st);
-  return launch<float>(q, k, v, p, out, a, m, l, B, t, KV, g, hd, S, scale, st);
+  float* w = static_cast<float*>(ws);
+  if (B < 1 || t < 1 || KV < 1 || g < 1 || S < 1 || slots_per_split < 1 ||
+      n_split != (S + slots_per_split - 1) / slots_per_split)
+    return (int)cudaErrorInvalidValue;
+  if (form == kFma) {
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_fma(q, k, v, p, out, w, B, t, KV, g, hd, S, scale, slots_per_split, n_split,
+                      st);
+  }
+  if (form != kDecodeTc || slots_per_split % kTile || (n_split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (hd == 128)
+    return launch_tc_hd<128>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_split,
+                             n_split, st);
+  if (hd == 64)
+    return launch_tc_hd<64>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_split,
+                            n_split, st);
+  return (int)cudaErrorInvalidValue;
 }

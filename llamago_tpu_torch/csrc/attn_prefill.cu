@@ -67,15 +67,6 @@ constexpr int kMmaThreads = 128;
 constexpr int kMmaBM = 64;  // query rows per block: 16 per warp
 constexpr int kPadB = 8;    // bf16 elements of padding per tile row (16 bytes)
 
-// Four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i; lane l receives M_i[2 * (l % 4) + {0, 1}][l / 4] in r[i].
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 size_t mma_smem_bytes(int hd) {
   return (size_t)(kMmaBM + 2 * kBN) * (hd + kPadB) * sizeof(__nv_bfloat16);
 }

@@ -1,7 +1,8 @@
 // PTX wrappers shared by the bf16 tensor-core kernels of K1 (dq_tc and
-// dq_decode_tc, dequant_matmul.cu) and K6 (w4x8_tc, w4x8_matmul.cu), and used by K7's
-// mma path (attn_prefill.cu) and the lab's cp.async probe (lab_matmul.cu):
-// cp.async staging, ldmatrix A fragments, mma.sync.m16n8k16 with f32
+// dq_decode_tc, dequant_matmul.cu), K6 (w4x8_tc, w4x8_matmul.cu), K2
+// (attn_decode_tc, attn_decode.cu) and K7 (attn_prefill.cu), and used by the
+// lab's cp.async probe (lab_matmul.cu): cp.async staging, ldmatrix A
+// fragments and transposed B fragments, mma.sync.m16n8k16 with f32
 // accumulation, bf16 packing and scale reads from shared memory, TMA bulk
 // copies on mbarriers, and the exact bf16 pairs of int8 and Q4_0 weights. Each
 // source builds into its own library, so the functions live in an
@@ -53,6 +54,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       " @!p bra WAIT_%=;\n}\n" ::"r"(a), "r"(parity) : "memory");
 }
+// Orders this thread's generic-proxy accesses of shared memory before
+// later async-proxy accesses of the same bytes: a bulk copy into them that
+// any thread issues after a barrier which follows the fence.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t policy;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
@@ -94,6 +101,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row addresses
+// of matrix i; lane l receives M_i[2 * (l % 4) + {0, 1}][l / 4] in r[i].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");

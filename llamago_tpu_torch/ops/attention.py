@@ -7,7 +7,9 @@ math.
 and prefill buckets of 16 and 32). It replaces
 llamago_tpu/ops/attention.py `_attn_decode_kernel`; the CUDA kernel is
 `csrc/attn_decode.cu`, whose header note says what bounds it on the card
-(the visible cache bytes) and how its design answers that. A CPU tensor
+(the visible cache bytes) and how its design answers that: a bf16 cache
+takes its tensor-core form (`k2_form`; the split planned by
+`decode_attn_plan`), an f32 cache its two-pass CUDA-core form. A CPU tensor
 takes `flash_attention_plain`, the TPU kernel's online softmax over
 S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
 wrapper raises.
@@ -61,6 +63,9 @@ MAX_T = 32  # longest window K2 takes; longer windows go to K7 or attention_math
 _MAX_G = 8
 _HEAD_DIMS = (64, 128)
 _SB = 256  # S-block rows of the plain version, as in the TPU kernel
+_FMA_SB = 128  # S-block rows of K2's f32 form: its staged tiles fit shared memory
+K2_FORMS = ("fma", "decode_tc")  # K2's forms, by the C entry point's codes
+_K2_TILE = 64  # cache slots per ring stage of K2's decode_tc form
 _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 
@@ -170,15 +175,11 @@ def flash_attention_prefill_plain(q5: torch.Tensor, k_cache: torch.Tensor,
 
 @functools.cache
 def _lib():
-    lib = _build.library("attn_decode")
+    fn = _build.library("attn_decode").llamago_attn_decode
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.llamago_attn_decode
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
-    rows = lib.llamago_attn_decode_block_rows
-    rows.argtypes = [i]
-    rows.restype = ctypes.c_int
-    return fn, rows
+    return fn
 
 
 @functools.cache
@@ -188,6 +189,10 @@ def _prefill_lib():
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _check_cuda_args(q5, k_cache, v_cache, pos0, max_t: int | None = MAX_T) -> None:
@@ -215,24 +220,59 @@ def _check_cuda_args(q5, k_cache, v_cache, pos0, max_t: int | None = MAX_T) -> N
                              "16-byte aligned")
 
 
-def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
+def k2_form(dtype: torch.dtype) -> str:
+    """K2's kernel on the card for a cache of this dtype: "decode_tc" (bf16
+    mma.sync) for bf16, "fma" (CUDA cores) for f32, which the bf16 tensor
+    cores cannot take without rounding it. Both merge their splits in a
+    second launch."""
+    return "decode_tc" if dtype == torch.bfloat16 else "fma"
+
+
+def decode_attn_plan(b: int, kv: int, t: int, g: int, hd: int,
+                     s: int) -> tuple[int, int, int]:
+    """(slots per split, splits, f32 workspace elements) of K2's decode_tc
+    form over a cache of S slots. A split is a run of whole 64-slot tiles;
+    the C side takes the first two numbers as they are.
+
+    The split is the shortest that keeps a split's f32 partials (rows x hd
+    x 4 bytes) within a quarter of the cache bytes it reads when full (2 x
+    slots x hd x 2): one tile up to 16 rows (every decode step), so that
+    the serving fills give every SM a block and a full cache many; longer
+    splits measured slower on the card (PERF.md). The workspace holds each
+    split's partials, row maxima and sums for the merge pass when there is
+    more than one split."""
+    rows = t * g
+    per = min(-(-s // _K2_TILE), -(-4 * rows // _K2_TILE))
+    sps = per * _K2_TILE
+    n_split = -(-s // sps)
+    return sps, n_split, b * kv * n_split * rows * (hd + 2) if n_split > 1 else 0
+
+
+def k2_plan(dtype: torch.dtype, b: int, kv: int, t: int, g: int, hd: int,
+            s: int) -> tuple[str, int, int, int]:
+    """(form, slots per split, splits, f32 workspace elements) of one K2
+    call. The f32 form's splits are its S-blocks of 128 rows, each with
+    partials."""
+    form = k2_form(dtype)
+    if form == "fma":
+        n = -(-s // _FMA_SB)
+        return form, _FMA_SB, n, b * kv * n * t * g * (hd + 2)
+    return (form, *decode_attn_plan(b, kv, t, g, hd, s))
+
+
+def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> tuple[torch.Tensor, str]:
     b, t, kv, g, hd = q5.shape
     s = k_cache.shape[2]
-    is_bf16 = int(q5.dtype == torch.bfloat16)
-    fn, block_rows = _lib()
-    nsb = -(-s // block_rows(is_bf16))
-    rows = t * g
+    form, sps, n_split, ws_elems = k2_plan(q5.dtype, b, kv, t, g, hd, s)
     dev = q5.device
     out = torch.empty_like(q5)
-    pacc = torch.empty(b * kv * nsb * rows * hd, dtype=torch.float32, device=dev)
-    pm = torch.empty(b * kv * nsb * rows, dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
-    err = fn(q5.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
-             out.data_ptr(), pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-             b, t, kv, g, hd, s, 1.0 / (hd ** 0.5), is_bf16,
-             torch.cuda.current_stream(dev).cuda_stream)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=dev) if ws_elems else None
+    err = _lib()(q5.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 b, t, kv, g, hd, s, 1.0 / (hd ** 0.5), K2_FORMS.index(form), sps,
+                 n_split, _stream(q5))
     _build.check(err, "flash_attention")
-    return out
+    return out, form
 
 
 def _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
@@ -253,7 +293,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     the cache [B, KV, S, hd]; positions [B, t] absolute and contiguous (row
     0's position is what the kernels read). K2 for t <= 32 unless
     LLAMAGO_ATTN_LENAWARE is "0", else K7; each counts its launches
-    (`launches`, `launches_prefill`). Returns [B, t, H*hd] in q.dtype."""
+    (`launches`, `launches_prefill`; `launches_decode_tc` counts K2's bf16
+    form, `k2_form`). Returns [B, t, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv = k_cache.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
@@ -267,8 +308,10 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
         pos0 = pos0.contiguous()
         if lenaware:
             _check_cuda_args(q5, k_cache, v_cache, pos0)
-            out = _flash_attention_cuda(q5, k_cache, v_cache, pos0)
+            out, form = _flash_attention_cuda(q5, k_cache, v_cache, pos0)
             flash_attention.launches += 1
+            if form == "decode_tc":
+                flash_attention.launches_decode_tc += 1
         else:
             _check_cuda_args(q5, k_cache, v_cache, pos0, max_t=None)
             out = _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0)
@@ -278,7 +321,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     return out.reshape(b, t, h * hd)
 
 
-flash_attention.launches = 0  # K2
+flash_attention.launches = 0  # K2, either form
+flash_attention.launches_decode_tc = 0  # K2's bf16 tensor-core form
 flash_attention.launches_prefill = 0  # K7
 
 
