@@ -20,8 +20,12 @@ Phases, each of which fails the run (exit code 1, no result line):
      tensor-core tile for bf16 x and the f32 tile for f32 x), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
      fills 1 to 1024 with the serving fill 101 and the split's edges, and
-     at t = 32; GQA at hd = 64 and its f32 form checked), K3, K4,
-     K8 (the three of the int8 cache with f32 and with bf16 scale planes),
+     at t = 32; GQA at hd = 64 and its f32 form checked), K3, K4 (its
+     tensor-core form at S = 1024, checked and timed at t = 1 for fills 1
+     to 1024 with the serving fill 101 and the S-block's edges, at t = 16
+     and 32; its CUDA-core form at S = 520 checked), K8 (the three of the
+     int8 cache with f32 and with bf16 scale planes; K4 and K8 repeat their
+     bits into NaN-filled memory),
      K5 (W4A8 decode matmul), K6 (w4x8 stream matmul, each of its forms:
      the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
      (scale-on-output matmul), K7 (flash prefill attention) and K10 (fused
@@ -52,7 +56,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      kernels and host ops);
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
      16 jobs, after phase 4's engine is freed: K1 (its tensor-core decode
-     form and tile), K3 and K4 must launch, K2 and K8 not;
+     form and tile), K3 and K4 (every call in its tensor-core form) must
+     launch, K2 and K8 not;
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
      (its tensor-core tile: every prompt's prefill) and K2 must launch,
@@ -630,28 +635,62 @@ def _quant_cache(dev, gen, b, kv, s, hd):
     return quantize_kv_rows(torch.randn((b, kv, s, hd), generator=gen, device=dev))
 
 
-def _k4_error(q, k8, v8, positions, ks, vs, plain) -> float:
-    """max |kernel - plain| over one call."""
+def _k4_call(q, k8, v8, positions, ks, vs):
+    """One K4 or K8 call (as `attention._I8DOT` says), which must take the
+    form `quant_plan` names for the cache's S. The memory its workspace and
+    its output will take is filled with NaN first (the caching allocator
+    hands the blocks just freed to the next requests of their sizes), so a
+    partial or a row the kernels leave unwritten shows."""
     import torch
 
     from llamago_tpu_torch.ops import attention
 
+    fn = attention.flash_attention_quant
     b, t, h, hd = q.shape
-    got = attention.flash_attention_quant(q, k8, v8, positions, ks, vs).float()
+    kv = k8.shape[1]
+    form, _, _, ws = attention.quant_plan(attention._I8DOT, b, kv, t, h // kv, hd, k8.shape[2])
+    poison = [torch.full((ws,), float("nan"), device=q.device), torch.full_like(q, float("nan"))]
+    del poison
+    before = (fn.launches_i8dot, fn.launches_i8dot_tc, fn.launches_widening)
+    got = fn(q, k8, v8, positions, ks, vs)
+    want = (before[0] + (form != "widening"), before[1] + (form == "i8dot_tc"),
+            before[2] + (form == "widening"))
+    if (fn.launches_i8dot, fn.launches_i8dot_tc, fn.launches_widening) != want:
+        raise AssertionError(f"K4/K8: S={k8.shape[2]} did not take the {form} form")
+    return got
+
+
+def _k4_error(q, k8, v8, positions, ks, vs, plain, got=None) -> float:
+    """max |kernel - plain| over one call (or over `got`, its output)."""
+    import torch
+
+    if got is None:
+        got = _k4_call(q, k8, v8, positions, ks, vs)
+    b, t, h, hd = q.shape
     q5 = q.reshape(b, t, k8.shape[1], h // k8.shape[1], hd)
     ref = plain(q5, k8, v8, positions[:, 0].to(torch.int32), ks, vs)
     torch.cuda.synchronize()
-    return (got - ref.reshape(got.shape).float()).abs().max().item()
+    return (got.float() - ref.reshape(got.shape).float()).abs().max().item()
+
+
+# K4's timed windows (t, fill) at K4_SHAPE: decode at the serving fill
+# (101), on an S-block's edges (255, 256, 257) and up to full; prefill
+# buckets 16 and 32. K8 keeps PR 2's six.
+K4_WINDOWS = ([(1, f) for f in (1, 101, 255, 256, 257, 300, 1024)]
+              + [(16, f) for f in (101, 1024)] + [(32, f) for f in (1, 300, 1024)])
+K8_WINDOWS = [(t, f) for t in (1, 32) for f in (1, 300, 1024)]
 
 
 def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
-    """K4 (i8dot) and K8 (widening) at b=8, KV=32, hd=128, S=1024 for fills
-    1, 300 and 1024 and windows t=1 (decode) and t=32 (prefill bucket), q in
-    bf16, with f32 and then with bf16 scale planes, checked and timed; a GQA
-    geometry (g=8, hd=64, S=512) checked only. The yardstick is SDPA over a
-    bf16 dequantized copy of the visible cache: the same function, reading
-    twice the cache bytes. The kernels line takes the f32 planes, the
-    default."""
+    """K4 (i8dot) and K8 (widening) at b=8, KV=32, hd=128, S=1024, q in
+    bf16, with f32 and then with bf16 scale planes, checked and timed at
+    K4_WINDOWS and K8_WINDOWS (K4 takes its tensor-core form there, S-blocks
+    of 256); a GQA geometry (g=8, hd=64, S=512) and, for K4, S=520 (S-blocks
+    of 8: the CUDA-core form) checked only. Each timed row is called once
+    more after its timing, into NaN-filled memory, which must give the
+    first call's bits. The yardstick is SDPA over a bf16 dequantized copy of
+    the visible cache: the same function, reading twice the cache bytes.
+    The kernels line takes the f32 planes, the default."""
     import torch
     import torch.nn.functional as F
 
@@ -663,70 +702,86 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
     h = kv * g
     caches32 = [(*_quant_cache(dev, gen, b, kv, s, hd), *_quant_cache(dev, gen, b, kv, s, hd))
                 for _ in range(K4_COPIES)]  # (k8, ks, v8, vs)
-    gb, gkv, gg, ghd, gs = 2, 2, 8, 64, 512
-    gcache32 = (*_quant_cache(dev, gen, gb, gkv, gs, ghd),
-                *_quant_cache(dev, gen, gb, gkv, gs, ghd))
+    # checked only: ((b, kv, g, hd, S), t, row 0's positions, the kernels)
+    checked = [((2, 2, 8, 64, 512), t, (190, 480), ("K4", "K8")) for t in (1, 16)]
+    checked += [((2, 4, 2, 128, 520), t, (299 - t + 1, 519 - t + 1), ("K4",))
+                for t in (1, 32)]
+    cache_of = {(gb, gkv, gg, ghd, gs): (*_quant_cache(dev, gen, gb, gkv, gs, ghd),
+                                         *_quant_cache(dev, gen, gb, gkv, gs, ghd))
+                for (gb, gkv, gg, ghd, gs), *_ in checked}
     out, default = [], attention._I8DOT
     for sdt in (torch.float32, torch.bfloat16):
         sname = str(sdt).split(".")[-1]
         caches = [(k8, ks.to(sdt), v8, vs.to(sdt)) for k8, ks, v8, vs in caches32]
-        gk8, gks, gv8, gvs = (a if a.dtype == torch.int8 else a.to(sdt) for a in gcache32)
         deq = [((k8.float() * ks.float()[..., None]).to(torch.bfloat16),
                 (v8.float() * vs.float()[..., None]).to(torch.bfloat16))
                for k8, ks, v8, vs in caches]
-        for i8dot, name, plain, rate in (
-                (True, "K4", attention.flash_attention_quant_i8dot_plain, INT8_OPS_PER_S),
-                (False, "K8", attention.flash_attention_quant_plain, BF16_OPS_PER_S)):
+        for i8dot, name, plain, rate, windows in (
+                (True, "K4", attention.flash_attention_quant_i8dot_plain, INT8_OPS_PER_S,
+                 K4_WINDOWS),
+                (False, "K8", attention.flash_attention_quant_plain, BF16_OPS_PER_S,
+                 K8_WINDOWS)):
             attention._I8DOT = i8dot
             rows, max_err, record = [], 0.0, None
-            for t in (1, 16):
+            for geo, t, starts, who in checked:
+                if name not in who:
+                    continue
+                gb, gkv, gg, ghd, gs = geo
+                gk8, gks, gv8, gvs = (a if a.dtype == torch.int8 else a.to(sdt)
+                                      for a in cache_of[geo])
                 gq = torch.randn((gb, t, gkv * gg, ghd), generator=gen, device=dev).bfloat16()
-                gpos = torch.tensor([[190], [480]], device=dev) + torch.arange(t, device=dev)
+                gpos = torch.tensor(starts, device=dev)[:, None] + torch.arange(t, device=dev)
+                form = attention.quant_plan(i8dot, gb, gkv, t, gg, ghd, gs)[0]
                 err = _k4_error(gq, gk8, gv8, gpos, gks, gvs, plain)
                 if not err <= K4_TOL:
-                    raise AssertionError(f"{name} GQA t={t}, {sname} scales: max|d| "
+                    raise AssertionError(f"{name} {geo} t={t}, {sname} scales: max|d| "
                                          f"{err:.3g} > {K4_TOL}")
                 max_err = max(max_err, err)
-                log(f"{name} GQA g={gg} hd={ghd} S={gs} t={t}, {sname} scales: max|d| "
-                    f"{err:.2e}")
-            for t in (1, 32):
-                for fill in (1, 300, 1024):
-                    q = torch.randn((b, t, h, hd), generator=gen, device=dev).bfloat16()
-                    positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
-                                 + torch.arange(t, device=dev)[None, :])
-                    k8, ks, v8, vs = caches[0]
-                    err = _k4_error(q, k8, v8, positions, ks, vs, plain)
-                    if not err <= K4_TOL:
-                        raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: "
-                                             f"max|d| {err:.3g} > {K4_TOL}")
-                    max_err = max(max_err, err)
-                    visible = min(max(fill, t), s)  # slots seen by the last query row
-                    q5 = q.reshape(b, t, kv, g, hd)
-                    pos0 = positions[:, 0].to(torch.int32)
-                    kern = timed([lambda c_=c_: attention.flash_attention_quant(
-                        q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
-                        50 * K4_COPIES)
-                    plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
-                                      for c_ in caches], 2 * K4_COPIES)
-                    qh = q.transpose(1, 2)
-                    mask = None
-                    if t > 1:
-                        mask = (torch.arange(visible, device=dev)[None, :]
-                                <= positions[0][:, None])
-                    lib = timed([lambda d=d: F.scaled_dot_product_attention(
-                        qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
-                        for d in deq], 50 * K4_COPIES)
-                    nbytes = (2 * b * kv * visible * (hd + ks.element_size())
-                              + 2 * b * t * h * hd * 2 + b * 4)
-                    bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
-                    row = dict(t=t, fill=fill, visible=visible, ms=kern, plain_ms=plain_ms,
-                               library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
-                    rows.append(row)
-                    log(f"{name} t={t:2d} fill={fill:4d}, {sname} scales: kernel {kern:.4f} "
-                        f"ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy {lib:.4f} ms, "
-                        f"bound {bnd:.4f} ms, max|d| {err:.2e}")
-                    if t == 1 and fill == s:
-                        record = row
+                log(f"{name} b={gb} KV={gkv} g={gg} hd={ghd} S={gs} t={t} ({form}), {sname} "
+                    f"scales: max|d| {err:.2e}")
+            for t, fill in windows:
+                q = torch.randn((b, t, h, hd), generator=gen, device=dev).bfloat16()
+                positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                             + torch.arange(t, device=dev)[None, :])
+                k8, ks, v8, vs = caches[0]
+                first = _k4_call(q, k8, v8, positions, ks, vs)
+                err = _k4_error(q, k8, v8, positions, ks, vs, plain, first)
+                if not err <= K4_TOL:
+                    raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: "
+                                         f"max|d| {err:.3g} > {K4_TOL}")
+                max_err = max(max_err, err)
+                visible = min(max(fill, t), s)  # slots seen by the last query row
+                q5 = q.reshape(b, t, kv, g, hd)
+                pos0 = positions[:, 0].to(torch.int32)
+                kern = timed([lambda c_=c_: attention.flash_attention_quant(
+                    q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
+                    50 * K4_COPIES)
+                plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
+                                  for c_ in caches], 2 * K4_COPIES)
+                qh = q.transpose(1, 2)
+                mask = None
+                if t > 1:
+                    mask = (torch.arange(visible, device=dev)[None, :]
+                            <= positions[0][:, None])
+                lib = timed([lambda d=d: F.scaled_dot_product_attention(
+                    qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
+                    for d in deq], 50 * K4_COPIES)
+                if not torch.equal(_k4_call(q, k8, v8, positions, ks, vs), first):
+                    raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: a "
+                                         "second call gave other bits")
+                nbytes = (2 * b * kv * visible * (hd + ks.element_size())
+                          + 2 * b * t * h * hd * 2 + b * 4)
+                bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
+                form = attention.quant_plan(i8dot, b, kv, t, g, hd, s)[0]
+                row = dict(t=t, fill=fill, visible=visible, form=form, ms=kern,
+                           plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, bound_by=by,
+                           max_abs_err=err)
+                rows.append(row)
+                log(f"{name} t={t:2d} fill={fill:4d} ({form}), {sname} scales: kernel "
+                    f"{kern:.4f} ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy {lib:.4f} "
+                    f"ms, bound {bnd:.4f} ms, max|d| {err:.2e}")
+                if t == 1 and fill == s:
+                    record = row
             if sdt == torch.float32:
                 detail[name.lower()] = rows
                 # one decode step at full fill: one launch per layer (32)
@@ -737,7 +792,7 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
                 detail[f"{name.lower()}_bf16_scales"] = rows
         del caches, deq
     attention._I8DOT = default
-    del caches32
+    del caches32, cache_of
     torch.cuda.empty_cache()
     return out[0], out[1]
 
@@ -1385,6 +1440,8 @@ def _launch_counters():
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
                                             "launches_i8dot"),
+            "flash_attention_quant_i8dot_tc": (attention.flash_attention_quant,
+                                               "launches_i8dot_tc"),
             "flash_attention_quant_widening": (attention.flash_attention_quant,
                                                "launches_widening"),
             "lab_i4_matmul": (lk.i4_matmul, "launches"),
@@ -1575,11 +1632,20 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     return result
 
 
+# the attention kernels of a trace: attn_* (K2, K7) and the int8 cache's
+# quant_partial / quant_partial_tc and their merge quant_merge (K4, K8;
+# quant_combine in checkouts before the one merge)
+ATTENTION_KERNELS = re.compile(r"(?:attn_|quant_partial|quant_merge|quant_combine)\w*")
+
+
 def _attention_us(by_name: dict) -> float:
-    """Device time of the attention kernels in a trace: those named attn_*
-    (K2, K7) and the int8 cache's quant_partial / quant_combine (K4, K8)."""
-    return sum(v for k, v in by_name.items()
-               if re.search(r"attn_|quant_partial|quant_combine", k))
+    """Device time of the attention kernels in a trace."""
+    return sum(v for k, v in by_name.items() if ATTENTION_KERNELS.search(k))
+
+
+def _attention_names(by_name: dict) -> list[str]:
+    """The attention kernels of a trace, by name (no namespace or template)."""
+    return sorted({m.group(0) for k in by_name if (m := ATTENTION_KERNELS.search(k))})
 
 
 def profile_prefill(engine, t: int, traced: int = 3) -> dict:
@@ -1671,6 +1737,7 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
            "device_busy_ms": device_ms,
            "device_busy_share": device_ms / step_ms, "matmul_ms": mm_ms,
            "attention_ms": _attention_us(by_name) / 1e3 / traced,
+           "attention_kernels": _attention_names(by_name),
            "top_kernels_ms_per_step": {k: v / 1e3 / traced for k, v in top},
            "top_host_ops_ms_per_step": {a.key: a.self_cpu_time_total / 1e3 / traced
                                         for a in host},
@@ -1774,7 +1841,18 @@ def main(argv: list[str]) -> int:
             served_q = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
                              rise=("dequant_matmul", "dequant_matmul_tc",
                                    "dequant_matmul_decode_tc", "cache_append_quant",
-                                   "flash_attention_quant_i8dot"))
+                                   "flash_attention_quant_i8dot",
+                                   "flash_attention_quant_i8dot_tc"))
+            q_launches = served_q["launches"]
+            if q_launches["flash_attention_quant_i8dot_tc"] != \
+                    q_launches["flash_attention_quant_i8dot"]:
+                raise AssertionError(f"serve, int8 cache: a K4 call did not take its "
+                                     f"tensor-core form: {q_launches}")
+            # attention_ms of a decode step holds both of K4's launches
+            names = " ".join(served_q["decode_step"]["attention_kernels"])
+            if "quant_partial_tc" not in names or "quant_merge" not in names:
+                raise AssertionError(f"serve, int8 cache: the decode step's attention "
+                                     f"kernels are {names}")
         del params
         gc.collect()  # the int8 weights, the phase 4b engine and its cache
         torch.cuda.empty_cache()
@@ -1815,10 +1893,12 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/cache_append.cu",
          "replaces": "llamago_tpu/ops/cache_write.py:63",
          "launches": served_q["launches"]["cache_append_quant"], **k3},
+        # K4's tensor-core form: its launches in phase 4b (every K4 call
+        # there), one decode step at b=8, full fill
         {"name": "flash_attention_quant_i8dot", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:406",
-         "launches": served_q["launches"]["flash_attention_quant_i8dot"], **k4},
+         "launches": served_q["launches"]["flash_attention_quant_i8dot_tc"], **k4},
         {"name": "flash_attention_quant_widening", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:342",

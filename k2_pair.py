@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""K2 (decode attention) of several checkouts on one card, side by side.
+"""K2 or K4 (decode attention) of several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--out FILE.json] ROOT [ROOT ...]
+    python3 k2_pair.py [--kernel k2|k4] [--out FILE.json] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
 builds its kernels into ROOT/build at first use. For each ROOT, in the
 order given and each in a process of its own that imports that checkout's
 package (and this checkout's chip_smoke.py for the helpers), it reports:
 
-  - K2 at chip_smoke's geometry (b=4, KV=32, hd=128, S=1024, bf16 cache):
-    t=1 at fills 1, 63, 64, 65, 101 (the serving fill), 300 and 1024, and
-    t=32 at fills 1, 300 and 1024. Device ms per call (the busy time of
-    every kernel the call launches, chip_smoke's `timed`, over three cache
-    copies that a cycle of calls streams past the L2) and max|kernel -
-    plain|. The inputs are the same in every process (seeded per row).
-  - Phase 4's decode step: 7B Q8_0 (random, seed 0), the bf16 cache, 4
-    slots at position 100 (chip_smoke's `profile_decode`): device busy and
-    `attention_ms` (device time of the kernels named attn_*) per step.
+  - `--kernel k2` (the default): K2 at chip_smoke's geometry (b=4, KV=32,
+    hd=128, S=1024, bf16 cache): t=1 at fills 1, 63, 64, 65, 101 (the
+    serving fill), 300 and 1024, and t=32 at fills 1, 300 and 1024; then
+    phase 4's decode step: 7B Q8_0 (random, seed 0), the bf16 cache, 4
+    slots at position 100.
+  - `--kernel k4`: K4 at chip_smoke's K4_SHAPE (b=8, KV=32, hd=128,
+    S=1024, the int8 cache with f32 scale planes, q in bf16) at
+    chip_smoke's K4_WINDOWS (t=1 at fills 1 to 1024 with the serving fill
+    101 and the S-block's edges 255-257, t=16 and t=32); then phase 4b's
+    decode step: 7B Q8_0, the int8 cache, 8 slots at position 100.
+
+Each row: device ms per call (the busy time of every kernel the call
+launches, chip_smoke's `timed`, over three cache copies that a cycle of
+calls streams past the L2) and max|kernel - plain|; the inputs are the same
+in every process (seeded per row). The decode step (chip_smoke's
+`profile_decode`): device busy and `attention_ms` (device time of the
+attention kernels) per step, and the names of the kernels that
+`attention_ms` counted.
 
 Name the roots mirrored (parent, change, change, parent) to read each
 one's spread. One JSON object per run goes to stdout and, as a list, to
@@ -33,6 +42,7 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
+STEP_KEYS = ("step_ms", "device_busy_ms", "attention_ms", "attention_kernels")
 WINDOWS = [(1, f) for f in (1, 63, 64, 65, 101, 300, 1024)] + [(32, f) for f in (1, 300, 1024)]
 
 
@@ -45,9 +55,48 @@ def _smoke():
     return mod
 
 
-def run_one(root: str) -> dict:
+def run_k4(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    c = cs.K4_SHAPE
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    caches = [(*cs._quant_cache(dev, gen, b, kv, s, hd), *cs._quant_cache(dev, gen, b, kv, s, hd))
+              for _ in range(cs.K4_COPIES)]  # (k8, ks, v8, vs)
+    rows = []
+    for t, fill in cs.K4_WINDOWS:
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + fill)
+        q = torch.randn((b, t, kv * g, hd), generator=gen, device=dev).bfloat16()
+        positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                     + torch.arange(t, device=dev)[None, :])
+        k8, ks, v8, vs = caches[0]
+        got = attention.flash_attention_quant(q, k8, v8, positions, ks, vs).float()
+        ref = attention.flash_attention_quant_i8dot_plain(
+            q.reshape(b, t, kv, g, hd), k8, v8, positions[:, 0].to(torch.int32), ks, vs)
+        err = (got - ref.reshape(got.shape).float()).abs().max().item()
+        ms = cs.timed([lambda c_=c_: attention.flash_attention_quant(
+            q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches], 50 * cs.K4_COPIES)
+        rows.append(dict(t=t, fill=fill, ms=ms, max_abs_err=err))
+        cs.log(f"{root}: K4 t={t:2d} fill={fill:4d}: {ms:.4f} ms, max|d| {err:.2e}")
+    del caches
+    torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev)
+    engine = Engine(cfg.replace(kv_dtype="int8"), params, cs._byte_vocab(cfg.vocab_size),
+                    slots=8, decode_chunk_size=32, prefill_chunk=256, device=dev)
+    step = cs.profile_decode(engine, 32)
+    return {"root": root, "card": cs.card_line(), "k4": rows,
+            "decode_step": {k: step[k] for k in STEP_KEYS}}
+
+
+def run_one(root: str, kernel: str) -> dict:
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     cs = _smoke()
+    if kernel == "k4":
+        return run_k4(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -74,23 +123,25 @@ def run_one(root: str) -> dict:
                     decode_chunk_size=32, prefill_chunk=256, device=dev)
     step = cs.profile_decode(engine, 32)
     return {"root": root, "card": cs.card_line(), "k2": rows,
-            "decode_step": {k: step[k] for k in ("step_ms", "device_busy_ms", "attention_ms")}}
+            "decode_step": {k: step[k] for k in STEP_KEYS}}
 
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("k2", "k4"), default="k2")
     ap.add_argument("--out")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(run_one(args.worker)), flush=True)
+        print(json.dumps(run_one(args.worker, args.kernel)), flush=True)
         return 0
     if not args.roots:
         ap.error("name at least one checkout")
     results = []
     for root in args.roots:
-        proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--worker", root],
+        proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--kernel",
+                               args.kernel, "--worker", root],
                               stdout=subprocess.PIPE, text=True)
         if proc.returncode != 0:
             print(f"k2_pair: the run of {root} failed ({proc.returncode})", file=sys.stderr)

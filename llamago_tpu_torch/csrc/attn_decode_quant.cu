@@ -12,9 +12,10 @@
 //  * K4 (i8dot) replaces llamago_tpu/ops/attention.py
 //    _attn_decode_kernel_quant_i8dot: each q row is quantized to int8
 //    against its absmax (sq = absmax * fl(1/127)); scores are exact int32
-//    dot products (__dp4a) times (scale * sq), times sk; p*sv is
-//    requantized to int8 per row against its maximum over the S-block
-//    (sp), the PV product is exact in int32 and is scaled back by sp.
+//    dot products (int8 mma.sync, or __dp4a) times (scale * sq), times sk;
+//    p*sv is
+//    requantized to int8 per row against its maximum over the S-block (sp),
+//    the PV product is exact in int32 and is scaled back by sp.
 //  * K8 (widening) replaces llamago_tpu/ops/attention.py
 //    _attn_decode_kernel_quant: scores are f32 dot products of q with the
 //    widened int8 K rows, times scale, times sk; p*sv is rounded to bf16
@@ -32,21 +33,50 @@
 // device memory. Bandwidth over the visible cache bytes is the bound, half
 // of K2's bf16 bytes.
 //
-// What the design does about it (flash-decoding in two passes, as K2 in
-// csrc/attn_decode.cu):
-//  * pass 1, grid (B*KV, S/SB): each block owns one S-block of one (batch,
-//    kv head). Blocks past the last visible slot return at once, so cache
-//    traffic follows the fill, not S; within the last block only the
-//    visible rows are read. The block stages its int8 K rows (padded by one
-//    word against bank conflicts), V rows and scales in shared memory (an
-//    int8 256x128 block is 32 KB, half of K2's), takes up to 32 query rows
-//    at a time, and writes the block-local softmax statistics (max, sum of
-//    p) and the unnormalized PV in f32. Splitting S is legal for K4: the
-//    block-local p differs from the TPU kernel's running-max p by the factor
-//    exp(m_block - m_running), which the per-block requantization divides
-//    out again.
-//  * pass 2, grid (B*KV): merges the S-blocks' partials with the usual
-//    max-rescaled sum and writes the output in q's dtype.
+// Both are flash-decoding in two passes: pass 1, grid (B*KV, S/SB), one
+// block per S-block of one (batch, kv head), writes the block-local softmax
+// statistics (max, sum of p) and the unnormalized PV in f32; blocks past the
+// last visible slot return at once, so cache traffic follows the fill, and
+// within the last block only the visible rows are read. Splitting S is legal
+// for K4: the block-local p differs from the TPU kernel's running-max p by
+// the factor exp(m_block - m_running), which the per-block requantization
+// divides out again. Pass 2 (quant_merge, the same for every form) merges
+// the S-blocks' partials in S-block order with the usual max-rescaled sum
+// (a call run twice gives the same bits) and writes the output in q's
+// dtype. Pass 1 has three forms (the entry
+// point's `form`, ops/attention.py quant_plan):
+//
+//  * i8dot_tc (K4 for S-blocks of 64 slots or more, every S that is a
+//    multiple of 256), quant_partial_tc, 128 threads:
+//    - The S-block's K and V rows arrive by TMA bulk copies on mbarriers
+//      (one a K or V tile of 64 slots), L2 evict_first, all issued when the
+//      block starts: a copy moves 8 consecutive visible rows, and each group
+//      of 8 rows lands 16 bytes after the last, so that the 8 slots of an
+//      mma n-tile (one from each group) and the 8 rows of an ldmatrix fall on
+//      distinct banks. Each warp waits for its own K tile only: scores of
+//      one tile run while the next is in flight, and V lands meanwhile.
+//    - Q K^T on mma.m16n8k32 with int8 operands, exact in int32 (the
+//      parent's __dp4a sums): q, quantized once a block (a warp a row) into
+//      shared memory, is the A operand in m16 tiles of rows; K is B as it
+//      lands (n-tile (tile, i) holds slots 8n + i of the tile). The four
+//      warps split the S-block's
+//      slots, 2 * SB / 64 n-tiles each, and share each row's maximum, sum of
+//      p and maximum of p*sv through shared memory.
+//    - Softmax and requantization with the same f32 operations per element
+//      as the CUDA-core form, so p8 is the same bit for bit: max, expf(s -
+//      m), p*sv, its row maximum, sp, rint. p8 goes to shared memory in the
+//      order of the PV product's k (16 rows x SB bytes).
+//    - P V on mma.m16n8k32, exact in int32: p8 is A (ldmatrix); V is B, a
+//      column's four consecutive k built from ldmatrix.trans pairs of two
+//      slots by byte permutes (k 4*tig..+3 are slots 16*tig + i0 + {0, 8,
+//      1, 9}, the order the A side stores). The warps split the columns.
+//      The int32 sum times sp is the parent's PV bit for bit; only the row
+//      sum of p (and the merge) add in another order.
+//  * i8dot (K4 for the S-blocks of 8 to 32 slots, e.g. S = 520 or 2000) and
+//    widening (K8), quant_partial, 256 threads: the block stages its K rows
+//    (padded by one word against bank conflicts), V rows and scales in
+//    shared memory, takes up to 32 query rows at a time and computes scores
+//    and P V on the CUDA cores, one (row, slot) or (row, column) a thread.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -55,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -259,34 +291,473 @@ __global__ void __launch_bounds__(kThreads) quant_partial(
   }
 }
 
+// Pass 2 of every form: grid (B*KV, blocks of 256 threads), a thread four
+// consecutive columns of one row. For each column it takes the maximum of
+// the visible S-blocks' row maxima, then sums w * acc and w * l over them
+// in S-block order with fmaf (w = expf(m_s - max)), and divides. The
+// partials of the first kPrefetch S-blocks load beside pos0, before the
+// fill says which of them were written (the others are read and never
+// used), so a decode step's merge waits for one trip to memory instead of
+// three. hd is a multiple of 4.
+constexpr int kPrefetch = 4;
+
+dim3 merge_grid(int B, int t, int KV, int g, int hd) {
+  return dim3(B * KV, (t * g * hd / 4 + kThreads - 1) / kThreads);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) quant_combine(
+__global__ void __launch_bounds__(kThreads) quant_merge(
     const float* __restrict__ pacc, const float* __restrict__ pm,
     const float* __restrict__ pl, const int* __restrict__ pos0, T* __restrict__ out,
     int t, int KV, int g, int hd, int SB, int nsb) {
   const int bh = blockIdx.x;
   const int b = bh / KV, kvh = bh % KV;
   const int R = t * g;
+  const int i = blockIdx.y * kThreads + threadIdx.x;
+  if (i >= R * hd / 4) return;
+  const int r = i * 4 / hd, d = i * 4 % hd;
+  const size_t p_row = (size_t)bh * nsb * R + r;  // + s * R: S-block s's row r
+  float pmv[kPrefetch], plv[kPrefetch];
+  float4 av[kPrefetch];
+#pragma unroll
+  for (int s = 0; s < kPrefetch; ++s) {
+    if (s >= nsb) break;
+    const size_t pi = p_row + (size_t)s * R;
+    pmv[s] = pm[pi], plv[s] = pl[pi];
+    av[s] = *reinterpret_cast<const float4*>(pacc + pi * hd + d);
+  }
   const int last_blk = min((pos0[b] + t - 1) / SB, nsb - 1);
-  for (int i = threadIdx.x; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    float mx = kMask;
-    for (int s = 0; s <= last_blk; ++s) mx = fmaxf(mx, pm[((size_t)bh * nsb + s) * R + r]);
-    float num = 0.f, den = 0.f;
-    for (int s = 0; s <= last_blk; ++s) {
-      const size_t pi = ((size_t)bh * nsb + s) * R + r;
-      const float w = expf(pm[pi] - mx);  // 0 for a block where the row sees nothing
-      num = fmaf(w, pacc[pi * hd + d], num);
-      den = fmaf(w, pl[pi], den);
+  float mx = kMask;
+#pragma unroll
+  for (int s = 0; s < kPrefetch; ++s)
+    if (s <= last_blk) mx = fmaxf(mx, pmv[s]);
+  for (int s = kPrefetch; s <= last_blk; ++s) mx = fmaxf(mx, pm[p_row + (size_t)s * R]);
+  float num[4] = {0.f, 0.f, 0.f, 0.f}, den = 0.f;
+  for (int s = 0; s <= last_blk; ++s) {
+    float m_s, l_s;
+    float4 a;
+    if (s < kPrefetch) {
+#pragma unroll
+      for (int u = 0; u < kPrefetch; ++u)  // registers, not local memory
+        if (u == s) m_s = pmv[u], l_s = plv[u], a = av[u];
+    } else {
+      const size_t pi = p_row + (size_t)s * R;
+      m_s = pm[pi], l_s = pl[pi];
+      a = *reinterpret_cast<const float4*>(pacc + pi * hd + d);
     }
-    const int ti = r / g, gi = r % g;
-    out[((((size_t)b * t + ti) * KV + kvh) * g + gi) * hd + d] = from_f<T>(num / den);
+    const float w = expf(m_s - mx);  // 0 for a block where the row sees nothing
+    num[0] = fmaf(w, a.x, num[0]);
+    num[1] = fmaf(w, a.y, num[1]);
+    num[2] = fmaf(w, a.z, num[2]);
+    num[3] = fmaf(w, a.w, num[3]);
+    den = fmaf(w, l_s, den);
+  }
+  T* o = out + ((((size_t)b * t + r / g) * KV + kvh) * g + r % g) * hd + d;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = from_f<T>(num[e] / den);
+}
+
+// ------------------------------------------ K4 on the tensor cores (i8dot_tc)
+
+constexpr int kTcThreads = 128;  // four warps
+constexpr int kTile = 64;        // slots of a K or V tile, one mbarrier each
+constexpr int kGrp = 8;          // slots (rows) of one bulk copy
+constexpr int kGrpPad = 16;      // bytes after each group of 8 rows in shared memory
+constexpr int kPPad = 16;        // bytes after each row of p8 in shared memory
+
+template <int HD> __host__ __device__ constexpr int grp_bytes() { return kGrp * HD + kGrpPad; }
+template <int HD> __host__ __device__ constexpr int tile_bytes() {
+  return kTile / kGrp * grp_bytes<HD>();
+}
+// Dynamic shared memory: the S-block's K tiles, its V tiles, its K and V
+// scales as stored (f32 or bf16), p8 of one m16 tile of rows, and the
+// mbarriers (K tiles, then V tiles).
+template <int HD, int TILES, typename TS> __host__ __device__ constexpr int tc_smem_bytes() {
+  return 2 * TILES * tile_bytes<HD>() + 2 * TILES * kTile * (int)sizeof(TS) +
+         16 * (TILES * kTile + kPPad) + 2 * TILES * 8;
+}
+
+// N (2 or 4) consecutive values of q in f32.
+template <int N> __device__ __forceinline__ void loadv(const float* p, float* x) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  }
+}
+template <int N> __device__ __forceinline__ void loadv(const __nv_bfloat16* p, float* x) {
+  if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+  } else {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+    x[0] = v.x, x[1] = v.y;
   }
 }
 
+// 1 / s in f64 within about 2^-52 (relative): the f64 reciprocal's
+// approximation refined by three Newton steps (each squares the error).
+__device__ __forceinline__ double rcp_d(float s) {
+  const double d = s;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fma(r, fma(-d, r, 1.0), r);
+  return r;
+}
+
+// quant(x, s) as an int, exactly, without a division: rs = rcp_d(s). x *
+// rs in f64 is within 2^-51 (relative) of x / s, and an f32 quotient is
+// never an f32 midpoint and lies at least 2^-49 from the nearest one, so
+// rounding it to f32 gives the IEEE f32 quotient. (The IEEE division's
+// slow-path call keeps the compiler from overlapping divisions, and they
+// were most of a block's time.)
+__device__ __forceinline__ int quant_r(float x, double rs) {
+  return __float2int_rn(fminf(fmaxf(rintf((float)((double)x * rs)), -127.f), 127.f));
+}
+
+// Four int8 values, the first in the low byte.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | (uint32_t)(b & 0xff) << 8 | (uint32_t)(c & 0xff) << 16 |
+         (uint32_t)d << 24;
+}
+
+// grid (B*KV, S / SB), 128 threads, tc_smem_bytes<HD, TILES, TS>() of dynamic
+// shared memory; SB = 64 * TILES. Block (x, y) is (batch, kv head) x and
+// the S-block of slots [y * SB, (y + 1) * SB). Warp w scores n-tiles
+// w * NT .. w * NT + NT - 1 of the S-block (n-tile v: tile v / 8, slots
+// 8n + v % 8 of it) and multiplies columns w * HD / 4 .. of P V. The rows
+// go through in m16 tiles; per m16 tile four block barriers: q8 in shared
+// memory, the warps' row maxima, their sums of p and maxima of p*sv, and p8
+// in shared memory. Three blocks an SM (shared memory: 75 KB a block at HD
+// = 128, SB = 256).
+template <typename T, typename TS, int HD, int TILES>
+__global__ void __launch_bounds__(kTcThreads, 3) quant_partial_tc(
+    const T* __restrict__ q, const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+    const TS* __restrict__ ks, const TS* __restrict__ vs, const int* __restrict__ pos0,
+    float* __restrict__ pacc, float* __restrict__ pm, float* __restrict__ pl, int t, int KV,
+    int g, int S, float scale, int nsb) {
+  constexpr int SB = TILES * kTile;
+  constexpr int GB = grp_bytes<HD>();
+  constexpr int TB = tile_bytes<HD>();
+  constexpr int NT = 2 * TILES;    // n-tiles of 8 slots a warp scores
+  constexpr int KK = HD / 32;      // k-steps of Q K^T
+  constexpr int PLD = SB + kPPad;  // row stride of p8 (bytes)
+  constexpr int CH = HD / 64;      // 16-column chunks of P V a warp owns
+  constexpr int QV = HD / 32;      // values of a q row a lane quantizes
+  constexpr int QLD = HD + 16;     // row stride of Q8 (bytes)
+  static_assert(GB % 16 == 0 && PLD % 16 == 0, "copies, ldmatrix rows and barriers aligned");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red_max[4][16], red_sum[4][16], red_pmax[4][16];
+  __shared__ __align__(16) int8_t Q8[16 * QLD];  // q8 of an m16 tile of rows
+  __shared__ float qsc_s[16];                     // their scale * sq
+
+  const int bh = blockIdx.x, si = blockIdx.y;
+  const int b = bh / KV, kvh = bh % KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int R = t * g;
+
+  int8_t* Ks = reinterpret_cast<int8_t*>(smem);
+  int8_t* Vs = Ks + TILES * TB;
+  TS* sk = reinterpret_cast<TS*>(Vs + TILES * TB);  // the S-block's scales as stored
+  TS* sv = sk + SB;
+  int8_t* P = reinterpret_cast<int8_t*>(sv + SB);  // [16][PLD] p8 in the k order of P V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(P + 16 * PLD);
+
+  // Warp w loads q rows rb + qr0 .. rb + qr0 + 3 of an m16 tile in f32 (a
+  // lane QV consecutive values of each; zeros past R) and quantizes them,
+  // once for the block, into Q8 and their scale * sq into qsc_s. Warps 2
+  // and 3 take the first eight rows: warps 0 and 1 issue the copies.
+  const int qr0 = 4 * ((warp + 2) & 3);
+  float x[4][QV];
+  auto load_q = [&](int rb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rb + qr0 + i;
+      if (row < R) {
+        loadv<QV>(q + ((((size_t)b * t + row / g) * KV + kvh) * g + row % g) * HD + QV * lane,
+                  x[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < QV; ++e) x[i][e] = 0.f;
+      }
+    }
+  };
+  // The first rows of q load beside pos0, before the block knows whether it
+  // has work; the barriers are set up meanwhile.
+  const int p0 = pos0[b];
+  load_q(0);
+  if (tid < 2 * TILES) mbar_init(bars + tid);
+  mbar_init_fence();
+  __syncthreads();
+  const int last = p0 + t - 1;  // last query position (slot index)
+  if (si > min(last / SB, nsb - 1)) return;
+  const int j0 = si * SB;
+  const int nvis = min(SB, min(last, S - 1) - j0 + 1);  // >= 1
+
+  // Thread c < 16 * TILES copies group c % 8 of tile c / 16, of K or (bit 3
+  // of c) of V; the thread of K's group 0 also copies the tile's 64 K and V
+  // scales and arms the K barrier, V's group 0 arms the V barrier, each with
+  // the bytes it will see. K and V rows past the visible slots are not
+  // copied: their scores are masked and their p8 is 0, whatever they hold.
+  if (tid < 16 * TILES) {
+    const int tile = tid >> 4, is_v = (tid >> 3) & 1, grp = tid & 7;
+    const int n_tile = min(kTile, nvis - tile * kTile);
+    const int rows = min(kGrp, n_tile - grp * kGrp);
+    uint64_t* bar = bars + is_v * TILES + tile;
+    const uint64_t once = l2_evict_first();
+    if (grp == 0 && n_tile > 0) {
+      const uint32_t scales = is_v ? 0u : 2u * kTile * sizeof(TS);
+      mbar_expect(bar, (uint32_t)(n_tile * HD) + scales);
+      if (!is_v) {
+        const size_t so = (size_t)bh * S + j0 + tile * kTile;
+        bulk_copy(sk + tile * kTile, ks + so, kTile * sizeof(TS), bar, once);
+        bulk_copy(sv + tile * kTile, vs + so, kTile * sizeof(TS), bar, once);
+      }
+    }
+    if (rows > 0)
+      bulk_copy((is_v ? Vs : Ks) + tile * TB + grp * GB,
+                (is_v ? vc : kc) + ((size_t)bh * S + j0 + tile * kTile + grp * kGrp) * HD,
+                (uint32_t)(rows * HD), bar, once);
+  }
+
+  const int tile_w = warp * NT / 8;  // the K tile of this warp's slots
+  const bool has_k = tile_w * kTile < nvis;
+  for (int rb = 0; rb < R; rb += 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = qr0 + i;
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < QV; ++e) a = fmaxf(a, fabsf(x[i][e]));
+      a = warp_max(a);
+      const float sq = a > 0.f ? a * kInv127 : 1.f;
+      const double rs = rcp_d(sq);
+      int v[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int e = 0; e < QV; ++e) v[e] = quant_r(x[i][e], rs);
+      if constexpr (QV == 4)
+        *reinterpret_cast<uint32_t*>(Q8 + r * QLD + 4 * lane) = pack_s8(v[0], v[1], v[2], v[3]);
+      else
+        *reinterpret_cast<uint16_t*>(Q8 + r * QLD + 2 * lane) = (uint16_t)pack_s8(v[0], v[1], 0, 0);
+      if (lane == 0) qsc_s[r] = scale * sq;
+    }
+    __syncthreads();  // Q8 and qsc_s are staged; the last m16 tile is done with P
+    if (rb + 16 < R) load_q(rb + 16);  // the next m16 tile's rows, in flight meanwhile
+
+    // rows rb + gid and rb + gid + 8 as A fragments, and their scale * sq
+    uint32_t qf[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int8_t* lo = Q8 + gid * QLD + kk * 32 + 4 * tig;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(lo);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(lo + 8 * QLD);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(lo + 16);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(lo + 8 * QLD + 16);
+    }
+    const float qsc[2] = {qsc_s[gid], qsc_s[gid + 8]};
+
+    // exact int32 scores of this warp's n-tiles, scaled, masked, row maxima
+    int acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
+    if (has_k) {
+      mbar_wait(bars + tile_w, 0);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int v = warp * NT + n;
+          const int8_t* kr = Ks + (v >> 3) * TB + gid * GB + (v & 7) * HD + kk * 32 + 4 * tig;
+          mma_s8(acc[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 16));
+        }
+      }
+    }
+    float s[NT][4];
+    float mx[2] = {kMask, kMask};
+    const int qp[2] = {p0 + (rb + gid) / g, p0 + (rb + gid + 8) / g};  // rows' positions
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int v = warp * NT + n;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int slot = (v >> 3) * kTile + 16 * tig + 8 * e + (v & 7);
+          const bool in = has_k && slot < nvis && j0 + slot <= qp[h];
+          s[n][2 * h + e] = in ? ((float)acc[n][2 * h + e] * qsc[h]) * to_f(sk[slot]) : kMask;
+          mx[h] = fmaxf(mx[h], s[n][2 * h + e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (tig == 0) red_max[warp][gid + 8 * h] = mx[h];
+    }
+    __syncthreads();
+
+    // p = exp(s - m) over the S-block, its sum, p * sv and its maximum
+    float m[2], ls[2] = {0.f, 0.f}, pmx[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      m[h] = fmaxf(fmaxf(red_max[0][gid + 8 * h], red_max[1][gid + 8 * h]),
+                   fmaxf(red_max[2][gid + 8 * h], red_max[3][gid + 8 * h]));
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int v = warp * NT + n;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[n][2 * h + e] - m[h]);
+          ls[h] += p;
+          const int slot = (v >> 3) * kTile + 16 * tig + 8 * e + (v & 7);
+          const float psv = slot < nvis ? p * to_f(sv[slot]) : 0.f;  // V rows there are stale
+          pmx[h] = fmaxf(pmx[h], psv);
+          s[n][2 * h + e] = psv;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 1);
+      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 2);
+      pmx[h] = fmaxf(pmx[h], __shfl_xor_sync(0xffffffffu, pmx[h], 1));
+      pmx[h] = fmaxf(pmx[h], __shfl_xor_sync(0xffffffffu, pmx[h], 2));
+      if (tig == 0) red_sum[warp][gid + 8 * h] = ls[h], red_pmax[warp][gid + 8 * h] = pmx[h];
+    }
+    __syncthreads();
+
+    // sp, p8 into shared memory (a word: n-tiles n, n + 1, slots 16 * tig +
+    // {0, 8} of each), and the block's statistics of the valid rows
+    float sp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gid + 8 * h;
+      const float pmax = fmaxf(fmaxf(red_pmax[0][r], red_pmax[1][r]),
+                               fmaxf(red_pmax[2][r], red_pmax[3][r]));
+      sp[h] = pmax > 0.f ? pmax * kInv127 : 1.f;
+      const double rs = rcp_d(sp[h]);
+      const bool valid = rb + r < R;  // rows past R: zeros
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        const int v = warp * NT + n;
+        *reinterpret_cast<uint32_t*>(P + r * PLD + (v >> 2) * 32 + (v & 2) * 8 + 4 * tig) =
+            valid ? pack_s8(quant_r(s[n][2 * h], rs), quant_r(s[n][2 * h + 1], rs),
+                            quant_r(s[n + 1][2 * h], rs), quant_r(s[n + 1][2 * h + 1], rs))
+                  : 0u;
+      }
+      if (warp == 0 && tig == 0 && rb + r < R) {
+        const size_t pi = ((size_t)bh * nsb + si) * R + rb + r;
+        pm[pi] = m[h];
+        pl[pi] = ((red_sum[0][r] + red_sum[1][r]) + red_sum[2][r]) + red_sum[3][r];
+      }
+    }
+    __syncthreads();
+
+    // P V over the visible tiles, this warp's columns: per k-step of 32
+    // slots (tile ks / 2, slots 8n + i0 .. i0 + 3 of it), ldmatrix brings
+    // p8 as A and ldmatrix.trans V's slot pairs of 16 columns, which byte
+    // permutes turn into the B registers of the even and the odd columns
+    int o[CH][2][4];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) o[c][e][0] = o[c][e][1] = o[c][e][2] = o[c][e][3] = 0;
+#pragma unroll
+    for (int kst = 0; kst < 2 * TILES; ++kst) {
+      const int tile = kst >> 1, i0 = (kst & 1) * 4;
+      if (tile * kTile >= nvis) break;
+      mbar_wait(bars + TILES + tile, 0);
+      uint32_t a[4];
+      ldmatrix_x4(a, P + ((lane & 7) + 8 * ((lane >> 3) & 1)) * PLD + kst * 32 + 16 * (lane >> 4));
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, Vs + tile * TB + (lane & 7) * GB + (i0 + (lane >> 3)) * HD +
+                                 (warp * CH + c) * 16);
+        mma_s8(o[c][0], a, __byte_perm(r[0], r[1], 0x6420), __byte_perm(r[2], r[3], 0x6420));
+        mma_s8(o[c][1], a, __byte_perm(r[0], r[1], 0x7531), __byte_perm(r[2], r[3], 0x7531));
+      }
+    }
+    // the lane's columns 16 * chunk + 4 * tig .. + 3 of rows gid, gid + 8:
+    // even, odd, even, odd
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rb + gid + 8 * h;
+      if (row >= R) continue;
+      float* dst = pacc + (((size_t)bh * nsb + si) * R + row) * HD + 4 * tig;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        *reinterpret_cast<float4*>(dst + (warp * CH + c) * 16) = make_float4(
+            (float)o[c][0][2 * h] * sp[h], (float)o[c][1][2 * h] * sp[h],
+            (float)o[c][0][2 * h + 1] * sp[h], (float)o[c][1][2 * h + 1] * sp[h]);
+    }
+  }
+}
+
+// The workspace: partials [B*KV, nsb, t*g, hd], then the row maxima and
+// sums [B*KV, nsb, t*g] each.
+struct Ws {
+  float *pacc, *pm, *pl;
+  Ws(float* ws, int B, int t, int KV, int g, int hd, int nsb) {
+    const size_t n_part = (size_t)B * KV * nsb * t * g;
+    pacc = ws;
+    pm = ws + n_part * hd;
+    pl = pm + n_part;
+  }
+};
+
+template <typename T, typename TS, int HD, int TILES>
+int launch_tc(const void* q, const int8_t* k, const int8_t* v, const void* ks, const void* vs,
+              const int* pos0, void* out, const Ws& w, int B, int t, int KV, int g, int S,
+              float scale, cudaStream_t st) {
+  constexpr int smem = tc_smem_bytes<HD, TILES, TS>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      quant_partial_tc<T, TS, HD, TILES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int nsb = S / (TILES * kTile);
+  quant_partial_tc<T, TS, HD, TILES><<<dim3(B * KV, nsb), kTcThreads, smem, st>>>(
+      static_cast<const T*>(q), k, v, static_cast<const TS*>(ks), static_cast<const TS*>(vs),
+      pos0, w.pacc, w.pm, w.pl, t, KV, g, S, scale, nsb);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  quant_merge<T><<<merge_grid(B, t, KV, g, HD), kThreads, 0, st>>>(
+      w.pacc, w.pm, w.pl, pos0, static_cast<T*>(out), t, KV, g, HD, TILES * kTile, nsb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TS, int HD>
+int launch_tc_sb(const void* q, const int8_t* k, const int8_t* v, const void* ks,
+                 const void* vs, const int* pos0, void* out, const Ws& w, int B, int t, int KV,
+                 int g, int S, int SB, float scale, cudaStream_t st) {
+  switch (SB) {
+    case 256:
+      return launch_tc<T, TS, HD, 4>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, scale, st);
+    case 128:
+      return launch_tc<T, TS, HD, 2>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, scale, st);
+    case 64:
+      return launch_tc<T, TS, HD, 1>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
 template <typename T, typename TS, bool I8DOT>
 int launch(const void* q, const int8_t* k, const int8_t* v, const void* ks,
-           const void* vs, const int* pos0, void* out, float* pacc, float* pm, float* pl,
+           const void* vs, const int* pos0, void* out, const Ws& w,
            int B, int t, int KV, int g, int hd, int S, int SB, float scale,
            cudaStream_t st) {
   const int nsb = S / SB;
@@ -299,55 +770,65 @@ int launch(const void* q, const int8_t* k, const int8_t* v, const void* ks,
   dim3 grid(B * KV, nsb);
   quant_partial<T, TS, I8DOT><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), k, v, static_cast<const TS*>(ks), static_cast<const TS*>(vs),
-      pos0, pacc, pm, pl, t, KV, g, hd, S, SB, rch, scale, nsb);
+      pos0, w.pacc, w.pm, w.pl, t, KV, g, hd, S, SB, rch, scale, nsb);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  quant_combine<T><<<B * KV, kThreads, 0, st>>>(pacc, pm, pl, pos0, static_cast<T*>(out),
-                                               t, KV, g, hd, SB, nsb);
+  quant_merge<T><<<merge_grid(B, t, KV, g, hd), kThreads, 0, st>>>(
+      w.pacc, w.pm, w.pl, pos0, static_cast<T*>(out), t, KV, g, hd, SB, nsb);
   return (int)cudaGetLastError();
 }
 
+// The forms, as ops/attention.py's QUANT_FORMS numbers them.
+enum Form { kWidening = 0, kI8dot = 1, kI8dotTc = 2 };
+
 template <typename T, typename TS>
-int launch_variant(bool i8dot, const void* q, const int8_t* k, const int8_t* v,
-                   const void* ks, const void* vs, const int* pos0, void* out, float* pacc,
-                   float* pm, float* pl, int B, int t, int KV, int g, int hd, int S, int SB,
-                   float scale, cudaStream_t st) {
-  if (i8dot)
-    return launch<T, TS, true>(q, k, v, ks, vs, pos0, out, pacc, pm, pl, B, t, KV, g, hd, S,
-                               SB, scale, st);
-  return launch<T, TS, false>(q, k, v, ks, vs, pos0, out, pacc, pm, pl, B, t, KV, g, hd, S,
-                              SB, scale, st);
+int launch_form(int form, const void* q, const int8_t* k, const int8_t* v, const void* ks,
+                const void* vs, const int* pos0, void* out, const Ws& w, int B, int t, int KV,
+                int g, int hd, int S, int SB, float scale, cudaStream_t st) {
+  if (form == kWidening)
+    return launch<T, TS, false>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, hd, S, SB, scale,
+                                st);
+  if (form == kI8dot)
+    return launch<T, TS, true>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, hd, S, SB, scale,
+                               st);
+  if (hd == 128)
+    return launch_tc_sb<T, TS, 128>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, SB, scale,
+                                    st);
+  return launch_tc_sb<T, TS, 64>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, SB, scale, st);
 }
 
 }  // namespace
 
-// SB (the S-block rows) must divide S. Workspaces: pacc [B*KV, S/SB, t*g,
-// hd], pm / pl [B*KV, S/SB, t*g], f32. i8dot selects K4 (1) or K8 (0);
+// SB (the S-block rows) must divide S, and 4 hd; form kI8dotTc takes SB
+// 64, 128 or 256 and hd 64 or 128. ws: one f32 workspace of B*KV * S/SB *
+// t*g * (hd + 2) values (see Ws). form picks K8 (kWidening) or K4 (kI8dot, kI8dotTc);
 // scale_bf16 says which type the scale planes ks / vs hold. Returns
+// cudaErrorInvalidValue for arguments the form does not take, else
 // cudaGetLastError() after the launches.
 extern "C" int llamago_attn_decode_quant(const void* q, const void* k8, const void* v8,
                                          const void* ks, const void* vs, const void* pos0,
-                                         void* out, void* pacc, void* pm, void* pl, int B,
-                                         int t, int KV, int g, int hd, int S, int SB,
-                                         float scale, int is_bf16, int i8dot, int scale_bf16,
-                                         void* stream) {
+                                         void* out, void* ws, int B, int t, int KV, int g,
+                                         int hd, int S, int SB, float scale, int is_bf16,
+                                         int form, int scale_bf16, void* stream) {
+  if (B < 1 || t < 1 || KV < 1 || g < 1 || SB < 1 || S < SB || S % SB || hd % 4 ||
+      ws == nullptr || form < kWidening || form > kI8dotTc ||
+      (form == kI8dotTc && (SB % kTile || (hd != 64 && hd != 128))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* k = static_cast<const int8_t*>(k8);
   const int8_t* v = static_cast<const int8_t*>(v8);
   const int* p = static_cast<const int*>(pos0);
-  float* a = static_cast<float*>(pacc);
-  float* m = static_cast<float*>(pm);
-  float* l = static_cast<float*>(pl);
+  const Ws w(static_cast<float*>(ws), B, t, KV, g, hd, S / SB);
   using bf16 = __nv_bfloat16;
   if (is_bf16 && scale_bf16)
-    return launch_variant<bf16, bf16>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
-                                      hd, S, SB, scale, st);
+    return launch_form<bf16, bf16>(form, q, k, v, ks, vs, p, out, w, B, t, KV, g, hd, S, SB,
+                                   scale, st);
   if (is_bf16)
-    return launch_variant<bf16, float>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
-                                       hd, S, SB, scale, st);
+    return launch_form<bf16, float>(form, q, k, v, ks, vs, p, out, w, B, t, KV, g, hd, S, SB,
+                                    scale, st);
   if (scale_bf16)
-    return launch_variant<float, bf16>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
-                                       hd, S, SB, scale, st);
-  return launch_variant<float, float>(i8dot, q, k, v, ks, vs, p, out, a, m, l, B, t, KV, g,
-                                      hd, S, SB, scale, st);
+    return launch_form<float, bf16>(form, q, k, v, ks, vs, p, out, w, B, t, KV, g, hd, S, SB,
+                                    scale, st);
+  return launch_form<float, float>(form, q, k, v, ks, vs, p, out, w, B, t, KV, g, hd, S, SB,
+                                   scale, st);
 }

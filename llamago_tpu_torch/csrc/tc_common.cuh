@@ -1,12 +1,13 @@
-// PTX wrappers shared by the bf16 tensor-core kernels of K1 (dq_tc and
+// PTX wrappers shared by the tensor-core kernels of K1 (dq_tc and
 // dq_decode_tc, dequant_matmul.cu), K6 (w4x8_tc, w4x8_matmul.cu), K2
-// (attn_decode_tc, attn_decode.cu) and K7 (attn_prefill.cu), and used by the
-// lab's cp.async probe (lab_matmul.cu): cp.async staging, ldmatrix A
-// fragments and transposed B fragments, mma.sync.m16n8k16 with f32
-// accumulation, bf16 packing and scale reads from shared memory, TMA bulk
-// copies on mbarriers, and the exact bf16 pairs of int8 and Q4_0 weights. Each
-// source builds into its own library, so the functions live in an
-// anonymous namespace.
+// (attn_decode_tc, attn_decode.cu), K7 (attn_prefill.cu) and K4
+// (quant_partial_tc, attn_decode_quant.cu), and used by the lab's cp.async
+// probe (lab_matmul.cu): cp.async staging, ldmatrix A fragments and
+// transposed B fragments, mma.sync.m16n8k16 (bf16, f32 accumulation) and
+// mma.sync.m16n8k32 (int8, exact int32 accumulation), bf16 packing and scale
+// reads from shared memory, TMA bulk copies on mbarriers, and the exact bf16
+// pairs of int8 and Q4_0 weights. Each source builds into its own library,
+// so the functions live in an anonymous namespace.
 
 #pragma once
 
@@ -93,6 +94,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.m16n8k32 on int8, summed exactly in int32. With gid = lane / 4, tig =
+// lane % 4, each register holds four consecutive k, the lowest in the low
+// byte: A regs (row gid | gid+8, k 4*tig..+3 | +16), B regs (k 4*tig..+3 |
+// +16, n gid); C as mma.m16n8k16's.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -53,7 +53,8 @@ def nvcc_path() -> str:
 def source_files(name: str) -> list[str]:
     """csrc/<name>.cu and the headers it includes from csrc/, directly or
     through another header, as paths relative to csrc/ in the order first
-    met."""
+    met. A quoted include that csrc/ does not hold raises: nvcc would fail
+    on it (an installed package that lacks a header, for one)."""
     files, todo = [], [f"{name}.cu"]
     while todo:
         rel = todo.pop(0)
@@ -62,8 +63,11 @@ def source_files(name: str) -> list[str]:
         files.append(rel)
         with open(os.path.join(CSRC, rel), "rb") as f:
             text = f.read()
-        todo += [inc.decode() for inc in _INCLUDE.findall(text)
-                 if os.path.isfile(os.path.join(CSRC, inc.decode()))]
+        for inc in (m.decode() for m in _INCLUDE.findall(text)):
+            if not os.path.isfile(os.path.join(CSRC, inc)):
+                raise FileNotFoundError(f"csrc/{rel} includes \"{inc}\", which is not "
+                                        f"in {CSRC}")
+            todo.append(inc)
     return files
 
 

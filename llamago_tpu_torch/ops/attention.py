@@ -35,7 +35,9 @@ kernels (`quant_fits`). `LLAMAGO_ATTN_I8DOT` (default "1", read as the JAX
 package reads it) picks K4, which replaces `_attn_decode_kernel_quant_i8dot`
 (int8 dot products; plain version `flash_attention_quant_i8dot_plain`), or,
 with "0", K8, which replaces `_attn_decode_kernel_quant` (widening; plain
-version `flash_attention_quant_plain`). Both are `csrc/attn_decode_quant.cu`.
+version `flash_attention_quant_plain`). Both are `csrc/attn_decode_quant.cu`:
+K4 on the int8 tensor cores for S-blocks of 64 slots or more, on the CUDA
+cores below (`k4_form`), K8 on the CUDA cores; `quant_plan` plans a call.
 
 `attention_math` is the plain einsum path that the model uses where the
 gate says no (by default every window of t > 32, where the JAX package
@@ -66,6 +68,10 @@ _SB = 256  # S-block rows of the plain version, as in the TPU kernel
 _FMA_SB = 128  # S-block rows of K2's f32 form: its staged tiles fit shared memory
 K2_FORMS = ("fma", "decode_tc")  # K2's forms, by the C entry point's codes
 _K2_TILE = 64  # cache slots per ring stage of K2's decode_tc form
+# the int8 cache's forms, by the C entry point's codes: K8, K4 on the CUDA
+# cores, K4 on the tensor cores (S-blocks of whole 64-slot tiles)
+QUANT_FORMS = ("widening", "i8dot", "i8dot_tc")
+_K4_TILE = 64  # cache slots of a K or V tile of K4's tensor-core form (kTile)
 _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 
@@ -412,9 +418,34 @@ def flash_attention_quant_plain(q5, k8, v8, pos0, ks, vs) -> torch.Tensor:
 def _quant_lib():
     fn = _build.library("attn_decode_quant").llamago_attn_decode_quant
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, i, i, p]
+    fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def k4_form(s: int) -> str:
+    """K4's kernel on the card over a cache of S slots: "i8dot_tc" (int8
+    mma.sync, the S-block's 64-slot tiles streamed by the TMA unit) when the
+    TPU kernels' S-block holds whole tiles (every S that is a multiple of
+    256, so every serving shape), else "i8dot" (CUDA cores), for the
+    S-blocks of 8 to 32 slots (S = 520: 8; S = 2000: 16)."""
+    sb = _tpu_sb(s)
+    return "i8dot_tc" if sb is not None and sb % _K4_TILE == 0 else "i8dot"
+
+
+def quant_plan(i8dot: bool, b: int, kv: int, t: int, g: int, hd: int,
+               s: int) -> tuple[str, int, int, int]:
+    """(form, S-block slots, S-blocks, f32 workspace elements) of one K4
+    (`i8dot`) or K8 call: a function of shapes only. Every form splits S
+    into the TPU kernels' S-blocks (K4's arithmetic depends on them) and
+    merges their partials (t * g rows of hd values, a maximum and a sum
+    each) in a second launch."""
+    sb = _tpu_sb(s)
+    if sb is None:
+        raise ValueError(f"flash_attention_quant: S={s} has no S-block")
+    nsb = s // sb
+    form = k4_form(s) if i8dot else "widening"
+    return form, sb, nsb, b * kv * nsb * t * g * (hd + 2)
 
 
 def _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs) -> None:
@@ -448,25 +479,20 @@ def _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs) -> None:
                              "and 16-byte aligned")
 
 
-def _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.Tensor:
+def _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs,
+                                i8dot: bool) -> tuple[torch.Tensor, str]:
     b, t, kv, g, hd = q5.shape
     s = k8.shape[2]
-    sb = _tpu_sb(s)
-    nsb = s // sb
-    rows = t * g
-    dev = q5.device
+    form, sb, _, ws_elems = quant_plan(i8dot, b, kv, t, g, hd, s)
     out = torch.empty_like(q5)
-    pacc = torch.empty(b * kv * nsb * rows * hd, dtype=torch.float32, device=dev)
-    pm = torch.empty(b * kv * nsb * rows, dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=q5.device)
     err = _quant_lib()(q5.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(),
-                       vs.data_ptr(), pos0.data_ptr(), out.data_ptr(), pacc.data_ptr(),
-                       pm.data_ptr(), pl.data_ptr(), b, t, kv, g, hd, s, sb,
-                       1.0 / (hd ** 0.5), int(q5.dtype == torch.bfloat16), int(i8dot),
-                       int(ks.dtype == torch.bfloat16),
-                       torch.cuda.current_stream(dev).cuda_stream)
+                       vs.data_ptr(), pos0.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                       b, t, kv, g, hd, s, sb, 1.0 / (hd ** 0.5),
+                       int(q5.dtype == torch.bfloat16), QUANT_FORMS.index(form),
+                       int(ks.dtype == torch.bfloat16), _stream(q5))
     _build.check(err, "flash_attention_quant")
-    return out
+    return out, form
 
 
 def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
@@ -476,7 +502,8 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     against the int8 cache k8 / v8 [B, KV, S, hd] with row scales ks / vs
     [B, KV, S] in f32 or bf16; positions [B, t] absolute (row 0's position is what
     the kernel reads). K4 unless LLAMAGO_ATTN_I8DOT is "0", then K8; each
-    counts its launches (`launches_i8dot`, `launches_widening`). Returns
+    counts its launches (`launches_i8dot`, `launches_widening`;
+    `launches_i8dot_tc` counts K4's tensor-core form, `k4_form`). Returns
     [B, t, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv = k8.shape[1]
@@ -490,9 +517,11 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         q5 = q5.contiguous()
         pos0 = pos0.contiguous()
         _check_quant_cuda_args(q5, k8, v8, pos0, ks, vs)
-        out = _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot)
+        out, form = _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs, i8dot)
         if i8dot:
             flash_attention_quant.launches_i8dot += 1
+            if form == "i8dot_tc":
+                flash_attention_quant.launches_i8dot_tc += 1
         else:
             flash_attention_quant.launches_widening += 1
     else:
@@ -500,7 +529,8 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     return out.reshape(b, t, h * hd)
 
 
-flash_attention_quant.launches_i8dot = 0  # K4
+flash_attention_quant.launches_i8dot = 0  # K4, either form
+flash_attention_quant.launches_i8dot_tc = 0  # K4's tensor-core form
 flash_attention_quant.launches_widening = 0  # K8
 
 
