@@ -23,13 +23,17 @@ Phases, each of which fails the run (exit code 1, no result line):
      at t = 32; GQA at hd = 64 and its f32 form checked), K3, K4 (its
      tensor-core form at S = 1024, checked and timed at t = 1 for fills 1
      to 1024 with the serving fill 101 and the S-block's edges, at t = 16
-     and 32; its CUDA-core form at S = 520 checked), K8 (the three of the
-     int8 cache with f32 and with bf16 scale planes; K4 and K8 repeat their
-     bits into NaN-filled memory),
+     and 32; its CUDA-core form at S = 520 checked), K8 (its tensor-core
+     form with bf16 q, timed at t = 1 and 32 and checked on its splits'
+     edges; its CUDA-core form with f32 q, and at S = 520); K3, K4 and K8
+     with f32 and with bf16 scale planes; K4 and K8 repeat their bits into
+     NaN-filled memory),
      K5 (W4A8 decode matmul), K6 (w4x8 stream matmul, each of its forms:
      the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
-     (scale-on-output matmul), K7 (flash prefill attention) and K10 (fused
-     RMSNorm);
+     (scale-on-output matmul, each of its forms: the tensor-core decode
+     form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
+     4; the GEMV for f32 x, timed at 4, and for m = 9 and 16), K7 (flash
+     prefill attention) and K10 (fused RMSNorm);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -38,10 +42,11 @@ Phases, each of which fails the run (exit code 1, no result line):
      int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
      the Q4_0 format with the scale-on-output switch on (K9); then the
-     dense cache and the w4x8 model in bf16 on the card against the CPU's
-     f32 (K1's and K6's tensor-core tiles, K1's decode form and K2's
-     tensor-core form must launch; with f32 x K1 and K2 take only their
-     f32 forms);
+     dense cache, the int8 cache under K8, the w4x8 model and the Q4_0
+     model with the switch on in bf16 on the card against the CPU's f32
+     (K1's and K6's tensor-core tiles, K1's decode form and the
+     tensor-core forms of K2, K8 and K9 must launch; with f32 x K1, K2, K8
+     and K9 take only their f32 forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -57,7 +62,11 @@ Phases, each of which fails the run (exit code 1, no result line):
   4b. the same with the int8 KV cache (`kv_dtype="int8"`) on 8 slots and
      16 jobs, after phase 4's engine is freed: K1 (its tensor-core decode
      form and tile), K3 and K4 (every call in its tensor-core form) must
-     launch, K2 and K8 not;
+     launch, K2 and K8 not; then 8 jobs with K8 and K9 on
+     (LLAMAGO_ATTN_I8DOT=0, LLAMAGO_KERNEL_SO_MAX_M=8): K8 and K9 must
+     launch, every call in its tensor-core form, K1 in prefill only, and
+     the decode step's `attention_ms` and `matmul_ms` are logged beside the
+     default routes';
   4c. the same with random int4 weights in the w4x8 format and the bf16
      cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
      (its tensor-core tile: every prompt's prefill) and K2 must launch,
@@ -86,8 +95,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      The launch counts of the nine kernels and of K1 (both formats) and K9,
      which carry the lab's other rows, must rise in the lab's run;
 
-then print the serving line (tokens/s, TTFT, peak memory and the prefill
-chunks' device time and matmul share of phases 4, 4d and 4c side by side,
+then print the serving line (tokens/s, TTFT, peak memory, the prefill
+chunks' device time and matmul share and the decode step's device time,
+matmul and attention kernels of phases 4, 4d, 4b and 4c side by side,
 JSON), the card line, the kernels line (JSON) and, last, the device line
 (JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
@@ -417,21 +427,50 @@ def check_k6(dev, detail: dict) -> tuple[dict, dict]:
             _line(errs, steps, 64, lambda m, xdt: not f32(m, xdt)))
 
 
-def check_k9(dev, detail: dict) -> dict:
-    """K9 at m=4 for Q8_0 and Q4_0 leaves, checked and timed; 1, 3 and 8
-    rows (its other templates, and more rows than one launch takes) at the
-    wqkv shape. f32 arithmetic outside the tensor cores. The kernels line
-    takes the Q4_0 numbers, the format of this kernel's run in phase 3."""
+def check_k9(dev, detail: dict) -> tuple[dict, dict]:
+    """K9 in each of its forms, for Q8_0 and Q4_0 leaves at the five 7B
+    shapes: bf16 x at m = 4 checked and timed, and 1, 3 and 8 rows at the
+    wqkv shape (the tensor-core decode form), 9 and 16 rows there too (its
+    GEMV: more rows than the decode form takes, reached when the switch is
+    set above 8, and more than one GEMV launch); f32 x at every one of those
+    m (the GEMV), and timed at m = 4 for Q4_0 (against the f32 rate). Every
+    call must take the form
+    `k9_form` names (`launches_decode_tc` counts the decode form). Returns
+    the kernels line's numbers of the decode form (Q8_0, the format of its
+    run in phase 4b) and of the GEMV (Q4_0 with f32 x, its run in phase 3),
+    each one decode step at m = 4."""
     from llamago_tpu_torch.ops import kernels
 
+    def k9(x, w):
+        fn = kernels.dequant_matmul_so
+        before = (fn.launches, fn.launches_decode_tc)
+        out = kernels.dequant_matmul_so(x, w)
+        tc = kernels.k9_form(x.shape[0], x.dtype) == "decode_tc"
+        if (fn.launches, fn.launches_decode_tc) != (before[0] + 1, before[1] + tc):
+            raise AssertionError(f"K9 m={x.shape[0]} x={x.dtype}: the counts went from "
+                                 f"{before} to {(fn.launches, fn.launches_decode_tc)}")
+        return out
+
+    gemv = lambda m, xdt: xdt == "float32" or m > 8  # noqa: E731
     out = {}
     for fmt in ("q8", "q4"):
-        errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, kernels.dequant_matmul_so,
+        errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, k9,
                                    kernels.dequant_matmul_so_plain, timed_m=(4,),
-                                   other_m=(1, 3, 8), ops_per_s=lambda m: F32_OPS_PER_S,
+                                   other_m=(1, 3, 8, 9, 16), ops_per_s=lambda m: BF16_OPS_PER_S,
                                    seed=11 if fmt == "q8" else 12)
-        out[fmt] = _line(errs, steps, 4)
-    return out["q4"]
+        log(f"K9 {fmt} at m=4: the decode form {steps[4]['ms']:.3f} ms per step (bf16 x), "
+            f"x@W {steps[4]['library_ms']:.3f} ms, bound {steps[4]['bound_ms']:.3f} ms")
+        out[fmt] = _line(errs, steps, 4, lambda m, xdt: not gemv(m, xdt))
+        out[f"{fmt} gemv"] = errs
+    # the GEMV timed with f32 x in the format of its run in phase 3 (Q4_0)
+    errs32, steps32 = check_matmul(dev, detail, "K9 q4 f32", "q4", k9,
+                                   kernels.dequant_matmul_so_plain, timed_m=(4,), other_m=(),
+                                   ops_per_s=lambda m: F32_OPS_PER_S, seed=14,
+                                   timed_dtype="float32")
+    log(f"K9 q4 at m=4: the GEMV {steps32[4]['ms']:.3f} ms per step (f32 x)")
+    both = {key: max(e.get(key, 0.0) for e in (out["q8 gemv"], out["q4 gemv"], errs32))
+            for key in {*out["q8 gemv"], *out["q4 gemv"], *errs32}}
+    return out["q8"], _line(both, steps32, 4, gemv)
 
 
 def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
@@ -648,15 +687,18 @@ def _k4_call(q, k8, v8, positions, ks, vs):
     fn = attention.flash_attention_quant
     b, t, h, hd = q.shape
     kv = k8.shape[1]
-    form, _, _, ws = attention.quant_plan(attention._I8DOT, b, kv, t, h // kv, hd, k8.shape[2])
+    form, _, _, ws = attention.quant_plan(attention._I8DOT, b, kv, t, h // kv, hd, k8.shape[2],
+                                          q.dtype)
     poison = [torch.full((ws,), float("nan"), device=q.device), torch.full_like(q, float("nan"))]
     del poison
-    before = (fn.launches_i8dot, fn.launches_i8dot_tc, fn.launches_widening)
+    counters = ("launches_i8dot", "launches_i8dot_tc", "launches_widening",
+                "launches_widening_tc")
+    before = [getattr(fn, c) for c in counters]
     got = fn(q, k8, v8, positions, ks, vs)
-    want = (before[0] + (form != "widening"), before[1] + (form == "i8dot_tc"),
-            before[2] + (form == "widening"))
-    if (fn.launches_i8dot, fn.launches_i8dot_tc, fn.launches_widening) != want:
-        raise AssertionError(f"K4/K8: S={k8.shape[2]} did not take the {form} form")
+    widening = form.startswith("widening")
+    rise = (not widening, form == "i8dot_tc", widening, form == "widening_tc")
+    if [getattr(fn, c) for c in counters] != [n + r for n, r in zip(before, rise)]:
+        raise AssertionError(f"K4/K8: S={k8.shape[2]} q={q.dtype} did not take the {form} form")
     return got
 
 
@@ -675,22 +717,34 @@ def _k4_error(q, k8, v8, positions, ks, vs, plain, got=None) -> float:
 
 # K4's timed windows (t, fill) at K4_SHAPE: decode at the serving fill
 # (101), on an S-block's edges (255, 256, 257) and up to full; prefill
-# buckets 16 and 32. K8 keeps PR 2's six.
+# buckets 16 and 32. K8 keeps its six, timed with bf16 q (its
+# tensor-core form), and checks its splits' edges (64 slots a split at t =
+# 1, 128 at t = 16, 256 at t = 32) and the serving fill; with f32 q (its
+# CUDA-core form) two windows are checked and t = 1 at full fill timed.
 K4_WINDOWS = ([(1, f) for f in (1, 101, 255, 256, 257, 300, 1024)]
               + [(16, f) for f in (101, 1024)] + [(32, f) for f in (1, 300, 1024)])
 K8_WINDOWS = [(t, f) for t in (1, 32) for f in (1, 300, 1024)]
+K8_CHECKED = [(1, 63), (1, 64), (1, 65), (1, 101), (16, 101), (16, 1024), (32, 255),
+              (32, 257)]
+K8_F32_WINDOWS = [(1, 300), (32, 1024), (1, 1024)]  # the last one timed
 
 
-def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
-    """K4 (i8dot) and K8 (widening) at b=8, KV=32, hd=128, S=1024, q in
-    bf16, with f32 and then with bf16 scale planes, checked and timed at
-    K4_WINDOWS and K8_WINDOWS (K4 takes its tensor-core form there, S-blocks
-    of 256); a GQA geometry (g=8, hd=64, S=512) and, for K4, S=520 (S-blocks
-    of 8: the CUDA-core form) checked only. Each timed row is called once
-    more after its timing, into NaN-filled memory, which must give the
-    first call's bits. The yardstick is SDPA over a bf16 dequantized copy of
-    the visible cache: the same function, reading twice the cache bytes.
-    The kernels line takes the f32 planes, the default."""
+def check_k4_k8(dev, detail: dict) -> tuple[dict, dict, dict]:
+    """K4 (i8dot) and K8 (widening) at b=8, KV=32, hd=128, S=1024, with f32
+    and then with bf16 scale planes: K4 and K8 with q in bf16 checked and
+    timed at K4_WINDOWS and K8_WINDOWS (K4 takes its tensor-core form there,
+    S-blocks of 256, and K8 its tensor-core form, `k8_split` slots a
+    split), K8 also checked at K8_CHECKED; K8 with f32 q (its CUDA-core
+    form) at K8_F32_WINDOWS; a GQA geometry (g=8, hd=64, S=512; K8 also at
+    t = 32: four blocks of 64 rows a head) and S=520 (K4: S-blocks of 8, the
+    CUDA-core form; K8 with bf16 q: no whole tiles, the CUDA-core form)
+    checked only. Each call must take the form `quant_plan` names, and each
+    timed row is called once more after its timing, into NaN-filled memory,
+    which must give the first call's bits. The yardstick is SDPA over a
+    dequantized copy of the visible cache in q's dtype: the same function,
+    reading two (bf16) or four (f32) times the cache bytes. The kernels line
+    takes the f32 planes, the default: K4's and K8's tensor-core forms (bf16
+    q) and K8's CUDA-core form (f32 q), each one decode step at full fill."""
     import torch
     import torch.nn.functional as F
 
@@ -704,25 +758,82 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
                 for _ in range(K4_COPIES)]  # (k8, ks, v8, vs)
     # checked only: ((b, kv, g, hd, S), t, row 0's positions, the kernels)
     checked = [((2, 2, 8, 64, 512), t, (190, 480), ("K4", "K8")) for t in (1, 16)]
-    checked += [((2, 4, 2, 128, 520), t, (299 - t + 1, 519 - t + 1), ("K4",))
+    checked += [((2, 2, 8, 64, 512), 32, (100, 480), ("K8",))]
+    checked += [((2, 4, 2, 128, 520), t, (299 - t + 1, 519 - t + 1), ("K4", "K8"))
                 for t in (1, 32)]
     cache_of = {(gb, gkv, gg, ghd, gs): (*_quant_cache(dev, gen, gb, gkv, gs, ghd),
                                          *_quant_cache(dev, gen, gb, gkv, gs, ghd))
                 for (gb, gkv, gg, ghd, gs), *_ in checked}
-    out, default = [], attention._I8DOT
+    out, default = {}, attention._I8DOT
+
+    def row(name, plain, rate, caches, deq, t, fill, qdt, sname, timed_row=True):
+        """One window at K4_SHAPE: checked (and its form asserted), and,
+        when timed, timed beside plain, SDPA on `deq` and the bound, and
+        called again for its bits."""
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(qdt)
+        positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                     + torch.arange(t, device=dev)[None, :])
+        k8, ks, v8, vs = caches[0]
+        first = _k4_call(q, k8, v8, positions, ks, vs)
+        err = _k4_error(q, k8, v8, positions, ks, vs, plain, first)
+        form = attention.quant_plan(attention._I8DOT, b, kv, t, g, hd, s, qdt)[0]
+        qname = str(qdt).split(".")[-1]
+        if not err <= K4_TOL:
+            raise AssertionError(f"{name} t={t} fill={fill} q={qname}, {sname} scales: "
+                                 f"max|d| {err:.3g} > {K4_TOL}")
+        if not timed_row:
+            log(f"{name} t={t:2d} fill={fill:4d} q={qname} ({form}), {sname} scales: "
+                f"max|d| {err:.2e}")
+            return dict(t=t, fill=fill, form=form, max_abs_err=err)
+        visible = min(max(fill, t), s)  # slots seen by the last query row
+        q5 = q.reshape(b, t, kv, g, hd)
+        pos0 = positions[:, 0].to(torch.int32)
+        kern = timed([lambda c_=c_: attention.flash_attention_quant(
+            q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches], 50 * K4_COPIES)
+        plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
+                          for c_ in caches], 2 * K4_COPIES)
+        qh = q.transpose(1, 2)
+        mask = None
+        if t > 1:
+            mask = (torch.arange(visible, device=dev)[None, :] <= positions[0][:, None])
+        lib = timed([lambda d=d: F.scaled_dot_product_attention(
+            qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
+            for d in deq], 50 * K4_COPIES)
+        if not torch.equal(_k4_call(q, k8, v8, positions, ks, vs), first):
+            raise AssertionError(f"{name} t={t} fill={fill} q={qname}, {sname} scales: a "
+                                 "second call gave other bits")
+        nbytes = (2 * b * kv * visible * (hd + ks.element_size())
+                  + 2 * b * t * h * hd * q.element_size() + b * 4)
+        bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
+        log(f"{name} t={t:2d} fill={fill:4d} q={qname} ({form}), {sname} scales: kernel "
+            f"{kern:.4f} ms, plain {plain_ms:.4f} ms, sdpa on a {qname} copy {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms, max|d| {err:.2e}")
+        return dict(t=t, fill=fill, visible=visible, form=form, ms=kern, plain_ms=plain_ms,
+                    library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+    def step(rows):
+        """The kernels line's numbers: one decode step at full fill, one
+        launch per layer (32), and the largest error of the rows."""
+        rec = next(r for r in rows if r["t"] == 1 and r.get("fill") == s and "ms" in r)
+        return {"max_abs_err": max(r["max_abs_err"] for r in rows), "bound_by": rec["bound_by"],
+                **{k: 32 * rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
     for sdt in (torch.float32, torch.bfloat16):
         sname = str(sdt).split(".")[-1]
         caches = [(k8, ks.to(sdt), v8, vs.to(sdt)) for k8, ks, v8, vs in caches32]
-        deq = [((k8.float() * ks.float()[..., None]).to(torch.bfloat16),
-                (v8.float() * vs.float()[..., None]).to(torch.bfloat16))
-               for k8, ks, v8, vs in caches]
+
+        def dequantized(dt):
+            return [((k8.float() * ks.float()[..., None]).to(dt),
+                     (v8.float() * vs.float()[..., None]).to(dt)) for k8, ks, v8, vs in caches]
+
+        deq = dequantized(torch.bfloat16)
         for i8dot, name, plain, rate, windows in (
                 (True, "K4", attention.flash_attention_quant_i8dot_plain, INT8_OPS_PER_S,
                  K4_WINDOWS),
                 (False, "K8", attention.flash_attention_quant_plain, BF16_OPS_PER_S,
                  K8_WINDOWS)):
             attention._I8DOT = i8dot
-            rows, max_err, record = [], 0.0, None
+            rows = []
             for geo, t, starts, who in checked:
                 if name not in who:
                     continue
@@ -731,70 +842,40 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict]:
                                       for a in cache_of[geo])
                 gq = torch.randn((gb, t, gkv * gg, ghd), generator=gen, device=dev).bfloat16()
                 gpos = torch.tensor(starts, device=dev)[:, None] + torch.arange(t, device=dev)
-                form = attention.quant_plan(i8dot, gb, gkv, t, gg, ghd, gs)[0]
+                form = attention.quant_plan(i8dot, gb, gkv, t, gg, ghd, gs, gq.dtype)[0]
                 err = _k4_error(gq, gk8, gv8, gpos, gks, gvs, plain)
                 if not err <= K4_TOL:
                     raise AssertionError(f"{name} {geo} t={t}, {sname} scales: max|d| "
                                          f"{err:.3g} > {K4_TOL}")
-                max_err = max(max_err, err)
+                rows.append(dict(geometry=geo, t=t, form=form, max_abs_err=err))
                 log(f"{name} b={gb} KV={gkv} g={gg} hd={ghd} S={gs} t={t} ({form}), {sname} "
                     f"scales: max|d| {err:.2e}")
             for t, fill in windows:
-                q = torch.randn((b, t, h, hd), generator=gen, device=dev).bfloat16()
-                positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
-                             + torch.arange(t, device=dev)[None, :])
-                k8, ks, v8, vs = caches[0]
-                first = _k4_call(q, k8, v8, positions, ks, vs)
-                err = _k4_error(q, k8, v8, positions, ks, vs, plain, first)
-                if not err <= K4_TOL:
-                    raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: "
-                                         f"max|d| {err:.3g} > {K4_TOL}")
-                max_err = max(max_err, err)
-                visible = min(max(fill, t), s)  # slots seen by the last query row
-                q5 = q.reshape(b, t, kv, g, hd)
-                pos0 = positions[:, 0].to(torch.int32)
-                kern = timed([lambda c_=c_: attention.flash_attention_quant(
-                    q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
-                    50 * K4_COPIES)
-                plain_ms = timed([lambda c_=c_: plain(q5, c_[0], c_[2], pos0, c_[1], c_[3])
-                                  for c_ in caches], 2 * K4_COPIES)
-                qh = q.transpose(1, 2)
-                mask = None
-                if t > 1:
-                    mask = (torch.arange(visible, device=dev)[None, :]
-                            <= positions[0][:, None])
-                lib = timed([lambda d=d: F.scaled_dot_product_attention(
-                    qh, d[0][:, :, :visible], d[1][:, :, :visible], attn_mask=mask)
-                    for d in deq], 50 * K4_COPIES)
-                if not torch.equal(_k4_call(q, k8, v8, positions, ks, vs), first):
-                    raise AssertionError(f"{name} t={t} fill={fill}, {sname} scales: a "
-                                         "second call gave other bits")
-                nbytes = (2 * b * kv * visible * (hd + ks.element_size())
-                          + 2 * b * t * h * hd * 2 + b * 4)
-                bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
-                form = attention.quant_plan(i8dot, b, kv, t, g, hd, s)[0]
-                row = dict(t=t, fill=fill, visible=visible, form=form, ms=kern,
-                           plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, bound_by=by,
-                           max_abs_err=err)
-                rows.append(row)
-                log(f"{name} t={t:2d} fill={fill:4d} ({form}), {sname} scales: kernel "
-                    f"{kern:.4f} ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy {lib:.4f} "
-                    f"ms, bound {bnd:.4f} ms, max|d| {err:.2e}")
-                if t == 1 and fill == s:
-                    record = row
+                rows.append(row(name, plain, rate, caches, deq, t, fill, torch.bfloat16, sname))
+                if name == "K8" and rows[-1]["form"] != "widening_tc":
+                    raise AssertionError(f"K8 t={t} fill={fill}: bf16 q took {rows[-1]['form']}")
+            if name == "K8":
+                for t, fill in K8_CHECKED:
+                    rows.append(row(name, plain, rate, caches, deq, t, fill, torch.bfloat16,
+                                    sname, timed_row=False))
+                deq32 = dequantized(torch.float32)
+                f32_rows = [row(name, plain, F32_OPS_PER_S, caches, deq32, t, fill,
+                                torch.float32, sname, timed_row=(t, fill) == K8_F32_WINDOWS[-1])
+                            for t, fill in K8_F32_WINDOWS]
+                del deq32
+                if any(r["form"] != "widening" for r in f32_rows):
+                    raise AssertionError(f"K8: f32 q took {[r['form'] for r in f32_rows]}")
+                detail[f"k8_f32_q_{sname}_scales"] = f32_rows
+                if sdt == torch.float32:
+                    out["K8 cuda cores"] = step(f32_rows)
+            detail[name.lower() if sdt == torch.float32 else f"{name.lower()}_bf16_scales"] = rows
             if sdt == torch.float32:
-                detail[name.lower()] = rows
-                # one decode step at full fill: one launch per layer (32)
-                out.append({"max_abs_err": max_err, "bound_by": record["bound_by"],
-                            **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms",
-                                                            "bound_ms")}})
-            else:
-                detail[f"{name.lower()}_bf16_scales"] = rows
+                out[name] = step(rows)
         del caches, deq
     attention._I8DOT = default
     del caches32, cache_of
     torch.cuda.empty_cache()
-    return out[0], out[1]
+    return out["K4"], out["K8"], out["K8 cuda cores"]
 
 
 def _k7_inputs(dev, gen, t, pos0, c, dtype):
@@ -1153,11 +1234,12 @@ def check_small_model(dev) -> int:
     dense cache with the prefill floor at 0 and USE_FUSED_NORM on (K7 and
     K10 must launch; the prompt fills a 64-token bucket), then the int8
     cache with bf16 scale planes (card and CPU under the same scale dtype);
-    last, logits of the dense cache with bf16 compute on the card against
-    the CPU's f32 ones (K1's tensor-core tile takes the prefill windows,
-    its decode form the decode step). Returns the launches of K8 in its run
-    and of K1's f32 forms (the GEMV and the f32 tile: f32 x) in the dense
-    cache's."""
+    last, logits with bf16 compute on the card against the CPU's f32 ones,
+    of the dense cache (K1's tensor-core tile takes the prefill windows,
+    its decode form the decode step) and of the int8 cache under K8 (its
+    tensor-core form, every call). Returns the launches of K8 in its f32
+    run (its CUDA-core form: f32 q) and of K1's f32 forms (the GEMV and the
+    f32 tile: f32 x) in the dense cache's."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1231,6 +1313,9 @@ def check_small_model(dev) -> int:
         log(f"small model, {name}: launches {counts}")
         if not i8dot:
             k8_launches = counts["flash_attention_quant_widening"]
+            if k8_launches == 0 or counts["flash_attention_quant_widening_tc"] > 0:
+                raise AssertionError(f"small model, {name}: f32 q must take K8's CUDA-core "
+                                     f"form only: {counts}")
         if name == "dense cache":
             k1_f32_launches = counts["dequant_matmul"]
         if counts["dequant_matmul"] == 0 or counts["dequant_matmul_tc"] > 0 \
@@ -1259,6 +1344,17 @@ def check_small_model(dev) -> int:
             or counts["flash_attention_decode_tc"] == 0:
         raise AssertionError(f"small model, bf16: K1's tensor-core tile or decode form, or "
                              f"K2's tensor-core form never launched: {counts}")
+    # the int8 cache under K8 in bf16 (its 16-row window and decode step;
+    # the 40-row window takes the einsum math): the tensor-core form only
+    attention._I8DOT = False
+    try:
+        counts = _small_bf16_logits(dev, int8, gpu, cpu, toks, "small model, int8 cache, K8")
+    finally:
+        attention._I8DOT = default
+    if counts["flash_attention_quant_widening_tc"] == 0 or \
+            counts["flash_attention_quant_widening"] != counts["flash_attention_quant_widening_tc"]:
+        raise AssertionError(f"small model, int8 cache, K8, bf16: every K8 call must take its "
+                             f"tensor-core form: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
     return k8_launches, k1_f32_launches
@@ -1314,10 +1410,12 @@ def check_small_model_int4(dev) -> dict:
     run; in the w4x8 format (K5 at decode, K6's f32 tile in prefill; w2,
     whose K = 1376 is no multiple of 128, stays Q4_0 and takes K1 bits=4:
     the mixed tree), in the Q4_0 format (K1 bits=4), and in the Q4_0 format
-    with the scale-on-output switch at 8 rows (K9 at decode). Then the w4x8
-    model's logits with bf16 compute on the card against the CPU's f32 ones,
-    its layers' scales set to 0.002 as the dense model's are (the prefill
-    windows, 80 and 32 rows, take K6's tensor-core tile).
+    with the scale-on-output switch at 8 rows (K9 at decode: its GEMV with
+    f32 x). Then the w4x8 model's logits and those of the Q4_0 model with the
+    switch at 8 with bf16 compute on the card against the CPU's f32 ones,
+    their layers' scales set to 0.002 as the dense model's are (the prefill
+    windows, 80 and 32 rows, take K6's tensor-core tile, or K1's; the
+    decode step of the Q4_0 model K9's tensor-core decode form).
     Returns the launch counts of each run."""
     import torch
 
@@ -1380,11 +1478,12 @@ def check_small_model_int4(dev) -> dict:
             counts[name] = launch_counts()
             log(f"small int4 model, {name}: launches {counts[name]}")
             idle = [k for k in must if counts[name][k] == 0]
-            if idle or counts[name]["dequant_matmul"] > 0 or counts[name]["w4x8_matmul_tc"] > 0:
+            if idle or counts[name]["dequant_matmul"] > 0 or counts[name]["w4x8_matmul_tc"] > 0 \
+                    or counts[name]["dequant_matmul_so_decode_tc"] > 0:
                 raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
-                                     f"the Q8_0 kernel or K6's tensor-core tile (f32 x) did: "
-                                     f"{counts[name]}")
-            if fmt == "w4x8":
+                                     f"the Q8_0 kernel, K6's tensor-core tile or K9's decode "
+                                     f"form (f32 x) did: {counts[name]}")
+            if fmt == "w4x8" or so_max_m:
                 # small scales, as for the dense model: with 0.01 bf16 rounding
                 # alone moved this model's logits by 0.29 of max|logit| at
                 # t=40 on an H100, its kernels within one rounding of their
@@ -1393,11 +1492,15 @@ def check_small_model_int4(dev) -> dict:
                     for lp in tree["layers"]:
                         for leaf in ("wqkv", "wo", "w13", "w2"):
                             lp[leaf]["s"] = torch.full_like(lp[leaf]["s"], 0.002)
-                counts["w4x8, bf16"] = _small_bf16_logits(dev, cfg, gpu, cpu, toks,
-                                                          "small int4 model, w4x8")
-                if counts["w4x8, bf16"]["w4x8_matmul_tc"] == 0:
+                bf = counts[f"{name}, bf16"] = _small_bf16_logits(
+                    dev, cfg, gpu, cpu, toks, f"small int4 model, {name}")
+                if fmt == "w4x8" and bf["w4x8_matmul_tc"] == 0:
                     raise AssertionError("small int4 model, w4x8, bf16: K6's tensor-core tile "
-                                         f"never launched: {counts['w4x8, bf16']}")
+                                         f"never launched: {bf}")
+                if so_max_m and (bf["dequant_matmul_so_decode_tc"] == 0 or
+                                 bf["dequant_matmul_so"] != bf["dequant_matmul_so_decode_tc"]):
+                    raise AssertionError(f"small int4 model, {name}, bf16: every K9 call must "
+                                         f"take its tensor-core decode form: {bf}")
     finally:
         kernels.SCALE_ON_OUTPUT_MAX_M = so_default
         if env is None:
@@ -1433,6 +1536,7 @@ def _launch_counters():
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
+            "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
             "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
@@ -1444,6 +1548,8 @@ def _launch_counters():
                                                "launches_i8dot_tc"),
             "flash_attention_quant_widening": (attention.flash_attention_quant,
                                                "launches_widening"),
+            "flash_attention_quant_widening_tc": (attention.flash_attention_quant,
+                                                  "launches_widening_tc"),
             "lab_i4_matmul": (lk.i4_matmul, "launches"),
             "lab_bf16_dequant_matmul": (lk.bf16_dequant_matmul, "launches"),
             "lab_w4a8_matmul": (lk.w4a8_matmul, "launches"),
@@ -1490,6 +1596,22 @@ def make_7b_params(dev, weight_dtype: str = "int8"):
     log(f"7B {weight_dtype} params in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return cfg, params
+
+
+@contextlib.contextmanager
+def k8_k9_routes():
+    """K8 and K9 on, as LLAMAGO_ATTN_I8DOT=0 and LLAMAGO_KERNEL_SO_MAX_M=8
+    in the environment set them (switched as module attributes): the int8
+    cache's attention takes K8, every matmul of at most 8 rows of a Q8_0 /
+    Q4_0 leaf K9."""
+    from llamago_tpu_torch.ops import attention, kernels
+
+    i8dot, so_max_m = attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M
+    attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M = False, 8
+    try:
+        yield
+    finally:
+        attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M = i8dot, so_max_m
 
 
 @contextlib.contextmanager
@@ -1633,9 +1755,21 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
 
 
 # the attention kernels of a trace: attn_* (K2, K7) and the int8 cache's
-# quant_partial / quant_partial_tc and their merge quant_merge (K4, K8;
-# quant_combine in checkouts before the one merge)
-ATTENTION_KERNELS = re.compile(r"(?:attn_|quant_partial|quant_merge|quant_combine)\w*")
+# quant_partial / quant_partial_tc / widening_tc and their merge
+# quant_merge (K4, K8; quant_combine in checkouts before the one merge)
+ATTENTION_KERNELS = re.compile(
+    r"(?:attn_|quant_partial|widening_tc|quant_merge|quant_combine)\w*")
+# the matmul kernels of a trace: K1's dq_* (its forms, reduce and GEMV),
+# K9's so_* (its decode form, GEMV and reduce), K5's and K6's w4x8_*
+MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|gemv|reduce)|w4x8_)\w*")
+
+
+def _matmul_us(by_name: dict, prefill: bool = False) -> float:
+    """Device time of the matmul kernels in a trace; in a prefill chunk
+    without K5's activation quantization and W4A8 kernel (w4x8_quant_x,
+    w4x8_a8), which run its decode steps."""
+    return sum(v for k, v in by_name.items() if MATMUL_KERNELS.search(k) and not (
+        prefill and ("w4x8_quant_x" in k or "w4x8_a8" in k)))
 
 
 def _attention_us(by_name: dict) -> float:
@@ -1653,9 +1787,10 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     TTFT: one t-token prefill into slot 0 (bucket t), timed by the host
     clock (synchronized), then `traced` more under torch.profiler for the
     device busy time per chunk and the share of it that the route's matmul
-    kernels take: K1's (named dq_*: the tensor-core tile, its reduce, the
-    head's GEMV) or K6's (w4x8_*: the tensor-core tile and its reduce; K5's
-    w4x8_quant_x and w4x8_a8 do not count)."""
+    kernels take (MATMUL_KERNELS): K1's (named dq_*: the tensor-core tile,
+    its reduce, the head's GEMV), K9's (so_*) or K6's (w4x8_*: the
+    tensor-core tile and its reduce; K5's w4x8_quant_x and w4x8_a8 do not
+    count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1676,8 +1811,7 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
     by_name = device_us_by_name(prof.events())
-    mm = sum(v for k, v in by_name.items() if "dq_" in k or (
-        "w4x8_" in k and "w4x8_quant_x" not in k and "w4x8_a8" not in k))
+    mm = _matmul_us(by_name, prefill=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"tokens": t, "host_ms": host_ms, "device_busy_ms": busy / 1e3 / traced,
            "matmul_ms": mm / 1e3 / traced, "matmul_share_of_busy": mm / busy,
@@ -1729,8 +1863,9 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
     device_ms = busy / 1e3 / traced
-    # the decode matmuls: K1's dq_* (the decode form and its reduce) or K5's w4x8_*
-    mm_ms = sum(v for k, v in by_name.items() if "dq_" in k or "w4x8_" in k) / 1e3 / traced
+    # the decode matmuls: K1's dq_* (the decode form and its reduce), K9's
+    # so_* or K5's w4x8_*
+    mm_ms = _matmul_us(by_name) / 1e3 / traced
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]
     out = {"slots": n, "step_ms": step_ms, "traced_step_ms": traced_ms,
@@ -1738,6 +1873,8 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
            "device_busy_share": device_ms / step_ms, "matmul_ms": mm_ms,
            "attention_ms": _attention_us(by_name) / 1e3 / traced,
            "attention_kernels": _attention_names(by_name),
+           "matmul_kernels": sorted({m.group(0) for k in by_name
+                                     if (m := MATMUL_KERNELS.search(k))}),
            "top_kernels_ms_per_step": {k: v / 1e3 / traced for k, v in top},
            "top_host_ops_ms_per_step": {a.key: a.self_cpu_time_total / 1e3 / traced
                                         for a in host},
@@ -1798,11 +1935,11 @@ def main(argv: list[str]) -> int:
     k1, k1tc, k1dt = check_k1(dev, detail) if want("k1") else ({}, {}, {})
     k2 = check_k2(dev, detail) if want("k2") else {}
     k3 = check_k3(dev, detail) if want("k3") else {}
-    k4, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {})
+    k4, k8tc, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {}, {})
     k1q4, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
-    k9 = check_k9(dev, detail) if want("k9") else {}
+    k9tc, k9 = check_k9(dev, detail) if want("k9") else ({}, {})
     k7 = check_k7(dev, detail) if want("k7") else {}
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
@@ -1810,7 +1947,7 @@ def main(argv: list[str]) -> int:
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
-    served = served_d = served_p = served_q = served_4 = none
+    served = served_d = served_p = served_q = served_k89 = served_4 = none
     if want("serve") or want("serve_prefill") or want("serve_int8"):
         cfg, params = make_7b_params(dev)
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
@@ -1853,6 +1990,32 @@ def main(argv: list[str]) -> int:
             if "quant_partial_tc" not in names or "quant_merge" not in names:
                 raise AssertionError(f"serve, int8 cache: the decode step's attention "
                                      f"kernels are {names}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            # phase 4b with K8 and K9 on: K8 takes every int8-cache attention
+            # call of t <= 32, K9 every matmul of at most 8 rows (the decode
+            # steps), each in its tensor-core form only; prefill stays on K1
+            with k8_k9_routes():
+                served_k89 = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8,
+                                   n_jobs=8, rise=("dequant_matmul", "dequant_matmul_tc",
+                                                   "dequant_matmul_so",
+                                                   "dequant_matmul_so_decode_tc",
+                                                   "cache_append_quant",
+                                                   "flash_attention_quant_widening",
+                                                   "flash_attention_quant_widening_tc"))
+            k89 = served_k89["launches"]
+            if k89["flash_attention_quant_widening_tc"] != k89["flash_attention_quant_widening"] \
+                    or k89["dequant_matmul_so_decode_tc"] != k89["dequant_matmul_so"]:
+                raise AssertionError(f"serve, int8 cache, K8 and K9: a call did not take its "
+                                     f"tensor-core form: {k89}")
+            step = served_k89["decode_step"]
+            if not {"widening_tc", "quant_merge"} <= set(step["attention_kernels"]) or \
+                    not {"so_decode_tc", "so_reduce"} <= set(step["matmul_kernels"]):
+                raise AssertionError(f"serve, int8 cache, K8 and K9: the decode step counted "
+                                     f"{step['attention_kernels']} and {step['matmul_kernels']}")
+            for key in ("attention_ms", "matmul_ms", "device_busy_ms"):
+                log(f"phase 4b decode step {key}: default routes "
+                    f"{served_q['decode_step'][key]:.4f} ms, K8 and K9 on {step[key]:.4f} ms")
         del params
         gc.collect()  # the int8 weights, the phase 4b engine and its cache
         torch.cuda.empty_cache()
@@ -1864,6 +2027,7 @@ def main(argv: list[str]) -> int:
                                "flash_attention", "flash_attention_decode_tc"))
         del params
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
+    detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
@@ -1899,6 +2063,14 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:406",
          "launches": served_q["launches"]["flash_attention_quant_i8dot_tc"], **k4},
+        # K8's tensor-core form (bf16 q): its launches in phase 4b with K8
+        # and K9 on, one decode step at b=8, full fill
+        {"name": "flash_attention_quant_widening_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
+         "replaces": "llamago_tpu/ops/attention.py:342",
+         "launches": served_k89["launches"]["flash_attention_quant_widening_tc"], **k8tc},
+        # K8's CUDA-core form runs f32 q, which phase 3 drives; one decode
+        # step at b=8, full fill, f32 q
         {"name": "flash_attention_quant_widening", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:342",
@@ -1917,7 +2089,14 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:334",
          "launches": served_4["launches"]["w4x8_matmul_tc"], **k6tc},
-        # K1 bits=4 and K9 run in the Q4_0 format, which phase 3 drives
+        # K9's tensor-core decode form (bf16 x): its launches in phase 4b with
+        # K8 and K9 on, one decode step at m=4, Q8_0
+        {"name": "dequant_matmul_so_decode_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:183",
+         "launches": served_k89["launches"]["dequant_matmul_so_decode_tc"], **k9tc},
+        # K1 bits=4 and K9's GEMV (f32 x) run in the Q4_0 format, which phase 3
+        # drives; the GEMV's numbers, one decode step at m=4, f32 x
         {"name": "dequant_matmul_q4", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
@@ -1941,13 +2120,17 @@ def main(argv: list[str]) -> int:
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
     prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy", "attention_ms")
+    step_keys = ("device_busy_ms", "matmul_ms", "attention_ms")
     serving_line = {"serving": {
         name: {**{k: run.get(k) for k in keys},
                "prefill_chunk": {t: {k: p[k] for k in prefill_keys}
-                                 for t, p in run.get("prefill_chunk", {}).items()}}
+                                 for t, p in run.get("prefill_chunk", {}).items()},
+               "decode_step": {k: run.get("decode_step", {}).get(k) for k in step_keys}}
         for name, run in (("4: 48-token prompts, default routes", served),
                           ("4d: half 600-token prompts, default routes", served_d),
                           ("4d: half 600-token prompts, K7 and K10 on", served_p),
+                          ("4b: int8 cache, 8 slots, default routes", served_q),
+                          ("4b: int8 cache, 8 slots, K8 and K9 on", served_k89),
                           ("4c: int4 (w4x8), 48-token prompts", served_4))}}
     detail["kernels"] = kernels_line
     if args.out:

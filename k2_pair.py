@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K2 or K4 (decode attention) of several checkouts on one card, side by side.
+"""K2, K4 or K8 (decode attention) of several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k4] [--out FILE.json] ROOT [ROOT ...]
+    python3 k2_pair.py [--kernel k2|k4|k8] [--k8-splits N,...] [--out FILE.json]
+                       ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
 builds its kernels into ROOT/build at first use. For each ROOT, in the
@@ -18,6 +19,13 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     chip_smoke's K4_WINDOWS (t=1 at fills 1 to 1024 with the serving fill
     101 and the S-block's edges 255-257, t=16 and t=32); then phase 4b's
     decode step: 7B Q8_0, the int8 cache, 8 slots at position 100.
+  - `--kernel k8`: K8 (LLAMAGO_ATTN_I8DOT=0) at K4_SHAPE with bf16 q at
+    chip_smoke's K8_WINDOWS and t=1 at fills 64, 65 and 101; then phase
+    4b's decode step with K8 and K9 on (chip_smoke's `k8_k9_routes`), the
+    matmul kernels' time (`matmul_ms`) beside `attention_ms`. With
+    `--k8-splits`, the rows again for each number of slots a split (a
+    multiple of 64, at most S) in place of `k8_split`'s, in the checkouts
+    that have it.
 
 Each row: device ms per call (the busy time of every kernel the call
 launches, chip_smoke's `timed`, over three cache copies that a cycle of
@@ -43,6 +51,7 @@ import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
 STEP_KEYS = ("step_ms", "device_busy_ms", "attention_ms", "attention_kernels")
+K8_EXTRA = [(1, 64), (1, 65), (1, 101)]
 WINDOWS = [(1, f) for f in (1, 63, 64, 65, 101, 300, 1024)] + [(32, f) for f in (1, 300, 1024)]
 
 
@@ -92,11 +101,66 @@ def run_k4(cs, root: str) -> dict:
             "decode_step": {k: step[k] for k in STEP_KEYS}}
 
 
-def run_one(root: str, kernel: str) -> dict:
+def run_k8(cs, root: str, splits: list[int]) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    c = cs.K4_SHAPE
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    caches = [(*cs._quant_cache(dev, gen, b, kv, s, hd), *cs._quant_cache(dev, gen, b, kv, s, hd))
+              for _ in range(cs.K4_COPIES)]  # (k8, ks, v8, vs)
+    default_i8dot, default_split = attention._I8DOT, getattr(attention, "k8_split", None)
+    attention._I8DOT = False
+    out = {"root": root, "card": cs.card_line()}
+    plans = [("plan", None)] + ([(f"split {n}", n) for n in splits] if default_split else [])
+    try:
+        for label, n in plans:
+            if n is not None:
+                attention.k8_split = lambda t, g_, s_, n=n: min(n, s_)
+            rows = []
+            for t, fill in cs.K8_WINDOWS + K8_EXTRA:
+                gen = torch.Generator(device=dev).manual_seed(1000 * t + fill)
+                q = torch.randn((b, t, kv * g, hd), generator=gen, device=dev).bfloat16()
+                positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                             + torch.arange(t, device=dev)[None, :])
+                k8, ks, v8, vs = caches[0]
+                got = attention.flash_attention_quant(q, k8, v8, positions, ks, vs).float()
+                ref = attention.flash_attention_quant_plain(
+                    q.reshape(b, t, kv, g, hd), k8, v8, positions[:, 0].to(torch.int32), ks, vs)
+                err = (got - ref.reshape(got.shape).float()).abs().max().item()
+                ms = cs.timed([lambda c_=c_: attention.flash_attention_quant(
+                    q, c_[0], c_[2], positions, c_[1], c_[3]) for c_ in caches],
+                    50 * cs.K4_COPIES)
+                rows.append(dict(t=t, fill=fill, ms=ms, max_abs_err=err))
+                cs.log(f"{root} ({label}): K8 t={t:2d} fill={fill:4d}: {ms:.4f} ms, "
+                       f"max|d| {err:.2e}")
+            out["k8" if n is None else f"k8_split_{n}"] = rows
+    finally:
+        attention._I8DOT = default_i8dot
+        if default_split is not None:
+            attention.k8_split = default_split
+    del caches
+    torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev)
+    with cs.k8_k9_routes():
+        engine = Engine(cfg.replace(kv_dtype="int8"), params, cs._byte_vocab(cfg.vocab_size),
+                        slots=8, decode_chunk_size=32, prefill_chunk=256, device=dev)
+        step = cs.profile_decode(engine, 32)
+    out["decode_step"] = {k: step[k] for k in (*STEP_KEYS, "matmul_ms", "matmul_kernels")}
+    return out
+
+
+def run_one(root: str, kernel: str, splits: list[int]) -> dict:
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     cs = _smoke()
     if kernel == "k4":
         return run_k4(cs, root)
+    if kernel == "k8":
+        return run_k8(cs, root, splits)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -128,20 +192,23 @@ def run_one(root: str, kernel: str) -> dict:
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k4"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k4", "k8"), default="k2")
+    ap.add_argument("--k8-splits", default="",
+                    help="comma-separated slots a split to time K8 at, beside its plan")
     ap.add_argument("--out")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(run_one(args.worker, args.kernel)), flush=True)
+        splits = [int(n) for n in args.k8_splits.split(",") if n]
+        print(json.dumps(run_one(args.worker, args.kernel, splits)), flush=True)
         return 0
     if not args.roots:
         ap.error("name at least one checkout")
     results = []
     for root in args.roots:
         proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--kernel",
-                               args.kernel, "--worker", root],
+                               args.kernel, "--k8-splits", args.k8_splits, "--worker", root],
                               stdout=subprocess.PIPE, text=True)
         if proc.returncode != 0:
             print(f"k2_pair: the run of {root} failed ({proc.returncode})", file=sys.stderr)

@@ -22,8 +22,10 @@
 //    (whatever q's dtype) before an f32 PV product with the widened V.
 //
 // The S-block is part of K4's arithmetic (p*sv is requantized per block),
-// so SB is the TPU kernel's own block: 256, halved until it divides S. The
-// wrapper passes it, and the plain versions in ops/attention.py use it too.
+// so K4's SB is the TPU kernel's own block: 256, halved until it divides S.
+// The wrapper passes it, and the plain versions in ops/attention.py use it
+// too. K8 requantizes nothing, so its tensor-core form splits S as it
+// likes (ops/attention.py k8_split); its CUDA-core form keeps the S-block.
 //
 // What bounds it: per (batch, kv head) the kernel reads the visible int8
 // rows of K and V and their scales once, 2 * fill * (hd + 4) bytes with f32
@@ -34,7 +36,7 @@
 // of K2's bf16 bytes.
 //
 // Both are flash-decoding in two passes: pass 1, grid (B*KV, S/SB), one
-// block per S-block of one (batch, kv head), writes the block-local softmax
+// block per S-block (or split) of one (batch, kv head), writes the block-local softmax
 // statistics (max, sum of p) and the unnormalized PV in f32; blocks past the
 // last visible slot return at once, so cache traffic follows the fill, and
 // within the last block only the visible rows are read. Splitting S is legal
@@ -43,7 +45,7 @@
 // divides out again. Pass 2 (quant_merge, the same for every form) merges
 // the S-blocks' partials in S-block order with the usual max-rescaled sum
 // (a call run twice gives the same bits) and writes the output in q's
-// dtype. Pass 1 has three forms (the entry
+// dtype. Pass 1 has four forms (the entry
 // point's `form`, ops/attention.py quant_plan):
 //
 //  * i8dot_tc (K4 for S-blocks of 64 slots or more, every S that is a
@@ -72,8 +74,34 @@
 //      1, 9}, the order the A side stores). The warps split the columns.
 //      The int32 sum times sp is the parent's PV bit for bit; only the row
 //      sum of p (and the merge) add in another order.
+//  * widening_tc (K8 with bf16 q, every S that is a multiple of 64),
+//    widening_tc, 128 threads:
+//    - The split's 64-slot K and V tiles arrive as quant_partial_tc's do
+//      (TMA bulk copies of 8 rows into groups padded by 16 bytes, L2
+//      evict_first), with the tile's scales, into a ring of two stages,
+//      both filled when the block starts.
+//    - Both products on bf16 mma.sync.m16n8k16 with f32 accumulation, the
+//      TPU kernel's products exactly: the int8 values are widened to bf16
+//      in registers (exact), bf16 q is taken as it is, and p * sv is
+//      rounded to bf16 before P V, as there. K's B pairs are two bytes of
+//      one row (hd 16 kk + 4 tig .. +3 a word, q's A registers read at the
+//      same hd); V's B pairs are one byte of two rows (slots 8 apart), the
+//      pairing i8_pair makes of K1's weight rows, a lane's word giving four
+//      columns, each of its own n-tile. sk multiplies each score column
+//      after the dot, sv each p before its rounding.
+//    - The rows are the M side in m16 tiles, up to four a block (a group of
+//      64 rows; more rows take more blocks). The four warps split each
+//      tile's slots for Q K^T and its columns for P V, so each cache byte
+//      is widened once a block: the warps share each row's maximum through
+//      shared memory, and P goes through shared memory (16 rows x 64 slots
+//      of bf16 each m16 tile). An online softmax runs over the split's
+//      tiles; the split writes its partials and quant_merge merges them.
+//    - Slots past the visible ones contribute an exact 0: their scores are
+//      selected away, their p * sv is 0 (never a product with a scale that
+//      was not written), and the V bytes there, stale or not, are finite.
 //  * i8dot (K4 for the S-blocks of 8 to 32 slots, e.g. S = 520 or 2000) and
-//    widening (K8), quant_partial, 256 threads: the block stages its K rows
+//    widening (K8 with f32 q, or an S that is no multiple of 64),
+//    quant_partial, 256 threads: the block stages its K rows
 //    (padded by one word against bank conflicts), V rows and scales in
 //    shared memory, takes up to 32 query rows at a time and computes scores
 //    and P V on the CUDA cores, one (row, slot) or (row, column) a thread.
@@ -293,12 +321,16 @@ __global__ void __launch_bounds__(kThreads) quant_partial(
 
 // Pass 2 of every form: grid (B*KV, blocks of 256 threads), a thread four
 // consecutive columns of one row. For each column it takes the maximum of
-// the visible S-blocks' row maxima, then sums w * acc and w * l over them
-// in S-block order with fmaf (w = expf(m_s - max)), and divides. The
-// partials of the first kPrefetch S-blocks load beside pos0, before the
-// fill says which of them were written (the others are read and never
-// used), so a decode step's merge waits for one trip to memory instead of
-// three. hd is a multiple of 4.
+// the row maxima of the S-blocks (or splits: SB slots each, the last may
+// be shorter) up to the last one that the row sees, then sums w * acc and
+// w * l over them in order with fmaf (w = expf(m_s - max)), and divides.
+// Every pass-1 form writes those partials for every row (a block that
+// stops at its own last visible slot, as widening_tc's row groups do,
+// holds no row that sees a later split; K4's later S-blocks, which a row
+// does not see, would add w = 0). The partials of the first kPrefetch
+// S-blocks load beside pos0, before the fill says which of them were
+// written (the others are read and never used), so a decode step's merge
+// waits for one trip to memory instead of three. hd is a multiple of 4.
 constexpr int kPrefetch = 4;
 
 dim3 merge_grid(int B, int t, int KV, int g, int hd) {
@@ -326,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) quant_merge(
     pmv[s] = pm[pi], plv[s] = pl[pi];
     av[s] = *reinterpret_cast<const float4*>(pacc + pi * hd + d);
   }
-  const int last_blk = min((pos0[b] + t - 1) / SB, nsb - 1);
+  const int last_blk = min((pos0[b] + r / g) / SB, nsb - 1);  // the last this row sees
   float mx = kMask;
 #pragma unroll
   for (int s = 0; s < kPrefetch; ++s)
@@ -753,6 +785,370 @@ int launch_tc_sb(const void* q, const int8_t* k, const int8_t* v, const void* ks
   }
 }
 
+// ----------------------------------- K8 on the bf16 tensor cores (widening_tc)
+
+constexpr int kWtStages = 2;  // ring stages, when the split has that many tiles
+
+// One ring stage: a K tile and a V tile in groups of 8 rows (as
+// quant_partial_tc's), then the tile's 64 K and 64 V scales as stored.
+template <int HD, typename TS> __host__ __device__ constexpr int wt_stage_bytes() {
+  return 2 * tile_bytes<HD>() + 2 * kTile * (int)sizeof(TS);
+}
+// bf16 elements of a staged q row: 8 words more than a multiple of 32, so
+// that the lanes' 8-byte reads of rows gid fall on distinct banks.
+template <int HD> __host__ __device__ constexpr int wt_qld() { return HD + 16; }
+constexpr int kWtPLd = kTile + 8;  // bf16 elements of a row of P
+// Dynamic shared memory of a block with `ring` stages: q of its 16 * MT
+// rows, P of those rows over one tile, the stages, and their mbarriers.
+template <int HD, int MT, typename TS> __host__ __device__ constexpr int wt_smem_bytes(int ring) {
+  return MT * 16 * wt_qld<HD>() * 2 + MT * 16 * kWtPLd * 2 + ring * wt_stage_bytes<HD, TS>() +
+         kWtStages * 8;
+}
+
+// Two bytes of a word (each already XORed with 0x80, so a byte holds q +
+// 128), B0 in the low half, as an exact bf16 pair (i8_pair's arithmetic).
+template <int B0> __device__ __forceinline__ uint32_t i8_pair_of_word(uint32_t w) {
+  const float a = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | B0)) - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | (B0 + 1))) - 8388736.f;
+  return pack_bf16(a, b);
+}
+
+// A lane's 2 * HD / 64 neighbouring bytes of a V row (4 at HD = 128, 2 at
+// 64), XORed with 0x80 each.
+template <int HD> __device__ __forceinline__ uint32_t v_word(const int8_t* p) {
+  if constexpr (HD == 128)
+    return *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  else
+    return (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+}
+
+// grid (B*KV * n_groups, n_split), 128 threads, wt_smem_bytes(ring). Block
+// x is (batch, kv head) x / n_groups and its rows 16 * MT * (x % n_groups)
+// .. (MT m16 tiles), block y the split of slots [y * sps, (y + 1) * sps).
+// Per 64-slot tile of the split: warp w scores n-tiles 2w, 2w + 1 (n-tile
+// v: slots 8i + v of the tile, i the n column, as quant_partial_tc's) for
+// every m16 tile, the warps share each row's maximum through shared memory
+// and put p * sv in bf16 into P, and warp w multiplies P by V's columns
+// w * HD / 4 .. for every m16 tile. Each row's running maximum is the same
+// in every warp; each warp keeps its own running sum of p, and the four are
+// added at the end. Every split with work writes its partials for
+// quant_merge. Blocks an SM: four of MT = 1 (every decode step), fewer of
+// the others.
+template <typename TS, int HD, int MT>
+__global__ void __launch_bounds__(kTcThreads, MT == 1 ? 4 : MT == 2 ? 3 : 2) widening_tc(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kc,
+    const int8_t* __restrict__ vc, const TS* __restrict__ ks, const TS* __restrict__ vs,
+    const int* __restrict__ pos0, float* __restrict__ pacc, float* __restrict__ pm,
+    float* __restrict__ pl, int t, int KV, int g, int S, float scale, int sps, int n_groups) {
+  constexpr int GB = grp_bytes<HD>(), TB = tile_bytes<HD>();
+  constexpr int STAGE = wt_stage_bytes<HD, TS>();
+  constexpr int QLD = wt_qld<HD>();
+  constexpr int KK = HD / 16;   // k-steps of Q K^T
+  constexpr int CPL = HD / 32;  // V columns of a lane's word: n-tiles of a warp's P V
+  constexpr int Q_BYTES = MT * 16 * QLD * 2, P_BYTES = MT * 16 * kWtPLd * 2;
+  static_assert(STAGE % 16 == 0 && Q_BYTES % 16 == 0 && P_BYTES % 16 == 0,
+                "copies, rows and barriers aligned");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[4][MT * 16];  // the warps' row maxima, at the end their sums
+
+  const int grp = blockIdx.x % n_groups, bh = blockIdx.x / n_groups;
+  const int b = bh / KV, kvh = bh % KV;
+  const int sp = blockIdx.y, nsb = gridDim.y;
+  const int R = t * g;
+  const int r0 = grp * 16 * MT;
+  const int rows = min(16 * MT, R - r0);
+  const int p0 = pos0[b];
+  // slots the group's last row sees, inside the cache
+  const int vis = min(S, p0 + (r0 + rows - 1) / g + 1);
+  const int j_begin = sp * sps;
+  if (j_begin >= vis) return;
+  const int j_end = min(j_begin + sps, vis);
+  const int n_it = (j_end - j_begin + kTile - 1) / kTile;
+  const int ring = min(sps / kTile, kWtStages);
+
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + Q_BYTES);
+  unsigned char* stages = smem + Q_BYTES + P_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + ring * STAGE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  if (tid < ring) mbar_init(bars + tid);
+  mbar_init_fence();
+  __syncthreads();
+
+  // Tile `it` of the split into stage `st`: thread c < 16 copies group c % 8
+  // of the K (c < 8) or V tile's visible rows, threads 16 and 17 the tile's
+  // 64 K and V scales, all by bulk copies (L2 evict_first: a call reads its
+  // cache once) that count their bytes off the stage's barrier. Rows past
+  // the visible slots are not copied: their scores are masked and their p *
+  // sv is 0, whatever the stage holds there (int8, so always finite); their
+  // scales are copied (S is a multiple of 64) and never multiplied in.
+  const uint64_t once = l2_evict_first();
+  const size_t cbase = (size_t)bh * S;
+  auto load = [&](int st, int it) {
+    const int j0 = j_begin + it * kTile;
+    const int n = min(kTile, j_end - j0);
+    unsigned char* sb = stages + st * STAGE;
+    if (tid == 0) mbar_expect(bars + st, (uint32_t)(2 * n * HD + 2 * kTile * sizeof(TS)));
+    if (tid < 16) {
+      const int is_v = tid >> 3, g8 = tid & 7;
+      const int rows8 = min(kGrp, n - g8 * kGrp);
+      if (rows8 > 0)
+        bulk_copy(sb + is_v * TB + g8 * GB, (is_v ? vc : kc) + (cbase + j0 + g8 * kGrp) * HD,
+                  (uint32_t)(rows8 * HD), bars + st, once);
+    } else if (tid < 18) {
+      const int is_v = tid - 16;
+      bulk_copy(sb + 2 * TB + is_v * kTile * sizeof(TS), (is_v ? vs : ks) + cbase + j0,
+                kTile * sizeof(TS), bars + st, once);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kWtStages; ++i)
+    if (i < ring && i < n_it) load(i, i);
+
+  // The group's q rows into Qs (zeros past R), 16 bytes a thread at a time.
+  constexpr int QV = HD / 8;
+  for (int i = tid; i < MT * 16 * QV; i += kTcThreads) {
+    const int rr = i / QV, c = i % QV;
+    const int row = r0 + rr;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows)
+      v = *reinterpret_cast<const uint4*>(
+          q + ((((size_t)b * t + row / g) * KV + kvh) * g + row % g) * HD + 8 * c);
+    *reinterpret_cast<uint4*>(Qs + rr * QLD + 8 * c) = v;
+  }
+
+  float m_r[MT][2], l_r[MT][2], o[MT][CPL][4];
+  int qp[MT][2];  // the rows' positions
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_r[mt][h] = kMask, l_r[mt][h] = 0.f;
+      qp[mt][h] = p0 + (r0 + mt * 16 + gid + 8 * h) / g;
+    }
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ring;
+    mbar_wait(bars + st, (it / ring) & 1);
+    __syncthreads();  // tile `it` has landed (and Qs, at the first); every warp is done with
+                      // the last tile's stage, P and row maxima
+    if (it > 0 && it - 1 + ring < n_it) load((it - 1) % ring, it - 1 + ring);
+    const int8_t* Kt = reinterpret_cast<const int8_t*>(stages + st * STAGE);
+    const int8_t* Vt = Kt + TB;
+    const TS* skt = reinterpret_cast<const TS*>(Kt + 2 * TB);
+    const TS* svt = skt + kTile;
+    const int j0 = j_begin + it * kTile;
+
+    // Q K^T of n-tiles 2w and 2w + 1 for every m16 tile: per k-step a
+    // lane's word of K row (group gid, row v) holds hd 16 kk + 4 tig .. +3,
+    // widened into the B pair of k 2 tig, 2 tig + 1 and that of k 2 tig +
+    // 8, + 9, and q's A registers are the rows' 8-byte reads at the same hd
+    float s[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) s[mt][nn][0] = s[mt][nn][1] = s[mt][nn][2] = s[mt][nn][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t kb[2][2];
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                               Kt + gid * GB + (2 * warp + nn) * HD + kk * 16 + 4 * tig) ^
+                           0x80808080u;
+        kb[nn][0] = i8_pair_of_word<0>(w);
+        kb[nn][1] = i8_pair_of_word<2>(w);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const __nv_bfloat16* qr = Qs + (mt * 16 + gid) * QLD + kk * 16 + 4 * tig;
+        const uint2 lo = *reinterpret_cast<const uint2*>(qr);
+        const uint2 hi = *reinterpret_cast<const uint2*>(qr + 8 * QLD);
+        const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+        mma_bf16(s[mt][0], a, kb[0][0], kb[0][1]);
+        mma_bf16(s[mt][1], a, kb[1][0], kb[1][1]);
+      }
+    }
+
+    // scaled (times 1/sqrt(hd), then sk), masked (a select: an unread K row
+    // or scale may give any score), and the warp's row maxima
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kMask;
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = 16 * tig + 8 * e + 2 * warp + nn;
+            const bool in = j0 + slot < j_end && j0 + slot <= qp[mt][h];
+            float& v = s[mt][nn][2 * h + e];
+            v = in ? (v * scale) * to_f(skt[slot]) : kMask;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (tig == 0) red[warp][mt * 16 + gid + 8 * h] = mx;
+      }
+    }
+    __syncthreads();
+
+    // the running maxima, p = exp(s - m), this warp's sums of p, and p * sv
+    // rounded to bf16 into P: row gid (+ 8) of m16 tile mt, at k 8 nn + 2
+    // tig + e of P V's k-step w (slot 16 tig + 8 e + 2 w + nn)
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + gid + 8 * h;
+        const float mn = fmaxf(m_r[mt][h], fmaxf(fmaxf(red[0][r], red[1][r]),
+                                                 fmaxf(red[2][r], red[3][r])));
+        alpha[mt][h] = expf(m_r[mt][h] - mn);
+        m_r[mt][h] = mn;
+        float ps = 0.f;
+        uint32_t pw[2];
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn) {
+          float psv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = 16 * tig + 8 * e + 2 * warp + nn;
+            const float p = expf(s[mt][nn][2 * h + e] - mn);
+            ps += p;
+            psv[e] = j0 + slot < j_end ? p * to_f(svt[slot]) : 0.f;
+          }
+          pw[nn] = pack_bf16(psv[0], psv[1]);
+        }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l_r[mt][h] = fmaf(l_r[mt][h], alpha[mt][h], ps);
+        __nv_bfloat16* prow = Ps + r * kWtPLd + 16 * warp + 2 * tig;
+        *reinterpret_cast<uint32_t*>(prow) = pw[0];
+        *reinterpret_cast<uint32_t*>(prow + 8) = pw[1];
+      }
+    }
+    __syncthreads();  // P is complete
+
+    // O = O * alpha + P V over the tile's 64 slots, this warp's columns:
+    // per k-step ks (n-tiles 2 ks, 2 ks + 1 of the scores), ldmatrix brings
+    // P's A fragment of each m16 tile, and a lane's words of the four V
+    // rows 16 tig + 8 e + 2 ks + {0, 1} (groups 2 tig + e) become, byte J
+    // by byte, the B pairs of n-tile J: column w * HD / 4 + CPL * gid + J
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        o[mt][j][0] *= alpha[mt][0], o[mt][j][1] *= alpha[mt][0];
+        o[mt][j][2] *= alpha[mt][1], o[mt][j][3] *= alpha[mt][1];
+      }
+    const int8_t* vcol = Vt + 2 * tig * GB + warp * (HD / 4) + CPL * gid;
+#pragma unroll
+    for (int kst = 0; kst < kTile / 16; ++kst) {
+      const int8_t* v0 = vcol + 2 * kst * HD;
+      const uint32_t wa = v_word<HD>(v0), wb = v_word<HD>(v0 + GB);
+      const uint32_t wc = v_word<HD>(v0 + HD), wd = v_word<HD>(v0 + GB + HD);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], Ps + (mt * 16 + (lane & 15)) * kWtPLd + kst * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        uint32_t b0, b1;
+        if (j == 0) b0 = i8_pair<0>(wa, wb), b1 = i8_pair<0>(wc, wd);
+        if (j == 1) b0 = i8_pair<1>(wa, wb), b1 = i8_pair<1>(wc, wd);
+        if (j == 2) b0 = i8_pair<2>(wa, wb), b1 = i8_pair<2>(wc, wd);
+        if (j == 3) b0 = i8_pair<3>(wa, wb), b1 = i8_pair<3>(wc, wd);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(o[mt][j], a[mt], b0, b1);
+      }
+    }
+  }
+
+  // The row sums over the warps (every warp has read the last tile's
+  // maxima), then this warp's columns of the partials: a lane's 2 * CPL
+  // neighbouring columns w * HD / 4 + 2 * CPL * tig .. of rows gid, gid + 8
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (tig == 0) red[warp][mt * 16 + gid + 8 * h] = l_r[mt][h];
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + gid + 8 * h;
+      if (r >= rows) continue;
+      const size_t pi = ((size_t)bh * nsb + sp) * R + r0 + r;
+      float v[2 * CPL];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) v[CPL * e + j] = o[mt][j][2 * h + e];
+      float4* dst = reinterpret_cast<float4*>(pacc + pi * HD + warp * (HD / 4) + 2 * CPL * tig);
+#pragma unroll
+      for (int i = 0; i < CPL / 2; ++i)
+        dst[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      if (warp == 0 && tig == 0) {
+        pm[pi] = m_r[mt][h];
+        pl[pi] = ((red[0][r] + red[1][r]) + red[2][r]) + red[3][r];
+      }
+    }
+  }
+}
+
+// Query rows of a block's m16 tiles: one tile up to 16 rows, two up to
+// 32, else four (groups of 64 rows).
+int wt_tiles(int R) { return R <= 16 ? 1 : R <= 32 ? 2 : 4; }
+
+template <typename TS, int HD, int MT>
+int launch_wt(const void* q, const int8_t* k, const int8_t* v, const void* ks, const void* vs,
+              const int* pos0, void* out, const Ws& w, int B, int t, int KV, int g, int S,
+              int sps, int n_split, float scale, cudaStream_t st) {
+  constexpr int max_smem = wt_smem_bytes<HD, MT, TS>(kWtStages);
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      widening_tc<TS, HD, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int ring = sps / kTile < kWtStages ? sps / kTile : kWtStages;
+  const int n_groups = (t * g + 16 * MT - 1) / (16 * MT);
+  widening_tc<TS, HD, MT><<<dim3(B * KV * n_groups, n_split), kTcThreads,
+                            wt_smem_bytes<HD, MT, TS>(ring), st>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const TS*>(ks),
+      static_cast<const TS*>(vs), pos0, w.pacc, w.pm, w.pl, t, KV, g, S, scale, sps, n_groups);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  using bf16 = __nv_bfloat16;
+  quant_merge<bf16><<<merge_grid(B, t, KV, g, HD), kThreads, 0, st>>>(
+      w.pacc, w.pm, w.pl, pos0, static_cast<bf16*>(out), t, KV, g, HD, sps, n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename TS, int HD>
+int launch_wt_rows(const void* q, const int8_t* k, const int8_t* v, const void* ks,
+                   const void* vs, const int* pos0, void* out, const Ws& w, int B, int t, int KV,
+                   int g, int S, int sps, int n_split, float scale, cudaStream_t st) {
+  switch (wt_tiles(t * g)) {
+    case 1:
+      return launch_wt<TS, HD, 1>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, sps, n_split,
+                                  scale, st);
+    case 2:
+      return launch_wt<TS, HD, 2>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, sps, n_split,
+                                  scale, st);
+    default:
+      return launch_wt<TS, HD, 4>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, sps, n_split,
+                                  scale, st);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <typename T, typename TS, bool I8DOT>
@@ -779,7 +1175,7 @@ int launch(const void* q, const int8_t* k, const int8_t* v, const void* ks,
 }
 
 // The forms, as ops/attention.py's QUANT_FORMS numbers them.
-enum Form { kWidening = 0, kI8dot = 1, kI8dotTc = 2 };
+enum Form { kWidening = 0, kI8dot = 1, kI8dotTc = 2, kWideningTc = 3 };
 
 template <typename T, typename TS>
 int launch_form(int form, const void* q, const int8_t* k, const int8_t* v, const void* ks,
@@ -791,6 +1187,14 @@ int launch_form(int form, const void* q, const int8_t* k, const int8_t* v, const
   if (form == kI8dot)
     return launch<T, TS, true>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, hd, S, SB, scale,
                                st);
+  if (form == kWideningTc) {
+    const int n_split = (S + SB - 1) / SB;
+    if (hd == 128)
+      return launch_wt_rows<TS, 128>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, SB, n_split,
+                                     scale, st);
+    return launch_wt_rows<TS, 64>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, SB, n_split,
+                                  scale, st);
+  }
   if (hd == 128)
     return launch_tc_sb<T, TS, 128>(q, k, v, ks, vs, pos0, out, w, B, t, KV, g, S, SB, scale,
                                     st);
@@ -799,9 +1203,12 @@ int launch_form(int form, const void* q, const int8_t* k, const int8_t* v, const
 
 }  // namespace
 
-// SB (the S-block rows) must divide S, and 4 hd; form kI8dotTc takes SB
-// 64, 128 or 256 and hd 64 or 128. ws: one f32 workspace of B*KV * S/SB *
-// t*g * (hd + 2) values (see Ws). form picks K8 (kWidening) or K4 (kI8dot, kI8dotTc);
+// SB: the S-block rows, which must divide S (kWidening, kI8dot, kI8dotTc:
+// 64, 128 or 256 there), or kWideningTc's slots per split, a multiple of
+// 64 (S a multiple of 64, the last split may be shorter); hd a multiple of
+// 4, and 64 or 128 for the tensor-core forms. ws: one f32 workspace of
+// B*KV * ceil(S/SB) * t*g * (hd + 2) values (see Ws). form picks K8
+// (kWidening, kWideningTc: bf16 q only) or K4 (kI8dot, kI8dotTc);
 // scale_bf16 says which type the scale planes ks / vs hold. Returns
 // cudaErrorInvalidValue for arguments the form does not take, else
 // cudaGetLastError() after the launches.
@@ -810,15 +1217,17 @@ extern "C" int llamago_attn_decode_quant(const void* q, const void* k8, const vo
                                          void* out, void* ws, int B, int t, int KV, int g,
                                          int hd, int S, int SB, float scale, int is_bf16,
                                          int form, int scale_bf16, void* stream) {
-  if (B < 1 || t < 1 || KV < 1 || g < 1 || SB < 1 || S < SB || S % SB || hd % 4 ||
-      ws == nullptr || form < kWidening || form > kI8dotTc ||
-      (form == kI8dotTc && (SB % kTile || (hd != 64 && hd != 128))))
+  const bool tc = form == kI8dotTc || form == kWideningTc;
+  if (B < 1 || t < 1 || KV < 1 || g < 1 || SB < 1 || S < SB || hd % 4 || ws == nullptr ||
+      form < kWidening || form > kWideningTc || (form != kWideningTc && S % SB) ||
+      (tc && (SB % kTile || (hd != 64 && hd != 128))) ||
+      (form == kWideningTc && (!is_bf16 || S % kTile)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* k = static_cast<const int8_t*>(k8);
   const int8_t* v = static_cast<const int8_t*>(v8);
   const int* p = static_cast<const int*>(pos0);
-  const Ws w(static_cast<float*>(ws), B, t, KV, g, hd, S / SB);
+  const Ws w(static_cast<float*>(ws), B, t, KV, g, hd, (S + SB - 1) / SB);
   using bf16 = __nv_bfloat16;
   if (is_bf16 && scale_bf16)
     return launch_form<bf16, bf16>(form, q, k, v, ks, vs, p, out, w, B, t, KV, g, hd, S, SB,

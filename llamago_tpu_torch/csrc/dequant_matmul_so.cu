@@ -19,15 +19,32 @@
 // bound by the weight stream (K*N or K*N/2 bytes) plus the scales over
 // device-memory bandwidth.
 //
-// What the design does about it: the GEMV of csrc/dequant_matmul.cu with the
-// scale moved out of the inner loop. A thread owns 16 neighbouring columns
-// and reads one 16-byte vector of a weight row per step; a warp takes one
-// quant block at a time, holds the block's x in its lanes and broadcasts it
-// by shuffles; the block's partial products wait in registers for the
-// scale, which is why a launch takes at most 4 rows (the entry point walks
-// more rows 4 at a time, reading the weights again). Eight warps split the
-// blocks of the grid's K range, the grid splits K, and so_reduce adds the
-// partial sums in a fixed order.
+// What the design does about it: two forms (ops/kernels.py k9_form picks
+// one, the entry point takes its code):
+//  * bf16 x at M <= 8 (every decode step when the switch is on) takes
+//    so_decode_tc, K1's tensor-core decode form (decode_tc.cuh) with the
+//    raw integers: the weights are the A operand of bf16 mma.sync.m16n8k16
+//    as exact bf16 integers (int8, or a nibble 0..15: the bf16 0x43nn less
+//    128), x is B (the M <= 8 slots are the n8 columns, zeros past M), and
+//    the weight rows arrive by TMA bulk copies with L2 evict_first into a
+//    ring of three quant blocks. Per quant block two k16 mma go into a
+//    zeroed block sum; a Q4_0 block takes 8 * sum(x_b) off it (the block's
+//    x summed in f32 by the four lanes of each slot); then the column's
+//    scale folds the block sum into the f32 output sum. K is split as K1's
+//    decode form splits it, and so_reduce adds the splits' partials in a
+//    fixed order. So the weights are read once for all M rows, as K1's
+//    decode form reads them.
+//  * f32 x (the bf16 tensor cores cannot take it without rounding it), or
+//    M > 8 (only when the switch is set above 8), takes so_gemv: the GEMV
+//    of csrc/dequant_matmul.cu with the scale moved out of the inner loop.
+//    A thread owns 16 neighbouring columns and reads one 16-byte vector of
+//    a weight row per step; a warp takes one quant block at a time, holds
+//    the block's x in its lanes and broadcasts it by shuffles; the block's
+//    partial products wait in registers for the scale, which is why a
+//    launch takes at most 4 rows (the entry point walks more rows 4 at a
+//    time, reading the weights again). Eight warps split the blocks of the
+//    grid's K range, the grid splits K, and so_reduce adds the partial sums
+//    in a fixed order.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -36,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -213,36 +232,90 @@ void launch_bits(const void* x, const void* q, const void* s, void* out, float* 
                                                               ksplit);
 }
 
+// The tensor-core decode form's kernel (decode_tc.cuh): the raw integers,
+// with Q4_0's 8 * sum(x_b) taken off each block sum.
+template <typename ST, int BITS>
+__global__ void __launch_bounds__(kDtThreads, 3) so_decode_tc(const __nv_bfloat16* __restrict__ x,
+                                                              const uint8_t* __restrict__ q,
+                                                              const ST* __restrict__ s,
+                                                              __nv_bfloat16* __restrict__ out,
+                                                              float* __restrict__ ws, int M,
+                                                              int K, int N, int per) {
+  decode_tc_body<ST, BITS, true>(x, q, s, out, ws, M, K, N, per);
+}
+
+template <typename ST, int BITS>
+cudaError_t launch_decode_tc(const void* x, const void* q, const void* s, void* out, float* ws,
+                             int M, int K, int N, int ksplit, cudaStream_t st) {
+  constexpr int smem = dt_smem_bytes<ST, BITS>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      so_decode_tc<ST, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int nb = K / 32;
+  const int per = (nb + ksplit - 1) / ksplit;
+  dim3 grid((N + kDtBlockCols - 1) / kDtBlockCols, ksplit);
+  so_decode_tc<ST, BITS><<<grid, kDtThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(out), ksplit > 1 ? ws : nullptr,
+      M, K, N, per);
+  if (ksplit > 1) {
+    const size_t mn = (size_t)M * N;
+    so_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+        ws, static_cast<__nv_bfloat16*>(out), mn, ksplit);
+  }
+  return cudaSuccess;
+}
+
+// The forms, as ops/kernels.py's K1_FORMS numbers them (K9 has two of them).
+enum Form { kGemv = 0, kDecodeTc = 3 };
+
 template <typename XT, typename ST>
-void launch(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-            int K, int N, int bits, int ksplit, cudaStream_t st) {
+cudaError_t launch(const void* x, const void* q, const void* s, void* out, float* ws, int M,
+                   int K, int N, int bits, int form, int ksplit, cudaStream_t st) {
+  if constexpr (sizeof(XT) == 2) {
+    if (form == kDecodeTc) {
+      if (bits == 8) return launch_decode_tc<ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
+      return launch_decode_tc<ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
+    }
+  }
   if (bits == 8)
     launch_bits<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
   else
     launch_bits<XT, ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
 // bfloat16, 0 for float32. form: K1's argument of the same name (the two
-// entry points share one launcher); this kernel has the split-K GEMV form
-// (0) only. `ws` is an f32 workspace of ksplit*M*N elements. Returns
-// cudaGetLastError() after the launches.
+// entry points share one launcher): 0 the split-K GEMV (any x, any M) or 3
+// the tensor-core decode form (bf16 x, M <= 8). `ws` is an f32 workspace of
+// ksplit*M*N elements, which the decode form reads only when ksplit > 1 (a
+// split then holds ceil(K/32 / ksplit) quant blocks). Returns
+// cudaGetLastError() after the launches, the error of a refused
+// shared-memory opt-in, or cudaErrorInvalidValue for a form the arguments
+// do not allow.
 extern "C" int llamago_dequant_matmul_so(const void* x, const void* q, const void* s,
                                          void* out, void* ws, int M, int K, int N, int bits,
                                          int x_bf16, int s_bf16, int form, int ksplit,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if ((bits != 8 && bits != 4) || form != 0) return (int)cudaErrorInvalidValue;
+  if ((bits != 8 && bits != 4) || (form != kGemv && form != kDecodeTc) || ksplit < 1 ||
+      (form == kDecodeTc && (!x_bf16 || M > 8)) || (w == nullptr && (form == kGemv || ksplit > 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
   if (x_bf16 && s_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    err = launch<__nv_bfloat16, float>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else if (s_bf16)
-    launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    err = launch<float, __nv_bfloat16>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
   else
-    launch<float, float>(x, q, s, out, w, M, K, N, bits, ksplit, st);
+    err = launch<float, float>(x, q, s, out, w, M, K, N, bits, form, ksplit, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // PTX wrappers shared by the tensor-core kernels of K1 (dq_tc and
-// dq_decode_tc, dequant_matmul.cu), K6 (w4x8_tc, w4x8_matmul.cu), K2
-// (attn_decode_tc, attn_decode.cu), K7 (attn_prefill.cu) and K4
-// (quant_partial_tc, attn_decode_quant.cu), and used by the lab's cp.async
+// dq_decode_tc, dequant_matmul.cu), K9 (so_decode_tc,
+// dequant_matmul_so.cu), K6 (w4x8_tc, w4x8_matmul.cu), K2 (attn_decode_tc,
+// attn_decode.cu), K7 (attn_prefill.cu), K4 and K8 (quant_partial_tc and
+// widening_tc, attn_decode_quant.cu), and used by the lab's cp.async
 // probe (lab_matmul.cu): cp.async staging, ldmatrix A fragments and
 // transposed B fragments, mma.sync.m16n8k16 (bf16, f32 accumulation) and
 // mma.sync.m16n8k32 (int8, exact int32 accumulation), bf16 packing and scale
@@ -145,12 +146,14 @@ template <int J> __device__ __forceinline__ uint32_t i8_pair(uint32_t lo, uint32
 }
 
 // The nibble at SHIFT (0: low, 4: high) of byte J of two packed Q4_0 words,
-// minus 8, as a bf16 pair, exactly: 0x43nn is the bf16 128 + n (n < 16),
-// and 136 (0x4308) comes off in bf16. `lo` gives the low half.
-template <int J, int SHIFT> __device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
+// minus 8 (RAW: as it is, 0..15), as a bf16 pair, exactly: 0x43nn is the
+// bf16 128 + n (n < 16), and 136 (0x4308; RAW: 128, 0x4300) comes off in
+// bf16. `lo` gives the low half.
+template <int J, int SHIFT, bool RAW = false>
+__device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
   const uint32_t t = __byte_perm(lo, hi, J | ((4 + J) << 8));  // bytes 0 and 2
   uint32_t v = ((t >> SHIFT) & 0x000F000Fu) | 0x43004300u;
-  const uint32_t c = 0x43084308u;
+  const uint32_t c = RAW ? 0x43004300u : 0x43084308u;
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
                                    *reinterpret_cast<const __nv_bfloat162*>(&c));
   return *reinterpret_cast<const uint32_t*>(&r);

@@ -161,7 +161,7 @@ VARIANTS: dict[str, Variant] = {
         "L4", "q4", None,
         lambda ops, w, tk: kernels.dequant_matmul_so(ops[0], w).to(torch.float32),
         lambda ops, w, tk: kernels.dequant_matmul_so_plain(ops[0], w).to(torch.float32),
-        "f32", (kernels.dequant_matmul_so, "launches"), ("so_",)),
+        "bf16", (kernels.dequant_matmul_so, "launches"), ("so_",)),
     "w4a8": _a8("L6", "q4", False),
     "w4a8_raw": _a8("L6", "q4", False),
     "i4native": Variant(

@@ -37,7 +37,9 @@ package reads it) picks K4, which replaces `_attn_decode_kernel_quant_i8dot`
 with "0", K8, which replaces `_attn_decode_kernel_quant` (widening; plain
 version `flash_attention_quant_plain`). Both are `csrc/attn_decode_quant.cu`:
 K4 on the int8 tensor cores for S-blocks of 64 slots or more, on the CUDA
-cores below (`k4_form`), K8 on the CUDA cores; `quant_plan` plans a call.
+cores below (`k4_form`); K8 on the bf16 tensor cores for bf16 q over an S
+that is a multiple of 64, on the CUDA cores for f32 q (`k8_form`);
+`quant_plan` plans a call.
 
 `attention_math` is the plain einsum path that the model uses where the
 gate says no (by default every window of t > 32, where the JAX package
@@ -68,10 +70,11 @@ _SB = 256  # S-block rows of the plain version, as in the TPU kernel
 _FMA_SB = 128  # S-block rows of K2's f32 form: its staged tiles fit shared memory
 K2_FORMS = ("fma", "decode_tc")  # K2's forms, by the C entry point's codes
 _K2_TILE = 64  # cache slots per ring stage of K2's decode_tc form
-# the int8 cache's forms, by the C entry point's codes: K8, K4 on the CUDA
-# cores, K4 on the tensor cores (S-blocks of whole 64-slot tiles)
-QUANT_FORMS = ("widening", "i8dot", "i8dot_tc")
-_K4_TILE = 64  # cache slots of a K or V tile of K4's tensor-core form (kTile)
+# the int8 cache's forms, by the C entry point's codes: K8 on the CUDA
+# cores, K4 on the CUDA cores, K4 on the int8 tensor cores (S-blocks of whole
+# 64-slot tiles), K8 on the bf16 tensor cores (bf16 q, S a multiple of 64)
+QUANT_FORMS = ("widening", "i8dot", "i8dot_tc", "widening_tc")
+_K4_TILE = 64  # cache slots of a K or V tile of the tensor-core forms (kTile)
 _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 
@@ -433,18 +436,44 @@ def k4_form(s: int) -> str:
     return "i8dot_tc" if sb is not None and sb % _K4_TILE == 0 else "i8dot"
 
 
-def quant_plan(i8dot: bool, b: int, kv: int, t: int, g: int, hd: int,
-               s: int) -> tuple[str, int, int, int]:
-    """(form, S-block slots, S-blocks, f32 workspace elements) of one K4
-    (`i8dot`) or K8 call: a function of shapes only. Every form splits S
-    into the TPU kernels' S-blocks (K4's arithmetic depends on them) and
-    merges their partials (t * g rows of hd values, a maximum and a sum
-    each) in a second launch."""
+def k8_form(dtype: torch.dtype, s: int) -> str:
+    """K8's kernel on the card for q of this dtype over a cache of S slots:
+    "widening_tc" (bf16 mma.sync on the int8 K and V widened to bf16, the
+    64-slot tiles streamed by the TMA unit) for bf16 q when S is a multiple
+    of 64 (every serving shape), else "widening" (CUDA cores): f32 q, which
+    the bf16 tensor cores cannot take without rounding it, and the S that
+    whole tiles do not cover (S = 520, 2000)."""
+    return "widening_tc" if dtype == torch.bfloat16 and s % _K4_TILE == 0 else "widening"
+
+
+def k8_split(t: int, g: int, s: int) -> int:
+    """Slots per split of K8's tensor-core form: four 64-slot tiles, or
+    more where the split's f32 partials (t * g rows of hd values) would
+    exceed about a quarter of the cache bytes it reads when full (2 x slots
+    x hd int8): at least 8 slots a row; never more than S. Four tiles up to
+    32 rows (every decode step, t = 32 at g = 1). On an H100, at b = 8, KV
+    = 32, S = 1024, t = 1, four tiles a split took 8% off a call at full
+    fill against two, 15% against one, and were no slower at fills 1 to
+    300 (`k2_pair.py --kernel k8 --k8-splits`; PERF.md)."""
+    return _K4_TILE * min(s // _K4_TILE, max(4, -(-8 * t * g // _K4_TILE)))
+
+
+def quant_plan(i8dot: bool, b: int, kv: int, t: int, g: int, hd: int, s: int,
+               q_dtype: torch.dtype) -> tuple[str, int, int, int]:
+    """(form, slots of an S-block or split, their number, f32 workspace
+    elements) of one K4 (`i8dot`) or K8 call: a function of shapes and q's
+    dtype only. K4 and K8's CUDA-core form split S into the TPU kernels'
+    S-blocks (K4's arithmetic depends on them); K8's tensor-core form into
+    `k8_split` slots (the last split may be shorter). Every form merges the
+    partials (t * g rows of hd values, a maximum and a sum each) in a
+    second launch."""
     sb = _tpu_sb(s)
     if sb is None:
         raise ValueError(f"flash_attention_quant: S={s} has no S-block")
-    nsb = s // sb
-    form = k4_form(s) if i8dot else "widening"
+    form = k4_form(s) if i8dot else k8_form(q_dtype, s)
+    if form == "widening_tc":
+        sb = k8_split(t, g, s)
+    nsb = -(-s // sb)
     return form, sb, nsb, b * kv * nsb * t * g * (hd + 2)
 
 
@@ -483,7 +512,7 @@ def _flash_attention_quant_cuda(q5, k8, v8, pos0, ks, vs,
                                 i8dot: bool) -> tuple[torch.Tensor, str]:
     b, t, kv, g, hd = q5.shape
     s = k8.shape[2]
-    form, sb, _, ws_elems = quant_plan(i8dot, b, kv, t, g, hd, s)
+    form, sb, _, ws_elems = quant_plan(i8dot, b, kv, t, g, hd, s, q5.dtype)
     out = torch.empty_like(q5)
     ws = torch.empty(ws_elems, dtype=torch.float32, device=q5.device)
     err = _quant_lib()(q5.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(),
@@ -503,8 +532,9 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     [B, KV, S] in f32 or bf16; positions [B, t] absolute (row 0's position is what
     the kernel reads). K4 unless LLAMAGO_ATTN_I8DOT is "0", then K8; each
     counts its launches (`launches_i8dot`, `launches_widening`;
-    `launches_i8dot_tc` counts K4's tensor-core form, `k4_form`). Returns
-    [B, t, H*hd] in q.dtype."""
+    `launches_i8dot_tc` counts K4's tensor-core form, `k4_form`, and
+    `launches_widening_tc` K8's, `k8_form`). Returns [B, t, H*hd] in
+    q.dtype."""
     b, t, h, hd = q.shape
     kv = k8.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
@@ -524,6 +554,8 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                 flash_attention_quant.launches_i8dot_tc += 1
         else:
             flash_attention_quant.launches_widening += 1
+            if form == "widening_tc":
+                flash_attention_quant.launches_widening_tc += 1
     else:
         raise ValueError(f"flash_attention_quant: unsupported device {q.device}")
     return out.reshape(b, t, h * hd)
@@ -531,7 +563,8 @@ def flash_attention_quant(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
 
 flash_attention_quant.launches_i8dot = 0  # K4, either form
 flash_attention_quant.launches_i8dot_tc = 0  # K4's tensor-core form
-flash_attention_quant.launches_widening = 0  # K8
+flash_attention_quant.launches_widening = 0  # K8, either form
+flash_attention_quant.launches_widening_tc = 0  # K8's tensor-core form
 
 
 def attention_math(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -15,7 +15,9 @@ does (llamago_tpu/ops/kernels.py):
                 (`dequant_matmul_so`, replacing `_dequant_mm_kernel_so`,
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
                 `SCALE_ON_OUTPUT_MAX_M` (0 = off, env
-                LLAMAGO_KERNEL_SO_MAX_M); else K1, the dequant-matmul
+                LLAMAGO_KERNEL_SO_MAX_M), in the form `k9_form` picks: up
+                to 8 rows the bf16 tensor-core decode form for bf16 x, else
+                the split-K GEMV; else K1, the dequant-matmul
                 (replacing `_dequant_mm_kernel`, bits 8 and 4, CUDA:
                 `csrc/dequant_matmul.cu`) in the form `k1_form` picks:
                 up to 8 rows the bf16 tensor-core decode form for bf16 x
@@ -34,7 +36,8 @@ wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
 `.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile
 and `.launches_decode_tc` the tensor-core decode form,
 `w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
-`.launches_tc` took the tensor-core tile), `dequant_matmul_so.launches`).
+`.launches_tc` took the tensor-core tile), `dequant_matmul_so.launches`
+(of which `.launches_decode_tc` took the tensor-core decode form)).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`): the whole norm in f32 with one rounding to
@@ -233,12 +236,29 @@ def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int
 
 def gemv_plan(m: int, k: int, n: int) -> tuple[str, int, int]:
     """(form, ksplit, f32 workspace elements) of the split-K GEMV over m
-    rows: K1's form for f32 x up to 8 rows, and K9's plan for any x and m
-    (its entry point has this form only and walks all m rows a few at a
-    time). The GEMV's reduce writes the output: one partial per split,
-    always."""
+    rows: K1's form for f32 x up to 8 rows, and K9's for f32 x or more than
+    8 rows (its GEMV walks all m rows a few at a time). The GEMV's reduce
+    writes the output: one partial per split, always."""
     ksplit = ksplit_for(k, n)
     return "gemv", ksplit, ksplit * m * n
+
+
+def k9_form(m: int, x_dtype: torch.dtype) -> str:
+    """K9's kernel on the card for m rows of x: "decode_tc" (K1's
+    tensor-core decode form on the raw integers, the slots the n8 columns
+    of B) for bf16 x up to 8 rows, else "gemv" (its split-K GEMV): f32 x,
+    which the bf16 tensor cores cannot take without rounding it, and m > 8,
+    which only a switch above 8 sends here."""
+    return "decode_tc" if m <= _GEMV_MAX_M and x_dtype == torch.bfloat16 else "gemv"
+
+
+def k9_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
+    """(form, ksplit, f32 workspace elements) of one K9 launch over m rows:
+    the decode form splits K as K1's does (`decode_tc_split_for`)."""
+    if k9_form(m, x_dtype) == "gemv":
+        return gemv_plan(m, k, n)
+    ksplit = decode_tc_split_for(k, n)[0]
+    return "decode_tc", ksplit, ksplit * m * n if ksplit > 1 else 0
 
 
 def a8_cols_per_thread(m: int) -> int:
@@ -428,7 +448,7 @@ def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, plan) -> tuple[torch.
     """Shared launcher of K1 and K9: both C entry points take the same
     arguments (x, q, s, out, workspace, m, K, N, bits, dtypes, form,
     ksplit). `plan(m, k, n, x_dtype)` gives (form, ksplit, workspace
-    elements): `k1_plan` for K1, `gemv_plan` for K9. Returns the output and
+    elements): `k1_plan` for K1, `k9_plan` for K9. Returns the output and
     the form launched."""
     key = "q8" if "q8" in w else "q4"
     q, s = w[key], w["s"]
@@ -448,17 +468,19 @@ def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, plan) -> tuple[torch.
 
 def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
     """K9: x [..., K] @ Q8_0 / Q4_0 w with the block scales folded into the
-    output -> [..., N] in x.dtype."""
+    output -> [..., N] in x.dtype, in the form `k9_form` names."""
     if x.device.type == "cpu":
         return dequant_matmul_so_plain(x, w)
     _cuda_or_raise(x, "dequant_matmul_so")
-    out, _ = _launch_q(_lib_so, "dequant_matmul_so", x, w,
-                       lambda m, k, n, x_dtype: gemv_plan(m, k, n))
+    out, form = _launch_q(_lib_so, "dequant_matmul_so", x, w, k9_plan)
     dequant_matmul_so.launches += 1
+    if form == "decode_tc":
+        dequant_matmul_so.launches_decode_tc += 1
     return out
 
 
-dequant_matmul_so.launches = 0
+dequant_matmul_so.launches = 0  # K9, either form
+dequant_matmul_so.launches_decode_tc = 0  # K9's tensor-core decode form
 
 
 def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch
 
 from llamago_tpu.ops import kernels as jkernels
 from llamago_tpu_torch import kernel_lab as lab
-from llamago_tpu_torch.ops import kernels, quant
+from llamago_tpu_torch.ops import _build, kernels, quant
 
 torch.set_num_threads(1)
 
@@ -105,12 +105,15 @@ def test_decode_form_code_matches_the_c_entry_point():
                                 "mbar_expect", "mbar_wait", "l2_evict_first", "bulk_copy"])
 def test_decode_form_helpers_live_once_in_the_shared_header(fn):
     """The pair builders the decode form shares with dq_tc, and its TMA and
-    mbarrier wrappers, are defined in tc_common.cuh and in no source."""
+    mbarrier wrappers, are defined in tc_common.cuh and in no source; K1's
+    library uses them (the decode form's body is in decode_tc.cuh, which
+    K9 shares)."""
     pattern = re.compile(rf"__device__ __forceinline__ \w+ {fn}\(")
     assert pattern.search((CSRC / "tc_common.cuh").read_text())
     assert not any(pattern.search(p.read_text()) for p in CSRC.glob("*.cu"))
-    assert f"{fn}<" in (CSRC / "dequant_matmul.cu").read_text() or \
-        f"{fn}(" in (CSRC / "dequant_matmul.cu").read_text()
+    uses = "".join((CSRC / rel).read_text() for rel in _build.source_files("dequant_matmul")
+                   if rel != "tc_common.cuh")
+    assert f"{fn}<" in uses or f"{fn}(" in uses
 
 
 # ------------------------------------------------------------- split plan
@@ -209,13 +212,18 @@ def test_k1_hands_the_decode_form_to_its_entry_point(monkeypatch, m, bits):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 3, 8, 16])
 def test_k9_keeps_its_own_gemv_plan(monkeypatch, m, dtype):
-    """K9 shares the launcher but its entry point has the GEMV form only
-    (`csrc/dequant_matmul_so.cu` refuses any other code): bf16 x at decode
-    rows must not hand it the decode form's code."""
-    assert "form != 0" in (CSRC / "dequant_matmul_so.cu").read_text()
+    """K9 shares the launcher but plans with `k9_plan`, through its own
+    entry point (`csrc/dequant_matmul_so.cu` takes the GEMV's code and the
+    decode form's, no other): bf16 x at decode rows hands it the decode
+    form's code and split, f32 x and more than 8 rows its GEMV's."""
+    assert "(form != kGemv && form != kDecodeTc)" in (CSRC / "dequant_matmul_so.cu").read_text()
     calls = _launch_on_meta(monkeypatch, kernels.dequant_matmul_so, "_lib_so", m, 8, dtype)
+    if dtype == torch.bfloat16 and m <= 8:
+        form, ksplit = 3, kernels.decode_tc_split_for(4096, 4096)[0]
+    else:
+        form, ksplit = 0, kernels.ksplit_for(4096, 4096)
     assert calls == [dict(m=m, k=4096, n=4096, bits=8, x_bf16=int(dtype == torch.bfloat16),
-                          form=0, ksplit=kernels.ksplit_for(4096, 4096))]
+                          form=form, ksplit=ksplit)]
 
 
 # ------------------------------------------------------------------ the lab

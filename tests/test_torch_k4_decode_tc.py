@@ -103,22 +103,25 @@ def test_k4_form_takes_the_tensor_cores_for_whole_tiles(s, sb, form):
     assert attention.k4_form(s) == form
     b, kv, t, g, hd = 2, 4, 3, 2, 64
     ws = b * kv * (s // sb) * t * g * (hd + 2)
-    assert attention.quant_plan(True, b, kv, t, g, hd, s) == (form, sb, s // sb, ws)
-    # K8 keeps its CUDA-core form for every shape, on the same S-blocks
-    assert attention.quant_plan(False, b, kv, t, g, hd, s) == ("widening", sb, s // sb, ws)
+    for dt in (torch.bfloat16, torch.float32):
+        assert attention.quant_plan(True, b, kv, t, g, hd, s, dt) == (form, sb, s // sb, ws)
+    # K8 with f32 q keeps its CUDA-core form for every shape, on the same
+    # S-blocks (bf16 q: tests/test_torch_k8_decode_tc.py)
+    assert attention.quant_plan(False, b, kv, t, g, hd, s, torch.float32) == (
+        "widening", sb, s // sb, ws)
 
 
 def test_quant_plan_refuses_a_cache_without_an_s_block():
     with pytest.raises(ValueError):
-        attention.quant_plan(True, 1, 1, 1, 1, 64, 36)
+        attention.quant_plan(True, 1, 1, 1, 1, 64, 36, torch.bfloat16)
 
 
 def test_form_codes_match_the_c_entry_point():
-    enum = re.search(r"enum Form \{ kWidening = (\d), kI8dot = (\d), kI8dotTc = (\d) \};",
-                     _src())
+    enum = re.search(r"enum Form \{ kWidening = (\d), kI8dot = (\d), kI8dotTc = (\d), "
+                     r"kWideningTc = (\d) \};", _src())
     assert enum is not None
     assert tuple(map(int, enum.groups())) == tuple(
-        attention.QUANT_FORMS.index(f) for f in ("widening", "i8dot", "i8dot_tc"))
+        attention.QUANT_FORMS.index(f) for f in ("widening", "i8dot", "i8dot_tc", "widening_tc"))
     assert _const("kTile") == attention._K4_TILE
 
 
@@ -217,11 +220,14 @@ def test_launcher_hands_the_plan_to_the_entry_point(monkeypatch, i8dot, b, kv, t
         return x
 
     monkeypatch.setattr(torch, "empty", spy)
-    form, sb, nsb, ws = attention.quant_plan(i8dot, b, kv, t, g, hd, s)
+    form, sb, nsb, ws = attention.quant_plan(i8dot, b, kv, t, g, hd, s, q5.dtype)
     for _ in range(2):
         out, got_form = attention._flash_attention_quant_cuda(q5, k8, k8, pos0, ks, ks, i8dot)
         assert got_form == form and out.shape == q5.shape and out.dtype == q5.dtype
-    assert form == ("widening" if not i8dot else "i8dot_tc" if sb >= 64 else "i8dot")
+    if i8dot:
+        assert form == ("i8dot_tc" if sb >= 64 else "i8dot")
+    else:  # bf16 q: K8's tensor-core form where whole 64-slot tiles cover S
+        assert form == ("widening_tc" if s % 64 == 0 else "widening")
     assert entry.calls == 2 * [dict(b=b, t=t, kv=kv, g=g, hd=hd, s=s, sb=sb,
                                      scale=1.0 / hd ** 0.5, is_bf16=1,
                                      form=attention.QUANT_FORMS.index(form), scale_bf16=1)]
