@@ -164,6 +164,10 @@ K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 # K10, f32: the order of the f32 sum of squares, and 1 / sqrt against rsqrt
 K10_RTOL_F32 = 1e-5
 K10_D = 4096
+# the tensor-core forms of the lab's float rows and of K7, with K7's merge:
+# none may spill
+TC_FORMS = {"lab_decode_tc": "lab_matmul", "attn_prefill_tc": "attn_prefill",
+            "attn_prefill_merge": "attn_prefill"}
 
 
 def log(msg: str) -> None:
@@ -893,16 +897,40 @@ def _k7_inputs(dev, gen, t, pos0, c, dtype):
     return q, kc, vc, starts[:, None] + torch.arange(t, device=dev)[None, :]
 
 
-def _k7_error(q, kc, vc, positions, c) -> float:
-    """max |kernel - plain| / max(1, |plain|) over one call that must take K7."""
+def _k7_call(q, kc, vc, positions):
+    """One call that must take K7 in the form `k7_form` names for the
+    cache's dtype. The memory its workspace and its output will take is
+    filled with NaN first (the caching allocator hands the blocks just freed
+    to the next requests of their sizes), so a partial or a row the kernels
+    leave unwritten shows."""
     import torch
 
     from llamago_tpu_torch.ops import attention
 
-    before = attention.flash_attention.launches_prefill
-    got = attention.flash_attention(q, kc, vc, positions).float()
-    if attention.flash_attention.launches_prefill != before + 1:
-        raise AssertionError("K7: flash_attention did not take the prefill kernel")
+    fn = attention.flash_attention
+    b, t, h, hd = q.shape
+    kv = kc.shape[1]
+    form, _, _, ws = attention.prefill_plan(kc.dtype, b, kv, t, h // kv, hd, kc.shape[2])
+    poison = [torch.full((ws,), float("nan"), device=q.device), torch.full_like(q, float("nan"))]
+    del poison
+    before = (fn.launches_prefill, fn.launches_prefill_tc)
+    got = fn(q, kc, vc, positions)
+    if (fn.launches_prefill, fn.launches_prefill_tc) != (before[0] + 1,
+                                                         before[1] + (form == "prefill_tc")):
+        raise AssertionError(f"K7: a {kc.dtype} cache did not take the {form} form")
+    return got
+
+
+def _k7_error(q, kc, vc, positions, c, got=None) -> float:
+    """max |kernel - plain| / max(1, |plain|) over one call that must take K7
+    (or over `got`, its output)."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+
+    if got is None:
+        got = _k7_call(q, kc, vc, positions)
+    got = got.float()
     q5 = q.reshape(c["b"], q.shape[1], c["kv"], c["g"], c["hd"])
     ref = attention.flash_attention_prefill_plain(q5, kc, vc, positions[:, 0].to(torch.int32))
     torch.cuda.synchronize()
@@ -913,14 +941,17 @@ def _k7_error(q, kc, vc, positions, c) -> float:
 
 
 def check_k7(dev, detail: dict) -> dict:
-    """K7 at b=1, KV=32, hd=128, S=1024 in bf16 for the windows (t, pos0) of
-    the 7B prefill (buckets 64, 128, 256; chunks at positions 0, 512, 640),
-    checked and timed beside its plain version, the port's einsum math (the
-    default route of these windows) and SDPA with a boolean mask over the
-    visible prefix; GQA geometries in f32 and bf16 (ragged t, ragged S, hd
-    64) and a t=16 window with LLAMAGO_ATTN_LENAWARE off checked only. The
-    kernels line takes one prefill pass of 256 tokens at position 512 (32
-    launches)."""
+    """K7 at b=1, KV=32, hd=128, S=1024 in bf16 (its tensor-core form,
+    chunks of `k7_chunk` slots) for the windows (t, pos0) of the 7B prefill
+    (buckets 64, 128, 256; chunks at positions 0, 512, 640), checked and
+    timed beside its plain version, the port's einsum math (the default
+    route of these windows) and SDPA with a boolean mask over the visible
+    prefix; GQA geometries in f32 (the CUDA-core form) and bf16 (ragged t,
+    ragged S, hd 64) and a t=16 window with LLAMAGO_ATTN_LENAWARE off
+    checked only. Each call must take the form `k7_form` names, and each
+    timed window is called once more after its timing, into NaN-filled
+    memory, which must give the first call's bits. The kernels line takes
+    one prefill pass of 256 tokens at position 512 (32 launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -952,7 +983,8 @@ def check_k7(dev, detail: dict) -> dict:
     h = c["kv"] * c["g"]
     for t, pos0 in K7_WINDOWS:
         q, kc, vc, positions = _k7_inputs(dev, gen, t, pos0, c, "bfloat16")
-        err = _k7_error(q, kc, vc, positions, c)
+        first = _k7_call(q, kc, vc, positions)
+        err = _k7_error(q, kc, vc, positions, c, got=first)
         if not err <= K7_TOL:
             raise AssertionError(f"K7 t={t} pos0={pos0}: max|d| {err:.3g} > {K7_TOL}")
         max_err = max(max_err, err)
@@ -974,6 +1006,9 @@ def check_k7(dev, detail: dict) -> dict:
             qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
             for kv in caches], 25 * K7_COPIES)
         del caches
+        if not torch.equal(_k7_call(q, kc, vc, positions), first):
+            raise AssertionError(f"K7 t={t} pos0={pos0}: a second call into NaN-filled "
+                                 "memory gave other bits")
         nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 2
                   + 2 * c["b"] * t * h * c["hd"] * 2 + c["b"] * 4)
         ops = 4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2)
@@ -1085,10 +1120,39 @@ LAB_KERNELS = (
 # by the order of their f32 sums alone (split K, warps, FMA).
 LAB_TOL = {"L2": K1_TOL["float32"], "L3": K1_TOL["float32"], "L9": K1_TOL["float32"],
            "L12": K1_TOL["float32"], "L6": 1e-5, "L7": 1e-5, "L8": 1e-5, "L10": 1e-5}
+# The float rows' variants (L2, L3, L9, L12), which run the tensor-core
+# decode form, by their mode (`lab_kernels._F_*`)
+LAB_TC_MODES = {"i4native": "_F_I4", "bf16dot": "_F_Q4_BF16", "split_bf16_h": "_F_Q4_BF16_FMA",
+                "bitcast_i4": "_F_I4", "bitcast_i4_bf16": "_F_I4_BF16", "w16dot": "_F_W16"}
 # L11's column sums, x K * 8 * max|s| (the most a column's terms can add up
 # to): the order of the f32 sums; the two byte-sum probes are exact
 LAB_PROBE_TOL = {"decode_only": 1e-5, "decode_bitcast": 1e-5, "dma_only": 0.0,
                  "dma_pure": 0.0}
+
+
+def _lab_tc_call(name: str, ops, leaf, tk: int, tm: int, k: int, n: int):
+    """One call of a float row's variant, whose wrapper runs the tensor-core
+    decode form (`lab_plan`) and must count it. The memory its workspace and
+    its output will take is filled with NaN first, so a partial or a column
+    the kernel leaves unwritten shows."""
+    import torch
+
+    from llamago_tpu_torch import kernel_lab
+    from llamago_tpu_torch.ops import lab_kernels as lk
+
+    v = kernel_lab.VARIANTS[name]
+    mode = getattr(lk, LAB_TC_MODES[name])
+    _, ws = lk.lab_plan(tm, k, n, mode)
+    dev = leaf["s"].device
+    poison = [torch.full((ws,), float("nan"), device=dev),
+              torch.full((tm, n), float("nan"), device=dev)]
+    del poison
+    fn = v.counter[0]
+    before = fn.launches
+    got = v.fn(ops, leaf, tk)
+    if fn.launches != before + 1:
+        raise AssertionError(f"lab {name}: the tensor-core decode form was not counted")
+    return got
 
 
 def check_lab(dev, detail: dict) -> dict:
@@ -1126,7 +1190,10 @@ def check_lab(dev, detail: dict) -> dict:
         leaf = leaves[v.fmt]
         ops = kernel_lab.HOISTS[v.hoist](x, tk)
         before = getattr(*v.counter)
-        got = v.fn(ops, leaf, tk)
+        if name in LAB_TC_MODES:
+            got = _lab_tc_call(name, ops, leaf, tk, max(8, m), k, n)
+        else:
+            got = v.fn(ops, leaf, tk)
         ref = v.plain(ops, leaf, tk)
         torch.cuda.synchronize()
         if getattr(*v.counter) != before + 1 or got.shape != (max(8, m), n) \
@@ -1143,6 +1210,10 @@ def check_lab(dev, detail: dict) -> dict:
             raise AssertionError(f"lab {name} ({v.row}): max|d| / {scale:.3g} = {err:.3g} > "
                                  f"{tol}")
         errs[name] = err
+        if name in LAB_TC_MODES and not torch.equal(
+                _lab_tc_call(name, ops, leaf, tk, max(8, m), k, n), got):
+            raise AssertionError(f"lab {name}: a second call into NaN-filled memory gave "
+                                 "other bits")
         log(f"lab {name:28s} ({v.row}): kernel vs plain max|d|/scale {err:.2e} (tol {tol})")
     del leaves
     torch.cuda.empty_cache()
@@ -1173,7 +1244,18 @@ def check_lab(dev, detail: dict) -> dict:
     # bf16 layers is one number for every product row; the byte probes are one
     # column sum each (of all the packed rows, of the corner of every span);
     # the two decode probes are no single call
+    # its bound: the bf16 weights, x and the bf16 output once each. A
+    # reading below it is no device time of the call (one run read 7.3 us
+    # against 35.2): it is taken again, and a second one below fails the phase
+    lib_bound = bound_ms(2 * k * n + 2 * x.shape[0] * (k + n), 2.0 * x.shape[0] * k * n)[0]
     lib_ms = timed([lambda w=w: x @ w["w16"] for w in by_fmt["w16"]], 4 * layers)
+    if lib_ms < lib_bound:
+        log(f"lab: x @ W read {lib_ms:.4f} ms, below its bound {lib_bound:.4f} ms: taken again")
+        lib_ms = timed([lambda w=w: x @ w["w16"] for w in by_fmt["w16"]], 4 * layers)
+        if lib_ms < lib_bound:
+            raise AssertionError(f"lab: x @ W read {lib_ms:.4f} ms twice below its bound "
+                                 f"{lib_bound:.4f} ms")
+    detail["lab_library"] = {"ms": lib_ms, "bound_ms": lib_bound}
     lib_probe = {
         "decode_only": None, "decode_bitcast": None,
         "dma_only": timed([lambda w=w: w["q4"].sum(0, dtype=torch.float32)
@@ -1327,9 +1409,10 @@ def check_small_model(dev) -> int:
             raise AssertionError(f"small model, {name}: an f32 cache must take K2's f32 "
                                  f"form only: {counts}")
         if any((counts[k] > 0) != opt_in
-               for k in ("flash_attention_prefill", "fused_rms_norm")):
-            raise AssertionError(f"small model, {name}: K7 and K10 must launch with the "
-                                 f"opt-in routes on and only then: {counts}")
+               for k in ("flash_attention_prefill", "fused_rms_norm")) or \
+                counts["flash_attention_prefill_tc"] > 0:
+            raise AssertionError(f"small model, {name}: K7 (its f32 form) and K10 must launch "
+                                 f"with the opt-in routes on and only then: {counts}")
         if cfg.kv_dtype == "int8" and i8dot and (
                 counts["cache_append_quant"] == 0
                 or counts["flash_attention_quant_i8dot"] == 0):
@@ -1540,6 +1623,7 @@ def _launch_counters():
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
             "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
+            "flash_attention_prefill_tc": (attention.flash_attention, "launches_prefill_tc"),
             "fused_rms_norm": (kernels.fused_rms_norm, "launches"),
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
@@ -1914,6 +1998,7 @@ def main(argv: list[str]) -> int:
     t0 = time.time()
     ptxas = _build.build_all(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
+    spills: dict[str, int] = {}  # spill bytes (stores + loads) of the forms in TC_FORMS
     for name, text in ptxas.items():
         fn = ""
         for line in text.splitlines():
@@ -1921,12 +2006,21 @@ def main(argv: list[str]) -> int:
                 fn = _kernel_name(line.split("Function properties for")[-1].strip())
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
+                sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if sp and fn.split(" ")[0] in TC_FORMS:
+                    spills[fn] = int(sp.group(1)) + int(sp.group(2))
+    log(f"ptxas spill bytes of {', '.join(TC_FORMS)}: {spills}")
+    unseen = [f for f, source in TC_FORMS.items()
+              if ptxas[source] and not any(k.split(" ")[0] == f for k in spills)]
+    if unseen or any(spills.values()):
+        raise AssertionError(f"ptxas: {', '.join(TC_FORMS)} must build without spills: "
+                             f"{spills}; not in the build's output: {unseen}")
     # float32 products in the references run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN")
 
-    detail: dict = {"card": card}
+    detail: dict = {"card": card, "ptxas_spills": spills}
     only = set(args.only.split(",")) if args.only else None
 
     def want(phase: str) -> bool:
@@ -1971,7 +2065,11 @@ def main(argv: list[str]) -> int:
                                  rise=("dequant_matmul", "dequant_matmul_tc",
                                        "dequant_matmul_decode_tc", "flash_attention",
                                        "flash_attention_decode_tc", "flash_attention_prefill",
-                                       "fused_rms_norm"))
+                                       "flash_attention_prefill_tc", "fused_rms_norm"))
+            p_launches = served_p["launches"]
+            if p_launches["flash_attention_prefill_tc"] != p_launches["flash_attention_prefill"]:
+                raise AssertionError(f"serve, K7 on: a K7 call over the bf16 cache did not take "
+                                     f"its tensor-core form: {p_launches}")
             gc.collect()
             torch.cuda.empty_cache()
         if want("serve_int8"):
@@ -2108,7 +2206,7 @@ def main(argv: list[str]) -> int:
         {"name": "flash_attention_prefill", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",
-         "launches": served_p["launches"]["flash_attention_prefill"], **k7},
+         "launches": served_p["launches"]["flash_attention_prefill_tc"], **k7},
         {"name": "fused_rms_norm", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/rms_norm.cu",
          "replaces": "llamago_tpu/ops/kernels.py:599",
@@ -2142,6 +2240,7 @@ def main(argv: list[str]) -> int:
         return 0
     if any(k["launches"] == 0 for k in kernels_line["kernels"]):
         raise AssertionError(f"a kernel was never launched on its path: {kernels_line}")
+    print(json.dumps({"ptxas_spills": spills}))
     print(json.dumps(serving_line))
     print(card)
     print(json.dumps(kernels_line))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K2, K4 or K8 (decode attention) of several checkouts on one card, side by side.
+"""K2, K4, K8 (decode attention), K7 (prefill attention) or the lab's float
+rows of several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k4|k8] [--k8-splits N,...] [--out FILE.json]
-                       ROOT [ROOT ...]
+    python3 k2_pair.py [--kernel k2|k4|k8|k7|lab] [--k8-splits N,...]
+                       [--k7-chunks N,...] [--out FILE.json] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
 builds its kernels into ROOT/build at first use. For each ROOT, in the
@@ -26,6 +27,19 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     `--k8-splits`, the rows again for each number of slots a split (a
     multiple of 64, at most S) in place of `k8_split`'s, in the checkouts
     that have it.
+  - `--kernel k7`: K7 at chip_smoke's K7_SHAPE (b=1, KV=32, hd=128,
+    S=1024, bf16) at its K7_WINDOWS, each beside SDPA with a boolean mask
+    over the visible prefix (chip_smoke's yardstick) in the same process;
+    then phase 4d's 256-token prefill chunk with K7 and K10 on (7B Q8_0, 4
+    slots, chip_smoke's `opt_in_routes`): device busy and `attention_ms`.
+    With `--k7-chunks`, the rows again for each number of slots a chunk (a
+    multiple of 64) in place of `k7_chunk`'s, in the checkouts that have it.
+  - `--kernel lab`: the kernel lab's six float variants (rows L2, L3, L9,
+    L12: i4native, bf16dot, split_bf16_h, bitcast_i4, bitcast_i4_bf16,
+    w16dot) and L1's `base` at the lab's shape (K=8192, N=7168, m=8, 24
+    layers; chip_smoke's LAB_SHAPE, LAB_STEPS, LAB_REPS), device time per
+    launch of each variant's kernels (`kernel_lab.run_variant`), beside `x
+    @ W` on the bf16 layers.
 
 Each row: device ms per call (the busy time of every kernel the call
 launches, chip_smoke's `timed`, over three cache copies that a cycle of
@@ -154,13 +168,97 @@ def run_k8(cs, root: str, splits: list[int]) -> dict:
     return out
 
 
-def run_one(root: str, kernel: str, splits: list[int]) -> dict:
+LAB_NAMES = ("base", "i4native", "bf16dot", "split_bf16_h", "bitcast_i4", "bitcast_i4_bf16",
+             "w16dot")
+
+
+def run_k7(cs, root: str, chunks: list[int]) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import attention
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    c = cs.K7_SHAPE
+    default_chunk = getattr(attention, "k7_chunk", None)
+    plans = [("plan", None)] + ([(f"chunk {n}", n) for n in chunks] if default_chunk else [])
+    out = {"root": root, "card": cs.card_line()}
+    try:
+        for label, n in plans:
+            if n is not None:
+                attention.k7_chunk = lambda b, kv, t, g, s, n=n: n
+            rows = []
+            for t, pos0 in cs.K7_WINDOWS:
+                gen = torch.Generator(device=dev).manual_seed(1000 * t + pos0)
+                q, kc, vc, positions = cs._k7_inputs(dev, gen, t, pos0, c, "bfloat16")
+                got = attention.flash_attention(q, kc, vc, positions).float()
+                ref = attention.flash_attention_prefill_plain(
+                    q.reshape(1, t, c["kv"], c["g"], c["hd"]), kc, vc,
+                    positions[:, 0].to(torch.int32)).reshape(got.shape).float()
+                err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+                caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(cs.K7_COPIES - 1)]
+                ms = cs.timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                               for kv in caches], 25 * cs.K7_COPIES)
+                qh, visible = q.transpose(1, 2), pos0 + t
+                mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
+                sdpa = cs.timed([lambda kv=kv: F.scaled_dot_product_attention(
+                    qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+                    for kv in caches], 25 * cs.K7_COPIES)
+                del caches
+                rows.append(dict(t=t, pos0=pos0, ms=ms, sdpa_ms=sdpa, max_abs_err=err))
+                cs.log(f"{root} ({label}): K7 t={t:3d} pos0={pos0:3d}: {ms:.4f} ms, SDPA "
+                       f"{sdpa:.4f} ms, max|d| {err:.2e}")
+            out["k7" if n is None else f"k7_chunk_{n}"] = rows
+    finally:
+        if default_chunk is not None:
+            attention.k7_chunk = default_chunk
+    torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev)
+    with cs.opt_in_routes():
+        engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4,
+                        decode_chunk_size=32, prefill_chunk=256, device=dev)
+        chunk = cs.profile_prefill(engine, 256)
+    out["prefill_chunk_256"] = {k: chunk[k] for k in ("device_busy_ms", "attention_ms",
+                                                       "matmul_ms")}
+    return out
+
+
+def run_lab(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch import kernel_lab
+    from llamago_tpu_torch.ops import lab_kernels as lk
+
+    dev = torch.device("cuda")
+    k, n, m, layers = (cs.LAB_SHAPE[key] for key in ("k", "n", "m", "layers"))
+    cache = {fmt: kernel_lab.make_layers(fmt, k, n, layers, dev) for fmt in ("q4", "w16")}
+    cache["i4"] = [lk.to_i4(leaf) for leaf in cache["q4"]]
+    rows = []
+    for name in LAB_NAMES:
+        r = kernel_lab.run_variant(name, k, n, m, layers, cs.LAB_STEPS, None, cs.LAB_REPS, dev,
+                                   cache[kernel_lab.VARIANTS[name].fmt])
+        rows.append({key: r[key] for key in ("name", "row", "kernel_ms", "bound_ms",
+                                             "bound_by", "bound_share")})
+        cs.log(f"{root}: lab {name:16s}: {r['kernel_ms'] * 1e3:.2f} us a launch, bound "
+               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_share']:.1%})")
+    x = torch.randn((max(8, m), k), device=dev).to(torch.bfloat16)
+    lib = cs.timed([lambda w=w: x @ w["w16"] for w in cache["w16"]], 4 * layers)
+    cs.log(f"{root}: lab x @ W: {lib * 1e3:.2f} us")
+    return {"root": root, "card": cs.card_line(), "lab": rows, "library_ms": lib}
+
+
+def run_one(root: str, kernel: str, splits: list[int], chunks: list[int]) -> dict:
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     cs = _smoke()
     if kernel == "k4":
         return run_k4(cs, root)
     if kernel == "k8":
         return run_k8(cs, root, splits)
+    if kernel == "k7":
+        return run_k7(cs, root, chunks)
+    if kernel == "lab":
+        return run_lab(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -192,23 +290,27 @@ def run_one(root: str, kernel: str, splits: list[int]) -> dict:
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k4", "k8"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k4", "k8", "k7", "lab"), default="k2")
     ap.add_argument("--k8-splits", default="",
                     help="comma-separated slots a split to time K8 at, beside its plan")
+    ap.add_argument("--k7-chunks", default="",
+                    help="comma-separated slots a chunk to time K7 at, beside its plan")
     ap.add_argument("--out")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args(argv)
     if args.worker:
         splits = [int(n) for n in args.k8_splits.split(",") if n]
-        print(json.dumps(run_one(args.worker, args.kernel, splits)), flush=True)
+        chunks = [int(n) for n in args.k7_chunks.split(",") if n]
+        print(json.dumps(run_one(args.worker, args.kernel, splits, chunks)), flush=True)
         return 0
     if not args.roots:
         ap.error("name at least one checkout")
     results = []
     for root in args.roots:
         proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--kernel",
-                               args.kernel, "--k8-splits", args.k8_splits, "--worker", root],
+                               args.kernel, "--k8-splits", args.k8_splits, "--k7-chunks",
+                               args.k7_chunks, "--worker", root],
                               stdout=subprocess.PIPE, text=True)
         if proc.returncode != 0:
             print(f"k2_pair: the run of {root} failed ({proc.returncode})", file=sys.stderr)

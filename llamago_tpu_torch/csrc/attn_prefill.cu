@@ -21,28 +21,57 @@
 // layer at 7B. The launch and the tile loop's latency show first.
 //
 // What the design does about it: the TPU kernel holds the whole S plane of
-// a head in VMEM and takes one softmax over it. Here one block owns one
+// a head in VMEM and takes one softmax over it. Here a block owns one
 // (batch, kv head, tile of 64 query rows; the g rows of a GQA group are
 // folded into the rows as K2 does) and streams K and V through shared memory
 // in tiles of 64 slots with an online softmax, so the scores never reach
-// device memory and shared memory does not grow with S. The loop stops at
-// the last slot the tile's rows can see (masked columns contribute exactly
-// 0, so that is the same function): cache traffic follows pos0 + t, not S,
-// and the tiles above the diagonal are never read.
-//  * bf16: four warps of 16 rows each. Q K^T and P V are
-//    mma.sync.m16n8k16 (bf16 in, f32 out); Q stays in registers as A
-//    fragments, K's B fragments are 32-bit loads of its row-major tile, V's
-//    are ldmatrix.trans of its row-major tile, the score accumulators are
-//    repacked in registers as the A fragments of P V. Tile rows are padded
-//    by 16 bytes against bank conflicts.
+// device memory and shared memory does not grow with S. A block reads only
+// the slots its rows can see (masked columns contribute exactly 0): cache
+// traffic follows pos0 + t, not S, and the tiles above the diagonal are
+// never read. Two forms (ops/attention.py k7_form; the entry point takes the
+// code):
+//  * bf16: attn_prefill_tc, then attn_prefill_merge when the plan splits
+//    the slots into chunks.
+//    - Both products on the tensor cores: bf16 mma.sync.m16n8k16 with f32
+//      accumulation, four warps of one m16 tile of rows each (two blocks an
+//      SM; two m16 tiles a warp spilled at 255 registers and ran slower);
+//      q stays in registers as A
+//      fragments, K's B fragments are ldmatrix of its tile, V's
+//      ldmatrix.trans, and the scores are repacked in registers as the A
+//      fragments of P V. Scores carry log2(e) / sqrt(hd), so the softmax
+//      takes exp2; only the tile that crosses a warp's diagonal (or the end
+//      of its slots) is masked.
+//    - A ring of three stages of K and V tiles filled by the TMA unit: one
+//      bulk copy per 8 neighbouring slots of K or V (2 KB at hd = 128; with
+//      one copy a row the copies took as long as the mma), completing on the
+//      stage's mbarrier. The groups are padded by 16 bytes and a fragment
+//      takes one slot of each group, so that its rows fall on distinct
+//      banks; the slots are permuted within a tile alike for K, the
+//      scores, P and V (only the order of the f32 sums sees it). All
+//      stages are filled at the start, and a stage is refilled as soon as
+//      every warp is done with it (one block barrier a refill; the
+//      mbarrier alone says a tile has landed), so the next tiles' copies run
+//      under this tile's mma. V rows past the visible slots are zeroed, so
+//      p * V stays finite.
+//    - Enough blocks to fill the card: where the q-tiles of a call give
+//      fewer than 96 blocks, the plan (ops/attention.py
+//      prefill_plan, a function of the shapes only, never of pos0) cuts the
+//      slots into chunks of equal length, a multiple of 64, and the grid
+//      takes one block per (q-tile, chunk). That also balances the causal
+//      triangle: no block reads more than a chunk, however far down the
+//      diagonal its rows are. A chunk past its q-tile's visible end returns
+//      at once; the others write f32 partials (unnormalized P V, the row's
+//      maximum and sum) to a workspace, and attn_prefill_merge, a second
+//      launch, merges each row's chunks in order, up to the last it sees
+//      (a call run twice gives the same bits; no arrival counters). With
+//      one chunk the block writes the output itself.
 //  * f32: plain FMA. 256 threads, 32 query rows; scores and probabilities
 //    of a tile go through shared memory, the output accumulators live in
 //    registers.
-// wgmma, TMA and a pipelined tile loop are left to a later change.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
-// entry point returns cudaGetLastError() after its launch.
+// entry point returns cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,193 +90,353 @@ __device__ __forceinline__ int visible_slots(int p0, int last_row, int g, int S)
   return max(0, min(S, p0 + last_row / g + 1));
 }
 
-// --------------------------------------------------------------- bf16, mma
+// ------------------------------------------------------ bf16, tensor cores
 
-constexpr int kMmaThreads = 128;
-constexpr int kMmaBM = 64;  // query rows per block: 16 per warp
-constexpr int kPadB = 8;    // bf16 elements of padding per tile row (16 bytes)
+constexpr int kTcThreads = 128;  // four warps
+constexpr int kTcRows = 64;      // query rows per block: one m16 tile a warp
+constexpr int kStages = 3;       // ring stages of K and V tiles
+constexpr int kGroup = 8;        // slots of a tile that one bulk copy brings
+constexpr int kPadB = 8;         // bf16 elements of padding after each group (16 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t mma_smem_bytes(int hd) {
-  return (size_t)(kMmaBM + 2 * kBN) * (hd + kPadB) * sizeof(__nv_bfloat16);
+// 2^x by the SFU (2^-inf = 0): relative error about 2^-22, far inside the
+// bf16 rounding of p that follows.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// grid (ceil(t*g / 64), B*KV). Fragment layouts of mma.m16n8k16 with
-// gid = lane / 4, tig = lane % 4: A regs hold (row gid | gid+8, k 2*tig+{0,1}
-// | +8); B regs hold (k 2*tig+{0,1} | +8, n gid); C holds (row gid, n
-// 2*tig+{0,1}) in c0, c1 and (row gid+8, the same n) in c2, c3.
+// A tile's slots lie in shared memory as 8 groups of 8 neighbouring slots,
+// each group one bulk copy of 8 rows, groups tc_gld bf16 elements apart (16
+// bytes of padding). A fragment's 8 rows are one slot of each group (the
+// slot of position q of a tile's scores, P and V rows is 8 (q & 7) + (q >>
+// 3)), so that they fall on distinct banks.
+template <int HD> __host__ __device__ constexpr int tc_gld() { return kGroup * HD + kPadB; }
+// One stage: the K tile, then the V tile, each 8 groups of tc_gld bf16.
+template <int HD> __host__ __device__ constexpr int tc_stage_bytes() {
+  return 2 * (kBN / kGroup) * tc_gld<HD>() * 2;
+}
+// Dynamic shared memory of a block: the ring and its mbarriers.
+template <int HD> __host__ __device__ constexpr int tc_smem_bytes() {
+  return kStages * (tc_stage_bytes<HD>() + 8);
+}
+static_assert(tc_stage_bytes<64>() % 16 == 0 && tc_stage_bytes<128>() % 16 == 0,
+              "stages and barriers stay aligned");
+static_assert(2 * (tc_smem_bytes<128>() + 1024) <= 233472,
+              "two blocks an SM fit its shared memory");
+
+// Offset of query row r of batch b, kv head kvh in q and out.
+__device__ __forceinline__ size_t q_off(int b, int r, int t, int KV, int kvh, int g, int hd) {
+  return ((((size_t)b * t + r / g) * KV + kvh) * g + r % g) * hd;
+}
+
+// grid (B*KV * n_qt, n_chunks), 128 threads, dynamic shared memory
+// tc_smem_bytes. Block x is (batch, kv head) x / n_qt and q-tile x % n_qt
+// (rows 64 * q-tile ..), block y the chunk of slots [y * cps, (y + 1) *
+// cps). Warp w takes rows 16 w .. 16 w + 15 of the q-tile. scale2 is
+// log2(e) / sqrt(hd). With one chunk the block writes the output; with
+// more, every chunk with work writes its partials to ws (rows [B*KV,
+// n_chunks, t*g] of hd values, then the maxima and the sums of the rows,
+// the maxima in log2 units), and attn_prefill_merge merges them.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) attn_prefill_mma(
+__global__ void __launch_bounds__(kTcThreads, 2) attn_prefill_tc(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos0,
-    __nv_bfloat16* __restrict__ out, int t, int KV, int g, int S, float scale) {
-  constexpr int LD = HD + kPadB;  // padded row stride (elements)
-  constexpr int KK = HD / 16;     // k-steps of Q K^T
-  constexpr int DT = HD / 8;      // n-tiles of the output
-  constexpr int NT = kBN / 8;     // n-tiles of the scores
-  constexpr int VPR = HD / 8;     // 16-byte vectors per row
+    __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int t, int KV, int g, int S,
+    float scale2, int cps, int n_qt) {
+  constexpr int GLD = tc_gld<HD>();
+  constexpr int KK = HD / 16;  // k-steps of Q K^T
+  constexpr int DT = HD / 8;   // n-tiles of the output
+  constexpr int NT = kBN / 8;  // n-tiles of the scores
+  constexpr int STAGE = tc_stage_bytes<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kMmaBM * LD;
-  __nv_bfloat16* Vs = Ks + kBN * LD;
 
-  const int bh = blockIdx.y;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / KV, kvh = bh % KV;
+  const int chunk = blockIdx.y, n_chunks = gridDim.y;
   const int R = t * g;
-  const int r0 = blockIdx.x * kMmaBM;
+  const int r0 = qt * kTcRows;
+  const int rows = min(kTcRows, R - r0);
   const int p0 = pos0[b];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // slots the q-tile's last row sees, inside the cache
+  const int vis = min(S, max(0, p0 + (r0 + rows - 1) / g + 1));
+  const int j_begin = chunk * cps;
+  // a chunk past the visible end has no work (its rows' merge gives it no
+  // weight); with one chunk the block runs on, so that a q-tile that sees
+  // nothing writes its NaN
+  if (j_begin >= vis && n_chunks > 1) return;
+  const int j_end = max(j_begin, min(j_begin + cps, vis));
+  const int n_it = (j_end - j_begin + kBN - 1) / kBN;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * STAGE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
+  const bool active = warp * 16 < rows;
 
-  // Stage the q-tile (rows past R as zeros), then take this warp's A
-  // fragments into registers.
-  for (int i = threadIdx.x; i < kMmaBM * VPR; i += kMmaThreads) {
-    const int row = i / VPR, c = i % VPR;
-    const int r = r0 + row;
-    uint4 v4 = make_uint4(0, 0, 0, 0);
-    if (r < R) {
-      const int ti = r / g, gi = r % g;
-      v4 = __ldg(reinterpret_cast<const uint4*>(
-                     q + ((((size_t)b * t + ti) * KV + kvh) * g + gi) * HD) + c);
-    }
-    *reinterpret_cast<uint4*>(Qs + row * LD + c * 8) = v4;
-  }
+  if (tid < kStages) mbar_init(bars + tid);
+  mbar_init_fence();
   __syncthreads();
-  uint32_t qf[KK][4];
-  {
-    const __nv_bfloat16* qlo = Qs + (warp * 16 + gid) * LD + tig * 2;
-    const __nv_bfloat16* qhi = qlo + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qlo + kk * 16);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qhi + kk * 16);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qlo + kk * 16 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qhi + kk * 16 + 8);
-    }
-  }
 
-  // This thread's two rows (gid and gid + 8 of the warp's 16) and their
-  // query positions.
+  // Tile `it` of the chunk into ring stage `st`: thread G < 8 copies K's
+  // group G of 8 slots, thread 8 + G V's, each by one bulk copy (of the
+  // group's visible slots). V rows past the visible slots are zeroed
+  // instead, by threads 64 .. 127 (their p is 0, and p * V must stay
+  // finite); K rows there keep what they held, since the mask selects -inf
+  // over whatever score they give. Only a chunk's last tile is short, and
+  // no later copy refills its stage.
+  const size_t cbase = (size_t)bh * S * HD;
+  auto load = [&](int st, int it) {
+    const int j0 = j_begin + it * kBN;
+    const int n = min(kBN, j_end - j0);
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem + st * STAGE);
+    if (tid == 0) mbar_expect(bars + st, 2u * n * HD * 2);
+    if (tid < 2 * kGroup) {
+      const int grp = tid & (kGroup - 1), rows = min(kGroup, n - kGroup * grp);
+      const bool is_v = tid >= kGroup;
+      if (rows > 0)
+        bulk_copy(stage + (is_v ? kGroup * GLD : 0) + grp * GLD,
+                  (is_v ? vc : kc) + cbase + (size_t)(j0 + kGroup * grp) * HD, rows * HD * 2,
+                  bars + st);
+    } else if (tid >= kBN && tid - kBN >= n) {
+      const int r = tid - kBN;
+      uint4* dst = reinterpret_cast<uint4*>(stage + kGroup * GLD + (r >> 3) * GLD + (r & 7) * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) dst[c] = make_uint4(0, 0, 0, 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages; ++i)
+    if (i < n_it) load(i, i);
+
+  // This warp's q rows (gid and gid + 8 of its m16 tile; zeros past R) as A
+  // fragments, and their query positions.
   const int row_lo = r0 + warp * 16 + gid, row_hi = row_lo + 8;
   const int qp_lo = p0 + row_lo / g, qp_hi = p0 + row_hi / g;
+  const int qp_first = p0 + (r0 + warp * 16) / g;  // the warp's first row sees the fewest
+  uint32_t qf[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) qf[kk][0] = qf[kk][1] = qf[kk][2] = qf[kk][3] = 0u;
+  if (active && row_lo < R) {
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(q + q_off(b, row_lo, t, KV, kvh, g, HD));
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) qf[kk][0] = qw[kk * 8 + tig], qf[kk][2] = qw[kk * 8 + 4 + tig];
+  }
+  if (active && row_hi < R) {
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(q + q_off(b, row_hi, t, KV, kvh, g, HD));
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) qf[kk][1] = qw[kk * 8 + tig], qf[kk][3] = qw[kk * 8 + 4 + tig];
+  }
+
+  __syncthreads();  // the V rows zeroed past the visible slots are written
+  // The running maximum (log2 units) and sum of rows gid and gid + 8, and
+  // their unnormalized P V.
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
   float o[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
-  const int nvis = visible_slots(p0, min(r0 + kMmaBM, R) - 1, g, S);
-  const size_t cbase = (size_t)bh * S * HD;
-  for (int j0 = 0; j0 < nvis; j0 += kBN) {
-    __syncthreads();  // every warp is done with the previous tiles
-    for (int i = threadIdx.x; i < kBN * VPR; i += kMmaThreads) {
-      const int row = i / VPR, c = i % VPR;
-      uint4 k4 = make_uint4(0, 0, 0, 0), v4 = make_uint4(0, 0, 0, 0);
-      if (j0 + row < nvis) {
-        const size_t off = cbase + (size_t)(j0 + row) * HD;
-        k4 = __ldg(reinterpret_cast<const uint4*>(kc + off) + c);
-        v4 = __ldg(reinterpret_cast<const uint4*>(vc + off) + c);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    mbar_wait(bars + st, (it / kStages) & 1);
+    // a short tile (the chunk's last) refilled in the loop: its V zeros too
+    if (it >= kStages && j_begin + (it + 1) * kBN > j_end) __syncthreads();
+    const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(smem + st * STAGE);
+    const __nv_bfloat16* Vs = Ks + kGroup * GLD;
+    const int j0 = j_begin + it * kBN;
+    if (active) {
+      // scores of 16 rows x 64 slots
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      // K's B fragments of two n-tiles (score positions 8n .. 8n+15) at a
+      // k-step by one ldmatrix: lanes 8i .. 8i+7 give the rows of slots 8j
+      // + n + (i >> 1), j = 0 .. 7, at columns kk*16 + 8 (i & 1)
+      const __nv_bfloat16* krow =
+          Ks + (lane & 7) * GLD + (lane >> 4) * HD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, krow + n * HD + kk * 16);
+          mma_bf16(s[n], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[n + 1], qf[kk], kb[2], kb[3]);
+        }
       }
-      *reinterpret_cast<uint4*>(Ks + row * LD + c * 8) = k4;
-      *reinterpret_cast<uint4*>(Vs + row * LD + c * 8) = v4;
-    }
-    __syncthreads();
 
-    // scores of 16 rows x 64 slots
-    float s[NT][4];
+      // scale; mask (a select: an unread K row may give any score) only the
+      // tile that crosses the warp's diagonal or the end of its slots; the
+      // running maximum
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+      if (j0 + kBN <= j_end && j0 + kBN - 1 <= qp_first) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        for (int n = 0; n < NT; ++n) {
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
+          for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
+          mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = j0 + 16 * tig + 8 * e + n;  // of position 8n + 2 tig + e
+            const bool in = slot < j_end;
+            s[n][e] = (in && slot <= qp_lo) ? s[n][e] * scale2 : -INFINITY;
+            s[n][2 + e] = (in && slot <= qp_hi) ? s[n][2 + e] * scale2 : -INFINITY;
+            mx_lo = fmaxf(mx_lo, s[n][e]);
+            mx_hi = fmaxf(mx_hi, s[n][2 + e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      // a row that has seen nothing yet keeps m = -inf: exponentials are
+      // taken against 0 there, so that -inf - -inf never forms
+      const float ms_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+      const float ms_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+      const float a_lo = exp2_approx(m_lo - ms_lo), a_hi = exp2_approx(m_hi - ms_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= a_lo;
+      l_hi *= a_hi;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        o[n][0] *= a_lo;
+        o[n][1] *= a_lo;
+        o[n][2] *= a_hi;
+        o[n][3] *= a_hi;
+      }
+
+      // p = 2^(s - m), summed in f32 and rounded to bf16 for P V
+      uint32_t pf[NT / 2][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + gid) * LD + kk * 16 + tig * 2;
-        mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        const float p0_ = exp2_approx(s[n][0] - ms_lo), p1_ = exp2_approx(s[n][1] - ms_lo);
+        const float p2_ = exp2_approx(s[n][2] - ms_hi), p3_ = exp2_approx(s[n][3] - ms_hi);
+        l_lo += p0_ + p1_;
+        l_hi += p2_ + p3_;
+        pf[n / 2][(n & 1) * 2] = pack_bf16(p0_, p1_);
+        pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2_, p3_);
+      }
+
+      // O += P V: per 16 slots, ldmatrix.trans brings the B fragments of
+      // two output n-tiles (16 columns of V) at once
+#pragma unroll
+      for (int ks = 0; ks < kBN / 16; ++ks) {
+        const int mat = lane >> 3, mr = lane & 7;
+        const __nv_bfloat16* vrow = Vs + mr * GLD + (2 * ks + (mat & 1)) * HD + (mat >> 1) * 8;
+#pragma unroll
+        for (int n = 0; n < DT; n += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vrow + n * 8);
+          mma_bf16(o[n], pf[ks], vb[0], vb[1]);
+          mma_bf16(o[n + 1], pf[ks], vb[2], vb[3]);
+        }
       }
     }
-
-    // scale, mask, running maximum
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int slot = j0 + n * 8 + tig * 2 + e;
-        const bool in = slot < S;
-        s[n][e] = (in && slot <= qp_lo) ? s[n][e] * scale : -INFINITY;
-        s[n][2 + e] = (in && slot <= qp_hi) ? s[n][2 + e] * scale : -INFINITY;
-        mx_lo = fmaxf(mx_lo, s[n][e]);
-        mx_hi = fmaxf(mx_hi, s[n][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    // a row that has seen nothing yet keeps m = -inf: exponentials are taken
-    // against 0 there, so that -inf - -inf never forms
-    const float ms_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-    const float ms_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-    const float a_lo = expf(m_lo - ms_lo), a_hi = expf(m_hi - ms_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= a_lo;
-    l_hi *= a_hi;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= a_lo;
-      o[n][1] *= a_lo;
-      o[n][2] *= a_hi;
-      o[n][3] *= a_hi;
-    }
-
-    // p = exp(s - m), summed in f32 and rounded to bf16 for P V
-    uint32_t pf[NT / 2][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float p0_ = expf(s[n][0] - ms_lo), p1_ = expf(s[n][1] - ms_lo);
-      const float p2_ = expf(s[n][2] - ms_hi), p3_ = expf(s[n][3] - ms_hi);
-      l_lo += p0_ + p1_;
-      l_hi += p2_ + p3_;
-      pf[n / 2][(n & 1) * 2] = pack_bf16(p0_, p1_);
-      pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2_, p3_);
-    }
-
-    // O += P V: per 16 slots, ldmatrix.trans brings the B fragments of two
-    // output n-tiles (16 columns of V) at once
-#pragma unroll
-    for (int ks = 0; ks < kBN / 16; ++ks) {
-      const int mat = lane >> 3, mr = lane & 7;
-      const __nv_bfloat16* vrow = Vs + (ks * 16 + (mat & 1) * 8 + mr) * LD + (mat >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < DT; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + n * 8);
-        mma_bf16(o[n], pf[ks], vb[0], vb[1]);
-        mma_bf16(o[n + 1], pf[ks], vb[2], vb[3]);
-      }
+    if (it + kStages < n_it) {
+      __syncthreads();  // every warp is done with stage `st`
+      load(st, it + kStages);
     }
   }
+  if (!active) return;
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
+  const size_t n_part = (size_t)(gridDim.x / n_qt) * n_chunks * R;
+  const size_t p_base = ((size_t)bh * n_chunks + chunk) * R;  // + row
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? row_hi : row_lo;
-    if (r >= R) continue;
-    const float l = half ? l_hi : l_lo;
-    const int ti = r / g, gi = r % g;
-    __nv_bfloat16* orow = out + ((((size_t)b * t + ti) * KV + kvh) * g + gi) * HD;
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_hi : row_lo;
+    if (row >= R) continue;
+    const float l = h ? l_hi : l_lo;
+    if (n_chunks == 1) {  // a row that sees nothing: 0 / 0
+      __nv_bfloat16* orow = out + q_off(b, row, t, KV, kvh, g, HD) + tig * 2;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(o[n][half * 2] / l, o[n][half * 2 + 1] / l);
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tig * 2) = v;
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8) =
+            pack_bf16(o[n][2 * h] / l, o[n][2 * h + 1] / l);
+    } else {
+      float* wrow = ws + (p_base + row) * HD + tig * 2;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(wrow + n * 8) = make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      if (tig == 0) {
+        ws[n_part * HD + p_base + row] = h ? m_hi : m_lo;
+        ws[n_part * (HD + 1) + p_base + row] = l;
+      }
     }
+  }
+}
+
+// The merge of attn_prefill_tc's chunks of cps slots: row r, at position
+// qp = pos0 + r / g, takes chunks 0 .. qp / cps in order (every one of them
+// ran, and the row sees slots in each), each weighed by 2^(m_c - max) with
+// the running maximum; a row that sees nothing (qp < 0) gives NaN, as the
+// kernel of one chunk does. Grid (B*KV, ceil(t*g / 8)), 256 threads: a warp
+// a row, a lane HD / 32 neighbouring columns, so that a row's maxima and
+// sums are one load a chunk for the warp and its partials one coalesced
+// read.
+template <int HD>
+__global__ void __launch_bounds__(256) attn_prefill_merge(
+    const float* __restrict__ ws, const int* __restrict__ pos0, __nv_bfloat16* __restrict__ out,
+    int t, int KV, int g, int cps, int n_chunks) {
+  constexpr int C = HD / 32;  // columns a lane
+  const int bh = blockIdx.x;
+  const int b = bh / KV, kvh = bh % KV;
+  const int R = t * g;
+  const int r = blockIdx.y * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= R) return;
+  const size_t n_part = (size_t)gridDim.x * n_chunks * R;
+  const float* pm = ws + n_part * HD;
+  const float* pl = pm + n_part;
+  const int qp = pos0[b] + r / g;
+  float v[C];
+  if (qp < 0) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = __int_as_float(0x7fc00000);  // NaN
+  } else {
+    const int last = min(qp / cps, n_chunks - 1);
+    float mx = -INFINITY, den = 0.f, num[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) num[j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c <= last; ++c) {
+      const size_t pi = ((size_t)bh * n_chunks + c) * R + r;
+      const float m = pm[pi], l = pl[pi];
+      float p[C];
+      if constexpr (C == 4) {
+        const float4 f = *reinterpret_cast<const float4*>(ws + pi * HD + 4 * lane);
+        p[0] = f.x, p[1] = f.y, p[2] = f.z, p[3] = f.w;
+      } else {
+        const float2 f = *reinterpret_cast<const float2*>(ws + pi * HD + 2 * lane);
+        p[0] = f.x, p[1] = f.y;
+      }
+      const float mn = fmaxf(mx, m);  // finite: the row sees slots in chunk c
+      const float a = exp2_approx(mx - mn), w = exp2_approx(m - mn);
+      mx = mn;
+      den = fmaf(den, a, w * l);
+#pragma unroll
+      for (int j = 0; j < C; ++j) num[j] = fmaf(num[j], a, w * p[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = num[j] / den;
+  }
+  __nv_bfloat16* orow = out + q_off(b, r, t, KV, kvh, g, HD) + C * lane;
+  if constexpr (C == 4) {
+    *reinterpret_cast<uint2*>(orow) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  } else {
+    *reinterpret_cast<uint32_t*>(orow) = pack_bf16(v[0], v[1]);
   }
 }
 
@@ -402,40 +591,73 @@ int set_smem(Kernel kernel, size_t bytes) {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const int* pos0, void* out, int B,
-           int t, int KV, int g, int S, float scale, int is_bf16, cudaStream_t st) {
-  const int R = t * g;
-  if (is_bf16) {
-    const size_t smem = mma_smem_bytes(HD);
-    const int e = set_smem(attn_prefill_mma<HD>, smem);
-    if (e != 0) return e;
-    const dim3 grid((R + kMmaBM - 1) / kMmaBM, B * KV);
-    attn_prefill_mma<HD><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), pos0, static_cast<__nv_bfloat16*>(out), t, KV,
-        g, S, scale);
-  } else {
-    const size_t smem = fma_smem_bytes(HD);
-    const int e = set_smem(attn_prefill_fma<HD>, smem);
-    if (e != 0) return e;
-    const dim3 grid((R + kFmaBM - 1) / kFmaBM, B * KV);
-    attn_prefill_fma<HD><<<grid, kFmaThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), pos0, static_cast<float*>(out), t, KV, g, S, scale);
-  }
+int launch_tc(const void* q, const void* k, const void* v, const int* pos0, void* out,
+              float* ws, int B, int t, int KV, int g, int S, float scale, int cps,
+              int n_chunks, cudaStream_t st) {
+  constexpr int smem = tc_smem_bytes<HD>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const int opt_in = set_smem(attn_prefill_tc<HD>, smem);
+  if (opt_in != 0) return opt_in;
+  const int n_qt = (t * g + kTcRows - 1) / kTcRows;
+  const dim3 grid(B * KV * n_qt, n_chunks);
+  attn_prefill_tc<HD><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), pos0, static_cast<__nv_bfloat16*>(out), ws, t, KV,
+      g, S, scale * kLog2e, cps, n_qt);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return (int)e;
+  const dim3 mgrid(B * KV, (t * g + 7) / 8);
+  attn_prefill_merge<HD><<<mgrid, 256, 0, st>>>(ws, pos0, static_cast<__nv_bfloat16*>(out), t,
+                                                KV, g, cps, n_chunks);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_fma(const void* q, const void* k, const void* v, const int* pos0, void* out, int B,
+               int t, int KV, int g, int S, float scale, cudaStream_t st) {
+  const size_t smem = fma_smem_bytes(HD);
+  const int e = set_smem(attn_prefill_fma<HD>, smem);
+  if (e != 0) return e;
+  const dim3 grid((t * g + kFmaBM - 1) / kFmaBM, B * KV);
+  attn_prefill_fma<HD><<<grid, kFmaThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      pos0, static_cast<float*>(out), t, KV, g, S, scale);
+  return (int)cudaGetLastError();
+}
+
+// The forms, as ops/attention.py's K7_FORMS numbers them.
+enum Form { kFma = 0, kPrefillTc = 1 };
+
 }  // namespace
 
-// hd must be 64 or 128 (the wrapper checks; anything else returns
-// cudaErrorInvalidValue). Returns cudaGetLastError() after the launch.
+// form kFma (f32 q, cache and out): one chunk of the whole cache, ws not
+// read. form kPrefillTc (bf16): the plan of ops/attention.py prefill_plan,
+// slots_per_chunk a multiple of 64 and n_chunks ceil(S / slots_per_chunk);
+// ws holds [B*KV, n_chunks, t*g] rows of hd + 2 f32 values (partials, then
+// maxima and sums) and is not read with one chunk. hd must be 64 or 128.
+// Returns cudaErrorInvalidValue for arguments the form does not take, else
+// cudaGetLastError() after the launches.
 extern "C" int llamago_attn_prefill(const void* q, const void* k, const void* v,
-                                    const void* pos0, void* out, int B, int t, int KV, int g,
-                                    int hd, int S, float scale, int is_bf16, void* stream) {
+                                    const void* pos0, void* out, void* ws, int B, int t, int KV,
+                                    int g, int hd, int S, float scale, int form,
+                                    int slots_per_chunk, int n_chunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos0);
-  if (hd == 128) return launch<128>(q, k, v, p, out, B, t, KV, g, S, scale, is_bf16, st);
-  if (hd == 64) return launch<64>(q, k, v, p, out, B, t, KV, g, S, scale, is_bf16, st);
-  return (int)cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  if (B < 1 || t < 1 || KV < 1 || g < 1 || S < 1 || (hd != 64 && hd != 128) ||
+      slots_per_chunk < 1 || n_chunks != (S + slots_per_chunk - 1) / slots_per_chunk)
+    return (int)cudaErrorInvalidValue;
+  if (form == kFma) {
+    if (n_chunks != 1) return (int)cudaErrorInvalidValue;
+    return hd == 128 ? launch_fma<128>(q, k, v, p, out, B, t, KV, g, S, scale, st)
+                     : launch_fma<64>(q, k, v, p, out, B, t, KV, g, S, scale, st);
+  }
+  if (form != kPrefillTc || slots_per_chunk % kBN || (n_chunks > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return hd == 128
+             ? launch_tc<128>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_chunk,
+                              n_chunks, st)
+             : launch_tc<64>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_chunk,
+                             n_chunks, st);
 }

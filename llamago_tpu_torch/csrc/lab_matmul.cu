@@ -23,34 +23,44 @@
 // and L10 read the Q4_0 bytes as): uint8 [K/2, N], byte r holds rows 2r (low)
 // and 2r+1 (high) as two's-complement nibbles. bf16 [K, N] (L12).
 //
-// What bounds them: at tm = 8 a weight element meets 16 operations. The
-// integer rows (L6 to L8, L10: __dp4a, four products an instruction) and the
-// probes are bound by the weight bytes over device-memory bandwidth (K*N/2
-// bytes of Q4_0 at K = 8192, N = 7168: 8.8 us at 3.35 TB/s). The rows that
-// dequantize to floating point and multiply outside the tensor cores (L2, L3,
-// L9, L12) need 2*8*K*N f32 operations, 14 us at 67 TFLOP/s: more than their
-// bytes take, so the FMA pipe bounds them here (on the paper of the data
-// sheet L3, L9's bf16 form and L12 count as bf16 products, which the tensor
-// cores would take; these kernels do not use them).
+// What bounds them: at tm = 8 a weight element meets 16 operations. Every
+// row is bound by its weight bytes over device-memory bandwidth when its
+// products run where their type runs fastest: K*N/2 bytes of Q4_0 or int4
+// at K = 8192, N = 7168 (8.8 us at 3.35 TB/s; 10.0 with the scales), 2*K*N
+// of bf16 for L12 (35.2 us). The integer rows (L6 to L8, L10: __dp4a, four
+// products an instruction) and the probes run on the CUDA cores; the float
+// rows (L2, L3, L9, L12) on the bf16 tensor cores, where their 2*8*K*N
+// operations take 1 us against 14 us in f32 FMA.
 //
-// What the design does about it: one split-K GEMV skeleton. A block of 256
-// threads owns 128 columns (a thread four neighbouring ones: one 32-bit word
-// of a Q8_0 or packed row, so a warp reads 128 or 256 contiguous bytes of a
-// row) and at most 512 rows of K; it first stages its slice of x in shared
-// memory (f32, or the int8 words __dp4a wants), which every lane then reads
-// at one address. The eight warps take contiguous runs of 32-row quant blocks,
-// a thread loads the 16 words of a block's rows before it uses them, and the
-// block adds its warps' sums in warp order (one pass over a 32 KB buffer that
-// reuses the memory x was staged in) into an f32 workspace [ksplit, tm, N]
-// that a second kernel adds in order (no atomics: the same result from run to
-// run). Rows past 8 go to blockIdx.z.
-//  * Floating point (lab_fgemv): a weight is decoded once and meets the eight
-//    rows of x in registers; the nibble becomes f32 by the mantissa-OR of the
-//    lab's own `bitcast` variants (an OR and an exact subtraction, no
-//    int-to-float convert). A product of two bf16 values is exact in f32, so
-//    FMA on bf16-rounded values gives L3's, L9's and L12's numbers; the bf16
-//    FMA of split_bf16_h is two explicit roundings.
-//  * Integer (lab_igemv): four rows of a column are gathered into one register
+// What the design does about it:
+//  * Floating point (lab_decode_tc): the tensor-core decode form of K1
+//    (decode_tc.cuh: its layout, lanes and fragments), one instance per
+//    mode. The weights are the A operand of bf16 mma.sync.m16n8k16 (16
+//    output columns by 16 rows of K) and x is B (its 8 rows the n8
+//    columns); the weight rows of a 32-row quant block, x and the scales
+//    arrive by TMA bulk copies on one mbarrier a ring stage (the weights
+//    with L2 evict_first); K is split into one wave of blocks, and lab_reduce
+//    adds the splits' f32 partials in a fixed order. Each 32-bit A register
+//    holds two K values of one column under one scale, made exactly in bf16
+//    from the nibbles (K1's 0x43nn pairs). L2 and L9's f32 form take the
+//    integer values -8..7 as they are and fold the column's scale into each
+//    quant block's f32 sum, as K1 does (int4 * s is no bf16 value); the bf16
+//    forms round int4 * s, (nib - 8) * s, or bf16(nib * s) + bf16(-8 s) in
+//    two steps (split_bf16_h), by __hmul2_rn and __hadd2_rn on the pairs,
+//    so nvcc cannot fuse the two roundings into one. L12's A fragments are
+//    ldmatrix.trans of its bf16 rows. Every mode sums a quant block in a
+//    zeroed accumulator and adds it to the output sum in f32, so that the
+//    tensor core's own accumulation never runs long.
+//  * Integer (lab_igemv): a split-K GEMV. A block of 256 threads owns 128
+//    columns (a thread four neighbouring ones: one 32-bit word of a Q8_0 or
+//    packed row, so a warp reads 128 or 256 contiguous bytes of a row) and at
+//    most 512 rows of K; it first stages its slice of x in shared memory (the
+//    int8 words __dp4a wants), which every lane then reads at one address.
+//    The eight warps take contiguous runs of 32-row quant blocks, and the
+//    block adds its warps' sums in warp order (one pass over a 32 KB buffer
+//    that reuses the memory x was staged in) into an f32 workspace [ksplit,
+//    tm, N] that lab_reduce adds in order. Rows past 8 go to blockIdx.z.
+//    Four rows of a column are gathered into one register
 //    by a 4x4 byte transpose (__byte_perm); nibbles stay raw (0..15, or
 //    nibble ^ 8 for two's complement) and 8 * sum(xq) of the block is taken
 //    off the int32 dot, the same integers as the centered dot. The int32 sums
@@ -76,7 +86,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tc_common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -87,17 +97,13 @@ constexpr int kTM = 8;         // rows of x per block
 constexpr int kMaxUnits = 16;  // 32-row quant blocks whose x a block stages
 constexpr unsigned kFull = 0xffffffffu;
 
-// modes of lab_fgemv
+// modes of lab_decode_tc (llamago_lab_fmatmul)
 constexpr int kFI4 = 0, kFI4Bf16 = 1, kFQ4Bf16 = 2, kFQ4Bf16Fma = 3, kFW16 = 4;
 // weight formats and x layouts of lab_igemv
 constexpr int kWQ8 = 0, kWQ4 = 1, kWI4 = 2;
 constexpr int kXRows = 0, kXBlocks = 1, kXHalves = 2;
 // modes of lab_probe
 constexpr int kPDecode = 0, kPDecodeBitcast = 1, kPDmaOnly = 2, kPDmaPure = 3;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // Four consecutive bf16 scales at p (8-byte aligned) -> f32.
 __device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float out[4]) {
@@ -108,6 +114,13 @@ __device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float out[4
   out[1] = a.y;
   out[2] = b.x;
   out[3] = b.y;
+}
+
+// A nibble v (0..15) less 8 as f32: 0x4B000000 | v read as f32 is 2^23 + v,
+// and the difference to 2^23 + 8 is exact, without the slower int-to-float
+// convert.
+__device__ __forceinline__ float nibble_minus_8(int v) {
+  return __uint_as_float(0x4B000000u | (uint32_t)v) - 8388616.f;
 }
 
 // Four words of four rows, each byte a column -> four words of four columns,
@@ -146,133 +159,293 @@ __device__ __forceinline__ void block_reduce_store(float (&acc)[kTM][4], float* 
   }
 }
 
-// ------------------------------------------------------- floating-point rows
+// ------------------------------------------- floating-point rows (lab_decode_tc)
 
-// One weight of a float mode from its nibble (raw 0..15) and its scale.
-// 0x4B000000 | v read as f32 is 2^23 + v for 0 <= v < 2^23, and the difference
-// to 2^23 + 8 is exact: v - 8 as f32 without the slower int-to-float convert.
-__device__ __forceinline__ float nibble_minus_8(int v) {
-  return __uint_as_float(0x4B000000u | (uint32_t)v) - 8388616.f;
+// The tensor-core decode form of rows L2, L3, L9 and L12, on the layout of
+// K1's decode form (decode_tc.cuh): per block 512 columns, four warps of
+// 128, lane (gid, tig) on 16 of them; per 32-row quant block of K two bf16
+// mma.sync.m16n8k16 a tile of 16 columns, the weights the A operand, the 8
+// rows of x the n8 columns of B. The weight rows, x and the scales of a
+// quant block arrive by bulk copies of the TMA unit into a ring stage (the
+// weights with L2 evict_first); one mbarrier and one block barrier a quant
+// block. Per mode (lt_*): the packed rows of a block (16 nibble rows, or 32
+// bf16 rows of 1,024 bytes for L12), their stride in a stage (16 bytes past
+// the row, 32 for the int4 order, so that the lanes' 16-byte reads fall on
+// distinct banks), the ring's depth and the blocks an SM holds.
+template <int MODE> __host__ __device__ constexpr bool lt_i4() {
+  return MODE == kFI4 || MODE == kFI4Bf16;
+}
+template <int MODE> __host__ __device__ constexpr int lt_rows() { return MODE == kFW16 ? 32 : 16; }
+template <int MODE> __host__ __device__ constexpr int lt_col_bytes() { return MODE == kFW16 ? 2 : 1; }
+template <int MODE> __host__ __device__ constexpr int lt_ld() {
+  return kDtBlockCols * lt_col_bytes<MODE>() + (lt_i4<MODE>() ? 32 : 16);
+}
+template <int MODE> __host__ __device__ constexpr int lt_stages() { return MODE == kFW16 ? 3 : 4; }
+template <int MODE> __host__ __device__ constexpr int lt_blocks_per_sm() {
+  return MODE == kFW16 ? 2 : 3;
+}
+// One stage: the weight rows, x (8 rows of 32 bf16, 80 bytes apart), then
+// the block's 512 bf16 scales (none for L12).
+template <int MODE> __host__ __device__ constexpr int lt_stage_bytes() {
+  return lt_rows<MODE>() * lt_ld<MODE>() + 8 * kDtXLd + (MODE == kFW16 ? 0 : 2 * kDtBlockCols);
+}
+template <int MODE> __host__ __device__ constexpr int lt_smem_bytes() {
+  return lt_stages<MODE>() * (lt_stage_bytes<MODE>() + 8);
+}
+static_assert(lt_stage_bytes<kFI4>() % 16 == 0 && lt_stage_bytes<kFQ4Bf16>() % 16 == 0 &&
+                  lt_stage_bytes<kFW16>() % 16 == 0,
+              "stages and barriers stay aligned");
+static_assert(lt_smem_bytes<kFQ4Bf16>() >= kDtWarps * 8 * kDtCols * 4 &&
+                  lt_smem_bytes<kFI4>() >= kDtWarps * 8 * kDtCols * 4,
+              "the warps' sums fit in the ring");
+static_assert(lt_blocks_per_sm<kFW16>() * (lt_smem_bytes<kFW16>() + 1024) <= 233472 &&
+                  lt_blocks_per_sm<kFI4>() * (lt_smem_bytes<kFI4>() + 1024) <= 233472,
+              "the blocks an SM is to hold fit its shared memory");
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hmul2_rn(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                      *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hadd2_rn(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                      *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-template <int MODE>
-__device__ __forceinline__ float decode_nibble(int nib, float s, float bias) {
-  if constexpr (MODE == kFI4) {
-    return nibble_minus_8(nib ^ 8) * s;  // two's complement: (nib ^ 8) - 8
-  } else if constexpr (MODE == kFI4Bf16) {
-    return bf16_round(nibble_minus_8(nib ^ 8) * s);  // the product is exact in f32
-  } else if constexpr (MODE == kFQ4Bf16) {
-    return bf16_round(nibble_minus_8(nib) * s);  // nib * s - 8 s, exact in f32
+// The A fragment of tile T (columns n+T and n+8+T) at k16 step STEP from
+// the lane's four 16-byte weight reads w. Q4_0 (L3): w[2h + e] is packed
+// row 8h + 2 tig + e, whose low nibbles are K rows 8h + 2 tig + e and high
+// nibbles 16 more (step 1); the pair is nib - 8 (bf16dot) or nib as it is
+// (split_bf16_h), exact. int4 order (L2, L9): w[r] is packed row 4r + tig,
+// already XORed with 0x88888888, so that one byte's low and high nibble
+// are K rows 2p and 2p + 1 and (nib ^ 8) - 8 is the two's-complement value.
+template <int MODE, int T, int STEP>
+__device__ __forceinline__ void lt_a_frag(const uint4 (&w)[4], uint32_t (&a)[4]) {
+  constexpr int I = T >> 2, J = T & 3;
+  if constexpr (lt_i4<MODE>()) {
+    const uint32_t c0 = word_of<I>(w[2 * STEP]), c1 = word_of<I + 2>(w[2 * STEP]);
+    const uint32_t c2 = word_of<I>(w[2 * STEP + 1]), c3 = word_of<I + 2>(w[2 * STEP + 1]);
+    a[0] = q4_pair<J, 0>(c0, c0 >> 4);
+    a[1] = q4_pair<J, 0>(c1, c1 >> 4);
+    a[2] = q4_pair<J, 0>(c2, c2 >> 4);
+    a[3] = q4_pair<J, 0>(c3, c3 >> 4);
   } else {
-    // bf16(bf16(nib * s) + bf16(-8 s)); the product and the sum are exact in f32
-    return bf16_round(__fadd_rn(bf16_round(__fmul_rn(nibble_minus_8(nib) + 8.f, s)), bias));
+    constexpr bool RAW = MODE == kFQ4Bf16Fma;
+    a[0] = q4_pair<J, 4 * STEP, RAW>(word_of<I>(w[0]), word_of<I>(w[1]));
+    a[1] = q4_pair<J, 4 * STEP, RAW>(word_of<I + 2>(w[0]), word_of<I + 2>(w[1]));
+    a[2] = q4_pair<J, 4 * STEP, RAW>(word_of<I>(w[2]), word_of<I>(w[3]));
+    a[3] = q4_pair<J, 4 * STEP, RAW>(word_of<I + 2>(w[2]), word_of<I + 2>(w[3]));
   }
 }
 
-// grid = (ceil(N/128), ksplit, tm/8). Block y covers quant blocks [y*upb,
-// (y+1)*upb), upb <= 16. x: bf16 [tm, K], or for kFQ4Bf16Fma its halves x,
-// x_hi [tm, K/2] (of every 32-block the first and the last 16 values).
+// The bf16 weights of the bf16 modes from exact pairs, each a rounding of
+// its own (the _rn intrinsics are never contracted): bf16(int4 * s) (L9),
+// bf16((nib - 8) * s) (bf16dot), bf16(bf16(nib * s) + bf16(-8 s))
+// (split_bf16_h). sp[0] pairs column n+T's scale, sp[1] column n+8+T's;
+// -8 s is exact in bf16.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads) lab_fgemv(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ x_hi,
-    const uint8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s, float* __restrict__ ws,
-    int tm, int K, int N, int upb) {
-  __shared__ __align__(16) float red[kRedFloats];
-  float(*xs)[kTM] = reinterpret_cast<float(*)[kTM]>(red);  // x staged: [kMaxUnits * 32][kTM]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane * 4;
-  const bool valid = n < N;
-  const int u0 = blockIdx.y * upb, u1 = min(u0 + upb, K / 32);
-  const int row0 = blockIdx.z * kTM;
-  const int rows = (u1 - u0) * 32;
-
-  for (int i = threadIdx.x; i < rows * kTM; i += kThreads) {
-    const int m = i / rows, kk = i % rows, k = u0 * 32 + kk;
-    __nv_bfloat16 v;
+__device__ __forceinline__ void lt_scale(uint32_t (&a)[4], const uint32_t (&sp)[2]) {
+  if constexpr (MODE == kFI4Bf16 || MODE == kFQ4Bf16 || MODE == kFQ4Bf16Fma) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = bf16x2_mul(a[e], sp[e & 1]);
     if constexpr (MODE == kFQ4Bf16Fma) {
-      const int j = k & 31;
-      v = (j < 16 ? x : x_hi)[(size_t)(row0 + m) * (K / 2) + (k >> 5) * 16 + (j & 15)];
-    } else {
-      v = x[(size_t)(row0 + m) * K + k];
+      const uint32_t bias[2] = {bf16x2_mul(sp[0], 0xC100C100u), bf16x2_mul(sp[1], 0xC100C100u)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = bf16x2_add(a[e], bias[e & 1]);
     }
-    xs[kk][m] = __bfloat162float(v);
   }
+}
+
+// Tile T of a lane's quant block, nibble modes: two k16 mma into a zeroed
+// block sum, then into acc (c0, c1: column n+T, rows 2 tig and 2 tig + 1 of
+// x; c2, c3: column n+8+T) by f32 adds, or for L2 and L9's f32 form the
+// block sum times the column's scale (f32), as K1's decode form folds it.
+// s0, s1: the raw bf16 scales of columns n .. n+7 and n+8 .. n+15.
+template <int MODE, int T>
+__device__ __forceinline__ void lt_tile(const uint4 (&w)[4], const uint32_t (&xb)[4],
+                                        const uint4& s0, const uint4& s1, float (&acc)[4]) {
+  constexpr uint32_t SEL = (T & 1) ? 0x3232u : 0x1010u;  // scale T's bf16 in both halves
+  const uint32_t sp[2] = {__byte_perm(word_of<(T >> 1)>(s0), 0u, SEL),
+                          __byte_perm(word_of<(T >> 1)>(s1), 0u, SEL)};
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t a[4];
+  lt_a_frag<MODE, T, 0>(w, a);
+  lt_scale<MODE>(a, sp);
+  mma_bf16(part, a, xb[0], xb[1]);
+  lt_a_frag<MODE, T, 1>(w, a);
+  lt_scale<MODE>(a, sp);
+  mma_bf16(part, a, xb[2], xb[3]);
+  if constexpr (MODE == kFI4) {
+    const float f0 = __uint_as_float(sp[0] << 16), f1 = __uint_as_float(sp[1] << 16);
+    acc[0] = fmaf(f0, part[0], acc[0]);
+    acc[1] = fmaf(f0, part[1], acc[1]);
+    acc[2] = fmaf(f1, part[2], acc[2]);
+    acc[3] = fmaf(f1, part[3], acc[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += part[e];
+  }
+}
+
+// grid = (ceil(N/512), ksplit, tm/8), block = kDtThreads, dynamic shared
+// memory lt_smem_bytes. Block x covers columns 512x .. 512x+511, block y
+// the quant blocks [y*per, (y+1)*per), block z the rows 8z .. 8z+7 of x.
+// Thread r < lt_rows copies weight row r of a quant block's 512 columns,
+// threads 32 .. 39 the 8 rows of x (kFQ4Bf16Fma: from the halves x, x_hi),
+// thread 64 the scales. Nibble modes: lane (gid, tig) of warp w owns
+// columns n = 512x + 128w + 16 gid .. +15, column n+T (T < 8) is row gid
+// of m16 tile T and n+8+T its row gid+8, as in K1's decode form. L12: the
+// A fragments are ldmatrix.trans of the bf16 rows, so tile T is columns c
+// = 512x + 128w + 16T .. +15, its row gid column c+gid, row gid+8 c+8+gid.
+// Writes f32 to dst[(y*tm + 8z + m)*N + n]: the output when ksplit is 1,
+// else the split's partials.
+template <int MODE>
+__global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_decode_tc(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ x_hi,
+    const uint8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s, float* __restrict__ dst,
+    int tm, int K, int N, int per) {
+  constexpr bool W16 = MODE == kFW16;
+  constexpr int ROWS = lt_rows<MODE>(), LD = lt_ld<MODE>(), STAGES = lt_stages<MODE>();
+  constexpr int CB = lt_col_bytes<MODE>();
+  constexpr int STAGE = lt_stage_bytes<MODE>();
+  constexpr int X_OFF = ROWS * LD, S_OFF = X_OFF + 8 * kDtXLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nb0 = blockIdx.x * kDtBlockCols;
+  const int row0 = blockIdx.z * 8;
+  const int kb0 = blockIdx.y * per;
+  const int n_it = min(per, K / 32 - kb0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  const uint32_t width = min(kDtBlockCols, N - nb0);  // columns: N is a multiple of 16
+  const uint32_t stage_tx = ROWS * width * CB + 8 * 64 + (W16 ? 0 : 2 * width);
+  const uint64_t once = l2_evict_first();  // the weights are read once
+  if (tid < STAGES) mbar_init(bars + tid);
+  mbar_init_fence();
   __syncthreads();
 
-  float acc[kTM][4];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  const int upw = (u1 - u0 + kWarps - 1) / kWarps;
-  const int ua = u0 + warp * upw, ub = min(ua + upw, u1);
-  if (valid) {
-    for (int u = ua; u < ub; ++u) {
-      const int kl = (u - u0) * 32;
-      if constexpr (MODE == kFW16) {
-        const __nv_bfloat16* w16 = reinterpret_cast<const __nv_bfloat16*>(q);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint2 wd[16];
-#pragma unroll
-          for (int r = 0; r < 16; ++r)
-            wd[r] = __ldg(reinterpret_cast<const uint2*>(
-                w16 + (size_t)(u * 32 + h * 16 + r) * N + n));
-#pragma unroll
-          for (int r = 0; r < 16; ++r) {
-            const float2 w01 =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wd[r].x));
-            const float2 w23 =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wd[r].y));
-            const float wv[4] = {w01.x, w01.y, w23.x, w23.y};
-            const float4* xp = reinterpret_cast<const float4*>(&xs[kl + h * 16 + r][0]);
-            const float4 a = xp[0], b = xp[1];
-            const float xv[kTM] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int m = 0; m < kTM; ++m)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv[m], wv[c], acc[m][c]);
-          }
-        }
+  // Quant block kb0 + it into ring slot `slot`.
+  auto load = [&](int slot, int it) {
+    const int kb = kb0 + it;
+    unsigned char* st = smem + slot * STAGE;
+    if (tid == 0) mbar_expect(bars + slot, stage_tx);
+    if (tid < ROWS) {
+      bulk_copy(st + tid * LD, q + ((size_t)(kb * ROWS + tid) * N + nb0) * CB, width * CB,
+                bars + slot, once);
+    } else if (tid >= 32 && tid < 40) {
+      const int m = tid - 32;
+      unsigned char* xd = st + X_OFF + m * kDtXLd;
+      if constexpr (MODE == kFQ4Bf16Fma) {  // of every 32-block the first and last 16
+        const size_t off = (size_t)(row0 + m) * (K / 2) + kb * 16;
+        bulk_copy(xd, x + off, 32, bars + slot);
+        bulk_copy(xd + 32, x_hi + off, 32, bars + slot);
       } else {
-        float sc[4], bias[4];
-        load_scales4(s + (size_t)u * N + n, sc);
+        bulk_copy(xd, x + (size_t)(row0 + m) * K + kb * 32, 64, bars + slot);
+      }
+    } else if (!W16 && tid == 64) {
+      bulk_copy(st + S_OFF, s + (size_t)kb * N + nb0, 2 * width, bars + slot);
+    }
+  };
+
+  float acc[8][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) bias[c] = bf16_round(-8.f * sc[c]);
-        uint32_t wd[16];
+  for (int t = 0; t < 8; ++t)
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          wd[j] = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(u * 16 + j) * N + n));
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  const int cw = warp * kDtCols + 16 * gid;  // nibble modes: this lane's columns, in the block
+  // L12: this lane's ldmatrix row, K row 8 (mat >> 1) + mr of a k16 step,
+  // columns 8 (mat & 1) .. +7 of a tile
+  const int mat = lane >> 3, mr = lane & 7;
+  const int w16_off = (8 * (mat >> 1) + mr) * LD + 2 * (warp * kDtCols + 8 * (mat & 1));
+
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          // the rows of the low and the high nibble of packed row j
-          constexpr bool kI4 = MODE == kFI4 || MODE == kFI4Bf16;
-          const int ra = kl + (kI4 ? 2 * j : j), rb = kl + (kI4 ? 2 * j + 1 : j + 16);
-          const float4* pa = reinterpret_cast<const float4*>(&xs[ra][0]);
-          const float4* pb = reinterpret_cast<const float4*>(&xs[rb][0]);
-          const float4 a0 = pa[0], a1 = pa[1], b0 = pb[0], b1 = pb[1];
-          const float xa[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float xb[kTM] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int i = 0; i < STAGES - 1; ++i)
+    if (i < n_it) load(i, i);
+  for (int it = 0; it < n_it; ++it) {
+    mbar_wait(bars + it % STAGES, (it / STAGES) & 1);
+    __syncthreads();  // quant block `it` has landed; every warp is done with slot (it-1) % stages
+    if (it + STAGES - 1 < n_it) load((it + STAGES - 1) % STAGES, it + STAGES - 1);
+
+    const unsigned char* st = smem + (it % STAGES) * STAGE;
+    uint32_t xb[4];  // x row gid at k = 2 tig + {0, 8, 16, 24}
+    {
+      const unsigned char* xr = st + X_OFF + gid * kDtXLd + 4 * tig;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int byte = (wd[j] >> (8 * c)) & 0xFF;
-            const float wa = decode_nibble<MODE>(byte & 0xF, sc[c], bias[c]);
-            const float wb = decode_nibble<MODE>(byte >> 4, sc[c], bias[c]);
+      for (int j = 0; j < 4; ++j) xb[j] = *reinterpret_cast<const uint32_t*>(xr + 16 * j);
+    }
+    if constexpr (W16) {
 #pragma unroll
-            for (int m = 0; m < kTM; ++m)
-              acc[m][c] = fmaf(xb[m], wb, fmaf(xa[m], wa, acc[m][c]));
-          }
+      for (int t = 0; t < 8; ++t) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, st + w16_off + 16 * step * LD + 32 * t);
+          mma_bf16(part, a, xb[2 * step], xb[2 * step + 1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] += part[e];
+      }
+    } else {
+      uint4 w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = lt_i4<MODE>() ? 4 * r + tig : 8 * (r >> 1) + 2 * tig + (r & 1);
+        w[r] = *reinterpret_cast<const uint4*>(st + row * LD + cw);
+        if constexpr (lt_i4<MODE>()) {
+          w[r].x ^= 0x88888888u, w[r].y ^= 0x88888888u;
+          w[r].z ^= 0x88888888u, w[r].w ^= 0x88888888u;
         }
       }
+      const uint4 s0 = *reinterpret_cast<const uint4*>(st + S_OFF + 2 * cw);
+      const uint4 s1 = *reinterpret_cast<const uint4*>(st + S_OFF + 2 * cw + 16);
+      lt_tile<MODE, 0>(w, xb, s0, s1, acc[0]);
+      lt_tile<MODE, 1>(w, xb, s0, s1, acc[1]);
+      lt_tile<MODE, 2>(w, xb, s0, s1, acc[2]);
+      lt_tile<MODE, 3>(w, xb, s0, s1, acc[3]);
+      lt_tile<MODE, 4>(w, xb, s0, s1, acc[4]);
+      lt_tile<MODE, 5>(w, xb, s0, s1, acc[5]);
+      lt_tile<MODE, 6>(w, xb, s0, s1, acc[6]);
+      lt_tile<MODE, 7>(w, xb, s0, s1, acc[7]);
     }
   }
-  block_reduce_store(acc, red, ws, tm, N, row0);
+
+  // The warp's 8 rows x 128 columns through shared memory, then 4
+  // neighbouring columns a lane to device memory.
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(smem) + warp * 8 * kDtCols;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* p = red + (2 * tig + h) * kDtCols;
+    if constexpr (W16) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        p[16 * t + gid] = acc[t][h];
+        p[16 * t + 8 + gid] = acc[t][2 + h];
+      }
+    } else {
+      float4* p4 = reinterpret_cast<float4*>(p + 16 * gid);
+      p4[0] = make_float4(acc[0][h], acc[1][h], acc[2][h], acc[3][h]);
+      p4[1] = make_float4(acc[4][h], acc[5][h], acc[6][h], acc[7][h]);
+      p4[2] = make_float4(acc[0][2 + h], acc[1][2 + h], acc[2][2 + h], acc[3][2 + h]);
+      p4[3] = make_float4(acc[4][2 + h], acc[5][2 + h], acc[6][2 + h], acc[7][2 + h]);
+    }
+  }
+  __syncwarp();
+  const int c = nb0 + warp * kDtCols + 4 * lane;
+  if (c >= N) return;
+  for (int m = 0; m < 8; ++m)
+    *reinterpret_cast<float4*>(dst + ((size_t)blockIdx.y * tm + row0 + m) * N + c) =
+        *reinterpret_cast<const float4*>(red + m * kDtCols + 4 * lane);
 }
 
 // ---------------------------------------------------------------- integer rows
 
-// grid and K split as lab_fgemv. xq int8 in layout XL: kXRows [tm, K];
+// grid = (ceil(N/128), ksplit, tm/8). Block y covers quant blocks [y*upb,
+// (y+1)*upb), upb <= 16. xq int8 in layout XL: kXRows [tm, K];
 // kXBlocks [K/32, tm, 32]; kXHalves the halves xq, xq_hi [tm, K/2]. sx f32
 // [K/(32*sg_units), tm] or null (activation scale 1). A scale group is
 // sg_units quant blocks, a k-tile tile_units; group g of tile t takes scale
@@ -565,41 +738,55 @@ bool bad_shape(int tm, int K, int N, int ksplit) {
   return tm < kTM || tm % kTM || K < 32 || K % 32 || N < 16 || N % 16 || ksplit < 1;
 }
 
+template <int MODE>
+cudaError_t launch_decode_tc(const void* x, const void* x_hi, const void* q, const void* s,
+                             float* out, float* ws, int tm, int K, int N, int ksplit,
+                             cudaStream_t st) {
+  constexpr int smem = lt_smem_bytes<MODE>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      lab_decode_tc<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int per = (K / 32 + ksplit - 1) / ksplit;
+  const dim3 grid((N + kDtBlockCols - 1) / kDtBlockCols, ksplit, tm / kTM);
+  lab_decode_tc<MODE><<<grid, kDtThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(x_hi),
+      static_cast<const uint8_t*>(q), static_cast<const __nv_bfloat16*>(s),
+      ksplit > 1 ? ws : out, tm, K, N, per);
+  if (ksplit > 1) reduce(ws, out, tm, N, tm, ksplit, st);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Rows L2, L3, L9 and L12. mode: 0 int4-typed nibbles, f32 (L2, L9); 1 the
-// same with bf16 weights (L9); 2 Q4_0 to bf16 in one rounding (L3 bf16dot); 3
-// Q4_0 with the FMA in bf16, x as the halves x, x_hi (L3 split_bf16_h); 4 raw
-// bf16 weights (L12; q is bf16 [K, N], s is not read). x bf16, s bf16, out f32
-// [tm, N], ws f32 [ksplit, tm, N]; ceil(K/32 / ksplit) <= 16.
+// Rows L2, L3, L9 and L12, each on the tensor-core decode form
+// lab_decode_tc. mode: 0 int4-typed nibbles, f32 scales on the block sums
+// (L2, L9); 1 the same with bf16 weights (L9); 2 Q4_0 to bf16 in one
+// rounding (L3 bf16dot); 3 Q4_0 with the FMA in bf16, x as the halves x,
+// x_hi (L3 split_bf16_h); 4 raw bf16 weights (L12; q is bf16 [K, N], s is
+// not read). x bf16, s bf16, out f32 [tm, N]; ws f32 [ksplit, tm, N], read
+// only when ksplit > 1, each split ceil(K/32 / ksplit) quant blocks (the
+// plan of ops/lab_kernels.py lab_plan). Returns cudaGetLastError() after
+// the launches.
 extern "C" int llamago_lab_fmatmul(const void* x, const void* x_hi, const void* q,
                                    const void* s, void* out, void* ws, int tm, int K, int N,
                                    int mode, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(tm, K, N, ksplit)) return (int)cudaErrorInvalidValue;
-  const int upb = (K / 32 + ksplit - 1) / ksplit;
-  if (upb > kMaxUnits || mode < 0 || mode > 4) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kCols - 1) / kCols, ksplit, tm / kTM);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* xh = static_cast<const __nv_bfloat16*>(x_hi);
-  const auto* qp = static_cast<const uint8_t*>(q);
-  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  if (bad_shape(tm, K, N, ksplit) || ksplit > K / 32 || (ksplit > 1 && ws == nullptr) ||
+      (mode == kFQ4Bf16Fma && x_hi == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float* o = static_cast<float*>(out);
   float* w = static_cast<float*>(ws);
   switch (mode) {
-    case kFI4: lab_fgemv<kFI4><<<grid, kThreads, 0, st>>>(xp, xh, qp, sp, w, tm, K, N, upb); break;
-    case kFI4Bf16:
-      lab_fgemv<kFI4Bf16><<<grid, kThreads, 0, st>>>(xp, xh, qp, sp, w, tm, K, N, upb);
-      break;
-    case kFQ4Bf16:
-      lab_fgemv<kFQ4Bf16><<<grid, kThreads, 0, st>>>(xp, xh, qp, sp, w, tm, K, N, upb);
-      break;
+    case kFI4: return launch_decode_tc<kFI4>(x, x_hi, q, s, o, w, tm, K, N, ksplit, st);
+    case kFI4Bf16: return launch_decode_tc<kFI4Bf16>(x, x_hi, q, s, o, w, tm, K, N, ksplit, st);
+    case kFQ4Bf16: return launch_decode_tc<kFQ4Bf16>(x, x_hi, q, s, o, w, tm, K, N, ksplit, st);
     case kFQ4Bf16Fma:
-      lab_fgemv<kFQ4Bf16Fma><<<grid, kThreads, 0, st>>>(xp, xh, qp, sp, w, tm, K, N, upb);
-      break;
-    default: lab_fgemv<kFW16><<<grid, kThreads, 0, st>>>(xp, xh, qp, sp, w, tm, K, N, upb); break;
+      return launch_decode_tc<kFQ4Bf16Fma>(x, x_hi, q, s, o, w, tm, K, N, ksplit, st);
+    case kFW16: return launch_decode_tc<kFW16>(x, x_hi, q, s, o, w, tm, K, N, ksplit, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  reduce(w, static_cast<float*>(out), tm, N, tm, ksplit, st);
-  return (int)cudaGetLastError();
 }
 
 // Rows L6, L7, L8 and L10. wfmt: 0 Q8_0, 1 Q4_0 (centered), 2 the Q4_0 bytes

@@ -83,7 +83,9 @@ class Variant:
     hoist: str | None       # operand preparation outside the kernel
     fn: Callable
     plain: Callable
-    rate: str | None        # type of the products (f32, bf16, int8); None: no product
+    rate: str | None        # type of the products where they run fastest exactly (f32,
+                            # bf16: int4 values and bf16 x are exact bf16, int8); None:
+                            # no product
     counter: tuple | None   # (wrapper, attribute) of the launch count; None: no kernel
     kernels: tuple = ("lab_",)  # device kernels of the function, by name
 
@@ -168,7 +170,7 @@ VARIANTS: dict[str, Variant] = {
         "L2", "i4", None,
         lambda ops, w, tk: lk.i4_matmul(ops[0], w),
         lambda ops, w, tk: lk.i4_matmul_plain(ops[0], w["i4"], w["s"]),
-        "f32", (lk.i4_matmul, "launches")),
+        "bf16", (lk.i4_matmul, "launches")),
     # no kernel in the JAX lab either: plain PyTorch on either device
     "xla_i4": Variant(
         "L2", "i4", None,
@@ -205,7 +207,7 @@ VARIANTS: dict[str, Variant] = {
         "L9", "q4", None,
         lambda ops, w, tk: lk.bitcast_i4_matmul(ops[0], w),
         lambda ops, w, tk: lk.i4_matmul_plain(ops[0], w["q4"], w["s"]),
-        "f32", (lk.bitcast_i4_matmul, "launches")),
+        "bf16", (lk.bitcast_i4_matmul, "launches")),
     "bitcast_i4_bf16": Variant(
         "L9", "q4", None,
         lambda ops, w, tk: lk.bitcast_i4_matmul(ops[0], w, bf16=True),

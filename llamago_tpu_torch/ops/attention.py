@@ -18,7 +18,9 @@ For longer windows, and for every window when LLAMAGO_ATTN_LENAWARE is
 "0", `flash_attention` is K7. It replaces `_attn_kernel`; the CUDA kernel
 is `csrc/attn_prefill.cu` (an online softmax over S-tiles that stops at the
 last visible slot; the TPU kernel holds the whole S plane on chip, and its
-tile budgets are not carried over). A CPU tensor takes
+tile budgets are not carried over): a bf16 cache takes its tensor-core form
+(`k7_form`; the chunks of slots planned by `prefill_plan`, merged in a
+second launch), an f32 cache its CUDA-core form. A CPU tensor takes
 `flash_attention_prefill_plain`: -inf mask and one softmax over the whole
 row, as the TPU kernel computes it.
 
@@ -61,6 +63,7 @@ import torch
 
 from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.runtime.kv_cache import quantize_kv_rows
+from llamago_tpu_torch.utils.timing import H100_SMS
 
 NEG_INF = float("-inf")
 MAX_T = 32  # longest window K2 takes; longer windows go to K7 or attention_math
@@ -75,6 +78,15 @@ _K2_TILE = 64  # cache slots per ring stage of K2's decode_tc form
 # 64-slot tiles), K8 on the bf16 tensor cores (bf16 q, S a multiple of 64)
 QUANT_FORMS = ("widening", "i8dot", "i8dot_tc", "widening_tc")
 _K4_TILE = 64  # cache slots of a K or V tile of the tensor-core forms (kTile)
+K7_FORMS = ("fma", "prefill_tc")  # K7's forms, by the C entry point's codes
+_K7_TILE, _K7_ROWS = 64, 64  # slots of a K/V tile and query rows of a block (prefill_tc)
+# K7's tensor-core form cuts the slots into chunks when its q-tiles give
+# fewer than 96 blocks (three in four of an H100's 132 SMs), aiming then at
+# about two an SM over the whole cache (a window sees a part of it). On the
+# card chunks made the 7B windows of 256 rows (128 q-tiles) slower, the
+# merge pass costing more than a second block an SM gained, and those of
+# 128 rows faster (`k2_pair.py --kernel k7 --k7-chunks`; PERF.md).
+_K7_MIN_BLOCKS, _K7_TARGET_BLOCKS = 96, 2 * H100_SMS
 _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 
 
@@ -195,7 +207,7 @@ def _lib():
 def _prefill_lib():
     fn = _build.library("attn_prefill").llamago_attn_prefill
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -284,16 +296,55 @@ def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> tuple[torch.Tensor, str
     return out, form
 
 
-def _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0) -> torch.Tensor:
+def k7_form(dtype: torch.dtype) -> str:
+    """K7's kernel on the card for a cache of this dtype: "prefill_tc" (bf16
+    mma.sync, K/V tiles streamed by the TMA unit, the slots cut into chunks
+    by `prefill_plan`) for bf16, "fma" (CUDA cores, one block per q-tile
+    over all its slots) for f32, which the bf16 tensor cores cannot take
+    without rounding it."""
+    return "prefill_tc" if dtype == torch.bfloat16 else "fma"
+
+
+def k7_chunk(b: int, kv: int, t: int, g: int, s: int) -> int:
+    """Slots per chunk of K7's tensor-core form, a multiple of 64: the whole
+    cache when the q-tiles of 64 rows give `_K7_MIN_BLOCKS` blocks or more;
+    else chunks of equal length, as many as bring the blocks over the whole
+    cache to about two an SM (a window's blocks past its visible end return
+    at once), none shorter than a tile. A function of the shapes only: pos0
+    stays on the device."""
+    tiles = -(-s // _K7_TILE)
+    blocks = b * kv * -(-t * g // _K7_ROWS)
+    if blocks >= _K7_MIN_BLOCKS:
+        return tiles * _K7_TILE
+    chunks = min(tiles, -(-_K7_TARGET_BLOCKS // blocks))
+    return -(-tiles // chunks) * _K7_TILE
+
+
+def prefill_plan(dtype: torch.dtype, b: int, kv: int, t: int, g: int, hd: int,
+                 s: int) -> tuple[str, int, int, int]:
+    """(form, slots per chunk, chunks, f32 workspace elements) of one K7
+    call; the C side takes the middle two as they are. The f32 form runs
+    one chunk of the whole cache. With more than one chunk the workspace
+    holds each chunk's partials (t * g rows of hd values, a maximum and a
+    sum each) for the merge pass."""
+    form = k7_form(dtype)
+    cps = k7_chunk(b, kv, t, g, s) if form == "prefill_tc" else -(-s // _K7_TILE) * _K7_TILE
+    chunks = -(-s // cps)
+    return form, cps, chunks, b * kv * chunks * t * g * (hd + 2) if chunks > 1 else 0
+
+
+def _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0) -> tuple[torch.Tensor, str]:
     b, t, kv, g, hd = q5.shape
+    s = k_cache.shape[2]
+    form, cps, chunks, ws_elems = prefill_plan(q5.dtype, b, kv, t, g, hd, s)
     out = torch.empty_like(q5)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=q5.device) if ws_elems else None
     err = _prefill_lib()(q5.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                         pos0.data_ptr(), out.data_ptr(), b, t, kv, g, hd,
-                         k_cache.shape[2], 1.0 / (hd ** 0.5),
-                         int(q5.dtype == torch.bfloat16),
-                         torch.cuda.current_stream(q5.device).cuda_stream)
+                         pos0.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+                         b, t, kv, g, hd, s, 1.0 / (hd ** 0.5), K7_FORMS.index(form), cps,
+                         chunks, _stream(q5))
     _build.check(err, "flash_attention (prefill)")
-    return out
+    return out, form
 
 
 def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -303,7 +354,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     0's position is what the kernels read). K2 for t <= 32 unless
     LLAMAGO_ATTN_LENAWARE is "0", else K7; each counts its launches
     (`launches`, `launches_prefill`; `launches_decode_tc` counts K2's bf16
-    form, `k2_form`). Returns [B, t, H*hd] in q.dtype."""
+    form, `k2_form`, and `launches_prefill_tc` K7's, `k7_form`). Returns
+    [B, t, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv = k_cache.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
@@ -323,8 +375,10 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
                 flash_attention.launches_decode_tc += 1
         else:
             _check_cuda_args(q5, k_cache, v_cache, pos0, max_t=None)
-            out = _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0)
+            out, form = _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0)
             flash_attention.launches_prefill += 1
+            if form == "prefill_tc":
+                flash_attention.launches_prefill_tc += 1
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return out.reshape(b, t, h * hd)
@@ -332,7 +386,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
 
 flash_attention.launches = 0  # K2, either form
 flash_attention.launches_decode_tc = 0  # K2's bf16 tensor-core form
-flash_attention.launches_prefill = 0  # K7
+flash_attention.launches_prefill = 0  # K7, either form
+flash_attention.launches_prefill_tc = 0  # K7's bf16 tensor-core form
 
 
 def quant_fits(t: int, s: int) -> bool:

@@ -59,9 +59,10 @@ import torch
 
 from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.ops.quant import G4X8, QK, dequantize, unpack_q4, unpack_w4x8
+from llamago_tpu_torch.utils.timing import H100_SMS
 
 # Blocks the GEMV paths aim to have in flight: four per SM of an H100.
-_TARGET_BLOCKS = 4 * 132
+_TARGET_BLOCKS = 4 * H100_SMS
 _GEMV_MAX_M = 8
 _GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
 # The tensor-core tiles of K1 (csrc/dequant_matmul.cu) and K6
@@ -72,15 +73,15 @@ _GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
 # wave of the three its shared-memory ring lets an SM hold (on the card 5-6%
 # off its pass at m = 64 against four)
 _TC_ROWS, _TC_COLS = 64, 128
-_TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * 132, 4 * 132
-_W4X8_TC_TARGET_BLOCKS = 3 * 132
+_TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * H100_SMS, 4 * H100_SMS
+_W4X8_TC_TARGET_BLOCKS = 3 * H100_SMS
 _TC_MIN_SPLIT_ROWS = 256
 # K1's tensor-core decode form (csrc/dequant_matmul.cu, dq_decode_tc):
 # columns per block, the most blocks it launches (one wave of the three an
 # SM holds: on the card a second, partial wave cost 2-3% of a 7B step) and
 # the fewest quant blocks in a split
 _DT_COLS = 512
-_DT_MAX_BLOCKS = 3 * 132
+_DT_MAX_BLOCKS = 3 * H100_SMS
 _DT_MIN_SPLIT_BLOCKS = 4
 # K1's forms, numbered as the C entry point takes them
 K1_FORMS = ("gemv", "tiled_f32", "tensor_core", "decode_tc")

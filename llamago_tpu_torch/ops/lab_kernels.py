@@ -41,8 +41,10 @@ the JAX lab's hoists run op by op in its correctness check and divide there
 (sx one ulp apart at most).
 
 A CPU tensor takes the plain version (`*_plain`); a CUDA tensor takes the
-kernel of `csrc/lab_matmul.cu`, or the wrapper raises. Each wrapper counts
-its launches (`.launches`).
+kernel of `csrc/lab_matmul.cu`, or the wrapper raises. The float rows (L2,
+L3, L9, L12) run its tensor-core decode form (`lab_plan`): bf16 mma.sync
+with the weights as the A operand, 8 rows of x a group, K split into one
+wave of blocks. Each wrapper counts its launches (`.launches`).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.ops.kernels import _INV_127, _cuda_or_raise
 from llamago_tpu_torch.ops.quant import QK, unpack_q4, unpack_w4x8
+from llamago_tpu_torch.utils.timing import H100_SMS
 
 G128 = 128  # scale-group size of the g128 variants
 HALF = QK // 2
@@ -294,6 +297,13 @@ def w16_matmul_plain(x: torch.Tensor, w16: torch.Tensor) -> torch.Tensor:
 
 # modes of llamago_lab_fmatmul (csrc/lab_matmul.cu)
 _F_I4, _F_I4_BF16, _F_Q4_BF16, _F_Q4_BF16_FMA, _F_W16 = range(5)
+_F_MODES = (_F_I4, _F_I4_BF16, _F_Q4_BF16, _F_Q4_BF16_FMA, _F_W16)
+# The tensor-core decode form of the float rows (lab_decode_tc): columns a
+# block covers, rows of x a block takes (the rest go to grid z), the blocks
+# an SM holds (lt_blocks_per_sm: two for L12's 102 KB ring, three for the
+# nibble modes') and the fewest quant blocks in a split
+_LT_COLS, _LT_ROWS = 512, 8
+_LT_MIN_SPLIT_BLOCKS = 4
 # weight formats and x layouts of llamago_lab_imatmul
 _W_Q8, _W_Q4, _W_I4 = range(3)
 _X_ROWS, _X_BLOCKS, _X_HALVES = range(3)
@@ -346,10 +356,31 @@ def ksplit_for(k: int, rows: int = _ROWS_PER_BLOCK) -> int:
     return -(-k // rows)
 
 
+def lab_plan(tm: int, k: int, n: int, mode: int) -> tuple[int, int]:
+    """(ksplit, f32 workspace elements) of one launch of the float rows'
+    tensor-core decode form (modes `_F_*`; tm a multiple of 8, one group of
+    8 rows of x a grid z): K is split into as many parts as one wave of
+    blocks (512 columns by 8 rows by a part of K; two blocks an SM in L12,
+    three in the nibble modes) holds, each of at least 4 quant blocks where
+    K allows, none empty (the C side cuts the parts at ceil(K/32 /
+    ksplit)). The workspace holds the parts' partials when K is split."""
+    if mode not in _F_MODES:
+        raise ValueError(f"lab_plan: unknown mode {mode}")
+    _check_tm("lab_plan", tm)
+    nb = k // QK
+    blocks = -(-n // _LT_COLS) * (tm // _LT_ROWS)
+    wave = (2 if mode == _F_W16 else 3) * H100_SMS
+    ksplit = max(1, min(nb // _LT_MIN_SPLIT_BLOCKS, wave // blocks))
+    per = -(-nb // ksplit)
+    ksplit = -(-nb // per)
+    return ksplit, ksplit * tm * n if ksplit > 1 else 0
+
+
 def _fmatmul(what: str, mode: int, x, x_hi, q, q_dtype, q_rows: int, s) -> torch.Tensor:
-    """Launch the float-family kernel: x bf16 [tm, K] (or the halves x, x_hi
-    [tm, K/2]), q of `q_rows` rows for every two rows of K (1 packed, 2 for
-    bf16 weights) and N columns, s bf16 [K/32, N] -> f32 [tm, N]."""
+    """Launch the float rows' kernel by `lab_plan`: x bf16 [tm, K]
+    (or the halves x, x_hi [tm, K/2]), q of `q_rows` rows for every two rows
+    of K (1 packed, 2 for bf16 weights) and N columns, s bf16 [K/32, N] ->
+    f32 [tm, N]."""
     _cuda_or_raise(x, what)
     if x.dim() != 2:
         raise ValueError(f"{what}: x must be [tm, K], got {tuple(x.shape)}")
@@ -362,12 +393,13 @@ def _fmatmul(what: str, mode: int, x, x_hi, q, q_dtype, q_rows: int, s) -> torch
         ops["x_hi"] = (x_hi, torch.bfloat16, x.shape)
     _check(what, x.device, ops, k, n)
     _check_tm(what, tm)
-    ksplit = ksplit_for(k)
+    ksplit, ws_elems = lab_plan(tm, k, n, mode)
     out = torch.empty((tm, n), dtype=torch.float32, device=x.device)
-    ws = torch.empty((ksplit, tm, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=x.device) if ws_elems else None
     err = _lib().llamago_lab_fmatmul(
         x.data_ptr(), 0 if x_hi is None else x_hi.data_ptr(), q.data_ptr(), s.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), tm, k, n, mode, ksplit, _stream(x))
+        out.data_ptr(), 0 if ws is None else ws.data_ptr(), tm, k, n, mode, ksplit,
+        _stream(x))
     _build.check(err, what)
     return out
 

@@ -1,16 +1,17 @@
-"""Device-side timing and roofline bounds, shared by `chip_smoke.py` and the
-kernel lab.
+"""Device-side timing, roofline bounds and the card's SM count, shared by
+`chip_smoke.py`, the kernel lab and the launch plans of `ops/`.
 
 Times come from the device side of a torch.profiler trace, so the host's
 launch cost between small kernels does not count as kernel time. Bounds are
 against the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 dense bf16 and 1,979 TOP/s dense int8 in the tensor cores, 67 TFLOP/s f32
-outside them.
+outside them. The launch plans size their waves of blocks for its 132 SMs.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import torch
 
@@ -18,6 +19,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _device_events(events):
@@ -43,10 +45,12 @@ def device_us_by_name(events) -> dict[str, float]:
     return by_name
 
 
-def profiled(fn, attempts: int = 3):
+def profiled(fn, attempts: int = 8):
     """Run fn() under a device-side torch.profiler trace, synchronize, and
     return the trace's events. A trace that comes back without device events
-    (seen once in many) is taken again, at most `attempts` times in all."""
+    (seen once in many, three times in a row once) is taken again, after a
+    pause that grows with each attempt, at most `attempts` times in all;
+    then it raises. No other clock stands in for the trace's."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(attempts):
@@ -58,6 +62,7 @@ def profiled(fn, attempts: int = 3):
             return events
         print(f"[timing] the trace holds no device events (attempt {attempt + 1})",
               file=sys.stderr, flush=True)
+        time.sleep(0.5 * (attempt + 1))
     raise AssertionError("the profiler recorded no device activity")
 
 

@@ -312,14 +312,17 @@ def test_module_entry_point_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("name,rate,by", [("base", "bf16", "bytes"),
-                                          ("i4native", "f32", "operations"),
+                                          ("i4native", "bf16", "bytes"),
+                                          ("xla_i4", "f32", "operations"),
                                           ("w4a8", "int8", "bytes"),
                                           ("bf16dot", "bf16", "bytes"),
                                           ("dma_pure", None, "bytes")])
 def test_variant_bound_at_the_labs_shape(name, rate, by):
     """Q4_0 at K = 8192, N = 7168, m = 8: 0.94 GFLOP in f32 take 14.0 us at
-    67 TFLOP/s, more than the 33 MB take at 3.35 TB/s; in bf16 (K1's
-    tensor-core forms, which carry `base`) the bytes bound."""
+    67 TFLOP/s, more than the 33 MB take at 3.35 TB/s (`xla_i4`, plain
+    PyTorch in f32); in bf16 (the tensor-core decode forms of K1, which
+    carry `base`, and of the lab's float rows, which carry `i4native`: its
+    int4 values and bf16 x are exact bf16) the bytes bound."""
     assert lab.VARIANTS[name].rate == rate
     ms, bound_by = lab.variant_bound(name, 8192, 7168, 8, 1024)
     assert bound_by == by
