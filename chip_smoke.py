@@ -28,7 +28,11 @@ Phases, each of which fails the run (exit code 1, no result line):
      edges; its CUDA-core form with f32 q, and at S = 520); K3, K4 and K8
      with f32 and with bf16 scale planes; K4 and K8 repeat their bits into
      NaN-filled memory),
-     K5 (W4A8 decode matmul), K6 (w4x8 stream matmul, each of its forms:
+     K5 (W4A8 decode matmul: its int8 tensor-core decode form for f32 and
+     bf16 x, checked at m = 1 to 16 at the five 7B int4 shapes into
+     NaN-filled memory, and at 20 and 33 with its switch raised, timed at 4
+     and 16, every call counted as that form), K6 (w4x8 stream
+     matmul, each of its forms:
      the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
      (scale-on-output matmul, each of its forms: the tensor-core decode
      form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
@@ -68,8 +72,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      the decode step's `attention_ms` and `matmul_ms` are logged beside the
      default routes';
   4c. the same with random int4 weights in the w4x8 format and the bf16
-     cache on 4 slots and 8 jobs, after the int8 weights are freed: K5, K6
-     (its tensor-core tile: every prompt's prefill) and K2 must launch,
+     cache on 4 slots and 8 jobs, after the int8 weights are freed: K5 (its
+     form in the decode step's `matmul_ms`), K6 (its tensor-core tile: every
+     prompt's prefill) and K2 must launch,
      every other kernel (K1's forms too) stay at 0; K6's tensor-core tile
      stays at 0 in every other serving phase;
   4d. Q8_0 weights and the bf16 cache on 4 slots again, now with 8 jobs of
@@ -87,7 +92,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      N = 7168, m = 8, 24 layers of distinct weights: each of its nine
      kernels (rows L2, L3, L6 to L12 of its table) against its plain version
      for every variant name of its row (activation quantization and the
-     byte-sum probes bit for bit); the lab's own check of every name
+     byte-sum probes bit for bit; the float rows' bf16 and the integer rows'
+     int8 tensor-core decode forms counted and repeated into NaN-filled
+     memory, bit for bit); the lab's own check of every name
      against x @ dequantize(w) (19 pass, 12 are not checked, `decode_bitcast`
      is dropped, as in the JAX lab); every name timed on the device side of
      a trace beside its bound, no reading above 100% of it; the plain
@@ -164,9 +171,10 @@ K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 # K10, f32: the order of the f32 sum of squares, and 1 / sqrt against rsqrt
 K10_RTOL_F32 = 1e-5
 K10_D = 4096
-# the tensor-core forms of the lab's float rows and of K7, with K7's merge:
-# none may spill
-TC_FORMS = {"lab_decode_tc": "lab_matmul", "attn_prefill_tc": "attn_prefill",
+# the tensor-core forms of the lab's float and integer rows, of K5 and of
+# K7, with K7's merge: none may spill
+TC_FORMS = {"lab_decode_tc": "lab_matmul", "lab_decode_i8tc": "lab_matmul",
+            "w4x8_a8_tc": "w4x8_matmul", "attn_prefill_tc": "attn_prefill",
             "attn_prefill_merge": "attn_prefill"}
 
 
@@ -221,7 +229,7 @@ def _leaf_bytes(w: dict) -> int:
 
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
                  other_m: tuple, ops_per_s, seed: int, other_shapes: tuple = ("wqkv",),
-                 timed_dtype: str = "bfloat16") -> tuple[dict, dict]:
+                 timed_dtype: str = "bfloat16", checked=None) -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
     and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
@@ -232,7 +240,8 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
     the kernel's operations at m rows. Returns the largest error by (m, x
     dtype) and, for each timed m, the kernels line's numbers over one pass
     of the five shapes (one decode step at decode rows, one prefill pass at
-    prefill rows)."""
+    prefill rows). `checked`, where given, takes the kernel's place in the
+    checks (not in the timing)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
@@ -256,7 +265,7 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
         def check(m):
             for xdt, w in cases:
                 x = torch.randn((m, k), generator=gen, device=dev).to(getattr(torch, xdt))
-                got = kernel(x, w).float()
+                got = (checked or kernel)(x, w).float()
                 ref = plain(x, w).float()
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item() / ref.abs().max().item()
@@ -353,13 +362,39 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict]:
             _line(errs, steps, 4, lambda m, xdt: m <= 8 and not f32(m, xdt)))
 
 
+def _k5_call(x, w):
+    """One checked K5 call: the memory its scratch (sx, the split's
+    partials, xq) and its output will take is filled with NaN first, so a
+    partial or an output the kernel leaves unwritten shows, and the call
+    must be counted as K5's (its int8 tensor-core decode form)."""
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+
+    m, k = x.shape
+    n = w["q4x"].shape[1]
+    ws = kernels.w4x8_plan(m, k, n, x.dtype)[2]
+    scratch = 4 * kernels.a8_slots(m)[1] * (k // 128) + 4 * ws + m * k
+    poison = [torch.full((-(-scratch // 4),), float("nan"), device=x.device),
+              torch.full((m, n), float("nan"), dtype=x.dtype, device=x.device)]
+    del poison
+    before = kernels.w4x8_matmul.launches_a8
+    got = kernels.w4x8_matmul(x, w)
+    if kernels.w4x8_matmul.launches_a8 != before + 1:
+        raise AssertionError(f"K5 m={m}: the call was not counted as K5's")
+    return got
+
+
 def check_k5(dev, detail: dict) -> dict:
     """K5 at m=4 (decode) and m=16 (the warm-up prefill bucket), checked and
-    timed, other row counts (every register layout of the kernel) at the
-    wqkv shape; first its activation quantization alone, bit for bit against
+    timed, every other row count from 1 to 16 (one and two n8 tiles of
+    slots) checked, at the five 7B int4 shapes; first its activation
+    quantization alone, bit for bit against
     the plain version. Both compute the same int8 activations and exact
-    integer dots, so they differ by the order of the f32 sums only. Its
-    operations are int8."""
+    integer dots, so they differ by the order of the f32 sums only. Every
+    checked call writes into NaN-filled memory; every call of at most 16
+    rows, f32 or bf16 x, is counted as the int8 tensor-core decode form's.
+    Its operations are int8."""
     import torch
 
     from llamago_tpu_torch.ops import kernels
@@ -380,13 +415,41 @@ def check_k5(dev, detail: dict) -> dict:
             raise AssertionError(f"K5 {dt}: ties or the zero group went wrong: "
                                  f"{xq[3, :5].tolist()}, {sx[2, 1].item()}")
         log(f"K5 {str(dt).split('.')[-1]}: xq and sx bit-exact against the plain version")
-    before = kernels.w4x8_matmul.launches_stream
-    errs, steps = check_matmul(dev, detail, "K5", "q4x", kernels.w4x8_matmul,
+    calls = [0]
+
+    def counted(fn):
+        def call(x, w):
+            calls[0] += 1
+            return fn(x, w)
+        return call
+
+    before = (kernels.w4x8_matmul.launches_a8, kernels.w4x8_matmul.launches_stream)
+    errs, steps = check_matmul(dev, detail, "K5", "q4x", counted(kernels.w4x8_matmul),
                                kernels.w4x8_matmul_a8_plain, timed_m=(4, 16),
-                               other_m=(1, 2, 3, 8, 9), ops_per_s=lambda m: INT8_OPS_PER_S,
-                               seed=9)
-    if kernels.w4x8_matmul.launches_stream != before:
-        raise AssertionError("K5: a call of at most 16 rows took the stream kernel")
+                               other_m=(1, 2, 3, *range(5, 16)),
+                               ops_per_s=lambda m: INT8_OPS_PER_S, seed=9,
+                               other_shapes=tuple(name for name, *_ in INT4_SHAPES),
+                               checked=counted(_k5_call))
+    a8 = kernels.w4x8_matmul.launches_a8 - before[0]
+    if kernels.w4x8_matmul.launches_stream != before[1] or a8 != calls[0]:
+        raise AssertionError(f"K5: {a8} launches of its form for {calls[0]} calls of at "
+                             "most 16 rows, or one took the stream kernel")
+    log(f"K5: every one of {a8} calls took the int8 tensor-core decode form")
+    # LLAMAGO_W4X8_A8_MAX_M raised above 16: blocks of 16 rows along grid z
+    default_max_m, kernels._W4X8_A8_MAX_M = kernels._W4X8_A8_MAX_M, 48
+    try:
+        w = _random_leaf(gen, dev, "q4x", 4096, 12288)
+        for m in (20, 33):
+            x = torch.randn((m, 4096), generator=gen, device=dev)
+            got, ref = _k5_call(x, w), kernels.w4x8_matmul_a8_plain(x, w)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item() / ref.abs().max().item()
+            if not err <= K1_TOL["float32"]:
+                raise AssertionError(f"K5 wqkv m={m} (switch at 48): max|d|/max|ref| "
+                                     f"{err:.3g} > {K1_TOL['float32']}")
+            log(f"K5 wqkv m={m} with the switch at 48: max|d|/max|ref| {err:.2e}")
+    finally:
+        kernels._W4X8_A8_MAX_M = default_max_m
     return _line(errs, steps, 4)
 
 
@@ -1124,6 +1187,11 @@ LAB_TOL = {"L2": K1_TOL["float32"], "L3": K1_TOL["float32"], "L9": K1_TOL["float
 # decode form, by their mode (`lab_kernels._F_*`)
 LAB_TC_MODES = {"i4native": "_F_I4", "bf16dot": "_F_Q4_BF16", "split_bf16_h": "_F_Q4_BF16_FMA",
                 "bitcast_i4": "_F_I4", "bitcast_i4_bf16": "_F_I4_BF16", "w16dot": "_F_W16"}
+# The integer rows (L6, L7, L8, L10), which run the int8 tensor-core decode
+# form; the 32-row blocks of a scale group by the variant's hoist
+LAB_I8_ROWS = ("L6", "L7", "L8", "L10")
+LAB_I8_GROUP = {None: lambda tk: 1, "a8": lambda tk: 1, "a8full": lambda tk: tk // 32,
+                "splitfull": lambda tk: tk // 32, "a8g128": lambda tk: 4}
 # L11's column sums, x K * 8 * max|s| (the most a column's terms can add up
 # to): the order of the f32 sums; the two byte-sum probes are exact
 LAB_PROBE_TOL = {"decode_only": 1e-5, "decode_bitcast": 1e-5, "dma_only": 0.0,
@@ -1131,18 +1199,21 @@ LAB_PROBE_TOL = {"decode_only": 1e-5, "decode_bitcast": 1e-5, "dma_only": 0.0,
 
 
 def _lab_tc_call(name: str, ops, leaf, tk: int, tm: int, k: int, n: int):
-    """One call of a float row's variant, whose wrapper runs the tensor-core
-    decode form (`lab_plan`) and must count it. The memory its workspace and
-    its output will take is filled with NaN first, so a partial or a column
-    the kernel leaves unwritten shows."""
+    """One call of a float or integer row's variant, whose wrapper runs the
+    bf16 tensor-core decode form (`lab_plan`) or the int8 one
+    (`lab_i8_plan`) and must count it. The memory its workspace and its
+    output will take is filled with NaN first, so a partial or a column the
+    kernel leaves unwritten shows."""
     import torch
 
     from llamago_tpu_torch import kernel_lab
     from llamago_tpu_torch.ops import lab_kernels as lk
 
     v = kernel_lab.VARIANTS[name]
-    mode = getattr(lk, LAB_TC_MODES[name])
-    _, ws = lk.lab_plan(tm, k, n, mode)
+    if v.row in LAB_I8_ROWS:
+        ws = lk.lab_i8_plan(tm, k, n, LAB_I8_GROUP[v.hoist](tk))[2]
+    else:
+        ws = lk.lab_plan(tm, k, n, getattr(lk, LAB_TC_MODES[name]))[1]
     dev = leaf["s"].device
     poison = [torch.full((ws,), float("nan"), device=dev),
               torch.full((tm, n), float("nan"), device=dev)]
@@ -1151,7 +1222,7 @@ def _lab_tc_call(name: str, ops, leaf, tk: int, tm: int, k: int, n: int):
     before = fn.launches
     got = v.fn(ops, leaf, tk)
     if fn.launches != before + 1:
-        raise AssertionError(f"lab {name}: the tensor-core decode form was not counted")
+        raise AssertionError(f"lab {name}: its tensor-core decode form was not counted")
     return got
 
 
@@ -1190,7 +1261,8 @@ def check_lab(dev, detail: dict) -> dict:
         leaf = leaves[v.fmt]
         ops = kernel_lab.HOISTS[v.hoist](x, tk)
         before = getattr(*v.counter)
-        if name in LAB_TC_MODES:
+        tc = name in LAB_TC_MODES or v.row in LAB_I8_ROWS
+        if tc:
             got = _lab_tc_call(name, ops, leaf, tk, max(8, m), k, n)
         else:
             got = v.fn(ops, leaf, tk)
@@ -1210,8 +1282,7 @@ def check_lab(dev, detail: dict) -> dict:
             raise AssertionError(f"lab {name} ({v.row}): max|d| / {scale:.3g} = {err:.3g} > "
                                  f"{tol}")
         errs[name] = err
-        if name in LAB_TC_MODES and not torch.equal(
-                _lab_tc_call(name, ops, leaf, tk, max(8, m), k, n), got):
+        if tc and not torch.equal(_lab_tc_call(name, ops, leaf, tk, max(8, m), k, n), got):
             raise AssertionError(f"lab {name}: a second call into NaN-filled memory gave "
                                  "other bits")
         log(f"lab {name:28s} ({v.row}): kernel vs plain max|d|/scale {err:.2e} (tol {tol})")
@@ -2124,6 +2195,10 @@ def main(argv: list[str]) -> int:
                          rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_tc",
                                "flash_attention", "flash_attention_decode_tc"))
         del params
+        step4 = served_4["decode_step"]
+        if not any(k.startswith("w4x8_a8_tc") for k in step4["matmul_kernels"]):
+            raise AssertionError(f"serve, int4: the decode step's matmul_ms counted "
+                                 f"{step4['matmul_kernels']}, not K5's form")
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
     detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
@@ -2173,7 +2248,9 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:342",
          "launches": k8_launches, **k8},
-        {"name": "w4x8_matmul_a8", "route": "cuda",
+        # K5's int8 tensor-core decode form: every call in phase 4c of at most
+        # 16 rows, one decode step at m=4
+        {"name": "w4x8_matmul_a8_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:308",
          "launches": served_4["launches"]["w4x8_matmul_a8"], **k5},

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K2, K4, K8 (decode attention), K7 (prefill attention) or the lab's float
-rows of several checkouts on one card, side by side.
+"""K2, K4, K8 (decode attention), K7 (prefill attention), K5 (the W4A8
+decode matmul) or the lab's float or integer rows of several checkouts on
+one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k4|k8|k7|lab] [--k8-splits N,...]
+    python3 k2_pair.py [--kernel k2|k4|k8|k7|k5|lab|labint] [--k8-splits N,...]
                        [--k7-chunks N,...] [--out FILE.json] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
@@ -34,12 +35,21 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     slots, chip_smoke's `opt_in_routes`): device busy and `attention_ms`.
     With `--k7-chunks`, the rows again for each number of slots a chunk (a
     multiple of 64) in place of `k7_chunk`'s, in the checkouts that have it.
+  - `--kernel k5`: K5 (`kernels.w4x8_matmul` at m <= 16, random w4x8
+    weights, bf16 x) at m = 4 and 16 over chip_smoke's five INT4_SHAPES
+    (chip_smoke's `check_matmul`: each shape checked against the plain
+    version and timed over copies that stream past the L2, beside `x @ W`
+    on a bf16 copy; one pass = one 7B decode step's 129 calls); then phase
+    4c's decode step: 7B int4 (w4x8, random, seed 0), the bf16 cache, 4
+    slots at position 100, with `matmul_ms` and the kernels it counted.
   - `--kernel lab`: the kernel lab's six float variants (rows L2, L3, L9,
     L12: i4native, bf16dot, split_bf16_h, bitcast_i4, bitcast_i4_bf16,
     w16dot) and L1's `base` at the lab's shape (K=8192, N=7168, m=8, 24
     layers; chip_smoke's LAB_SHAPE, LAB_STEPS, LAB_REPS), device time per
     launch of each variant's kernels (`kernel_lab.run_variant`), beside `x
     @ W` on the bf16 layers.
+  - `--kernel labint`: the same for the lab's eleven integer variants
+    (rows L6, L7, L8, L10) and L1's `base` and L5's `base8`.
 
 Each row: device ms per call (the busy time of every kernel the call
 launches, chip_smoke's `timed`, over three cache copies that a cycle of
@@ -170,6 +180,9 @@ def run_k8(cs, root: str, splits: list[int]) -> dict:
 
 LAB_NAMES = ("base", "i4native", "bf16dot", "split_bf16_h", "bitcast_i4", "bitcast_i4_bf16",
              "w16dot")
+LAB_INT_NAMES = ("base", "base8", "w4a8", "w4a8_raw", "w4a8_h", "w8a8", "w8a8_h", "w8a8_fulltk",
+                 "w4a8_split_fulltk", "bitcast_i4_i8dot", "bitcast_i4_i4dot",
+                 "bitcast_i4_i8dot_g128", "bitcast_i4_i8dot_g128_lazy")
 
 
 def run_k7(cs, root: str, chunks: list[int]) -> dict:
@@ -224,7 +237,29 @@ def run_k7(cs, root: str, chunks: list[int]) -> dict:
     return out
 
 
-def run_lab(cs, root: str) -> dict:
+def run_k5(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    detail: dict = {}
+    errs, steps = cs.check_matmul(dev, detail, "K5", "q4x", kernels.w4x8_matmul,
+                                  kernels.w4x8_matmul_a8_plain, timed_m=(4, 16), other_m=(),
+                                  ops_per_s=lambda m: cs.INT8_OPS_PER_S, seed=9)
+    torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev, "int4")
+    engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4, decode_chunk_size=32,
+                    prefill_chunk=256, device=dev)
+    step = cs.profile_decode(engine, 32)
+    return {"root": root, "card": cs.card_line(), "k5": detail["k5"],
+            "k5_pass": {str(m): v for m, v in steps.items()},
+            "max_err": {f"{m} {xdt}": e for (m, xdt), e in errs.items()},
+            "decode_step": {k: step[k] for k in (*STEP_KEYS, "matmul_ms", "matmul_kernels")}}
+
+
+def run_lab(cs, root: str, names=LAB_NAMES) -> dict:
     import torch
 
     from llamago_tpu_torch import kernel_lab
@@ -232,10 +267,11 @@ def run_lab(cs, root: str) -> dict:
 
     dev = torch.device("cuda")
     k, n, m, layers = (cs.LAB_SHAPE[key] for key in ("k", "n", "m", "layers"))
-    cache = {fmt: kernel_lab.make_layers(fmt, k, n, layers, dev) for fmt in ("q4", "w16")}
+    fmts = {kernel_lab.VARIANTS[name].fmt for name in names} | {"q4", "w16"}
+    cache = {fmt: kernel_lab.make_layers(fmt, k, n, layers, dev) for fmt in fmts - {"i4"}}
     cache["i4"] = [lk.to_i4(leaf) for leaf in cache["q4"]]
     rows = []
-    for name in LAB_NAMES:
+    for name in names:
         r = kernel_lab.run_variant(name, k, n, m, layers, cs.LAB_STEPS, None, cs.LAB_REPS, dev,
                                    cache[kernel_lab.VARIANTS[name].fmt])
         rows.append({key: r[key] for key in ("name", "row", "kernel_ms", "bound_ms",
@@ -259,6 +295,10 @@ def run_one(root: str, kernel: str, splits: list[int], chunks: list[int]) -> dic
         return run_k7(cs, root, chunks)
     if kernel == "lab":
         return run_lab(cs, root)
+    if kernel == "labint":
+        return run_lab(cs, root, LAB_INT_NAMES)
+    if kernel == "k5":
+        return run_k5(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -290,7 +330,8 @@ def run_one(root: str, kernel: str, splits: list[int], chunks: list[int]) -> dic
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k4", "k8", "k7", "lab"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k4", "k8", "k7", "k5", "lab", "labint"),
+                    default="k2")
     ap.add_argument("--k8-splits", default="",
                     help="comma-separated slots a split to time K8 at, beside its plan")
     ap.add_argument("--k7-chunks", default="",

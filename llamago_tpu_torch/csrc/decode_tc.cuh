@@ -61,11 +61,6 @@ static_assert(dt_stage_bytes<float, 8>() % 16 == 0 && dt_stage_bytes<float, 4>()
                   dt_stage_bytes<__nv_bfloat16, 4>() % 16 == 0,
               "stages and barriers stay aligned");
 
-// Word I of a lane's 16 bytes of a weight row: columns n+4I .. n+4I+3.
-template <int I> __device__ __forceinline__ uint32_t word_of(const uint4& v) {
-  return I == 0 ? v.x : I == 1 ? v.y : I == 2 ? v.z : v.w;
-}
-
 // The A fragment of m16 tile T at k16 step STEP from a lane's weight reads
 // w[r]: a[0], a[2] column n+T (row gid) at the lo and hi k pairs, a[1],
 // a[3] column n+8+T (row gid+8). int8: w[4*STEP + 2h + e] is row 16*STEP +

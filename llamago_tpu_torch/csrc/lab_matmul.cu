@@ -27,10 +27,10 @@
 // row is bound by its weight bytes over device-memory bandwidth when its
 // products run where their type runs fastest: K*N/2 bytes of Q4_0 or int4
 // at K = 8192, N = 7168 (8.8 us at 3.35 TB/s; 10.0 with the scales), 2*K*N
-// of bf16 for L12 (35.2 us). The integer rows (L6 to L8, L10: __dp4a, four
-// products an instruction) and the probes run on the CUDA cores; the float
-// rows (L2, L3, L9, L12) on the bf16 tensor cores, where their 2*8*K*N
-// operations take 1 us against 14 us in f32 FMA.
+// of bf16 for L12 (35.2 us). The integer rows (L6 to L8, L10) run on the
+// int8 tensor cores and the float rows (L2, L3, L9, L12) on the bf16 ones,
+// where their 2*8*K*N operations take 0.5 and 1 us against 14 us in f32
+// FMA; the probes run on the CUDA cores.
 //
 // What the design does about it:
 //  * Floating point (lab_decode_tc): the tensor-core decode form of K1
@@ -51,23 +51,20 @@
 //    ldmatrix.trans of its bf16 rows. Every mode sums a quant block in a
 //    zeroed accumulator and adds it to the output sum in f32, so that the
 //    tensor core's own accumulation never runs long.
-//  * Integer (lab_igemv): a split-K GEMV. A block of 256 threads owns 128
-//    columns (a thread four neighbouring ones: one 32-bit word of a Q8_0 or
-//    packed row, so a warp reads 128 or 256 contiguous bytes of a row) and at
-//    most 512 rows of K; it first stages its slice of x in shared memory (the
-//    int8 words __dp4a wants), which every lane then reads at one address.
-//    The eight warps take contiguous runs of 32-row quant blocks, and the
-//    block adds its warps' sums in warp order (one pass over a 32 KB buffer
-//    that reuses the memory x was staged in) into an f32 workspace [ksplit,
-//    tm, N] that lab_reduce adds in order. Rows past 8 go to blockIdx.z.
-//    Four rows of a column are gathered into one register
-//    by a 4x4 byte transpose (__byte_perm); nibbles stay raw (0..15, or
-//    nibble ^ 8 for two's complement) and 8 * sum(xq) of the block is taken
-//    off the int32 dot, the same integers as the centered dot. The int32 sums
-//    run over a scale group (a 32-block, a 128-group, or a k-tile) as far as
-//    the warp's run reaches and are folded with sx * s into f32 at its end.
-//    Every one of these instructions runs on the INT32 pipe (half the FP32
-//    lanes): that pipe, not the bytes, is what this kernel is up against.
+//  * Integer (lab_decode_i8tc): the int8 tensor-core decode form of K5
+//    (decode_i8_tc.cuh), one instance per weight format: Q8_0 (L7, L8's
+//    w8a8_fulltk), Q4_0's raw nibbles less 8 * sum(xq) (L6, L8's
+//    w4a8_split_fulltk) and the Q4_0 bytes as two's-complement pairs (L10).
+//    The weights are the A operand of mma.sync.m16n8k32 on int8 (exact int32
+//    sums), the 8 rows of x a group the n8 columns of B; the weight rows of
+//    32 rows of K, the slots' xq and, where a scale group ends, its scale
+//    row and sx arrive by TMA bulk copies into a ring (the weights with L2
+//    evict_first). A Q8_0 or Q4_0 register is a 4x4 byte transpose of four
+//    rows' words in a permuted k order that xq takes too; a pair byte's
+//    nibbles become int8 as 16 times their value. Each scale group's int32
+//    sum (a 32-block, a 128-group, a k-tile) is folded with sx * s into the
+//    f32 output sum; K is split into one wave of blocks (ops/lab_kernels.py
+//    lab_i8_plan), and lab_reduce adds the parts in a fixed order.
 //  * lab_quantize_x: x to int8 per (row, 32-block) with one warp each, the
 //    plain version's rounding decisions bit for bit (product by fl(1/127),
 //    IEEE division, rintf).
@@ -86,6 +83,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_i8_tc.cuh"
 #include "decode_tc.cuh"
 
 namespace {
@@ -94,14 +92,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = 8;
 constexpr int kCols = 128;     // columns per block: 32 lanes x 4
 constexpr int kTM = 8;         // rows of x per block
-constexpr int kMaxUnits = 16;  // 32-row quant blocks whose x a block stages
 constexpr unsigned kFull = 0xffffffffu;
 
 // modes of lab_decode_tc (llamago_lab_fmatmul)
 constexpr int kFI4 = 0, kFI4Bf16 = 1, kFQ4Bf16 = 2, kFQ4Bf16Fma = 3, kFW16 = 4;
-// weight formats and x layouts of lab_igemv
-constexpr int kWQ8 = 0, kWQ4 = 1, kWI4 = 2;
-constexpr int kXRows = 0, kXBlocks = 1, kXHalves = 2;
 // modes of lab_probe
 constexpr int kPDecode = 0, kPDecodeBitcast = 1, kPDmaOnly = 2, kPDmaPure = 3;
 
@@ -121,42 +115,6 @@ __device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float out[4
 // convert.
 __device__ __forceinline__ float nibble_minus_8(int v) {
   return __uint_as_float(0x4B000000u | (uint32_t)v) - 8388616.f;
-}
-
-// Four words of four rows, each byte a column -> four words of four columns,
-// each byte a row (byte i of col[c] is byte c of w[i]).
-__device__ __forceinline__ void transpose4x4(const uint32_t w[4], uint32_t col[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
-  col[0] = __byte_perm(t0, t1, 0x5410);
-  col[1] = __byte_perm(t0, t1, 0x7632);
-  col[2] = __byte_perm(t2, t3, 0x5410);
-  col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-constexpr int kRedFloats = kWarps * kTM * 4 * 32;  // every warp's sums: 32 KB
-
-// The warps' sums of a block, added in warp order, to ws[(y*tm + row0 + m)*N +
-// n]. `red` (kRedFloats floats) may be the memory x was staged in: the first
-// barrier waits until every warp has left the main loop.
-__device__ __forceinline__ void block_reduce_store(float (&acc)[kTM][4], float* red,
-                                                   float* __restrict__ ws, int tm, int N,
-                                                   int row0) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[((warp * kTM + m) * 4 + c) * 32 + lane] = acc[m][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTM * kCols; i += kThreads) {
-    const int m = i / kCols, cc = i % kCols;
-    const int nn = blockIdx.x * kCols + cc;
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += red[((w * kTM + m) * 4 + (cc & 3)) * 32 + (cc >> 2)];
-    if (nn < N) ws[((size_t)blockIdx.y * tm + row0 + m) * N + nn] = a;
-  }
 }
 
 // ------------------------------------------- floating-point rows (lab_decode_tc)
@@ -444,143 +402,13 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
 
 // ---------------------------------------------------------------- integer rows
 
-// grid = (ceil(N/128), ksplit, tm/8). Block y covers quant blocks [y*upb,
-// (y+1)*upb), upb <= 16. xq int8 in layout XL: kXRows [tm, K];
-// kXBlocks [K/32, tm, 32]; kXHalves the halves xq, xq_hi [tm, K/2]. sx f32
-// [K/(32*sg_units), tm] or null (activation scale 1). A scale group is
-// sg_units quant blocks, a k-tile tile_units; group g of tile t takes scale
-// row t*tile_units + g of s.
-template <int WFMT>
-__global__ void __launch_bounds__(kThreads) lab_igemv(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ xq_hi,
-    const float* __restrict__ sx, const uint8_t* __restrict__ q,
-    const __nv_bfloat16* __restrict__ s, float* __restrict__ ws, int tm, int K, int N, int upb,
-    int xlayout, int sg_units, int tile_units) {
-  __shared__ __align__(16) float red[kRedFloats];
-  int(*xw)[kTM] = reinterpret_cast<int(*)[kTM]>(red);  // int8x4 words of x: [kMaxUnits * 8][kTM]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane * 4;
-  const bool valid = n < N;
-  const int u0 = blockIdx.y * upb, u1 = min(u0 + upb, K / 32);
-  const int row0 = blockIdx.z * kTM;
-  const int words = (u1 - u0) * 8;
-
-  for (int i = threadIdx.x; i < words * kTM; i += kThreads) {
-    const int m = i / words, wi = i % words, k = u0 * 32 + wi * 4;
-    const int8_t* src;
-    if (xlayout == kXRows) {
-      src = xq + (size_t)(row0 + m) * K + k;
-    } else if (xlayout == kXBlocks) {
-      src = xq + ((size_t)(k >> 5) * tm + row0 + m) * 32 + (k & 31);
-    } else {
-      const int j = k & 31;
-      src = (j < 16 ? xq : xq_hi) + (size_t)(row0 + m) * (K / 2) + (k >> 5) * 16 + (j & 15);
-    }
-    xw[wi][m] = *reinterpret_cast<const int*>(src);
-  }
-  __syncthreads();
-  if constexpr (WFMT == kWI4) {
-    // packed rows r..r+3 hold rows 2r, 2r+2, 2r+4, 2r+6 in their low nibbles
-    // and the odd rows in their high ones: split each 8 values of x alike
-    for (int i = threadIdx.x; i < (words / 2) * kTM; i += kThreads) {
-      const int m = i / (words / 2), p = i % (words / 2);
-      const uint32_t a = xw[2 * p][m], b = xw[2 * p + 1][m];
-      xw[2 * p][m] = (int)__byte_perm(a, b, 0x6420);
-      xw[2 * p + 1][m] = (int)__byte_perm(a, b, 0x7531);
-    }
-    __syncthreads();
-  }
-
-  float facc[kTM][4];
-  int iacc[kTM][4];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      facc[m][c] = 0.f;
-      iacc[m][c] = 0;
-    }
-
-  const int upw = (u1 - u0 + kWarps - 1) / kWarps;
-  const int ua = u0 + warp * upw, ub = min(ua + upw, u1);
-  if (valid) {
-    for (int u = ua; u < ub; ++u) {
-      const int wl = (u - u0) * 8;  // the block's first word of x
-      if constexpr (WFMT == kWQ8) {
-        uint32_t wd[32];
-#pragma unroll
-        for (int r = 0; r < 32; ++r)
-          wd[r] = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(u * 32 + r) * N + n));
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          uint32_t col[4];
-          transpose4x4(&wd[4 * t], col);
-          const int4 a = *reinterpret_cast<const int4*>(&xw[wl + t][0]);
-          const int4 b = *reinterpret_cast<const int4*>(&xw[wl + t][4]);
-          const int xv[kTM] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int m = 0; m < kTM; ++m)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) iacc[m][c] = __dp4a((int)col[c], xv[m], iacc[m][c]);
-        }
-      } else {
-        uint32_t wd[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          wd[j] = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(u * 16 + j) * N + n));
-        int xsum[kTM];
-#pragma unroll
-        for (int m = 0; m < kTM; ++m) xsum[m] = 0;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          uint32_t col[4];
-          transpose4x4(&wd[4 * t], col);
-          // the words of x that meet the low and the high nibbles
-          const int il = wl + (WFMT == kWQ4 ? t : 2 * t);
-          const int ih = wl + (WFMT == kWQ4 ? 4 + t : 2 * t + 1);
-          const int4 a0 = *reinterpret_cast<const int4*>(&xw[il][0]);
-          const int4 a1 = *reinterpret_cast<const int4*>(&xw[il][4]);
-          const int4 b0 = *reinterpret_cast<const int4*>(&xw[ih][0]);
-          const int4 b1 = *reinterpret_cast<const int4*>(&xw[ih][4]);
-          const int xl[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const int xh[kTM] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int m = 0; m < kTM; ++m)
-            xsum[m] = __dp4a(0x01010101, xl[m], __dp4a(0x01010101, xh[m], xsum[m]));
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            uint32_t lo = col[c] & 0x0F0F0F0Fu, hi = (col[c] >> 4) & 0x0F0F0F0Fu;
-            if constexpr (WFMT == kWI4) {  // two's complement: (nib ^ 8) - 8
-              lo ^= 0x08080808u;
-              hi ^= 0x08080808u;
-            }
-#pragma unroll
-            for (int m = 0; m < kTM; ++m)
-              iacc[m][c] = __dp4a((int)lo, xl[m], __dp4a((int)hi, xh[m], iacc[m][c]));
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < kTM; ++m)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) iacc[m][c] -= 8 * xsum[m];
-      }
-      if ((u + 1) % sg_units == 0 || u + 1 == ub) {
-        float sc[4];
-        const int srow = (u / tile_units) * tile_units + (u % tile_units) / sg_units;
-        load_scales4(s + (size_t)srow * N + n, sc);
-#pragma unroll
-        for (int m = 0; m < kTM; ++m) {
-          const float sxv = sx ? sx[(size_t)(u / sg_units) * tm + row0 + m] : 1.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            facc[m][c] += (float)iacc[m][c] * sxv * sc[c];
-            iacc[m][c] = 0;
-          }
-        }
-      }
-    }
-  }
-  block_reduce_store(facc, red, ws, tm, N, row0);
+// The int8 tensor-core decode form (decode_i8_tc.cuh) in weight format FMT,
+// 8 rows of x a block: grid = (ceil(N/512), ksplit, tm/8), f32 to a.dst
+// (the output when ksplit is 1, else the splits' partials [ksplit, tm, N]).
+template <int FMT>
+__global__ void __launch_bounds__(kItThreads, it_blocks_per_sm<1>())
+    lab_decode_i8tc(const __grid_constant__ ItArgs a) {
+  decode_i8tc_body<FMT, 1>(a);
 }
 
 // One warp per (row, 32-block), a lane per value: xq int8 [tm, K], sx f32
@@ -738,6 +566,19 @@ bool bad_shape(int tm, int K, int N, int ksplit) {
   return tm < kTM || tm % kTM || K < 32 || K % 32 || N < 16 || N % 16 || ksplit < 1;
 }
 
+template <int FMT>
+cudaError_t launch_decode_i8tc(const ItArgs& a, int ksplit, cudaStream_t st) {
+  constexpr int smem = it_smem_bytes<FMT>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      lab_decode_i8tc<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid((a.N + kItBlockCols - 1) / kItBlockCols, ksplit, a.tm / kTM);
+  lab_decode_i8tc<FMT><<<grid, kItThreads, smem, st>>>(a);
+  return cudaSuccess;
+}
+
 template <int MODE>
 cudaError_t launch_decode_tc(const void* x, const void* x_hi, const void* q, const void* s,
                              float* out, float* ws, int tm, int K, int N, int ksplit,
@@ -789,38 +630,47 @@ extern "C" int llamago_lab_fmatmul(const void* x, const void* x_hi, const void* 
   }
 }
 
-// Rows L6, L7, L8 and L10. wfmt: 0 Q8_0, 1 Q4_0 (centered), 2 the Q4_0 bytes
-// as two's-complement nibbles. xlayout: 0 xq [tm, K]; 1 xq [K/32, tm, 32]; 2
-// the halves xq, xq_hi [tm, K/2] (wfmt 1 only). sx f32 [K/(32*sg_units), tm]
-// or null. Other arguments as llamago_lab_fmatmul.
+// Rows L6, L7, L8 and L10, each on the int8 tensor-core decode form
+// lab_decode_i8tc. wfmt: 0 Q8_0, 1 Q4_0 (raw nibbles less 8 * sum(xq): the
+// centered integers), 2 the Q4_0 bytes as two's-complement pairs. xlayout: 0
+// xq [tm, K]; 1 xq [K/32, tm, 32]; 2 the halves xq, xq_hi [tm, K/2] (wfmt 1
+// only). sx f32 [K/(32*sg_units), tm] or null. A scale group is sg_units
+// quant blocks, a k-tile tile_units; group g of tile t takes scale row
+// t*tile_units + g of s. Each split takes `per` quant blocks, ksplit * per
+// >= K/32 > (ksplit - 1) * per (the plan of ops/lab_kernels.py
+// lab_i8_plan); ws f32 [ksplit, tm, N], read only when ksplit > 1. Other
+// arguments as llamago_lab_fmatmul.
 extern "C" int llamago_lab_imatmul(const void* xq, const void* xq_hi, const void* sx,
                                    const void* q, const void* s, void* out, void* ws, int tm,
                                    int K, int N, int wfmt, int xlayout, int sg_units,
-                                   int tile_units, int ksplit, void* stream) {
+                                   int tile_units, int ksplit, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(tm, K, N, ksplit)) return (int)cudaErrorInvalidValue;
-  const int upb = (K / 32 + ksplit - 1) / ksplit;
-  if (upb > kMaxUnits || wfmt < 0 || wfmt > 2 || xlayout < 0 || xlayout > 2 || sg_units < 1 ||
-      tile_units < sg_units || tile_units % sg_units || (xlayout == kXHalves && wfmt != kWQ4) ||
-      (wfmt == kWI4 && xlayout != kXRows))
+  const int nb = K / 32;
+  if (bad_shape(tm, K, N, ksplit) || per < 1 || (long long)ksplit * per < nb ||
+      (long long)(ksplit - 1) * per >= nb || (ksplit > 1 && ws == nullptr) || wfmt < kItQ8 ||
+      wfmt > kItI4 || xlayout < kItXRows || xlayout > kItXHalves || sg_units < 1 ||
+      tile_units < sg_units || tile_units % sg_units || nb % tile_units ||
+      (xlayout == kItXHalves && (wfmt != kItQ4Raw || xq_hi == nullptr)) ||
+      (wfmt == kItI4 && xlayout != kItXRows))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kCols - 1) / kCols, ksplit, tm / kTM);
-  const auto* xp = static_cast<const int8_t*>(xq);
-  const auto* xh = static_cast<const int8_t*>(xq_hi);
-  const auto* sxp = static_cast<const float*>(sx);
-  const auto* qp = static_cast<const uint8_t*>(q);
-  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  float* o = static_cast<float*>(out);
   float* w = static_cast<float*>(ws);
-  if (wfmt == kWQ8)
-    lab_igemv<kWQ8><<<grid, kThreads, 0, st>>>(xp, xh, sxp, qp, sp, w, tm, K, N, upb, xlayout,
-                                               sg_units, tile_units);
-  else if (wfmt == kWQ4)
-    lab_igemv<kWQ4><<<grid, kThreads, 0, st>>>(xp, xh, sxp, qp, sp, w, tm, K, N, upb, xlayout,
-                                               sg_units, tile_units);
+  ItArgs a{};
+  a.xq = static_cast<const int8_t*>(xq), a.xq_hi = static_cast<const int8_t*>(xq_hi);
+  a.sx = static_cast<const float*>(sx), a.sx_ld = tm;
+  a.q = static_cast<const uint8_t*>(q), a.s = static_cast<const __nv_bfloat16*>(s);
+  a.dst = ksplit > 1 ? w : o, a.dst_split = (size_t)tm * N;
+  a.xlayout = xlayout, a.tm = tm, a.K = K, a.N = N, a.per = per;
+  a.sg = sg_units, a.tile = tile_units, a.tile_rows = tile_units;
+  cudaError_t e;
+  if (wfmt == kItQ8)
+    e = launch_decode_i8tc<kItQ8>(a, ksplit, st);
+  else if (wfmt == kItQ4Raw)
+    e = launch_decode_i8tc<kItQ4Raw>(a, ksplit, st);
   else
-    lab_igemv<kWI4><<<grid, kThreads, 0, st>>>(xp, xh, sxp, qp, sp, w, tm, K, N, upb, xlayout,
-                                               sg_units, tile_units);
-  reduce(w, static_cast<float*>(out), tm, N, tm, ksplit, st);
+    e = launch_decode_i8tc<kItI4>(a, ksplit, st);
+  if (e != cudaSuccess) return (int)e;
+  if (ksplit > 1) reduce(w, o, tm, N, tm, ksplit, st);
   return (int)cudaGetLastError();
 }
 

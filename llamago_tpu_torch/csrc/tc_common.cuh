@@ -1,13 +1,15 @@
 // PTX wrappers shared by the tensor-core kernels of K1 (dq_tc and
 // dq_decode_tc, dequant_matmul.cu), K9 (so_decode_tc,
-// dequant_matmul_so.cu), K6 (w4x8_tc, w4x8_matmul.cu), K2 (attn_decode_tc,
-// attn_decode.cu), K7 (attn_prefill.cu), K4 and K8 (quant_partial_tc and
-// widening_tc, attn_decode_quant.cu), and used by the lab's cp.async
+// dequant_matmul_so.cu), K5 and K6 (w4x8_a8_tc and w4x8_tc,
+// w4x8_matmul.cu), K2 (attn_decode_tc, attn_decode.cu), K7
+// (attn_prefill.cu), K4 and K8 (quant_partial_tc and widening_tc,
+// attn_decode_quant.cu), the lab's tensor-core forms and its cp.async
 // probe (lab_matmul.cu): cp.async staging, ldmatrix A fragments and
 // transposed B fragments, mma.sync.m16n8k16 (bf16, f32 accumulation) and
 // mma.sync.m16n8k32 (int8, exact int32 accumulation), bf16 packing and scale
-// reads from shared memory, TMA bulk copies on mbarriers, and the exact bf16
-// pairs of int8 and Q4_0 weights. Each source builds into its own library,
+// reads from shared memory, TMA bulk copies on mbarriers, the words of a
+// lane's 16-byte read, and the exact bf16 pairs of int8 and Q4_0 weights.
+// Each source builds into its own library,
 // so the functions live in an anonymous namespace.
 
 #pragma once
@@ -157,6 +159,11 @@ __device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
                                    *reinterpret_cast<const __nv_bfloat162*>(&c));
   return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Word I of a lane's 16 bytes of a weight row: columns n+4I .. n+4I+3.
+template <int I> __device__ __forceinline__ uint32_t word_of(const uint4& v) {
+  return I == 0 ? v.x : I == 1 ? v.y : I == 2 ? v.z : v.w;
 }
 
 // 8 consecutive scales in shared memory (16-byte aligned) -> f32.

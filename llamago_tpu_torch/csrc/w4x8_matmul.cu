@@ -44,19 +44,19 @@
 //  * K5 is three launches from one entry point. w4x8_quant_x quantizes x
 //    with one warp per (row, group): the rounding decisions (rintf, IEEE
 //    division, the product by fl(1/127)) are the plain version's bit for
-//    bit. w4x8_a8 streams the weights: a thread owns CT neighbouring columns
-//    (8 up to 8 rows, 4 above, so that the int32 and f32 sums of every row
-//    stay in registers), a warp owns one 128-row group at a time and reads
-//    whole packed rows, eight rows in flight per thread. The interleaved
-//    nibbles of two packed rows are turned into __dp4a operands (four
-//    consecutive k of one column in one register) with two masks and
-//    __byte_perm: a nibble moved to the high half of its byte is 16 times
-//    its signed value, so the int32 dot comes out 16 times too large and is
-//    shifted back exactly. A lane holds one int8x4 word of the group's xq and
-//    broadcasts it by warp shuffle. The four warps of a block take different
-//    groups, the grid splits K at whole groups so that enough blocks are in
-//    flight, and w4x8_reduce adds the partial sums in a fixed order (no
-//    atomics: the same result from run to run).
+//    bit; for the matmul it lays sx out as [groups, slots]. w4x8_a8_tc is
+//    the int8 tensor-core decode form (decode_i8_tc.cuh, its int4 format):
+//    the packed weight rows stream in by TMA bulk copies (L2 evict_first)
+//    into a ring, the weights are the A operand of mma.sync.m16n8k32 on
+//    int8 (a nibble moved to the high half of its byte is 16 times its
+//    value, so a packed byte needs one shift or mask to reach the tensor
+//    core, and the exact int32 sum is shifted back), the slots are the n8
+//    columns of B (one n8 tile up to 8 rows, two up to 16: the weights are
+//    read once), and each 128-row group's int32 sum is folded with sx * s
+//    into the f32 output sum. K is split at whole groups into one wave of
+//    blocks (ops/kernels.py a8_split_for), and w4x8_reduce adds the splits'
+//    partials in a fixed order (no atomics: the same result from run to
+//    run).
 //  * K6's tensor-core tile is K1's dq_tc skeleton (dequant_matmul.cu; the
 //    PTX wrappers in tc_common.cuh) on the w4x8 layout, its dot on
 //    mma.sync.m16n8k16 (bf16 in, f32 accumulate). 128 threads own 128
@@ -95,6 +95,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_i8_tc.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -113,12 +114,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // ---------------------------------------------------------------- K5: x -> int8
 
-// One warp per (row, group); a lane takes 4 consecutive values.
+// One warp per (row, group); a lane takes 4 consecutive values. sx of row
+// m, group g goes to sx[m * sx_m + g * sx_g].
 template <typename XT>
 __global__ void __launch_bounds__(128) w4x8_quant_x(const XT* __restrict__ x,
                                                     int8_t* __restrict__ xq,
-                                                    float* __restrict__ sx, int M,
-                                                    int K) {
+                                                    float* __restrict__ sx, int M, int K,
+                                                    int sx_m, int sx_g) {
   const int lane = threadIdx.x & 31;
   const int G = K / kGroup;
   const int item = blockIdx.x * 4 + (threadIdx.x >> 5);
@@ -140,137 +142,17 @@ __global__ void __launch_bounds__(128) w4x8_quant_x(const XT* __restrict__ x,
     packed |= ((uint32_t)(uint8_t)(int8_t)(int)r) << (8 * i);
   }
   *reinterpret_cast<uint32_t*>(xq + off) = packed;
-  if (lane == 0) sx[(size_t)m * G + g] = s;
+  if (lane == 0) sx[(size_t)m * sx_m + (size_t)g * sx_g] = s;
 }
 
 // ------------------------------------------------------------- K5: the matmul
 
-constexpr int kA8Warps = 4;
-
-template <int W> __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&o)[W]);
-template <> __device__ __forceinline__ void load_words<1>(const uint8_t* p, uint32_t (&o)[1]) {
-  o[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
-}
-template <> __device__ __forceinline__ void load_words<2>(const uint8_t* p, uint32_t (&o)[2]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  o[0] = v.x;
-  o[1] = v.y;
-}
-
-// grid = (ceil(N / (32*CT)), ksplit), block = 128 threads. Block y covers
-// groups [y*gpb, (y+1)*gpb). M <= MT rows; ws is [ksplit][rows of the whole
-// call][N] with `mn` elements per split.
-template <int MT, int CT>
-__global__ void __launch_bounds__(128) w4x8_a8(const int8_t* __restrict__ xq,
-                                               const float* __restrict__ sx,
-                                               const uint8_t* __restrict__ q,
-                                               const __nv_bfloat16* __restrict__ s,
-                                               float* __restrict__ ws, int M, int K,
-                                               int N, int gpb, size_t mn) {
-  constexpr int W = CT / 4;  // 32-bit words of a packed row per thread
-  constexpr int kCols = 32 * CT;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane * CT;
-  const bool valid = n < N;
-  const int G = K / kGroup;
-  const int g0 = blockIdx.y * gpb;
-  const int g1 = min(g0 + gpb, G);
-
-  float facc[MT][CT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) facc[m][c] = 0.f;
-
-  for (int g = g0 + warp; g < g1; g += kA8Warps) {
-    int xr[MT];  // lane l: the int8x4 word of k = 128g + 4l .. 4l+3
-    float sxv[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      xr[m] = 0;
-      sxv[m] = 0.f;
-      if (m < M) {
-        xr[m] = reinterpret_cast<const int*>(xq + (size_t)m * K + (size_t)g * kGroup)[lane];
-        sxv[m] = sx[(size_t)m * G + g];
-      }
-    }
-    int iacc[MT][CT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) iacc[m][c] = 0;
-
-    const uint8_t* qg = q + (size_t)g * (kGroup / 2) * N + n;
-    for (int t0 = 0; t0 < 32; t0 += 4) {  // 4 words of xq = 8 packed rows
-      uint32_t wb[8][W];
-      if (valid) {
-#pragma unroll
-        for (int r = 0; r < 8; ++r) load_words<W>(qg + (size_t)(2 * t0 + r) * N, wb[r]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int xw[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) xw[m] = __shfl_sync(kFull, xr[m], t0 + j);
-        if (valid) {
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            // rows 2r, 2r+1 in a; 2r+2, 2r+3 in b; each byte one column
-            const uint32_t a = wb[2 * j][w], b = wb[2 * j + 1][w];
-            const uint32_t alo = (a << 4) & 0xF0F0F0F0u, ahi = a & 0xF0F0F0F0u;
-            const uint32_t blo = (b << 4) & 0xF0F0F0F0u, bhi = b & 0xF0F0F0F0u;
-            const uint32_t ta = __byte_perm(alo, ahi, 0x5140), tb = __byte_perm(alo, ahi, 0x7362);
-            const uint32_t ua = __byte_perm(blo, bhi, 0x5140), ub = __byte_perm(blo, bhi, 0x7362);
-            uint32_t col[4];  // 16 x (w[4t], w[4t+1], w[4t+2], w[4t+3]) of one column
-            col[0] = __byte_perm(ta, ua, 0x5410);
-            col[1] = __byte_perm(ta, ua, 0x7632);
-            col[2] = __byte_perm(tb, ub, 0x5410);
-            col[3] = __byte_perm(tb, ub, 0x7632);
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                iacc[m][4 * w + i] = __dp4a((int)col[i], xw[m], iacc[m][4 * w + i]);
-          }
-        }
-      }
-    }
-    if (valid) {
-      float sc[CT];
-      const __nv_bfloat16* sp = s + (size_t)(2 * g) * N + n;
-#pragma unroll
-      for (int c = 0; c < CT; ++c) sc[c] = __bfloat162float(sp[c]);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < CT; ++c)
-          facc[m][c] += (float)(iacc[m][c] >> 4) * sxv[m] * sc[c];
-    }
-  }
-
-  // Reduce the warps' partial sums in a fixed order. Layout [m][c][lane]
-  // keeps the stores free of bank conflicts.
-  __shared__ float red[MT * CT * 32];
-  for (int w = 0; w < kA8Warps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int i = (m * CT + c) * 32 + lane;
-          red[i] = (w == 0 ? 0.f : red[i]) + facc[m][c];
-        }
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < MT * kCols; i += blockDim.x) {
-    const int m = i / kCols;
-    const int c = i % kCols;
-    const int nn = blockIdx.x * kCols + c;
-    if (m < M && nn < N)
-      ws[blockIdx.y * mn + (size_t)m * N + nn] = red[(m * CT + (c % CT)) * 32 + c / CT];
-  }
+// The int8 tensor-core decode form on the w4x8 layout: grid = (ceil(N/512),
+// ksplit, ceil(M / (8 NT))), f32 partials [ksplit, M, N] to a.dst.
+template <int NT>
+__global__ void __launch_bounds__(kItThreads, it_blocks_per_sm<NT>())
+    w4x8_a8_tc(const __grid_constant__ ItArgs a) {
+  decode_i8tc_body<kItI4, NT>(a);
 }
 
 // out[i] = sum over the ksplit partials, in order.
@@ -284,18 +166,25 @@ __global__ void w4x8_reduce(const float* __restrict__ ws, OT* __restrict__ out, 
   out[i] = from_f<OT>(a);
 }
 
-template <int MT, int CT>
-void launch_a8(const int8_t* xq, const float* sx, const uint8_t* q, const __nv_bfloat16* s,
-               float* ws, int M, int K, int N, int ksplit, int gpb, size_t mn,
-               cudaStream_t st) {
-  dim3 grid((N + 32 * CT - 1) / (32 * CT), ksplit);
-  w4x8_a8<MT, CT><<<grid, 32 * kA8Warps, 0, st>>>(xq, sx, q, s, ws, M, K, N, gpb, mn);
+template <int NT>
+cudaError_t launch_a8_tc(const ItArgs& a, int M, int ksplit, cudaStream_t st) {
+  constexpr int smem = it_smem_bytes<kItI4>();
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(w4x8_a8_tc<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid((a.N + kItBlockCols - 1) / kItBlockCols, ksplit, (M + 8 * NT - 1) / (8 * NT));
+  w4x8_a8_tc<NT><<<grid, kItThreads, smem, st>>>(a);
+  return cudaSuccess;
 }
 
 template <typename XT>
-void quant_x(const void* x, int8_t* xq, float* sx, int M, int K, cudaStream_t st) {
+void quant_x(const void* x, int8_t* xq, float* sx, int M, int K, int sx_m, int sx_g,
+             cudaStream_t st) {
   const int items = M * (K / kGroup);
-  w4x8_quant_x<XT><<<(items + 3) / 4, 128, 0, st>>>(static_cast<const XT*>(x), xq, sx, M, K);
+  w4x8_quant_x<XT><<<(items + 3) / 4, 128, 0, st>>>(static_cast<const XT*>(x), xq, sx, M, K,
+                                                    sx_m, sx_g);
 }
 
 // ----------------------------------------------------- K6: the f32 tile
@@ -575,8 +464,8 @@ cudaError_t launch_tc(const void* x, const void* q, const void* s, void* out, fl
   return launch_tc_rows<4>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
 }
 
-// The forms, as ops/kernels.py's W4X8_FORMS numbers them. K5 ("a8") has an
-// entry point of its own.
+// The forms, as ops/kernels.py's W4X8_FORMS numbers them. K5 ("a8", the
+// int8 tensor-core decode form) has an entry point of its own.
 enum W4x8Form { kA8 = 0, kTiledF32 = 1, kTensorCore = 2 };
 
 }  // namespace
@@ -585,47 +474,46 @@ enum W4x8Form { kA8 = 0, kTiledF32 = 1, kTensorCore = 2 };
 extern "C" int llamago_w4x8_quantize_x(const void* x, void* xq, void* sx, int M, int K,
                                        int x_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = K / kGroup;
   if (x_bf16)
-    quant_x<__nv_bfloat16>(x, static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, st);
+    quant_x<__nv_bfloat16>(x, static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, G, 1, st);
   else
-    quant_x<float>(x, static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, st);
+    quant_x<float>(x, static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, G, 1, st);
   return (int)cudaGetLastError();
 }
 
-// K5. xq (int8 [M, K]), sx (f32 [M, K/128]) and ws (f32 [ksplit, M, N]) are
-// scratch. `gpb` groups per K-split, ksplit * gpb >= K/128. Rows are taken
-// 16 at a time. x_bf16: 1 for bfloat16, 0 for float32.
+// K5. xq (int8 [M, K]), sx (f32 [K/128, Mp], Mp = M rounded up to 8 for M
+// <= 8, else to 16) and ws (f32 [ksplit, M, N]) are scratch. `gpb` groups
+// per K-split, ksplit * gpb >= K/128 > (ksplit - 1) * gpb. x_bf16: 1 for
+// bfloat16, 0 for float32. Returns cudaGetLastError() after the launches,
+// or cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int llamago_w4x8_matmul_a8(const void* x, const void* q, const void* s, void* out,
                                       void* xq, void* sx, void* ws, int M, int K, int N,
                                       int x_bf16, int ksplit, int gpb, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = K / kGroup;
+  if (M < 1 || K < kGroup || K % kGroup || N < 16 || N % 16 || ksplit < 1 || gpb < 1 ||
+      (long long)ksplit * gpb < G || (long long)(ksplit - 1) * gpb >= G)
+    return (int)cudaErrorInvalidValue;
+  const int nt = M > 8 ? 2 : 1;
+  const int mp = (M + 8 * nt - 1) / (8 * nt) * (8 * nt);
   int8_t* xq8 = static_cast<int8_t*>(xq);
   float* sxf = static_cast<float*>(sx);
   float* wsf = static_cast<float*>(ws);
-  const uint8_t* qq = static_cast<const uint8_t*>(q);
-  const __nv_bfloat16* ss = static_cast<const __nv_bfloat16*>(s);
-  const size_t mn = (size_t)M * N;
-  const int G = K / kGroup;
   if (x_bf16)
-    quant_x<__nv_bfloat16>(x, xq8, sxf, M, K, st);
+    quant_x<__nv_bfloat16>(x, xq8, sxf, M, K, 1, mp, st);
   else
-    quant_x<float>(x, xq8, sxf, M, K, st);
-  for (int m0 = 0; m0 < M; m0 += 16) {
-    const int mc = (M - m0 < 16) ? M - m0 : 16;
-    const int8_t* xq0 = xq8 + (size_t)m0 * K;
-    const float* sx0 = sxf + (size_t)m0 * G;
-    float* ws0 = wsf + (size_t)m0 * N;
-    if (mc <= 1)
-      launch_a8<1, 8>(xq0, sx0, qq, ss, ws0, mc, K, N, ksplit, gpb, mn, st);
-    else if (mc <= 2)
-      launch_a8<2, 8>(xq0, sx0, qq, ss, ws0, mc, K, N, ksplit, gpb, mn, st);
-    else if (mc <= 4)
-      launch_a8<4, 8>(xq0, sx0, qq, ss, ws0, mc, K, N, ksplit, gpb, mn, st);
-    else if (mc <= 8)
-      launch_a8<8, 8>(xq0, sx0, qq, ss, ws0, mc, K, N, ksplit, gpb, mn, st);
-    else
-      launch_a8<16, 4>(xq0, sx0, qq, ss, ws0, mc, K, N, ksplit, gpb, mn, st);
-  }
+    quant_x<float>(x, xq8, sxf, M, K, 1, mp, st);
+  const size_t mn = (size_t)M * N;
+  ItArgs a{};
+  a.xq = xq8, a.sx = sxf, a.sx_ld = mp;
+  a.q = static_cast<const uint8_t*>(q), a.s = static_cast<const __nv_bfloat16*>(s);
+  a.dst = wsf, a.dst_split = mn;
+  a.xlayout = kItXRows, a.tm = M, a.K = K, a.N = N, a.per = 4 * gpb;
+  a.sg = 4, a.tile = 4, a.tile_rows = 2;  // group g: 4 steps, scale row 2g
+  const cudaError_t e = nt == 1 ? launch_a8_tc<1>(a, M, ksplit, st)
+                                : launch_a8_tc<2>(a, M, ksplit, st);
+  if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((mn + 255) / 256);
   if (x_bf16)
     w4x8_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(wsf, static_cast<__nv_bfloat16*>(out),

@@ -6,11 +6,13 @@ x.dtype and dispatches on the leaf as the JAX package's `dequant_matmul`
 does (llamago_tpu/ops/kernels.py):
 
   {"q4x", "s"}  w4x8 leaf -> `w4x8_matmul` in the form `w4x8_form` picks:
-                K5, the W4A8 decode matmul, when the row count m is at most
-                `_W4X8_A8_MAX_M` (16, env LLAMAGO_W4X8_A8_MAX_M), replacing
-                `_w4x8_decode_kernel`; else K6, the stream matmul, replacing
-                `_w4x8_stream_kernel`: the bf16 tensor-core tile for bf16 x
-                and the f32 tile for f32 x. CUDA: `csrc/w4x8_matmul.cu`.
+                K5, the W4A8 decode matmul (its int8 tensor-core decode
+                form, csrc/decode_i8_tc.cuh), when the row count m is at
+                most `_W4X8_A8_MAX_M` (16, env LLAMAGO_W4X8_A8_MAX_M),
+                replacing `_w4x8_decode_kernel`; else K6, the stream
+                matmul, replacing `_w4x8_stream_kernel`: the bf16
+                tensor-core tile for bf16 x and the f32 tile for f32 x.
+                CUDA: `csrc/w4x8_matmul.cu`.
   {"q8"|"q4", "s"}  Q8_0 / Q4_0 leaf -> K9, the scale-on-output matmul
                 (`dequant_matmul_so`, replacing `_dequant_mm_kernel_so`,
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
@@ -89,7 +91,12 @@ K1_FORMS = ("gemv", "tiled_f32", "tensor_core", "decode_tc")
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
 _W4X8_A8_MAX_M = int(os.environ.get("LLAMAGO_W4X8_A8_MAX_M", "16"))
-_A8_WARPS = 4  # warps per K5 block, one scale group each (csrc/w4x8_matmul.cu)
+# The int8 tensor-core decode form (csrc/decode_i8_tc.cuh) of K5 and the
+# lab's integer rows: columns a block covers, slots of x an n8 tile holds,
+# the fewest steps of 32 rows of K in a split (where K allows)
+_IT_COLS = 512
+_IT_TILE_SLOTS = 8
+_IT_MIN_SPLIT_STEPS = 4
 # The w4x8 forms, numbered as the C entry points take them: K5, and K6's
 # f32 and tensor-core tiles
 W4X8_FORMS = ("a8", "tiled_f32", "tensor_core")
@@ -262,12 +269,6 @@ def k9_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int
     return "decode_tc", ksplit, ksplit * m * n if ksplit > 1 else 0
 
 
-def a8_cols_per_thread(m: int) -> int:
-    """Columns each K5 thread owns: 8 up to 8 rows, 4 above (the integer and
-    f32 sums of every row and column live in registers)."""
-    return 8 if m <= 8 else 4
-
-
 def w4x8_form(m: int, x_dtype: torch.dtype) -> str:
     """The w4x8 matmul's kernel on the card for m rows of x: "a8" (K5) when
     max(8, m) is at most `_W4X8_A8_MAX_M` (the TPU launcher pads m up to 8);
@@ -291,14 +292,45 @@ def w4x8_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, i
     return form, 1, 0
 
 
+def i8tc_blocks_per_sm(tiles: int) -> int:
+    """Blocks of the int8 tensor-core decode form an SM holds with `tiles`
+    n8 tiles of slots (csrc/decode_i8_tc.cuh it_blocks_per_sm): three with
+    one, two with two (twice the sums in registers)."""
+    return 3 if tiles == 1 else 2
+
+
+def i8tc_split(steps: int, blocks: int, group: int, wave: int) -> tuple[int, int]:
+    """(ksplit, steps per split) of the int8 tensor-core decode form over
+    `steps` steps of 32 rows of K beside `blocks` blocks of columns and
+    rows: as many splits as one wave of `wave` blocks holds, each of at
+    least 4 steps where K allows, none empty. A split of at least a scale
+    group of `group` steps holds whole groups (its int32 sums are the
+    group's); a shorter one folds its part of a group. The C side takes
+    ksplit and the second number."""
+    ksplit = max(1, min(steps // _IT_MIN_SPLIT_STEPS, wave // blocks))
+    per = -(-steps // ksplit)
+    if per >= group:
+        per = -(-per // group) * group
+    return -(-steps // per), per
+
+
+def a8_slots(m: int) -> tuple[int, int]:
+    """(n8 tiles of slots a K5 block takes, slots sx is laid out for): one
+    tile up to 8 rows, two above; the rows padded up to whole blocks."""
+    tiles = 1 if m <= _IT_TILE_SLOTS else 2
+    per_block = tiles * _IT_TILE_SLOTS
+    return tiles, -(-m // per_block) * per_block
+
+
 def a8_split_for(m: int, k: int, n: int) -> tuple[int, int]:
-    """(ksplit, groups per split) of K5: splits cut at whole 128-groups,
-    each holds at least one group per warp where K allows, none is empty."""
-    groups = k // G4X8
-    col_blocks = -(-n // (32 * a8_cols_per_thread(m)))
-    ksplit = max(1, min(groups // _A8_WARPS, -(-_TARGET_BLOCKS // col_blocks)))
-    per = -(-groups // ksplit)
-    return -(-groups // per), per
+    """(ksplit, groups per split) of K5: splits cut at whole 128-groups as
+    far as one wave of blocks (512 columns by one or two n8 tiles of slots)
+    holds, none empty."""
+    tiles, slots = a8_slots(m)
+    blocks = -(-n // _IT_COLS) * (slots // (tiles * _IT_TILE_SLOTS))
+    group = G4X8 // QK
+    ksplit, per = i8tc_split(k // QK, blocks, group, i8tc_blocks_per_sm(tiles) * H100_SMS)
+    return ksplit, per // group
 
 
 @functools.cache
@@ -416,9 +448,9 @@ def w4x8_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     form, ksplit, ws_elems = w4x8_plan(m, k, n, x2.dtype)
     if form == "a8":
         per = a8_split_for(m, k, n)[1]
-        # one scratch allocation: sx f32 [m, K/128], the split-K partial sums
-        # f32 [ksplit, m, N], then xq int8 [m, K]
-        sx_bytes, ws_bytes = 4 * m * (k // G4X8), 4 * ws_elems
+        # one scratch allocation: sx f32 [K/128, slots], the split-K partial
+        # sums f32 [ksplit, m, N], then xq int8 [m, K]
+        sx_bytes, ws_bytes = 4 * a8_slots(m)[1] * (k // G4X8), 4 * ws_elems
         scratch = torch.empty(sx_bytes + ws_bytes + m * k, dtype=torch.uint8,
                               device=x2.device)
         sx_ptr = scratch.data_ptr()

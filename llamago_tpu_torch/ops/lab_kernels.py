@@ -44,7 +44,10 @@ A CPU tensor takes the plain version (`*_plain`); a CUDA tensor takes the
 kernel of `csrc/lab_matmul.cu`, or the wrapper raises. The float rows (L2,
 L3, L9, L12) run its tensor-core decode form (`lab_plan`): bf16 mma.sync
 with the weights as the A operand, 8 rows of x a group, K split into one
-wave of blocks. Each wrapper counts its launches (`.launches`).
+wave of blocks. The integer rows (L6, L7, L8, L10) run K5's int8
+tensor-core decode form (`lab_i8_plan`, csrc/decode_i8_tc.cuh): int8
+mma.sync with exact int32 sums per scale group, the same layout. Each
+wrapper counts its launches (`.launches`).
 """
 
 from __future__ import annotations
@@ -55,7 +58,14 @@ import functools
 import torch
 
 from llamago_tpu_torch.ops import _build
-from llamago_tpu_torch.ops.kernels import _INV_127, _cuda_or_raise
+from llamago_tpu_torch.ops.kernels import (
+    _INV_127,
+    _IT_COLS,
+    _IT_TILE_SLOTS,
+    _cuda_or_raise,
+    i8tc_blocks_per_sm,
+    i8tc_split,
+)
 from llamago_tpu_torch.ops.quant import QK, unpack_q4, unpack_w4x8
 from llamago_tpu_torch.utils.timing import H100_SMS
 
@@ -63,8 +73,7 @@ G128 = 128  # scale-group size of the g128 variants
 HALF = QK // 2
 PROBES = ("decode_only", "decode_bitcast", "dma_only", "dma_pure")
 _MAGIC = 8388608.0  # 2^23: 0x4B000000 | nib read as f32 is 2^23 + nib
-_ROWS_PER_BLOCK = 512  # K rows one CUDA block walks (csrc/lab_matmul.cu)
-_PROBE_ROWS_PER_BLOCK = 1024
+_PROBE_ROWS_PER_BLOCK = 1024  # K rows one probe block walks (csrc/lab_matmul.cu)
 
 
 def default_tk(k: int) -> int:
@@ -304,7 +313,8 @@ _F_MODES = (_F_I4, _F_I4_BF16, _F_Q4_BF16, _F_Q4_BF16_FMA, _F_W16)
 # nibble modes') and the fewest quant blocks in a split
 _LT_COLS, _LT_ROWS = 512, 8
 _LT_MIN_SPLIT_BLOCKS = 4
-# weight formats and x layouts of llamago_lab_imatmul
+# weight formats and x layouts of llamago_lab_imatmul (csrc/decode_i8_tc.cuh
+# kItQ8, kItQ4Raw, kItI4; kItXRows, kItXBlocks, kItXHalves)
 _W_Q8, _W_Q4, _W_I4 = range(3)
 _X_ROWS, _X_BLOCKS, _X_HALVES = range(3)
 _PROBE_MODE = {kind: i for i, kind in enumerate(PROBES)}
@@ -315,7 +325,7 @@ def _lib():
     lib = _build.library("lab_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.llamago_lab_fmatmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.llamago_lab_imatmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.llamago_lab_imatmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.llamago_lab_quantize_x.argtypes = [p, p, p, i, i, p]
     lib.llamago_lab_probe.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.llamago_lab_fmatmul, lib.llamago_lab_imatmul,
@@ -350,9 +360,8 @@ def _check_tm(what: str, tm: int) -> None:
                          "pads x to max(8, m) rows)")
 
 
-def ksplit_for(k: int, rows: int = _ROWS_PER_BLOCK) -> int:
-    """Blocks along K: one per `rows` rows, so that the whole grid fills
-    the card at the lab's shapes."""
+def ksplit_for(k: int, rows: int) -> int:
+    """Blocks along K of a probe: one per `rows` rows."""
     return -(-k // rows)
 
 
@@ -374,6 +383,21 @@ def lab_plan(tm: int, k: int, n: int, mode: int) -> tuple[int, int]:
     per = -(-nb // ksplit)
     ksplit = -(-nb // per)
     return ksplit, ksplit * tm * n if ksplit > 1 else 0
+
+
+def lab_i8_plan(tm: int, k: int, n: int, sg_units: int) -> tuple[int, int, int]:
+    """(ksplit, quant blocks per split, f32 workspace elements) of one
+    launch of the integer rows' int8 tensor-core decode form (tm a multiple
+    of 8, one group of 8 rows of x a grid z; a scale group of `sg_units`
+    quant blocks): K is split into as many parts as one wave of blocks (512
+    columns by 8 rows by a part of K, three an SM) holds, each of at least 4
+    quant blocks where K allows, none empty; a part of at least a scale
+    group holds whole groups (`kernels.i8tc_split`). The workspace holds the
+    parts' partials when K is split."""
+    _check_tm("lab_i8_plan", tm)
+    blocks = -(-n // _IT_COLS) * (tm // _IT_TILE_SLOTS)
+    ksplit, per = i8tc_split(k // QK, blocks, sg_units, i8tc_blocks_per_sm(1) * H100_SMS)
+    return ksplit, per, ksplit * tm * n if ksplit > 1 else 0
 
 
 def _fmatmul(what: str, mode: int, x, x_hi, q, q_dtype, q_rows: int, s) -> torch.Tensor:
@@ -406,10 +430,11 @@ def _fmatmul(what: str, mode: int, x, x_hi, q, q_dtype, q_rows: int, s) -> torch
 
 def _imatmul(what: str, wfmt: int, xlayout: int, xq, xq_hi, sx, sx_rows: int, q, s,
              sg_units: int, tile_units: int) -> torch.Tensor:
-    """Launch the integer-family kernel. xq int8 in `xlayout` ([tm, K];
-    [K/32, tm, 32]; the halves xq, xq_hi [tm, K/2]); sx f32 [sx_rows, tm] or
-    None (activation scale 1); q int8 [K, N] or uint8 [K/2, N]; s bf16
-    [K/32, N]. A scale group is `sg_units` 32-blocks, a k-tile `tile_units`."""
+    """Launch the integer rows' kernel by `lab_i8_plan`. xq int8 in
+    `xlayout` ([tm, K]; [K/32, tm, 32]; the halves xq, xq_hi [tm, K/2]); sx
+    f32 [sx_rows, tm] or None (activation scale 1); q int8 [K, N] or uint8
+    [K/2, N]; s bf16 [K/32, N]. A scale group is `sg_units` 32-blocks, a
+    k-tile `tile_units`."""
     _cuda_or_raise(xq, what)
     if xq.dim() != (3 if xlayout == _X_BLOCKS else 2) or \
             (xlayout == _X_BLOCKS and xq.shape[2] != QK):
@@ -432,13 +457,14 @@ def _imatmul(what: str, wfmt: int, xlayout: int, xq, xq_hi, sx, sx_rows: int, q,
     if (k // QK) % tile_units or tile_units % sg_units:
         raise ValueError(f"{what}: K={k} rows do not divide into k-tiles of "
                          f"{tile_units * QK} and scale groups of {sg_units * QK}")
-    ksplit = ksplit_for(k)
+    ksplit, per, ws_elems = lab_i8_plan(tm, k, n, sg_units)
     out = torch.empty((tm, n), dtype=torch.float32, device=xq.device)
-    ws = torch.empty((ksplit, tm, n), dtype=torch.float32, device=xq.device)
+    ws = torch.empty(ws_elems, dtype=torch.float32, device=xq.device) if ws_elems else None
     err = _lib().llamago_lab_imatmul(
         xq.data_ptr(), 0 if xq_hi is None else xq_hi.data_ptr(),
         0 if sx is None else sx.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), tm, k, n, wfmt, xlayout, sg_units, tile_units, ksplit, _stream(xq))
+        0 if ws is None else ws.data_ptr(), tm, k, n, wfmt, xlayout, sg_units, tile_units,
+        ksplit, per, _stream(xq))
     _build.check(err, what)
     return out
 

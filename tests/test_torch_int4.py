@@ -416,8 +416,10 @@ def test_k5_split_cuts_at_whole_groups(m, k, n):
     groups = k // 128
     assert ksplit >= 1 and per >= 1
     assert ksplit * per >= groups > (ksplit - 1) * per  # covers K, no split is empty
-    if groups >= 4:
-        assert per >= 4 or ksplit == 1  # a group for every warp
+    # one wave of blocks of 512 columns (three an SM with one n8 tile of
+    # slots, two with two)
+    blocks = -(-n // 512) * -(-m // (8 if m <= 8 else 16))
+    assert blocks * ksplit <= max((3 if m <= 8 else 2) * 132, blocks)
 
 
 # ------------------------------------------------------ files and params

@@ -428,4 +428,4 @@ def test_row_count_and_probe_kind_are_checked():
         lk.probe_plain("dma_fast", {"q4": torch.zeros((32, 16), dtype=torch.uint8),
                                     "s": torch.zeros((2, 16))}, TM, 32)
     assert lk.default_tk(8192) == 1024 and lk.default_tk(512) == 512
-    assert lk.ksplit_for(8192) == 16 and lk.ksplit_for(512) == 1
+    assert lk.ksplit_for(8192, 512) == 16 and lk.ksplit_for(512, 1024) == 1

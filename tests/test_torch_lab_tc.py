@@ -136,11 +136,12 @@ def test_entry_point_arguments_match_the_argtypes(monkeypatch):
 
 
 def test_the_form_is_k1s_layout_from_one_header():
-    """lab_matmul.cu takes decode_tc.cuh's layout (its constants, word_of)
-    and tc_common.cuh's wrappers (q4_pair, mma_bf16, ldmatrix_x4_trans, the
-    TMA copies), and rebuilds when either header changes."""
-    assert _build.source_files("lab_matmul") == ["lab_matmul.cu", "decode_tc.cuh",
-                                                 "tc_common.cuh"]
+    """lab_matmul.cu takes decode_tc.cuh's layout (its constants),
+    tc_common.cuh's wrappers (word_of, q4_pair, mma_bf16, ldmatrix_x4_trans,
+    the TMA copies) and, for the integer rows, decode_i8_tc.cuh, and
+    rebuilds when any of the headers changes."""
+    assert _build.source_files("lab_matmul") == ["lab_matmul.cu", "decode_i8_tc.cuh",
+                                                 "decode_tc.cuh", "tc_common.cuh"]
     for use in ("kDtBlockCols", "word_of<I>(", "q4_pair<J, 0>(", "mma_bf16(part, a,",
                 "ldmatrix_x4_trans(a,", "bulk_copy(", "mbar_wait(", "__hmul2_rn(",
                 "__hadd2_rn("):
