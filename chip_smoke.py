@@ -20,7 +20,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      tensor-core tile for bf16 x and the f32 tile for f32 x), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
      fills 1 to 1024 with the serving fill 101 and the split's edges, and
-     at t = 32; GQA at hd = 64 and its f32 form checked), K3, K4 (its
+     at t = 32; GQA at hd = 64 and its f32 form checked), K3 (on
+     contiguous rows with int32 positions and on the serving path's own
+     inputs, v a strided view of the fused projection and int64
+     positions, where one call must be one device kernel), K4 (its
      tensor-core form at S = 1024, checked and timed at t = 1 for fills 1
      to 1024 with the serving fill 101 and the S-block's edges, at t = 16
      and 32; its CUDA-core form at S = 520 checked), K8 (its tensor-core
@@ -37,7 +40,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      (scale-on-output matmul, each of its forms: the tensor-core decode
      form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
      4; the GEMV for f32 x, timed at 4, and for m = 9 and 16), K7 (flash
-     prefill attention) and K10 (fused RMSNorm);
+     prefill attention) and K10 (fused RMSNorm, into NaN-filled memory);
+     K3 and K10 are timed beside the card's floor for one small launch (a
+     `fill_` of one element);
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -665,13 +670,64 @@ def check_k2(dev, detail: dict) -> dict:
             **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
+def launch_floor_ms() -> float:
+    """The card's floor for one small launch: a `fill_` of a one-element
+    tensor, timed as the kernels are (`timed`). Context for the
+    launch-bound rows (K3, K10), not a bound."""
+    import torch
+
+    one = torch.zeros((1,), device="cuda")
+    return timed([lambda: one.fill_(1.0)], 200)
+
+
+def k3_serving_rows(dev, gen, c, dtype):
+    """New K and V rows as the serving path hands them to K3: k contiguous
+    (the rope's output), v a view of the fused [b, 1, q_dim + 2 kv_dim]
+    projection (7B: q_dim = kv_dim), its batch stride the projection's
+    width."""
+    import torch
+
+    b, kv, hd = c["b"], c["kv"], c["hd"]
+    qkv = torch.randn((b, 1, 3 * kv * hd), generator=gen, device=dev).to(dtype)
+    k = qkv[..., kv * hd:2 * kv * hd].reshape(b, 1, kv, hd).contiguous()
+    v = qkv[..., 2 * kv * hd:].reshape(b, 1, kv, hd)
+    if v.is_contiguous() or v.data_ptr() != qkv.data_ptr() + 2 * kv * hd * qkv.element_size():
+        raise AssertionError("K3: the serving path's v is not a view of the projection")
+    return [k, v]
+
+
+def device_ops_per_call(fn, calls: int = 50) -> tuple[float, list[str]]:
+    """The device-side operations (kernels, and any copy or fill) that one
+    call of fn runs: those of a torch.profiler trace of `calls` calls, over
+    `calls`, and their names. A trace of one short call can lose its events
+    (seen on the card: none at all in eight traces of a single K3 call, two
+    of three in another), so the count is taken over many calls, where an
+    event lost at the trace's edge moves it by 1 / calls."""
+    import torch
+
+    from llamago_tpu_torch.utils.timing import profiled
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    fn()  # warm: libraries loaded, memory cached
+    events = [e for e in profiled(run) if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(events) / calls, sorted({e.name for e in events})
+
+
 def check_k3(dev, detail: dict) -> dict:
     """K3 at b=8, KV=32, hd=128, S=1024 (the int8 serving phase's decode
     step), bf16 and f32 new rows, f32 and bf16 scale planes, write positions
-    0, S-1, overrunning and negative starts among them: bit-exact against
-    the plain version, every other row untouched. Timed with bf16 new rows;
-    no one PyTorch call computes it. The kernels line takes the f32 planes,
-    the default."""
+    0, S-1, overrunning and negative starts among them, on two kinds of
+    input: contiguous rows with int32 positions, and the serving path's
+    own (`k3_serving_rows`: v a strided view of the fused projection, int64
+    positions). Each bit-exact against the plain version, every other row
+    untouched. A call on the serving path's inputs must be one device
+    kernel (`device_ops_per_call`). Timed with bf16 new rows on both inputs
+    beside the card's floor for one small launch; no one PyTorch call
+    computes it. The kernels line takes the serving path's inputs with f32
+    planes, the default."""
     import torch
 
     from llamago_tpu_torch.ops import cache_write
@@ -688,45 +744,68 @@ def check_k3(dev, detail: dict) -> dict:
     slot = torch.tensor([0, s - 1, s - 1, s - 5, 1, 512, 700, s - 1], device=dev)
     written = torch.zeros((b, s), dtype=torch.bool, device=dev)
     written[torch.arange(b, device=dev), slot] = True
-    new_t = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
-             for _ in range(2)]
-    pos_t = torch.full((b,), 700, dtype=torch.int32, device=dev)
+    timed_inputs = {
+        "contiguous, int32": ([torch.randn((b, 1, kv, hd), generator=gen, device=dev)
+                               .to(torch.bfloat16) for _ in range(2)],
+                              torch.full((b,), 700, dtype=torch.int32, device=dev)),
+        "serving, int64": (k3_serving_rows(dev, gen, c, torch.bfloat16),
+                           torch.full((b,), 700, dtype=torch.int64, device=dev))}
     n = b * kv * hd  # values per new K (or V) tensor
+    floor = launch_floor_ms()
+    log(f"K3: the card's floor for one small launch (fill_ of one element) {floor:.5f} ms")
     out = {}
     for sdt in (torch.float32, torch.bfloat16):
         sname = str(sdt).split(".")[-1]
         cache = rows8 + [a.to(sdt) for a in scales]
         for dtype in (torch.bfloat16, torch.float32):
-            new = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(dtype)
-                   for _ in range(2)]
-            new[1][0, 0, 3] = 0  # a zero row: scale 1, row 0
-            got = [a.clone() for a in cache]
-            want = [a.clone() for a in cache]
-            cache_write.cache_append_quant(*got, *new, pos)
-            cache_write.cache_append_quant_plain(*want, *new, pos)
-            torch.cuda.synchronize()
-            for name, g, w, orig in zip(("k", "v", "ks", "vs"), got, want, cache):
-                if g.dtype != orig.dtype or not torch.equal(g, w):
-                    raise AssertionError(f"K3 {dtype}, {sname} scales: {name} differs from "
-                                         "the plain version")
-                keep = ~written[:, None, :].expand(b, kv, s)
-                if not torch.equal(g[keep], orig[keep]):
-                    raise AssertionError(f"K3 {dtype}, {sname} scales: {name} changed a row "
-                                         "it must not write")
-            log(f"K3 {str(dtype).split('.')[-1]}, {sname} scales: bit-exact against the "
-                "plain version, other rows untouched")
-        kern = timed([lambda: cache_write.cache_append_quant(*cache, *new_t, pos_t)], 200)
-        plain = timed([lambda: cache_write.cache_append_quant_plain(*cache, *new_t, pos_t)],
-                      20)
-        # read the bf16 rows and the positions, write the int8 rows and the
-        # scales; abs, max, divide and round per value in f32
-        bnd, by = bound_ms(2 * n * 2 + 4 * b + 2 * n + 2 * b * kv * cache[2].element_size(),
-                           4.0 * 2 * n, F32_OPS_PER_S)
-        out[sname] = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
-        log(f"K3 b={b}, {sname} scales: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{bnd:.6f} ms (one layer)")
+            for inputs in ("contiguous, int32", "serving, int64"):
+                if inputs == "serving, int64":
+                    new, p = k3_serving_rows(dev, gen, c, dtype), pos.long()
+                else:
+                    new = [torch.randn((b, 1, kv, hd), generator=gen, device=dev).to(dtype)
+                           for _ in range(2)]
+                    p = pos
+                new[1][0, 0, 3] = 0  # a zero row: scale 1, row 0
+                got = [a.clone() for a in cache]
+                want = [a.clone() for a in cache]
+                launches = cache_write.cache_append_quant.launches
+                cache_write.cache_append_quant(*got, *new, p)
+                cache_write.cache_append_quant_plain(*want, *new, p)
+                torch.cuda.synchronize()
+                if cache_write.cache_append_quant.launches != launches + 1:
+                    raise AssertionError("K3: the call counted no launch")
+                for name, g, w, orig in zip(("k", "v", "ks", "vs"), got, want, cache):
+                    if g.dtype != orig.dtype or not torch.equal(g, w):
+                        raise AssertionError(f"K3 {dtype}, {sname} scales, {inputs}: {name} "
+                                             "differs from the plain version")
+                    keep = ~written[:, None, :].expand(b, kv, s)
+                    if not torch.equal(g[keep], orig[keep]):
+                        raise AssertionError(f"K3 {dtype}, {sname} scales, {inputs}: {name} "
+                                             "changed a row it must not write")
+                log(f"K3 {str(dtype).split('.')[-1]}, {sname} scales, {inputs}: bit-exact "
+                    "against the plain version, other rows untouched")
+        per_call, names = device_ops_per_call(lambda: cache_write.cache_append_quant(
+            *cache, *timed_inputs["serving, int64"][0], timed_inputs["serving, int64"][1]))
+        if round(per_call) != 1 or len(names) != 1:
+            raise AssertionError(f"K3 on the serving path's inputs: {per_call} device "
+                                 f"operations a call, not 1: {names}")
+        log(f"K3 on the serving path's inputs: {per_call} device operations a call ({names})")
+        out[sname] = {"launch_floor_ms": floor}
+        for inputs, (new_t, pos_t) in timed_inputs.items():
+            kern = timed([lambda: cache_write.cache_append_quant(*cache, *new_t, pos_t)], 200)
+            plain = timed([lambda: cache_write.cache_append_quant_plain(*cache, *new_t, pos_t)],
+                          20)
+            # read the bf16 rows and the positions, write the int8 rows and the
+            # scales; abs, max, divide and round per value in f32
+            bnd, by = bound_ms(2 * n * 2 + pos_t.element_size() * b + 2 * n
+                               + 2 * b * kv * cache[2].element_size(), 4.0 * 2 * n,
+                               F32_OPS_PER_S)
+            row = dict(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
+            out[sname]["serving" if inputs.startswith("serving") else "contiguous"] = row
+            log(f"K3 b={b}, {sname} scales, {inputs}: kernel {kern:.5f} ms, plain "
+                f"{plain:.4f} ms, bound {bnd:.6f} ms, launch floor {floor:.5f} ms (one layer)")
     detail["k3"], detail["k3_bf16_scales"] = out["float32"], out["bfloat16"]
-    row = out["float32"]
+    row = out["float32"]["serving"]
     # one decode step: one launch per layer (32)
     return {"max_abs_err": 0.0, "bound_by": row["bound_by"], "library_ms": None,
             **{k: 32 * row[k] for k in ("ms", "plain_ms", "bound_ms")}}
@@ -1093,12 +1172,14 @@ def check_k7(dev, detail: dict) -> dict:
 def check_k10(dev, detail: dict) -> dict:
     """K10 at d=4096 for 4 rows (a decode step of 4 slots) and 64 and 256
     rows (prefill), bf16 x (within one bf16 ulp of the plain version) and
-    f32 x, weights in bf16 and f32; a ragged d=1000 and a d=5000 longer than
-    a thread's registers hold checked only. Timed in bf16 beside its plain
-    version, the unfused rms_norm (what the port runs by default) and
+    f32 x, weights in bf16 and f32, each call into NaN-filled memory; checked
+    only: a ragged d=1000, a d=5000, an odd d=1001 (one value a load), a
+    d=20000 longer than a row's registers hold (read again), and x starting
+    one element past an aligned address (narrower loads). Timed in bf16 beside
+    its plain version, the unfused rms_norm (what the port runs by default),
     F.rms_norm where PyTorch has it (else the library time is the unfused
-    one's). The kernels line takes the 65 launches of one decode forward at
-    4 rows."""
+    one's) and the card's floor for one small launch. The kernels line takes
+    the 65 launches of one decode forward at 4 rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1110,10 +1191,17 @@ def check_k10(dev, detail: dict) -> dict:
 
     def error(x, w):
         before = kernels.fused_rms_norm.launches
+        # the caching allocator hands this block to the output next, so a
+        # value the kernel leaves unwritten shows as NaN
+        poison = torch.full_like(x, float("nan"))
+        poisoned = poison.data_ptr()
+        del poison
         got = kernels.fused_rms_norm(x, w, eps)
         if kernels.fused_rms_norm.launches != before + 1 or got.dtype != x.dtype \
                 or got.shape != x.shape:
             raise AssertionError("K10: no launch counted, or a wrong dtype or shape")
+        if got.data_ptr() != poisoned:
+            raise AssertionError("K10: the output did not land on the NaN-filled block")
         ref = kernels.fused_rms_norm_plain(x, w, eps).float()
         torch.cuda.synchronize()
         d = (got.float() - ref).abs()
@@ -1122,20 +1210,25 @@ def check_k10(dev, detail: dict) -> dict:
         if not (d <= lim + 1e-30).all():
             raise AssertionError(f"K10 x {tuple(x.shape)} {x.dtype} w {w.dtype}: "
                                  f"{(d > lim + 1e-30).sum().item()} values off by more than "
-                                 "one bf16 ulp (bf16) or 1e-5 (f32)")
+                                 "one bf16 ulp (bf16) or 1e-5 (f32), or not written")
         return (d.max() / ref.abs().max()).item()
 
-    for n_rows, d in ((4, K10_D), (64, K10_D), (256, K10_D), (3, 1000), (5, 5000)):
+    for n_rows, d, offset in ((4, K10_D, 0), (64, K10_D, 0), (256, K10_D, 0), (3, 1000, 0),
+                              (5, 5000, 0), (3, 1001, 0), (2, 20000, 0), (4, K10_D, 1)):
         for xdt in (torch.bfloat16, torch.float32):
             for wdt in (torch.bfloat16, torch.float32):
-                x = (torch.randn((n_rows, d), generator=gen, device=dev) * 2).to(xdt)
+                flat = (torch.randn((offset + n_rows * d,), generator=gen, device=dev) * 2)
+                x = flat.to(xdt)[offset:].view(1, n_rows, d)
                 w = (torch.rand((d,), generator=gen, device=dev) + 0.5).to(wdt)
-                err = error(x.reshape(1, n_rows, d), w)
+                err = error(x, w)
                 if xdt == torch.bfloat16:
                     max_err = max(max_err, err)
-        log(f"K10 rows={n_rows} d={d}: bf16 and f32 x, bf16 and f32 w: within one bf16 ulp "
-            f"and {K10_RTOL_F32} of the plain version")
+        # a bf16 x one element past an aligned start is 2-byte aligned
+        plan = kernels.norm_plan(n_rows, d, torch.bfloat16, torch.bfloat16, 2 if offset else 16)
+        log(f"K10 rows={n_rows} d={d} offset={offset} (bf16 plan {plan}): bf16 and f32 x, "
+            f"bf16 and f32 w: within one bf16 ulp and {K10_RTOL_F32} of the plain version")
     has_lib = hasattr(F, "rms_norm")
+    floor = launch_floor_ms()
     for n_rows in (4, 64, 256):
         # activations enough that a cycle of calls does not find them in L1
         xs = [(torch.randn((1, n_rows, K10_D), generator=gen, device=dev)).bfloat16()
@@ -1149,10 +1242,12 @@ def check_k10(dev, detail: dict) -> dict:
         bnd, by = bound_ms((2 * n_rows + 1) * K10_D * 2, 4.0 * n_rows * K10_D, F32_OPS_PER_S)
         row = dict(rows=n_rows, d=K10_D, ms=kern, plain_ms=plain, unfused_ms=unfused,
                    library_ms=lib, library="F.rms_norm" if has_lib else "unfused rms_norm",
-                   bound_ms=bnd, bound_by=by)
+                   bound_ms=bnd, bound_by=by, launch_floor_ms=floor,
+                   plan=kernels.norm_plan(n_rows, K10_D, torch.bfloat16, torch.bfloat16))
         rows.append(row)
         log(f"K10 rows={n_rows:3d}: kernel {kern:.5f} ms, plain {plain:.5f} ms, unfused "
-            f"rms_norm {unfused:.5f} ms, {row['library']} {lib:.5f} ms, bound {bnd:.6f} ms")
+            f"rms_norm {unfused:.5f} ms, {row['library']} {lib:.5f} ms, bound {bnd:.6f} ms, "
+            f"launch floor {floor:.5f} ms")
         if n_rows == 4:
             record = row
     detail["k10"] = rows
@@ -1917,6 +2012,10 @@ ATTENTION_KERNELS = re.compile(
 # the matmul kernels of a trace: K1's dq_* (its forms, reduce and GEMV),
 # K9's so_* (its decode form, GEMV and reduce), K5's and K6's w4x8_*
 MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|gemv|reduce)|w4x8_)\w*")
+# K10's and K3's kernels (rms_norm_onepass, append_warp; rms_norm_rows and
+# append_quant in checkouts before them)
+NORM_KERNELS = re.compile(r"rms_norm_\w+")
+APPEND_KERNELS = re.compile(r"append_(?:warp|quant)\w*")
 
 
 def _matmul_us(by_name: dict, prefill: bool = False) -> float:
@@ -1984,8 +2083,9 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
 def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
     """Where a decode step's time goes: one greedy decode chunk of all
     slots, timed by the host clock (synchronized), then `traced` steps
-    under torch.profiler for the device time per step and the kernels and
-    host ops that take it. The profiler's own host cost lengthens the
+    under torch.profiler for the device time per step, the kernels and
+    host ops that take it, and the device-side operations (kernels, copies)
+    and host op calls a step. The profiler's own host cost lengthens the
     traced window, so the device's busy share is taken against the
     untraced step time."""
     import torch
@@ -2011,9 +2111,11 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
         run(traced)
         traced_ms = (time.perf_counter() - t0) * 1e3 / traced
     by_name: dict[str, float] = {}
+    device_ops = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            device_ops += 1
     busy = device_busy_us(prof.events())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device activity")
@@ -2033,10 +2135,16 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
            "top_kernels_ms_per_step": {k: v / 1e3 / traced for k, v in top},
            "top_host_ops_ms_per_step": {a.key: a.self_cpu_time_total / 1e3 / traced
                                         for a in host},
-           "host_op_calls_per_step": sum(a.count for a in prof.key_averages()) / traced}
+           "host_op_calls_per_step": sum(a.count for a in prof.key_averages()) / traced,
+           "device_kernels_per_step": device_ops / traced,
+           "norm_ms": sum(v for k, v in by_name.items() if NORM_KERNELS.search(k)) / 1e3 / traced,
+           "append_ms": sum(v for k, v in by_name.items()
+                            if APPEND_KERNELS.search(k)) / 1e3 / traced}
     log(f"decode step ({n} slots): {step_ms:.2f} ms host-timed, {traced_ms:.2f} ms traced, "
         f"device busy {device_ms:.3f} ms/step, matmul kernels {mm_ms:.3f} ms/step, "
-        f"attention kernels {out['attention_ms']:.3f} ms/step")
+        f"attention kernels {out['attention_ms']:.3f} ms/step, "
+        f"{out['device_kernels_per_step']:.1f} device kernels and "
+        f"{out['host_op_calls_per_step']:.1f} host op calls a step")
     for k, v in out["top_kernels_ms_per_step"].items():
         log(f"  device {v:8.3f} ms/step  {k[:100]}")
     for k, v in out["top_host_ops_ms_per_step"].items():
@@ -2295,7 +2403,8 @@ def main(argv: list[str]) -> int:
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
     prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy", "attention_ms")
-    step_keys = ("device_busy_ms", "matmul_ms", "attention_ms")
+    step_keys = ("device_busy_ms", "matmul_ms", "attention_ms", "device_kernels_per_step",
+                 "host_op_calls_per_step")
     serving_line = {"serving": {
         name: {**{k: run.get(k) for k in keys},
                "prefill_chunk": {t: {k: p[k] for k in prefill_keys}

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """K2, K4, K8 (decode attention), K7 (prefill attention), K5 (the W4A8
-decode matmul) or the lab's float or integer rows of several checkouts on
-one card, side by side.
+decode matmul), K3 (the int8 cache append), K10 (RMSNorm) or the lab's
+float or integer rows of several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k4|k8|k7|k5|lab|labint] [--k8-splits N,...]
-                       [--k7-chunks N,...] [--out FILE.json] ROOT [ROOT ...]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|k5|k10|lab|labint] [--k8-splits N,...]
+                       [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
+                       [--out FILE.json] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository; its `llamago_tpu_torch`
 builds its kernels into ROOT/build at first use. For each ROOT, in the
@@ -16,6 +17,23 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     serving fill), 300 and 1024, and t=32 at fills 1, 300 and 1024; then
     phase 4's decode step: 7B Q8_0 (random, seed 0), the bf16 cache, 4
     slots at position 100.
+  - `--kernel k3`: K3 at chip_smoke's K3_SHAPE (b=8, KV=32, hd=128,
+    S=1024, bf16 rows, f32 planes) on the serving path's inputs (v a
+    strided view of the fused projection, int64 positions: chip_smoke's
+    `k3_serving_rows`) and on contiguous rows with int32 positions: device
+    time a call, the device-side operations a call (chip_smoke's
+    `device_ops_per_call`), bit-exact against the plain version; the card's floor for one small launch; with
+    `--k3-warps` again at those warps a block (`cache_write.APPEND_WARPS`)
+    in the checkouts that have it; then phase 4b's decode step (7B Q8_0,
+    the int8 cache, 8 slots at position 100): device busy, device kernels
+    and host op calls a step, K3's time a step (`append_ms`), and 16 greedy
+    tokens of every slot after it.
+  - `--kernel k10`: K10 (bf16, d=4096) at 4, 64 and 256 rows beside
+    `F.rms_norm`, the launch floor; with `--k10-threads` again at those
+    threads a row, in place of `kernels.norm_plan`'s, in the checkouts
+    that have it; then phase 4d's decode step with K7 and
+    K10 on (7B Q8_0, 4 slots, chip_smoke's `opt_in_routes`), K10's time a
+    step among it (`norm_ms`).
   - `--kernel k4`: K4 at chip_smoke's K4_SHAPE (b=8, KV=32, hd=128,
     S=1024, the int8 cache with f32 scale planes, q in bf16) at
     chip_smoke's K4_WINDOWS (t=1 at fills 1 to 1024 with the serving fill
@@ -284,9 +302,123 @@ def run_lab(cs, root: str, names=LAB_NAMES) -> dict:
     return {"root": root, "card": cs.card_line(), "lab": rows, "library_ms": lib}
 
 
-def run_one(root: str, kernel: str, splits: list[int], chunks: list[int]) -> dict:
+def run_k3(cs, root: str, warps: list[int]) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import cache_write
+    from llamago_tpu_torch.runtime.decode_loop import decode_chunk
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    c = cs.K3_SHAPE
+    b, kv, hd, s = c["b"], c["kv"], c["hd"], c["s"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cache = [torch.randint(-127, 128, (b, kv, s, hd), generator=gen, dtype=torch.int8,
+                           device=dev) for _ in range(2)]
+    cache += [torch.rand((b, kv, s), generator=gen, device=dev) for _ in range(2)]
+    inputs = {"serving": (cs.k3_serving_rows(dev, gen, c, torch.bfloat16),
+                          torch.arange(100, 100 + b, dtype=torch.int64, device=dev)),
+              "contiguous": ([torch.randn((b, 1, kv, hd), generator=gen, device=dev)
+                              .bfloat16() for _ in range(2)],
+                             torch.arange(100, 100 + b, dtype=torch.int32, device=dev))}
+    default = getattr(cache_write, "APPEND_WARPS", None)
+    plans = [("plan", None)] + ([(f"warps {n}", n) for n in warps] if default else [])
+    out = {"root": root, "card": cs.card_line(), "launch_floor_ms": cs.launch_floor_ms()}
+    cs.log(f"{root}: launch floor {out['launch_floor_ms'] * 1e3:.2f} us")
+    try:
+        for label, n in plans:
+            if n is not None:
+                cache_write.APPEND_WARPS = n
+            rows = {}
+            for name, (new, pos) in inputs.items():
+                got, want = [a.clone() for a in cache], [a.clone() for a in cache]
+                cache_write.cache_append_quant(*got, *new, pos)
+                cache_write.cache_append_quant_plain(*want, *new, pos)
+                exact = all(torch.equal(g, w) for g, w in zip(got, want))
+                per_call, names = cs.device_ops_per_call(
+                    lambda: cache_write.cache_append_quant(*cache, *new, pos))
+                ms = cs.timed([lambda: cache_write.cache_append_quant(*cache, *new, pos)], 400)
+                rows[name] = dict(ms=ms, device_ops_per_call=per_call, device_ops=names,
+                                  bit_exact=exact)
+                cs.log(f"{root} ({label}): K3 {name}: {ms * 1e3:.3f} us, {per_call} device "
+                       f"operations a call, bit-exact {exact}")
+            out["k3" if n is None else f"k3_warps_{n}"] = rows
+    finally:
+        if default is not None:
+            cache_write.APPEND_WARPS = default
+    del cache
+    torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev)
+    engine = Engine(cfg.replace(kv_dtype="int8"), params, cs._byte_vocab(cfg.vocab_size),
+                    slots=8, decode_chunk_size=32, prefill_chunk=256, device=dev)
+    step = cs.profile_decode(engine, 32)
+    out["decode_step"] = {k: step[k] for k in (*STEP_KEYS, "device_kernels_per_step",
+                                               "host_op_calls_per_step", "append_ms")}
+    # greedy tokens of all slots after the profile, from distinct tokens
+    toks = decode_chunk(engine.params, torch.arange(3, 3 + b, device=dev), engine.cache,
+                        torch.full((b,), 200, device=dev), engine.config, 16)[0]
+    out["greedy_tokens"] = toks.tolist()
+    return out
+
+
+def run_k10(cs, root: str, threads: list[int]) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    d, eps = cs.K10_D, 1e-5
+    default = getattr(kernels, "norm_plan", None)
+    plans = [("plan", None)]
+    if default is not None:
+        plans += [(f"threads {t}", t) for t in threads]
+    out = {"root": root, "card": cs.card_line(), "launch_floor_ms": cs.launch_floor_ms()}
+    cs.log(f"{root}: launch floor {out['launch_floor_ms'] * 1e3:.2f} us")
+    try:
+        for label, t in plans:
+            if t is not None:
+                def forced(rows, d_, x_dtype, w_dtype, align=16, t=t):
+                    return t, default(rows, d_, x_dtype, w_dtype, align)[1]
+
+                kernels.norm_plan = forced
+            rows = []
+            for n_rows in (4, 64, 256):
+                gen = torch.Generator(device=dev).manual_seed(n_rows)
+                xs = [torch.randn((1, n_rows, d), generator=gen, device=dev).bfloat16()
+                      for _ in range(4)]
+                w = (torch.rand((d,), generator=gen, device=dev) + 0.5).bfloat16()
+                got = kernels.fused_rms_norm(xs[0], w, eps).float()
+                ref = kernels.fused_rms_norm_plain(xs[0], w, eps).float()
+                err = ((got - ref).abs() / ref.abs().max()).max().item()
+                ms = cs.timed([lambda x=x: kernels.fused_rms_norm(x, w, eps) for x in xs], 400)
+                lib = cs.timed([lambda x=x: F.rms_norm(x, (d,), w, eps) for x in xs], 400)
+                rows.append(dict(rows=n_rows, ms=ms, library_ms=lib, max_err=err))
+                cs.log(f"{root} ({label}): K10 rows={n_rows:3d}: {ms * 1e3:.3f} us, "
+                       f"F.rms_norm {lib * 1e3:.3f} us, max|d|/max|ref| {err:.2e}")
+            out["k10" if t is None else f"k10_{t}"] = rows
+    finally:
+        if default is not None:
+            kernels.norm_plan = default
+    cfg, params = cs.make_7b_params(dev)
+    with cs.opt_in_routes():
+        engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4,
+                        decode_chunk_size=32, prefill_chunk=256, device=dev)
+        step = cs.profile_decode(engine, 32)
+    out["decode_step"] = {k: step[k] for k in (*STEP_KEYS, "device_kernels_per_step",
+                                               "host_op_calls_per_step", "norm_ms")}
+    return out
+
+
+def run_one(root: str, kernel: str, sweeps: dict) -> dict:
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     cs = _smoke()
+    splits, chunks = sweeps["k8_splits"], sweeps["k7_chunks"]
+    if kernel == "k3":
+        return run_k3(cs, root, sweeps["k3_warps"])
+    if kernel == "k10":
+        return run_k10(cs, root, sweeps["k10_threads"])
     if kernel == "k4":
         return run_k4(cs, root)
     if kernel == "k8":
@@ -328,30 +460,36 @@ def run_one(root: str, kernel: str, splits: list[int], chunks: list[int]) -> dic
             "decode_step": {k: step[k] for k in STEP_KEYS}}
 
 
+SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
+          "k7_chunks": "slots a chunk to time K7 at, beside its plan",
+          "k3_warps": "warps a block to time K3 at, beside its plan",
+          "k10_threads": "threads a row to time K10 at, beside its plan"}
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k4", "k8", "k7", "k5", "lab", "labint"),
-                    default="k2")
-    ap.add_argument("--k8-splits", default="",
-                    help="comma-separated slots a split to time K8 at, beside its plan")
-    ap.add_argument("--k7-chunks", default="",
-                    help="comma-separated slots a chunk to time K7 at, beside its plan")
+    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "k5", "k10", "lab",
+                                         "labint"), default="k2")
+    for name, what in SWEEPS.items():
+        ap.add_argument("--" + name.replace("_", "-"), default="",
+                        help=f"comma-separated {what}")
     ap.add_argument("--out")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args(argv)
     if args.worker:
-        splits = [int(n) for n in args.k8_splits.split(",") if n]
-        chunks = [int(n) for n in args.k7_chunks.split(",") if n]
-        print(json.dumps(run_one(args.worker, args.kernel, splits, chunks)), flush=True)
+        sweeps = {name: [int(n) for n in getattr(args, name).split(",") if n]
+                  for name in SWEEPS}
+        print(json.dumps(run_one(args.worker, args.kernel, sweeps)), flush=True)
         return 0
     if not args.roots:
         ap.error("name at least one checkout")
     results = []
     for root in args.roots:
+        passed = [a for name in SWEEPS for a in ("--" + name.replace("_", "-"),
+                                                  getattr(args, name))]
         proc = subprocess.run([sys.executable, str(HERE / "k2_pair.py"), "--kernel",
-                               args.kernel, "--k8-splits", args.k8_splits, "--k7-chunks",
-                               args.k7_chunks, "--worker", root],
+                               args.kernel, *passed, "--worker", root],
                               stdout=subprocess.PIPE, text=True)
         if proc.returncode != 0:
             print(f"k2_pair: the run of {root} failed ({proc.returncode})", file=sys.stderr)

@@ -1,16 +1,19 @@
 // K3: quantize-and-append of one new K row and one new V row per (batch,
 // kv head) into the int8 KV cache, for Hopper (sm_90a).
 //
-// k_new / v_new: [B, 1, KV, hd] in bf16 or f32; k8 / v8: [B, KV, S, hd]
-// int8; ks / vs: [B, KV, S] row scales, f32 or bf16 planes; pos: int32 [B].
-// For each row x of hd values: a = max|x|, s = a * fl(1/127) (1 when
-// a == 0), q = clamp(rint(x / s), -127, 127): an IEEE division and round
-// half to even, as runtime/kv_cache.py quantize_kv_rows computes it on the
-// CPU, so the two agree bit for bit. The row is quantized against the f32
-// scale; a bf16 plane stores that scale rounded to bf16, as the TPU kernel
-// casts it on the write. The row and its scale land at slot pos[b]
-// (pos[b] + S when negative), clamped to [0, S - 1]: the placement of
-// runtime/kv_cache.py write_rows. Every other row is left as it was.
+// k_new / v_new: [B, 1, KV, hd] in bf16 or f32, each with its own batch
+// and head strides in elements and its last dimension contiguous (on the
+// serving path v_new is a strided view of the fused wqkv output); k8 / v8:
+// [B, KV, S, hd] int8; ks / vs: [B, KV, S] row scales, f32 or bf16 planes;
+// pos: [B], int64 or int32. For each row x of hd values: a = max|x|, s = a
+// * fl(1/127) (1 when a == 0), q = clamp(rint(x / s), -127, 127): an IEEE
+// division and round half to even, as runtime/kv_cache.py
+// quantize_kv_rows computes it on the CPU, so the two agree bit for bit.
+// The row is quantized against the f32 scale; a bf16 plane stores that
+// scale rounded to bf16, as the TPU kernel casts it on the write. The row
+// and its scale land at slot pos[b] (pos[b] + S when negative), clamped to
+// [0, S - 1]: the placement of runtime/kv_cache.py write_rows. Every other
+// row is left as it was.
 //
 // Replaces llamago_tpu/ops/cache_write.py _append_kernel, reached through
 // cache_append_quant.
@@ -18,15 +21,20 @@
 // What bounds it: the bytes it touches, 2 * B * KV * hd new values read,
 // as many int8 bytes and 2 * B * KV scales written: about 200 KB per
 // layer at 7B batch 8 in bf16, some 60 ns at 3.35 TB/s. A launch costs
-// microseconds, so launch latency bounds it; the design keeps it to one
-// launch per layer.
+// microseconds, so the chain of one launch bounds it: the launch, one
+// round trip to memory for the row, the reduction, the stores.
 //
-// What the design does about it: one launch writes both K and V of a
-// layer, grid (B * KV, 2), one block of hd threads per row, one element per
-// thread; the absmax is a warp-shuffle reduction and one pass over the
-// warps' maxima in shared memory. The TPU kernel's 8-row read-modify-write
-// is a TPU block rule and is not carried over: each thread writes its own
-// byte, and thread 0 the row's scale.
+// What the design does about it: one launch a layer, and nothing else on
+// the device. The kernel reads the new rows where the projection left them
+// (their strides are arguments) and the positions in the caller's dtype,
+// so the wrapper issues no copy and no cast. One warp takes one (b, head,
+// K or V) row: each lane loads its hd / 32 values with the widest aligned
+// vector loads (8 bytes at hd = 128 in bf16) and its position at once, the
+// absmax is a butterfly of __shfl_xor_sync (no shared memory, no barrier),
+// the quotient is __fdiv_rn, each lane packs its int8 values into one
+// store (4 bytes at hd = 128) and lane 0 writes the scale. The TPU
+// kernel's 8-row read-modify-write is a TPU block rule and is not carried
+// over.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -39,15 +47,16 @@
 namespace {
 
 constexpr float kInv127 = 1.0f / 127.0f;
+constexpr int kMaxVals = 32;  // values a lane holds: hd <= 1024
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// V values of T as one aligned vector load (at most 16 bytes)
+template <typename T, int V>
+struct alignas(V * sizeof(T)) Pack {
+  T v[V];
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -55,66 +64,153 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// grid (B * KV, 2): blockIdx.y 0 writes K, 1 writes V; blockDim.x == hd.
-template <typename T, typename TS>
-__global__ void append_quant(const T* __restrict__ k_new, const T* __restrict__ v_new,
-                             int8_t* __restrict__ k8, int8_t* __restrict__ v8,
-                             TS* __restrict__ ks, TS* __restrict__ vs,
-                             const int* __restrict__ pos, int KV, int S, int hd) {
-  __shared__ float warp_amax[32];
-  __shared__ float amax;
-  const int bh = blockIdx.x;  // b * KV + head; also the row of [B, 1, KV, hd]
-  const bool is_v = blockIdx.y == 1;
-  const int d = threadIdx.x, warp = d >> 5, lane = d & 31;
+struct AppendArgs {
+  const void* k_new;
+  const void* v_new;
+  long long k_sb, k_sh, v_sb, v_sh;  // batch and head strides of the new rows, in elements
+  int8_t* k8;
+  int8_t* v8;
+  void* ks;
+  void* vs;
+  const void* pos;
+  int B, KV, S, hd;
+  int scale_bf16, pos_i64;
+};
 
-  const float x = to_f((is_v ? v_new : k_new)[(size_t)bh * hd + d]);
-  float a = warp_max(fabsf(x));
-  if (lane == 0) warp_amax[warp] = a;
-  __syncthreads();
-  if (warp == 0) {
-    a = warp_max(lane < (int)(blockDim.x >> 5) ? warp_amax[lane] : 0.f);
-    if (lane == 0) amax = a;
+// Warp w of the grid takes row w: rows 0 .. B*KV - 1 are K's, the next
+// B*KV V's. Lane l owns the row's values [l * vpl, (l + 1) * vpl), vpl =
+// hd / 32, read as vpl / V loads of V values; NV, the smallest power of two
+// that many loads fit, sizes every loop, so at hd = 128 a lane runs one
+// load, four divisions and one store and nothing held off by a predicate.
+template <typename T, int V, int NV>
+__global__ void append_warp(const AppendArgs a) {
+  const int row = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  const int bkv = a.B * a.KV;
+  if (row >= 2 * bkv) return;  // a whole warp leaves together
+  const bool is_v = row >= bkv;
+  const int bh = is_v ? row - bkv : row;  // b * KV + head
+  const int b = bh / a.KV, h = bh - b * a.KV;
+  const int vpl = a.hd >> 5, nv = vpl / V;
+
+  const T* src = static_cast<const T*>(is_v ? a.v_new : a.k_new) +
+                 b * (is_v ? a.v_sb : a.k_sb) + h * (is_v ? a.v_sh : a.k_sh) + lane * vpl;
+  long long p = a.pos_i64 ? static_cast<const long long*>(a.pos)[b]
+                          : (long long)static_cast<const int*>(a.pos)[b];
+  Pack<T, V> raw[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    if (c < nv) raw[c] = reinterpret_cast<const Pack<T, V>*>(src)[c];
+
+  float x[NV * V];
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    if (c < nv) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        x[c * V + e] = to_f(raw[c].v[e]);
+        amax = fmaxf(amax, fabsf(x[c * V + e]));
+      }
+    }
+  amax = warp_max(amax);
+  const float s = amax > 0.f ? amax * kInv127 : 1.f;
+
+  // the lane's int8 values, four to a word, the lowest address in the lowest byte
+  constexpr int kVals = NV * V, kWords = (kVals + 3) / 4;
+  uint32_t w[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) w[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < kVals; ++i)
+    if (i < vpl) {
+      const float r = fminf(fmaxf(rintf(__fdiv_rn(x[i], s)), -127.f), 127.f);
+      w[i >> 2] |= ((uint32_t)__float2int_rn(r) & 0xffu) << (8 * (i & 3));
+    }
+
+  if (p < 0) p += a.S;
+  p = p < 0 ? 0 : (p > a.S - 1 ? a.S - 1 : p);
+  const size_t slot = (size_t)bh * a.S + (size_t)p;
+  int8_t* dst = (is_v ? a.v8 : a.k8) + slot * a.hd + lane * vpl;
+  // the widest store vpl allows: dst is aligned to it (hd is a multiple of 32)
+  if (vpl % 16 == 0) {
+#pragma unroll
+    for (int j = 0; j < kVals / 16; ++j)
+      if (j < vpl / 16)
+        reinterpret_cast<uint4*>(dst)[j] = make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2],
+                                                      w[4 * j + 3]);
+  } else if (vpl % 8 == 0) {
+#pragma unroll
+    for (int j = 0; j < kVals / 8; ++j)
+      if (j < vpl / 8) reinterpret_cast<uint2*>(dst)[j] = make_uint2(w[2 * j], w[2 * j + 1]);
+  } else if (vpl % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < kVals / 4; ++j)
+      if (j < vpl / 4) reinterpret_cast<uint32_t*>(dst)[j] = w[j];
+  } else if (vpl % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < kVals / 2; ++j)
+      if (j < vpl / 2)
+        reinterpret_cast<uint16_t*>(dst)[j] = (uint16_t)(w[j >> 1] >> (16 * (j & 1)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVals; ++j)
+      if (j < vpl) dst[j] = (int8_t)(w[j >> 2] >> (8 * (j & 3)));
   }
-  __syncthreads();
-  a = amax;
-  const float s = a > 0.f ? a * kInv127 : 1.f;
-  const float r = fminf(fmaxf(rintf(x / s), -127.f), 127.f);
-
-  int p = pos[bh / KV];
-  if (p < 0) p += S;
-  p = min(max(p, 0), S - 1);
-  const size_t row = (size_t)bh * S + p;
-  (is_v ? v8 : k8)[row * hd + d] = (int8_t)__float2int_rn(r);
-  if (d == 0) (is_v ? vs : ks)[row] = from_f<TS>(s);
+  if (lane == 0) {
+    if (a.scale_bf16)
+      static_cast<__nv_bfloat16*>(is_v ? a.vs : a.ks)[slot] = __float2bfloat16(s);
+    else
+      static_cast<float*>(is_v ? a.vs : a.ks)[slot] = s;
+  }
 }
 
-template <typename T, typename TS>
-int launch(const void* k_new, const void* v_new, void* k8, void* v8, void* ks, void* vs,
-           const void* pos, int B, int KV, int S, int hd, cudaStream_t st) {
-  const dim3 grid(B * KV, 2);
-  append_quant<T, TS><<<grid, hd, 0, st>>>(
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new), static_cast<int8_t*>(k8),
-      static_cast<int8_t*>(v8), static_cast<TS*>(ks), static_cast<TS*>(vs),
-      static_cast<const int*>(pos), KV, S, hd);
+// the kernel whose NV (a power of two) is the fewest that hold nv loads
+template <typename T, int V, int NV>
+int launch_nv(const AppendArgs& a, int nv, dim3 grid, dim3 block, cudaStream_t st) {
+  if constexpr (NV * V < kMaxVals) {
+    if (nv > NV) return launch_nv<T, V, 2 * NV>(a, nv, grid, block, st);
+  }
+  append_warp<T, V, NV><<<grid, block, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const AppendArgs& a, int vec, int warps, cudaStream_t st) {
+  const int rows = 2 * a.B * a.KV, nv = (a.hd / 32) / vec;
+  const dim3 grid((rows + warps - 1) / warps), block(32 * warps);
+  switch (vec) {
+    case 1: return launch_nv<T, 1, 1>(a, nv, grid, block, st);
+    case 2: return launch_nv<T, 2, 1>(a, nv, grid, block, st);
+    case 4: return launch_nv<T, 4, 1>(a, nv, grid, block, st);
+    case 8:  // 16 bytes of bf16; f32 loads at most 4 values
+      if constexpr (sizeof(T) == 2) return launch_nv<T, 8, 1>(a, nv, grid, block, st);
+      return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Writes the new K and V rows of one layer in place. hd must be a
-// multiple of 32, at most 1024 (the wrapper checks). scale_bf16 says which
-// type the scale planes hold. Returns cudaGetLastError() after the launch.
-extern "C" int llamago_cache_append_quant(const void* k_new, const void* v_new, void* k8,
-                                          void* v8, void* ks, void* vs, const void* pos,
-                                          int B, int KV, int S, int hd, int is_bf16,
-                                          int scale_bf16, void* stream) {
+// Writes the new K and V rows of one layer in place, one warp a row in
+// blocks of `warps` warps; `vec` values a load (1, 2, 4, or 8 for bf16;
+// the wrapper's append_plan). hd must be a multiple of 32, at most 1024,
+// and `vec` must divide hd / 32 and the strides, the new rows aligned to
+// vec values (the wrapper checks). scale_bf16 says which type the scale
+// planes hold, pos_i64 the positions'. Returns cudaGetLastError() after
+// the launch.
+extern "C" int llamago_cache_append_quant(const void* k_new, const void* v_new,
+                                          long long k_sb, long long k_sh, long long v_sb,
+                                          long long v_sh, void* k8, void* v8, void* ks,
+                                          void* vs, const void* pos, int B, int KV, int S,
+                                          int hd, int is_bf16, int scale_bf16, int pos_i64,
+                                          int vec, int warps, void* stream) {
+  if (hd % 32 || hd > 32 * kMaxVals || vec < 1 || (hd / 32) % vec || warps < 1 ||
+      warps > 32)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && scale_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(k_new, v_new, k8, v8, ks, vs, pos, B, KV, S,
-                                                hd, st);
-  if (is_bf16)
-    return launch<__nv_bfloat16, float>(k_new, v_new, k8, v8, ks, vs, pos, B, KV, S, hd, st);
-  if (scale_bf16)
-    return launch<float, __nv_bfloat16>(k_new, v_new, k8, v8, ks, vs, pos, B, KV, S, hd, st);
-  return launch<float, float>(k_new, v_new, k8, v8, ks, vs, pos, B, KV, S, hd, st);
+  const AppendArgs a{k_new, v_new, k_sb, k_sh, v_sb, v_sh, static_cast<int8_t*>(k8),
+                     static_cast<int8_t*>(v8), ks, vs, pos, B, KV, S, hd, scale_bf16 != 0,
+                     pos_i64 != 0};
+  return is_bf16 ? launch<__nv_bfloat16>(a, vec, warps, st) : launch<float>(a, vec, warps, st);
 }

@@ -42,10 +42,11 @@ and `.launches_decode_tc` the tensor-core decode form,
 (of which `.launches_decode_tc` took the tensor-core decode form)).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
-(CUDA: `csrc/rms_norm.cu`): the whole norm in f32 with one rounding to
-x.dtype, which in bf16 is not the unfused `ops/basic.py:rms_norm` (two
-roundings). `USE_FUSED_NORM` (a module attribute, off by default, as in the
-JAX package: there is no environment variable) makes `rms_norm` take it;
+(CUDA: `csrc/rms_norm.cu`, one trip to memory in the launch `norm_plan`
+gives): the whole norm in f32 with one rounding to x.dtype, which in bf16
+is not the unfused `ops/basic.py:rms_norm` (two roundings).
+`USE_FUSED_NORM` (a module attribute, off by default, as in the JAX
+package: there is no environment variable) makes `rms_norm` take it;
 `can_fuse_norm` is the gate. The TPU launcher's row tiles and its rule that
 d be a multiple of 128 are not carried over. It counts
 `fused_rms_norm.launches`.
@@ -564,13 +565,49 @@ def can_fuse_norm(x: torch.Tensor) -> bool:
     return x.device.type == "cpu" or x.dtype in (torch.bfloat16, torch.float32)
 
 
+# K10's launch (csrc/rms_norm.cu): the fewest threads a row, at least
+# _NORM_MIN_THREADS, whose registers hold the whole row (_NORM_KEEP vectors of
+# x and of w a thread, kKeep), at most _NORM_MAX_BLOCK; one row a block. On an
+# H100 (k2_pair.py --kernel k10 --k10-threads, bf16, d = 4096) 128 threads a
+# row were as fast as 256 and 512 at 4 rows and the fastest at 256 rows, and
+# two or four rows a block were slower at 256 rows (PERF.md's K10 row).
+_NORM_MIN_THREADS = 128
+_NORM_KEEP = 4
+_NORM_MAX_BLOCK = 512
+
+
+def norm_plan(rows: int, d: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+              align: int = 16) -> tuple[int, int]:
+    """K10's launch for x [rows, d] of x_dtype times w [d] of w_dtype, the
+    three pointers aligned to `align` bytes, one row a block: (threads a
+    row, values a vector). A vector is the widest load of x up to 16
+    bytes whose values divide d (so every row starts aligned) and whose
+    loads of x and of w the pointers allow; never more warps than the row
+    has vectors for."""
+    wide = max(x_dtype.itemsize, w_dtype.itemsize)
+    vec = 1
+    while (2 * vec * x_dtype.itemsize <= 16 and d % (2 * vec) == 0
+           and min(16, 2 * vec * wide) <= align):
+        vec *= 2
+    nvec = d // vec
+    held = max(_NORM_MIN_THREADS, 32 * -(-nvec // (32 * _NORM_KEEP)))
+    threads = min(32 * -(-nvec // 32), held, _NORM_MAX_BLOCK)
+    return threads, vec
+
+
 @functools.cache
 def _lib_norm():
     fn = _build.library("rms_norm").llamago_rms_norm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, i, p]
+    fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _alignment(*xs: torch.Tensor) -> int:
+    """The largest power of two, at most 16, that every start address divides."""
+    ptrs = [x.data_ptr() for x in xs]
+    return next(a for a in (16, 8, 4, 2, 1) if all(p % a == 0 for p in ptrs))
 
 
 def fused_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -587,9 +624,10 @@ def fused_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
         raise ValueError(f"fused_rms_norm: w {tuple(w.shape)} on {w.device} does not match "
                          f"x {tuple(x.shape)} on {x.device}, or is not contiguous")
     out = torch.empty_like(x2)
+    threads, vec = norm_plan(rows, d, x2.dtype, w.dtype, _alignment(x2, w, out))
     err = _lib_norm()(x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, eps,
-                      int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-                      _stream(x2))
+                      int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), vec,
+                      threads, _stream(x2))
     _build.check(err, "fused_rms_norm")
     fused_rms_norm.launches += 1
     return out.reshape(x.shape)

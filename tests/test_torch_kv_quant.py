@@ -276,7 +276,7 @@ def test_k3_cuda_arg_checks_reject_unsupported_inputs(case):
     elif case == "scales":
         ks_l = torch.zeros((b, kv, s + 1))
     elif case == "pos":
-        pos = pos.long()
+        pos = pos.to(torch.int16)  # int64 and int32 are taken
     else:
         k_l = torch.zeros((b, s, kv, hd), dtype=torch.int8).transpose(1, 2)
     with pytest.raises(ValueError):
