@@ -16,11 +16,14 @@ Phases, each of which fails the run (exit code 1, no result line):
      TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
      K1 (Q8_0 and Q4_0, each of its four forms: up to 8 rows the
      tensor-core decode form for bf16 x, checked at m = 1, 2, 3, 4, 5 and
-     8 and timed at 4 and 8, and the GEMV for f32 x; above that the
-     tensor-core tile for bf16 x and the f32 tile for f32 x), K2 (its
+     8 and timed at 4 and 8, and the GEMV for f32 x, timed at 4; above
+     that the tensor-core tile for bf16 x and for f32 x as its three exact
+     bf16 parts, f32_tc, checked at m = 9 to 256 into NaN-filled memory and
+     timed at 64 and 256 against three bf16 passes), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
      fills 1 to 1024 with the serving fill 101 and the split's edges, and
-     at t = 32; GQA at hd = 64 and its f32 form checked), K3 (on
+     at t = 32; GQA at hd = 64 and its f32 form checked, and timed beside
+     SDPA on the same f32 tensors), K3 (on
      contiguous rows with int32 positions and on the serving path's own
      inputs, v a strided view of the fused projection and int64
      positions, where one call must be one device kernel), K4 (its
@@ -35,12 +38,14 @@ Phases, each of which fails the run (exit code 1, no result line):
      bf16 x, checked at m = 1 to 16 at the five 7B int4 shapes into
      NaN-filled memory, and at 20 and 33 with its switch raised, timed at 4
      and 16, every call counted as that form), K6 (w4x8 stream
-     matmul, each of its forms:
-     the tensor-core tile for bf16 x, the f32 tile for f32 x), K9
+     matmul: the tensor-core tile for bf16 x and for f32 x as its three
+     bf16 parts, checked at m = 17 to 256 into NaN-filled memory, timed at
+     64 and 256), K9
      (scale-on-output matmul, each of its forms: the tensor-core decode
      form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
      4; the GEMV for f32 x, timed at 4, and for m = 9 and 16), K7 (flash
-     prefill attention) and K10 (fused RMSNorm, into NaN-filled memory);
+     prefill attention; its f32 form timed beside SDPA on f32 tensors) and
+     K10 (fused RMSNorm, into NaN-filled memory);
      K3 and K10 are timed beside the card's floor for one small launch (a
      `fill_` of one element);
   3. check the port end to end on a small model: logits and greedy tokens
@@ -55,7 +60,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      model with the switch on in bf16 on the card against the CPU's f32
      (K1's and K6's tensor-core tiles, K1's decode form and the
      tensor-core forms of K2, K8 and K9 must launch; with f32 x K1, K2, K8
-     and K9 take only their f32 forms);
+     and K9 take only their f32 forms: K1 and K6 their tile on x's three
+     bf16 parts in the prefill windows);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -106,16 +112,25 @@ Phases, each of which fails the run (exit code 1, no result line):
      versions' times and `x @ W` on a bf16 copy as the library yardstick.
      The launch counts of the nine kernels and of K1 (both formats) and K9,
      which carry the lab's other rows, must rise in the lab's run;
+  4e. the --dtype float32 route at full width: 7B with random Q8_0 and
+     then w4x8 weights (seed 0) and f32 compute, the f32 cache, 4 slots, 4
+     jobs of which one brings a 600-token prompt: 0 failed jobs,
+     in-vocabulary tokens, the repeated greedy job; every K1 call over 8
+     rows and every K6 call takes its tile on x's three bf16 parts and is
+     counted as it; one forward over a 64-token prompt through the kernels
+     against the same forward with the plain matmuls swapped in on the
+     card, within 1e-3 of max|logit|; a 64- and a 256-token prefill chunk
+     profiled (host ms, device busy, `matmul_ms`) and a decode step;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
-matmul and attention kernels of phases 4, 4d, 4b and 4c side by side,
+matmul and attention kernels of phases 4, 4d, 4b, 4c and 4e side by side,
 JSON), the card line, the kernels line (JSON) and, last, the device line
 (JSON). `--out` names a file for the detail (per-shape kernel times,
 the serving numbers, the decode-step profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
-small_int4, serve, serve_prefill, serve_int8, serve_int4.
+small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32.
 """
 
 from __future__ import annotations
@@ -177,10 +192,15 @@ K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 K10_RTOL_F32 = 1e-5
 K10_D = 4096
 # the tensor-core forms of the lab's float and integer rows, of K5 and of
-# K7, with K7's merge: none may spill
+# K7, with K7's merge, and K1's and K6's tiles (bf16 x, and f32 x as three
+# bf16 parts): none may spill
 TC_FORMS = {"lab_decode_tc": "lab_matmul", "lab_decode_i8tc": "lab_matmul",
             "w4x8_a8_tc": "w4x8_matmul", "attn_prefill_tc": "attn_prefill",
-            "attn_prefill_merge": "attn_prefill"}
+            "attn_prefill_merge": "attn_prefill", "dq_tc": "dequant_matmul",
+            "w4x8_tc": "w4x8_matmul"}
+# the rate that bounds the tile with f32 x (K1's and K6's "f32_tc"): three
+# bf16 passes, one a part of x
+F32_TC_OPS_PER_S = BF16_OPS_PER_S / 3
 
 
 def log(msg: str) -> None:
@@ -316,55 +336,98 @@ def _line(errs: dict, steps: dict, m: int, keep=lambda m, xdt: True) -> dict:
     return {"max_abs_err": max(e for key, e in errs.items() if keep(*key)), **steps[m]}
 
 
-def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict]:
+def _nan_first(x, n: int, ws_elems: int) -> None:
+    """Fill with NaN the memory that a call's f32 workspace (ws_elems) and
+    its output [m, n] in x's dtype will take (the caching allocator hands
+    the blocks just freed to the next requests of their sizes), so that a
+    partial or an output the kernels leave unwritten shows."""
+    import torch
+
+    poison = [torch.full((max(1, ws_elems),), float("nan"), device=x.device),
+              torch.full((x.shape[0], n), float("nan"), dtype=x.dtype, device=x.device)]
+    del poison
+
+
+def _counted(fn, counts, form_of):
+    """fn(x, w), which must add one to exactly the launch count of
+    `counts()` (a dict by form) that `form_of(m, x dtype)` names, if any."""
+    def call(x, w):
+        before = counts()
+        out = fn(x, w)
+        after = counts()
+        form = form_of(x.shape[0], x.dtype)
+        if {f: after[f] - before[f] for f in after} != {f: int(f == form) for f in after}:
+            raise AssertionError(f"m={x.shape[0]} x={x.dtype}: form {form}, but the counts "
+                                 f"went from {before} to {after}")
+        return out
+    return call
+
+
+def _f32_fma_pass_ms(m: int, fmt: str) -> float:
+    """One pass of the five shapes (a 7B prefill pass) at m rows on f32 FMA
+    at 67 TFLOP/s: context for the tile with f32 x, which runs on bf16
+    tensor cores."""
+    shapes = K1_SHAPES if fmt == "q8" else INT4_SHAPES
+    return sum(per * 2.0 * m * k * n for _, k, n, per in shapes) / F32_OPS_PER_S * 1e3
+
+
+def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict]:
     """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms, at the five
     7B shapes, against the plain version with f32 and bf16 x: at m = 1, 2,
     3, 4, 5 and 8 (decode: the tensor-core decode form for bf16 x, the GEMV
     for f32 x), and 9, 16, 17, 32, 64, 100 and 256 (every row tiling of the
-    tensor-core tile for bf16 x, ragged ones, and the f32 tile for f32 x).
-    Timed with bf16 x at m=4 and 8 (the decode form at 4 and 8 slots), 64
-    (the prefill bucket of the smoke's prompts) and 256 (the long prompts'
-    chunks), all against the bf16 rate; and with f32 x at m=4 (the GEMV,
-    against the f32 rate). Every call must take the form `k1_form` names
-    (`launches_tc` counts the tensor-core tile, `launches_decode_tc` the
-    decode form). Returns the kernels line's numbers of the f32 forms (the
-    GEMV: one decode step at m=4, f32 x), of the tensor-core tile (one
-    prefill pass at m=64) and of the decode form (one decode step at
-    m=4)."""
+    tensor-core tile, ragged ones: bf16 x, and f32 x as its three bf16
+    parts, "f32_tc"). Timed with bf16 x at m=4 and 8 (the decode form at 4
+    and 8 slots), 64 (the prefill bucket of the smoke's prompts) and 256
+    (the long prompts' chunks), all against the bf16 rate; and with f32 x at
+    m=4 (the GEMV, against the f32 rate), 64 and 256 (the tile with f32 x,
+    against three bf16 passes, F32_TC_OPS_PER_S; f32 FMA's bound logged
+    beside it). Every call must take the form `k1_form` names (`launches_tc`
+    counts the tensor-core tile, `launches_f32_tc` it with f32 x,
+    `launches_decode_tc` the decode form); every checked call writes into
+    NaN-filled memory. Returns the kernels line's numbers of the GEMV (one
+    decode step at m=4, f32 x), of the tensor-core tile (one prefill pass at
+    m=64), of the decode form (one decode step at m=4) and of the tile with
+    f32 x (one prefill pass at m=64)."""
     from llamago_tpu_torch.ops import kernels
 
-    def k1(x, w):
-        before = (kernels.dequant_matmul.launches_tc, kernels.dequant_matmul.launches_decode_tc)
-        out = kernels.dequant_matmul(x, w)
-        form = kernels.k1_form(x.shape[0], x.dtype)
-        after = (kernels.dequant_matmul.launches_tc, kernels.dequant_matmul.launches_decode_tc)
-        if (after[0] - before[0], after[1] - before[1]) != (int(form == "tensor_core"),
-                                                            int(form == "decode_tc")):
-            raise AssertionError(f"K1 m={x.shape[0]} x={x.dtype}: form {form}, but the "
-                                 f"tensor-core and decode counts went from {before} to {after}")
-        return out
+    fn = kernels.dequant_matmul
+    k1 = _counted(fn, lambda: {"tensor_core": fn.launches_tc, "f32_tc": fn.launches_f32_tc,
+                               "decode_tc": fn.launches_decode_tc}, kernels.k1_form)
+
+    def k1_nan(x, w):
+        n = w["s"].shape[1]
+        _nan_first(x, n, kernels.k1_plan(x.shape[0], x.shape[1], n, x.dtype)[2])
+        return k1(x, w)
 
     tag = "K1" if fmt == "q8" else "K1 q4"
     shapes = tuple(name for name, *_ in K1_SHAPES)
     errs, steps = check_matmul(
         dev, detail, tag, fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 8, 64, 256),
         other_m=(1, 2, 3, 5, 9, 16, 17, 32, 100), ops_per_s=lambda m: BF16_OPS_PER_S,
-        seed=1 if fmt == "q8" else 7, other_shapes=shapes)
+        seed=1 if fmt == "q8" else 7, other_shapes=shapes, checked=k1_nan)
     errs32, steps32 = check_matmul(
-        dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain, timed_m=(4,),
-        other_m=(), ops_per_s=lambda m: F32_OPS_PER_S, seed=2 if fmt == "q8" else 8,
-        timed_dtype="float32")
+        dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 64, 256),
+        other_m=(), ops_per_s=lambda m: F32_OPS_PER_S if m <= 8 else F32_TC_OPS_PER_S,
+        seed=2 if fmt == "q8" else 8, timed_dtype="float32", checked=k1_nan)
     if not any(m > 8 and xdt == "float32" for m, xdt in errs):
-        raise AssertionError("K1: the f32 tile was not checked")
+        raise AssertionError("K1: the tile with f32 x was not checked")
     for m in (4, 8):
         log(f"{tag} at m={m}: the decode form {steps[m]['ms']:.3f} ms per step (bf16 x), "
             f"x@W {steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms")
     log(f"{tag} at m=4: the GEMV {steps32[4]['ms']:.3f} ms per step (f32 x)")
-    f32 = lambda m, xdt: xdt == "float32"  # noqa: E731
     both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
-    return (_line(both, steps32, 4, f32),
-            _line(errs, steps, 64, lambda m, xdt: m > 8 and not f32(m, xdt)),
-            _line(errs, steps, 4, lambda m, xdt: m <= 8 and not f32(m, xdt)))
+    f32_tc = lambda m, xdt: m > 8 and xdt == "float32"  # noqa: E731
+    for m in (64, 256):
+        log(f"{tag} at m={m}, f32 x: the f32_tc form {steps32[m]['ms']:.3f} ms per pass, "
+            f"x@W f32 {steps32[m]['library_ms']:.3f} ms, bound {steps32[m]['bound_ms']:.3f} ms "
+            f"(three bf16 passes or bytes), f32 FMA's {_f32_fma_pass_ms(m, fmt):.3f} ms; "
+            f"largest error over m > 8 "
+            f"{max(e for key, e in both.items() if f32_tc(*key)):.2e}")
+    return (_line(both, steps32, 4, lambda m, xdt: m <= 8 and xdt == "float32"),
+            _line(errs, steps, 64, lambda m, xdt: m > 8 and xdt == "bfloat16"),
+            _line(errs, steps, 4, lambda m, xdt: m <= 8 and xdt == "bfloat16"),
+            _line(both, steps32, 64, f32_tc))
 
 
 def _k5_call(x, w):
@@ -372,17 +435,13 @@ def _k5_call(x, w):
     partials, xq) and its output will take is filled with NaN first, so a
     partial or an output the kernel leaves unwritten shows, and the call
     must be counted as K5's (its int8 tensor-core decode form)."""
-    import torch
-
     from llamago_tpu_torch.ops import kernels
 
     m, k = x.shape
     n = w["q4x"].shape[1]
     ws = kernels.w4x8_plan(m, k, n, x.dtype)[2]
     scratch = 4 * kernels.a8_slots(m)[1] * (k // 128) + 4 * ws + m * k
-    poison = [torch.full((-(-scratch // 4),), float("nan"), device=x.device),
-              torch.full((m, n), float("nan"), dtype=x.dtype, device=x.device)]
-    del poison
+    _nan_first(x, n, -(-scratch // 4))
     before = kernels.w4x8_matmul.launches_a8
     got = kernels.w4x8_matmul(x, w)
     if kernels.w4x8_matmul.launches_a8 != before + 1:
@@ -459,43 +518,49 @@ def check_k5(dev, detail: dict) -> dict:
 
 
 def check_k6(dev, detail: dict) -> tuple[dict, dict]:
-    """K6 in each of its forms at the five 7B int4 shapes: the tensor-core
-    tile for bf16 x and the f32 tile for f32 x, checked at m=17, 32, 64, 100
-    and 256 (every row tiling of the tensor-core tile, and ragged ones);
-    timed at m=64 (the prefill bucket of the smoke's prompts) and m=256 (a
-    long prompt's chunk), the tensor-core tile against bf16 operations and
-    the f32 tile with f32 x against f32 operations. Every call must take
-    the form `w4x8_form` names (`launches_tc` counts the tensor-core tile).
-    Returns the kernels line's numbers of the f32 tile and of the
-    tensor-core tile, each over one prefill pass at m=64 (a prefill chunk's
-    129 launches)."""
+    """K6's tensor-core tile at the five 7B int4 shapes, for bf16 x and for
+    f32 x as its three bf16 parts ("f32_tc"), checked at m=17, 32, 64, 100
+    and 256 (every row tiling of the tile, and ragged ones) into NaN-filled
+    memory; timed at m=64 (the prefill bucket of the smoke's prompts) and
+    m=256 (a long prompt's chunk), bf16 x against bf16 operations and f32 x
+    against three bf16 passes (F32_TC_OPS_PER_S; f32 FMA's bound logged
+    beside it). Every call must take the form `w4x8_form` names
+    (`launches_tc` counts the tile with bf16 x, `launches_f32_tc` with f32
+    x). Returns the kernels line's numbers of the tile with f32 x and with
+    bf16 x, each over one prefill pass at m=64 (a prefill chunk's 129
+    launches)."""
     from llamago_tpu_torch.ops import kernels
 
-    def k6(x, w):
-        before = kernels.w4x8_matmul.launches_tc
-        out = kernels.w4x8_matmul(x, w)
-        tc = kernels.w4x8_form(x.shape[0], x.dtype) == "tensor_core"
-        if kernels.w4x8_matmul.launches_tc - before != int(tc):
-            raise AssertionError(f"K6 m={x.shape[0]} x={x.dtype}: the tensor-core count "
-                                 f"went from {before} to {kernels.w4x8_matmul.launches_tc}")
-        return out
+    fn = kernels.w4x8_matmul
+    k6 = _counted(fn, lambda: {"tensor_core": fn.launches_tc, "f32_tc": fn.launches_f32_tc},
+                  kernels.w4x8_form)
+
+    def k6_nan(x, w):
+        n = w["q4x"].shape[1]
+        _nan_first(x, n, kernels.w4x8_plan(x.shape[0], x.shape[1], n, x.dtype)[2])
+        return k6(x, w)
 
     before = kernels.w4x8_matmul.launches_a8
     errs, steps = check_matmul(dev, detail, "K6", "q4x", k6, kernels.w4x8_matmul_stream_plain,
                                timed_m=(64, 256), other_m=(17, 32, 100),
                                ops_per_s=lambda m: BF16_OPS_PER_S, seed=10,
-                               other_shapes=tuple(name for name, *_ in INT4_SHAPES))
+                               other_shapes=tuple(name for name, *_ in INT4_SHAPES),
+                               checked=k6_nan)
     errs32, steps32 = check_matmul(dev, detail, "K6 f32", "q4x", k6,
                                    kernels.w4x8_matmul_stream_plain, timed_m=(64, 256),
-                                   other_m=(), ops_per_s=lambda m: F32_OPS_PER_S, seed=19,
-                                   timed_dtype="float32")
+                                   other_m=(), ops_per_s=lambda m: F32_TC_OPS_PER_S, seed=19,
+                                   timed_dtype="float32", checked=k6_nan)
     if kernels.w4x8_matmul.launches_a8 != before:
         raise AssertionError("K6: a call of more than 16 rows took the W4A8 kernel")
-    for m in (64, 256):
-        log(f"K6 at m={m}: the tensor-core tile {steps[m]['ms']:.3f} ms per pass (bf16 x), "
-            f"the f32 tile {steps32[m]['ms']:.3f} ms (f32 x)")
     f32 = lambda m, xdt: xdt == "float32"  # noqa: E731
-    return (_line(errs32, steps32, 64, f32),
+    both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
+    for m in (64, 256):
+        log(f"K6 at m={m}: the tile {steps[m]['ms']:.3f} ms per pass (bf16 x), the f32_tc "
+            f"form {steps32[m]['ms']:.3f} ms (f32 x; x@W f32 {steps32[m]['library_ms']:.3f} "
+            f"ms, bound {steps32[m]['bound_ms']:.3f} ms, f32 FMA's "
+            f"{_f32_fma_pass_ms(m, 'q4x'):.3f} ms); largest error, f32 x "
+            f"{max(e for key, e in both.items() if f32(*key)):.2e}")
+    return (_line(both, steps32, 64, f32),
             _line(errs, steps, 64, lambda m, xdt: not f32(m, xdt)))
 
 
@@ -665,6 +730,34 @@ def check_k2(dev, detail: dict) -> dict:
         if t == 1 and fill == c["s"]:
             record = row
     detail["k2"] = rows
+    # the f32 form (two passes on FMA) at the same geometry beside SDPA on
+    # the same f32 tensors: the --dtype float32 route's decode attention
+    f32_rows = []
+    for t, fill in ((1, 101), (1, c["s"]), (32, c["s"])):
+        q, kc, vc, positions = _k2_inputs(dev, gen, t, fill, c, "float32")
+        err = _k2_error(q, kc, vc, positions, c)
+        if not err <= 1e-4:
+            raise AssertionError(f"K2 f32 t={t} fill={fill}: max|d| {err:.3g} > 1e-4")
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K2_COPIES - 1)]
+        visible = min(max(fill, t), c["s"])
+        kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                      for kv in caches], 50 * K2_COPIES)
+        qh = q.transpose(1, 2)
+        mask = (None if t == 1 else
+                torch.arange(visible, device=dev)[None, :] <= positions[0][:, None])
+        lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 50 * K2_COPIES)
+        del caches
+        h = c["kv"] * c["g"]
+        bnd, by = bound_ms(2 * c["b"] * c["kv"] * visible * c["hd"] * 4
+                           + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4,
+                           4.0 * c["b"] * h * t * visible * c["hd"], F32_OPS_PER_S)
+        f32_rows.append(dict(t=t, fill=fill, ms=kern, library_ms=lib, bound_ms=bnd,
+                             bound_by=by, max_abs_err=err))
+        log(f"K2 f32 t={t:2d} fill={fill:4d} ({attention.k2_form(kc.dtype)}): kernel "
+            f"{kern:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| {err:.2e}")
+    detail["k2_f32"] = f32_rows
     # one decode step at full fill: one call per layer (32)
     return {"max_abs_err": max_err, "bound_by": record["bound_by"],
             **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
@@ -1164,6 +1257,33 @@ def check_k7(dev, detail: dict) -> dict:
         if (t, pos0) == (256, 512):
             record = row
     detail["k7"] = rows
+    # the f32 form (FMA) at the same windows beside SDPA on the same f32
+    # tensors: the --dtype float32 route's prefill attention
+    f32_rows = []
+    for t, pos0 in K7_WINDOWS:
+        q, kc, vc, positions = _k7_inputs(dev, gen, t, pos0, c, "float32")
+        err = _k7_error(q, kc, vc, positions, c)
+        if not err <= 1e-4:
+            raise AssertionError(f"K7 f32 t={t} pos0={pos0}: max|d| {err:.3g} > 1e-4")
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K7_COPIES - 1)]
+        visible = pos0 + t
+        kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                      for kv in caches], 25 * K7_COPIES)
+        qh = q.transpose(1, 2)
+        mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
+        lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 25 * K7_COPIES)
+        del caches
+        bnd, by = bound_ms(2 * c["b"] * c["kv"] * visible * c["hd"] * 4
+                           + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4,
+                           4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2),
+                           F32_OPS_PER_S)
+        f32_rows.append(dict(t=t, pos0=pos0, ms=kern, library_ms=lib, bound_ms=bnd,
+                             bound_by=by, max_abs_err=err))
+        log(f"K7 f32 t={t:3d} pos0={pos0:3d} ({attention.k7_form(kc.dtype)}): kernel "
+            f"{kern:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| {err:.2e}")
+    detail["k7_f32"] = f32_rows
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "bound_by": record["bound_by"],
             **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
@@ -1485,9 +1605,11 @@ def check_small_model(dev) -> int:
     last, logits with bf16 compute on the card against the CPU's f32 ones,
     of the dense cache (K1's tensor-core tile takes the prefill windows,
     its decode form the decode step) and of the int8 cache under K8 (its
-    tensor-core form, every call). Returns the launches of K8 in its f32
-    run (its CUDA-core form: f32 q) and of K1's f32 forms (the GEMV and the
-    f32 tile: f32 x) in the dense cache's."""
+    tensor-core form, every call). With f32 x K1 takes the GEMV in decode
+    steps and its tile on x's three bf16 parts (f32_tc) in the prefill
+    windows, in every f32 run. Returns the launches of K8 in its f32 run
+    (its CUDA-core form: f32 q) and of K1's GEMV and of its f32_tc form in
+    the dense cache's."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1514,7 +1636,7 @@ def check_small_model(dev) -> int:
     vocab = _byte_vocab(dense.vocab_size)
     gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
     int8 = dense.replace(kv_dtype="int8")
-    default, k8_launches, k1_f32_launches = attention._I8DOT, 0, 0
+    default, k8_launches, k1_gemv_launches, k1_f32_tc_launches = attention._I8DOT, 0, 0, 0
     floor, fused, scale_name = (attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM,
                                 kv_cache._SCALE_DTYPE_NAME)
     # t=40: einsum-math prefill, or K7; t=16: K2/K4/K8 prefill bucket; t=1:
@@ -1565,11 +1687,13 @@ def check_small_model(dev) -> int:
                 raise AssertionError(f"small model, {name}: f32 q must take K8's CUDA-core "
                                      f"form only: {counts}")
         if name == "dense cache":
-            k1_f32_launches = counts["dequant_matmul"]
-        if counts["dequant_matmul"] == 0 or counts["dequant_matmul_tc"] > 0 \
-                or counts["dequant_matmul_decode_tc"] > 0:
-            raise AssertionError(f"small model, {name}: with f32 x K1 must take its f32 forms "
-                                 f"only: {counts}")
+            k1_f32_tc_launches = counts["dequant_matmul_f32_tc"]
+            k1_gemv_launches = counts["dequant_matmul"] - k1_f32_tc_launches
+        if counts["dequant_matmul_f32_tc"] == 0 \
+                or counts["dequant_matmul"] <= counts["dequant_matmul_f32_tc"] \
+                or counts["dequant_matmul_tc"] > 0 or counts["dequant_matmul_decode_tc"] > 0:
+            raise AssertionError(f"small model, {name}: with f32 x K1 must take its GEMV and its "
+                                 f"f32_tc form, no bf16 form: {counts}")
         if counts["flash_attention_decode_tc"] > 0 or (
                 name == "dense cache" and counts["flash_attention"] == 0):
             raise AssertionError(f"small model, {name}: an f32 cache must take K2's f32 "
@@ -1606,7 +1730,7 @@ def check_small_model(dev) -> int:
                              f"tensor-core form: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
-    return k8_launches, k1_f32_launches
+    return k8_launches, k1_gemv_launches, k1_f32_tc_launches
 
 
 def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
@@ -1637,6 +1761,8 @@ def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
                                  f"{err:.3g} > {SMALL_BF16_LOGIT_TOL}")
     counts = launch_counts()
     log(f"{what}, bf16: launches {counts}")
+    if counts["dequant_matmul_f32_tc"] or counts["w4x8_matmul_f32_tc"]:
+        raise AssertionError(f"{what}, bf16: the f32 x form ran on bf16 x: {counts}")
     return counts
 
 
@@ -1656,9 +1782,11 @@ def check_small_model_int4(dev) -> dict:
     """A small GQA model with random int4 weights, card (kernels) against
     CPU (plain versions), f32 compute: logits for a 40-token window, a
     16-token window and a decode step, and greedy tokens of a short engine
-    run; in the w4x8 format (K5 at decode, K6's f32 tile in prefill; w2,
-    whose K = 1376 is no multiple of 128, stays Q4_0 and takes K1 bits=4:
-    the mixed tree), in the Q4_0 format (K1 bits=4), and in the Q4_0 format
+    run; in the w4x8 format (K5 at decode, K6's tile on x's three bf16
+    parts in prefill; w2, whose K = 1376 is no multiple of 128, stays Q4_0
+    and takes K1 bits=4, its f32_tc form in prefill: the mixed tree), in the
+    Q4_0 format (K1 bits=4: the GEMV, and f32_tc in prefill), and in the
+    Q4_0 format
     with the scale-on-output switch at 8 rows (K9 at decode: its GEMV with
     f32 x). Then the w4x8 model's logits and those of the Q4_0 model with the
     switch at 8 with bf16 compute on the card against the CPU's f32 ones,
@@ -1688,10 +1816,12 @@ def check_small_model_int4(dev) -> dict:
     try:
         for name, fmt, so_max_m, must in (
                 ("w4x8", "w4x8", 0, ("w4x8_matmul_a8", "w4x8_matmul_stream",
-                                     "dequant_matmul_q4")),
-                ("q4_0", "q4_0", 0, ("dequant_matmul_q4",)),
+                                     "w4x8_matmul_f32_tc", "dequant_matmul_q4",
+                                     "dequant_matmul_f32_tc")),
+                ("q4_0", "q4_0", 0, ("dequant_matmul_q4", "dequant_matmul_f32_tc")),
                 ("q4_0, scale on output", "q4_0", 8, ("dequant_matmul_so",
-                                                      "dequant_matmul_q4"))):
+                                                      "dequant_matmul_q4",
+                                                      "dequant_matmul_f32_tc"))):
             os.environ["LLAMAGO_INT4_EXEC"] = fmt
             kernels.SCALE_ON_OUTPUT_MAX_M = so_max_m
             gpu = fuse_layer_weights(random_quantized_parameters(cfg, seed=13, device=dev))
@@ -1728,10 +1858,12 @@ def check_small_model_int4(dev) -> dict:
             log(f"small int4 model, {name}: launches {counts[name]}")
             idle = [k for k in must if counts[name][k] == 0]
             if idle or counts[name]["dequant_matmul"] > 0 or counts[name]["w4x8_matmul_tc"] > 0 \
-                    or counts[name]["dequant_matmul_so_decode_tc"] > 0:
+                    or counts[name]["dequant_matmul_so_decode_tc"] > 0 \
+                    or counts[name]["w4x8_matmul_f32_tc"] != counts[name]["w4x8_matmul_stream"]:
                 raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
-                                     f"the Q8_0 kernel, K6's tensor-core tile or K9's decode "
-                                     f"form (f32 x) did: {counts[name]}")
+                                     f"the Q8_0 kernel, K6's tile for bf16 x or K9's decode "
+                                     f"form (f32 x) did, or a K6 call took another form than "
+                                     f"f32_tc: {counts[name]}")
             if fmt == "w4x8" or so_max_m:
                 # small scales, as for the dense model: with 0.01 bf16 rounding
                 # alone moved this model's logits by 0.29 of max|logit| at
@@ -1781,9 +1913,11 @@ def _launch_counters():
             "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
             "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
             "dequant_matmul_decode_tc": (kernels.dequant_matmul, "launches_decode_tc"),
+            "dequant_matmul_f32_tc": (kernels.dequant_matmul, "launches_f32_tc"),
             "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
+            "w4x8_matmul_f32_tc": (kernels.w4x8_matmul, "launches_f32_tc"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
             "flash_attention": (attention.flash_attention, "launches"),
@@ -1820,9 +1954,10 @@ def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
 
 
-def make_7b_params(dev, weight_dtype: str = "int8"):
+def make_7b_params(dev, weight_dtype: str = "int8", dtype: str = "bfloat16"):
     """Full-width, full-depth LLaMA-7B with random Q8_0 weights, or int4
-    weights in the w4x8 format (seed 0), fused wqkv/w13, bf16 compute."""
+    weights in the w4x8 format (seed 0), fused wqkv/w13, bf16 compute (or
+    `dtype`'s: float32 is the --dtype float32 route)."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1831,7 +1966,7 @@ def make_7b_params(dev, weight_dtype: str = "int8"):
     )
     from llamago_tpu_torch.config import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["7B"].replace(weight_dtype=weight_dtype, dtype="bfloat16")
+    cfg = MODEL_PRESETS["7B"].replace(weight_dtype=weight_dtype, dtype=dtype)
     env = os.environ.get("LLAMAGO_INT4_EXEC")
     os.environ["LLAMAGO_INT4_EXEC"] = "w4x8"
     t0 = time.time()
@@ -1843,7 +1978,7 @@ def make_7b_params(dev, weight_dtype: str = "int8"):
         else:
             os.environ["LLAMAGO_INT4_EXEC"] = env
     torch.cuda.synchronize()
-    log(f"7B {weight_dtype} params in {time.time() - t0:.1f} s, "
+    log(f"7B {weight_dtype} params ({dtype} compute) in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return cfg, params
 
@@ -1880,13 +2015,15 @@ def opt_in_routes():
 
 
 def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
-          long_prompts: bool = False) -> dict:
+          long_jobs: int = 0) -> dict:
     """Serve n_jobs sampled HTTP jobs on `slots` decode slots, then the
     repeated greedy job, then profile one decode chunk. Every launch count
     is set to 0 before the engine warms up; those named in `rise` must have
     risen by the end of the sampled jobs, every other one must still be 0.
-    With `long_prompts` every other job brings a prompt of 600 tokens
-    (prefill chunks of 256, 256 and 88 tokens, the last in a 128 bucket)."""
+    The first `long_jobs` odd-numbered jobs bring a prompt of 600 tokens
+    (prefill chunks of 256, 256 and 88 tokens, the last in a 128 bucket);
+    with any, a 256-token prefill chunk is profiled beside the 64-token
+    one."""
     import torch
 
     from llamago_tpu_torch.config import GenerateConfig, ServerConfig
@@ -1902,7 +2039,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    longest = min(long_tokens, engine.prefill_chunk) if long_prompts else prompt_tokens + 2
+    longest = min(long_tokens, engine.prefill_chunk) if long_jobs else prompt_tokens + 2
     warm_s = engine.warmup(max_bucket=engine._bucket(longest), include_embed=False)
     server.start_background()
     port = server.port
@@ -1932,7 +2069,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
             return [done[b["id"]] for b in bodies]
 
         # one token per byte, plus BOS and the leading space
-        lengths = [long_tokens if long_prompts and i % 2 else prompt_tokens + 1
+        lengths = [long_tokens if i % 2 and i // 2 < long_jobs else prompt_tokens + 1
                    for i in range(n_jobs)]
         prompts = [(f"request {i:03d}: " + "abcdefgh" * 80)[: n - 2]
                    for i, n in enumerate(lengths)]
@@ -1983,7 +2120,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
                                  f"{first[1]} vs {second[1]}")
     finally:
         server.shutdown()
-    prefill = {t: profile_prefill(engine, t) for t in ((64, 256) if long_prompts else (64,))}
+    prefill = {t: profile_prefill(engine, t) for t in ((64, 256) if long_jobs else (64,))}
     step = profile_decode(engine, chunk)
     result = {
         "model": f"7B {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
@@ -2002,6 +2139,112 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
         f"p95 {result['ttft_ms_p95']} ms (p50 by prompt tokens {ttft}), peak {result['peak_gib']:.2f} GiB on the card, "
         f"launches {launches}")
     return result
+
+
+@contextlib.contextmanager
+def plans_seen():
+    """Record (rows, form) of every K1 and w4x8 launch plan while open: a
+    list for each of "k1" and "w4x8"."""
+    from llamago_tpu_torch.ops import kernels
+
+    seen = {"k1": [], "w4x8": []}
+    k1_plan, w4x8_plan = kernels.k1_plan, kernels.w4x8_plan
+
+    def recorded(plan, key):
+        def call(m, k, n, x_dtype):
+            out = plan(m, k, n, x_dtype)
+            seen[key].append((m, out[0]))
+            return out
+        return call
+
+    kernels.k1_plan, kernels.w4x8_plan = recorded(k1_plan, "k1"), recorded(w4x8_plan, "w4x8")
+    try:
+        yield seen
+    finally:
+        kernels.k1_plan, kernels.w4x8_plan = k1_plan, w4x8_plan
+
+
+@contextlib.contextmanager
+def plain_matmuls():
+    """Every quantized matmul of the forward on its plain version (on the
+    card's tensors), in the form the kernels' routing names: K5's for a
+    w4x8 leaf up to `_W4X8_A8_MAX_M` rows, else K6's or K1's."""
+    from llamago_tpu_torch.ops import kernels
+
+    kernel = kernels.dequant_matmul
+
+    def plain(x, w):
+        if "q4x" in w:
+            a8 = kernels.w4x8_form(x.numel() // x.shape[-1], x.dtype) == "a8"
+            return (kernels.w4x8_matmul_a8_plain if a8 else kernels.w4x8_matmul_stream_plain)(x, w)
+        return kernels.dequant_matmul_plain(x, w)
+
+    kernels.dequant_matmul = plain
+    try:
+        yield
+    finally:
+        kernels.dequant_matmul = kernel
+
+
+# f32 compute on the card, the kernels against the plain matmuls, x
+# max|logit|: the same exact products with the f32 sums in another order
+F32_LOGIT_TOL = 1e-3
+
+
+def serve_f32(dev, weight_dtype: str) -> dict:
+    """Phase 4e: the --dtype float32 route end to end at full width. 7B
+    with random weights (seed 0; Q8_0, or int4 as w4x8) and f32 compute,
+    the f32 cache, 4 slots, 4 jobs of which one brings a 600-token prompt
+    (256-token chunks): 0 failed jobs, in-vocabulary tokens, a repeated
+    greedy job (`serve`); every K1 launch plan over 8 rows and every K6 one
+    names f32_tc, and every such call is counted as it; then one forward
+    over a 64-token prompt with the kernels against the same forward with
+    the plain matmuls swapped in on the card, within F32_LOGIT_TOL. `serve`
+    profiles a 64- and a 256-token prefill chunk and a decode step."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    cfg, params = make_7b_params(dev, weight_dtype, dtype="float32")
+    int8 = weight_dtype == "int8"
+    rise = (("dequant_matmul", "dequant_matmul_f32_tc") if int8 else
+            ("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_f32_tc")) + ("flash_attention",)
+    with plans_seen() as seen:
+        served = serve(dev, cfg, params, slots=4, n_jobs=4, rise=rise, long_jobs=1)
+        counts = launch_counts()
+    key, above, counter = (("k1", 8, "dequant_matmul_f32_tc") if int8 else
+                           ("w4x8", max(8, kernels._W4X8_A8_MAX_M), "w4x8_matmul_f32_tc"))
+    big = [form for m, form in seen[key] if m > above]
+    if not big or any(form != "f32_tc" for form in big) or len(big) != counts[counter]:
+        raise AssertionError(f"serve, f32, {weight_dtype}: {len(big)} plans over {above} rows, "
+                             f"forms {sorted(set(big))}, {counts[counter]} counted as f32_tc")
+    log(f"serve, f32, {weight_dtype}: every one of {len(big)} calls over {above} rows took "
+        f"f32_tc")
+    gen = torch.Generator().manual_seed(16)
+    toks = torch.randint(3, 259, (1, 64), generator=gen).to(dev)
+    logits = []
+    for swap in (contextlib.nullcontext, plain_matmuls):
+        with swap():
+            lg, _ = forward_impl(params, toks, KVCache.create(cfg, batch=1, device=dev),
+                                 torch.zeros(1, dtype=torch.long, device=dev), cfg)
+        logits.append(lg.float())
+        torch.cuda.synchronize()
+    if not torch.isfinite(logits[0]).all():
+        raise AssertionError(f"serve, f32, {weight_dtype}: non-finite logits")
+    err = (logits[0] - logits[1]).abs().max().item() / logits[1].abs().max().item()
+    log(f"serve, f32, {weight_dtype}: 64-token forward, kernels vs plain matmuls on the card, "
+        f"max|d|/max|logit| {err:.2e}")
+    if not err <= F32_LOGIT_TOL:
+        raise AssertionError(f"serve, f32, {weight_dtype}: logits differ, {err:.3g} > "
+                             f"{F32_LOGIT_TOL}")
+    served["forward_64_vs_plain"] = err
+    served["f32_tc_calls"] = len(big)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
 
 
 # the attention kernels of a trace: attn_* (K2, K7) and the int8 cache's
@@ -2178,6 +2421,7 @@ def main(argv: list[str]) -> int:
     ptxas = _build.build_all(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
     spills: dict[str, int] = {}  # spill bytes (stores + loads) of the forms in TC_FORMS
+    ptxas_lines = []  # every kernel's registers and spills, for the detail file
     for name, text in ptxas.items():
         fn = ""
         for line in text.splitlines():
@@ -2185,9 +2429,11 @@ def main(argv: list[str]) -> int:
                 fn = _kernel_name(line.split("Function properties for")[-1].strip())
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
+                ptxas_lines.append(f"{name} {fn}: {line.strip()}")
                 sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 if sp and fn.split(" ")[0] in TC_FORMS:
-                    spills[fn] = int(sp.group(1)) + int(sp.group(2))
+                    # names are cut short, so instances may share one: keep the most
+                    spills[fn] = max(spills.get(fn, 0), int(sp.group(1)) + int(sp.group(2)))
     log(f"ptxas spill bytes of {', '.join(TC_FORMS)}: {spills}")
     unseen = [f for f, source in TC_FORMS.items()
               if ptxas[source] and not any(k.split(" ")[0] == f for k in spills)]
@@ -2199,28 +2445,30 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmul and cuDNN")
 
-    detail: dict = {"card": card, "ptxas_spills": spills}
+    detail: dict = {"card": card, "ptxas_spills": spills, "ptxas": ptxas_lines}
     only = set(args.only.split(",")) if args.only else None
 
     def want(phase: str) -> bool:
         return only is None or phase in only
 
-    k1, k1tc, k1dt = check_k1(dev, detail) if want("k1") else ({}, {}, {})
+    k1, k1tc, k1dt, k1f32 = check_k1(dev, detail) if want("k1") else ({}, {}, {}, {})
     k2 = check_k2(dev, detail) if want("k2") else {}
     k3 = check_k3(dev, detail) if want("k3") else {}
     k4, k8tc, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {}, {})
-    k1q4, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {})
+    k1q4, _, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
     k9tc, k9 = check_k9(dev, detail) if want("k9") else ({}, {})
     k7 = check_k7(dev, detail) if want("k7") else {}
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
-    k8_launches, k1_f32_launches = check_small_model(dev) if want("small") else (0, 0)
+    k8_launches, k1_gemv_launches, k1_f32_tc_launches = (
+        check_small_model(dev) if want("small") else (0, 0, 0))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
     served = served_d = served_p = served_q = served_k89 = served_4 = none
+    served_f8 = served_f4 = none
     if want("serve") or want("serve_prefill") or want("serve_int8"):
         cfg, params = make_7b_params(dev)
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
@@ -2233,14 +2481,14 @@ def main(argv: list[str]) -> int:
             torch.cuda.empty_cache()
         if want("serve_prefill"):
             # phase 4d: long prompts, the default routes and then the opt-in ones
-            served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
+            served_d = serve(dev, cfg, params, slots=4, n_jobs=8, long_jobs=4,
                              rise=("dequant_matmul", "dequant_matmul_tc",
                                  "dequant_matmul_decode_tc", "flash_attention",
                                  "flash_attention_decode_tc"))
             gc.collect()
             torch.cuda.empty_cache()
             with opt_in_routes():
-                served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_prompts=True,
+                served_p = serve(dev, cfg, params, slots=4, n_jobs=8, long_jobs=4,
                                  rise=("dequant_matmul", "dequant_matmul_tc",
                                        "dequant_matmul_decode_tc", "flash_attention",
                                        "flash_attention_decode_tc", "flash_attention_prefill",
@@ -2307,9 +2555,16 @@ def main(argv: list[str]) -> int:
         if not any(k.startswith("w4x8_a8_tc") for k in step4["matmul_kernels"]):
             raise AssertionError(f"serve, int4: the decode step's matmul_ms counted "
                                  f"{step4['matmul_kernels']}, not K5's form")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if want("serve_f32"):
+        # phase 4e: the --dtype float32 route, Q8_0 and then w4x8
+        served_f8 = serve_f32(dev, "int8")
+        served_f4 = serve_f32(dev, "int4")
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
     detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
+    detail["serve_f32_q8_0"], detail["serve_f32_w4x8"] = served_f8, served_f4
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
         # K1's tensor-core decode form: its launches in phase 4, one decode step at m=4
@@ -2322,12 +2577,19 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
-        # K1's f32 forms (the GEMV and the f32 tile) run f32 x, which phase 3
-        # drives; the GEMV's numbers, one decode step at m=4
+        # K1's GEMV runs f32 x up to 8 rows, which phase 3 drives; one decode
+        # step at m=4
         {"name": "dequant_matmul", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": k1_f32_launches, **k1},
+         "launches": k1_gemv_launches, **k1},
+        # K1's tile on f32 x's three bf16 parts: its launches in phases 3
+        # (the dense cache's f32 run) and 4e (Q8_0), one prefill pass at m=64
+        {"name": "dequant_matmul_f32_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": k1_f32_tc_launches + served_f8["launches"]["dequant_matmul_f32_tc"],
+         **k1f32},
         # K2's tensor-core form (bf16 cache): its launches in phase 4, one
         # decode step at b=4, full fill
         {"name": "flash_attention", "route": "cuda",
@@ -2362,11 +2624,13 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:308",
          "launches": served_4["launches"]["w4x8_matmul_a8"], **k5},
-        # K6: every call in phase 4c, the f32 tile's numbers (f32 x)
-        {"name": "w4x8_matmul_stream", "route": "cuda",
+        # K6's tile on f32 x's three bf16 parts: its launches in phases 3 (the
+        # w4x8 model) and 4e (w4x8), one prefill pass at m=64
+        {"name": "w4x8_matmul_f32_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:334",
-         "launches": served_4["launches"]["w4x8_matmul_stream"], **k6},
+         "launches": small4.get("w4x8", {}).get("w4x8_matmul_f32_tc", 0)
+         + served_f4["launches"]["w4x8_matmul_f32_tc"], **k6},
         # K6's tensor-core tile: its launches in phase 4c, one prefill pass at m=64
         {"name": "w4x8_matmul_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/w4x8_matmul.cu",
@@ -2402,7 +2666,8 @@ def main(argv: list[str]) -> int:
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
-    prefill_keys = ("device_busy_ms", "matmul_ms", "matmul_share_of_busy", "attention_ms")
+    prefill_keys = ("host_ms", "device_busy_ms", "matmul_ms", "matmul_share_of_busy",
+                    "attention_ms")
     step_keys = ("device_busy_ms", "matmul_ms", "attention_ms", "device_kernels_per_step",
                  "host_op_calls_per_step")
     serving_line = {"serving": {
@@ -2415,7 +2680,9 @@ def main(argv: list[str]) -> int:
                           ("4d: half 600-token prompts, K7 and K10 on", served_p),
                           ("4b: int8 cache, 8 slots, default routes", served_q),
                           ("4b: int8 cache, 8 slots, K8 and K9 on", served_k89),
-                          ("4c: int4 (w4x8), 48-token prompts", served_4))}}
+                          ("4c: int4 (w4x8), 48-token prompts", served_4),
+                          ("4e: f32 compute, Q8_0, one 600-token prompt", served_f8),
+                          ("4e: f32 compute, w4x8, one 600-token prompt", served_f4))}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """K2, K4, K8 (decode attention), K7 (prefill attention), K5 (the W4A8
-decode matmul), K3 (the int8 cache append), K10 (RMSNorm) or the lab's
-float or integer rows of several checkouts on one card, side by side.
+decode matmul), K1's and K6's tiles with f32 x, K3 (the int8 cache append),
+K10 (RMSNorm) or the lab's float or integer rows of several checkouts on
+one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|k5|k10|lab|labint] [--k8-splits N,...]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|k5|f32mm|k10|lab|labint] [--k8-splits N,...]
                        [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
                        [--out FILE.json] ROOT [ROOT ...]
 
@@ -60,6 +61,16 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     on a bf16 copy; one pass = one 7B decode step's 129 calls); then phase
     4c's decode step: 7B int4 (w4x8, random, seed 0), the bf16 cache, 4
     slots at position 100, with `matmul_ms` and the kernels it counted.
+  - `--kernel f32mm`: K1 (Q8_0, then Q4_0) and K6 with f32 x, the form
+    each checkout takes there (`kernels.dequant_matmul`), at m = 17, 64,
+    100 and 256 over chip_smoke's five shapes (chip_smoke's `check_matmul`:
+    each shape checked against the plain version and timed over copies
+    that stream past the L2, beside `x @ W` in f32; one pass = one 7B
+    prefill pass's 129 calls, its bound three bf16 passes), and at m = 64
+    and 256 one pass's device time by kernel (e.g. x's split into three
+    bf16 planes apart from the tile, weights warm in L2); then phase 4e's
+    64-token prefill chunk (7B Q8_0, random, seed 0, f32 compute, 4 slots):
+    host ms, device busy and `matmul_ms` with the kernels it counted.
   - `--kernel lab`: the kernel lab's six float variants (rows L2, L3, L9,
     L12: i4native, bf16dot, split_bf16_h, bitcast_i4, bitcast_i4_bf16,
     w16dot) and L1's `base` at the lab's shape (K=8192, N=7168, m=8, 24
@@ -277,6 +288,69 @@ def run_k5(cs, root: str) -> dict:
             "decode_step": {k: step[k] for k in (*STEP_KEYS, "matmul_ms", "matmul_kernels")}}
 
 
+F32MM_ROWS = (17, 64, 100, 256)
+
+
+def pass_by_kernel(cs, dev, fmt: str, m: int) -> dict:
+    """Device ms by kernel name over one 7B prefill pass of the f32 x
+    matmul at m rows (each shape's calls, per step, times its share of 10
+    traced calls on warm weights)."""
+    import re
+
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.utils.timing import device_us_by_name, profiled
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    total: dict[str, float] = {}
+    for _, k, n, per in (cs.K1_SHAPES if fmt != "q4x" else cs.INT4_SHAPES):
+        w = cs._random_leaf(gen, dev, fmt, k, n)
+        x = torch.randn((m, k), generator=gen, device=dev)
+        kernels.dequant_matmul(x, w)
+        by = device_us_by_name(profiled(lambda: [kernels.dequant_matmul(x, w)
+                                                 for _ in range(10)]))
+        for key, us in by.items():
+            hit = re.search(r"(\w+)(?:<[^()]*>)?\(", key)  # the kernel's own name
+            name = hit.group(1) if hit else key[:40]
+            total[name] = total.get(name, 0.0) + per * us / 10 / 1e3
+    return total
+
+
+def run_f32mm(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    out = {"root": root, "card": cs.card_line()}
+    for tag, fmt, plain, seed in (("k1_q8", "q8", kernels.dequant_matmul_plain, 2),
+                                  ("k1_q4", "q4", kernels.dequant_matmul_plain, 8),
+                                  ("k6", "q4x", kernels.w4x8_matmul_stream_plain, 19)):
+        detail: dict = {}
+        errs, steps = cs.check_matmul(dev, detail, tag, fmt, kernels.dequant_matmul, plain,
+                                      timed_m=F32MM_ROWS, other_m=(),
+                                      ops_per_s=lambda m: cs.F32_TC_OPS_PER_S, seed=seed,
+                                      timed_dtype="float32")
+        out[tag] = detail[tag]
+        out[f"{tag}_pass"] = {str(m): v for m, v in steps.items()}
+        out[f"{tag}_max_err"] = {f"{m} {xdt}": e for (m, xdt), e in errs.items()}
+        for m in (64, 256):
+            out[f"{tag}_pass_by_kernel_{m}"] = by = pass_by_kernel(cs, dev, fmt, m)
+            ranked = sorted(by.items(), key=lambda kv: -kv[1])
+            cs.log(f"{root}: {tag} m={m} one pass by kernel (ms): "
+                   + ", ".join(f"{k} {v:.3f}" for k, v in ranked))
+        torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev, "int8", dtype="float32")
+    engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4, decode_chunk_size=32,
+                    prefill_chunk=256, device=dev)
+    chunk = cs.profile_prefill(engine, 64)
+    out["prefill_chunk_64"] = {k: chunk[k] for k in ("host_ms", "device_busy_ms", "matmul_ms",
+                                                      "top_kernels_ms")}
+    return out
+
+
 def run_lab(cs, root: str, names=LAB_NAMES) -> dict:
     import torch
 
@@ -431,6 +505,8 @@ def run_one(root: str, kernel: str, sweeps: dict) -> dict:
         return run_lab(cs, root, LAB_INT_NAMES)
     if kernel == "k5":
         return run_k5(cs, root)
+    if kernel == "f32mm":
+        return run_f32mm(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -468,8 +544,8 @@ SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "k5", "k10", "lab",
-                                         "labint"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "k5", "f32mm", "k10",
+                                         "lab", "labint"), default="k2")
     for name, what in SWEEPS.items():
         ap.add_argument("--" + name.replace("_", "-"), default="",
                         help=f"comma-separated {what}")

@@ -6,9 +6,10 @@
 // [M, N]. bits=8: q int8 [K, N] row-major, w = q. bits=4: q uint8 [K/2, N],
 // where byte j of a 32-row block (packed rows 16b .. 16b+15) holds row
 // 32b+j in its low nibble and row 32b+j+16 in its high nibble, w = nibble
-// - 8. Every product is exact in f32 and accumulated in f32: the f32 forms
-// multiply x by w * s, the bf16 tensor-core forms sum x * w per quant block
-// and multiply each block's sum by s.
+// - 8. Every product is exact in f32 and accumulated in f32: the GEMV
+// multiplies x by w * s, the tensor-core forms (bf16 x, or f32 x as three
+// exact bf16 parts) sum x * w per quant block and multiply each block's sum
+// by s.
 //
 // Replaces llamago_tpu/ops/kernels.py _dequant_mm_kernel (bits 8 and 4),
 // reached through _dequant_matmul_2d and dequant_matmul.
@@ -84,9 +85,28 @@
 //    GEMV does. The M tiles of one column strip have neighbouring block
 //    indices, so for M > 64 the strip comes from device memory once and
 //    from L2 after that. wgmma and TMA are later work.
-//  * M > 8 with f32 x takes a plain shared-memory tiled f32 kernel (64x64
-//    output tile, one quant block of K per step, 4x4 outputs per thread):
-//    the bf16 tensor cores cannot take f32 x without rounding it.
+//  * M > 8 with f32 x (the --dtype float32 route) takes the same tile on x's
+//    three exact bf16 parts (form f32_tc; it replaces the TPU kernel above
+//    for f32 x). Rounding x to bf16 would change the function, and f32 FMA
+//    (67 TFLOP/s) would bound a 7B pass at 12.6 ms at M = 64. But the weights
+//    are exact in bf16, so x is cut into hi + mid + lo (tc_common.cuh split3:
+//    two truncations and one exact rounding; the sum is x bit for bit for
+//    every normal x whose low part stays in bf16's range) and each part times
+//    a weight is an exact product in f32. What bounds it: three bf16 passes,
+//    6*M operations per weight at 989 TFLOP/s (2.57 ms a 7B pass at M = 64,
+//    10.26 at M = 256), or the weight bytes where they are larger (Q8_0 under
+//    about 52 rows). What the design does: one small launch (split_x3) writes
+//    x's three planes into the front of the workspace; dq_tc stages the three
+//    planes beside the weights in its ring (three stages of 20 KB at 64 rows;
+//    at 64 rows a block three blocks an SM with f32 scales at 168 registers,
+//    two with bf16 scales at 224) and runs three mma against each
+//    B fragment it builds from the raw bytes, lo, then mid, then hi, into the
+//    same zeroed block sum: a weight is decoded once for three products,
+//    where the decode is what holds the bf16 tile back (about 290
+//    instructions per 32 mma). The scale folds once per quant block, the
+//    split of K and its fixed-order reduce are the bf16 tile's, and the
+//    output is f32: sum_b s_b * (x_b . q_b), the TPU kernel's function with
+//    its f32 sums in another order (and the tensor core's own accumulation).
 //
 // The caller (llamago_tpu_torch/ops/kernels.py, k1_form) picks the form and
 // passes it in; the entry point refuses a form the shapes or dtypes do not
@@ -261,114 +281,53 @@ __global__ void dq_reduce(const float* __restrict__ ws, OT* __restrict__ out,
   out[i] = from_f<OT>(a);
 }
 
-constexpr int kTM = 64, kTN = 64, kTK = 32;
-
-// Shared-memory tiled f32 kernel for M > 8. grid = (ceil(N/64),
-// ceil(M/64)), block = 256 threads (16 x 16), 4 x 4 outputs each.
-template <typename XT, typename ST, int BITS>
-__global__ void __launch_bounds__(256) dq_tiled(const XT* __restrict__ x,
-                                                const int8_t* __restrict__ q,
-                                                const ST* __restrict__ s,
-                                                XT* __restrict__ out, int M,
-                                                int K, int N) {
-  __shared__ float xs[kTK][kTM + 4];
-  __shared__ float wsh[kTK][kTN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int kb = 0; kb < K / kTK; ++kb) {
-    const int k0 = kb * kTK;
-#pragma unroll
-    for (int i = 0; i < (kTM * kTK) / 256; ++i) {
-      const int idx = tid + 256 * i;
-      const int r = idx / kTK, c = idx % kTK;
-      const int m = m0 + r;
-      xs[c][r] = (m < M) ? to_f(x[(size_t)m * K + k0 + c]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kTK * kTN) / 256; ++i) {
-      const int idx = tid + 256 * i;
-      const int r = idx / kTN, c = idx % kTN;
-      const int n = n0 + c;
-      float w = 0.f;
-      if (n < N) {
-        if constexpr (BITS == 8) {
-          w = (float)q[(size_t)(k0 + r) * N + n];
-        } else {
-          const int byte = (uint8_t)q[(size_t)(kb * 16 + (r & 15)) * N + n];
-          w = (float)((r < 16 ? byte & 0xF : byte >> 4) - 8);
-        }
-        w *= to_f(s[(size_t)kb * N + n]);
-      }
-      wsh[r][c] = w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kTK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = wsh[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = from_f<XT>(acc[i][j]);
-    }
-  }
-}
-
 // --------------------------------------------------- tensor cores (dq_tc)
 
 constexpr int kTcThreads = 128;       // four warps, 32 columns each
 constexpr int kTcCols = 128;          // columns per block
-constexpr int kTcStages = 4;          // quant blocks in the cp.async ring
 constexpr int kTcWLd = kTcCols + 16;  // weight row stride (bytes): conflict-free 32-bit reads
 constexpr int kTcXLd = 32 + 8;        // x row stride (bf16, 80 bytes): conflict-free ldmatrix
+
+// Quant blocks in the cp.async ring: four for bf16 x (40 KB at 64 rows),
+// three for f32 x's three bf16 planes (60 KB at 64 rows, three blocks an SM).
+template <int PARTS> __host__ __device__ constexpr int tc_stages() { return PARTS == 1 ? 4 : 3; }
 
 // Shared-memory rows of one quant block's weights: 32 int8 rows, or 16
 // packed Q4_0 rows.
 template <int BITS> __host__ __device__ constexpr int tc_w_rows() { return BITS == 8 ? 32 : 16; }
 
-// One ring stage: weights, scales, then x (16 * MT rows).
-template <typename ST, int MT, int BITS> __host__ __device__ constexpr int tc_stage_bytes() {
-  return tc_w_rows<BITS>() * kTcWLd + kTcCols * (int)sizeof(ST) + 16 * MT * kTcXLd * 2;
+// One ring stage: weights, scales, then x's PARTS planes of 16 * MT rows.
+template <typename ST, int MT, int BITS, int PARTS>
+__host__ __device__ constexpr int tc_stage_bytes() {
+  return tc_w_rows<BITS>() * kTcWLd + kTcCols * (int)sizeof(ST) + PARTS * 16 * MT * kTcXLd * 2;
 }
 
 // grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic
-// shared memory kTcStages * tc_stage_bytes. Block x covers column strip
+// shared memory tc_stages * tc_stage_bytes. Block x covers column strip
 // x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the quant blocks
 // [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip and all
-// 16*MT rows. Writes bf16 to out, or f32 partials to ws[y] when ws is set.
-template <typename ST, int MT, int BITS>
-__global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restrict__ x,
-                                                    const uint8_t* __restrict__ q,
-                                                    const ST* __restrict__ s,
-                                                    __nv_bfloat16* __restrict__ out,
-                                                    float* __restrict__ ws, int M, int K,
-                                                    int N, int per, int m_tiles) {
+// 16*MT rows. x holds PARTS bf16 planes of [M, K]: bf16 x itself (PARTS 1,
+// out bf16), or the parts hi, mid, lo of f32 x (PARTS 3, out f32). Writes
+// to out, or f32 partials to ws[y] when ws is set.
+// Blocks an SM the launch bounds ask for, 0 for none. f32 x in 32-row blocks
+// asks for three: left to itself ptxas gave one of those instances (Q4_0,
+// bf16 scales) 128 registers and a spill; asked for three it takes 130-142
+// and none. Every other instance builds as without the bound.
+template <int MT, int PARTS> __host__ __device__ constexpr int tc_min_blocks() {
+  return PARTS == 3 && MT == 2 ? 3 : 0;
+}
+
+template <typename ST, int MT, int BITS, int PARTS>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<MT, PARTS>())
+    dq_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+          const ST* __restrict__ s, void* __restrict__ out, float* __restrict__ ws, int M, int K,
+          int N, int per, int m_tiles) {
   constexpr int WR = tc_w_rows<BITS>();
   constexpr int BM = 16 * MT;
   constexpr int W_BYTES = WR * kTcWLd;
   constexpr int S_BYTES = kTcCols * (int)sizeof(ST);
-  constexpr int STAGE = tc_stage_bytes<ST, MT, BITS>();
+  constexpr int STAGE = tc_stage_bytes<ST, MT, BITS, PARTS>();
+  constexpr int STAGES = tc_stages<PARTS>();
   constexpr int SV = 16 / (int)sizeof(ST);  // scales per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -395,12 +354,12 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restr
       if (n < N) cp_async16(st + W_BYTES + tid * 16, s + (size_t)kb * N + n);
     }
 #pragma unroll
-    for (int i = 0; i < (BM * 4 + kTcThreads - 1) / kTcThreads; ++i) {
-      const int c = tid + i * kTcThreads;  // 4 copies of 16 bytes per row
-      const int r = c >> 2, m = min(m0 + r, M - 1);
-      if (c < BM * 4)
+    for (int i = 0; i < (PARTS * BM * 4 + kTcThreads - 1) / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 4 copies of 16 bytes per row of a plane
+      const int r = c >> 2, m = min(m0 + r % BM, M - 1);  // row r % BM of plane r / BM
+      if (c < PARTS * BM * 4)
         cp_async16(st + W_BYTES + S_BYTES + r * (kTcXLd * 2) + (c & 3) * 16,
-                   x + (size_t)m * K + kb * 32 + (c & 3) * 8);
+                   x + (size_t)(r / BM) * M * K + (size_t)m * K + kb * 32 + (c & 3) * 8);
     }
   };
 
@@ -413,17 +372,17 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restr
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 #pragma unroll
-  for (int i = 0; i < kTcStages - 1; ++i) {
+  for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_it) load(i, kb0 + i);
     cp_async_commit();
   }
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<kTcStages - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();  // quant block `it` has landed; slot (it-1) % stages is free
-    if (it + kTcStages - 1 < n_it) load((it + kTcStages - 1) % kTcStages, kb0 + it + kTcStages - 1);
+    if (it + STAGES - 1 < n_it) load((it + STAGES - 1) % STAGES, kb0 + it + STAGES - 1);
     cp_async_commit();
 
-    const unsigned char* st = smem + (it % kTcStages) * STAGE;
+    const unsigned char* st = smem + (it % STAGES) * STAGE;
     // this thread's 4 columns 32*warp + 4*gid .. +3 of the weight rows
     const unsigned char* wt = st + warp * 32 + gid * 4;
     auto row = [&](int r) { return *reinterpret_cast<const uint32_t*>(wt + r * kTcWLd); };
@@ -466,10 +425,16 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restr
     for (int step = 0; step < 2; ++step) {
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xt + (i * 16 + (lane & 15)) * kTcXLd + step * 16 + (lane >> 4) * 8);
+        // the planes lo, mid, hi (f32 x) against the same B fragments, into
+        // the same block sum
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[step][0][j], b[step][1][j]);
+        for (int p = PARTS - 1; p >= 0; --p) {
+          uint32_t a[4];
+          ldmatrix_x4(a, xt + (p * BM + i * 16 + (lane & 15)) * kTcXLd + step * 16 +
+                             (lane >> 4) * 8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[step][0][j], b[step][1][j]);
+        }
       }
     }
 
@@ -489,6 +454,9 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restr
 
   const int n = n0 + warp * 32 + tig * 8;  // N is a multiple of 16: all 8 in or out
   if (n >= N) return;
+  float* const f32_out = ws != nullptr ? ws + (size_t)blockIdx.y * M * N
+                         : PARTS == 3  ? static_cast<float*>(out)
+                                       : nullptr;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -501,45 +469,56 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc(const __nv_bfloat16* __restr
         v[j] = acc[i][j][2 * h];
         v[4 + j] = acc[i][j][2 * h + 1];
       }
-      if (ws != nullptr) {
-        float4* p = reinterpret_cast<float4*>(ws + (size_t)blockIdx.y * M * N + (size_t)m * N + n);
+      if (f32_out != nullptr) {
+        float4* p = reinterpret_cast<float4*>(f32_out + (size_t)m * N + n);
         p[0] = make_float4(v[0], v[1], v[2], v[3]);
         p[1] = make_float4(v[4], v[5], v[6], v[7]);
       } else {
-        *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
             make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
                        pack_bf16(v[6], v[7]));
       }
     }
 }
 
-template <typename ST, int MT, int BITS>
-void launch_tc_rows(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-                    int K, int N, int ksplit, cudaStream_t st) {
-  constexpr int smem = kTcStages * tc_stage_bytes<ST, MT, BITS>();
-  static_assert(smem <= 48 * 1024, "the ring fits the default dynamic shared memory");
+template <typename ST, int MT, int BITS, int PARTS>
+cudaError_t launch_tc_rows(const void* x, const void* q, const void* s, void* out, float* ws,
+                           int M, int K, int N, int ksplit, cudaStream_t st) {
+  constexpr int smem = tc_stages<PARTS>() * tc_stage_bytes<ST, MT, BITS, PARTS>();
+  static_assert(PARTS == 3 || smem <= 48 * 1024, "bf16 x's ring fits the default 48 KB");
+  if constexpr (smem > 48 * 1024) {
+    // more than 48 KB of dynamic shared memory only after this opt-in, once
+    // per template instance
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        dq_tc<ST, MT, BITS, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opt_in != cudaSuccess) return opt_in;
+  }
   const int m_tiles = (M + 16 * MT - 1) / (16 * MT);
   const int nb = K / 32;
   const int per = (nb + ksplit - 1) / ksplit;
   dim3 grid(((N + kTcCols - 1) / kTcCols) * m_tiles, ksplit);
-  dq_tc<ST, MT, BITS><<<grid, kTcThreads, smem, st>>>(
+  dq_tc<ST, MT, BITS, PARTS><<<grid, kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(out), ksplit > 1 ? ws : nullptr,
-      M, K, N, per, m_tiles);
+      static_cast<const ST*>(s), out, ksplit > 1 ? ws : nullptr, M, K, N, per, m_tiles);
   if (ksplit > 1) {
     const size_t mn = (size_t)M * N;
-    dq_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        ws, static_cast<__nv_bfloat16*>(out), mn, ksplit);
+    const unsigned blocks = (unsigned)((mn + 255) / 256);
+    if constexpr (PARTS == 3)
+      dq_reduce<float><<<blocks, 256, 0, st>>>(ws, static_cast<float*>(out), mn, ksplit);
+    else
+      dq_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(ws, static_cast<__nv_bfloat16*>(out),
+                                                       mn, ksplit);
   }
+  return cudaSuccess;
 }
 
 // 16 rows per block up to M = 16, 32 up to 32, else 64 (several M tiles).
-template <typename ST, int BITS>
-void launch_tc(const void* x, const void* q, const void* s, void* out, float* ws, int M, int K,
-               int N, int ksplit, cudaStream_t st) {
-  if (M <= 16) return launch_tc_rows<ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  if (M <= 32) return launch_tc_rows<ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  launch_tc_rows<ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+template <typename ST, int BITS, int PARTS>
+cudaError_t launch_tc(const void* x, const void* q, const void* s, void* out, float* ws, int M,
+                      int K, int N, int ksplit, cudaStream_t st) {
+  if (M <= 16) return launch_tc_rows<ST, 1, BITS, PARTS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  if (M <= 32) return launch_tc_rows<ST, 2, BITS, PARTS>(x, q, s, out, ws, M, K, N, ksplit, st);
+  return launch_tc_rows<ST, 4, BITS, PARTS>(x, q, s, out, ws, M, K, N, ksplit, st);
 }
 
 // ------------------------------------- tensor cores at decode (dq_decode_tc)
@@ -594,16 +573,16 @@ void launch_gemv(const void* x, const void* q, const void* s, void* out, float* 
 }
 
 // The forms, as ops/kernels.py's K1_FORMS numbers them.
-enum Form { kGemv = 0, kTiledF32 = 1, kTensorCore = 2, kDecodeTc = 3 };
+enum Form { kGemv = 0, kF32Tc = 1, kTensorCore = 2, kDecodeTc = 3 };
 
 template <typename XT, typename ST, int BITS>
 cudaError_t launch_bits(const void* x, const void* q, const void* s, void* out, float* ws, int M,
                         int K, int N, int form, int ksplit, cudaStream_t st) {
-  if constexpr (sizeof(XT) == 2) {  // bf16 x: the tensor-core forms
+  if constexpr (sizeof(XT) == 2) {  // bf16 x: the bf16 tensor-core forms
     if (form == kDecodeTc)
       return launch_decode_tc<ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-    launch_tc<ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  } else if (form == kGemv) {  // f32 x: the f32 forms
+    return launch_tc<ST, BITS, 1>(x, q, s, out, ws, M, K, N, ksplit, st);
+  } else if (form == kGemv) {  // f32 x up to 8 rows
     if (M <= 1)
       launch_gemv<XT, ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
     else if (M <= 2)
@@ -612,14 +591,14 @@ cudaError_t launch_bits(const void* x, const void* q, const void* s, void* out, 
       launch_gemv<XT, ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
     else
       launch_gemv<XT, ST, 8, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-  } else {
-    dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-    dq_tiled<XT, ST, BITS><<<grid, 256, 0, st>>>(static_cast<const XT*>(x),
-                                                 static_cast<const int8_t*>(q),
-                                                 static_cast<const ST*>(s),
-                                                 static_cast<XT*>(out), M, K, N);
+    return cudaSuccess;
+  } else {  // f32 x on the tensor cores: its three bf16 planes first, into ws
+    const size_t mk = (size_t)M * K;
+    uint16_t* planes = reinterpret_cast<uint16_t*>(ws);
+    split_x3<<<(unsigned)((mk / 4 + 255) / 256), 256, 0, st>>>(static_cast<const float*>(x),
+                                                               planes, mk);
+    return launch_tc<ST, BITS, 3>(planes, q, s, out, ws + mk * 3 / 2, M, K, N, ksplit, st);
   }
-  return cudaSuccess;
 }
 
 template <typename XT, typename ST>
@@ -633,22 +612,25 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out, float
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
 // bfloat16, 0 for float32. form: with f32 x 0 the split-K GEMV (M <= 8) or
-// 1 the f32 tile; with bf16 x 2 the tensor-core tile or 3 the tensor-core
-// decode form (M <= 8). `ws` is an f32 workspace of ksplit*M*N elements, used by the
-// GEMV and by the tensor-core forms when ksplit > 1; a split holds
-// ceil(K/32 / ksplit) quant blocks. Returns cudaGetLastError() after the
-// launches, the error of a refused shared-memory opt-in, or
-// cudaErrorInvalidValue for a form the arguments do not allow.
+// 1 the tensor-core tile on x's three bf16 parts; with bf16 x 2 the
+// tensor-core tile or 3 the tensor-core decode form (M <= 8). `ws` is an
+// f32 workspace: of ksplit*M*N elements for the GEMV and for the bf16
+// tensor-core forms when ksplit > 1; for form 1 the three planes (3*M*K
+// bf16, 1.5*M*K f32 elements) and then, when ksplit > 1, ksplit*M*N
+// elements. A split holds ceil(K/32 / ksplit) quant blocks. Returns
+// cudaGetLastError() after the launches, the error of a refused
+// shared-memory opt-in, or cudaErrorInvalidValue for a form the arguments
+// do not allow.
 extern "C" int llamago_dequant_matmul(const void* x, const void* q, const void* s,
                                       void* out, void* ws, int M, int K, int N, int bits,
                                       int x_bf16, int s_bf16, int form, int ksplit,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  const bool tensor_cores = form == kTensorCore || form == kDecodeTc;
+  const bool bf16_form = form == kTensorCore || form == kDecodeTc;
   if ((bits != 8 && bits != 4) || form < kGemv || form > kDecodeTc ||
-      ((form == kGemv || form == kDecodeTc) && M > 8) || tensor_cores != (x_bf16 != 0) ||
-      ksplit < 1 || (ksplit > 1 && w == nullptr))
+      ((form == kGemv || form == kDecodeTc) && M > 8) || bf16_form != (x_bf16 != 0) ||
+      ksplit < 1 || ((ksplit > 1 || form == kGemv || form == kF32Tc) && w == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (x_bf16 && s_bf16)

@@ -8,7 +8,8 @@
 // transposed B fragments, mma.sync.m16n8k16 (bf16, f32 accumulation) and
 // mma.sync.m16n8k32 (int8, exact int32 accumulation), bf16 packing and scale
 // reads from shared memory, TMA bulk copies on mbarriers, the words of a
-// lane's 16-byte read, and the exact bf16 pairs of int8 and Q4_0 weights.
+// lane's 16-byte read, the exact bf16 pairs of int8 and Q4_0 weights, and
+// f32 x as three exact bf16 parts (split3, split_x3).
 // Each source builds into its own library,
 // so the functions live in an anonymous namespace.
 
@@ -164,6 +165,40 @@ __device__ __forceinline__ uint32_t q4_pair(uint32_t lo, uint32_t hi) {
 // Word I of a lane's 16 bytes of a weight row: columns n+4I .. n+4I+3.
 template <int I> __device__ __forceinline__ uint32_t word_of(const uint4& v) {
   return I == 0 ? v.x : I == 1 ? v.y : I == 2 ? v.z : v.w;
+}
+
+// f32 x as three bf16 parts (bits in the low 16 of .x hi, .y mid, .z lo)
+// with hi + mid + lo == x exactly for every normal x whose low part stays
+// in bf16's range: hi is x truncated to its top 16 bits, mid the same of
+// x - hi, lo = bf16(x - hi - mid), which holds at most 8 significant bits
+// and so rounds exactly; both differences are exact in f32. Truncation, not
+// rounding, so no part overflows near f32's maximum. An inf or NaN goes
+// whole into hi, mid = lo = 0; a NaN whose payload lies only in the low 16
+// bits gets bf16's quiet bit, so it stays a NaN.
+__device__ __forceinline__ uint3 split3(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7F800000u) == 0x7F800000u)
+    return make_uint3((u >> 16) | ((u & 0xFFFFu) ? 0x40u : 0u), 0u, 0u);
+  const float r = x - __uint_as_float(u & 0xFFFF0000u);
+  const uint32_t ru = __float_as_uint(r);
+  const float l = r - __uint_as_float(ru & 0xFFFF0000u);
+  return make_uint3(u >> 16, ru >> 16, (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(l)));
+}
+
+// The three bf16 planes of f32 x [n values], for the tensor-core forms that
+// take f32 x (dq_tc and w4x8_tc with three parts): planes[p * n + i] is
+// part p (0 hi, 1 mid, 2 lo) of x[i]. Four values a thread; n a multiple of
+// 4, both pointers 16-byte aligned.
+__global__ void __launch_bounds__(256) split_x3(const float* __restrict__ x,
+                                                uint16_t* __restrict__ planes, size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float4 v = *reinterpret_cast<const float4*>(x + i);
+  const uint3 a = split3(v.x), b = split3(v.y), c = split3(v.z), d = split3(v.w);
+  uint16_t* p = planes + i;
+  *reinterpret_cast<uint2*>(p) = make_uint2(a.x | (b.x << 16), c.x | (d.x << 16));
+  *reinterpret_cast<uint2*>(p + n) = make_uint2(a.y | (b.y << 16), c.y | (d.y << 16));
+  *reinterpret_cast<uint2*>(p + 2 * n) = make_uint2(a.z | (b.z << 16), c.z | (d.z << 16));
 }
 
 // 8 consecutive scales in shared memory (16-byte aligned) -> f32.

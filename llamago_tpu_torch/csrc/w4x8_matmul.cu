@@ -17,16 +17,18 @@
 // K6, stream matmul for more rows (replaces _w4x8_stream_kernel, launched
 // at llamago_tpu/ops/kernels.py:465-479):
 //   out[m, n] = sum_k f32(x[m, k]) * (f32(w[k, n]) * f32(s[k / 128, n]))
-// in f32, no activation quantization. bf16 x takes the tensor-core tile
+// in f32, no activation quantization. Both forms are the tensor-core tile
 // (w4x8_tc), which computes
 //   out[m, n] = sum_g s[g, n] * f32(x_g[m, :] . w_g[:, n])
 // over the 128-row groups g: bf16 x and the int4 values are exact in bf16,
 // every product is exact in f32 and each group's dot is summed in f32, so
 // this is the function above with its f32 sums in another order; no w * s
-// is rounded to bf16, and the output is rounded to bf16 once. f32 x takes
-// the f32 tile (w4x8_stream): the bf16 tensor cores cannot take it without
-// rounding it. The caller (ops/kernels.py, w4x8_form) picks the form and
-// passes it in; the entry point refuses a form the dtype does not allow.
+// is rounded to bf16, and the output is rounded to bf16 once. f32 x (form
+// f32_tc) goes in as its three exact bf16 parts, hi + mid + lo == x
+// (tc_common.cuh split3), each dotted with the same weights into the same
+// group sum, and the output stays f32. The caller (ops/kernels.py,
+// w4x8_form) picks the form and passes it in; the entry point refuses a
+// form the dtype does not allow.
 //
 // x: f32 or bf16 [M, K] row-major; out: x's dtype [M, N]. K % 128 == 0,
 // N % 16 == 0.
@@ -83,9 +85,21 @@
 //    blocks per SM, K is split at whole groups for one wave of three
 //    blocks per SM (ops/kernels.py, tc_split_for) and w4x8_reduce adds the
 //    partials in a fixed order. wgmma and TMA are later work.
-//  * K6's f32 tile (f32 x only) is a plain shared-memory tiled f32 kernel
-//    (64x64 output tile, 32 rows of K per step, 4x4 outputs per thread);
-//    each packed byte is read once and gives two rows of the tile.
+//  * K6 with f32 x (the --dtype float32 route; it replaces the TPU kernel
+//    above for f32 x) runs the same tile on x's three bf16 parts: the bf16
+//    tensor cores cannot take f32 x without rounding it, and f32 FMA (67
+//    TFLOP/s) would bound a 7B pass at 12.6 ms at M = 64. What bounds it:
+//    three bf16 passes, 6*M operations per weight at 989 TFLOP/s (2.57 ms a
+//    7B pass at M = 64, 10.26 at M = 256; the packed bytes only under about
+//    26 rows). What the design does: one small launch (split_x3) writes the
+//    three planes into the front of the workspace, the ring stages all
+//    three beside the group's weights, and each pair of B fragments built
+//    from the packed bytes feeds three mma an m16 tile, lo, then mid, then
+//    hi, into the same zeroed group sum: a nibble is decoded once for three
+//    products. Three planes of 64 rows would make a stage 61 KB (one block
+//    an SM), so blocks take 32 rows (36 KB a stage, three blocks an SM).
+//    The split of K (ops/kernels.py, tc_split_for with 32-row tiles) and its
+//    fixed-order reduce are the bf16 tile's.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -187,79 +201,6 @@ void quant_x(const void* x, int8_t* xq, float* sx, int M, int K, int sx_m, int s
                                                     sx_m, sx_g);
 }
 
-// ----------------------------------------------------- K6: the f32 tile
-
-constexpr int kTM = 64, kTN = 64, kTK = 32;
-
-// f32 x and out. grid = (ceil(N/64), ceil(M/64)), block = 256 threads
-// (16 x 16), 4 x 4 outputs each.
-__global__ void __launch_bounds__(256) w4x8_stream(const float* __restrict__ x,
-                                                   const uint8_t* __restrict__ q,
-                                                   const __nv_bfloat16* __restrict__ s,
-                                                   float* __restrict__ out, int M, int K,
-                                                   int N) {
-  __shared__ float xs[kTK][kTM + 4];
-  __shared__ float wsh[kTK][kTN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-#pragma unroll
-    for (int i = 0; i < (kTM * kTK) / 256; ++i) {
-      const int idx = tid + 256 * i;
-      const int r = idx / kTK, c = idx % kTK;
-      const int m = m0 + r;
-      xs[c][r] = (m < M) ? x[(size_t)m * K + k0 + c] : 0.f;
-    }
-    const size_t srow = (size_t)(2 * (k0 / kGroup)) * N;  // a tile lies in one group
-#pragma unroll
-    for (int i = 0; i < (kTK / 2 * kTN) / 256; ++i) {
-      const int idx = tid + 256 * i;
-      const int pr = idx / kTN, c = idx % kTN;
-      const int n = n0 + c;
-      float lo = 0.f, hi = 0.f;
-      if (n < N) {
-        const uint32_t byte = q[(size_t)(k0 / 2 + pr) * N + n];
-        const float sc = __bfloat162float(s[srow + n]);
-        lo = (float)((int)((byte & 0xFu) ^ 8u) - 8) * sc;
-        hi = (float)((int)((byte >> 4) ^ 8u) - 8) * sc;
-      }
-      wsh[2 * pr][c] = lo;
-      wsh[2 * pr + 1][c] = hi;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kTK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = wsh[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
 // ------------------------------------------------ K6: tensor cores (w4x8_tc)
 
 constexpr int kTcThreads = 128;       // four warps, 32 columns each
@@ -272,9 +213,10 @@ constexpr int kTcWRows = kGroup / 2;  // packed weight rows of a group
 constexpr int kTcWLd = kTcCols + 32;
 constexpr int kTcXLd = kGroup + 8;  // x row stride (bf16, 272 bytes): conflict-free ldmatrix
 
-// One ring stage: a group's packed weights, its scale row, then x (16 * MT rows).
-template <int MT> __host__ __device__ constexpr int tc_stage_bytes() {
-  return kTcWRows * kTcWLd + kTcCols * 2 + 16 * MT * kTcXLd * 2;
+// One ring stage: a group's packed weights, its scale row, then x's PARTS
+// planes of 16 * MT rows.
+template <int MT, int PARTS> __host__ __device__ constexpr int tc_stage_bytes() {
+  return kTcWRows * kTcWLd + kTcCols * 2 + PARTS * 16 * MT * kTcXLd * 2;
 }
 
 // The four bytes of a packed word (4 neighbouring columns of packed row r:
@@ -296,21 +238,23 @@ __device__ __forceinline__ void w4_pairs(uint32_t w, uint32_t (&b)[4]) {
 }
 
 // grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic
-// shared memory kTcStages * tc_stage_bytes<MT>. Block x covers column
-// strip x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the groups
-// [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip and all
-// 16*MT rows. Writes bf16 to out, or f32 partials to ws[y] when ws is set.
-template <int MT>
+// shared memory kTcStages * tc_stage_bytes<MT, PARTS>. Block x covers
+// column strip x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the
+// groups [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip
+// and all 16*MT rows. x holds PARTS bf16 planes of [M, K]: bf16 x itself
+// (PARTS 1, out bf16), or the parts hi, mid, lo of f32 x (PARTS 3, out
+// f32). Writes to out, or f32 partials to ws[y] when ws is set.
+template <int MT, int PARTS>
 __global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __restrict__ x,
                                                       const uint8_t* __restrict__ q,
                                                       const __nv_bfloat16* __restrict__ s,
-                                                      __nv_bfloat16* __restrict__ out,
+                                                      void* __restrict__ out,
                                                       float* __restrict__ ws, int M, int K,
                                                       int N, int per, int m_tiles) {
   constexpr int BM = 16 * MT;
   constexpr int W_BYTES = kTcWRows * kTcWLd;
   constexpr int S_BYTES = kTcCols * 2;
-  constexpr int STAGE = tc_stage_bytes<MT>();
+  constexpr int STAGE = tc_stage_bytes<MT, PARTS>();
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int n0 = (blockIdx.x / m_tiles) * kTcCols;
@@ -336,11 +280,12 @@ __global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __res
       if (n < N) cp_async16(st + W_BYTES + tid * 16, s + (size_t)(2 * g) * N + n);
     }
 #pragma unroll
-    for (int i = 0; i < BM * 16 / kTcThreads; ++i) {
-      const int c = tid + i * kTcThreads;  // 16 copies of 16 bytes per row
-      const int r = c >> 4, m = min(m0 + r, M - 1);
+    for (int i = 0; i < PARTS * BM * 16 / kTcThreads; ++i) {
+      const int c = tid + i * kTcThreads;  // 16 copies of 16 bytes per row of a plane
+      const int r = c >> 4, m = min(m0 + r % BM, M - 1);  // row r % BM of plane r / BM
       cp_async16(st + W_BYTES + S_BYTES + r * (kTcXLd * 2) + (c & 15) * 16,
-                 x + (size_t)m * K + (size_t)g * kGroup + (c & 15) * 8);
+                 x + (size_t)(r / BM) * M * K + (size_t)m * K + (size_t)g * kGroup +
+                     (c & 15) * 8);
     }
   };
 
@@ -382,10 +327,16 @@ __global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __res
       w4_pairs(*reinterpret_cast<const uint32_t*>(wt + (8 * t + 4) * kTcWLd), b1);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xt + (i * 16 + (lane & 15)) * kTcXLd + t * 16 + (lane >> 4) * 8);
+        // the planes lo, mid, hi (f32 x) against the same B fragments, into
+        // the same group sum
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b0[j], b1[j]);
+        for (int p = PARTS - 1; p >= 0; --p) {
+          uint32_t a[4];
+          ldmatrix_x4(a, xt + (p * BM + i * 16 + (lane & 15)) * kTcXLd + t * 16 +
+                             (lane >> 4) * 8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b0[j], b1[j]);
+        }
       }
     }
 
@@ -405,6 +356,9 @@ __global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __res
 
   const int n = n0 + warp * 32 + tig * 8;  // N is a multiple of 16: all 8 in or out
   if (n >= N) return;
+  float* const f32_out = ws != nullptr ? ws + (size_t)blockIdx.y * M * N
+                         : PARTS == 3  ? static_cast<float*>(out)
+                                       : nullptr;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -417,56 +371,66 @@ __global__ void __launch_bounds__(kTcThreads) w4x8_tc(const __nv_bfloat16* __res
         v[j] = acc[i][j][2 * h];
         v[4 + j] = acc[i][j][2 * h + 1];
       }
-      if (ws != nullptr) {
-        float4* p = reinterpret_cast<float4*>(ws + (size_t)blockIdx.y * M * N + (size_t)m * N + n);
+      if (f32_out != nullptr) {
+        float4* p = reinterpret_cast<float4*>(f32_out + (size_t)m * N + n);
         p[0] = make_float4(v[0], v[1], v[2], v[3]);
         p[1] = make_float4(v[4], v[5], v[6], v[7]);
       } else {
-        *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
             make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
                        pack_bf16(v[6], v[7]));
       }
     }
 }
 
-template <int MT>
+template <int MT, int PARTS>
 cudaError_t launch_tc_rows(const __nv_bfloat16* x, const uint8_t* q, const __nv_bfloat16* s,
-                           __nv_bfloat16* out, float* ws, int M, int K, int N, int ksplit,
+                           void* out, float* ws, int M, int K, int N, int ksplit,
                            cudaStream_t st) {
-  constexpr int smem = kTcStages * tc_stage_bytes<MT>();
+  constexpr int smem = kTcStages * tc_stage_bytes<MT, PARTS>();
   // more than 48 KB of dynamic shared memory only after this opt-in, once
   // per template instance
-  static const cudaError_t opt_in =
-      cudaFuncSetAttribute(w4x8_tc<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      w4x8_tc<MT, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const int m_tiles = (M + 16 * MT - 1) / (16 * MT);
   const int G = K / kGroup;
   const int per = (G + ksplit - 1) / ksplit;
   dim3 grid(((N + kTcCols - 1) / kTcCols) * m_tiles, ksplit);
-  w4x8_tc<MT><<<grid, kTcThreads, smem, st>>>(x, q, s, out, ksplit > 1 ? ws : nullptr, M, K, N,
-                                              per, m_tiles);
+  w4x8_tc<MT, PARTS><<<grid, kTcThreads, smem, st>>>(x, q, s, out, ksplit > 1 ? ws : nullptr, M,
+                                                     K, N, per, m_tiles);
   if (ksplit > 1) {
     const size_t mn = (size_t)M * N;
-    w4x8_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, out, mn, ksplit);
+    const unsigned blocks = (unsigned)((mn + 255) / 256);
+    if constexpr (PARTS == 3)
+      w4x8_reduce<float><<<blocks, 256, 0, st>>>(ws, static_cast<float*>(out), mn, ksplit);
+    else
+      w4x8_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(ws, static_cast<__nv_bfloat16*>(out),
+                                                         mn, ksplit);
   }
   return cudaSuccess;
 }
 
-// 16 rows per block up to M = 16, 32 up to 32, else 64 (several M tiles).
-cudaError_t launch_tc(const void* x, const void* q, const void* s, void* out, float* ws, int M,
-                      int K, int N, int ksplit, cudaStream_t st) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+// bf16 x: 16 rows per block up to M = 16, 32 up to 32, else 64 (several M
+// tiles). f32 x's three planes: 16 rows up to M = 16, else 32, so that a
+// stage (36 KB at 32 rows) leaves three blocks an SM.
+template <int PARTS>
+cudaError_t launch_tc(const __nv_bfloat16* x, const void* q, const void* s, void* out, float* ws,
+                      int M, int K, int N, int ksplit, cudaStream_t st) {
   const auto* qq = static_cast<const uint8_t*>(q);
   const auto* ss = static_cast<const __nv_bfloat16*>(s);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (M <= 16) return launch_tc_rows<1>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
-  if (M <= 32) return launch_tc_rows<2>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
-  return launch_tc_rows<4>(xb, qq, ss, ob, ws, M, K, N, ksplit, st);
+  if (M <= 16) return launch_tc_rows<1, PARTS>(x, qq, ss, out, ws, M, K, N, ksplit, st);
+  if constexpr (PARTS == 3) {
+    return launch_tc_rows<2, 3>(x, qq, ss, out, ws, M, K, N, ksplit, st);
+  } else {
+    if (M <= 32) return launch_tc_rows<2, 1>(x, qq, ss, out, ws, M, K, N, ksplit, st);
+    return launch_tc_rows<4, 1>(x, qq, ss, out, ws, M, K, N, ksplit, st);
+  }
 }
 
 // The forms, as ops/kernels.py's W4X8_FORMS numbers them. K5 ("a8", the
 // int8 tensor-core decode form) has an entry point of its own.
-enum W4x8Form { kA8 = 0, kTiledF32 = 1, kTensorCore = 2 };
+enum W4x8Form { kA8 = 0, kF32Tc = 1, kTensorCore = 2 };
 
 }  // namespace
 
@@ -523,27 +487,33 @@ extern "C" int llamago_w4x8_matmul_a8(const void* x, const void* q, const void* 
   return (int)cudaGetLastError();
 }
 
-// K6. x_bf16: 1 for bfloat16, 0 for float32. form: 1 the f32 tile (f32 x,
-// ksplit 1), 2 the tensor-core tile (bf16 x). `ws` is an f32 workspace of
-// ksplit*M*N elements, used by the tensor-core tile when ksplit > 1; a split
-// holds ceil(K/128 / ksplit) groups. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for a form the arguments do not allow.
+// K6. x_bf16: 1 for bfloat16, 0 for float32. form: 1 the tensor-core tile
+// on f32 x's three bf16 parts, 2 the tensor-core tile (bf16 x). `ws` is an
+// f32 workspace: for form 2 of ksplit*M*N elements, used when ksplit > 1;
+// for form 1 the three planes (3*M*K bf16, 1.5*M*K f32 elements) and then,
+// when ksplit > 1, ksplit*M*N elements. A split holds ceil(K/128 / ksplit)
+// groups. Returns cudaGetLastError() after the launches, the error of a
+// refused shared-memory opt-in, or cudaErrorInvalidValue for a form the
+// arguments do not allow.
 extern "C" int llamago_w4x8_matmul_stream(const void* x, const void* q, const void* s,
                                           void* out, void* ws, int M, int K, int N, int x_bf16,
                                           int form, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if ((form != kTiledF32 && form != kTensorCore) || (form == kTensorCore) != (x_bf16 != 0) ||
-      M < 1 || ksplit < 1 || (form == kTiledF32 && ksplit != 1) || (ksplit > 1 && w == nullptr))
+  if ((form != kF32Tc && form != kTensorCore) || (form == kTensorCore) != (x_bf16 != 0) ||
+      M < 1 || ksplit < 1 || ((ksplit > 1 || form == kF32Tc) && w == nullptr))
     return (int)cudaErrorInvalidValue;
+  cudaError_t e;
   if (form == kTensorCore) {
-    const cudaError_t e = launch_tc(x, q, s, out, w, M, K, N, ksplit, st);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    e = launch_tc<1>(static_cast<const __nv_bfloat16*>(x), q, s, out, w, M, K, N, ksplit, st);
+  } else {  // its three bf16 planes first, into ws
+    const size_t mk = (size_t)M * K;
+    uint16_t* planes = reinterpret_cast<uint16_t*>(w);
+    split_x3<<<(unsigned)((mk / 4 + 255) / 256), 256, 0, st>>>(static_cast<const float*>(x),
+                                                               planes, mk);
+    e = launch_tc<3>(reinterpret_cast<const __nv_bfloat16*>(planes), q, s, out, w + mk * 3 / 2,
+                     M, K, N, ksplit, st);
   }
-  dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-  w4x8_stream<<<grid, 256, 0, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(q),
-                                    static_cast<const __nv_bfloat16*>(s),
-                                    static_cast<float*>(out), M, K, N);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,8 @@ does (llamago_tpu/ops/kernels.py):
                 most `_W4X8_A8_MAX_M` (16, env LLAMAGO_W4X8_A8_MAX_M),
                 replacing `_w4x8_decode_kernel`; else K6, the stream
                 matmul, replacing `_w4x8_stream_kernel`: the bf16
-                tensor-core tile for bf16 x and the f32 tile for f32 x.
-                CUDA: `csrc/w4x8_matmul.cu`.
+                tensor-core tile, for f32 x on x's three exact bf16
+                parts. CUDA: `csrc/w4x8_matmul.cu`.
   {"q8"|"q4", "s"}  Q8_0 / Q4_0 leaf -> K9, the scale-on-output matmul
                 (`dequant_matmul_so`, replacing `_dequant_mm_kernel_so`,
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
@@ -24,7 +24,8 @@ does (llamago_tpu/ops/kernels.py):
                 `csrc/dequant_matmul.cu`) in the form `k1_form` picks:
                 up to 8 rows the bf16 tensor-core decode form for bf16 x
                 and the split-K GEMV for f32 x, above that the bf16
-                tensor-core tile for bf16 x and the f32 tile for f32 x.
+                tensor-core tile, for f32 x on x's three exact bf16
+                parts.
 
 A Q4_1 leaf (with mins "m") never comes here: `ops/quant.py:quant_matmul`
 dequantizes it, as the JAX package does. The TPU launchers' VMEM gates
@@ -36,10 +37,12 @@ design does about it. A CPU tensor takes the kernel's plain version
 (`*_plain`); a CUDA tensor takes the kernel, or the wrapper raises. Each
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
 `.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile
-and `.launches_decode_tc` the tensor-core decode form,
+with bf16 x, `.launches_f32_tc` the tile with f32 x and
+`.launches_decode_tc` the tensor-core decode form,
 `w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
-`.launches_tc` took the tensor-core tile), `dequant_matmul_so.launches`
-(of which `.launches_decode_tc` took the tensor-core decode form)).
+`.launches_tc` took the tensor-core tile with bf16 x and `.launches_f32_tc`
+with f32 x), `dequant_matmul_so.launches` (of which `.launches_decode_tc`
+took the tensor-core decode form)).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`, one trip to memory in the launch `norm_plan`
@@ -74,10 +77,15 @@ _GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
 # of K in a split (where K allows). K1 aims for four blocks per SM (on the
 # card four took 5% off its prefill pass at m = 64 against two); K6 for one
 # wave of the three its shared-memory ring lets an SM hold (on the card 5-6%
-# off its pass at m = 64 against four)
+# off its pass at m = 64 against four). With f32 x as three bf16 planes
+# both aim for one wave of three blocks an SM (what their rings leave; K1
+# with bf16 scales holds two by its registers), and K6's blocks take 32
+# rows (three planes of 64 would leave one block an SM)
 _TC_ROWS, _TC_COLS = 64, 128
 _TC_MIN_BLOCKS, _TC_TARGET_BLOCKS = 2 * H100_SMS, 4 * H100_SMS
 _W4X8_TC_TARGET_BLOCKS = 3 * H100_SMS
+_F32_TC_TARGET_BLOCKS = 3 * H100_SMS
+_W4X8_F32_TC_ROWS = 32
 _TC_MIN_SPLIT_ROWS = 256
 # K1's tensor-core decode form (csrc/dequant_matmul.cu, dq_decode_tc):
 # columns per block, the most blocks it launches (one wave of the three an
@@ -87,7 +95,7 @@ _DT_COLS = 512
 _DT_MAX_BLOCKS = 3 * H100_SMS
 _DT_MIN_SPLIT_BLOCKS = 4
 # K1's forms, numbered as the C entry point takes them
-K1_FORMS = ("gemv", "tiled_f32", "tensor_core", "decode_tc")
+K1_FORMS = ("gemv", "f32_tc", "tensor_core", "decode_tc")
 
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
@@ -99,8 +107,8 @@ _IT_COLS = 512
 _IT_TILE_SLOTS = 8
 _IT_MIN_SPLIT_STEPS = 4
 # The w4x8 forms, numbered as the C entry points take them: K5, and K6's
-# f32 and tensor-core tiles
-W4X8_FORMS = ("a8", "tiled_f32", "tensor_core")
+# tensor-core tile with f32 and with bf16 x
+W4X8_FORMS = ("a8", "f32_tc", "tensor_core")
 
 # Rows (padded up to 8, as the TPU launcher pads them) at or below which a
 # Q8_0 / Q4_0 leaf takes K9. Off by default, as in the JAX package.
@@ -193,12 +201,13 @@ def k1_form(m: int, x_dtype: torch.dtype) -> str:
     """K1's kernel on the card for m rows of x. bf16 x takes bf16 mma.sync:
     "decode_tc" (the slots are the n8 columns of B) up to 8 rows,
     "tensor_core" (the prefill tile) above. f32 x, which the bf16 tensor
-    cores cannot take without rounding it, takes "gemv" (the split-K GEMV)
-    up to 8 rows and "tiled_f32" above."""
+    cores cannot take as it is, takes "gemv" (the split-K GEMV) up to 8
+    rows and "f32_tc" above: the prefill tile on x's three exact bf16
+    parts, hi + mid + lo == x."""
     bf16 = x_dtype == torch.bfloat16
     if m <= _GEMV_MAX_M:
         return "decode_tc" if bf16 else "gemv"
-    return "tensor_core" if bf16 else "tiled_f32"
+    return "tensor_core" if bf16 else "f32_tc"
 
 
 def decode_tc_split_for(k: int, n: int) -> tuple[int, int]:
@@ -214,16 +223,17 @@ def decode_tc_split_for(k: int, n: int) -> tuple[int, int]:
 
 
 def tc_split_for(m: int, k: int, n: int, unit: int = QK,
-                 target: int = _TC_TARGET_BLOCKS) -> tuple[int, int]:
+                 target: int = _TC_TARGET_BLOCKS, rows: int = _TC_ROWS) -> tuple[int, int]:
     """(ksplit, units per split) of a tensor-core tile whose K comes in
     units of `unit` rows, each with its own scale (K1: 32-row quant blocks;
-    K6: 128-row groups): no split when the output tiles alone give 264
-    blocks (two per SM), else enough splits for about `target` blocks, each
-    of at least 256 rows of K (8 quant blocks, 2 groups) where K allows,
-    none empty. The C side takes ksplit and cuts the splits at ceil(K/unit
-    / ksplit), which is the second number."""
+    K6: 128-row groups), over output tiles of `rows` rows by 128 columns:
+    no split when the output tiles alone give 264 blocks (two per SM), else
+    enough splits for about `target` blocks, each of at least 256 rows of K
+    (8 quant blocks, 2 groups) where K allows, none empty. The C side takes
+    ksplit and cuts the splits at ceil(K/unit / ksplit), which is the
+    second number."""
     nb = k // unit
-    blocks = -(-n // _TC_COLS) * -(-m // _TC_ROWS)
+    blocks = -(-n // _TC_COLS) * -(-m // rows)
     if blocks >= _TC_MIN_BLOCKS:
         return 1, nb
     min_units = max(1, _TC_MIN_SPLIT_ROWS // unit)
@@ -232,13 +242,21 @@ def tc_split_for(m: int, k: int, n: int, unit: int = QK,
     return -(-nb // per), per
 
 
+def f32_tc_workspace(m: int, k: int, n: int, ksplit: int) -> int:
+    """f32 workspace elements of the tensor-core tile with f32 x (K1's and
+    K6's "f32_tc"): x's three bf16 planes (3 * m * k bf16), then the split-K
+    partials when it splits K."""
+    return 3 * m * k // 2 + (ksplit * m * n if ksplit > 1 else 0)
+
+
 def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
     """(form, ksplit, f32 workspace elements) of one K1 launch over m rows."""
     form = k1_form(m, x_dtype)
     if form == "gemv":
         return gemv_plan(m, k, n)
-    if form == "tiled_f32":
-        return form, 1, 0
+    if form == "f32_tc":
+        ksplit = tc_split_for(m, k, n, target=_F32_TC_TARGET_BLOCKS)[0]
+        return form, ksplit, f32_tc_workspace(m, k, n, ksplit)
     ksplit = (tc_split_for(m, k, n) if form == "tensor_core" else decode_tc_split_for(k, n))[0]
     return form, ksplit, ksplit * m * n if ksplit > 1 else 0
 
@@ -273,11 +291,12 @@ def k9_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int
 def w4x8_form(m: int, x_dtype: torch.dtype) -> str:
     """The w4x8 matmul's kernel on the card for m rows of x: "a8" (K5) when
     max(8, m) is at most `_W4X8_A8_MAX_M` (the TPU launcher pads m up to 8);
-    above, K6: "tensor_core" (bf16 mma.sync) for bf16 x and "tiled_f32" for
-    f32 x, which the bf16 tensor cores cannot take without rounding it."""
+    above, K6's tensor-core tile (bf16 mma.sync): "tensor_core" for bf16 x
+    and "f32_tc" for f32 x, which the bf16 tensor cores cannot take as it
+    is, on its three exact bf16 parts."""
     if max(8, m) <= _W4X8_A8_MAX_M:
         return "a8"
-    return "tensor_core" if x_dtype == torch.bfloat16 else "tiled_f32"
+    return "tensor_core" if x_dtype == torch.bfloat16 else "f32_tc"
 
 
 def w4x8_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
@@ -290,7 +309,8 @@ def w4x8_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, i
     if form == "tensor_core":
         ksplit = tc_split_for(m, k, n, G4X8, _W4X8_TC_TARGET_BLOCKS)[0]
         return form, ksplit, ksplit * m * n if ksplit > 1 else 0
-    return form, 1, 0
+    ksplit = tc_split_for(m, k, n, G4X8, _F32_TC_TARGET_BLOCKS, _W4X8_F32_TC_ROWS)[0]
+    return form, ksplit, f32_tc_workspace(m, k, n, ksplit)
 
 
 def i8tc_blocks_per_sm(tiles: int) -> int:
@@ -470,12 +490,15 @@ def w4x8_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
         w4x8_matmul.launches_stream += 1
         if form == "tensor_core":
             w4x8_matmul.launches_tc += 1
+        else:
+            w4x8_matmul.launches_f32_tc += 1
     return out.reshape(*x.shape[:-1], n)
 
 
 w4x8_matmul.launches_a8 = 0
 w4x8_matmul.launches_stream = 0
 w4x8_matmul.launches_tc = 0
+w4x8_matmul.launches_f32_tc = 0
 
 
 def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, plan) -> tuple[torch.Tensor, str]:
@@ -538,6 +561,8 @@ def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
         dequant_matmul.launches_tc += 1
     elif form == "decode_tc":
         dequant_matmul.launches_decode_tc += 1
+    elif form == "f32_tc":
+        dequant_matmul.launches_f32_tc += 1
     return out
 
 
@@ -545,6 +570,7 @@ dequant_matmul.launches = 0
 dequant_matmul.launches_q4 = 0
 dequant_matmul.launches_tc = 0
 dequant_matmul.launches_decode_tc = 0
+dequant_matmul.launches_f32_tc = 0
 
 
 # ------------------------------------------------------------------ RMSNorm

@@ -85,7 +85,7 @@ def test_decode_rows_route_by_dtype(m):
 @pytest.mark.parametrize("m", [9, 16, 17, 64, 256])
 def test_more_rows_route_as_before(m):
     assert kernels.k1_form(m, torch.bfloat16) == "tensor_core"
-    assert kernels.k1_form(m, torch.float32) == "tiled_f32"
+    assert kernels.k1_form(m, torch.float32) == "f32_tc"
 
 
 def test_decode_form_code_matches_the_c_entry_point():
@@ -97,8 +97,8 @@ def test_decode_form_code_matches_the_c_entry_point():
     # the f32 forms only f32 x
     assert "form > kDecodeTc" in src
     assert "((form == kGemv || form == kDecodeTc) && M > 8)" in src
-    assert "const bool tensor_cores = form == kTensorCore || form == kDecodeTc;" in src
-    assert "tensor_cores != (x_bf16 != 0)" in src
+    assert "const bool bf16_form = form == kTensorCore || form == kDecodeTc;" in src
+    assert "bf16_form != (x_bf16 != 0)" in src
 
 
 @pytest.mark.parametrize("fn", ["i8_pair", "q4_pair", "mbar_init", "mbar_init_fence",

@@ -72,17 +72,17 @@ def jax_k1(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 def test_k1_form_routes_by_rows_and_dtype(m, dtype):
     bf16 = dtype == torch.bfloat16
     want = (("decode_tc" if bf16 else "gemv") if m <= 8 else
-            "tensor_core" if bf16 else "tiled_f32")
+            "tensor_core" if bf16 else "f32_tc")
     assert kernels.k1_form(m, dtype) == want
 
 
 def test_k1_form_codes_match_the_c_entry_point():
     src = (pathlib.Path(kernels.__file__).parents[1] / "csrc" / "dequant_matmul.cu").read_text()
-    enum = re.search(r"enum Form \{ kGemv = (\d), kTiledF32 = (\d), kTensorCore = (\d), "
+    enum = re.search(r"enum Form \{ kGemv = (\d), kF32Tc = (\d), kTensorCore = (\d), "
                      r"kDecodeTc = (\d) \}", src)
     assert enum is not None
     assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f) for f in
-                                               ("gemv", "tiled_f32", "tensor_core",
+                                               ("gemv", "f32_tc", "tensor_core",
                                                 "decode_tc")]
 
 
@@ -136,8 +136,11 @@ def test_k1_plan_workspace_by_form():
     form, ksplit, ws = kernels.gemv_plan(8, k, n)
     assert (form, ksplit, ws) == ("gemv", kernels.ksplit_for(k, n),
                                   kernels.ksplit_for(k, n) * 8 * n)
-    # the f32 tile writes the output itself
-    assert kernels.k1_plan(64, k, n, torch.float32) == ("tiled_f32", 1, 0)
+    # the tile with f32 x: x's three bf16 planes, then the partials when it
+    # splits K; 96 column strips at m = 64: five splits (480 blocks, a wave
+    # of the three an SM holds)
+    assert kernels.k1_plan(64, k, n, torch.float32) == ("f32_tc", 5,
+                                                         3 * 64 * k // 2 + 5 * 64 * n)
     # the tensor-core tile: partials only when it splits K
     # 96 column strips at m = 64: six splits (576 blocks, 4 per SM)
     assert kernels.k1_plan(64, k, n, torch.bfloat16) == ("tensor_core", 6, 6 * 64 * n)

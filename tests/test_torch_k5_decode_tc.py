@@ -68,7 +68,7 @@ def test_every_decode_row_count_takes_k5_in_both_dtypes(m):
 
 def test_more_rows_take_k6():
     assert kernels.w4x8_form(17, torch.bfloat16) == "tensor_core"
-    assert kernels.w4x8_form(17, torch.float32) == "tiled_f32"
+    assert kernels.w4x8_form(17, torch.float32) == "f32_tc"
 
 
 def test_the_old_form_is_gone():

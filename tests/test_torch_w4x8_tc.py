@@ -72,7 +72,7 @@ def jax_k6(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 @pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 32, 64, 100, 256])
 def test_w4x8_form_routes_by_rows_and_dtype(m, dtype):
     want = ("a8" if m <= 16 else
-            "tensor_core" if dtype == torch.bfloat16 else "tiled_f32")
+            "tensor_core" if dtype == torch.bfloat16 else "f32_tc")
     assert kernels.w4x8_form(m, dtype) == want
 
 
@@ -84,16 +84,16 @@ def test_w4x8_form_routes_by_rows_and_dtype(m, dtype):
 def test_w4x8_form_follows_the_a8_threshold(monkeypatch, a8_max, m, want):
     monkeypatch.setattr(kernels, "_W4X8_A8_MAX_M", a8_max)
     assert kernels.w4x8_form(m, torch.bfloat16) == want
-    assert kernels.w4x8_form(m, torch.float32) == ("a8" if want == "a8" else "tiled_f32")
+    assert kernels.w4x8_form(m, torch.float32) == ("a8" if want == "a8" else "f32_tc")
 
 
 def test_w4x8_form_codes_match_the_c_entry_point():
     src = (CSRC / "w4x8_matmul.cu").read_text()
-    enum = re.search(r"enum W4x8Form \{ kA8 = (\d), kTiledF32 = (\d), kTensorCore = (\d) \}",
+    enum = re.search(r"enum W4x8Form \{ kA8 = (\d), kF32Tc = (\d), kTensorCore = (\d) \}",
                      src)
     assert enum is not None
     assert [int(v) for v in enum.groups()] == [kernels.W4X8_FORMS.index(f) for f in
-                                               ("a8", "tiled_f32", "tensor_core")]
+                                               ("a8", "f32_tc", "tensor_core")]
 
 
 # ------------------------------------------------------------- split plan
@@ -139,8 +139,10 @@ def test_w4x8_plan_workspace_by_form():
     # K5: one f32 partial per split, always (its reduce writes the output)
     ks = kernels.a8_split_for(4, k, n)[0]
     assert kernels.w4x8_plan(4, k, n, torch.bfloat16) == ("a8", ks, ks * 4 * n)
-    # the f32 tile writes the output itself
-    assert kernels.w4x8_plan(64, k, n, torch.float32) == ("tiled_f32", 1, 0)
+    # the tile with f32 x: x's three bf16 planes, then the partials; 32-row
+    # tiles, two a column strip at m = 64: three splits (576 blocks)
+    assert kernels.w4x8_plan(64, k, n, torch.float32) == ("f32_tc", 3,
+                                                          3 * 64 * k // 2 + 3 * 64 * n)
     # the tensor-core tile: partials only when it splits K; 96 column
     # strips at m = 64: five splits (480 blocks), none at m = 256 (384)
     assert kernels.w4x8_plan(64, k, n, torch.bfloat16) == ("tensor_core", 5, 5 * 64 * n)
