@@ -13,7 +13,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      library call computing the same function where there is one (a
      yardstick the port never calls) and the bound (the larger of bytes
      over 3.35 TB/s and operations over the peak rate of their type: 989
-     TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32; H100 SXM data sheet).
+     TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32, 495 / 3 TFLOP/s for
+     three TF32 products a product; H100 SXM data sheet).
      K1 (Q8_0 and Q4_0, each of its four forms: up to 8 rows the
      tensor-core decode form for bf16 x, checked at m = 1, 2, 3, 4, 5 and
      8 and timed at 4 and 8, and the GEMV for f32 x, timed at 4; above
@@ -22,8 +23,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      timed at 64 and 256 against three bf16 passes), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
      fills 1 to 1024 with the serving fill 101 and the split's edges, and
-     at t = 32; GQA at hd = 64 and its f32 form checked, and timed beside
-     SDPA on the same f32 tensors), K3 (on
+     at t = 32; GQA at hd = 64 checked; its f32 form, 3xTF32 on the
+     tensor cores, checked at t = 1, 16 and 32, fills 101 and 1024, within
+     1e-4, into NaN-filled memory, and timed beside SDPA on the same f32
+     tensors), K3 (on
      contiguous rows with int32 positions and on the serving path's own
      inputs, v a strided view of the fused projection and int64
      positions, where one call must be one device kernel), K4 (its
@@ -44,7 +47,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      (scale-on-output matmul, each of its forms: the tensor-core decode
      form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
      4; the GEMV for f32 x, timed at 4, and for m = 9 and 16), K7 (flash
-     prefill attention; its f32 form timed beside SDPA on f32 tensors) and
+     prefill attention; its 3xTF32 f32 form checked within 1e-4 into
+     NaN-filled memory and timed beside SDPA on f32 tensors) and
      K10 (fused RMSNorm, into NaN-filled memory);
      K3 and K10 are timed beside the card's floor for one small launch (a
      `fill_` of one element);
@@ -61,7 +65,7 @@ Phases, each of which fails the run (exit code 1, no result line):
      (K1's and K6's tensor-core tiles, K1's decode form and the
      tensor-core forms of K2, K8 and K9 must launch; with f32 x K1, K2, K8
      and K9 take only their f32 forms: K1 and K6 their tile on x's three
-     bf16 parts in the prefill windows);
+     bf16 parts in the prefill windows, K2 and K7 their 3xTF32 forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -120,7 +124,12 @@ Phases, each of which fails the run (exit code 1, no result line):
      counted as it; one forward over a 64-token prompt through the kernels
      against the same forward with the plain matmuls swapped in on the
      card, within 1e-3 of max|logit|; a 64- and a 256-token prefill chunk
-     profiled (host ms, device busy, `matmul_ms`) and a decode step;
+     profiled (host ms, device busy, `matmul_ms`) and a decode step; every
+     K2 call in its 3xTF32 form; then Q8_0 again
+     with the opt-in routes on: every K7 call (the 600-token prompt's
+     chunks among them) in its 3xTF32 form, the 64-token forward against
+     the plain matmuls and plain attention within 1e-3 of max|logit|, the
+     256-token chunk's `attention_ms` profiled;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
@@ -197,10 +206,20 @@ K10_D = 4096
 TC_FORMS = {"lab_decode_tc": "lab_matmul", "lab_decode_i8tc": "lab_matmul",
             "w4x8_a8_tc": "w4x8_matmul", "attn_prefill_tc": "attn_prefill",
             "attn_prefill_merge": "attn_prefill", "dq_tc": "dequant_matmul",
-            "w4x8_tc": "w4x8_matmul"}
+            "w4x8_tc": "w4x8_matmul", "attn_prefill_f32tc": "attn_prefill",
+            "attn_decode_f32tc": "attn_decode"}
 # the rate that bounds the tile with f32 x (K1's and K6's "f32_tc"): three
 # bf16 passes, one a part of x
 F32_TC_OPS_PER_S = BF16_OPS_PER_S / 3
+# the rate that bounds K2's and K7's f32 tensor-core forms: three TF32
+# products a product (495 TFLOP/s dense TF32, H100 SXM data sheet)
+TF32X3_OPS_PER_S = 495e12 / 3
+# K2's and K7's f32 forms against their plain versions: f32 outputs, 3xTF32
+# products (under 2^-20 of a product off) and f32 sums in another order
+F32_ATTN_TOL = 1e-4
+# K2's f32 windows (t, fill) at K2_SHAPE: the decode step and the prefill
+# buckets of 16 and 32 rows
+K2_F32_WINDOWS = ((1, 101), (1, 1024), (16, 101), (16, 1024), (32, 101), (32, 1024))
 
 
 def log(msg: str) -> None:
@@ -627,22 +646,27 @@ def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
 
 def _k2_call(q, kc, vc, positions):
     """One K2 call, which must take the form `k2_form` names for the
-    cache's dtype. The memory its output will take is filled with NaN
-    first (the caching allocator hands the block just freed to the next
-    request of its size), so a row the kernels leave unwritten shows."""
+    cache's dtype and the window. The memory its workspace and its output
+    will take is filled with NaN first (the caching allocator hands the
+    blocks just freed to the next requests of their sizes), so a partial or
+    a row the kernels leave unwritten shows."""
     import torch
 
     from llamago_tpu_torch.ops import attention
 
     fn = attention.flash_attention
-    poison = torch.full_like(q, float("nan"))
+    b, t, h, hd = q.shape
+    kv = kc.shape[1]
+    form, _, _, ws = attention.k2_plan(kc.dtype, b, kv, t, h // kv, hd, kc.shape[2])
+    poison = [torch.full((max(1, ws),), float("nan"), device=q.device),
+              torch.full_like(q, float("nan"))]
     del poison
-    before = (fn.launches, fn.launches_decode_tc)
+    counts = lambda: (fn.launches, fn.launches_decode_tc, fn.launches_decode_f32tc)  # noqa: E731
+    before = counts()
     got = fn(q, kc, vc, positions)
-    tc = int(attention.k2_form(kc.dtype) == "decode_tc")
-    if (fn.launches, fn.launches_decode_tc) != (before[0] + 1, before[1] + tc):
-        raise AssertionError(f"K2: a {kc.dtype} cache did not take the "
-                             f"{attention.k2_form(kc.dtype)} form")
+    if counts() != (before[0] + 1, before[1] + (form == "decode_tc"),
+                    before[2] + (form == "decode_f32tc")):
+        raise AssertionError(f"K2: a {kc.dtype} cache at t={t} did not take the {form} form")
     return got
 
 
@@ -660,14 +684,18 @@ def _k2_error(q, kc, vc, positions, c, got=None) -> float:
     return (got.float() - ref.reshape(got.shape).float()).abs().max().item()
 
 
-def check_k2(dev, detail: dict) -> dict:
+def check_k2(dev, detail: dict) -> tuple[dict, dict]:
     """K2 at b=4, KV=32, hd=128, S=1024, in bf16 (the tensor-core form),
     checked and timed: window t=1 (decode) at fills 1, 101 (the serving
     fill), the split's edges (its slots - 1, + 0, + 1), 300 and 1024, and
-    t=32 (prefill bucket) at fills 1, 300 and 1024; two other geometries
-    checked only: GQA g=8 at hd=64 in bf16, and the f32 form. Each timed
-    row is called once more after its timing, which must give the first
-    call's bits (the merge runs in split order)."""
+    t=32 (prefill bucket) at fills 1, 300 and 1024; in f32 (its 3xTF32
+    tensor-core form, within F32_ATTN_TOL) at K2_F32_WINDOWS, timed beside
+    SDPA on the same f32 tensors; other geometries checked only: GQA g=8 at
+    hd=64 in bf16, and in f32 at g=2 and g=8 (t = 1, 7, 16, 32). Each timed
+    row is called once more after its timing, into NaN-filled memory, which
+    must give the first call's bits (the merge runs in split order).
+    Returns the kernels line's numbers of the bf16 and the f32 form (a
+    decode step at full fill; the f32 error over every f32 row)."""
     import torch
     import torch.nn.functional as F
 
@@ -678,8 +706,9 @@ def check_k2(dev, detail: dict) -> dict:
     rows, max_err, record = [], 0.0, None
     # other geometries the kernel takes: GQA g=8 at hd=64, and f32
     for shape, dtype, tol in ((dict(b=2, kv=2, g=8, hd=64, s=512), "bfloat16", K2_TOL),
-                              (dict(b=2, kv=4, g=2, hd=128, s=512), "float32", 1e-4)):
-        for t in (1, 16, 32):
+                              (dict(b=2, kv=4, g=2, hd=128, s=512), "float32", F32_ATTN_TOL),
+                              (dict(b=2, kv=2, g=8, hd=64, s=320), "float32", F32_ATTN_TOL)):
+        for t in (1, 7, 16, 32):
             err = _k2_error(*_k2_inputs(dev, gen, t, 200, shape, dtype), shape)
             if not err <= tol:
                 raise AssertionError(f"K2 {shape} {dtype} t={t}: max|d| {err:.3g} > {tol}")
@@ -730,18 +759,25 @@ def check_k2(dev, detail: dict) -> dict:
         if t == 1 and fill == c["s"]:
             record = row
     detail["k2"] = rows
-    # the f32 form (two passes on FMA) at the same geometry beside SDPA on
-    # the same f32 tensors: the --dtype float32 route's decode attention
+    # the f32 form (3xTF32 on the tensor cores) at the same geometry beside
+    # SDPA on the same f32 tensors: the --dtype float32 route's decode step
+    # and prefill buckets; each row is called again into NaN-filled memory
+    # and must give the same bits
     f32_rows = []
-    for t, fill in ((1, 101), (1, c["s"]), (32, c["s"])):
+    for t, fill in K2_F32_WINDOWS:
         q, kc, vc, positions = _k2_inputs(dev, gen, t, fill, c, "float32")
-        err = _k2_error(q, kc, vc, positions, c)
-        if not err <= 1e-4:
-            raise AssertionError(f"K2 f32 t={t} fill={fill}: max|d| {err:.3g} > 1e-4")
+        first = _k2_call(q, kc, vc, positions)
+        err = _k2_error(q, kc, vc, positions, c, first)
+        if not err <= F32_ATTN_TOL:
+            raise AssertionError(f"K2 f32 t={t} fill={fill}: max|d| {err:.3g} > {F32_ATTN_TOL}")
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        pos0 = positions[:, 0].to(torch.int32)
         caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K2_COPIES - 1)]
         visible = min(max(fill, t), c["s"])
         kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
                       for kv in caches], 50 * K2_COPIES)
+        plain = timed([lambda kv=kv: attention.flash_attention_plain(q5, *kv, pos0)
+                       for kv in caches], 2 * K2_COPIES)
         qh = q.transpose(1, 2)
         mask = (None if t == 1 else
                 torch.arange(visible, device=dev)[None, :] <= positions[0][:, None])
@@ -749,18 +785,31 @@ def check_k2(dev, detail: dict) -> dict:
             qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
             for kv in caches], 50 * K2_COPIES)
         del caches
+        if not torch.equal(_k2_call(q, kc, vc, positions), first):
+            raise AssertionError(f"K2 f32 t={t} fill={fill}: a second call into NaN-filled "
+                                 "memory gave other bits")
         h = c["kv"] * c["g"]
-        bnd, by = bound_ms(2 * c["b"] * c["kv"] * visible * c["hd"] * 4
-                           + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4,
-                           4.0 * c["b"] * h * t * visible * c["hd"], F32_OPS_PER_S)
-        f32_rows.append(dict(t=t, fill=fill, ms=kern, library_ms=lib, bound_ms=bnd,
-                             bound_by=by, max_abs_err=err))
-        log(f"K2 f32 t={t:2d} fill={fill:4d} ({attention.k2_form(kc.dtype)}): kernel "
-            f"{kern:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| {err:.2e}")
+        form = attention.k2_form(kc.dtype)
+        nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 4
+                  + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4)
+        ops = 4.0 * c["b"] * h * t * visible * c["hd"]
+        bnd, by = bound_ms(nbytes, ops, TF32X3_OPS_PER_S)
+        fma_bnd, _ = bound_ms(nbytes, ops, F32_OPS_PER_S)
+        names = sdpa_kernels(lambda: F.scaled_dot_product_attention(
+            qh, kc[:, :, :visible], vc[:, :, :visible], attn_mask=mask))
+        f32_rows.append(dict(t=t, fill=fill, form=form, ms=kern, plain_ms=plain,
+                             library_ms=lib, bound_ms=bnd, bound_by=by,
+                             fma_bound_ms=fma_bnd, max_abs_err=err, sdpa_kernels=names))
+        log(f"K2 f32 t={t:2d} fill={fill:4d} ({form}): kernel {kern:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms ({by}; at the FMA "
+            f"rate {fma_bnd:.4f}), max|d| {err:.2e}; SDPA ran {names}")
     detail["k2_f32"] = f32_rows
-    # one decode step at full fill: one call per layer (32)
-    return {"max_abs_err": max_err, "bound_by": record["bound_by"],
-            **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    # one decode step at full fill: one call per layer (32), in bf16 and f32
+    step = lambda r: {"max_abs_err": r["max_abs_err"], "bound_by": r["bound_by"],  # noqa: E731
+                      **{k: 32 * r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    f32_step = next(r for r in f32_rows if (r["t"], r["fill"]) == (1, c["s"]))
+    return step({**record, "max_abs_err": max_err}), step(
+        {**f32_step, "max_abs_err": max(r["max_abs_err"] for r in f32_rows)})
 
 
 def launch_floor_ms() -> float:
@@ -1117,6 +1166,14 @@ def check_k4_k8(dev, detail: dict) -> tuple[dict, dict, dict]:
     return out["K4"], out["K8"], out["K8 cuda cores"]
 
 
+def sdpa_kernels(fn) -> list[str]:
+    """The device kernels one SDPA call `fn()` launches, by name as the trace
+    shows them (which backend PyTorch chose)."""
+    from llamago_tpu_torch.utils.timing import profiled
+
+    return sorted(k[:120] for k in device_us_by_name(profiled(fn)))
+
+
 def _k7_inputs(dev, gen, t, pos0, c, dtype):
     """q [B, t, H, hd], K and V caches [B, KV, S, hd] and positions [B, t];
     `pos0` is one start or one per batch row."""
@@ -1148,10 +1205,12 @@ def _k7_call(q, kc, vc, positions):
     form, _, _, ws = attention.prefill_plan(kc.dtype, b, kv, t, h // kv, hd, kc.shape[2])
     poison = [torch.full((ws,), float("nan"), device=q.device), torch.full_like(q, float("nan"))]
     del poison
-    before = (fn.launches_prefill, fn.launches_prefill_tc)
+    counts = lambda: (fn.launches_prefill, fn.launches_prefill_tc,  # noqa: E731
+                      fn.launches_prefill_f32tc)
+    before = counts()
     got = fn(q, kc, vc, positions)
-    if (fn.launches_prefill, fn.launches_prefill_tc) != (before[0] + 1,
-                                                         before[1] + (form == "prefill_tc")):
+    if counts() != (before[0] + 1, before[1] + (form == "prefill_tc"),
+                    before[2] + (form == "prefill_f32tc")):
         raise AssertionError(f"K7: a {kc.dtype} cache did not take the {form} form")
     return got
 
@@ -1175,34 +1234,40 @@ def _k7_error(q, kc, vc, positions, c, got=None) -> float:
     return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
 
 
-def check_k7(dev, detail: dict) -> dict:
+def check_k7(dev, detail: dict) -> tuple[dict, dict]:
     """K7 at b=1, KV=32, hd=128, S=1024 in bf16 (its tensor-core form,
-    chunks of `k7_chunk` slots) for the windows (t, pos0) of the 7B prefill
-    (buckets 64, 128, 256; chunks at positions 0, 512, 640), checked and
-    timed beside its plain version, the port's einsum math (the default
-    route of these windows) and SDPA with a boolean mask over the visible
-    prefix; GQA geometries in f32 (the CUDA-core form) and bf16 (ragged t,
-    ragged S, hd 64) and a t=16 window with LLAMAGO_ATTN_LENAWARE off
-    checked only. Each call must take the form `k7_form` names, and each
-    timed window is called once more after its timing, into NaN-filled
-    memory, which must give the first call's bits. The kernels line takes
-    one prefill pass of 256 tokens at position 512 (32 launches)."""
+    chunks of `k7_chunk` slots) and in f32 (its 3xTF32 tensor-core form,
+    the same chunks, within F32_ATTN_TOL) for the windows (t, pos0) of the
+    7B prefill (buckets 64, 128, 256; chunks at positions 0, 512, 640),
+    checked and timed beside its plain version, SDPA with a boolean mask
+    over the visible prefix (on the same f32 tensors for f32) and, in bf16,
+    the port's einsum math (the default route of these windows); GQA
+    geometries in f32 and bf16 (ragged t, ragged S, hd 64) and a t=16
+    window with LLAMAGO_ATTN_LENAWARE off checked only. Each call must take
+    the form `k7_form` names, and each timed window is called once more
+    after its timing, into NaN-filled memory, which must give the first
+    call's bits. The kernels line takes one prefill pass of 256 tokens at
+    position 512 (32 launches) of each form."""
     import torch
     import torch.nn.functional as F
 
     from llamago_tpu_torch.ops import attention
 
     gen = torch.Generator(device=dev).manual_seed(15)
-    rows, max_err, record = [], 0.0, None
+    rows, max_err, max_f32_err, record = [], 0.0, 0.0, None
     for shape, dtype, t, pos0, tol in (
-            (dict(b=2, kv=2, g=4, hd=64, s=512), "float32", 40, [100, 300], 1e-4),
-            (dict(b=2, kv=2, g=2, hd=128, s=200), "float32", 70, [0, 130], 1e-4),
+            (dict(b=2, kv=2, g=4, hd=64, s=512), "float32", 40, [100, 300], F32_ATTN_TOL),
+            (dict(b=2, kv=2, g=2, hd=128, s=200), "float32", 70, [0, 130], F32_ATTN_TOL),
+            (dict(b=1, kv=4, g=1, hd=128, s=1024), "float32", 256, [700], F32_ATTN_TOL),
             (dict(b=2, kv=2, g=2, hd=64, s=500), "bfloat16", 70, [0, 430], K7_TOL),
             (dict(b=2, kv=4, g=8, hd=128, s=512), "bfloat16", 33, [7, 479], K7_TOL)):
         err = _k7_error(*_k7_inputs(dev, gen, t, pos0, shape, dtype), shape)
         if not err <= tol:
             raise AssertionError(f"K7 {shape} {dtype} t={t}: max|d| {err:.3g} > {tol}")
-        max_err = max(max_err, err) if dtype == "bfloat16" else max_err
+        if dtype == "bfloat16":
+            max_err = max(max_err, err)
+        else:
+            max_f32_err = max(max_f32_err, err)
         log(f"K7 {shape} {dtype} t={t} pos0={pos0}: max|d| {err:.2e}")
     c = K7_SHAPE
     lenaware = attention._LENAWARE
@@ -1257,36 +1322,55 @@ def check_k7(dev, detail: dict) -> dict:
         if (t, pos0) == (256, 512):
             record = row
     detail["k7"] = rows
-    # the f32 form (FMA) at the same windows beside SDPA on the same f32
-    # tensors: the --dtype float32 route's prefill attention
-    f32_rows = []
+    # the f32 form (3xTF32 on the tensor cores) at the same windows beside
+    # SDPA on the same f32 tensors: the --dtype float32 route's prefill
+    # attention; each window called again into NaN-filled memory
+    f32_rows, f32_record = [], None
     for t, pos0 in K7_WINDOWS:
         q, kc, vc, positions = _k7_inputs(dev, gen, t, pos0, c, "float32")
-        err = _k7_error(q, kc, vc, positions, c)
-        if not err <= 1e-4:
-            raise AssertionError(f"K7 f32 t={t} pos0={pos0}: max|d| {err:.3g} > 1e-4")
+        first = _k7_call(q, kc, vc, positions)
+        err = _k7_error(q, kc, vc, positions, c, got=first)
+        if not err <= F32_ATTN_TOL:
+            raise AssertionError(f"K7 f32 t={t} pos0={pos0}: max|d| {err:.3g} > {F32_ATTN_TOL}")
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        p0 = positions[:, 0].to(torch.int32)
         caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(K7_COPIES - 1)]
         visible = pos0 + t
         kern = timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
                       for kv in caches], 25 * K7_COPIES)
+        plain = timed([lambda kv=kv: attention.flash_attention_prefill_plain(q5, *kv, p0)
+                       for kv in caches], 2 * K7_COPIES)
         qh = q.transpose(1, 2)
         mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
         lib = timed([lambda kv=kv: F.scaled_dot_product_attention(
             qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
             for kv in caches], 25 * K7_COPIES)
         del caches
-        bnd, by = bound_ms(2 * c["b"] * c["kv"] * visible * c["hd"] * 4
-                           + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4,
-                           4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2),
-                           F32_OPS_PER_S)
-        f32_rows.append(dict(t=t, pos0=pos0, ms=kern, library_ms=lib, bound_ms=bnd,
-                             bound_by=by, max_abs_err=err))
+        if not torch.equal(_k7_call(q, kc, vc, positions), first):
+            raise AssertionError(f"K7 f32 t={t} pos0={pos0}: a second call into NaN-filled "
+                                 "memory gave other bits")
+        nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 4
+                  + 2 * c["b"] * t * h * c["hd"] * 4 + c["b"] * 4)
+        ops = 4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2)
+        bnd, by = bound_ms(nbytes, ops, TF32X3_OPS_PER_S)
+        fma_bnd, _ = bound_ms(nbytes, ops, F32_OPS_PER_S)
+        names = sdpa_kernels(lambda: F.scaled_dot_product_attention(
+            qh, kc[:, :, :visible], vc[:, :, :visible], attn_mask=mask))
+        row = dict(t=t, pos0=pos0, ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   bound_by=by, fma_bound_ms=fma_bnd, max_abs_err=err, sdpa_kernels=names)
+        f32_rows.append(row)
         log(f"K7 f32 t={t:3d} pos0={pos0:3d} ({attention.k7_form(kc.dtype)}): kernel "
-            f"{kern:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| {err:.2e}")
+            f"{kern:.4f} ms, plain {plain:.4f} ms, sdpa f32 {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}; at the FMA rate {fma_bnd:.4f}), max|d| {err:.2e}; SDPA ran {names}")
+        if (t, pos0) == (256, 512):
+            f32_record = row
     detail["k7_f32"] = f32_rows
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "bound_by": record["bound_by"],
-            **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    f32_err = max(max_f32_err, *(r["max_abs_err"] for r in f32_rows))
+    return ({"max_abs_err": max_err, "bound_by": record["bound_by"],
+             **{k: 32 * record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}},
+            {"max_abs_err": f32_err, "bound_by": f32_record["bound_by"],
+             **{k: 32 * f32_record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
 
 
 def check_k10(dev, detail: dict) -> dict:
@@ -1607,9 +1691,11 @@ def check_small_model(dev) -> int:
     its decode form the decode step) and of the int8 cache under K8 (its
     tensor-core form, every call). With f32 x K1 takes the GEMV in decode
     steps and its tile on x's three bf16 parts (f32_tc) in the prefill
-    windows, in every f32 run. Returns the launches of K8 in its f32 run
-    (its CUDA-core form: f32 q) and of K1's GEMV and of its f32_tc form in
-    the dense cache's."""
+    windows, in every f32 run; over the dense cache K2 and K7 (opt-in) take
+    their f32 tensor-core forms. Returns the
+    launches of K8 in its f32 run (its CUDA-core form: f32 q), of K1's GEMV
+    and of its f32_tc form in the dense cache's, and of K2 and its and K7's
+    f32 tensor-core forms over the dense cache's runs."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1637,6 +1723,9 @@ def check_small_model(dev) -> int:
     gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
     int8 = dense.replace(kv_dtype="int8")
     default, k8_launches, k1_gemv_launches, k1_f32_tc_launches = attention._I8DOT, 0, 0, 0
+    # K2's and K7's f32 forms over the dense cache's runs
+    f32_attn = dict.fromkeys(("flash_attention", "flash_attention_decode_f32tc",
+                              "flash_attention_prefill_f32tc"), 0)
     floor, fused, scale_name = (attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM,
                                 kv_cache._SCALE_DTYPE_NAME)
     # t=40: einsum-math prefill, or K7; t=16: K2/K4/K8 prefill bucket; t=1:
@@ -1695,14 +1784,22 @@ def check_small_model(dev) -> int:
             raise AssertionError(f"small model, {name}: with f32 x K1 must take its GEMV and its "
                                  f"f32_tc form, no bf16 form: {counts}")
         if counts["flash_attention_decode_tc"] > 0 or (
-                name == "dense cache" and counts["flash_attention"] == 0):
-            raise AssertionError(f"small model, {name}: an f32 cache must take K2's f32 "
-                                 f"form only: {counts}")
+                cfg.kv_dtype != "int8" and (
+                    counts["flash_attention_decode_f32tc"] == 0
+                    or counts["flash_attention"] != counts["flash_attention_decode_f32tc"])):
+            raise AssertionError(f"small model, {name}: every K2 call over an f32 cache must "
+                                 f"take its f32 tensor-core form: {counts}")
         if any((counts[k] > 0) != opt_in
                for k in ("flash_attention_prefill", "fused_rms_norm")) or \
-                counts["flash_attention_prefill_tc"] > 0:
-            raise AssertionError(f"small model, {name}: K7 (its f32 form) and K10 must launch "
-                                 f"with the opt-in routes on and only then: {counts}")
+                counts["flash_attention_prefill_tc"] > 0 or \
+                counts["flash_attention_prefill_f32tc"] != counts["flash_attention_prefill"]:
+            raise AssertionError(f"small model, {name}: K7 (its f32 tensor-core form) and K10 "
+                                 f"must launch with the opt-in routes on and only then: "
+                                 f"{counts}")
+        if cfg.kv_dtype != "int8":
+            for key in ("flash_attention", "flash_attention_decode_f32tc",
+                        "flash_attention_prefill_f32tc"):
+                f32_attn[key] += counts[key]
         if cfg.kv_dtype == "int8" and i8dot and (
                 counts["cache_append_quant"] == 0
                 or counts["flash_attention_quant_i8dot"] == 0):
@@ -1730,7 +1827,7 @@ def check_small_model(dev) -> int:
                              f"tensor-core form: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
-    return k8_launches, k1_gemv_launches, k1_f32_tc_launches
+    return k8_launches, k1_gemv_launches, k1_f32_tc_launches, f32_attn
 
 
 def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
@@ -1922,8 +2019,12 @@ def _launch_counters():
             "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
+            "flash_attention_decode_f32tc": (attention.flash_attention,
+                                             "launches_decode_f32tc"),
             "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
             "flash_attention_prefill_tc": (attention.flash_attention, "launches_prefill_tc"),
+            "flash_attention_prefill_f32tc": (attention.flash_attention,
+                                              "launches_prefill_f32tc"),
             "fused_rms_norm": (kernels.fused_rms_norm, "launches"),
             "cache_append_quant": (cache_write.cache_append_quant, "launches"),
             "flash_attention_quant_i8dot": (attention.flash_attention_quant,
@@ -2191,26 +2292,85 @@ def plain_matmuls():
 F32_LOGIT_TOL = 1e-3
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Every K2 and K7 call of the forward on its plain version (on the
+    card's tensors): the model's windows keep their routes."""
+    import torch
+
+    from llamago_tpu_torch.models import llama
+    from llamago_tpu_torch.ops import attention
+
+    kernel = llama.flash_attention
+
+    def plain(q, k_cache, v_cache, positions):
+        b, t, h, hd = q.shape
+        q5 = q.reshape(b, t, k_cache.shape[1], h // k_cache.shape[1], hd)
+        fn = (attention.flash_attention_plain if attention._LENAWARE and t <= attention.MAX_T
+              else attention.flash_attention_prefill_plain)
+        return fn(q5, k_cache, v_cache, positions[:, 0].to(torch.int32)).reshape(b, t, h * hd)
+
+    llama.flash_attention = plain
+    try:
+        yield
+    finally:
+        llama.flash_attention = kernel
+
+
+def _forward_vs_plain(dev, cfg, params, what: str, swaps) -> float:
+    """One forward over a 64-token prompt through the kernels against the
+    same forward with `swaps` (context managers of plain versions) on the
+    card: max|d| / max|logit|, within F32_LOGIT_TOL."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    gen = torch.Generator().manual_seed(16)
+    toks = torch.randint(3, 259, (1, 64), generator=gen).to(dev)
+    logits = []
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack:
+            for swap in (swaps if plain else ()):
+                stack.enter_context(swap())
+            lg, _ = forward_impl(params, toks, KVCache.create(cfg, batch=1, device=dev),
+                                 torch.zeros(1, dtype=torch.long, device=dev), cfg)
+        logits.append(lg.float())
+        torch.cuda.synchronize()
+    if not torch.isfinite(logits[0]).all():
+        raise AssertionError(f"serve, f32, {what}: non-finite logits")
+    err = (logits[0] - logits[1]).abs().max().item() / logits[1].abs().max().item()
+    log(f"serve, f32, {what}: 64-token forward, kernels vs "
+        f"{' and '.join(s.__name__ for s in swaps)} on the card, max|d|/max|logit| {err:.2e}")
+    if not err <= F32_LOGIT_TOL:
+        raise AssertionError(f"serve, f32, {what}: logits differ, {err:.3g} > {F32_LOGIT_TOL}")
+    return err
+
+
 def serve_f32(dev, weight_dtype: str) -> dict:
     """Phase 4e: the --dtype float32 route end to end at full width. 7B
     with random weights (seed 0; Q8_0, or int4 as w4x8) and f32 compute,
     the f32 cache, 4 slots, 4 jobs of which one brings a 600-token prompt
     (256-token chunks): 0 failed jobs, in-vocabulary tokens, a repeated
     greedy job (`serve`); every K1 launch plan over 8 rows and every K6 one
-    names f32_tc, and every such call is counted as it; then one forward
-    over a 64-token prompt with the kernels against the same forward with
-    the plain matmuls swapped in on the card, within F32_LOGIT_TOL. `serve`
-    profiles a 64- and a 256-token prefill chunk and a decode step."""
+    names f32_tc, and every such call is counted as it; every K2 call takes
+    its f32 tensor-core form; then one forward over a 64-token
+    prompt with the kernels against the same forward with the plain
+    matmuls swapped in on the card, within F32_LOGIT_TOL. `serve` profiles
+    a 64- and a 256-token prefill chunk and a decode step. With Q8_0 the
+    same runs again with the opt-in routes on (K7 and K10): every K7 call
+    takes its f32 tensor-core form, the 600-token prompt's chunks among
+    them, and the 64-token forward is held against the plain matmuls and
+    plain attention; that run is under the "k7" key."""
     import torch
 
-    from llamago_tpu_torch.models.llama import forward_impl
     from llamago_tpu_torch.ops import kernels
-    from llamago_tpu_torch.runtime.kv_cache import KVCache
 
     cfg, params = make_7b_params(dev, weight_dtype, dtype="float32")
     int8 = weight_dtype == "int8"
     rise = (("dequant_matmul", "dequant_matmul_f32_tc") if int8 else
-            ("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_f32_tc")) + ("flash_attention",)
+            ("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_f32_tc")) + (
+        "flash_attention", "flash_attention_decode_f32tc")
     with plans_seen() as seen:
         served = serve(dev, cfg, params, slots=4, n_jobs=4, rise=rise, long_jobs=1)
         counts = launch_counts()
@@ -2222,25 +2382,27 @@ def serve_f32(dev, weight_dtype: str) -> dict:
                              f"forms {sorted(set(big))}, {counts[counter]} counted as f32_tc")
     log(f"serve, f32, {weight_dtype}: every one of {len(big)} calls over {above} rows took "
         f"f32_tc")
-    gen = torch.Generator().manual_seed(16)
-    toks = torch.randint(3, 259, (1, 64), generator=gen).to(dev)
-    logits = []
-    for swap in (contextlib.nullcontext, plain_matmuls):
-        with swap():
-            lg, _ = forward_impl(params, toks, KVCache.create(cfg, batch=1, device=dev),
-                                 torch.zeros(1, dtype=torch.long, device=dev), cfg)
-        logits.append(lg.float())
-        torch.cuda.synchronize()
-    if not torch.isfinite(logits[0]).all():
-        raise AssertionError(f"serve, f32, {weight_dtype}: non-finite logits")
-    err = (logits[0] - logits[1]).abs().max().item() / logits[1].abs().max().item()
-    log(f"serve, f32, {weight_dtype}: 64-token forward, kernels vs plain matmuls on the card, "
-        f"max|d|/max|logit| {err:.2e}")
-    if not err <= F32_LOGIT_TOL:
-        raise AssertionError(f"serve, f32, {weight_dtype}: logits differ, {err:.3g} > "
-                             f"{F32_LOGIT_TOL}")
-    served["forward_64_vs_plain"] = err
+    if counts["flash_attention_decode_f32tc"] != counts["flash_attention"]:
+        raise AssertionError(f"serve, f32, {weight_dtype}: a K2 call over the f32 cache did not "
+                             f"take its tensor-core form: {counts}")
+    served["forward_64_vs_plain"] = _forward_vs_plain(dev, cfg, params, weight_dtype,
+                                                      (plain_matmuls,))
     served["f32_tc_calls"] = len(big)
+    if int8:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with opt_in_routes():
+            k7 = serve(dev, cfg, params, slots=4, n_jobs=4, long_jobs=1,
+                       rise=rise + ("flash_attention_prefill", "flash_attention_prefill_f32tc",
+                                    "fused_rms_norm"))
+            if k7["launches"]["flash_attention_prefill_f32tc"] != \
+                    k7["launches"]["flash_attention_prefill"]:
+                raise AssertionError(f"serve, f32, K7 on: a K7 call over the f32 cache did not "
+                                     f"take its tensor-core form: {k7['launches']}")
+            k7["forward_64_vs_plain"] = _forward_vs_plain(
+                dev, cfg, params, f"{weight_dtype}, K7 and K10 on",
+                (plain_matmuls, plain_attention))
+        served["k7"] = k7
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2452,18 +2614,18 @@ def main(argv: list[str]) -> int:
         return only is None or phase in only
 
     k1, k1tc, k1dt, k1f32 = check_k1(dev, detail) if want("k1") else ({}, {}, {}, {})
-    k2 = check_k2(dev, detail) if want("k2") else {}
+    k2, k2f32 = check_k2(dev, detail) if want("k2") else ({}, {})
     k3 = check_k3(dev, detail) if want("k3") else {}
     k4, k8tc, k8 = check_k4_k8(dev, detail) if want("k4k8") else ({}, {}, {})
     k1q4, _, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
     k9tc, k9 = check_k9(dev, detail) if want("k9") else ({}, {})
-    k7 = check_k7(dev, detail) if want("k7") else {}
+    k7, k7f32 = check_k7(dev, detail) if want("k7") else ({}, {})
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
-    k8_launches, k1_gemv_launches, k1_f32_tc_launches = (
-        check_small_model(dev) if want("small") else (0, 0, 0))
+    k8_launches, k1_gemv_launches, k1_f32_tc_launches, small_f32_attn = (
+        check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
@@ -2565,6 +2727,12 @@ def main(argv: list[str]) -> int:
     detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
     detail["serve_f32_q8_0"], detail["serve_f32_w4x8"] = served_f8, served_f4
+    served_f8k7 = served_f8.get("k7", none)
+    # K2's and K7's f32 forms: phases 4e (Q8_0, w4x8, Q8_0 with K7 on) and 3
+    k2_f32tc_launches = small_f32_attn.get("flash_attention_decode_f32tc", 0) + sum(
+        r["launches"]["flash_attention_decode_f32tc"] for r in (served_f8, served_f4, served_f8k7))
+    k7_f32tc_launches = (small_f32_attn.get("flash_attention_prefill_f32tc", 0)
+                         + served_f8k7["launches"]["flash_attention_prefill_f32tc"])
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     kernels_line = {"kernels": [
         # K1's tensor-core decode form: its launches in phase 4, one decode step at m=4
@@ -2577,12 +2745,13 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
-        # K1's GEMV runs f32 x up to 8 rows, which phase 3 drives; one decode
-        # step at m=4
+        # K1's GEMV runs f32 x up to 8 rows, which phases 3 and 4e (Q8_0)
+        # drive; one decode step at m=4
         {"name": "dequant_matmul", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": k1_gemv_launches, **k1},
+         "launches": k1_gemv_launches + served_f8["launches"]["dequant_matmul"]
+         - served_f8["launches"]["dequant_matmul_f32_tc"], **k1},
         # K1's tile on f32 x's three bf16 parts: its launches in phases 3
         # (the dense cache's f32 run) and 4e (Q8_0), one prefill pass at m=64
         {"name": "dequant_matmul_f32_tc", "route": "cuda",
@@ -2596,6 +2765,12 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_decode.cu",
          "replaces": "llamago_tpu/ops/attention.py:230",
          "launches": served["launches"]["flash_attention_decode_tc"], **k2},
+        # K2's f32 form (3xTF32): its launches in phases 4e and 3, one
+        # decode step at b=4, full fill
+        {"name": "flash_attention_decode_f32tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_decode.cu",
+         "replaces": "llamago_tpu/ops/attention.py:230",
+         "launches": k2_f32tc_launches, **k2f32},
         {"name": "cache_append_quant", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/cache_append.cu",
          "replaces": "llamago_tpu/ops/cache_write.py:63",
@@ -2656,6 +2831,12 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",
          "launches": served_p["launches"]["flash_attention_prefill_tc"], **k7},
+        # K7's f32 tensor-core form: its launches in phase 4e (Q8_0, K7 and
+        # K10 on) and phase 3, one 256-token pass at 512
+        {"name": "flash_attention_prefill_f32tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
+         "replaces": "llamago_tpu/ops/attention.py:577",
+         "launches": k7_f32tc_launches, **k7f32},
         {"name": "fused_rms_norm", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/rms_norm.cu",
          "replaces": "llamago_tpu/ops/kernels.py:599",
@@ -2682,6 +2863,7 @@ def main(argv: list[str]) -> int:
                           ("4b: int8 cache, 8 slots, K8 and K9 on", served_k89),
                           ("4c: int4 (w4x8), 48-token prompts", served_4),
                           ("4e: f32 compute, Q8_0, one 600-token prompt", served_f8),
+                          ("4e: f32 compute, Q8_0, K7 and K10 on", served_f8k7),
                           ("4e: f32 compute, w4x8, one 600-token prompt", served_f4))}}
     detail["kernels"] = kernels_line
     if args.out:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""K2, K4, K8 (decode attention), K7 (prefill attention), K5 (the W4A8
-decode matmul), K1's and K6's tiles with f32 x, K3 (the int8 cache append),
-K10 (RMSNorm) or the lab's float or integer rows of several checkouts on
-one card, side by side.
+"""K2, K4, K8 (decode attention), K7 (prefill attention), K2's and K7's f32
+forms, K5 (the W4A8 decode matmul), K1's and K6's tiles with f32 x, K3 (the
+int8 cache append), K10 (RMSNorm) or the lab's float or integer rows of
+several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|k5|f32mm|k10|lab|labint] [--k8-splits N,...]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|k10|lab|labint]
+                       [--k8-splits N,...]
                        [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
                        [--out FILE.json] ROOT [ROOT ...]
 
@@ -54,6 +55,12 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     slots, chip_smoke's `opt_in_routes`): device busy and `attention_ms`.
     With `--k7-chunks`, the rows again for each number of slots a chunk (a
     multiple of 64) in place of `k7_chunk`'s, in the checkouts that have it.
+  - `--kernel attn32`: K7 and K2 over f32 caches, the form each checkout
+    takes there: K7 at chip_smoke's K7_SHAPE and K7_WINDOWS, K2 at its
+    K2_SHAPE (b=4, KV=32, hd=128, S=1024) at t=1, 16 and 32, each at fills
+    101 and 1024 (chip_smoke's K2_F32_WINDOWS), each beside SDPA on the same
+    f32 tensors with a boolean mask over the visible prefix, max|kernel -
+    plain| (K7: over max(1, |plain|)).
   - `--kernel k5`: K5 (`kernels.w4x8_matmul` at m <= 16, random w4x8
     weights, bf16 x) at m = 4 and 16 over chip_smoke's five INT4_SHAPES
     (chip_smoke's `check_matmul`: each shape checked against the plain
@@ -106,6 +113,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 STEP_KEYS = ("step_ms", "device_busy_ms", "attention_ms", "attention_kernels")
 K8_EXTRA = [(1, 64), (1, 65), (1, 101)]
 WINDOWS = [(1, f) for f in (1, 63, 64, 65, 101, 300, 1024)] + [(32, f) for f in (1, 300, 1024)]
+# K2's f32 windows (t, fill), as chip_smoke's K2_F32_WINDOWS (an older
+# chip_smoke.py may lack them)
+K2_F32_WINDOWS = ((1, 101), (1, 1024), (16, 101), (16, 1024), (32, 101), (32, 1024))
 
 
 def _smoke():
@@ -263,6 +273,66 @@ def run_k7(cs, root: str, chunks: list[int]) -> dict:
         chunk = cs.profile_prefill(engine, 256)
     out["prefill_chunk_256"] = {k: chunk[k] for k in ("device_busy_ms", "attention_ms",
                                                        "matmul_ms")}
+    return out
+
+
+def run_attn32(cs, root: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    out = {"root": root, "card": cs.card_line()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    c = cs.K7_SHAPE
+    for t, pos0 in cs.K7_WINDOWS:
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + pos0)
+        q, kc, vc, positions = cs._k7_inputs(dev, gen, t, pos0, c, "float32")
+        got = attention.flash_attention(q, kc, vc, positions)
+        ref = attention.flash_attention_prefill_plain(
+            q.reshape(1, t, c["kv"], c["g"], c["hd"]), kc, vc,
+            positions[:, 0].to(torch.int32)).reshape(got.shape)
+        err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(cs.K7_COPIES - 1)]
+        ms = cs.timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                       for kv in caches], 25 * cs.K7_COPIES)
+        qh, visible = q.transpose(1, 2), pos0 + t
+        mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
+        sdpa = cs.timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 25 * cs.K7_COPIES)
+        del caches
+        rows.append(dict(t=t, pos0=pos0, ms=ms, sdpa_ms=sdpa, max_err=err))
+        cs.log(f"{root}: K7 f32 t={t:3d} pos0={pos0:3d}: {ms * 1e3:.1f} us, SDPA "
+               f"{sdpa * 1e3:.1f} us, max|d| {err:.2e}")
+    out["k7_f32"] = rows
+    c = cs.K2_SHAPE
+    rows = []
+    for t, fill in K2_F32_WINDOWS:
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + fill)
+        q, kc, vc, positions = cs._k2_inputs(dev, gen, t, fill, c, "float32")
+        got = attention.flash_attention(q, kc, vc, positions)
+        ref = attention.flash_attention_plain(
+            q.reshape(c["b"], t, c["kv"], c["g"], c["hd"]), kc, vc,
+            positions[:, 0].to(torch.int32)).reshape(got.shape)
+        err = (got - ref).abs().max().item()
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(cs.K2_COPIES - 1)]
+        ms = cs.timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                       for kv in caches], 50 * cs.K2_COPIES)
+        visible = min(max(fill, t), c["s"])
+        qh = q.transpose(1, 2)
+        mask = (None if t == 1 else
+                torch.arange(visible, device=dev)[None, :] <= positions[0][:, None])
+        sdpa = cs.timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask)
+            for kv in caches], 50 * cs.K2_COPIES)
+        del caches
+        rows.append(dict(t=t, fill=fill, ms=ms, sdpa_ms=sdpa, max_err=err))
+        cs.log(f"{root}: K2 f32 t={t:2d} fill={fill:4d}: {ms * 1e3:.1f} us, SDPA "
+               f"{sdpa * 1e3:.1f} us, max|d| {err:.2e}")
+    out["k2_f32"] = rows
     return out
 
 
@@ -499,6 +569,8 @@ def run_one(root: str, kernel: str, sweeps: dict) -> dict:
         return run_k8(cs, root, splits)
     if kernel == "k7":
         return run_k7(cs, root, chunks)
+    if kernel == "attn32":
+        return run_attn32(cs, root)
     if kernel == "lab":
         return run_lab(cs, root)
     if kernel == "labint":
@@ -544,8 +616,8 @@ SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "k5", "f32mm", "k10",
-                                         "lab", "labint"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "attn32", "k5", "f32mm",
+                                         "k10", "lab", "labint"), default="k2")
     for name, what in SWEEPS.items():
         ap.add_argument("--" + name.replace("_", "-"), default="",
                         help=f"comma-separated {what}")

@@ -7,8 +7,8 @@
 // bf16 or f32. Rows are laid out t-major then g; row r sees cache slot j
 // iff j <= pos0 + r / g. Masked scores are the finite -1e9, softmax is in
 // f32, and the probabilities are rounded to the V dtype before the PV
-// product, as in the TPU kernel. Slots past the last visible one are never
-// read.
+// product (not at all for f32), as in the TPU kernel. Slots past the last
+// visible one are never read.
 //
 // Replaces llamago_tpu/ops/attention.py _attn_decode_kernel, reached
 // through _flash_attention_lenaware and flash_attention.
@@ -60,18 +60,33 @@
 //      to the workspace, and attn_combine, a second launch, merges them in
 //      split order, so a call run twice gives the same bits. With one
 //      split the block writes the output itself.
-//  * f32: flash-decoding in two passes, on CUDA cores (the bf16 tensor
-//    cores cannot take f32 without rounding it).
-//    - pass 1, grid (B*KV, the plan's S-blocks of 128 rows): each block
-//      owns one S-block of one (batch, kv head). Blocks past the last visible slot
-//      return at once; within the last block only the visible rows are
-//      read. The block stages its K and V rows in shared memory (K rows
-//      padded by one word against bank conflicts), computes the masked
-//      scores of up to 32 query rows at a time, takes the block-local
-//      softmax statistics (max, sum) and the unnormalized P.V, and writes
-//      them to an f32 workspace.
-//    - pass 2, attn_combine: merges the S-blocks' partials with the usual
-//      max-rescaled sum and writes the output.
+//  * f32: attn_decode_f32tc, then attn_combine<float> when the plan has
+//    more than one split. Both products on the tensor cores as three TF32
+//    products (3xTF32, tc_common.cuh: mma.sync.m16n8k8 on tf32, each f32
+//    operand split as big + small and a b taken as big big + big small +
+//    small big, about 2^-20 of a product off; wgmma takes tf32 only with
+//    K-major B operands and V is MN-major in P V).
+//    - The plan (decode_attn_plan for f32) fills the card once: as many
+//      splits as give every SM a block, no more (one split, no merge pass,
+//      at b = 4, KV = 32): the split's fixed costs (q's planes, the warps'
+//      merge, the partials and the merge launch) weigh more in f32, and
+//      the bf16 form's 64-slot splits measured up to 1.7x slower; the
+//      two-pass CUDA-core form this replaced was 1.1-5.5x slower (PERF.md).
+//    - The split's 32-slot K/V tiles (64-slot tiles of f32 would leave one
+//      block an SM) stream through a ring of two stages by the TMA unit,
+//      one bulk copy per group of 4 slots, evict_first; groups padded by 16
+//      bytes and a fragment's rows one slot of each group, so that the K
+//      and the permuted V reads fall on 32 distinct banks. V rows past the
+//      visible slots are zeroed; masked scores are selected.
+//    - q is split once into big and small planes in shared memory, K and V
+//      as a fragment is read, P once a k-step from the score registers,
+//      repacked in place by permuting the reduction index (c_to_a).
+//    - With one m16 tile of rows (every decode step) the four warps take a
+//      quarter of every tile's slots each, for both products, each with its
+//      own running max, sum and P V over all columns, merged in warp order
+//      after the last tile (no exchange per tile); with two m16 tiles two
+//      warps share a tile the same way, with more each warp takes all the
+//      slots.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -86,13 +101,8 @@
 
 namespace {
 
-// ------------------------------------------------------- f32, two passes
-
 constexpr float kMask = -1e9f;
-constexpr int kRowChunk = 32;  // query rows per score/PV pass
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
+constexpr int kThreads = 256;  // threads of a merge block
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -100,136 +110,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// Elements of padding per K row in shared memory: one 32-bit word.
-template <typename T> constexpr int kPad = 4 / sizeof(T);
-
-__device__ __forceinline__ float dot_row(const float* qr, const float* kr, int hd) {
-  float a = 0.f;
-  for (int d = 0; d < hd; ++d) a = fmaf(qr[d], kr[d], a);
-  return a;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// sb: the S-block's rows, the plan's slots per split (ops/attention.py
-// k2_plan: 128 keeps the staged tiles inside shared memory).
-template <typename T>
-size_t smem_bytes(int sb, int hd) {
-  return (size_t)sb * hd * sizeof(T)                 // V tile
-         + (size_t)sb * (hd + kPad<T>) * sizeof(T)   // K tile, padded rows
-         + (size_t)kRowChunk * hd * sizeof(float)    // q rows
-         + (size_t)kRowChunk * sb * sizeof(float);   // scores / probs
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_partial(
-    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-    const int* __restrict__ pos0, float* __restrict__ pacc, float* __restrict__ pm,
-    float* __restrict__ pl, int t, int KV, int g, int hd, int S, float scale, int SB, int nsb) {
-  constexpr int PAD = kPad<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int bh = blockIdx.x;
-  const int b = bh / KV, kvh = bh % KV;
-  const int si = blockIdx.y;
-  const int p0 = pos0[b];
-  const int last = p0 + t - 1;  // last query position (slot index)
-  const int last_blk = min(last / SB, nsb - 1);
-  if (si > last_blk) return;
-  const int j0 = si * SB;
-  const int nvis = min(SB, min(last, S - 1) - j0 + 1);  // >= 1
-  const int R = t * g;
-  const int kst = hd + PAD;  // padded K row stride (elements)
-
-  T* Vs = reinterpret_cast<T*>(smem);
-  T* Ks = Vs + SB * hd;
-  float* qs = reinterpret_cast<float*>(Ks + SB * kst);
-  float* Ss = qs + kRowChunk * hd;
-
-  // Stage the visible K/V rows of this S-block; zero the rest.
-  const size_t cbase = ((size_t)bh * S + j0) * hd;
-  const int vpr = hd * (int)sizeof(T) / 16;  // 16-byte vectors per row
-  const uint4* kg = reinterpret_cast<const uint4*>(kc + cbase);
-  const uint4* vg = reinterpret_cast<const uint4*>(vc + cbase);
-  uint4* vsv = reinterpret_cast<uint4*>(Vs);
-  uint32_t* ksw = reinterpret_cast<uint32_t*>(Ks);
-  const int kstw = kst * (int)sizeof(T) / 4;  // padded row stride in words
-  for (int i = threadIdx.x; i < SB * vpr; i += kThreads) {
-    const int row = i / vpr, c = i % vpr;
-    uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-    if (row < nvis) {
-      kv4 = __ldg(kg + i);
-      vv4 = __ldg(vg + i);
-    }
-    vsv[i] = vv4;
-    uint32_t* dst = ksw + row * kstw + c * 4;
-    dst[0] = kv4.x;
-    dst[1] = kv4.y;
-    dst[2] = kv4.z;
-    dst[3] = kv4.w;
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r0 = 0; r0 < R; r0 += kRowChunk) {
-    const int rc = min(kRowChunk, R - r0);
-    for (int i = threadIdx.x; i < rc * hd; i += kThreads) {
-      const int r = r0 + i / hd, d = i % hd;
-      const int ti = r / g, gi = r % g;
-      qs[i] = to_f(q[((((size_t)b * t + ti) * KV + kvh) * g + gi) * hd + d]);
-    }
-    __syncthreads();  // also orders the tile staging before first use
-
-    for (int i = threadIdx.x; i < rc * SB; i += kThreads) {
-      const int r = i / SB, j = i % SB;
-      const int qp = p0 + (r0 + r) / g;
-      float sc = kMask;
-      if (j < nvis && j0 + j <= qp)
-        sc = dot_row(qs + r * hd, Ks + j * kst, hd) * scale;
-      Ss[i] = sc;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < rc; r += kThreads / 32) {
-      float* srow = Ss + r * SB;
-      float m = kMask;
-      for (int j = lane; j < SB; j += 32) m = fmaxf(m, srow[j]);
-      m = warp_max(m);
-      float l = 0.f;
-      for (int j = lane; j < SB; j += 32) {
-        const float p = expf(srow[j] - m);
-        l += p;
-        srow[j] = to_f(from_f<T>(p));  // p in the V dtype for the PV product
-      }
-      l = warp_sum(l);
-      if (lane == 0) {
-        const size_t pi = ((size_t)bh * nsb + si) * R + r0 + r;
-        pm[pi] = m;
-        pl[pi] = l;
-      }
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < rc * hd; i += kThreads) {
-      const int r = i / hd, d = i % hd;
-      const float* prow = Ss + r * SB;
-      float a = 0.f;
-      for (int j = 0; j < nvis; ++j) a = fmaf(prow[j], to_f(Vs[j * hd + d]), a);
-      pacc[(((size_t)bh * nsb + si) * R + r0 + r) * hd + d] = a;
-    }
-    __syncthreads();  // qs / Ss are rewritten by the next row chunk
-  }
-}
-
-// Pass 2 of both forms: merges the splits of sps slots that row r sees,
+// The merge pass of both forms: merges the splits of sps slots that row r sees,
 // 0 .. (pos0 + r / g) / sps, in split order (a call run twice gives the
 // same bits). Every split up to the last that any row of the (batch, kv
 // head) sees has partials for all its rows (a row's later ones are all
@@ -274,27 +155,6 @@ int launch_combine(const float* ws, const int* pos0, void* out, int B, int t, in
   attn_combine<T><<<grid, kThreads, 0, st>>>(ws, pm, pm + n_part, pos0, static_cast<T*>(out), t,
                                              KV, g, hd, sps, nsb);
   return (int)cudaGetLastError();
-}
-
-int launch_fma(const void* q, const void* k, const void* v, const int* pos0, void* out,
-               float* ws, int B, int t, int KV, int g, int hd, int S, float scale, int sb,
-               int nsb, cudaStream_t st) {
-  const size_t n_part = (size_t)B * KV * nsb * t * g;
-  float* pacc = ws;
-  float* pm = ws + n_part * hd;
-  float* pl = pm + n_part;
-  const size_t smem = smem_bytes<float>(sb, hd);
-  cudaError_t e = cudaFuncSetAttribute(attn_partial<float>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * KV, nsb);
-  attn_partial<float><<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), pos0, pacc, pm, pl, t, KV, g, hd, S, scale, sb, nsb);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_combine<float>(ws, pos0, out, B, t, KV, g, hd, sb, nsb, st);
 }
 
 // ---------------------------------------------- bf16, tensor cores (decode_tc)
@@ -636,19 +496,332 @@ int launch_tc_hd(const void* q, const void* k, const void* v, const int* pos0, v
   }
 }
 
+// ------------------------------------------- f32, tensor cores (decode_f32tc)
+
+constexpr int kF32Stages = 2;  // ring stages, when the split has that many 32-slot tiles
+// One stage: the K tile, then the V tile, each 8 groups of f32_gld floats.
+template <int HD> __host__ __device__ constexpr int f32_stage_bytes() {
+  return 2 * (kF32Tile / kF32Group) * f32_gld<HD>() * 4;
+}
+static_assert(f32_stage_bytes<64>() % 16 == 0 && f32_stage_bytes<128>() % 16 == 0,
+              "stages and barriers stay aligned");
+
+// Ring stages a block of the f32 form holds: no more than its split's tiles.
+__host__ __device__ __forceinline__ int f32_ring(int sps) {
+  return sps / kF32Tile < kF32Stages ? sps / kF32Tile : kF32Stages;
+}
+// Query rows of a block's group that q's planes in shared memory hold: the
+// group's m16 tiles.
+__host__ __device__ __forceinline__ int f32_q_rows(int R) {
+  return ((R < kGroupRows ? R : kGroupRows) + 15) / 16 * 16;
+}
+// Dynamic shared memory of a block: the ring, q's big and small planes,
+// the ring's mbarriers.
+template <int HD> int f32_smem_bytes(int ring, int R) {
+  return ring * f32_stage_bytes<HD>() + 2 * f32_q_rows(R) * f32_qld<HD>() * 4 + ring * 8;
+}
+// Bytes the merge of the WS parts takes in the ring: every warp's P V, then
+// its row maxima and sums.
+template <int HD> __host__ __device__ constexpr int f32_merge_bytes() {
+  return 4 * (HD / 8) * 4 * 32 * 4 + 4 * 4 * 32 * 4;
+}
+static_assert(f32_merge_bytes<64>() <= 2 * f32_stage_bytes<64>() &&
+                  f32_merge_bytes<128>() <= 2 * f32_stage_bytes<128>(),
+              "the merge fits the ring of two stages that a split of whole 64-slot tiles has");
+
+// K2 on f32 q, cache and out, in 3xTF32 (qk_f32tc, pv_f32tc), on the f32
+// plan of decode_attn_plan: grid (B*KV * n_groups, n_split), 128 threads,
+// dynamic shared
+// memory f32_smem_bytes. Warp w takes m16 tile w / WS of the 64-row group
+// and part w % WS of every 32-slot tile (its 32 / WS slots), for both
+// products, with its own running max, sum and P V over all columns; the WS
+// parts of an m16 tile merge in part order after the last tile. q is split
+// once into big and small planes in shared memory, K and V as read, P in
+// the score registers. The split's tiles stream through a ring of `ring`
+// stages filled by the TMA unit (one bulk copy per group of 4 slots,
+// evict_first); all stages are filled at the start and a stage is refilled
+// once every warp is done with it. Scores times 1/sqrt(hd), the finite mask
+// -1e9, expf. With one split the block writes the output; with more, every
+// split with work writes its partials to ws (maxima in natural units), and
+// attn_combine merges them.
+template <int HD, int WS>
+__global__ void __launch_bounds__(kTcThreads, WS == 4 ? 3 : 2) attn_decode_f32tc(
+    const float* __restrict__ q, const float* __restrict__ kc, const float* __restrict__ vc,
+    const int* __restrict__ pos0, float* __restrict__ out, float* __restrict__ ws, int t,
+    int KV, int g, int S, float scale, int sps, int n_groups, int ring) {
+  constexpr int GLD = f32_gld<HD>();
+  constexpr int QLD = f32_qld<HD>();
+  constexpr int NG = kF32Tile / kF32Group;  // groups of a tile
+  constexpr int NT = 4 / WS;                // n-tiles of a tile a warp takes
+  constexpr int DT = HD / 8;                // n-tiles of the output
+  constexpr int STAGE = f32_stage_bytes<HD>();
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int grp = blockIdx.x % n_groups;
+  const int bh = blockIdx.x / n_groups;
+  const int b = bh / KV, kvh = bh % KV;
+  const int sp = blockIdx.y, n_split = gridDim.y;
+  const int R = t * g;
+  const int r0 = grp * kGroupRows;
+  const int rows = min(kGroupRows, R - r0);
+  const int p0 = pos0[b];
+  // slots the group's last row sees, inside the cache
+  const int vis = min(S, p0 + (r0 + rows - 1) / g + 1);
+  const int j_begin = sp * sps;
+  if (j_begin >= vis) return;
+  const int j_end = min(j_begin + sps, vis);
+  const int n_it = (j_end - j_begin + kF32Tile - 1) / kF32Tile;
+  const int q_rows = f32_q_rows(R);
+  uint32_t* qbig = reinterpret_cast<uint32_t*>(smem + ring * STAGE);  // [q_rows][QLD]
+  uint32_t* qsmall = qbig + q_rows * QLD;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qsmall + q_rows * QLD);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt = warp / WS, part = warp % WS;
+  const bool active = mt * 16 < rows;
+
+  const uint64_t once = l2_evict_first();
+  if (tid < ring) mbar_init(bars + tid);
+  mbar_init_fence();
+  __syncthreads();
+
+  // Tile `it` of the split into ring stage `st`: thread G < 8 copies K's
+  // group G of 4 slots, thread 8 + G V's, each by one bulk copy (of the
+  // group's visible slots). Threads 64 .. 95 zero the V rows past the
+  // visible slots (their scores are masked, and p * V must stay finite); K
+  // rows there keep what they held, since the mask selects -1e9 over
+  // whatever score they give. Only a split's last tile is short, and no
+  // later copy refills its stage.
+  const size_t cbase = (size_t)bh * S * HD;
+  auto load = [&](int st, int it) {
+    const int j0 = j_begin + it * kF32Tile;
+    const int n = min(kF32Tile, j_end - j0);
+    float* stage = reinterpret_cast<float*>(smem + st * STAGE);
+    if (tid == 0) mbar_expect(bars + st, 2u * n * HD * 4);
+    if (tid < 2 * NG) {
+      const int gi = tid % NG, cnt = min(kF32Group, n - kF32Group * gi);
+      const bool is_v = tid >= NG;
+      if (cnt > 0)
+        bulk_copy(stage + (is_v ? NG * GLD : 0) + gi * GLD,
+                  (is_v ? vc : kc) + cbase + (size_t)(j0 + kF32Group * gi) * HD, cnt * HD * 4,
+                  bars + st, once);
+    } else if (tid >= 64 && tid - 64 < kF32Tile && tid - 64 >= n) {
+      const int r = tid - 64;
+      float4* dst = reinterpret_cast<float4*>(stage + NG * GLD + (r / kF32Group) * GLD +
+                                              (r % kF32Group) * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 4; ++c) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  for (int i = 0; i < ring && i < n_it; ++i) load(i, i);
+
+  // q's big and small planes (zeros past R), split once.
+  for (int i = tid; i < q_rows * (HD / 4); i += kTcThreads) {
+    const int r = i / (HD / 4), c = i % (HD / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) v = reinterpret_cast<const float4*>(q + q_off(b, r0 + r, t, KV, kvh, g, HD))[c];
+    const Tf32Pair x = split_tf32(v.x), y = split_tf32(v.y), z = split_tf32(v.z),
+                   w = split_tf32(v.w);
+    reinterpret_cast<uint4*>(qbig + r * QLD)[c] = make_uint4(x.big, y.big, z.big, w.big);
+    reinterpret_cast<uint4*>(qsmall + r * QLD)[c] = make_uint4(x.small, y.small, z.small, w.small);
+  }
+  const int row_lo = r0 + mt * 16 + gid, row_hi = row_lo + 8;
+  const int qp_lo = p0 + row_lo / g, qp_hi = p0 + row_hi / g;
+  // this warp's A fragment of q at k-step kk, as its tf32 parts, by one
+  // ldmatrix.x4 a plane (lane l gives row l % 8, + 8 for matrices 1 and 3,
+  // of matrix l / 8, dims + 4 for matrices 2 and 3)
+  const int qa = (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QLD + ((lane >> 4) & 1) * 4;
+  auto qfrag = [&](int kk, uint32_t(&ab)[4], uint32_t(&as)[4]) {
+    ldmatrix_x4(ab, qbig + qa + kk * 8);
+    ldmatrix_x4(as, qsmall + qa + kk * 8);
+  };
+
+  __syncthreads();  // q's planes, and the V rows zeroed past the visible slots, are written
+  float m_lo = kMask, m_hi = kMask, l_lo = 0.f, l_hi = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ring;
+    mbar_wait(bars + st, (it / ring) & 1);
+    // a short tile (the split's last) refilled in the loop: its V zeros too
+    if (it >= ring && j_begin + (it + 1) * kF32Tile > j_end) __syncthreads();
+    const float* Ks = reinterpret_cast<const float*>(smem + st * STAGE);
+    const float* Vs = Ks + NG * GLD;
+    const int j0 = j_begin + it * kF32Tile;
+    if (active) {
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      qk_f32tc<HD, NT>(s, qfrag, Ks, part * NT, lane);
+      // scale and mask (a select: an unread K row may give any score)
+      float mx_lo = kMask, mx_hi = kMask;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int slot = j0 + kF32Group * (2 * tig + e) + part * NT + n;  // column 2 tig + e
+          const bool in = slot < j_end;
+          s[n][e] = (in && slot <= qp_lo) ? s[n][e] * scale : kMask;
+          s[n][2 + e] = (in && slot <= qp_hi) ? s[n][2 + e] * scale : kMask;
+          mx_lo = fmaxf(mx_lo, s[n][e]);
+          mx_hi = fmaxf(mx_hi, s[n][2 + e]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= a_lo;
+      l_hi *= a_hi;
+      if (__any_sync(0xffffffffu, a_lo != 1.f || a_hi != 1.f)) {  // a maximum moved
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          o[n][0] *= a_lo;
+          o[n][1] *= a_lo;
+          o[n][2] *= a_hi;
+          o[n][3] *= a_hi;
+        }
+      }
+      // p = exp(s - m) in place of the scores, summed in f32, not rounded
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][0] = expf(s[n][0] - mn_lo);
+        s[n][1] = expf(s[n][1] - mn_lo);
+        s[n][2] = expf(s[n][2] - mn_hi);
+        s[n][3] = expf(s[n][3] - mn_hi);
+        l_lo += s[n][0] + s[n][1];
+        l_hi += s[n][2] + s[n][3];
+      }
+      pv_f32tc<HD, NT>(o, s, Vs, part * NT, lane);
+    }
+    if (it + ring < n_it) {
+      __syncthreads();  // every warp is done with stage `st`
+      load(st, it + ring);
+    }
+  }
+
+  if (active) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+  }
+  if constexpr (WS > 1) {
+    // The WS parts of each m16 tile, merged in part order by its first warp
+    // through the ring (every tile has landed and been read):
+    // red[warp][n][e][lane], then stats[warp][m_lo, m_hi, l_lo, l_hi][lane].
+    float* red = reinterpret_cast<float*>(smem);
+    float* stats = red + 4 * DT * 4 * 32;
+    __syncthreads();
+    if (active && part > 0) {
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[((warp * DT + n) * 4 + e) * 32 + lane] = o[n][e];
+      stats[(warp * 4 + 0) * 32 + lane] = m_lo;
+      stats[(warp * 4 + 1) * 32 + lane] = m_hi;
+      stats[(warp * 4 + 2) * 32 + lane] = l_lo;
+      stats[(warp * 4 + 3) * 32 + lane] = l_hi;
+    }
+    __syncthreads();
+    if (!active || part > 0) return;
+#pragma unroll
+    for (int pp = 1; pp < WS; ++pp) {
+      const int w2 = warp + pp;
+      const float m2_lo = stats[(w2 * 4 + 0) * 32 + lane], m2_hi = stats[(w2 * 4 + 1) * 32 + lane];
+      const float mn_lo = fmaxf(m_lo, m2_lo), mn_hi = fmaxf(m_hi, m2_hi);
+      const float a_lo = expf(m_lo - mn_lo), b_lo = expf(m2_lo - mn_lo);
+      const float a_hi = expf(m_hi - mn_hi), b_hi = expf(m2_hi - mn_hi);
+      l_lo = l_lo * a_lo + stats[(w2 * 4 + 2) * 32 + lane] * b_lo;
+      l_hi = l_hi * a_hi + stats[(w2 * 4 + 3) * 32 + lane] * b_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const float* r2 = red + ((w2 * DT + n) * 4) * 32 + lane;
+        o[n][0] = o[n][0] * a_lo + r2[0] * b_lo;
+        o[n][1] = o[n][1] * a_lo + r2[32] * b_lo;
+        o[n][2] = o[n][2] * a_hi + r2[64] * b_hi;
+        o[n][3] = o[n][3] * a_hi + r2[96] * b_hi;
+      }
+    }
+  }
+  if (!active) return;
+  const size_t n_part = (size_t)(gridDim.x / n_groups) * n_split * R;
+  const size_t p_base = ((size_t)bh * n_split + sp) * R;  // + row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_hi : row_lo;
+    if (row >= R) continue;
+    const float l = h ? l_hi : l_lo;
+    float* dst = n_split == 1 ? out + q_off(b, row, t, KV, kvh, g, HD) : ws + (p_base + row) * HD;
+    const float d = n_split == 1 ? l : 1.f;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8 + tig * 2) =
+          make_float2(o[n][2 * h] / d, o[n][2 * h + 1] / d);
+    if (n_split > 1 && tig == 0) {
+      ws[n_part * HD + p_base + row] = h ? m_hi : m_lo;
+      ws[n_part * (HD + 1) + p_base + row] = l;
+    }
+  }
+}
+
+template <int HD, int WS>
+int launch_f32tc(const void* q, const void* k, const void* v, const int* pos0, void* out,
+                 float* ws, int B, int t, int KV, int g, int S, float scale, int sps,
+                 int n_split, cudaStream_t st) {
+  // more than 48 KB of dynamic shared memory only after this opt-in, once
+  // per template instance
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(attn_decode_f32tc<HD, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           f32_smem_bytes<HD>(kF32Stages, kGroupRows));
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int ring = f32_ring(sps);
+  const int n_groups = (t * g + kGroupRows - 1) / kGroupRows;
+  dim3 grid(B * KV * n_groups, n_split);
+  attn_decode_f32tc<HD, WS><<<grid, kTcThreads, f32_smem_bytes<HD>(ring, t * g), st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      pos0, static_cast<float*>(out), ws, t, KV, g, S, scale, sps, n_groups, ring);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  return launch_combine<float>(ws, pos0, out, B, t, KV, g, HD, sps, n_split, st);
+}
+
+template <int HD>
+int launch_f32tc_hd(const void* q, const void* k, const void* v, const int* pos0, void* out,
+                    float* ws, int B, int t, int KV, int g, int S, float scale, int sps,
+                    int n_split, cudaStream_t st) {
+  switch (tc_slot_parts(t * g)) {
+    case 4:
+      return launch_f32tc<HD, 4>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+    case 2:
+      return launch_f32tc<HD, 2>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+    default:
+      return launch_f32tc<HD, 1>(q, k, v, pos0, out, ws, B, t, KV, g, S, scale, sps, n_split, st);
+  }
+}
+
 // The forms, as ops/attention.py's K2_FORMS numbers them.
-enum Form { kFma = 0, kDecodeTc = 1 };
+enum Form { kDecodeTc = 0, kDecodeF32Tc = 1 };
 
 }  // namespace
 
-// form kFma (f32 q, cache and out): slots_per_split is the S-block of pass
-// 1, which shared memory must hold (ops/attention.py k2_plan: 128), and
-// n_split ceil(S / slots_per_split). form kDecodeTc (bf16): the plan of
-// ops/attention.py decode_attn_plan, slots_per_split a multiple of 64 and
-// n_split ceil(S / slots_per_split). ws holds [B*KV, n_split, t*g] rows of
-// hd + 2 f32 values (see launch_combine), and is not read by kDecodeTc
-// with one split. Returns cudaErrorInvalidValue for arguments the form does
-// not take, else cudaGetLastError() after the launches.
+// forms kDecodeTc (bf16 q, cache and out) and kDecodeF32Tc (f32): the plan
+// of ops/attention.py decode_attn_plan for the dtype, slots_per_split a
+// multiple of 64 and n_split ceil(S / slots_per_split). ws holds [B*KV,
+// n_split, t*g] rows of hd + 2 f32 values (see launch_combine), and is not
+// read with one split. Returns cudaErrorInvalidValue for arguments the form
+// does not take, else cudaGetLastError() after the launches.
 extern "C" int llamago_attn_decode(const void* q, const void* k, const void* v,
                                    const void* pos0, void* out, void* ws, int B, int t,
                                    int KV, int g, int hd, int S, float scale, int form,
@@ -659,13 +832,16 @@ extern "C" int llamago_attn_decode(const void* q, const void* k, const void* v,
   if (B < 1 || t < 1 || KV < 1 || g < 1 || S < 1 || slots_per_split < 1 ||
       n_split != (S + slots_per_split - 1) / slots_per_split)
     return (int)cudaErrorInvalidValue;
-  if (form == kFma) {
-    if (ws == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_fma(q, k, v, p, out, w, B, t, KV, g, hd, S, scale, slots_per_split, n_split,
-                      st);
-  }
-  if (form != kDecodeTc || slots_per_split % kTile || (n_split > 1 && ws == nullptr))
+  if ((form != kDecodeTc && form != kDecodeF32Tc) || slots_per_split % kTile ||
+      (n_split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (form == kDecodeF32Tc) {
+    if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+    return hd == 128 ? launch_f32tc_hd<128>(q, k, v, p, out, w, B, t, KV, g, S, scale,
+                                            slots_per_split, n_split, st)
+                     : launch_f32tc_hd<64>(q, k, v, p, out, w, B, t, KV, g, S, scale,
+                                           slots_per_split, n_split, st);
+  }
   if (hd == 128)
     return launch_tc_hd<128>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_split,
                              n_split, st);

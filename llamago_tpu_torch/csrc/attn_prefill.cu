@@ -7,8 +7,9 @@
 // bf16 or f32. Rows are laid out t-major then g; row r sees cache slot j
 // iff j <= pos0 + r / g. Scores are f32 dot products times 1/sqrt(hd),
 // masked scores are -inf, the softmax is in f32, the probabilities are
-// rounded to the V dtype before the PV product, which accumulates in f32. A
-// row that sees no slot gives NaN (0 / 0), as the TPU kernel does.
+// rounded to the V dtype before the PV product (not at all for f32), which
+// accumulates in f32. A row that sees no slot gives NaN (0 / 0), as the TPU
+// kernel does.
 //
 // Replaces llamago_tpu/ops/attention.py _attn_kernel, reached through
 // _flash_attention and flash_attention.
@@ -18,7 +19,10 @@
 // 4 * g * hd * (t * pos0 + t * (t + 1) / 2) operations on it: at t = 256
 // over a few hundred slots that is some 200 operations per cache byte, near
 // the card's bf16 balance point, and both bounds are a few microseconds per
-// layer at 7B. The launch and the tile loop's latency show first.
+// layer at 7B. The launch and the tile loop's latency show first. In f32
+// the bytes double and the operations run at a third of the TF32 rate
+// (three products each, below): a window of 256 rows at 512 needs 16 us of
+// tensor-core time at 7B against a byte bound of 10.
 //
 // What the design does about it: the TPU kernel holds the whole S plane of
 // a head in VMEM and takes one softmax over it. Here a block owns one
@@ -53,7 +57,7 @@
 //      mbarrier alone says a tile has landed), so the next tiles' copies run
 //      under this tile's mma. V rows past the visible slots are zeroed, so
 //      p * V stays finite.
-//    - Enough blocks to fill the card: where the q-tiles of a call give
+//    - Enough blocks to fill the card (both forms): where the q-tiles of a call give
 //      fewer than 96 blocks, the plan (ops/attention.py
 //      prefill_plan, a function of the shapes only, never of pos0) cuts the
 //      slots into chunks of equal length, a multiple of 64, and the grid
@@ -65,9 +69,25 @@
 //      launch, merges each row's chunks in order, up to the last it sees
 //      (a call run twice gives the same bits; no arrival counters). With
 //      one chunk the block writes the output itself.
-//  * f32: plain FMA. 256 threads, 32 query rows; scores and probabilities
-//    of a tile go through shared memory, the output accumulators live in
-//    registers.
+//  * f32: attn_prefill_f32tc, then attn_prefill_merge<HD, float> when the
+//    plan chunks the slots: the bf16 form's plan, blocks of 64 rows, four
+//    warps of one m16 tile each, the chunks and the merge.
+//    - Both products on the tensor cores as three TF32 products (3xTF32,
+//      tc_common.cuh): mma.sync.m16n8k8 on tf32 with f32 accumulation, each
+//      f32 operand split as big + small tf32 values and a b taken as big
+//      big + big small + small big, about 2^-21 of a product off (the bf16
+//      tensor cores would need six products of three-part operands).
+//      wgmma takes tf32 only with K-major B operands and V is MN-major in
+//      P V, so the form stays on mma.sync. q lies in shared memory and is
+//      split at each k-step, K and V as a fragment is read, P once a
+//      k-step from the score registers, repacked in place by permuting the
+//      reduction index (c_to_a): the probabilities are not rounded.
+//    - A ring of two stages of 32-slot K and V tiles by the TMA unit, one
+//      bulk copy per group of 4 slots (2 KB at hd = 128), groups padded by
+//      16 bytes and a fragment's rows one slot of each group, so that the K
+//      and the permuted V reads fall on 32 distinct banks; 64-slot tiles of
+//      f32 would leave one block an SM. V rows past the visible slots are
+//      zeroed; masked scores are selected, never added.
 //
 // Built by nvcc into a shared library with a plain C interface
 // (llamago_tpu_torch/ops/_build.py); launched on the caller's stream. The
@@ -83,12 +103,6 @@
 namespace {
 
 constexpr int kBN = 64;  // cache slots per tile
-
-// Slots a q-tile whose last row is `last_row` must read: up to that row's
-// own position, inside the cache.
-__device__ __forceinline__ int visible_slots(int p0, int last_row, int g, int S) {
-  return max(0, min(S, p0 + last_row / g + 1));
-}
 
 // ------------------------------------------------------ bf16, tensor cores
 
@@ -387,10 +401,10 @@ __global__ void __launch_bounds__(kTcThreads, 2) attn_prefill_tc(
 // a row, a lane HD / 32 neighbouring columns, so that a row's maxima and
 // sums are one load a chunk for the warp and its partials one coalesced
 // read.
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(256) attn_prefill_merge(
-    const float* __restrict__ ws, const int* __restrict__ pos0, __nv_bfloat16* __restrict__ out,
-    int t, int KV, int g, int cps, int n_chunks) {
+    const float* __restrict__ ws, const int* __restrict__ pos0, T* __restrict__ out, int t,
+    int KV, int g, int cps, int n_chunks) {
   constexpr int C = HD / 32;  // columns a lane
   const int bh = blockIdx.x;
   const int b = bh / KV, kvh = bh % KV;
@@ -432,155 +446,246 @@ __global__ void __launch_bounds__(256) attn_prefill_merge(
 #pragma unroll
     for (int j = 0; j < C; ++j) v[j] = num[j] / den;
   }
-  __nv_bfloat16* orow = out + q_off(b, r, t, KV, kvh, g, HD) + C * lane;
-  if constexpr (C == 4) {
+  T* orow = out + q_off(b, r, t, KV, kvh, g, HD) + C * lane;
+  if constexpr (sizeof(T) == 4 && C == 4) {
+    *reinterpret_cast<float4*>(orow) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(orow) = make_float2(v[0], v[1]);
+  } else if constexpr (C == 4) {
     *reinterpret_cast<uint2*>(orow) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
   } else {
     *reinterpret_cast<uint32_t*>(orow) = pack_bf16(v[0], v[1]);
   }
 }
 
-// --------------------------------------------------------------- f32, FMA
+// ------------------------------------------------ f32, tensor cores (3xTF32)
 
-constexpr int kFmaThreads = 256;
-constexpr int kFmaBM = 32;  // query rows per block
-
-size_t fma_smem_bytes(int hd) {
-  return ((size_t)kFmaBM * hd + (size_t)kBN * (hd + 1) + (size_t)kBN * hd +
-          (size_t)kFmaBM * kBN + 3 * kFmaBM) * sizeof(float);
+constexpr int kF32Stages = 2;  // ring stages of 32-slot K and V tiles
+// One stage: the K tile, then the V tile, each 8 groups of f32_gld floats.
+template <int HD> __host__ __device__ constexpr int f32_stage_bytes() {
+  return 2 * (kF32Tile / kF32Group) * f32_gld<HD>() * 4;
 }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Dynamic shared memory of a block: the ring, the q-tile's rows, the
+// ring's mbarriers.
+template <int HD> __host__ __device__ constexpr int f32_smem_bytes() {
+  return kF32Stages * f32_stage_bytes<HD>() + kTcRows * f32_qld<HD>() * 4 + kF32Stages * 8;
 }
+static_assert(f32_stage_bytes<64>() % 16 == 0 && f32_stage_bytes<128>() % 16 == 0 &&
+                  (f32_qld<64>() * 4) % 16 == 0 && (f32_qld<128>() * 4) % 16 == 0,
+              "stages, q rows and barriers stay aligned");
+static_assert(2 * (f32_smem_bytes<128>() + 1024) <= 233472,
+              "two blocks an SM fit its shared memory");
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// grid (ceil(t*g / 32), B*KV)
+// attn_prefill_tc's plan and ring on f32 q, cache and out: grid (B*KV *
+// n_qt, n_chunks), 128 threads, dynamic shared memory f32_smem_bytes; warp w
+// takes rows 16 w .. 16 w + 15 of the 64-row q-tile, all slots and all
+// columns. Both products in 3xTF32 (qk_f32tc, pv_f32tc): q from shared
+// memory, split at each k-step; P stays in the score registers. Partials
+// (maxima in log2 units) as attn_prefill_tc's, merged by
+// attn_prefill_merge<HD, float>.
 template <int HD>
-__global__ void __launch_bounds__(kFmaThreads) attn_prefill_fma(
+__global__ void __launch_bounds__(kTcThreads, 2) attn_prefill_f32tc(
     const float* __restrict__ q, const float* __restrict__ kc, const float* __restrict__ vc,
-    const int* __restrict__ pos0, float* __restrict__ out, int t, int KV, int g, int S,
-    float scale) {
-  constexpr int KST = HD + 1;                           // padded K row stride
-  constexpr int NACC = kFmaBM * HD / kFmaThreads;       // outputs per thread
-  constexpr int RSTEP = kFmaThreads / HD;               // rows between a thread's outputs
+    const int* __restrict__ pos0, float* __restrict__ out, float* __restrict__ ws, int t,
+    int KV, int g, int S, float scale2, int cps, int n_qt) {
+  constexpr int GLD = f32_gld<HD>();
+  constexpr int QLD = f32_qld<HD>();
+  constexpr int NG = kF32Tile / kF32Group;  // groups of a tile
+  constexpr int DT = HD / 8;                // n-tiles of the output
+  constexpr int STAGE = f32_stage_bytes<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [BM, HD]
-  float* Ks = Qs + kFmaBM * HD;                // [BN, HD + 1]
-  float* Vs = Ks + kBN * KST;                  // [BN, HD]
-  float* Ps = Vs + kBN * HD;                   // [BM, BN] scores, then p
-  float* ms = Ps + kFmaBM * kBN;               // [BM] running maximum
-  float* ls = ms + kFmaBM;                     // [BM] running sum
-  float* as = ls + kFmaBM;                     // [BM] this tile's rescale
 
-  const int bh = blockIdx.y;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
   const int b = bh / KV, kvh = bh % KV;
+  const int chunk = blockIdx.y, n_chunks = gridDim.y;
   const int R = t * g;
-  const int r0 = blockIdx.x * kFmaBM;
+  const int r0 = qt * kTcRows;
+  const int rows = min(kTcRows, R - r0);
   const int p0 = pos0[b];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d_own = threadIdx.x % HD, r_own = threadIdx.x / HD;  // outputs (r_own + k*RSTEP, d_own)
+  const int vis = min(S, max(0, p0 + (r0 + rows - 1) / g + 1));
+  const int j_begin = chunk * cps;
+  // as attn_prefill_tc: with one chunk a q-tile that sees nothing writes NaN
+  if (j_begin >= vis && n_chunks > 1) return;
+  const int j_end = max(j_begin, min(j_begin + cps, vis));
+  const int n_it = (j_end - j_begin + kF32Tile - 1) / kF32Tile;
+  float* qs = reinterpret_cast<float*>(smem + kF32Stages * STAGE);  // [64][QLD]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qs + kTcRows * QLD);
 
-  for (int i = threadIdx.x; i < kFmaBM * HD; i += kFmaThreads) {
-    const int r = r0 + i / HD, d = i % HD;
-    float v = 0.f;
-    if (r < R) {
-      const int ti = r / g, gi = r % g;
-      v = q[((((size_t)b * t + ti) * KV + kvh) * g + gi) * HD + d];
-    }
-    Qs[i] = v;
-  }
-  if (threadIdx.x < kFmaBM) {
-    ms[threadIdx.x] = -INFINITY;
-    ls[threadIdx.x] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool active = warp * 16 < rows;
 
-  const int nvis = visible_slots(p0, min(r0 + kFmaBM, R) - 1, g, S);
+  if (tid < kF32Stages) mbar_init(bars + tid);
+  mbar_init_fence();
+  __syncthreads();
+
+  // Tile `it` of the chunk into ring stage `st`: thread G < 8 copies K's
+  // group G of 4 slots, thread 8 + G V's, each by one bulk copy (of the
+  // group's visible slots). Threads 64 .. 95 zero the V rows past the
+  // visible slots (p * V must stay finite); K rows there keep what they
+  // held, since the mask selects -inf over whatever score they give. Only a
+  // chunk's last tile is short, and no later copy refills its stage.
   const size_t cbase = (size_t)bh * S * HD;
-  for (int j0 = 0; j0 < nvis; j0 += kBN) {
-    __syncthreads();  // the previous tile is consumed; Qs / ms / ls are written
-    for (int i = threadIdx.x; i < kBN * HD; i += kFmaThreads) {
-      const int row = i / HD, d = i % HD;
-      float kvv = 0.f, vv = 0.f;
-      if (j0 + row < nvis) {
-        const size_t off = cbase + (size_t)(j0 + row) * HD + d;
-        kvv = kc[off];
-        vv = vc[off];
-      }
-      Ks[row * KST + d] = kvv;
-      Vs[i] = vv;
+  auto load = [&](int st, int it) {
+    const int j0 = j_begin + it * kF32Tile;
+    const int n = min(kF32Tile, j_end - j0);
+    float* stage = reinterpret_cast<float*>(smem + st * STAGE);
+    if (tid == 0) mbar_expect(bars + st, 2u * n * HD * 4);
+    if (tid < 2 * NG) {
+      const int grp = tid % NG, cnt = min(kF32Group, n - kF32Group * grp);
+      const bool is_v = tid >= NG;
+      if (cnt > 0)
+        bulk_copy(stage + (is_v ? NG * GLD : 0) + grp * GLD,
+                  (is_v ? vc : kc) + cbase + (size_t)(j0 + kF32Group * grp) * HD, cnt * HD * 4,
+                  bars + st);
+    } else if (tid >= 64 && tid - 64 < kF32Tile && tid - 64 >= n) {
+      const int r = tid - 64;
+      float4* dst = reinterpret_cast<float4*>(stage + NG * GLD + (r / kF32Group) * GLD +
+                                              (r % kF32Group) * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 4; ++c) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
+  };
+#pragma unroll
+  for (int i = 0; i < kF32Stages; ++i)
+    if (i < n_it) load(i, i);
 
-    for (int i = threadIdx.x; i < kFmaBM * kBN; i += kFmaThreads) {
-      const int r = i / kBN, j = i % kBN;
-      const int slot = j0 + j;
-      float sc = -INFINITY;
-      if (slot < S && slot <= p0 + (r0 + r) / g) {
-        const float* qr = Qs + r * HD;
-        const float* kr = Ks + j * KST;
-        float a = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) a = fmaf(qr[d], kr[d], a);
-        sc = a * scale;
+  // The q-tile's rows into shared memory (zeros past R), 16 bytes a load.
+  for (int i = tid; i < kTcRows * (HD / 4); i += kTcThreads) {
+    const int r = i / (HD / 4), c = i % (HD / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < R) v = reinterpret_cast<const float4*>(q + q_off(b, r0 + r, t, KV, kvh, g, HD))[c];
+    reinterpret_cast<float4*>(qs + r * QLD)[c] = v;
+  }
+  const int row_lo = r0 + warp * 16 + gid, row_hi = row_lo + 8;
+  const int qp_lo = p0 + row_lo / g, qp_hi = p0 + row_hi / g;
+  const int qp_first = p0 + (r0 + warp * 16) / g;  // the warp's first row sees the fewest
+  // this warp's A fragment of q at k-step kk, split
+  // this warp's A fragment of q at k-step kk, split: ldmatrix.x4 moves the
+  // words of rows gid | gid + 8, dims tig | tig + 4 (lane l gives row l % 8
+  // (+ 8 for matrices 1 and 3) of matrix l / 8, dims + 4 for matrices 2, 3)
+  const float* qa = qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QLD +
+                    ((lane >> 4) & 1) * 4;
+  auto qfrag = [&](int kk, uint32_t(&ab)[4], uint32_t(&as)[4]) {
+    uint32_t r[4];
+    ldmatrix_x4(r, qa + kk * 8);
+    const float a[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                        __uint_as_float(r[3])};
+    split_a(a, ab, as);
+  };
+
+  __syncthreads();  // q, and the V rows zeroed past the visible slots, are written
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kF32Stages;
+    mbar_wait(bars + st, (it / kF32Stages) & 1);
+    // a short tile (the chunk's last) refilled in the loop: its V zeros too
+    if (it >= kF32Stages && j_begin + (it + 1) * kF32Tile > j_end) __syncthreads();
+    const float* Ks = reinterpret_cast<const float*>(smem + st * STAGE);
+    const float* Vs = Ks + NG * GLD;
+    const int j0 = j_begin + it * kF32Tile;
+    if (active) {
+      float s[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      qk_f32tc<HD, 4>(s, qfrag, Ks, 0, lane);
+
+      // scale; mask (a select) only the tile that crosses the warp's
+      // diagonal or the end of its slots; the running maximum
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+      if (j0 + kF32Tile <= j_end && j0 + kF32Tile - 1 <= qp_first) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
+          mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = j0 + kF32Group * (2 * tig + e) + n;  // column 2 tig + e
+            const bool in = slot < j_end;
+            s[n][e] = (in && slot <= qp_lo) ? s[n][e] * scale2 : -INFINITY;
+            s[n][2 + e] = (in && slot <= qp_hi) ? s[n][2 + e] * scale2 : -INFINITY;
+            mx_lo = fmaxf(mx_lo, s[n][e]);
+            mx_hi = fmaxf(mx_hi, s[n][2 + e]);
+          }
+        }
       }
-      Ps[i] = sc;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < kFmaBM; r += kFmaThreads / 32) {  // one warp per row
-      float* prow = Ps + r * kBN;
-      float mx = -INFINITY;
-      for (int j = lane; j < kBN; j += 32) mx = fmaxf(mx, prow[j]);
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, warp_max(mx));
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
       // a row that has seen nothing yet keeps m = -inf: exponentials are
       // taken against 0 there, so that -inf - -inf never forms
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float l = 0.f;
-      for (int j = lane; j < kBN; j += 32) {
-        const float p = expf(prow[j] - m_use);
-        l += p;
-        prow[j] = p;
-      }
-      l = warp_sum(l);
-      if (lane == 0) {
-        const float a = expf(m_old - m_use);
-        as[r] = a;
-        ms[r] = m_new;
-        ls[r] = ls[r] * a + l;
-      }
-    }
-    __syncthreads();
-
-    const int nrow = min(kBN, nvis - j0);
+      const float ms_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+      const float ms_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+      const float a_lo = exp2_approx(m_lo - ms_lo), a_hi = exp2_approx(m_hi - ms_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= a_lo;
+      l_hi *= a_hi;
+      if (__any_sync(0xffffffffu, a_lo != 1.f || a_hi != 1.f)) {  // a maximum moved
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) {
-      const int r = r_own + k * RSTEP;
-      const float* prow = Ps + r * kBN;
-      float a = acc[k] * as[r];
-      for (int j = 0; j < nrow; ++j) a = fmaf(prow[j], Vs[j * HD + d_own], a);
-      acc[k] = a;
+        for (int n = 0; n < DT; ++n) {
+          o[n][0] *= a_lo;
+          o[n][1] *= a_lo;
+          o[n][2] *= a_hi;
+          o[n][3] *= a_hi;
+        }
+      }
+
+      // p = 2^(s - m) in place of the scores, summed in f32, not rounded
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        s[n][0] = exp2_approx(s[n][0] - ms_lo);
+        s[n][1] = exp2_approx(s[n][1] - ms_lo);
+        s[n][2] = exp2_approx(s[n][2] - ms_hi);
+        s[n][3] = exp2_approx(s[n][3] - ms_hi);
+        l_lo += s[n][0] + s[n][1];
+        l_hi += s[n][2] + s[n][3];
+      }
+      pv_f32tc<HD, 4>(o, s, Vs, 0, lane);
+    }
+    if (it + kF32Stages < n_it) {
+      __syncthreads();  // every warp is done with stage `st`
+      load(st, it + kF32Stages);
     }
   }
-  __syncthreads();  // ls is final (and written at all when no tile ran)
+  if (!active) return;
+
 #pragma unroll
-  for (int k = 0; k < NACC; ++k) {
-    const int r = r0 + r_own + k * RSTEP;
-    if (r >= R) continue;
-    const int ti = r / g, gi = r % g;
-    out[((((size_t)b * t + ti) * KV + kvh) * g + gi) * HD + d_own] =
-        acc[k] / ls[r_own + k * RSTEP];
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const size_t n_part = (size_t)(gridDim.x / n_qt) * n_chunks * R;
+  const size_t p_base = ((size_t)bh * n_chunks + chunk) * R;  // + row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_hi : row_lo;
+    if (row >= R) continue;
+    const float l = h ? l_hi : l_lo;
+    float* dst = n_chunks == 1 ? out + q_off(b, row, t, KV, kvh, g, HD)
+                               : ws + (p_base + row) * HD;
+    const float d = n_chunks == 1 ? l : 1.f;  // a row that sees nothing: 0 / 0
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8 + tig * 2) =
+          make_float2(o[n][2 * h] / d, o[n][2 * h + 1] / d);
+    if (n_chunks > 1 && tig == 0) {
+      ws[n_part * HD + p_base + row] = h ? m_hi : m_lo;
+      ws[n_part * (HD + 1) + p_base + row] = l;
+    }
   }
 }
 
@@ -608,36 +713,43 @@ int launch_tc(const void* q, const void* k, const void* v, const int* pos0, void
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_chunks == 1) return (int)e;
   const dim3 mgrid(B * KV, (t * g + 7) / 8);
-  attn_prefill_merge<HD><<<mgrid, 256, 0, st>>>(ws, pos0, static_cast<__nv_bfloat16*>(out), t,
-                                                KV, g, cps, n_chunks);
+  attn_prefill_merge<HD, __nv_bfloat16><<<mgrid, 256, 0, st>>>(
+      ws, pos0, static_cast<__nv_bfloat16*>(out), t, KV, g, cps, n_chunks);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, const int* pos0, void* out, int B,
-               int t, int KV, int g, int S, float scale, cudaStream_t st) {
-  const size_t smem = fma_smem_bytes(HD);
-  const int e = set_smem(attn_prefill_fma<HD>, smem);
-  if (e != 0) return e;
-  const dim3 grid((t * g + kFmaBM - 1) / kFmaBM, B * KV);
-  attn_prefill_fma<HD><<<grid, kFmaThreads, smem, st>>>(
+int launch_f32tc(const void* q, const void* k, const void* v, const int* pos0, void* out,
+                 float* ws, int B, int t, int KV, int g, int S, float scale, int cps,
+                 int n_chunks, cudaStream_t st) {
+  constexpr int smem = f32_smem_bytes<HD>();
+  static const int opt_in = set_smem(attn_prefill_f32tc<HD>, smem);
+  if (opt_in != 0) return opt_in;
+  const int n_qt = (t * g + kTcRows - 1) / kTcRows;
+  const dim3 grid(B * KV * n_qt, n_chunks);
+  attn_prefill_f32tc<HD><<<grid, kTcThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      pos0, static_cast<float*>(out), t, KV, g, S, scale);
+      pos0, static_cast<float*>(out), ws, t, KV, g, S, scale * kLog2e, cps, n_qt);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return (int)e;
+  const dim3 mgrid(B * KV, (t * g + 7) / 8);
+  attn_prefill_merge<HD, float><<<mgrid, 256, 0, st>>>(ws, pos0, static_cast<float*>(out), t, KV,
+                                                       g, cps, n_chunks);
   return (int)cudaGetLastError();
 }
 
 // The forms, as ops/attention.py's K7_FORMS numbers them.
-enum Form { kFma = 0, kPrefillTc = 1 };
+enum Form { kPrefillTc = 0, kPrefillF32Tc = 1 };
 
 }  // namespace
 
-// form kFma (f32 q, cache and out): one chunk of the whole cache, ws not
-// read. form kPrefillTc (bf16): the plan of ops/attention.py prefill_plan,
-// slots_per_chunk a multiple of 64 and n_chunks ceil(S / slots_per_chunk);
-// ws holds [B*KV, n_chunks, t*g] rows of hd + 2 f32 values (partials, then
-// maxima and sums) and is not read with one chunk. hd must be 64 or 128.
-// Returns cudaErrorInvalidValue for arguments the form does not take, else
-// cudaGetLastError() after the launches.
+// forms kPrefillTc (bf16 q, cache and out) and kPrefillF32Tc (f32): the
+// plan of ops/attention.py prefill_plan, slots_per_chunk a multiple of 64
+// and n_chunks ceil(S / slots_per_chunk); ws holds [B*KV, n_chunks, t*g]
+// rows of hd + 2 f32 values (partials, then maxima and sums) and is not
+// read with one chunk. hd must be 64 or 128. Returns cudaErrorInvalidValue
+// for arguments the form does not take, else cudaGetLastError() after the
+// launches.
 extern "C" int llamago_attn_prefill(const void* q, const void* k, const void* v,
                                     const void* pos0, void* out, void* ws, int B, int t, int KV,
                                     int g, int hd, int S, float scale, int form,
@@ -648,13 +760,15 @@ extern "C" int llamago_attn_prefill(const void* q, const void* k, const void* v,
   if (B < 1 || t < 1 || KV < 1 || g < 1 || S < 1 || (hd != 64 && hd != 128) ||
       slots_per_chunk < 1 || n_chunks != (S + slots_per_chunk - 1) / slots_per_chunk)
     return (int)cudaErrorInvalidValue;
-  if (form == kFma) {
-    if (n_chunks != 1) return (int)cudaErrorInvalidValue;
-    return hd == 128 ? launch_fma<128>(q, k, v, p, out, B, t, KV, g, S, scale, st)
-                     : launch_fma<64>(q, k, v, p, out, B, t, KV, g, S, scale, st);
-  }
-  if (form != kPrefillTc || slots_per_chunk % kBN || (n_chunks > 1 && ws == nullptr))
+  if ((form != kPrefillTc && form != kPrefillF32Tc) || slots_per_chunk % kBN ||
+      (n_chunks > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (form == kPrefillF32Tc)
+    return hd == 128
+               ? launch_f32tc<128>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_chunk,
+                                   n_chunks, st)
+               : launch_f32tc<64>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_chunk,
+                                  n_chunks, st);
   return hd == 128
              ? launch_tc<128>(q, k, v, p, out, w, B, t, KV, g, S, scale, slots_per_chunk,
                               n_chunks, st)

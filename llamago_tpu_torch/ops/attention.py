@@ -8,8 +8,9 @@ and prefill buckets of 16 and 32). It replaces
 llamago_tpu/ops/attention.py `_attn_decode_kernel`; the CUDA kernel is
 `csrc/attn_decode.cu`, whose header note says what bounds it on the card
 (the visible cache bytes) and how its design answers that: a bf16 cache
-takes its tensor-core form (`k2_form`; the split planned by
-`decode_attn_plan`), an f32 cache its two-pass CUDA-core form. A CPU tensor
+takes its bf16 tensor-core form, an f32 cache its f32 tensor-core form in
+three TF32 products (`k2_form`; the splits planned by `decode_attn_plan`
+for the dtype). A CPU tensor
 takes `flash_attention_plain`, the TPU kernel's online softmax over
 S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
 wrapper raises.
@@ -18,9 +19,10 @@ For longer windows, and for every window when LLAMAGO_ATTN_LENAWARE is
 "0", `flash_attention` is K7. It replaces `_attn_kernel`; the CUDA kernel
 is `csrc/attn_prefill.cu` (an online softmax over S-tiles that stops at the
 last visible slot; the TPU kernel holds the whole S plane on chip, and its
-tile budgets are not carried over): a bf16 cache takes its tensor-core form
-(`k7_form`; the chunks of slots planned by `prefill_plan`, merged in a
-second launch), an f32 cache its CUDA-core form. A CPU tensor takes
+tile budgets are not carried over): a bf16 cache takes its bf16
+tensor-core form, an f32 cache its f32 tensor-core form in three TF32
+products (`k7_form`; both take the chunks of slots planned by
+`prefill_plan`, merged in a second launch). A CPU tensor takes
 `flash_attention_prefill_plain`: -inf mask and one softmax over the whole
 row, as the TPU kernel computes it.
 
@@ -70,15 +72,14 @@ MAX_T = 32  # longest window K2 takes; longer windows go to K7 or attention_math
 _MAX_G = 8
 _HEAD_DIMS = (64, 128)
 _SB = 256  # S-block rows of the plain version, as in the TPU kernel
-_FMA_SB = 128  # S-block rows of K2's f32 form: its staged tiles fit shared memory
-K2_FORMS = ("fma", "decode_tc")  # K2's forms, by the C entry point's codes
+K2_FORMS = ("decode_tc", "decode_f32tc")  # K2's forms, by the C entry point's codes
 _K2_TILE = 64  # cache slots per ring stage of K2's decode_tc form
 # the int8 cache's forms, by the C entry point's codes: K8 on the CUDA
 # cores, K4 on the CUDA cores, K4 on the int8 tensor cores (S-blocks of whole
 # 64-slot tiles), K8 on the bf16 tensor cores (bf16 q, S a multiple of 64)
 QUANT_FORMS = ("widening", "i8dot", "i8dot_tc", "widening_tc")
 _K4_TILE = 64  # cache slots of a K or V tile of the tensor-core forms (kTile)
-K7_FORMS = ("fma", "prefill_tc")  # K7's forms, by the C entry point's codes
+K7_FORMS = ("prefill_tc", "prefill_f32tc")  # K7's forms, by the C entry point's codes
 _K7_TILE, _K7_ROWS = 64, 64  # slots of a K/V tile and query rows of a block (prefill_tc)
 # K7's tensor-core form cuts the slots into chunks when its q-tiles give
 # fewer than 96 blocks (three in four of an H100's 132 SMs), aiming then at
@@ -243,27 +244,39 @@ def _check_cuda_args(q5, k_cache, v_cache, pos0, max_t: int | None = MAX_T) -> N
 
 def k2_form(dtype: torch.dtype) -> str:
     """K2's kernel on the card for a cache of this dtype: "decode_tc" (bf16
-    mma.sync) for bf16, "fma" (CUDA cores) for f32, which the bf16 tensor
-    cores cannot take without rounding it. Both merge their splits in a
-    second launch."""
-    return "decode_tc" if dtype == torch.bfloat16 else "fma"
+    mma.sync) for bf16, "decode_f32tc" (tf32 mma.sync, each f32 product as
+    three TF32 products) for f32, which the bf16 tensor cores cannot take
+    without rounding it. Both merge their splits, where the plan has more
+    than one, in a second launch."""
+    return "decode_tc" if dtype == torch.bfloat16 else "decode_f32tc"
 
 
-def decode_attn_plan(b: int, kv: int, t: int, g: int, hd: int,
-                     s: int) -> tuple[int, int, int]:
-    """(slots per split, splits, f32 workspace elements) of K2's decode_tc
-    form over a cache of S slots. A split is a run of whole 64-slot tiles;
-    the C side takes the first two numbers as they are.
+def decode_attn_plan(b: int, kv: int, t: int, g: int, hd: int, s: int,
+                     dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int]:
+    """(slots per split, splits, f32 workspace elements) of K2's tensor-core
+    form for a cache of this dtype over S slots. A split is a run of whole
+    64-slot tiles (two of the f32 form's 32-slot tiles); the C side takes
+    the first two numbers as they are.
 
-    The split is the shortest that keeps a split's f32 partials (rows x hd
-    x 4 bytes) within a quarter of the cache bytes it reads when full (2 x
-    slots x hd x 2): one tile up to 16 rows (every decode step), so that
-    the serving fills give every SM a block and a full cache many; longer
-    splits measured slower on the card (PERF.md). The workspace holds each
-    split's partials, row maxima and sums for the merge pass when there is
-    more than one split."""
+    bf16: the split is the shortest that keeps a split's f32 partials (rows
+    x hd x 4 bytes) within a quarter of the cache bytes it reads when full
+    (2 x slots x hd x 2): one tile up to 16 rows (every decode step), so
+    that the serving fills give every SM a block and a full cache many;
+    longer splits measured slower on the card (PERF.md). f32: as many
+    splits as give each of the card's SMs a block, no more (one split at b
+    = 4, KV = 32): a split's fixed costs weigh more there, and one split a
+    (batch, kv head) measured fastest at the serving fill and up to 1.7x
+    faster than 64-slot splits at full fill (PERF.md). The workspace holds
+    each split's
+    partials, row maxima and sums for the merge pass when there is more
+    than one split."""
     rows = t * g
-    per = min(-(-s // _K2_TILE), -(-4 * rows // _K2_TILE))
+    tiles = -(-s // _K2_TILE)
+    if dtype == torch.float32:
+        blocks = b * kv * -(-rows // _K2_TILE)  # the kernel's blocks a split
+        per = -(-tiles // max(1, min(tiles, H100_SMS // blocks)))
+    else:
+        per = min(tiles, -(-4 * rows // _K2_TILE))
     sps = per * _K2_TILE
     n_split = -(-s // sps)
     return sps, n_split, b * kv * n_split * rows * (hd + 2) if n_split > 1 else 0
@@ -272,13 +285,8 @@ def decode_attn_plan(b: int, kv: int, t: int, g: int, hd: int,
 def k2_plan(dtype: torch.dtype, b: int, kv: int, t: int, g: int, hd: int,
             s: int) -> tuple[str, int, int, int]:
     """(form, slots per split, splits, f32 workspace elements) of one K2
-    call. The f32 form's splits are its S-blocks of 128 rows, each with
-    partials."""
-    form = k2_form(dtype)
-    if form == "fma":
-        n = -(-s // _FMA_SB)
-        return form, _FMA_SB, n, b * kv * n * t * g * (hd + 2)
-    return (form, *decode_attn_plan(b, kv, t, g, hd, s))
+    call: both forms split as `decode_attn_plan` plans for the dtype."""
+    return (k2_form(dtype), *decode_attn_plan(b, kv, t, g, hd, s, dtype))
 
 
 def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> tuple[torch.Tensor, str]:
@@ -298,11 +306,11 @@ def _flash_attention_cuda(q5, k_cache, v_cache, pos0) -> tuple[torch.Tensor, str
 
 def k7_form(dtype: torch.dtype) -> str:
     """K7's kernel on the card for a cache of this dtype: "prefill_tc" (bf16
-    mma.sync, K/V tiles streamed by the TMA unit, the slots cut into chunks
-    by `prefill_plan`) for bf16, "fma" (CUDA cores, one block per q-tile
-    over all its slots) for f32, which the bf16 tensor cores cannot take
-    without rounding it."""
-    return "prefill_tc" if dtype == torch.bfloat16 else "fma"
+    mma.sync) for bf16, "prefill_f32tc" (tf32 mma.sync, each f32 product as
+    three TF32 products) for f32, which the bf16 tensor cores cannot take
+    without rounding it. Both stream K/V tiles by the TMA unit and take the
+    chunks of `prefill_plan`."""
+    return "prefill_tc" if dtype == torch.bfloat16 else "prefill_f32tc"
 
 
 def k7_chunk(b: int, kv: int, t: int, g: int, s: int) -> int:
@@ -323,12 +331,12 @@ def k7_chunk(b: int, kv: int, t: int, g: int, s: int) -> int:
 def prefill_plan(dtype: torch.dtype, b: int, kv: int, t: int, g: int, hd: int,
                  s: int) -> tuple[str, int, int, int]:
     """(form, slots per chunk, chunks, f32 workspace elements) of one K7
-    call; the C side takes the middle two as they are. The f32 form runs
-    one chunk of the whole cache. With more than one chunk the workspace
-    holds each chunk's partials (t * g rows of hd values, a maximum and a
-    sum each) for the merge pass."""
+    call; the C side takes the middle two as they are. Both forms take
+    `k7_chunk`'s chunks (their blocks hold 64 query rows). With more than
+    one chunk the workspace holds each chunk's partials (t * g rows of hd
+    values, a maximum and a sum each) for the merge pass."""
     form = k7_form(dtype)
-    cps = k7_chunk(b, kv, t, g, s) if form == "prefill_tc" else -(-s // _K7_TILE) * _K7_TILE
+    cps = k7_chunk(b, kv, t, g, s)
     chunks = -(-s // cps)
     return form, cps, chunks, b * kv * chunks * t * g * (hd + 2) if chunks > 1 else 0
 
@@ -353,9 +361,10 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     the cache [B, KV, S, hd]; positions [B, t] absolute and contiguous (row
     0's position is what the kernels read). K2 for t <= 32 unless
     LLAMAGO_ATTN_LENAWARE is "0", else K7; each counts its launches
-    (`launches`, `launches_prefill`; `launches_decode_tc` counts K2's bf16
-    form, `k2_form`, and `launches_prefill_tc` K7's, `k7_form`). Returns
-    [B, t, H*hd] in q.dtype."""
+    (`launches`, `launches_prefill`), and its form's (`k2_form`, `k7_form`):
+    `launches_decode_tc` and `launches_prefill_tc` the bf16 forms,
+    `launches_decode_f32tc` and `launches_prefill_f32tc` the f32 forms.
+    Returns [B, t, H*hd] in q.dtype."""
     b, t, h, hd = q.shape
     kv = k_cache.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
@@ -373,12 +382,16 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
             flash_attention.launches += 1
             if form == "decode_tc":
                 flash_attention.launches_decode_tc += 1
+            elif form == "decode_f32tc":
+                flash_attention.launches_decode_f32tc += 1
         else:
             _check_cuda_args(q5, k_cache, v_cache, pos0, max_t=None)
             out, form = _flash_attention_prefill_cuda(q5, k_cache, v_cache, pos0)
             flash_attention.launches_prefill += 1
             if form == "prefill_tc":
                 flash_attention.launches_prefill_tc += 1
+            elif form == "prefill_f32tc":
+                flash_attention.launches_prefill_f32tc += 1
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return out.reshape(b, t, h * hd)
@@ -386,8 +399,10 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
 
 flash_attention.launches = 0  # K2, either form
 flash_attention.launches_decode_tc = 0  # K2's bf16 tensor-core form
+flash_attention.launches_decode_f32tc = 0  # K2's f32 tensor-core form (3xTF32)
 flash_attention.launches_prefill = 0  # K7, either form
 flash_attention.launches_prefill_tc = 0  # K7's bf16 tensor-core form
+flash_attention.launches_prefill_f32tc = 0  # K7's f32 tensor-core form (3xTF32)
 
 
 def quant_fits(t: int, s: int) -> bool:

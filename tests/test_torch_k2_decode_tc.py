@@ -9,8 +9,8 @@ accumulation, 64-slot K/V tiles in a ring of shared memory (rows padded by
 `decode_attn_plan` plans on the host, each warp with its own running
 statistics, merged in warp order within a block and in split order by the
 merge pass (`attn_combine`, a second launch, shared with the f32 form). Here, without a card, the wrapper takes the plain
-version; the tests pin the routing rule (f32 keeps the two-pass CUDA-core
-form), the plan's invariants, the form code, plan and workspace the
+version; the tests pin the routing rule (f32 takes the 3xTF32 form,
+tests/test_torch_attn_f32tc.py), the plan's invariants, the form code, plan and workspace the
 launcher hands the entry point, the entry point's C signature against the
 ctypes argtypes, and an emulation of what each lane reads, multiplies,
 masks, rounds and merges, held against `flash_attention_plain` and the JAX
@@ -49,19 +49,20 @@ def _src() -> str:
 
 def test_k2_form_routes_by_cache_dtype():
     assert attention.k2_form(torch.bfloat16) == "decode_tc"
-    assert attention.k2_form(torch.float32) == "fma"
+    # f32 takes the 3xTF32 form (tests/test_torch_attn_f32tc.py)
+    assert attention.k2_form(torch.float32) == "decode_f32tc"
 
 
 def test_k2_form_codes_match_the_c_entry_point():
-    enum = re.search(r"enum Form \{ kFma = (\d), kDecodeTc = (\d) \};", _src())
+    enum = re.search(r"enum Form \{ kDecodeTc = (\d), kDecodeF32Tc = (\d) \};", _src())
     assert enum is not None
-    assert tuple(map(int, enum.groups())) == (attention.K2_FORMS.index("fma"),
-                                              attention.K2_FORMS.index("decode_tc"))
-    # the f32 form's splits are its 128-row S-blocks: the plan is their one
-    # source, the C side sizes shared memory from the argument
-    assert "smem_bytes<float>(sb, hd)" in _src() and "kSB" not in _src()
+    assert tuple(map(int, enum.groups())) == (attention.K2_FORMS.index("decode_tc"),
+                                              attention.K2_FORMS.index("decode_f32tc"))
+    # the two-pass f32 form is gone; both forms take the plan's whole tiles
+    assert "attn_partial" not in _src() and "kFma" not in _src()
+    assert "slots_per_split % kTile ||" in _src()
     assert attention.k2_plan(torch.float32, 2, 2, 1, 1, 64, 512) == \
-        ("fma", 128, 4, 2 * 2 * 4 * 1 * 66)
+        ("decode_f32tc", 64, 8, 2 * 2 * 8 * 1 * 66)
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,

@@ -12,7 +12,8 @@ fragment's rows fall on distinct banks), the slots of a q-tile cut into
 chunks that `prefill_plan` plans from the shapes alone, each chunk's f32
 partials merged in order by a second launch (`attn_prefill_merge`). Here,
 without a card, the wrapper takes the plain version; the tests pin the
-routing rule (f32 keeps the CUDA-core form), the plan's invariants and its
+routing rule (f32 takes the 3xTF32 form, tests/test_torch_attn_f32tc.py),
+the plan's invariants and its
 values at the 7B windows, the form codes and the C signature, the shared
 memory two blocks an SM need, the launcher on meta tensors, and an
 emulation of what each lane copies, reads, multiplies, masks, rounds and
@@ -59,18 +60,18 @@ def _const(name: str) -> int:
 
 def test_k7_form_routes_by_cache_dtype():
     assert attention.k7_form(torch.bfloat16) == "prefill_tc"
-    assert attention.k7_form(torch.float32) == "fma"
+    assert attention.k7_form(torch.float32) == "prefill_f32tc"
 
 
 def test_k7_form_codes_match_the_c_entry_point():
-    enum = re.search(r"enum Form \{ kFma = (\d), kPrefillTc = (\d) \};", _src())
+    enum = re.search(r"enum Form \{ kPrefillTc = (\d), kPrefillF32Tc = (\d) \};", _src())
     assert enum is not None
-    assert tuple(map(int, enum.groups())) == (attention.K7_FORMS.index("fma"),
-                                              attention.K7_FORMS.index("prefill_tc"))
-    # the f32 form takes one chunk and no workspace; the tensor-core form
-    # whole tiles a chunk, and a workspace when there is more than one
-    assert "if (n_chunks != 1) return (int)cudaErrorInvalidValue;" in _src()
-    assert "slots_per_chunk % kBN || (n_chunks > 1 && ws == nullptr)" in _src()
+    assert tuple(map(int, enum.groups())) == (attention.K7_FORMS.index("prefill_tc"),
+                                              attention.K7_FORMS.index("prefill_f32tc"))
+    # both forms take whole tiles a chunk, and a workspace when there is
+    # more than one; the f32 FMA form is gone
+    assert "slots_per_chunk % kBN ||\n      (n_chunks > 1 && ws == nullptr)" in _src()
+    assert "attn_prefill_fma" not in _src() and "kFma" not in _src()
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
@@ -143,8 +144,9 @@ def test_plan_at_the_7b_windows():
     plan = {t: attention.prefill_plan(torch.bfloat16, 1, 32, t, 1, 128, 1024)[1:3]
             for t in (64, 128, 256)}
     assert plan == {64: (128, 8), 128: (256, 4), 256: (1024, 1)}
+    # the f32 form takes the same chunks (its blocks hold 64 query rows too)
     assert attention.prefill_plan(torch.float32, 1, 32, 64, 1, 128, 1000) == (
-        "fma", 1024, 1, 0)
+        "prefill_f32tc", 128, 8, 32 * 8 * 64 * 130)
 
 
 def test_two_blocks_an_sm_fit():
