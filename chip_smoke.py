@@ -16,10 +16,11 @@ Phases, each of which fails the run (exit code 1, no result line):
      TFLOP/s bf16, 1,979 TOPS int8, 67 TFLOP/s f32, 495 / 3 TFLOP/s for
      three TF32 products a product; H100 SXM data sheet).
      K1 (Q8_0 and Q4_0, each of its four forms: up to 8 rows the
-     tensor-core decode form for bf16 x, checked at m = 1, 2, 3, 4, 5 and
-     8 and timed at 4 and 8, and the GEMV for f32 x, timed at 4; above
-     that the tensor-core tile for bf16 x and for f32 x as its three exact
-     bf16 parts, f32_tc, checked at m = 9 to 256 into NaN-filled memory and
+     tensor-core decode form, for bf16 x and for f32 x as its three exact
+     bf16 parts split in the kernel (f32_decode_tc), checked at m = 1 to 8
+     into NaN-filled memory and timed at 4 and 8; above that the
+     tensor-core tile for bf16 x and for f32 x as its three exact bf16
+     parts, f32_tc, checked at m = 9 to 256 into NaN-filled memory and
      timed at 64 and 256 against three bf16 passes), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
      fills 1 to 1024 with the serving fill 101 and the split's edges, and
@@ -45,8 +46,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      bf16 parts, checked at m = 17 to 256 into NaN-filled memory, timed at
      64 and 256), K9
      (scale-on-output matmul, each of its forms: the tensor-core decode
-     form for bf16 x at m <= 8, checked at m = 1, 3, 4 and 8 and timed at
-     4; the GEMV for f32 x, timed at 4, and for m = 9 and 16), K7 (flash
+     form for bf16 x and for f32 x as three bf16 parts at m <= 8, checked
+     at m = 1 to 8 into NaN-filled memory, bf16 x timed at 4 and f32 x at 4
+     and 8; the GEMV for m = 9 and 16), K7 (flash
      prefill attention; its 3xTF32 f32 form checked within 1e-4 into
      NaN-filled memory and timed beside SDPA on f32 tensors) and
      K10 (fused RMSNorm, into NaN-filled memory);
@@ -65,7 +67,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      (K1's and K6's tensor-core tiles, K1's decode form and the
      tensor-core forms of K2, K8 and K9 must launch; with f32 x K1, K2, K8
      and K9 take only their f32 forms: K1 and K6 their tile on x's three
-     bf16 parts in the prefill windows, K2 and K7 their 3xTF32 forms);
+     bf16 parts in the prefill windows, K1 and K9 their decode form on
+     x's three bf16 parts in the decode steps, K2 and K7 their 3xTF32
+     forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
      as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
@@ -120,8 +124,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      then w4x8 weights (seed 0) and f32 compute, the f32 cache, 4 slots, 4
      jobs of which one brings a 600-token prompt: 0 failed jobs,
      in-vocabulary tokens, the repeated greedy job; every K1 call over 8
-     rows and every K6 call takes its tile on x's three bf16 parts and is
-     counted as it; one forward over a 64-token prompt through the kernels
+     rows and every K6 call takes its tile on x's three bf16 parts, every
+     K1 call of at most 8 rows its decode form on them, each counted as
+     its form; one forward over a 64-token prompt through the kernels
      against the same forward with the plain matmuls swapped in on the
      card, within 1e-3 of max|logit|; a 64- and a 256-token prefill chunk
      profiled (host ms, device busy, `matmul_ms`) and a decode step; every
@@ -201,13 +206,16 @@ K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 K10_RTOL_F32 = 1e-5
 K10_D = 4096
 # the tensor-core forms of the lab's float and integer rows, of K5 and of
-# K7, with K7's merge, and K1's and K6's tiles (bf16 x, and f32 x as three
-# bf16 parts): none may spill
+# K7, with K7's merge, K1's and K6's tiles (bf16 x, and f32 x as three bf16
+# parts), and K1's and K9's decode forms (bf16 x, and f32 x as three bf16
+# parts): none may spill
 TC_FORMS = {"lab_decode_tc": "lab_matmul", "lab_decode_i8tc": "lab_matmul",
             "w4x8_a8_tc": "w4x8_matmul", "attn_prefill_tc": "attn_prefill",
             "attn_prefill_merge": "attn_prefill", "dq_tc": "dequant_matmul",
             "w4x8_tc": "w4x8_matmul", "attn_prefill_f32tc": "attn_prefill",
-            "attn_decode_f32tc": "attn_decode"}
+            "attn_decode_f32tc": "attn_decode", "dq_decode_tc": "dequant_matmul",
+            "dq_decode_f32tc": "dequant_matmul", "so_decode_tc": "dequant_matmul_so",
+            "so_decode_f32tc": "dequant_matmul_so"}
 # the rate that bounds the tile with f32 x (K1's and K6's "f32_tc"): three
 # bf16 passes, one a part of x
 F32_TC_OPS_PER_S = BF16_OPS_PER_S / 3
@@ -245,13 +253,15 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------- phase 2
 
-def _random_leaf(gen, dev, fmt: str, k: int, n: int) -> dict:
-    """A random quantized leaf with bf16 scales in (0, 0.02): "q8" (Q8_0),
-    "q4" (Q4_0) or "q4x" (w4x8, its group scales stored as duplicated rows)."""
+def _random_leaf(gen, dev, fmt: str, k: int, n: int, scale_dtype: str = "bfloat16") -> dict:
+    """A random quantized leaf with scales in (0, 0.02), bf16 unless
+    `scale_dtype` names f32 (Q8_0 and Q4_0 only): "q8" (Q8_0), "q4" (Q4_0)
+    or "q4x" (w4x8, its group scales stored as duplicated rows)."""
     import torch
 
     def scales(rows):
-        return (torch.rand((rows, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        return (torch.rand((rows, n), generator=gen, device=dev) * 0.02).to(
+            getattr(torch, scale_dtype))
 
     if fmt == "q8":
         return {"q8": torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8,
@@ -273,7 +283,8 @@ def _leaf_bytes(w: dict) -> int:
 
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
                  other_m: tuple, ops_per_s, seed: int, other_shapes: tuple = ("wqkv",),
-                 timed_dtype: str = "bfloat16", checked=None) -> tuple[dict, dict]:
+                 timed_dtype: str = "bfloat16", checked=None,
+                 scale_dtype: str = "bfloat16") -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
     and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
@@ -285,7 +296,8 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
     dtype) and, for each timed m, the kernels line's numbers over one pass
     of the five shapes (one decode step at decode rows, one prefill pass at
     prefill rows). `checked`, where given, takes the kernel's place in the
-    checks (not in the timing)."""
+    checks (not in the timing). The leaves' scales are `scale_dtype` (bf16,
+    or f32 for Q8_0 and Q4_0)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
@@ -296,11 +308,11 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
     errs: dict = {}
     rows = []
     for name, k, n, per_step in (K1_SHAPES if fmt == "q8" else INT4_SHAPES):
-        ws = [_random_leaf(gen, dev, fmt, k, n)]
+        ws = [_random_leaf(gen, dev, fmt, k, n, scale_dtype)]
         # copies enough that a cycle of calls streams past the 50 MB L2,
         # as the decode step's weight stream does
         copies = max(1, -(-200_000_000 // _leaf_bytes(ws[0])))
-        ws += [_random_leaf(gen, dev, fmt, k, n) for _ in range(copies - 1)]
+        ws += [_random_leaf(gen, dev, fmt, k, n, scale_dtype) for _ in range(copies - 1)]
         cases = [("float32", ws[0]), ("bfloat16", ws[0])]
         if name == "wqkv" and fmt != "q4x":
             f32_scales = {**ws[0], "s": ws[0]["s"].float()}
@@ -392,27 +404,30 @@ def _f32_fma_pass_ms(m: int, fmt: str) -> float:
 
 def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict]:
     """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms, at the five
-    7B shapes, against the plain version with f32 and bf16 x: at m = 1, 2,
-    3, 4, 5 and 8 (decode: the tensor-core decode form for bf16 x, the GEMV
-    for f32 x), and 9, 16, 17, 32, 64, 100 and 256 (every row tiling of the
-    tensor-core tile, ragged ones: bf16 x, and f32 x as its three bf16
-    parts, "f32_tc"). Timed with bf16 x at m=4 and 8 (the decode form at 4
-    and 8 slots), 64 (the prefill bucket of the smoke's prompts) and 256
-    (the long prompts' chunks), all against the bf16 rate; and with f32 x at
-    m=4 (the GEMV, against the f32 rate), 64 and 256 (the tile with f32 x,
-    against three bf16 passes, F32_TC_OPS_PER_S; f32 FMA's bound logged
-    beside it). Every call must take the form `k1_form` names (`launches_tc`
-    counts the tensor-core tile, `launches_f32_tc` it with f32 x,
-    `launches_decode_tc` the decode form); every checked call writes into
-    NaN-filled memory. Returns the kernels line's numbers of the GEMV (one
-    decode step at m=4, f32 x), of the tensor-core tile (one prefill pass at
-    m=64), of the decode form (one decode step at m=4) and of the tile with
-    f32 x (one prefill pass at m=64)."""
+    7B shapes, against the plain version with f32 and bf16 x: at m = 1 to 8
+    (decode: the tensor-core decode form, for f32 x on x's three bf16
+    parts, "f32_decode_tc"), and 9, 16, 17, 32, 64, 100 and 256 (every row
+    tiling of the tensor-core tile, ragged ones: bf16 x, and f32 x as its
+    three bf16 parts, "f32_tc"). Timed with bf16 x at m=4 and 8 (the
+    decode form at 4 and 8 slots), 64 (the prefill bucket of the smoke's
+    prompts) and 256 (the long prompts' chunks), all against the bf16
+    rate; and with f32 x at m=4 and 8 (the decode form on three parts) and
+    64 and 256 (the tile on three parts), against three bf16 passes
+    (F32_TC_OPS_PER_S: the bytes bound every decode row count; f32 FMA's
+    bound logged beside the tile's). Every call must take the form
+    `k1_form` names (`launches_tc` counts the tensor-core tile,
+    `launches_f32_tc` it with f32 x, `launches_decode_tc` the decode form,
+    `launches_f32_decode_tc` it with f32 x); every checked call writes into
+    NaN-filled memory. Returns the kernels line's numbers of the decode
+    form with f32 x (one decode step at m=4), of the tensor-core tile (one
+    prefill pass at m=64), of the decode form (one decode step at m=4) and
+    of the tile with f32 x (one prefill pass at m=64)."""
     from llamago_tpu_torch.ops import kernels
 
     fn = kernels.dequant_matmul
     k1 = _counted(fn, lambda: {"tensor_core": fn.launches_tc, "f32_tc": fn.launches_f32_tc,
-                               "decode_tc": fn.launches_decode_tc}, kernels.k1_form)
+                               "decode_tc": fn.launches_decode_tc,
+                               "f32_decode_tc": fn.launches_f32_decode_tc}, kernels.k1_form)
 
     def k1_nan(x, w):
         n = w["s"].shape[1]
@@ -423,19 +438,26 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
     shapes = tuple(name for name, *_ in K1_SHAPES)
     errs, steps = check_matmul(
         dev, detail, tag, fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 8, 64, 256),
-        other_m=(1, 2, 3, 5, 9, 16, 17, 32, 100), ops_per_s=lambda m: BF16_OPS_PER_S,
+        other_m=(1, 2, 3, 5, 6, 7, 9, 16, 17, 32, 100), ops_per_s=lambda m: BF16_OPS_PER_S,
         seed=1 if fmt == "q8" else 7, other_shapes=shapes, checked=k1_nan)
     errs32, steps32 = check_matmul(
-        dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 64, 256),
-        other_m=(), ops_per_s=lambda m: F32_OPS_PER_S if m <= 8 else F32_TC_OPS_PER_S,
+        dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain,
+        timed_m=(4, 8, 64, 256), other_m=(), ops_per_s=lambda m: F32_TC_OPS_PER_S,
         seed=2 if fmt == "q8" else 8, timed_dtype="float32", checked=k1_nan)
+    f32_decode = lambda m, xdt: m <= 8 and xdt == "float32"  # noqa: E731
+    if sorted(m for m, xdt in errs if f32_decode(m, xdt)) != list(range(1, 9)):
+        raise AssertionError("K1: the decode form with f32 x was not checked at m = 1 to 8")
     if not any(m > 8 and xdt == "float32" for m, xdt in errs):
         raise AssertionError("K1: the tile with f32 x was not checked")
     for m in (4, 8):
         log(f"{tag} at m={m}: the decode form {steps[m]['ms']:.3f} ms per step (bf16 x), "
             f"x@W {steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms")
-    log(f"{tag} at m=4: the GEMV {steps32[4]['ms']:.3f} ms per step (f32 x)")
     both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
+    for m in (4, 8):
+        log(f"{tag} at m={m}, f32 x: the f32_decode_tc form {steps32[m]['ms']:.3f} ms per "
+            f"step, x@W f32 {steps32[m]['library_ms']:.3f} ms, bound "
+            f"{steps32[m]['bound_ms']:.3f} ms ({steps32[m]['bound_by']}); largest error over "
+            f"m <= 8 {max(e for key, e in both.items() if f32_decode(*key)):.2e}")
     f32_tc = lambda m, xdt: m > 8 and xdt == "float32"  # noqa: E731
     for m in (64, 256):
         log(f"{tag} at m={m}, f32 x: the f32_tc form {steps32[m]['ms']:.3f} ms per pass, "
@@ -443,7 +465,7 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
             f"(three bf16 passes or bytes), f32 FMA's {_f32_fma_pass_ms(m, fmt):.3f} ms; "
             f"largest error over m > 8 "
             f"{max(e for key, e in both.items() if f32_tc(*key)):.2e}")
-    return (_line(both, steps32, 4, lambda m, xdt: m <= 8 and xdt == "float32"),
+    return (_line(both, steps32, 4, f32_decode),
             _line(errs, steps, 64, lambda m, xdt: m > 8 and xdt == "bfloat16"),
             _line(errs, steps, 4, lambda m, xdt: m <= 8 and xdt == "bfloat16"),
             _line(both, steps32, 64, f32_tc))
@@ -585,48 +607,62 @@ def check_k6(dev, detail: dict) -> tuple[dict, dict]:
 
 def check_k9(dev, detail: dict) -> tuple[dict, dict]:
     """K9 in each of its forms, for Q8_0 and Q4_0 leaves at the five 7B
-    shapes: bf16 x at m = 4 checked and timed, and 1, 3 and 8 rows at the
-    wqkv shape (the tensor-core decode form), 9 and 16 rows there too (its
-    GEMV: more rows than the decode form takes, reached when the switch is
-    set above 8, and more than one GEMV launch); f32 x at every one of those
-    m (the GEMV), and timed at m = 4 for Q4_0 (against the f32 rate). Every
-    call must take the form
-    `k9_form` names (`launches_decode_tc` counts the decode form). Returns
-    the kernels line's numbers of the decode form (Q8_0, the format of its
-    run in phase 4b) and of the GEMV (Q4_0 with f32 x, its run in phase 3),
-    each one decode step at m = 4."""
+    shapes: bf16 x at m = 4 checked and timed, and 1, 2, 3, 5, 6, 7 and 8
+    rows at the wqkv shape (the tensor-core decode form), 9 and 16 rows
+    there too (its GEMV: more rows than the decode forms take, reached when
+    the switch is set above 8, and more than one GEMV launch); f32 x at
+    every one of those m (up to 8 rows the decode form on x's three bf16
+    parts, above the GEMV), and timed at m = 4 and 8 for Q4_0 (against the
+    bytes). Every call must take the form `k9_form` names
+    (`launches_decode_tc` counts the decode form, `launches_f32_decode_tc`
+    it with f32 x) and every checked call writes into NaN-filled memory.
+    Returns the kernels line's numbers of the decode form (Q8_0, the
+    format of its run in phase 4b) and of it with f32 x (Q4_0, its run in
+    phase 3), each one decode step at m = 4."""
     from llamago_tpu_torch.ops import kernels
 
-    def k9(x, w):
-        fn = kernels.dequant_matmul_so
-        before = (fn.launches, fn.launches_decode_tc)
-        out = kernels.dequant_matmul_so(x, w)
-        tc = kernels.k9_form(x.shape[0], x.dtype) == "decode_tc"
-        if (fn.launches, fn.launches_decode_tc) != (before[0] + 1, before[1] + tc):
-            raise AssertionError(f"K9 m={x.shape[0]} x={x.dtype}: the counts went from "
-                                 f"{before} to {(fn.launches, fn.launches_decode_tc)}")
-        return out
+    fn = kernels.dequant_matmul_so
+    counted = _counted(fn, lambda: {"decode_tc": fn.launches_decode_tc,
+                                    "f32_decode_tc": fn.launches_f32_decode_tc,
+                                    "gemv": fn.launches - fn.launches_decode_tc
+                                    - fn.launches_f32_decode_tc}, kernels.k9_form)
 
-    gemv = lambda m, xdt: xdt == "float32" or m > 8  # noqa: E731
+    def k9_nan(x, w):
+        n = w["s"].shape[1]
+        _nan_first(x, n, kernels.k9_plan(x.shape[0], x.shape[1], n, x.dtype)[2])
+        return counted(x, w)
+
+    f32_decode = lambda m, xdt: m <= 8 and xdt == "float32"  # noqa: E731
+    bf16_decode = lambda m, xdt: m <= 8 and xdt == "bfloat16"  # noqa: E731
     out = {}
     for fmt in ("q8", "q4"):
-        errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, k9,
+        errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, counted,
                                    kernels.dequant_matmul_so_plain, timed_m=(4,),
-                                   other_m=(1, 3, 8, 9, 16), ops_per_s=lambda m: BF16_OPS_PER_S,
-                                   seed=11 if fmt == "q8" else 12)
+                                   other_m=(1, 2, 3, 5, 6, 7, 8, 9, 16),
+                                   ops_per_s=lambda m: BF16_OPS_PER_S,
+                                   seed=11 if fmt == "q8" else 12, checked=k9_nan)
+        if sorted(m for m, xdt in errs if f32_decode(m, xdt)) != list(range(1, 9)):
+            raise AssertionError(f"K9 {fmt}: the decode form with f32 x was not checked at "
+                                 "m = 1 to 8")
         log(f"K9 {fmt} at m=4: the decode form {steps[4]['ms']:.3f} ms per step (bf16 x), "
-            f"x@W {steps[4]['library_ms']:.3f} ms, bound {steps[4]['bound_ms']:.3f} ms")
-        out[fmt] = _line(errs, steps, 4, lambda m, xdt: not gemv(m, xdt))
-        out[f"{fmt} gemv"] = errs
-    # the GEMV timed with f32 x in the format of its run in phase 3 (Q4_0)
-    errs32, steps32 = check_matmul(dev, detail, "K9 q4 f32", "q4", k9,
-                                   kernels.dequant_matmul_so_plain, timed_m=(4,), other_m=(),
-                                   ops_per_s=lambda m: F32_OPS_PER_S, seed=14,
-                                   timed_dtype="float32")
-    log(f"K9 q4 at m=4: the GEMV {steps32[4]['ms']:.3f} ms per step (f32 x)")
-    both = {key: max(e.get(key, 0.0) for e in (out["q8 gemv"], out["q4 gemv"], errs32))
-            for key in {*out["q8 gemv"], *out["q4 gemv"], *errs32}}
-    return out["q8"], _line(both, steps32, 4, gemv)
+            f"x@W {steps[4]['library_ms']:.3f} ms, bound {steps[4]['bound_ms']:.3f} ms; largest "
+            f"error, the GEMV (m > 8) "
+            f"{max(e for (m, xdt), e in errs.items() if m > 8):.2e}")
+        out[fmt] = _line(errs, steps, 4, bf16_decode)
+        out[f"{fmt} all"] = errs
+    # the decode form with f32 x timed in the format of its run in phase 3 (Q4_0)
+    errs32, steps32 = check_matmul(dev, detail, "K9 q4 f32", "q4", counted,
+                                   kernels.dequant_matmul_so_plain, timed_m=(4, 8), other_m=(),
+                                   ops_per_s=lambda m: F32_TC_OPS_PER_S, seed=14,
+                                   timed_dtype="float32", checked=k9_nan)
+    both = {key: max(e.get(key, 0.0) for e in (out["q8 all"], out["q4 all"], errs32))
+            for key in {*out["q8 all"], *out["q4 all"], *errs32}}
+    for m in (4, 8):
+        log(f"K9 q4 at m={m}: the f32_decode_tc form {steps32[m]['ms']:.3f} ms per step (f32 "
+            f"x), x@W f32 {steps32[m]['library_ms']:.3f} ms, bound "
+            f"{steps32[m]['bound_ms']:.3f} ms; largest error over m <= 8, f32 x "
+            f"{max(e for key, e in both.items() if f32_decode(*key)):.2e}")
+    return out["q8"], _line(both, steps32, 4, f32_decode)
 
 
 def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
@@ -1689,13 +1725,13 @@ def check_small_model(dev) -> int:
     last, logits with bf16 compute on the card against the CPU's f32 ones,
     of the dense cache (K1's tensor-core tile takes the prefill windows,
     its decode form the decode step) and of the int8 cache under K8 (its
-    tensor-core form, every call). With f32 x K1 takes the GEMV in decode
-    steps and its tile on x's three bf16 parts (f32_tc) in the prefill
-    windows, in every f32 run; over the dense cache K2 and K7 (opt-in) take
-    their f32 tensor-core forms. Returns the
-    launches of K8 in its f32 run (its CUDA-core form: f32 q), of K1's GEMV
-    and of its f32_tc form in the dense cache's, and of K2 and its and K7's
-    f32 tensor-core forms over the dense cache's runs."""
+    tensor-core form, every call). With f32 x every K1 call takes a form on
+    x's three bf16 parts, in every f32 run: its decode form (f32_decode_tc)
+    in decode steps and its tile (f32_tc) in the prefill windows; over the
+    dense cache K2 and K7 (opt-in) take their f32 tensor-core forms.
+    Returns the launches of K8 in its f32 run (its CUDA-core form: f32 q),
+    of K1's f32_decode_tc and f32_tc forms in the dense cache's, and of K2
+    and its and K7's f32 tensor-core forms over the dense cache's runs."""
     import torch
 
     from llamago_tpu_torch.checkpoint.params import (
@@ -1722,7 +1758,8 @@ def check_small_model(dev) -> int:
     vocab = _byte_vocab(dense.vocab_size)
     gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
     int8 = dense.replace(kv_dtype="int8")
-    default, k8_launches, k1_gemv_launches, k1_f32_tc_launches = attention._I8DOT, 0, 0, 0
+    default, k8_launches, k1_f32_decode_launches, k1_f32_tc_launches = (attention._I8DOT, 0,
+                                                                        0, 0)
     # K2's and K7's f32 forms over the dense cache's runs
     f32_attn = dict.fromkeys(("flash_attention", "flash_attention_decode_f32tc",
                               "flash_attention_prefill_f32tc"), 0)
@@ -1777,12 +1814,13 @@ def check_small_model(dev) -> int:
                                      f"form only: {counts}")
         if name == "dense cache":
             k1_f32_tc_launches = counts["dequant_matmul_f32_tc"]
-            k1_gemv_launches = counts["dequant_matmul"] - k1_f32_tc_launches
-        if counts["dequant_matmul_f32_tc"] == 0 \
-                or counts["dequant_matmul"] <= counts["dequant_matmul_f32_tc"] \
-                or counts["dequant_matmul_tc"] > 0 or counts["dequant_matmul_decode_tc"] > 0:
-            raise AssertionError(f"small model, {name}: with f32 x K1 must take its GEMV and its "
-                                 f"f32_tc form, no bf16 form: {counts}")
+            k1_f32_decode_launches = counts["dequant_matmul_f32_decode_tc"]
+        if counts["dequant_matmul_f32_tc"] == 0 or counts["dequant_matmul_f32_decode_tc"] == 0 \
+                or counts["dequant_matmul"] != counts["dequant_matmul_f32_tc"] \
+                + counts["dequant_matmul_f32_decode_tc"]:
+            raise AssertionError(f"small model, {name}: with f32 x every K1 call must take its "
+                                 f"f32_decode_tc form (decode) or its f32_tc form (prefill), "
+                                 f"no other: {counts}")
         if counts["flash_attention_decode_tc"] > 0 or (
                 cfg.kv_dtype != "int8" and (
                     counts["flash_attention_decode_f32tc"] == 0
@@ -1827,7 +1865,7 @@ def check_small_model(dev) -> int:
                              f"tensor-core form: {counts}")
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
-    return k8_launches, k1_gemv_launches, k1_f32_tc_launches, f32_attn
+    return k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, f32_attn
 
 
 def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
@@ -1881,12 +1919,14 @@ def check_small_model_int4(dev) -> dict:
     16-token window and a decode step, and greedy tokens of a short engine
     run; in the w4x8 format (K5 at decode, K6's tile on x's three bf16
     parts in prefill; w2, whose K = 1376 is no multiple of 128, stays Q4_0
-    and takes K1 bits=4, its f32_tc form in prefill: the mixed tree), in the
-    Q4_0 format (K1 bits=4: the GEMV, and f32_tc in prefill), and in the
-    Q4_0 format
-    with the scale-on-output switch at 8 rows (K9 at decode: its GEMV with
-    f32 x). Then the w4x8 model's logits and those of the Q4_0 model with the
-    switch at 8 with bf16 compute on the card against the CPU's f32 ones,
+    and takes K1 bits=4, its f32_tc form in prefill and its f32_decode_tc
+    form at decode: the mixed tree), in the Q4_0 format (K1 bits=4:
+    f32_decode_tc at decode, f32_tc in prefill), and in the Q4_0 format
+    with the scale-on-output switch at 8 rows (K9 at decode: its decode
+    form on f32 x's three bf16 parts). Every K1 call takes one of its two
+    forms on x's parts, every K9 call its f32 decode form. Then the w4x8
+    model's logits and those of the Q4_0 model with the switch at 8 with
+    bf16 compute on the card against the CPU's f32 ones,
     their layers' scales set to 0.002 as the dense model's are (the prefill
     windows, 80 and 32 rows, take K6's tensor-core tile, or K1's; the
     decode step of the Q4_0 model K9's tensor-core decode form).
@@ -1914,9 +1954,11 @@ def check_small_model_int4(dev) -> dict:
         for name, fmt, so_max_m, must in (
                 ("w4x8", "w4x8", 0, ("w4x8_matmul_a8", "w4x8_matmul_stream",
                                      "w4x8_matmul_f32_tc", "dequant_matmul_q4",
-                                     "dequant_matmul_f32_tc")),
-                ("q4_0", "q4_0", 0, ("dequant_matmul_q4", "dequant_matmul_f32_tc")),
+                                     "dequant_matmul_f32_tc", "dequant_matmul_f32_decode_tc")),
+                ("q4_0", "q4_0", 0, ("dequant_matmul_q4", "dequant_matmul_f32_tc",
+                                     "dequant_matmul_f32_decode_tc")),
                 ("q4_0, scale on output", "q4_0", 8, ("dequant_matmul_so",
+                                                      "dequant_matmul_so_f32_decode_tc",
                                                       "dequant_matmul_q4",
                                                       "dequant_matmul_f32_tc"))):
             os.environ["LLAMAGO_INT4_EXEC"] = fmt
@@ -1954,13 +1996,19 @@ def check_small_model_int4(dev) -> dict:
             counts[name] = launch_counts()
             log(f"small int4 model, {name}: launches {counts[name]}")
             idle = [k for k in must if counts[name][k] == 0]
-            if idle or counts[name]["dequant_matmul"] > 0 or counts[name]["w4x8_matmul_tc"] > 0 \
-                    or counts[name]["dequant_matmul_so_decode_tc"] > 0 \
-                    or counts[name]["w4x8_matmul_f32_tc"] != counts[name]["w4x8_matmul_stream"]:
+            c = counts[name]
+            if idle or c["dequant_matmul"] > 0 or c["w4x8_matmul_tc"] > 0 \
+                    or c["dequant_matmul_so_decode_tc"] > 0 \
+                    or c["w4x8_matmul_f32_tc"] != c["w4x8_matmul_stream"] \
+                    or c["dequant_matmul_q4"] != c["dequant_matmul_f32_tc"] \
+                    + c["dequant_matmul_f32_decode_tc"] \
+                    or c["dequant_matmul_so"] != c["dequant_matmul_so_f32_decode_tc"]:
                 raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
-                                     f"the Q8_0 kernel, K6's tile for bf16 x or K9's decode "
-                                     f"form (f32 x) did, or a K6 call took another form than "
-                                     f"f32_tc: {counts[name]}")
+                                     f"the Q8_0 kernel, K6's tile for bf16 x or K9's bf16 "
+                                     f"decode form did, or a K6 call took another form than "
+                                     f"f32_tc, a K1 call another than f32_tc or "
+                                     f"f32_decode_tc, a K9 call another than f32_decode_tc: "
+                                     f"{c}")
             if fmt == "w4x8" or so_max_m:
                 # small scales, as for the dense model: with 0.01 bf16 rounding
                 # alone moved this model's logits by 0.29 of max|logit| at
@@ -2011,12 +2059,15 @@ def _launch_counters():
             "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
             "dequant_matmul_decode_tc": (kernels.dequant_matmul, "launches_decode_tc"),
             "dequant_matmul_f32_tc": (kernels.dequant_matmul, "launches_f32_tc"),
+            "dequant_matmul_f32_decode_tc": (kernels.dequant_matmul, "launches_f32_decode_tc"),
             "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
             "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
             "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
             "w4x8_matmul_f32_tc": (kernels.w4x8_matmul, "launches_f32_tc"),
             "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
             "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
+            "dequant_matmul_so_f32_decode_tc": (kernels.dequant_matmul_so,
+                                                "launches_f32_decode_tc"),
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
             "flash_attention_decode_f32tc": (attention.flash_attention,
@@ -2353,7 +2404,8 @@ def serve_f32(dev, weight_dtype: str) -> dict:
     the f32 cache, 4 slots, 4 jobs of which one brings a 600-token prompt
     (256-token chunks): 0 failed jobs, in-vocabulary tokens, a repeated
     greedy job (`serve`); every K1 launch plan over 8 rows and every K6 one
-    names f32_tc, and every such call is counted as it; every K2 call takes
+    names f32_tc, every K1 plan of at most 8 rows (Q8_0) f32_decode_tc, and
+    every such call is counted as its form; every K2 call takes
     its f32 tensor-core form; then one forward over a 64-token
     prompt with the kernels against the same forward with the plain
     matmuls swapped in on the card, within F32_LOGIT_TOL. `serve` profiles
@@ -2368,7 +2420,8 @@ def serve_f32(dev, weight_dtype: str) -> dict:
 
     cfg, params = make_7b_params(dev, weight_dtype, dtype="float32")
     int8 = weight_dtype == "int8"
-    rise = (("dequant_matmul", "dequant_matmul_f32_tc") if int8 else
+    rise = (("dequant_matmul", "dequant_matmul_f32_tc", "dequant_matmul_f32_decode_tc")
+            if int8 else
             ("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_f32_tc")) + (
         "flash_attention", "flash_attention_decode_f32tc")
     with plans_seen() as seen:
@@ -2382,6 +2435,18 @@ def serve_f32(dev, weight_dtype: str) -> dict:
                              f"forms {sorted(set(big))}, {counts[counter]} counted as f32_tc")
     log(f"serve, f32, {weight_dtype}: every one of {len(big)} calls over {above} rows took "
         f"f32_tc")
+    if int8:
+        small = [form for m, form in seen["k1"] if m <= 8]
+        if not small or any(form != "f32_decode_tc" for form in small) \
+                or len(small) != counts["dequant_matmul_f32_decode_tc"] \
+                or counts["dequant_matmul"] != len(big) + len(small):
+            raise AssertionError(f"serve, f32, int8: {len(small)} K1 plans of at most 8 rows, "
+                                 f"forms {sorted(set(small))}, "
+                                 f"{counts['dequant_matmul_f32_decode_tc']} counted as "
+                                 f"f32_decode_tc, {counts['dequant_matmul']} K1 calls")
+        log(f"serve, f32, int8: every one of {len(small)} K1 calls of at most 8 rows took "
+            f"f32_decode_tc")
+        served["f32_decode_tc_calls"] = len(small)
     if counts["flash_attention_decode_f32tc"] != counts["flash_attention"]:
         raise AssertionError(f"serve, f32, {weight_dtype}: a K2 call over the f32 cache did not "
                              f"take its tensor-core form: {counts}")
@@ -2415,8 +2480,8 @@ def serve_f32(dev, weight_dtype: str) -> dict:
 ATTENTION_KERNELS = re.compile(
     r"(?:attn_|quant_partial|widening_tc|quant_merge|quant_combine)\w*")
 # the matmul kernels of a trace: K1's dq_* (its forms, reduce and GEMV),
-# K9's so_* (its decode form, GEMV and reduce), K5's and K6's w4x8_*
-MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|gemv|reduce)|w4x8_)\w*")
+# K9's so_* (its decode forms, GEMV and reduce), K5's and K6's w4x8_*
+MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|decode_f32tc|gemv|reduce)|w4x8_)\w*")
 # K10's and K3's kernels (rms_norm_onepass, append_warp; rms_norm_rows and
 # append_quant in checkouts before them)
 NORM_KERNELS = re.compile(r"rms_norm_\w+")
@@ -2624,7 +2689,7 @@ def main(argv: list[str]) -> int:
     k7, k7f32 = check_k7(dev, detail) if want("k7") else ({}, {})
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
-    k8_launches, k1_gemv_launches, k1_f32_tc_launches, small_f32_attn = (
+    k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, small_f32_attn = (
         check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
     detail["small_int4_launches"] = small4
@@ -2745,13 +2810,13 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
-        # K1's GEMV runs f32 x up to 8 rows, which phases 3 and 4e (Q8_0)
-        # drive; one decode step at m=4
-        {"name": "dequant_matmul", "route": "cuda",
+        # K1's decode form on f32 x's three bf16 parts runs f32 x up to 8
+        # rows, which phases 3 and 4e (Q8_0) drive; one decode step at m=4
+        {"name": "dq_decode_f32tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": k1_gemv_launches + served_f8["launches"]["dequant_matmul"]
-         - served_f8["launches"]["dequant_matmul_f32_tc"], **k1},
+         "launches": k1_f32_decode_launches
+         + served_f8["launches"]["dequant_matmul_f32_decode_tc"], **k1},
         # K1's tile on f32 x's three bf16 parts: its launches in phases 3
         # (the dense cache's f32 run) and 4e (Q8_0), one prefill pass at m=64
         {"name": "dequant_matmul_f32_tc", "route": "cuda",
@@ -2817,16 +2882,17 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
          "replaces": "llamago_tpu/ops/kernels.py:183",
          "launches": served_k89["launches"]["dequant_matmul_so_decode_tc"], **k9tc},
-        # K1 bits=4 and K9's GEMV (f32 x) run in the Q4_0 format, which phase 3
-        # drives; the GEMV's numbers, one decode step at m=4, f32 x
+        # K1 bits=4 and K9's decode form on f32 x's parts run in the Q4_0
+        # format, which phase 3 drives; their numbers one decode step at
+        # m=4, f32 x (K1's: its f32_decode_tc form)
         {"name": "dequant_matmul_q4", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
          "launches": q4_run.get("dequant_matmul_q4", 0), **k1q4},
-        {"name": "dequant_matmul_so", "route": "cuda",
+        {"name": "so_decode_f32tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
          "replaces": "llamago_tpu/ops/kernels.py:183",
-         "launches": so_run.get("dequant_matmul_so", 0), **k9},
+         "launches": so_run.get("dequant_matmul_so_f32_decode_tc", 0), **k9},
         {"name": "flash_attention_prefill", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",

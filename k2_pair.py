@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """K2, K4, K8 (decode attention), K7 (prefill attention), K2's and K7's f32
-forms, K5 (the W4A8 decode matmul), K1's and K6's tiles with f32 x, K3 (the
-int8 cache append), K10 (RMSNorm) or the lab's float or integer rows of
-several checkouts on one card, side by side.
+forms, K5 (the W4A8 decode matmul), K1's and K6's tiles with f32 x, K1's
+and K9's decode matmuls with f32 x, K3 (the int8 cache append), K10
+(RMSNorm) or the lab's float or integer rows of several checkouts on one
+card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|k10|lab|labint]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|f32dec|k10|lab|labint]
                        [--k8-splits N,...]
                        [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
                        [--out FILE.json] ROOT [ROOT ...]
@@ -78,6 +79,16 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     bf16 planes apart from the tile, weights warm in L2); then phase 4e's
     64-token prefill chunk (7B Q8_0, random, seed 0, f32 compute, 4 slots):
     host ms, device busy and `matmul_ms` with the kernels it counted.
+  - `--kernel f32dec`: K1 (Q8_0 and Q4_0, each with bf16 scales, as the
+    random 7B weights have them, and with f32 scales, as a file brings
+    them) and K9 (Q4_0, `kernels.dequant_matmul_so`) with f32 x, the form
+    each checkout takes there, at m = 1, 2, 4 and 8 over chip_smoke's five
+    shapes (chip_smoke's `check_matmul`: each shape checked against the
+    plain version and timed over copies that stream past the L2, beside
+    `x @ W` in f32; one pass = one 7B decode step's 129 calls); then phase
+    4e's decode step (7B Q8_0, random, seed 0, f32 compute, the f32 cache,
+    4 slots at position 100): device busy, `matmul_ms` with the kernels it
+    counted, device kernels and host op calls a step.
   - `--kernel lab`: the kernel lab's six float variants (rows L2, L3, L9,
     L12: i4native, bf16dot, split_bf16_h, bitcast_i4, bitcast_i4_bf16,
     w16dot) and L1's `base` at the lab's shape (K=8192, N=7168, m=8, 24
@@ -421,6 +432,45 @@ def run_f32mm(cs, root: str) -> dict:
     return out
 
 
+F32DEC_ROWS = (1, 2, 4, 8)
+
+
+def run_f32dec(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    out = {"root": root, "card": cs.card_line()}
+    for tag, fmt, sdt, fn, plain, seed in (
+            ("k1_q8", "q8", "bfloat16", kernels.dequant_matmul, kernels.dequant_matmul_plain, 2),
+            ("k1_q8_f32s", "q8", "float32", kernels.dequant_matmul,
+             kernels.dequant_matmul_plain, 3),
+            ("k1_q4", "q4", "bfloat16", kernels.dequant_matmul, kernels.dequant_matmul_plain, 8),
+            ("k1_q4_f32s", "q4", "float32", kernels.dequant_matmul,
+             kernels.dequant_matmul_plain, 9),
+            ("k9_q4", "q4", "bfloat16", kernels.dequant_matmul_so,
+             kernels.dequant_matmul_so_plain, 14)):
+        detail: dict = {}
+        errs, steps = cs.check_matmul(dev, detail, tag, fmt, fn, plain, timed_m=F32DEC_ROWS,
+                                      other_m=(), ops_per_s=lambda m: cs.F32_TC_OPS_PER_S,
+                                      seed=seed, timed_dtype="float32", scale_dtype=sdt)
+        out[tag] = detail[tag]
+        out[f"{tag}_pass"] = {str(m): v for m, v in steps.items()}
+        out[f"{tag}_max_err"] = {f"{m} {xdt}": e for (m, xdt), e in errs.items()}
+        torch.cuda.empty_cache()
+    cfg, params = cs.make_7b_params(dev, "int8", dtype="float32")
+    engine = Engine(cfg, params, cs._byte_vocab(cfg.vocab_size), slots=4, decode_chunk_size=32,
+                    prefill_chunk=256, device=dev)
+    step = cs.profile_decode(engine, 32)
+    out["decode_step"] = {k: step[k] for k in ("step_ms", "device_busy_ms", "matmul_ms",
+                                               "matmul_kernels", "device_kernels_per_step",
+                                               "host_op_calls_per_step",
+                                               "top_kernels_ms_per_step")}
+    return out
+
+
 def run_lab(cs, root: str, names=LAB_NAMES) -> dict:
     import torch
 
@@ -579,6 +629,8 @@ def run_one(root: str, kernel: str, sweeps: dict) -> dict:
         return run_k5(cs, root)
     if kernel == "f32mm":
         return run_f32mm(cs, root)
+    if kernel == "f32dec":
+        return run_f32dec(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -617,7 +669,7 @@ SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "attn32", "k5", "f32mm",
-                                         "k10", "lab", "labint"), default="k2")
+                                         "f32dec", "k10", "lab", "labint"), default="k2")
     for name, what in SWEEPS.items():
         ap.add_argument("--" + name.replace("_", "-"), default="",
                         help=f"comma-separated {what}")

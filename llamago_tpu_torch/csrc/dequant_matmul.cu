@@ -6,10 +6,9 @@
 // [M, N]. bits=8: q int8 [K, N] row-major, w = q. bits=4: q uint8 [K/2, N],
 // where byte j of a 32-row block (packed rows 16b .. 16b+15) holds row
 // 32b+j in its low nibble and row 32b+j+16 in its high nibble, w = nibble
-// - 8. Every product is exact in f32 and accumulated in f32: the GEMV
-// multiplies x by w * s, the tensor-core forms (bf16 x, or f32 x as three
-// exact bf16 parts) sum x * w per quant block and multiply each block's sum
-// by s.
+// - 8. Every product is exact in f32 and accumulated in f32: the
+// tensor-core forms (bf16 x, or f32 x as three exact bf16 parts) sum x * w
+// per quant block and multiply each block's sum by s.
 //
 // Replaces llamago_tpu/ops/kernels.py _dequant_mm_kernel (bits 8 and 4),
 // reached through _dequant_matmul_2d and dequant_matmul.
@@ -23,9 +22,10 @@
 // What the design does about it:
 //  * M <= 8 with bf16 x (every decode step of the serving path) takes the
 //    tensor-core decode form (dq_decode_tc, its body in decode_tc.cuh,
-//    shared with K9). The CUDA-core GEMV below
-//    spends a convert, a scale multiply and M FMAs on each weight, so its
-//    time grows with M for the same bytes; here the weights are the A
+//    shared with K9). A CUDA-core GEMV spends a convert, a scale multiply
+//    and M FMAs on each weight, so its time grows with M for the same
+//    bytes (on an H100 one took 4.5 ms a 7B step at M = 1 and 14.3 at M =
+//    8 with f32 x, PERF.md's K1 rows); here the weights are the A
 //    operand of bf16 mma.sync.m16n8k16 (16 output columns by 16 rows of K)
 //    and x is B (16 rows of K by 8 columns: the M <= 8 slots, zeros past
 //    M), so the work per weight is the same from M = 1 to 8: about 2.5
@@ -48,18 +48,19 @@
 //    (ops/kernels.py, decode_tc_split_for) as far as one wave of blocks
 //    holds, and the splits' f32 partials are added in a fixed order by
 //    dq_reduce (no atomics).
-//  * M <= 8 with f32 x takes a weight-streaming GEMV-class kernel (dq_gemv),
-//    since the bf16 tensor cores cannot take f32 x without rounding it:
-//    each thread owns 16 neighbouring columns and reads one 16-byte vector
-//    of a weight row per step (two rows of the block in the packed Q4_0
-//    layout), so a warp reads 512 contiguous bytes of a row. Eight warps of
-//    a block split the rows of the block's K range by whole 32-row quant
-//    blocks (one scale per column per quant block), the x values of a quant
-//    block arrive in one coalesced load and are broadcast by warp shuffles,
-//    and the grid splits K further so that enough blocks are in flight to
-//    fill the card. Partial sums go to an f32 workspace and a second small
-//    kernel adds them in a fixed order, so results are the same from run
-//    to run (no atomics).
+//  * M <= 8 with f32 x (every decode step of the --dtype float32 route)
+//    takes the same decode form on x's three exact bf16 parts
+//    (dq_decode_f32tc, form f32_decode_tc): rounding x to bf16 would change
+//    the function, but x = hi + mid + lo (tc_common.cuh split3) and each
+//    part times an integer weight is exact in f32. x arrives whole by the
+//    same bulk copies (128 bytes a slot row; rows 160 bytes apart, so a
+//    lane's 8-byte reads fall on distinct banks), each lane splits the 8
+//    values of its B fragment in registers (no pre-pass, no planes: one
+//    launch a call, and dq_reduce where K is split), and each A fragment,
+//    decoded once, feeds three mma, lo, mid, hi, into the same zeroed block
+//    sum. The output is f32. The bytes bound it as they bound the bf16
+//    form: 3.6-3.8 ms a 7B step for Q8_0 (the bf16 form 3.1), 2.8-2.9 for
+//    Q4_0, at 155-161 registers (PERF.md).
 //  * M > 8 with bf16 x takes the tensor-core tile (dq_tc). At a prefill
 //    chunk (M = 64) the work is still bound by the weight stream (128
 //    operations per weight byte, under the card's bf16 ridge of ~295), at
@@ -82,7 +83,7 @@
 //    their 8 scales. Where the output tiles give fewer than two blocks per
 //    SM, K is split (ops/kernels.py, tc_split_for) and the splits write f32
 //    partials that dq_reduce adds in a fixed order (no atomics), as the
-//    GEMV does. The M tiles of one column strip have neighbouring block
+//    decode form does. The M tiles of one column strip have neighbouring block
 //    indices, so for M > 64 the strip comes from device memory once and
 //    from L2 after that. wgmma and TMA are later work.
 //  * M > 8 with f32 x (the --dtype float32 route) takes the same tile on x's
@@ -125,149 +126,10 @@
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// 16 consecutive scales starting at p (16-byte aligned) -> f32.
-__device__ __forceinline__ void load_scales16(const float* p, float out[16]) {
-  const float4* v = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 f = __ldg(v + i);
-    out[4 * i + 0] = f.x;
-    out[4 * i + 1] = f.y;
-    out[4 * i + 2] = f.z;
-    out[4 * i + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ void load_scales16(const __nv_bfloat16* p, float out[16]) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint4 u = __ldg(v + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float2 f = __bfloat1622float2(h[j]);
-      out[8 * i + 2 * j + 0] = f.x;
-      out[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-union Q16 {
-  int4 v;
-  int8_t b[16];
-};
-
-constexpr int kGemvWarps = 8;
-constexpr int kGemvCols = 32 * 16;  // columns per block: 32 lanes x 16
-
-// Split-K GEMV-class kernel for M <= MT. grid = (ceil(N/512), ksplit),
-// block = 256 threads. Block y covers quant blocks [y*bpb, (y+1)*bpb).
-template <typename XT, typename ST, int MT, int BITS>
-__global__ void __launch_bounds__(256) dq_gemv(const XT* __restrict__ x,
-                                               const int8_t* __restrict__ q,
-                                               const ST* __restrict__ s,
-                                               float* __restrict__ ws, int M,
-                                               int K, int N, int bpb) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kGemvCols + lane * 16;
-  const bool valid = n < N;
-  const int nb = K / 32;
-  const int kb0 = blockIdx.y * bpb;
-  const int kb1 = min(kb0 + bpb, nb);
-
-  float acc[MT][16];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
-
-  for (int kb = kb0 + warp; kb < kb1; kb += kGemvWarps) {
-    float xr[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-      xr[m] = (m < M) ? to_f(x[(size_t)m * K + kb * 32 + lane]) : 0.f;
-    float sc[16];
-    if (valid) load_scales16(s + (size_t)kb * N + n, sc);
-    if constexpr (BITS == 8) {
-      const int8_t* qrow = q + (size_t)kb * 32 * N + n;
-#pragma unroll 8
-      for (int r = 0; r < 32; ++r) {
-        float xv[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) xv[m] = __shfl_sync(0xffffffffu, xr[m], r);
-        if (valid) {
-          Q16 w;
-          w.v = __ldg(reinterpret_cast<const int4*>(qrow + (size_t)r * N));
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const float wj = (float)w.b[j] * sc[j];
-#pragma unroll
-            for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[m], wj, acc[m][j]);
-          }
-        }
-      }
-    } else {
-      // packed row r of the block: rows r (low nibbles) and r+16 (high)
-      const int8_t* qrow = q + (size_t)kb * 16 * N + n;
-#pragma unroll 8
-      for (int r = 0; r < 16; ++r) {
-        float xlo[MT], xhi[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          xlo[m] = __shfl_sync(0xffffffffu, xr[m], r);
-          xhi[m] = __shfl_sync(0xffffffffu, xr[m], r + 16);
-        }
-        if (valid) {
-          Q16 w;
-          w.v = __ldg(reinterpret_cast<const int4*>(qrow + (size_t)r * N));
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int byte = (uint8_t)w.b[j];
-            const float wlo = (float)((byte & 0xF) - 8) * sc[j];
-            const float whi = (float)((byte >> 4) - 8) * sc[j];
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-              acc[m][j] = fmaf(xhi[m], whi, fmaf(xlo[m], wlo, acc[m][j]));
-          }
-        }
-      }
-    }
-  }
-
-  // Reduce the eight warps' partial sums in a fixed order. Layout
-  // [m][j][lane] keeps the stores free of bank conflicts.
-  __shared__ float red[MT * 16 * 32];
-  for (int w = 0; w < kGemvWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int i = (m * 16 + j) * 32 + lane;
-          red[i] = (w == 0 ? 0.f : red[i]) + acc[m][j];
-        }
-    }
-    __syncthreads();
-  }
-  const size_t mn = (size_t)M * N;
-  for (int i = threadIdx.x; i < MT * kGemvCols; i += blockDim.x) {
-    const int m = i / kGemvCols;
-    const int c = i % kGemvCols;
-    const int nn = blockIdx.x * kGemvCols + c;
-    if (m < M && nn < N)
-      ws[blockIdx.y * mn + (size_t)m * N + nn] = red[(m * 16 + (c % 16)) * 32 + c / 16];
-  }
 }
 
 // out[i] = sum over the ksplit partials, in order.
@@ -523,7 +385,9 @@ cudaError_t launch_tc(const void* x, const void* q, const void* s, void* out, fl
 
 // ------------------------------------- tensor cores at decode (dq_decode_tc)
 
-// The form's kernel (decode_tc.cuh): the nibbles of Q4_0 centred, - 8.
+// The form's kernels (decode_tc.cuh): the nibbles of Q4_0 centred, - 8;
+// bf16 x (dq_decode_tc, out bf16) or f32 x as three bf16 parts split in
+// registers (dq_decode_f32tc, out f32).
 template <typename ST, int BITS>
 __global__ void __launch_bounds__(kDtThreads, 3) dq_decode_tc(const __nv_bfloat16* __restrict__ x,
                                                               const uint8_t* __restrict__ q,
@@ -535,63 +399,61 @@ __global__ void __launch_bounds__(kDtThreads, 3) dq_decode_tc(const __nv_bfloat1
 }
 
 template <typename ST, int BITS>
+__global__ void __launch_bounds__(kDtThreads, 3) dq_decode_f32tc(const float* __restrict__ x,
+                                                                 const uint8_t* __restrict__ q,
+                                                                 const ST* __restrict__ s,
+                                                                 float* __restrict__ out,
+                                                                 float* __restrict__ ws, int M,
+                                                                 int K, int N, int per) {
+  decode_tc_body<ST, BITS, false, float>(x, q, s, out, ws, M, K, N, per);
+}
+
+// The decode form's kernel for x (and out) of type XT.
+template <typename XT, typename ST, int BITS> constexpr auto dt_kernel() {
+  if constexpr (sizeof(XT) == 4)
+    return dq_decode_f32tc<ST, BITS>;
+  else
+    return dq_decode_tc<ST, BITS>;
+}
+
+template <typename XT, typename ST, int BITS>
 cudaError_t launch_decode_tc(const void* x, const void* q, const void* s, void* out, float* ws,
                              int M, int K, int N, int ksplit, cudaStream_t st) {
-  constexpr int smem = dt_smem_bytes<ST, BITS>();
+  constexpr int smem = dt_smem_bytes<ST, BITS, XT>();
+  constexpr auto kernel = dt_kernel<XT, ST, BITS>();
   // more than 48 KB of dynamic shared memory only after this opt-in, once
   // per template instance
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      dq_decode_tc<ST, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const int nb = K / 32;
   const int per = (nb + ksplit - 1) / ksplit;
   dim3 grid((N + kDtBlockCols - 1) / kDtBlockCols, ksplit);
-  dq_decode_tc<ST, BITS><<<grid, kDtThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(out), ksplit > 1 ? ws : nullptr,
-      M, K, N, per);
+  kernel<<<grid, kDtThreads, smem, st>>>(static_cast<const XT*>(x),
+                                         static_cast<const uint8_t*>(q),
+                                         static_cast<const ST*>(s), static_cast<XT*>(out),
+                                         ksplit > 1 ? ws : nullptr, M, K, N, per);
   if (ksplit > 1) {
     const size_t mn = (size_t)M * N;
-    dq_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        ws, static_cast<__nv_bfloat16*>(out), mn, ksplit);
+    dq_reduce<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, static_cast<XT*>(out), mn,
+                                                                ksplit);
   }
   return cudaSuccess;
 }
 
-template <typename XT, typename ST, int MT, int BITS>
-void launch_gemv(const void* x, const void* q, const void* s, void* out, float* ws,
-                 int M, int K, int N, int ksplit, cudaStream_t st) {
-  const int nb = K / 32;
-  const int bpb = (nb + ksplit - 1) / ksplit;
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, ksplit);
-  dq_gemv<XT, ST, MT, BITS><<<grid, 256, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const int8_t*>(q),
-      static_cast<const ST*>(s), ws, M, K, N, bpb);
-  const size_t mn = (size_t)M * N;
-  dq_reduce<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, static_cast<XT*>(out),
-                                                              mn, ksplit);
-}
-
-// The forms, as ops/kernels.py's K1_FORMS numbers them.
-enum Form { kGemv = 0, kF32Tc = 1, kTensorCore = 2, kDecodeTc = 3 };
+// The forms, as ops/kernels.py's K1_FORMS numbers them; code 0 is K9's
+// GEMV (dequant_matmul_so.cu), which K1 no longer has.
+enum Form { kGemv = 0, kF32Tc = 1, kTensorCore = 2, kDecodeTc = 3, kF32DecodeTc = 4 };
 
 template <typename XT, typename ST, int BITS>
 cudaError_t launch_bits(const void* x, const void* q, const void* s, void* out, float* ws, int M,
                         int K, int N, int form, int ksplit, cudaStream_t st) {
   if constexpr (sizeof(XT) == 2) {  // bf16 x: the bf16 tensor-core forms
     if (form == kDecodeTc)
-      return launch_decode_tc<ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
+      return launch_decode_tc<XT, ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
     return launch_tc<ST, BITS, 1>(x, q, s, out, ws, M, K, N, ksplit, st);
-  } else if (form == kGemv) {  // f32 x up to 8 rows
-    if (M <= 1)
-      launch_gemv<XT, ST, 1, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-    else if (M <= 2)
-      launch_gemv<XT, ST, 2, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-    else if (M <= 4)
-      launch_gemv<XT, ST, 4, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-    else
-      launch_gemv<XT, ST, 8, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
-    return cudaSuccess;
+  } else if (form == kF32DecodeTc) {  // f32 x up to 8 rows: the decode form on its parts
+    return launch_decode_tc<XT, ST, BITS>(x, q, s, out, ws, M, K, N, ksplit, st);
   } else {  // f32 x on the tensor cores: its three bf16 planes first, into ws
     const size_t mk = (size_t)M * K;
     uint16_t* planes = reinterpret_cast<uint16_t*>(ws);
@@ -611,16 +473,16 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out, float
 }  // namespace
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
-// bfloat16, 0 for float32. form: with f32 x 0 the split-K GEMV (M <= 8) or
-// 1 the tensor-core tile on x's three bf16 parts; with bf16 x 2 the
-// tensor-core tile or 3 the tensor-core decode form (M <= 8). `ws` is an
-// f32 workspace: of ksplit*M*N elements for the GEMV and for the bf16
-// tensor-core forms when ksplit > 1; for form 1 the three planes (3*M*K
-// bf16, 1.5*M*K f32 elements) and then, when ksplit > 1, ksplit*M*N
-// elements. A split holds ceil(K/32 / ksplit) quant blocks. Returns
-// cudaGetLastError() after the launches, the error of a refused
-// shared-memory opt-in, or cudaErrorInvalidValue for a form the arguments
-// do not allow.
+// bfloat16, 0 for float32. form: with f32 x 1 the tensor-core tile on x's
+// three bf16 parts or 4 the tensor-core decode form on them (M <= 8); with
+// bf16 x 2 the tensor-core tile or 3 the tensor-core decode form (M <= 8);
+// 0 (K9's GEMV) is refused. `ws` is an f32 workspace: of ksplit*M*N
+// elements for the tensor-core tile with bf16 x and both decode forms when
+// ksplit > 1; for form 1 the three planes (3*M*K bf16, 1.5*M*K f32
+// elements) and then, when ksplit > 1, ksplit*M*N elements. A split holds
+// ceil(K/32 / ksplit) quant blocks. Returns cudaGetLastError() after the
+// launches, the error of a refused shared-memory opt-in, or
+// cudaErrorInvalidValue for a form the arguments do not allow.
 extern "C" int llamago_dequant_matmul(const void* x, const void* q, const void* s,
                                       void* out, void* ws, int M, int K, int N, int bits,
                                       int x_bf16, int s_bf16, int form, int ksplit,
@@ -628,9 +490,9 @@ extern "C" int llamago_dequant_matmul(const void* x, const void* q, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   const bool bf16_form = form == kTensorCore || form == kDecodeTc;
-  if ((bits != 8 && bits != 4) || form < kGemv || form > kDecodeTc ||
-      ((form == kGemv || form == kDecodeTc) && M > 8) || bf16_form != (x_bf16 != 0) ||
-      ksplit < 1 || ((ksplit > 1 || form == kGemv || form == kF32Tc) && w == nullptr))
+  if ((bits != 8 && bits != 4) || form < kF32Tc || form > kF32DecodeTc ||
+      ((form == kDecodeTc || form == kF32DecodeTc) && M > 8) || bf16_form != (x_bf16 != 0) ||
+      ksplit < 1 || ((ksplit > 1 || form == kF32Tc) && w == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (x_bf16 && s_bf16)

@@ -19,7 +19,7 @@
 // bound by the weight stream (K*N or K*N/2 bytes) plus the scales over
 // device-memory bandwidth.
 //
-// What the design does about it: two forms (ops/kernels.py k9_form picks
+// What the design does about it: three forms (ops/kernels.py k9_form picks
 // one, the entry point takes its code):
 //  * bf16 x at M <= 8 (every decode step when the switch is on) takes
 //    so_decode_tc, K1's tensor-core decode form (decode_tc.cuh) with the
@@ -34,8 +34,15 @@
 //    decode form splits it, and so_reduce adds the splits' partials in a
 //    fixed order. So the weights are read once for all M rows, as K1's
 //    decode form reads them.
-//  * f32 x (the bf16 tensor cores cannot take it without rounding it), or
-//    M > 8 (only when the switch is set above 8), takes so_gemv: the GEMV
+//  * f32 x at M <= 8 (the --dtype float32 route's decode steps with the
+//    switch on) takes so_decode_f32tc, the same form on x's three exact
+//    bf16 parts (x = hi + mid + lo, tc_common.cuh split3): x arrives whole
+//    by the bulk copies, each lane splits its B fragment's 8 values in
+//    registers, and each A fragment feeds three mma (lo, mid, hi) into the
+//    block sum; every part times an integer weight is exact in f32. Q4_0's
+//    8 * sum(x_b) is summed from the f32 values themselves, as the plain
+//    version sums them. The output is f32.
+//  * M > 8 (only when the switch is set above 8) takes so_gemv: the GEMV
 //    of csrc/dequant_matmul.cu with the scale moved out of the inner loop.
 //    A thread owns 16 neighbouring columns and reads one 16-byte vector of
 //    a weight row per step; a warp takes one quant block at a time, holds
@@ -232,8 +239,10 @@ void launch_bits(const void* x, const void* q, const void* s, void* out, float* 
                                                               ksplit);
 }
 
-// The tensor-core decode form's kernel (decode_tc.cuh): the raw integers,
-// with Q4_0's 8 * sum(x_b) taken off each block sum.
+// The tensor-core decode form's kernels (decode_tc.cuh): the raw integers,
+// with Q4_0's 8 * sum(x_b) taken off each block sum; bf16 x (so_decode_tc,
+// out bf16) or f32 x as three bf16 parts split in registers
+// (so_decode_f32tc, out f32; the x sums of its own f32 values).
 template <typename ST, int BITS>
 __global__ void __launch_bounds__(kDtThreads, 3) so_decode_tc(const __nv_bfloat16* __restrict__ x,
                                                               const uint8_t* __restrict__ q,
@@ -245,40 +254,57 @@ __global__ void __launch_bounds__(kDtThreads, 3) so_decode_tc(const __nv_bfloat1
 }
 
 template <typename ST, int BITS>
+__global__ void __launch_bounds__(kDtThreads, 3) so_decode_f32tc(const float* __restrict__ x,
+                                                                 const uint8_t* __restrict__ q,
+                                                                 const ST* __restrict__ s,
+                                                                 float* __restrict__ out,
+                                                                 float* __restrict__ ws, int M,
+                                                                 int K, int N, int per) {
+  decode_tc_body<ST, BITS, true, float>(x, q, s, out, ws, M, K, N, per);
+}
+
+// The decode form's kernel for x (and out) of type XT.
+template <typename XT, typename ST, int BITS> constexpr auto dt_kernel() {
+  if constexpr (sizeof(XT) == 4)
+    return so_decode_f32tc<ST, BITS>;
+  else
+    return so_decode_tc<ST, BITS>;
+}
+
+template <typename XT, typename ST, int BITS>
 cudaError_t launch_decode_tc(const void* x, const void* q, const void* s, void* out, float* ws,
                              int M, int K, int N, int ksplit, cudaStream_t st) {
-  constexpr int smem = dt_smem_bytes<ST, BITS>();
+  constexpr int smem = dt_smem_bytes<ST, BITS, XT>();
+  constexpr auto kernel = dt_kernel<XT, ST, BITS>();
   // more than 48 KB of dynamic shared memory only after this opt-in, once
   // per template instance
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      so_decode_tc<ST, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const int nb = K / 32;
   const int per = (nb + ksplit - 1) / ksplit;
   dim3 grid((N + kDtBlockCols - 1) / kDtBlockCols, ksplit);
-  so_decode_tc<ST, BITS><<<grid, kDtThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(out), ksplit > 1 ? ws : nullptr,
-      M, K, N, per);
+  kernel<<<grid, kDtThreads, smem, st>>>(static_cast<const XT*>(x),
+                                         static_cast<const uint8_t*>(q),
+                                         static_cast<const ST*>(s), static_cast<XT*>(out),
+                                         ksplit > 1 ? ws : nullptr, M, K, N, per);
   if (ksplit > 1) {
     const size_t mn = (size_t)M * N;
-    so_reduce<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        ws, static_cast<__nv_bfloat16*>(out), mn, ksplit);
+    so_reduce<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, static_cast<XT*>(out), mn,
+                                                                ksplit);
   }
   return cudaSuccess;
 }
 
-// The forms, as ops/kernels.py's K1_FORMS numbers them (K9 has two of them).
-enum Form { kGemv = 0, kDecodeTc = 3 };
+// The forms, as ops/kernels.py's K1_FORMS numbers them (K9 has three of them).
+enum Form { kGemv = 0, kDecodeTc = 3, kF32DecodeTc = 4 };
 
 template <typename XT, typename ST>
 cudaError_t launch(const void* x, const void* q, const void* s, void* out, float* ws, int M,
                    int K, int N, int bits, int form, int ksplit, cudaStream_t st) {
-  if constexpr (sizeof(XT) == 2) {
-    if (form == kDecodeTc) {
-      if (bits == 8) return launch_decode_tc<ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
-      return launch_decode_tc<ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
-    }
+  if (form != kGemv) {  // the decode form of x's type (the entry point checked it)
+    if (bits == 8) return launch_decode_tc<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
+    return launch_decode_tc<XT, ST, 4>(x, q, s, out, ws, M, K, N, ksplit, st);
   }
   if (bits == 8)
     launch_bits<XT, ST, 8>(x, q, s, out, ws, M, K, N, ksplit, st);
@@ -291,9 +317,10 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out, float
 
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
 // bfloat16, 0 for float32. form: K1's argument of the same name (the two
-// entry points share one launcher): 0 the split-K GEMV (any x, any M) or 3
-// the tensor-core decode form (bf16 x, M <= 8). `ws` is an f32 workspace of
-// ksplit*M*N elements, which the decode form reads only when ksplit > 1 (a
+// entry points share one launcher): 0 the split-K GEMV (any x, any M), 3
+// the tensor-core decode form (bf16 x, M <= 8) or 4 the same on f32 x's
+// three bf16 parts (f32 x, M <= 8). `ws` is an f32 workspace of
+// ksplit*M*N elements, which the decode forms read only when ksplit > 1 (a
 // split then holds ceil(K/32 / ksplit) quant blocks). Returns
 // cudaGetLastError() after the launches, the error of a refused
 // shared-memory opt-in, or cudaErrorInvalidValue for a form the arguments
@@ -304,8 +331,10 @@ extern "C" int llamago_dequant_matmul_so(const void* x, const void* q, const voi
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  if ((bits != 8 && bits != 4) || (form != kGemv && form != kDecodeTc) || ksplit < 1 ||
-      (form == kDecodeTc && (!x_bf16 || M > 8)) || (w == nullptr && (form == kGemv || ksplit > 1)))
+  if ((bits != 8 && bits != 4) ||
+      (form != kGemv && form != kDecodeTc && form != kF32DecodeTc) || ksplit < 1 ||
+      (form == kDecodeTc && (!x_bf16 || M > 8)) || (form == kF32DecodeTc && (x_bf16 || M > 8)) ||
+      (w == nullptr && (form == kGemv || ksplit > 1)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (x_bf16 && s_bf16)

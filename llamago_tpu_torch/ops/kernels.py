@@ -18,14 +18,13 @@ does (llamago_tpu/ops/kernels.py):
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
                 `SCALE_ON_OUTPUT_MAX_M` (0 = off, env
                 LLAMAGO_KERNEL_SO_MAX_M), in the form `k9_form` picks: up
-                to 8 rows the bf16 tensor-core decode form for bf16 x, else
-                the split-K GEMV; else K1, the dequant-matmul
-                (replacing `_dequant_mm_kernel`, bits 8 and 4, CUDA:
-                `csrc/dequant_matmul.cu`) in the form `k1_form` picks:
-                up to 8 rows the bf16 tensor-core decode form for bf16 x
-                and the split-K GEMV for f32 x, above that the bf16
-                tensor-core tile, for f32 x on x's three exact bf16
-                parts.
+                to 8 rows the bf16 tensor-core decode form, for f32 x on
+                x's three exact bf16 parts, else the split-K GEMV; else
+                K1, the dequant-matmul (replacing `_dequant_mm_kernel`,
+                bits 8 and 4, CUDA: `csrc/dequant_matmul.cu`) in the form
+                `k1_form` picks: up to 8 rows the bf16 tensor-core decode
+                form, above that the bf16 tensor-core tile, each for f32
+                x on x's three exact bf16 parts.
 
 A Q4_1 leaf (with mins "m") never comes here: `ops/quant.py:quant_matmul`
 dequantizes it, as the JAX package does. The TPU launchers' VMEM gates
@@ -37,12 +36,14 @@ design does about it. A CPU tensor takes the kernel's plain version
 (`*_plain`); a CUDA tensor takes the kernel, or the wrapper raises. Each
 wrapper counts its launches (`dequant_matmul.launches` for Q8_0 and
 `.launches_q4` for Q4_0, of which `.launches_tc` took the tensor-core tile
-with bf16 x, `.launches_f32_tc` the tile with f32 x and
-`.launches_decode_tc` the tensor-core decode form,
+with bf16 x, `.launches_f32_tc` the tile with f32 x,
+`.launches_decode_tc` the tensor-core decode form and
+`.launches_f32_decode_tc` the decode form with f32 x,
 `w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
 `.launches_tc` took the tensor-core tile with bf16 x and `.launches_f32_tc`
 with f32 x), `dequant_matmul_so.launches` (of which `.launches_decode_tc`
-took the tensor-core decode form)).
+took the tensor-core decode form and `.launches_f32_decode_tc` the decode
+form with f32 x)).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`, one trip to memory in the launch `norm_plan`
@@ -67,10 +68,11 @@ from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.ops.quant import G4X8, QK, dequantize, unpack_q4, unpack_w4x8
 from llamago_tpu_torch.utils.timing import H100_SMS
 
-# Blocks the GEMV paths aim to have in flight: four per SM of an H100.
+# Blocks K9's GEMV aims to have in flight: four per SM of an H100.
 _TARGET_BLOCKS = 4 * H100_SMS
-_GEMV_MAX_M = 8
-_GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul.cu)
+# The most rows the decode forms take (the n8 columns of B)
+_DECODE_MAX_M = 8
+_GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul_so.cu)
 # The tensor-core tiles of K1 (csrc/dequant_matmul.cu) and K6
 # (csrc/w4x8_matmul.cu): rows and columns per block, the blocks below which
 # they split K (two per SM), how many they then aim for, and the fewest rows
@@ -94,8 +96,9 @@ _TC_MIN_SPLIT_ROWS = 256
 _DT_COLS = 512
 _DT_MAX_BLOCKS = 3 * H100_SMS
 _DT_MIN_SPLIT_BLOCKS = 4
-# K1's forms, numbered as the C entry point takes them
-K1_FORMS = ("gemv", "f32_tc", "tensor_core", "decode_tc")
+# K1's and K9's forms, numbered as the C entry points take them: K1 takes
+# codes 1-4, K9 0 (its GEMV), 3 and 4
+K1_FORMS = ("gemv", "f32_tc", "tensor_core", "decode_tc", "f32_decode_tc")
 
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
@@ -191,7 +194,7 @@ def w4x8_matmul_stream_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
 # ------------------------------------------------------------------ launchers
 
 def ksplit_for(k: int, n: int) -> int:
-    """K-split of the K1 / K9 GEMV path: enough blocks to fill the card, and
+    """K-split of K9's GEMV: enough blocks to fill the card, and
     at least eight quant blocks (one per warp) in each split."""
     col_blocks = -(-n // _GEMV_COLS)
     return max(1, min((k // QK) // 8, -(-_TARGET_BLOCKS // col_blocks)))
@@ -201,20 +204,21 @@ def k1_form(m: int, x_dtype: torch.dtype) -> str:
     """K1's kernel on the card for m rows of x. bf16 x takes bf16 mma.sync:
     "decode_tc" (the slots are the n8 columns of B) up to 8 rows,
     "tensor_core" (the prefill tile) above. f32 x, which the bf16 tensor
-    cores cannot take as it is, takes "gemv" (the split-K GEMV) up to 8
-    rows and "f32_tc" above: the prefill tile on x's three exact bf16
-    parts, hi + mid + lo == x."""
+    cores cannot take as it is, takes the same forms on x's three exact
+    bf16 parts, hi + mid + lo == x: "f32_decode_tc" up to 8 rows (split in
+    the kernel's registers) and "f32_tc" above (split by a pre-pass)."""
     bf16 = x_dtype == torch.bfloat16
-    if m <= _GEMV_MAX_M:
-        return "decode_tc" if bf16 else "gemv"
+    if m <= _DECODE_MAX_M:
+        return "decode_tc" if bf16 else "f32_decode_tc"
     return "tensor_core" if bf16 else "f32_tc"
 
 
 def decode_tc_split_for(k: int, n: int) -> tuple[int, int]:
-    """(ksplit, quant blocks per split) of K1's tensor-core decode form: as
-    many splits as one wave of `_DT_MAX_BLOCKS` blocks of 512 columns holds,
-    each of at least 4 quant blocks where K allows, none empty. The C side
-    cuts the splits at ceil(K/32 / ksplit), which is the second number."""
+    """(ksplit, quant blocks per split) of the tensor-core decode form (K1's
+    and K9's, bf16 or f32 x): as many splits as one wave of
+    `_DT_MAX_BLOCKS` blocks of 512 columns holds, each of at least 4 quant
+    blocks where K allows, none empty. The C side cuts the splits at
+    ceil(K/32 / ksplit), which is the second number."""
     nb = k // QK
     strips = -(-n // _DT_COLS)
     ksplit = max(1, min(nb // _DT_MIN_SPLIT_BLOCKS, _DT_MAX_BLOCKS // strips))
@@ -252,8 +256,6 @@ def f32_tc_workspace(m: int, k: int, n: int, ksplit: int) -> int:
 def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
     """(form, ksplit, f32 workspace elements) of one K1 launch over m rows."""
     form = k1_form(m, x_dtype)
-    if form == "gemv":
-        return gemv_plan(m, k, n)
     if form == "f32_tc":
         ksplit = tc_split_for(m, k, n, target=_F32_TC_TARGET_BLOCKS)[0]
         return form, ksplit, f32_tc_workspace(m, k, n, ksplit)
@@ -262,30 +264,29 @@ def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int
 
 
 def gemv_plan(m: int, k: int, n: int) -> tuple[str, int, int]:
-    """(form, ksplit, f32 workspace elements) of the split-K GEMV over m
-    rows: K1's form for f32 x up to 8 rows, and K9's for f32 x or more than
-    8 rows (its GEMV walks all m rows a few at a time). The GEMV's reduce
-    writes the output: one partial per split, always."""
+    """(form, ksplit, f32 workspace elements) of K9's split-K GEMV over m
+    rows, its form above 8 rows (its GEMV walks all m rows a few at a
+    time). The GEMV's reduce writes the output: one partial per split,
+    always."""
     ksplit = ksplit_for(k, n)
     return "gemv", ksplit, ksplit * m * n
 
 
 def k9_form(m: int, x_dtype: torch.dtype) -> str:
-    """K9's kernel on the card for m rows of x: "decode_tc" (K1's
-    tensor-core decode form on the raw integers, the slots the n8 columns
-    of B) for bf16 x up to 8 rows, else "gemv" (its split-K GEMV): f32 x,
-    which the bf16 tensor cores cannot take without rounding it, and m > 8,
-    which only a switch above 8 sends here."""
-    return "decode_tc" if m <= _GEMV_MAX_M and x_dtype == torch.bfloat16 else "gemv"
+    """K9's kernel on the card for m rows of x: up to 8 rows K1's decode
+    form (`k1_form`) on the raw integers, else "gemv" (its split-K GEMV),
+    which only a switch above 8 reaches."""
+    return k1_form(m, x_dtype) if m <= _DECODE_MAX_M else "gemv"
 
 
 def k9_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
     """(form, ksplit, f32 workspace elements) of one K9 launch over m rows:
-    the decode form splits K as K1's does (`decode_tc_split_for`)."""
-    if k9_form(m, x_dtype) == "gemv":
+    the decode forms split K as K1's do (`decode_tc_split_for`)."""
+    form = k9_form(m, x_dtype)
+    if form == "gemv":
         return gemv_plan(m, k, n)
     ksplit = decode_tc_split_for(k, n)[0]
-    return "decode_tc", ksplit, ksplit * m * n if ksplit > 1 else 0
+    return form, ksplit, ksplit * m * n if ksplit > 1 else 0
 
 
 def w4x8_form(m: int, x_dtype: torch.dtype) -> str:
@@ -533,11 +534,14 @@ def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
     dequant_matmul_so.launches += 1
     if form == "decode_tc":
         dequant_matmul_so.launches_decode_tc += 1
+    elif form == "f32_decode_tc":
+        dequant_matmul_so.launches_f32_decode_tc += 1
     return out
 
 
-dequant_matmul_so.launches = 0  # K9, either form
+dequant_matmul_so.launches = 0  # K9, any form
 dequant_matmul_so.launches_decode_tc = 0  # K9's tensor-core decode form
+dequant_matmul_so.launches_f32_decode_tc = 0  # the same on f32 x's three parts
 
 
 def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -563,6 +567,8 @@ def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
         dequant_matmul.launches_decode_tc += 1
     elif form == "f32_tc":
         dequant_matmul.launches_f32_tc += 1
+    elif form == "f32_decode_tc":
+        dequant_matmul.launches_f32_decode_tc += 1
     return out
 
 
@@ -571,6 +577,7 @@ dequant_matmul.launches_q4 = 0
 dequant_matmul.launches_tc = 0
 dequant_matmul.launches_decode_tc = 0
 dequant_matmul.launches_f32_tc = 0
+dequant_matmul.launches_f32_decode_tc = 0
 
 
 # ------------------------------------------------------------------ RMSNorm

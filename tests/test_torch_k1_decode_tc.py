@@ -7,8 +7,9 @@ On the card a Q8_0 / Q4_0 matmul of at most 8 rows with bf16 x takes
 bf16 mma.sync.m16n8k16 and the slots are the 8 columns of B; per 32-row
 quant block b it computes s_b * (x_b . q_b), the TPU kernel's f32 function
 with its sums in another order. Here, without a card, the wrapper takes the
-plain version; the tests pin the routing rule (f32 x keeps the GEMV, K9
-keeps its own GEMV plan), the split plan and the form code the launcher
+plain version; the tests pin the routing rule (f32 x takes the same form
+on its three bf16 parts, K9 keeps its own GEMV plan above 8 rows), the
+split plan and the form code the launcher
 hands the entry point, a numpy emulation of what each lane copies, builds
 and multiplies, the function at the decode row counts against the JAX
 kernel in interpret mode, and a torch emulation of the kernel's order of
@@ -76,10 +77,11 @@ def jax_k1(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 
 @pytest.mark.parametrize("m", range(1, 9))
 def test_decode_rows_route_by_dtype(m):
-    """bf16 x takes the tensor-core decode form; f32 x keeps the GEMV, since
-    the bf16 tensor cores cannot take it without rounding it."""
+    """bf16 x takes the tensor-core decode form; f32 x, which the bf16
+    tensor cores cannot take without rounding it, the same form on its
+    three exact bf16 parts."""
     assert kernels.k1_form(m, torch.bfloat16) == "decode_tc"
-    assert kernels.k1_form(m, torch.float32) == "gemv"
+    assert kernels.k1_form(m, torch.float32) == "f32_decode_tc"
 
 
 @pytest.mark.parametrize("m", [9, 16, 17, 64, 256])
@@ -90,13 +92,13 @@ def test_more_rows_route_as_before(m):
 
 def test_decode_form_code_matches_the_c_entry_point():
     src = (CSRC / "dequant_matmul.cu").read_text()
-    enum = re.search(r"enum Form \{[^}]*kDecodeTc = (\d) \}", src)
+    enum = re.search(r"enum Form \{[^}]*kDecodeTc = (\d),", src)
     assert enum is not None
     assert int(enum.group(1)) == kernels.K1_FORMS.index("decode_tc") == 3
-    # the entry point takes the new code, for bf16 x and at most 8 rows only;
+    # the entry point takes the code, for bf16 x and at most 8 rows only;
     # the f32 forms only f32 x
-    assert "form > kDecodeTc" in src
-    assert "((form == kGemv || form == kDecodeTc) && M > 8)" in src
+    assert "form > kF32DecodeTc" in src
+    assert "((form == kDecodeTc || form == kF32DecodeTc) && M > 8)" in src
     assert "const bool bf16_form = form == kTensorCore || form == kDecodeTc;" in src
     assert "bf16_form != (x_bf16 != 0)" in src
 
@@ -202,10 +204,11 @@ def test_k1_hands_the_decode_form_to_its_entry_point(monkeypatch, m, bits):
     assert calls == [dict(m=m, k=4096, n=4096, bits=bits, x_bf16=1, form=3, ksplit=ksplit)]
     assert (kernels.dequant_matmul.launches_tc,
             kernels.dequant_matmul.launches_decode_tc) == (counts[0], counts[1] + 1)
-    # f32 x keeps the GEMV, uncounted by the decode form
+    # f32 x takes the same form on its three parts (code 4, the same split),
+    # uncounted by the bf16 decode form
     calls = _launch_on_meta(monkeypatch, kernels.dequant_matmul, "_lib", m, bits,
                             torch.float32)
-    assert calls[0]["form"] == 0 and calls[0]["ksplit"] == kernels.ksplit_for(4096, 4096)
+    assert calls[0]["form"] == 4 and calls[0]["ksplit"] == ksplit
     assert kernels.dequant_matmul.launches_decode_tc == counts[1] + 1
 
 
@@ -214,12 +217,14 @@ def test_k1_hands_the_decode_form_to_its_entry_point(monkeypatch, m, bits):
 def test_k9_keeps_its_own_gemv_plan(monkeypatch, m, dtype):
     """K9 shares the launcher but plans with `k9_plan`, through its own
     entry point (`csrc/dequant_matmul_so.cu` takes the GEMV's code and the
-    decode form's, no other): bf16 x at decode rows hands it the decode
-    form's code and split, f32 x and more than 8 rows its GEMV's."""
-    assert "(form != kGemv && form != kDecodeTc)" in (CSRC / "dequant_matmul_so.cu").read_text()
+    two decode forms', no other): decode rows hand it the decode form's
+    code for x's dtype and its split, more than 8 rows its GEMV's."""
+    assert "(form != kGemv && form != kDecodeTc && form != kF32DecodeTc)" in (
+        CSRC / "dequant_matmul_so.cu").read_text()
     calls = _launch_on_meta(monkeypatch, kernels.dequant_matmul_so, "_lib_so", m, 8, dtype)
-    if dtype == torch.bfloat16 and m <= 8:
-        form, ksplit = 3, kernels.decode_tc_split_for(4096, 4096)[0]
+    if m <= 8:
+        form = 3 if dtype == torch.bfloat16 else 4
+        ksplit = kernels.decode_tc_split_for(4096, 4096)[0]
     else:
         form, ksplit = 0, kernels.ksplit_for(4096, 4096)
     assert calls == [dict(m=m, k=4096, n=4096, bits=8, x_bf16=int(dtype == torch.bfloat16),

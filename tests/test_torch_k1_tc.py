@@ -71,7 +71,7 @@ def jax_k1(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 9, 16, 17, 64, 100, 256])
 def test_k1_form_routes_by_rows_and_dtype(m, dtype):
     bf16 = dtype == torch.bfloat16
-    want = (("decode_tc" if bf16 else "gemv") if m <= 8 else
+    want = (("decode_tc" if bf16 else "f32_decode_tc") if m <= 8 else
             "tensor_core" if bf16 else "f32_tc")
     assert kernels.k1_form(m, dtype) == want
 
@@ -79,11 +79,11 @@ def test_k1_form_routes_by_rows_and_dtype(m, dtype):
 def test_k1_form_codes_match_the_c_entry_point():
     src = (pathlib.Path(kernels.__file__).parents[1] / "csrc" / "dequant_matmul.cu").read_text()
     enum = re.search(r"enum Form \{ kGemv = (\d), kF32Tc = (\d), kTensorCore = (\d), "
-                     r"kDecodeTc = (\d) \}", src)
+                     r"kDecodeTc = (\d), kF32DecodeTc = (\d) \}", src)
     assert enum is not None
     assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f) for f in
                                                ("gemv", "f32_tc", "tensor_core",
-                                                "decode_tc")]
+                                                "decode_tc", "f32_decode_tc")]
 
 
 # ------------------------------------------------------------- split plan
@@ -125,12 +125,11 @@ def test_tc_split_never_leaves_an_empty_split(m, k, n):
 
 def test_k1_plan_workspace_by_form():
     k, n = 4096, 12288
-    # GEMV (f32 x): one f32 partial per split, always (its reduce writes the output)
-    form, ksplit, ws = kernels.k1_plan(4, k, n, torch.float32)
-    assert (form, ksplit, ws) == ("gemv", kernels.ksplit_for(k, n),
-                                  kernels.ksplit_for(k, n) * 4 * n)
-    # bf16 x at decode: the tensor-core decode form, partials when it splits K
+    # f32 x at decode: the decode form on x's three parts, split as with
+    # bf16 x, partials when it splits K and no planes
     ks = kernels.decode_tc_split_for(k, n)[0]
+    assert kernels.k1_plan(4, k, n, torch.float32) == ("f32_decode_tc", ks, ks * 4 * n)
+    # bf16 x at decode: the tensor-core decode form, partials when it splits K
     assert kernels.k1_plan(4, k, n, torch.bfloat16) == ("decode_tc", ks, ks * 4 * n)
     # K9 plans as a one-row GEMV and walks all of its rows, for either x
     form, ksplit, ws = kernels.gemv_plan(8, k, n)

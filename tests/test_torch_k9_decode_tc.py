@@ -12,7 +12,8 @@ raw nibbles (0..15) are the A operand as exact bf16, the block's x sum is
 taken in f32 by the lanes of each slot and comes off the block sum before
 the scale, and the splits of K are added in a fixed order. Here, without a
 card, the wrapper takes the plain version; the tests pin the routing rule
-(f32 x and more than 8 rows keep the GEMV), the split plan, the form code
+(more than 8 rows keep the GEMV; f32 x at decode rows takes the same form
+on its three bf16 parts), the split plan, the form code
 and the arguments the launcher hands the entry point, the shared memory
 three blocks an SM need, a numpy emulation of what each lane copies,
 builds, multiplies and folds, and a torch emulation of the order of sums,
@@ -94,10 +95,11 @@ def jax_so(x: np.ndarray, jleaf: dict, dtype) -> np.ndarray:
 
 @pytest.mark.parametrize("m", range(1, 9))
 def test_decode_rows_route_by_dtype(m):
-    """bf16 x takes the tensor-core decode form; f32 x keeps the GEMV, which
-    the bf16 tensor cores cannot take without rounding x."""
+    """bf16 x takes the tensor-core decode form; f32 x, which the bf16
+    tensor cores cannot take without rounding it, the same form on its
+    three exact bf16 parts."""
     assert kernels.k9_form(m, torch.bfloat16) == "decode_tc"
-    assert kernels.k9_form(m, torch.float32) == "gemv"
+    assert kernels.k9_form(m, torch.float32) == "f32_decode_tc"
 
 
 @pytest.mark.parametrize("m", [9, 16, 17, 64])
@@ -121,13 +123,15 @@ def test_decode_plan_is_k1s(m, k, n):
 
 
 def test_form_codes_match_the_c_entry_point():
-    enum = re.search(r"enum Form \{ kGemv = (\d), kDecodeTc = (\d) \};", _src())
+    enum = re.search(r"enum Form \{ kGemv = (\d), kDecodeTc = (\d), kF32DecodeTc = (\d) \};",
+                     _src())
     assert enum is not None
     assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f)
-                                               for f in ("gemv", "decode_tc")]
-    # the decode form for bf16 x and at most 8 rows only; a workspace for
-    # the GEMV, and for the decode form when K is split
+                                               for f in ("gemv", "decode_tc", "f32_decode_tc")]
+    # the decode forms for their x dtype and at most 8 rows only; a
+    # workspace for the GEMV, and for the decode forms when K is split
     assert "(form == kDecodeTc && (!x_bf16 || M > 8))" in _src()
+    assert "(form == kF32DecodeTc && (x_bf16 || M > 8))" in _src()
     assert "(w == nullptr && (form == kGemv || ksplit > 1))" in _src()
 
 
@@ -207,7 +211,7 @@ def test_launcher_counts_and_hands_the_form(monkeypatch, m, bits, sdt):
     """K9 through `dequant_matmul` with the switch at 16 on meta tensors:
     the form code, split and workspace it hands its entry point, and its
     counts (`launches`, `launches_decode_tc`)."""
-    for attr in ("launches", "launches_decode_tc"):
+    for attr in ("launches", "launches_decode_tc", "launches_f32_decode_tc"):
         monkeypatch.setattr(kernels.dequant_matmul_so, attr, 0)
     monkeypatch.setattr(kernels, "SCALE_ON_OUTPUT_MAX_M", 16)
     entry = _FakeEntry()
@@ -238,15 +242,18 @@ def test_launcher_counts_and_hands_the_form(monkeypatch, m, bits, sdt):
     tc = m <= 8
     form, ksplit, ws = kernels.k9_plan(m, k, n, torch.bfloat16)
     assert (form == "decode_tc") == tc and (ws > 0) == (ksplit > 1)
+    # f32 x: the decode form on its three parts at decode rows, same split
+    assert kernels.k9_plan(m, k, n, torch.float32) == (("f32_decode_tc", ksplit, ws) if tc
+                                                       else (form, ksplit, ws))
     want = [dict(m=m, bits=bits, x_bf16=1, s_bf16=int(sdt == torch.bfloat16),
                  form=3 if tc else 0, ksplit=ksplit),
-            dict(m=m, bits=bits, x_bf16=0, s_bf16=int(sdt == torch.bfloat16), form=0,
-                 ksplit=kernels.ksplit_for(k, n))]
+            dict(m=m, bits=bits, x_bf16=0, s_bf16=int(sdt == torch.bfloat16),
+                 form=4 if tc else 0, ksplit=ksplit)]
     assert entry.calls == want
     # one f32 workspace a call where it takes partials (the GEMV's always)
-    assert workspaces == [n_ for n_ in (ws, kernels.gemv_plan(m, k, n)[2]) if n_]
-    assert (kernels.dequant_matmul_so.launches,
-            kernels.dequant_matmul_so.launches_decode_tc) == (2, int(tc))
+    assert workspaces == [n_ for n_ in (ws, ws) if n_]
+    assert (kernels.dequant_matmul_so.launches, kernels.dequant_matmul_so.launches_decode_tc,
+            kernels.dequant_matmul_so.launches_f32_decode_tc) == (2, int(tc), int(tc))
 
 
 def test_lab_row_l4_is_held_to_the_bf16_rate():
