@@ -48,7 +48,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      (scale-on-output matmul, each of its forms: the tensor-core decode
      form for bf16 x and for f32 x as three bf16 parts at m <= 8, checked
      at m = 1 to 8 into NaN-filled memory, bf16 x timed at 4 and f32 x at 4
-     and 8; the GEMV for m = 9 and 16), K7 (flash
+     and 8; above 8 rows the tensor-core tile on the raw integers, so_tc,
+     for bf16 x and for f32 x as three bf16 parts, checked at m = 9, 16,
+     17, 32, 64 and 256 into NaN-filled memory and timed at 16 and 64 for
+     Q8_0 and Q4_0 beside x @ W), K7 (flash
      prefill attention; its 3xTF32 f32 form checked within 1e-4 into
      NaN-filled memory and timed beside SDPA on f32 tensors) and
      K10 (fused RMSNorm, into NaN-filled memory);
@@ -61,9 +64,12 @@ Phases, each of which fails the run (exit code 1, no result line):
      USE_FUSED_NORM: K10) and the int8 cache with bf16 scale planes, then
      int4 weights in the w4x8 format (K5, K6 and, for the leaf whose K is
      no multiple of 128, K1 bits=4), in the Q4_0 format (K1 bits=4) and in
-     the Q4_0 format with the scale-on-output switch on (K9); then the
+     the Q4_0 format with the scale-on-output switch at 8 (K9's decode
+     form) and at 256 (its tile on x's three bf16 parts in the prefill
+     windows, no K1 call); then the
      dense cache, the int8 cache under K8, the w4x8 model and the Q4_0
-     model with the switch on in bf16 on the card against the CPU's f32
+     model with the switch on at 8 and at 256 (K9's tile in the prefill
+     windows) in bf16 on the card against the CPU's f32
      (K1's and K6's tensor-core tiles, K1's decode form and the
      tensor-core forms of K2, K8 and K9 must launch; with f32 x K1, K2, K8
      and K9 take only their f32 forms: K1 and K6 their tile on x's three
@@ -86,8 +92,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      16 jobs, after phase 4's engine is freed: K1 (its tensor-core decode
      form and tile), K3 and K4 (every call in its tensor-core form) must
      launch, K2 and K8 not; then 8 jobs with K8 and K9 on
-     (LLAMAGO_ATTN_I8DOT=0, LLAMAGO_KERNEL_SO_MAX_M=8): K8 and K9 must
-     launch, every call in its tensor-core form, K1 in prefill only, and
+     (LLAMAGO_ATTN_I8DOT=0, LLAMAGO_KERNEL_SO_MAX_M=256): K8 and K9 must
+     launch, every call in its tensor-core form (K9's decode form in the
+     decode steps, its tile in the prefill chunks), K1 not at all, and
      the decode step's `attention_ms` and `matmul_ms` are logged beside the
      default routes';
   4c. the same with random int4 weights in the w4x8 format and the bf16
@@ -112,8 +119,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      kernels (rows L2, L3, L6 to L12 of its table) against its plain version
      for every variant name of its row (activation quantization and the
      byte-sum probes bit for bit; the float rows' bf16 and the integer rows'
-     int8 tensor-core decode forms counted and repeated into NaN-filled
-     memory, bit for bit); the lab's own check of every name
+     int8 tensor-core decode forms, and L11's probe modes of the former,
+     counted and repeated into NaN-filled memory, bit for bit); the lab's
+     own check of every name
      against x @ dequantize(w) (19 pass, 12 are not checked, `decode_bitcast`
      is dropped, as in the JAX lab); every name timed on the device side of
      a trace beside its bound, no reading above 100% of it; the plain
@@ -206,16 +214,16 @@ K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 K10_RTOL_F32 = 1e-5
 K10_D = 4096
 # the tensor-core forms of the lab's float and integer rows, of K5 and of
-# K7, with K7's merge, K1's and K6's tiles (bf16 x, and f32 x as three bf16
-# parts), and K1's and K9's decode forms (bf16 x, and f32 x as three bf16
-# parts): none may spill
+# K7, with K7's merge, K1's, K6's and K9's tiles (bf16 x, and f32 x as three
+# bf16 parts), and K1's and K9's decode forms (bf16 x, and f32 x as three
+# bf16 parts): none may spill
 TC_FORMS = {"lab_decode_tc": "lab_matmul", "lab_decode_i8tc": "lab_matmul",
             "w4x8_a8_tc": "w4x8_matmul", "attn_prefill_tc": "attn_prefill",
             "attn_prefill_merge": "attn_prefill", "dq_tc": "dequant_matmul",
             "w4x8_tc": "w4x8_matmul", "attn_prefill_f32tc": "attn_prefill",
             "attn_decode_f32tc": "attn_decode", "dq_decode_tc": "dequant_matmul",
             "dq_decode_f32tc": "dequant_matmul", "so_decode_tc": "dequant_matmul_so",
-            "so_decode_f32tc": "dequant_matmul_so"}
+            "so_decode_f32tc": "dequant_matmul_so", "so_tc": "dequant_matmul_so"}
 # the rate that bounds the tile with f32 x (K1's and K6's "f32_tc"): three
 # bf16 passes, one a part of x
 F32_TC_OPS_PER_S = BF16_OPS_PER_S / 3
@@ -605,27 +613,31 @@ def check_k6(dev, detail: dict) -> tuple[dict, dict]:
             _line(errs, steps, 64, lambda m, xdt: not f32(m, xdt)))
 
 
-def check_k9(dev, detail: dict) -> tuple[dict, dict]:
-    """K9 in each of its forms, for Q8_0 and Q4_0 leaves at the five 7B
-    shapes: bf16 x at m = 4 checked and timed, and 1, 2, 3, 5, 6, 7 and 8
-    rows at the wqkv shape (the tensor-core decode form), 9 and 16 rows
-    there too (its GEMV: more rows than the decode forms take, reached when
-    the switch is set above 8, and more than one GEMV launch); f32 x at
-    every one of those m (up to 8 rows the decode form on x's three bf16
-    parts, above the GEMV), and timed at m = 4 and 8 for Q4_0 (against the
-    bytes). Every call must take the form `k9_form` names
-    (`launches_decode_tc` counts the decode form, `launches_f32_decode_tc`
-    it with f32 x) and every checked call writes into NaN-filled memory.
-    Returns the kernels line's numbers of the decode form (Q8_0, the
-    format of its run in phase 4b) and of it with f32 x (Q4_0, its run in
-    phase 3), each one decode step at m = 4."""
+def check_k9(dev, detail: dict) -> tuple[dict, dict, dict, dict]:
+    """K9 in each of its four forms, for Q8_0 and Q4_0 leaves at the five
+    7B shapes. bf16 x: m = 4 (the tensor-core decode form), 16 and 64 (the
+    tensor-core tile `so_tc`: one and four row tiles of 16) checked and
+    timed, and 1, 2, 3, 5, 6, 7, 8 (the decode form), 9, 17, 32 and 256 (the
+    tile at every row tiling, ragged ones; reached when the switch is set
+    above 8) at the wqkv shape, f32 x at each of those m too (up to 8 rows
+    the decode form on x's three bf16 parts, above the tile on them); f32 x
+    timed at m = 16 and 64 (the tile on x's three planes, against three
+    bf16 passes) for both formats, and at m = 4 and 8 for Q4_0 (the decode
+    form, against the bytes). Every call must take the form `k9_form` names
+    (`launches_decode_tc`, `launches_f32_decode_tc`, `launches_tc`,
+    `launches_f32_tc`) and every checked call writes into NaN-filled memory.
+    Returns the kernels line's numbers of the decode form (Q8_0, the format
+    of its run in phase 4b) and of it with f32 x (Q4_0, its run in phase 3),
+    each one decode step at m = 4, and of the tile (Q8_0, bf16 x: phase
+    4b's prefill) and of it with f32 x (Q4_0: phase 3's run with the switch
+    at 256), each one prefill pass at m = 64."""
     from llamago_tpu_torch.ops import kernels
 
     fn = kernels.dequant_matmul_so
     counted = _counted(fn, lambda: {"decode_tc": fn.launches_decode_tc,
                                     "f32_decode_tc": fn.launches_f32_decode_tc,
-                                    "gemv": fn.launches - fn.launches_decode_tc
-                                    - fn.launches_f32_decode_tc}, kernels.k9_form)
+                                    "tensor_core": fn.launches_tc,
+                                    "f32_tc": fn.launches_f32_tc}, kernels.k9_form)
 
     def k9_nan(x, w):
         n = w["s"].shape[1]
@@ -634,35 +646,50 @@ def check_k9(dev, detail: dict) -> tuple[dict, dict]:
 
     f32_decode = lambda m, xdt: m <= 8 and xdt == "float32"  # noqa: E731
     bf16_decode = lambda m, xdt: m <= 8 and xdt == "bfloat16"  # noqa: E731
-    out = {}
+    f32_tile = lambda m, xdt: m > 8 and xdt == "float32"  # noqa: E731
+    bf16_tile = lambda m, xdt: m > 8 and xdt == "bfloat16"  # noqa: E731
+    out, errs_all = {}, []
     for fmt in ("q8", "q4"):
         errs, steps = check_matmul(dev, detail, f"K9 {fmt}", fmt, counted,
-                                   kernels.dequant_matmul_so_plain, timed_m=(4,),
-                                   other_m=(1, 2, 3, 5, 6, 7, 8, 9, 16),
+                                   kernels.dequant_matmul_so_plain, timed_m=(4, 16, 64),
+                                   other_m=(1, 2, 3, 5, 6, 7, 8, 9, 17, 32, 256),
                                    ops_per_s=lambda m: BF16_OPS_PER_S,
                                    seed=11 if fmt == "q8" else 12, checked=k9_nan)
-        if sorted(m for m, xdt in errs if f32_decode(m, xdt)) != list(range(1, 9)):
+        timed32 = (4, 8, 16, 64) if fmt == "q4" else (16, 64)
+        errs32, steps32 = check_matmul(dev, detail, f"K9 {fmt} f32", fmt, counted,
+                                       kernels.dequant_matmul_so_plain, timed_m=timed32,
+                                       other_m=(), ops_per_s=lambda m: F32_TC_OPS_PER_S,
+                                       seed=14 if fmt == "q4" else 15, timed_dtype="float32",
+                                       checked=k9_nan)
+        both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
+        errs_all.append(both)
+        if sorted(m for m, xdt in errs if f32_decode(m, xdt)) != list(range(1, 9)) or \
+                sorted(m for m, xdt in both if f32_tile(m, xdt)) != [9, 16, 17, 32, 64, 256]:
             raise AssertionError(f"K9 {fmt}: the decode form with f32 x was not checked at "
-                                 "m = 1 to 8")
+                                 "m = 1 to 8, or the tile at m = 9, 16, 17, 32, 64 and 256")
         log(f"K9 {fmt} at m=4: the decode form {steps[4]['ms']:.3f} ms per step (bf16 x), "
-            f"x@W {steps[4]['library_ms']:.3f} ms, bound {steps[4]['bound_ms']:.3f} ms; largest "
-            f"error, the GEMV (m > 8) "
-            f"{max(e for (m, xdt), e in errs.items() if m > 8):.2e}")
+            f"x@W {steps[4]['library_ms']:.3f} ms, bound {steps[4]['bound_ms']:.3f} ms")
+        for m in (16, 64):
+            log(f"K9 {fmt} at m={m}: the tile {steps[m]['ms']:.3f} ms per pass (bf16 x; x@W "
+                f"{steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms), "
+                f"{steps32[m]['ms']:.3f} ms (f32 x; x@W f32 {steps32[m]['library_ms']:.3f} ms, "
+                f"bound {steps32[m]['bound_ms']:.3f} ms)")
+        log(f"K9 {fmt}: largest error, the tile: bf16 x "
+            f"{max(e for key, e in both.items() if bf16_tile(*key)):.2e}, f32 x "
+            f"{max(e for key, e in both.items() if f32_tile(*key)):.2e}")
         out[fmt] = _line(errs, steps, 4, bf16_decode)
-        out[f"{fmt} all"] = errs
-    # the decode form with f32 x timed in the format of its run in phase 3 (Q4_0)
-    errs32, steps32 = check_matmul(dev, detail, "K9 q4 f32", "q4", counted,
-                                   kernels.dequant_matmul_so_plain, timed_m=(4, 8), other_m=(),
-                                   ops_per_s=lambda m: F32_TC_OPS_PER_S, seed=14,
-                                   timed_dtype="float32", checked=k9_nan)
-    both = {key: max(e.get(key, 0.0) for e in (out["q8 all"], out["q4 all"], errs32))
-            for key in {*out["q8 all"], *out["q4 all"], *errs32}}
-    for m in (4, 8):
-        log(f"K9 q4 at m={m}: the f32_decode_tc form {steps32[m]['ms']:.3f} ms per step (f32 "
-            f"x), x@W f32 {steps32[m]['library_ms']:.3f} ms, bound "
-            f"{steps32[m]['bound_ms']:.3f} ms; largest error over m <= 8, f32 x "
-            f"{max(e for key, e in both.items() if f32_decode(*key)):.2e}")
-    return out["q8"], _line(both, steps32, 4, f32_decode)
+        if fmt == "q8":
+            out["tile"] = _line(errs, steps, 64, bf16_tile)
+        else:
+            out["f32_decode"] = _line(both, steps32, 4, f32_decode)
+            out["f32_tile"] = _line(both, steps32, 64, f32_tile)
+            for m in (4, 8):
+                log(f"K9 q4 at m={m}: the f32_decode_tc form {steps32[m]['ms']:.3f} ms per "
+                    f"step (f32 x), x@W f32 {steps32[m]['library_ms']:.3f} ms, bound "
+                    f"{steps32[m]['bound_ms']:.3f} ms")
+    worst = {key: max(e.get(key, 0.0) for e in errs_all) for e in errs_all for key in e}
+    out["f32_decode"]["max_abs_err"] = max(e for key, e in worst.items() if f32_decode(*key))
+    return out["q8"], out["f32_decode"], out["tile"], out["f32_tile"]
 
 
 def _k2_inputs(dev, gen, t, fill, c=K2_SHAPE, dtype="bfloat16"):
@@ -874,13 +901,15 @@ def k3_serving_rows(dev, gen, c, dtype):
     return [k, v]
 
 
-def device_ops_per_call(fn, calls: int = 50) -> tuple[float, list[str]]:
+def device_ops_per_call(fn, launched, calls: int = 50) -> tuple[float, list[str]]:
     """The device-side operations (kernels, and any copy or fill) that one
     call of fn runs: those of a torch.profiler trace of `calls` calls, over
-    `calls`, and their names. A trace of one short call can lose its events
-    (seen on the card: none at all in eight traces of a single K3 call, two
-    of three in another), so the count is taken over many calls, where an
-    event lost at the trace's edge moves it by 1 / calls."""
+    `calls`, and their names. `launched()` reads the launch count of the
+    kernel that fn must run. A trace can lose events (seen on the card: none
+    at all in eight traces of a single K3 call, and 4 of 50 in one trace of
+    50), so a trace that holds fewer device events than the kernel counted
+    launches in it is taken again (`profiled`), and the count is taken over
+    many calls."""
     import torch
 
     from llamago_tpu_torch.utils.timing import profiled
@@ -890,7 +919,14 @@ def device_ops_per_call(fn, calls: int = 50) -> tuple[float, list[str]]:
             fn()
 
     fn()  # warm: libraries loaded, memory cached
-    events = [e for e in profiled(run) if e.device_type == torch.autograd.DeviceType.CUDA]
+    before = launched()
+    run()
+    torch.cuda.synchronize()
+    counted = launched() - before
+    if counted != calls:
+        raise AssertionError(f"{calls} calls counted {counted} launches")
+    events = [e for e in profiled(run, min_events=counted)
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(events) / calls, sorted({e.name for e in events})
 
 
@@ -962,8 +998,10 @@ def check_k3(dev, detail: dict) -> dict:
                                              "changed a row it must not write")
                 log(f"K3 {str(dtype).split('.')[-1]}, {sname} scales, {inputs}: bit-exact "
                     "against the plain version, other rows untouched")
-        per_call, names = device_ops_per_call(lambda: cache_write.cache_append_quant(
-            *cache, *timed_inputs["serving, int64"][0], timed_inputs["serving, int64"][1]))
+        per_call, names = device_ops_per_call(
+            lambda: cache_write.cache_append_quant(
+                *cache, *timed_inputs["serving, int64"][0], timed_inputs["serving, int64"][1]),
+            lambda: cache_write.cache_append_quant.launches)
         if round(per_call) != 1 or len(names) != 1:
             raise AssertionError(f"K3 on the serving path's inputs: {per_call} device "
                                  f"operations a call, not 1: {names}")
@@ -1522,6 +1560,9 @@ LAB_TOL = {"L2": K1_TOL["float32"], "L3": K1_TOL["float32"], "L9": K1_TOL["float
 # decode form, by their mode (`lab_kernels._F_*`)
 LAB_TC_MODES = {"i4native": "_F_I4", "bf16dot": "_F_Q4_BF16", "split_bf16_h": "_F_Q4_BF16_FMA",
                 "bitcast_i4": "_F_I4", "bitcast_i4_bf16": "_F_I4_BF16", "w16dot": "_F_W16"}
+# L11's probes that run probe modes of the float rows' tensor-core decode
+# form (`lab_kernels.probe_plan`)
+LAB_PROBE_TC = ("decode_only", "decode_bitcast", "dma_only")
 # The integer rows (L6, L7, L8, L10), which run the int8 tensor-core decode
 # form; the 32-row blocks of a scale group by the variant's hoist
 LAB_I8_ROWS = ("L6", "L7", "L8", "L10")
@@ -1547,6 +1588,8 @@ def _lab_tc_call(name: str, ops, leaf, tk: int, tm: int, k: int, n: int):
     v = kernel_lab.VARIANTS[name]
     if v.row in LAB_I8_ROWS:
         ws = lk.lab_i8_plan(tm, k, n, LAB_I8_GROUP[v.hoist](tk))[2]
+    elif name in LAB_PROBE_TC:
+        ws = lk.probe_plan(k, n)[0] * n
     else:
         ws = lk.lab_plan(tm, k, n, getattr(lk, LAB_TC_MODES[name]))[1]
     dev = leaf["s"].device
@@ -1596,7 +1639,7 @@ def check_lab(dev, detail: dict) -> dict:
         leaf = leaves[v.fmt]
         ops = kernel_lab.HOISTS[v.hoist](x, tk)
         before = getattr(*v.counter)
-        tc = name in LAB_TC_MODES or v.row in LAB_I8_ROWS
+        tc = name in LAB_TC_MODES or name in LAB_PROBE_TC or v.row in LAB_I8_ROWS
         if tc:
             got = _lab_tc_call(name, ops, leaf, tk, max(8, m), k, n)
         else:
@@ -1896,7 +1939,8 @@ def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
                                  f"{err:.3g} > {SMALL_BF16_LOGIT_TOL}")
     counts = launch_counts()
     log(f"{what}, bf16: launches {counts}")
-    if counts["dequant_matmul_f32_tc"] or counts["w4x8_matmul_f32_tc"]:
+    if counts["dequant_matmul_f32_tc"] or counts["w4x8_matmul_f32_tc"] \
+            or counts["dequant_matmul_so_f32_tc"]:
         raise AssertionError(f"{what}, bf16: the f32 x form ran on bf16 x: {counts}")
     return counts
 
@@ -1910,6 +1954,7 @@ INT4_LOGIT_TOL = {
     # f32 throughout: the order of the sums only, as for the Q8_0 model
     "q4_0": 1e-3,
     "q4_0, scale on output": 1e-3,
+    "q4_0, scale on output at 256": 1e-3,
 }
 
 
@@ -1923,13 +1968,16 @@ def check_small_model_int4(dev) -> dict:
     form at decode: the mixed tree), in the Q4_0 format (K1 bits=4:
     f32_decode_tc at decode, f32_tc in prefill), and in the Q4_0 format
     with the scale-on-output switch at 8 rows (K9 at decode: its decode
-    form on f32 x's three bf16 parts). Every K1 call takes one of its two
-    forms on x's parts, every K9 call its f32 decode form. Then the w4x8
-    model's logits and those of the Q4_0 model with the switch at 8 with
-    bf16 compute on the card against the CPU's f32 ones,
+    form on f32 x's three bf16 parts) and at 256 (K9 in the prefill windows
+    too: its tile on f32 x's three bf16 parts; K1 launches nothing). Every
+    K1 call takes one of its two forms on x's parts, every K9 call one of
+    its f32 forms. Then the w4x8 model's logits and those of the Q4_0 model
+    with the switch at 8 and at 256 with bf16 compute on the card against
+    the CPU's f32 ones,
     their layers' scales set to 0.002 as the dense model's are (the prefill
-    windows, 80 and 32 rows, take K6's tensor-core tile, or K1's; the
-    decode step of the Q4_0 model K9's tensor-core decode form).
+    windows, 80 and 32 rows, take K6's tensor-core tile, or K1's, or with
+    the switch at 256 K9's; the decode step of the Q4_0 model K9's
+    tensor-core decode form).
     Returns the launch counts of each run."""
     import torch
 
@@ -1960,7 +2008,10 @@ def check_small_model_int4(dev) -> dict:
                 ("q4_0, scale on output", "q4_0", 8, ("dequant_matmul_so",
                                                       "dequant_matmul_so_f32_decode_tc",
                                                       "dequant_matmul_q4",
-                                                      "dequant_matmul_f32_tc"))):
+                                                      "dequant_matmul_f32_tc")),
+                ("q4_0, scale on output at 256", "q4_0", 256,
+                 ("dequant_matmul_so", "dequant_matmul_so_f32_decode_tc",
+                  "dequant_matmul_so_f32_tc"))):
             os.environ["LLAMAGO_INT4_EXEC"] = fmt
             kernels.SCALE_ON_OUTPUT_MAX_M = so_max_m
             gpu = fuse_layer_weights(random_quantized_parameters(cfg, seed=13, device=dev))
@@ -1998,17 +2049,21 @@ def check_small_model_int4(dev) -> dict:
             idle = [k for k in must if counts[name][k] == 0]
             c = counts[name]
             if idle or c["dequant_matmul"] > 0 or c["w4x8_matmul_tc"] > 0 \
-                    or c["dequant_matmul_so_decode_tc"] > 0 \
+                    or c["dequant_matmul_so_decode_tc"] > 0 or c["dequant_matmul_so_tc"] > 0 \
                     or c["w4x8_matmul_f32_tc"] != c["w4x8_matmul_stream"] \
                     or c["dequant_matmul_q4"] != c["dequant_matmul_f32_tc"] \
                     + c["dequant_matmul_f32_decode_tc"] \
-                    or c["dequant_matmul_so"] != c["dequant_matmul_so_f32_decode_tc"]:
+                    or c["dequant_matmul_so"] != c["dequant_matmul_so_f32_decode_tc"] \
+                    + c["dequant_matmul_so_f32_tc"] \
+                    or (so_max_m > 8) != (c["dequant_matmul_so_f32_tc"] > 0) \
+                    or (so_max_m > 8 and c["dequant_matmul_q4"] > 0):
                 raise AssertionError(f"small int4 model, {name}: {idle} never launched, or "
                                      f"the Q8_0 kernel, K6's tile for bf16 x or K9's bf16 "
-                                     f"decode form did, or a K6 call took another form than "
+                                     f"forms did, or a K6 call took another form than "
                                      f"f32_tc, a K1 call another than f32_tc or "
-                                     f"f32_decode_tc, a K9 call another than f32_decode_tc: "
-                                     f"{c}")
+                                     f"f32_decode_tc, a K9 call another than its f32 forms "
+                                     f"(the tile only with the switch above 8, and then "
+                                     f"no K1 call): {c}")
             if fmt == "w4x8" or so_max_m:
                 # small scales, as for the dense model: with 0.01 bf16 rounding
                 # alone moved this model's logits by 0.29 of max|logit| at
@@ -2024,9 +2079,12 @@ def check_small_model_int4(dev) -> dict:
                     raise AssertionError("small int4 model, w4x8, bf16: K6's tensor-core tile "
                                          f"never launched: {bf}")
                 if so_max_m and (bf["dequant_matmul_so_decode_tc"] == 0 or
-                                 bf["dequant_matmul_so"] != bf["dequant_matmul_so_decode_tc"]):
+                                 bf["dequant_matmul_so"] != bf["dequant_matmul_so_decode_tc"]
+                                 + bf["dequant_matmul_so_tc"] or
+                                 (so_max_m > 8) != (bf["dequant_matmul_so_tc"] > 0)):
                     raise AssertionError(f"small int4 model, {name}, bf16: every K9 call must "
-                                         f"take its tensor-core decode form: {bf}")
+                                         f"take its tensor-core decode form, or above 8 rows "
+                                         f"with the switch at 256 its tile: {bf}")
     finally:
         kernels.SCALE_ON_OUTPUT_MAX_M = so_default
         if env is None:
@@ -2068,6 +2126,8 @@ def _launch_counters():
             "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
             "dequant_matmul_so_f32_decode_tc": (kernels.dequant_matmul_so,
                                                 "launches_f32_decode_tc"),
+            "dequant_matmul_so_tc": (kernels.dequant_matmul_so, "launches_tc"),
+            "dequant_matmul_so_f32_tc": (kernels.dequant_matmul_so, "launches_f32_tc"),
             "flash_attention": (attention.flash_attention, "launches"),
             "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
             "flash_attention_decode_f32tc": (attention.flash_attention,
@@ -2137,14 +2197,15 @@ def make_7b_params(dev, weight_dtype: str = "int8", dtype: str = "bfloat16"):
 
 @contextlib.contextmanager
 def k8_k9_routes():
-    """K8 and K9 on, as LLAMAGO_ATTN_I8DOT=0 and LLAMAGO_KERNEL_SO_MAX_M=8
+    """K8 and K9 on, as LLAMAGO_ATTN_I8DOT=0 and LLAMAGO_KERNEL_SO_MAX_M=256
     in the environment set them (switched as module attributes): the int8
-    cache's attention takes K8, every matmul of at most 8 rows of a Q8_0 /
-    Q4_0 leaf K9."""
+    cache's attention takes K8, every matmul of at most 256 rows of a Q8_0 /
+    Q4_0 leaf K9 (the decode steps its decode form, the prefill chunks its
+    tile)."""
     from llamago_tpu_torch.ops import attention, kernels
 
     i8dot, so_max_m = attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M
-    attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M = False, 8
+    attention._I8DOT, kernels.SCALE_ON_OUTPUT_MAX_M = False, 256
     try:
         yield
     finally:
@@ -2481,7 +2542,7 @@ ATTENTION_KERNELS = re.compile(
     r"(?:attn_|quant_partial|widening_tc|quant_merge|quant_combine)\w*")
 # the matmul kernels of a trace: K1's dq_* (its forms, reduce and GEMV),
 # K9's so_* (its decode forms, GEMV and reduce), K5's and K6's w4x8_*
-MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|decode_f32tc|gemv|reduce)|w4x8_)\w*")
+MATMUL_KERNELS = re.compile(r"(?:dq_|so_(?:decode_tc|decode_f32tc|tc|reduce)|w4x8_)\w*")
 # K10's and K3's kernels (rms_norm_onepass, append_warp; rms_norm_rows and
 # append_quant in checkouts before them)
 NORM_KERNELS = re.compile(r"rms_norm_\w+")
@@ -2685,7 +2746,7 @@ def main(argv: list[str]) -> int:
     k1q4, _, _, _ = check_k1(dev, detail, "q4") if want("k1q4") else ({}, {}, {}, {})
     k5 = check_k5(dev, detail) if want("k5") else {}
     k6, k6tc = check_k6(dev, detail) if want("k6") else ({}, {})
-    k9tc, k9 = check_k9(dev, detail) if want("k9") else ({}, {})
+    k9tc, k9, k9tile, k9tile32 = check_k9(dev, detail) if want("k9") else ({}, {}, {}, {})
     k7, k7f32 = check_k7(dev, detail) if want("k7") else ({}, {})
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
@@ -2745,19 +2806,21 @@ def main(argv: list[str]) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             # phase 4b with K8 and K9 on: K8 takes every int8-cache attention
-            # call of t <= 32, K9 every matmul of at most 8 rows (the decode
-            # steps), each in its tensor-core form only; prefill stays on K1
+            # call of t <= 32, K9 every matmul of at most 256 rows (the decode
+            # steps its decode form, the prefill chunks its tile), each in its
+            # tensor-core form only; K1 launches nothing
             with k8_k9_routes():
                 served_k89 = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8,
-                                   n_jobs=8, rise=("dequant_matmul", "dequant_matmul_tc",
-                                                   "dequant_matmul_so",
+                                   n_jobs=8, rise=("dequant_matmul_so",
                                                    "dequant_matmul_so_decode_tc",
+                                                   "dequant_matmul_so_tc",
                                                    "cache_append_quant",
                                                    "flash_attention_quant_widening",
                                                    "flash_attention_quant_widening_tc"))
             k89 = served_k89["launches"]
             if k89["flash_attention_quant_widening_tc"] != k89["flash_attention_quant_widening"] \
-                    or k89["dequant_matmul_so_decode_tc"] != k89["dequant_matmul_so"]:
+                    or k89["dequant_matmul_so_decode_tc"] + k89["dequant_matmul_so_tc"] \
+                    != k89["dequant_matmul_so"]:
                 raise AssertionError(f"serve, int8 cache, K8 and K9: a call did not take its "
                                      f"tensor-core form: {k89}")
             step = served_k89["decode_step"]
@@ -2799,6 +2862,7 @@ def main(argv: list[str]) -> int:
     k7_f32tc_launches = (small_f32_attn.get("flash_attention_prefill_f32tc", 0)
                          + served_f8k7["launches"]["flash_attention_prefill_f32tc"])
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
+    so256_run = small4.get("q4_0, scale on output at 256", {})
     kernels_line = {"kernels": [
         # K1's tensor-core decode form: its launches in phase 4, one decode step at m=4
         {"name": "dequant_matmul_decode_tc", "route": "cuda",
@@ -2893,6 +2957,18 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
          "replaces": "llamago_tpu/ops/kernels.py:183",
          "launches": so_run.get("dequant_matmul_so_f32_decode_tc", 0), **k9},
+        # K9's tensor-core tile (bf16 x): its launches in phase 4b's prefill
+        # with K8 and K9 on (the switch at 256), one prefill pass at m=64, Q8_0
+        {"name": "dequant_matmul_so_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:183",
+         "launches": served_k89["launches"]["dequant_matmul_so_tc"], **k9tile},
+        # K9's tile on f32 x's three bf16 parts: its launches in phase 3's Q4_0
+        # run with the switch at 256, one prefill pass at m=64, Q4_0
+        {"name": "dequant_matmul_so_f32_tc", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul_so.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:183",
+         "launches": so256_run.get("dequant_matmul_so_f32_tc", 0), **k9tile32},
         {"name": "flash_attention_prefill", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """K2, K4, K8 (decode attention), K7 (prefill attention), K2's and K7's f32
 forms, K5 (the W4A8 decode matmul), K1's and K6's tiles with f32 x, K1's
-and K9's decode matmuls with f32 x, K3 (the int8 cache append), K10
-(RMSNorm) or the lab's float or integer rows of several checkouts on one
-card, side by side.
+and K9's decode matmuls with f32 x, K9 above 8 rows, K3 (the int8 cache
+append), K10 (RMSNorm), the lab's float or integer rows or its probes of
+several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|f32dec|k10|lab|labint]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|f32dec|k9tile|k10|lab|
+                                 labint|probe]
                        [--k8-splits N,...]
                        [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
                        [--out FILE.json] ROOT [ROOT ...]
@@ -89,6 +90,22 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     4e's decode step (7B Q8_0, random, seed 0, f32 compute, the f32 cache,
     4 slots at position 100): device busy, `matmul_ms` with the kernels it
     counted, device kernels and host op calls a step.
+  - `--kernel k9tile`: K9 (`kernels.dequant_matmul_so`, the form each
+    checkout takes above 8 rows) at m = 9, 16, 64 and 256 for Q8_0 and
+    Q4_0, each with bf16 and with f32 x, over chip_smoke's five shapes
+    (chip_smoke's `check_matmul`: each shape checked against the plain
+    version, f32 and bf16 x, and timed over copies that stream past the
+    L2, beside `x @ W` in x's dtype; one pass = one 7B prefill pass's 129
+    calls, its bound the bytes or the bf16 operations, three passes of them
+    with f32 x).
+  - `--kernel probe`: the lab's L11 probes decode_only, decode_bitcast and
+    dma_only, and L1's `base` (K1's decode form at m = 8), at the lab's
+    shape as `--kernel lab` times them, each probe first held against its
+    plain version (max|d| over K * 8 * max|s|, chip_smoke's
+    LAB_PROBE_TOL); each probe's device us a call by kernel (its launch and
+    its reduce) over the 24 layers; the static SASS instructions of each
+    probe mode's main loop (`cuobjdump -sass`, 64 packed bytes a lane and
+    pass) and the SM clock (`nvidia-smi`), for decode_bitcast's issue bound.
   - `--kernel lab`: the kernel lab's six float variants (rows L2, L3, L9,
     L12: i4native, bf16dot, split_bf16_h, bitcast_i4, bitcast_i4_bf16,
     w16dot) and L1's `base` at the lab's shape (K=8192, N=7168, m=8, 24
@@ -471,6 +488,120 @@ def run_f32dec(cs, root: str) -> dict:
     return out
 
 
+K9TILE_ROWS = (9, 16, 64, 256)
+
+
+def run_k9tile(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out = {"root": root, "card": cs.card_line()}
+    for tag, fmt, xdt, seed in (("q8_bf16", "q8", "bfloat16", 21), ("q8_f32", "q8", "float32", 22),
+                                ("q4_bf16", "q4", "bfloat16", 23), ("q4_f32", "q4", "float32", 24)):
+        rate = cs.BF16_OPS_PER_S if xdt == "bfloat16" else cs.F32_TC_OPS_PER_S
+        detail: dict = {}
+        errs, steps = cs.check_matmul(dev, detail, f"k9 {tag}", fmt, kernels.dequant_matmul_so,
+                                      kernels.dequant_matmul_so_plain, timed_m=K9TILE_ROWS,
+                                      other_m=(), ops_per_s=lambda m, r=rate: r, seed=seed,
+                                      timed_dtype=xdt)
+        out[tag] = detail[f"k9_{tag}"]
+        out[f"{tag}_pass"] = {str(m): v for m, v in steps.items()}
+        out[f"{tag}_max_err"] = {f"{m} {x}": e for (m, x), e in errs.items()}
+        torch.cuda.empty_cache()
+    return out
+
+
+PROBE_NAMES = ("base", "decode_only", "decode_bitcast", "dma_only")
+# the probe modes of lab_decode_tc (csrc/lab_matmul.cu kFDecodeOnly ...)
+PROBE_MODES = {5: "decode_only", 6: "decode_bitcast", 7: "dma_only"}
+
+
+def probe_loop_sass() -> dict:
+    """Static SASS instructions of the main loop of each probe mode of
+    lab_decode_tc (its longest backward branch: one quant block a lane, 64
+    packed bytes), from `cuobjdump -sass` of the library this checkout
+    built; {} where the checkout has no such modes."""
+    import re
+    import shutil
+
+    from llamago_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", _build.lib_path("lab_matmul")], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        mode = re.search(r"lab_decode_tcILi(\d)E", chunk.splitlines()[0])
+        if mode is None or int(mode.group(1)) not in PROBE_MODES:
+            continue
+        labels, code, pending = {}, [], []
+        for line in chunk.splitlines()[1:]:
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+            if ins:
+                addr = int(ins.group(1), 16)
+                labels.update((p, addr) for p in pending)
+                pending = []
+                code.append((addr, ins.group(2)))
+        longest = 0
+        for addr, ins in code:
+            bra = re.search(r"\bBRA\b.*?(?:(\.L_x_\d+)|0x([0-9a-f]+))", ins)
+            if bra:
+                target = labels.get(bra.group(1)) if bra.group(1) else int(bra.group(2), 16)
+                if target is not None and target < addr:
+                    longest = max(longest, (addr - target) // 16 + 1)
+        out[PROBE_MODES[int(mode.group(1))]] = {"loop_instructions": longest,
+                                                "per_packed_byte": longest / 64}
+    return out
+
+
+def run_probe(cs, root: str) -> dict:
+    import torch
+
+    from llamago_tpu_torch import kernel_lab
+    from llamago_tpu_torch.ops import lab_kernels as lk
+    from llamago_tpu_torch.utils.timing import device_us_by_name, profiled
+
+    dev = torch.device("cuda")
+    k, n, m = (cs.LAB_SHAPE[key] for key in ("k", "n", "m"))
+    tk = lk.default_tk(k)
+    leaf = kernel_lab.make_layers("q4", k, n, 1, dev, seed=18)[0]
+    x = torch.zeros((max(8, m), k), dtype=torch.bfloat16, device=dev)
+    scale = k * 8 * leaf["s"].float().abs().max().item()
+    errs = {}
+    for kind in PROBE_NAMES[1:]:
+        got, ref = lk.probe(kind, x, leaf, tk), lk.probe_plain(kind, leaf, x.shape[0], tk)
+        errs[kind] = err = (got - ref).abs().max().item() / scale
+        if not err <= cs.LAB_PROBE_TOL[kind]:
+            raise AssertionError(f"{root}: probe {kind}: max|d| / {scale:.3g} = {err:.3g}")
+        cs.log(f"{root}: probe {kind} vs plain max|d|/scale {err:.2e}")
+    # device us a call by kernel name: the probe's own launch and its reduce
+    layers = kernel_lab.make_layers("q4", k, n, cs.LAB_SHAPE["layers"], dev)
+    by_kernel = {}
+    for kind in PROBE_NAMES[1:]:
+        for w in layers:
+            lk.probe(kind, x, w, tk)
+        calls = 4 * len(layers)
+        by = device_us_by_name(profiled(lambda kind=kind: [lk.probe(kind, x, w, tk)
+                                                          for _ in range(4) for w in layers]))
+        by_kernel[kind] = {name[:60]: us / calls for name, us in by.items()}
+        cs.log(f"{root}: probe {kind} by kernel (us a call): {by_kernel[kind]}")
+    del leaf, layers
+    torch.cuda.empty_cache()
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip()
+    sass = probe_loop_sass()
+    cs.log(f"{root}: probe loops (SASS) {sass}; SM clock max, now: {clocks}")
+    return {**run_lab(cs, root, PROBE_NAMES), "max_err": errs, "loop_sass": sass,
+            "sm_clocks": clocks, "by_kernel_us": by_kernel}
+
+
 def run_lab(cs, root: str, names=LAB_NAMES) -> dict:
     import torch
 
@@ -631,6 +762,10 @@ def run_one(root: str, kernel: str, sweeps: dict) -> dict:
         return run_f32mm(cs, root)
     if kernel == "f32dec":
         return run_f32dec(cs, root)
+    if kernel == "k9tile":
+        return run_k9tile(cs, root)
+    if kernel == "probe":
+        return run_probe(cs, root)
     import torch
 
     from llamago_tpu_torch.ops import attention
@@ -669,7 +804,8 @@ SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "attn32", "k5", "f32mm",
-                                         "f32dec", "k10", "lab", "labint"), default="k2")
+                                         "f32dec", "k9tile", "k10", "lab", "labint", "probe"),
+                    default="k2")
     for name, what in SWEEPS.items():
         ap.add_argument("--" + name.replace("_", "-"), default="",
                         help=f"comma-separated {what}")

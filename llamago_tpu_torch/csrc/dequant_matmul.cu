@@ -61,7 +61,8 @@
 //    sum. The output is f32. The bytes bound it as they bound the bf16
 //    form: 3.6-3.8 ms a 7B step for Q8_0 (the bf16 form 3.1), 2.8-2.9 for
 //    Q4_0, at 155-161 registers (PERF.md).
-//  * M > 8 with bf16 x takes the tensor-core tile (dq_tc). At a prefill
+//  * M > 8 with bf16 x takes the tensor-core tile (dq_tc, its body in
+//    tile_tc.cuh, shared with K9). At a prefill
 //    chunk (M = 64) the work is still bound by the weight stream (128
 //    operations per weight byte, under the card's bf16 ridge of ~295), at
 //    M = 256 by the bf16 operations; f32 FMA (67 TFLOP/s) would bound it at
@@ -123,6 +124,7 @@
 
 #include "decode_tc.cuh"
 #include "tc_common.cuh"
+#include "tile_tc.cuh"
 
 namespace {
 
@@ -145,209 +147,20 @@ __global__ void dq_reduce(const float* __restrict__ ws, OT* __restrict__ out,
 
 // --------------------------------------------------- tensor cores (dq_tc)
 
-constexpr int kTcThreads = 128;       // four warps, 32 columns each
-constexpr int kTcCols = 128;          // columns per block
-constexpr int kTcWLd = kTcCols + 16;  // weight row stride (bytes): conflict-free 32-bit reads
-constexpr int kTcXLd = 32 + 8;        // x row stride (bf16, 80 bytes): conflict-free ldmatrix
-
-// Quant blocks in the cp.async ring: four for bf16 x (40 KB at 64 rows),
-// three for f32 x's three bf16 planes (60 KB at 64 rows, three blocks an SM).
-template <int PARTS> __host__ __device__ constexpr int tc_stages() { return PARTS == 1 ? 4 : 3; }
-
-// Shared-memory rows of one quant block's weights: 32 int8 rows, or 16
-// packed Q4_0 rows.
-template <int BITS> __host__ __device__ constexpr int tc_w_rows() { return BITS == 8 ? 32 : 16; }
-
-// One ring stage: weights, scales, then x's PARTS planes of 16 * MT rows.
-template <typename ST, int MT, int BITS, int PARTS>
-__host__ __device__ constexpr int tc_stage_bytes() {
-  return tc_w_rows<BITS>() * kTcWLd + kTcCols * (int)sizeof(ST) + PARTS * 16 * MT * kTcXLd * 2;
-}
-
-// grid = (ceil(N/128) * m_tiles, ksplit), block = 128 threads, dynamic
-// shared memory tc_stages * tc_stage_bytes. Block x covers column strip
-// x / m_tiles and rows 16*MT*(x % m_tiles) on; block y the quant blocks
-// [y*per, (y+1)*per). Warp w owns columns 32w..32w+31 of the strip and all
-// 16*MT rows. x holds PARTS bf16 planes of [M, K]: bf16 x itself (PARTS 1,
-// out bf16), or the parts hi, mid, lo of f32 x (PARTS 3, out f32). Writes
-// to out, or f32 partials to ws[y] when ws is set.
-// Blocks an SM the launch bounds ask for, 0 for none. f32 x in 32-row blocks
-// asks for three: left to itself ptxas gave one of those instances (Q4_0,
-// bf16 scales) 128 registers and a spill; asked for three it takes 130-142
-// and none. Every other instance builds as without the bound.
-template <int MT, int PARTS> __host__ __device__ constexpr int tc_min_blocks() {
-  return PARTS == 3 && MT == 2 ? 3 : 0;
-}
-
+// The tile (tile_tc.cuh) with K1's weights: Q4_0's nibbles centred, - 8.
+// `xsum` is not read (the centred nibbles need no row sums).
 template <typename ST, int MT, int BITS, int PARTS>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<MT, PARTS>())
     dq_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-          const ST* __restrict__ s, void* __restrict__ out, float* __restrict__ ws, int M, int K,
-          int N, int per, int m_tiles) {
-  constexpr int WR = tc_w_rows<BITS>();
-  constexpr int BM = 16 * MT;
-  constexpr int W_BYTES = WR * kTcWLd;
-  constexpr int S_BYTES = kTcCols * (int)sizeof(ST);
-  constexpr int STAGE = tc_stage_bytes<ST, MT, BITS, PARTS>();
-  constexpr int STAGES = tc_stages<PARTS>();
-  constexpr int SV = 16 / (int)sizeof(ST);  // scales per 16-byte copy
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int n0 = (blockIdx.x / m_tiles) * kTcCols;
-  const int m0 = (blockIdx.x % m_tiles) * BM;
-  const int kb0 = blockIdx.y * per;
-  const int n_it = min(per, K / 32 - kb0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-
-  // Quant block kb into ring slot `slot`. Columns past N are not copied
-  // (their outputs are not stored); rows past M repeat row M-1 (likewise).
-  auto load = [&](int slot, int kb) {
-    unsigned char* st = smem + slot * STAGE;
-#pragma unroll
-    for (int i = 0; i < (WR * 8 + kTcThreads - 1) / kTcThreads; ++i) {
-      const int c = tid + i * kTcThreads;  // 8 copies of 16 bytes per row
-      const int r = c >> 3, n = n0 + (c & 7) * 16;
-      if (c < WR * 8 && n < N)
-        cp_async16(st + r * kTcWLd + (c & 7) * 16, q + (size_t)(kb * WR + r) * N + n);
-    }
-    if (tid < kTcCols / SV) {
-      const int n = n0 + tid * SV;
-      if (n < N) cp_async16(st + W_BYTES + tid * 16, s + (size_t)kb * N + n);
-    }
-#pragma unroll
-    for (int i = 0; i < (PARTS * BM * 4 + kTcThreads - 1) / kTcThreads; ++i) {
-      const int c = tid + i * kTcThreads;  // 4 copies of 16 bytes per row of a plane
-      const int r = c >> 2, m = min(m0 + r % BM, M - 1);  // row r % BM of plane r / BM
-      if (c < PARTS * BM * 4)
-        cp_async16(st + W_BYTES + S_BYTES + r * (kTcXLd * 2) + (c & 3) * 16,
-                   x + (size_t)(r / BM) * M * K + (size_t)m * K + kb * 32 + (c & 3) * 8);
-    }
-  };
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_it) load(i, kb0 + i);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // quant block `it` has landed; slot (it-1) % stages is free
-    if (it + STAGES - 1 < n_it) load((it + STAGES - 1) % STAGES, kb0 + it + STAGES - 1);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (it % STAGES) * STAGE;
-    // this thread's 4 columns 32*warp + 4*gid .. +3 of the weight rows
-    const unsigned char* wt = st + warp * 32 + gid * 4;
-    auto row = [&](int r) { return *reinterpret_cast<const uint32_t*>(wt + r * kTcWLd); };
-    // b[step][reg][j]: n8 tile j (column 4*gid + j), k16 step `step`
-    uint32_t b[2][2][4];
-    if constexpr (BITS == 8) {
-#pragma unroll
-      for (int step = 0; step < 2; ++step) {
-        const int r = step * 16 + 2 * tig;
-        const uint32_t w0 = row(r) ^ 0x80808080u, w1 = row(r + 1) ^ 0x80808080u;
-        const uint32_t w2 = row(r + 8) ^ 0x80808080u, w3 = row(r + 9) ^ 0x80808080u;
-        b[step][0][0] = i8_pair<0>(w0, w1), b[step][1][0] = i8_pair<0>(w2, w3);
-        b[step][0][1] = i8_pair<1>(w0, w1), b[step][1][1] = i8_pair<1>(w2, w3);
-        b[step][0][2] = i8_pair<2>(w0, w1), b[step][1][2] = i8_pair<2>(w2, w3);
-        b[step][0][3] = i8_pair<3>(w0, w1), b[step][1][3] = i8_pair<3>(w2, w3);
-      }
-    } else {
-      // packed row r holds rows r (low nibbles: step 0) and r + 16 (high: step 1)
-      const uint32_t p0 = row(2 * tig), p1 = row(2 * tig + 1);
-      const uint32_t p2 = row(2 * tig + 8), p3 = row(2 * tig + 9);
-      b[0][0][0] = q4_pair<0, 0>(p0, p1), b[0][1][0] = q4_pair<0, 0>(p2, p3);
-      b[0][0][1] = q4_pair<1, 0>(p0, p1), b[0][1][1] = q4_pair<1, 0>(p2, p3);
-      b[0][0][2] = q4_pair<2, 0>(p0, p1), b[0][1][2] = q4_pair<2, 0>(p2, p3);
-      b[0][0][3] = q4_pair<3, 0>(p0, p1), b[0][1][3] = q4_pair<3, 0>(p2, p3);
-      b[1][0][0] = q4_pair<0, 4>(p0, p1), b[1][1][0] = q4_pair<0, 4>(p2, p3);
-      b[1][0][1] = q4_pair<1, 4>(p0, p1), b[1][1][1] = q4_pair<1, 4>(p2, p3);
-      b[1][0][2] = q4_pair<2, 4>(p0, p1), b[1][1][2] = q4_pair<2, 4>(p2, p3);
-      b[1][0][3] = q4_pair<3, 4>(p0, p1), b[1][1][3] = q4_pair<3, 4>(p2, p3);
-    }
-
-    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(st + W_BYTES + S_BYTES);
-    float part[MT][4][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-    for (int step = 0; step < 2; ++step) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        // the planes lo, mid, hi (f32 x) against the same B fragments, into
-        // the same block sum
-#pragma unroll
-        for (int p = PARTS - 1; p >= 0; --p) {
-          uint32_t a[4];
-          ldmatrix_x4(a, xt + (p * BM + i * 16 + (lane & 15)) * kTcXLd + step * 16 +
-                             (lane >> 4) * 8);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[step][0][j], b[step][1][j]);
-        }
-      }
-    }
-
-    // c0 / c2 of tile j are column 8*tig + j, c1 / c3 column 8*tig + 4 + j
-    float sc[8];
-    smem_scales8(reinterpret_cast<const ST*>(st + W_BYTES) + warp * 32 + tig * 8, sc);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j][0] = fmaf(sc[j], part[i][j][0], acc[i][j][0]);
-        acc[i][j][1] = fmaf(sc[4 + j], part[i][j][1], acc[i][j][1]);
-        acc[i][j][2] = fmaf(sc[j], part[i][j][2], acc[i][j][2]);
-        acc[i][j][3] = fmaf(sc[4 + j], part[i][j][3], acc[i][j][3]);
-      }
-  }
-
-  const int n = n0 + warp * 32 + tig * 8;  // N is a multiple of 16: all 8 in or out
-  if (n >= N) return;
-  float* const f32_out = ws != nullptr ? ws + (size_t)blockIdx.y * M * N
-                         : PARTS == 3  ? static_cast<float*>(out)
-                                       : nullptr;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + i * 16 + gid + 8 * h;
-      if (m >= M) continue;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][j][2 * h];
-        v[4 + j] = acc[i][j][2 * h + 1];
-      }
-      if (f32_out != nullptr) {
-        float4* p = reinterpret_cast<float4*>(f32_out + (size_t)m * N + n);
-        p[0] = make_float4(v[0], v[1], v[2], v[3]);
-        p[1] = make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + (size_t)m * N + n) =
-            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                       pack_bf16(v[6], v[7]));
-      }
-    }
+          const ST* __restrict__ s, void* __restrict__ out, float* __restrict__ ws,
+          const float* __restrict__ xsum, int M, int K, int N, int per, int m_tiles) {
+  tile_tc_body<ST, MT, BITS, PARTS, false>(x, q, s, out, ws, xsum, M, K, N, per, m_tiles);
 }
 
 template <typename ST, int MT, int BITS, int PARTS>
 cudaError_t launch_tc_rows(const void* x, const void* q, const void* s, void* out, float* ws,
                            int M, int K, int N, int ksplit, cudaStream_t st) {
-  constexpr int smem = tc_stages<PARTS>() * tc_stage_bytes<ST, MT, BITS, PARTS>();
-  static_assert(PARTS == 3 || smem <= 48 * 1024, "bf16 x's ring fits the default 48 KB");
+  constexpr int smem = tc_smem_bytes<ST, MT, BITS, PARTS>();
   if constexpr (smem > 48 * 1024) {
     // more than 48 KB of dynamic shared memory only after this opt-in, once
     // per template instance
@@ -355,13 +168,8 @@ cudaError_t launch_tc_rows(const void* x, const void* q, const void* s, void* ou
         dq_tc<ST, MT, BITS, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (opt_in != cudaSuccess) return opt_in;
   }
-  const int m_tiles = (M + 16 * MT - 1) / (16 * MT);
-  const int nb = K / 32;
-  const int per = (nb + ksplit - 1) / ksplit;
-  dim3 grid(((N + kTcCols - 1) / kTcCols) * m_tiles, ksplit);
-  dq_tc<ST, MT, BITS, PARTS><<<grid, kTcThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const ST*>(s), out, ksplit > 1 ? ws : nullptr, M, K, N, per, m_tiles);
+  tile_launch<ST, MT, BITS, PARTS, false>(dq_tc<ST, MT, BITS, PARTS>, x, q, s, out, ws, nullptr,
+                                          M, K, N, ksplit, st);
   if (ksplit > 1) {
     const size_t mn = (size_t)M * N;
     const unsigned blocks = (unsigned)((mn + 255) / 256);
@@ -441,9 +249,9 @@ cudaError_t launch_decode_tc(const void* x, const void* q, const void* s, void* 
   return cudaSuccess;
 }
 
-// The forms, as ops/kernels.py's K1_FORMS numbers them; code 0 is K9's
-// GEMV (dequant_matmul_so.cu), which K1 no longer has.
-enum Form { kGemv = 0, kF32Tc = 1, kTensorCore = 2, kDecodeTc = 3, kF32DecodeTc = 4 };
+// The forms, as ops/kernels.py's K1_FORMS numbers them (K9's entry point
+// takes the same four codes; code 0 was K9's GEMV, which is gone).
+enum Form { kF32Tc = 1, kTensorCore = 2, kDecodeTc = 3, kF32DecodeTc = 4 };
 
 template <typename XT, typename ST, int BITS>
 cudaError_t launch_bits(const void* x, const void* q, const void* s, void* out, float* ws, int M,
@@ -475,11 +283,11 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out, float
 // bits: 8 (q int8 [K, N]) or 4 (q uint8 [K/2, N]). x_bf16 / s_bf16: 1 for
 // bfloat16, 0 for float32. form: with f32 x 1 the tensor-core tile on x's
 // three bf16 parts or 4 the tensor-core decode form on them (M <= 8); with
-// bf16 x 2 the tensor-core tile or 3 the tensor-core decode form (M <= 8);
-// 0 (K9's GEMV) is refused. `ws` is an f32 workspace: of ksplit*M*N
-// elements for the tensor-core tile with bf16 x and both decode forms when
-// ksplit > 1; for form 1 the three planes (3*M*K bf16, 1.5*M*K f32
-// elements) and then, when ksplit > 1, ksplit*M*N elements. A split holds
+// bf16 x 2 the tensor-core tile or 3 the tensor-core decode form (M <= 8).
+// `ws` is an f32 workspace: of ksplit*M*N elements for the tensor-core tile
+// with bf16 x and both decode forms when ksplit > 1; for form 1 the three
+// planes (3*M*K bf16, 1.5*M*K f32 elements) and then, when ksplit > 1,
+// ksplit*M*N elements. A split holds
 // ceil(K/32 / ksplit) quant blocks. Returns cudaGetLastError() after the
 // launches, the error of a refused shared-memory opt-in, or
 // cudaErrorInvalidValue for a form the arguments do not allow.

@@ -30,7 +30,10 @@
 // of bf16 for L12 (35.2 us). The integer rows (L6 to L8, L10) run on the
 // int8 tensor cores and the float rows (L2, L3, L9, L12) on the bf16 ones,
 // where their 2*8*K*N operations take 0.5 and 1 us against 14 us in f32
-// FMA; the probes run on the CUDA cores.
+// FMA. The probes read the same Q4_0 bytes with no x: decode_only's sums
+// run on the bf16 tensor cores, dma_only's on integer adds, and
+// decode_bitcast's lossy chain on f32 CUDA cores, where its ten or so
+// instructions a packed byte bound it near its bytes.
 //
 // What the design does about it:
 //  * Floating point (lab_decode_tc): the tensor-core decode form of K1
@@ -68,10 +71,25 @@
 //  * lab_quantize_x: x to int8 per (row, 32-block) with one warp each, the
 //    plain version's rounding decisions bit for bit (product by fl(1/127),
 //    IEEE division, rintf).
-//  * Probes (lab_probe): column sums with no x. decode_bitcast keeps every
-//    product and sum of its lossy chain a rounding of its own (__fmul_rn,
-//    __fadd_rn: no contraction into FMA), as the plain version does. dma_pure
-//    moves every packed byte of its span from device memory into a ring of
+//  * Probes: column sums with no x, so that L1 - decode_only is the cost
+//    of x and the products and decode_only - dma_only the cost of the
+//    nibble decode. decode_only, decode_bitcast and dma_only are probe modes
+//    of lab_decode_tc: the Q4_0 weight rows (and, but for dma_only, the
+//    scale rows) arrive by the decode form's bulk copies into its ring, with
+//    L2 evict_first, K split into one wave of blocks, one row of column sums
+//    a split, lab_reduce_cols adding the splits in a fixed order into every
+//    row.
+//    decode_only takes the form's own A fragments (the exact nib - 8 bf16
+//    pairs) against a B of bf16 ones held in registers: two k16 mma a quant
+//    block into a zeroed block sum, an exact integer column sum, which the
+//    column's scale folds into the f32 output sum. dma_only adds each
+//    lane's staged bytes exactly, the even and odd bytes of a word in 16-bit
+//    lanes of one 32-bit add (a lane adds 4 rows of at most 255 a block, so
+//    the lanes are flushed to 32 bits every 64 blocks). decode_bitcast reads
+//    the same 16-byte vectors of the ring and keeps every product and sum
+//    of its lossy chain a rounding of its own (__fmul_rn, __fadd_rn: no
+//    contraction into FMA), as the plain version does. dma_pure moves every
+//    packed byte of its span from device memory into a ring of
 //    shared-memory stages with cp.async (16 bytes a thread) and reads the
 //    8-row corner only.
 //
@@ -89,33 +107,16 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = 8;
 constexpr int kCols = 128;     // columns per block: 32 lanes x 4
 constexpr int kTM = 8;         // rows of x per block
 constexpr unsigned kFull = 0xffffffffu;
 
 // modes of lab_decode_tc (llamago_lab_fmatmul)
 constexpr int kFI4 = 0, kFI4Bf16 = 1, kFQ4Bf16 = 2, kFQ4Bf16Fma = 3, kFW16 = 4;
-// modes of lab_probe
+// its probe modes (llamago_lab_probe: L11's codes 0-2 plus 5)
+constexpr int kFDecodeOnly = 5, kFDecodeBitcast = 6, kFDmaOnly = 7;
+// L11's codes (llamago_lab_probe)
 constexpr int kPDecode = 0, kPDecodeBitcast = 1, kPDmaOnly = 2, kPDmaPure = 3;
-
-// Four consecutive bf16 scales at p (8-byte aligned) -> f32.
-__device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float out[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-// A nibble v (0..15) less 8 as f32: 0x4B000000 | v read as f32 is 2^23 + v,
-// and the difference to 2^23 + 8 is exact, without the slower int-to-float
-// convert.
-__device__ __forceinline__ float nibble_minus_8(int v) {
-  return __uint_as_float(0x4B000000u | (uint32_t)v) - 8388616.f;
-}
 
 // ------------------------------------------- floating-point rows (lab_decode_tc)
 
@@ -133,6 +134,11 @@ __device__ __forceinline__ float nibble_minus_8(int v) {
 template <int MODE> __host__ __device__ constexpr bool lt_i4() {
   return MODE == kFI4 || MODE == kFI4Bf16;
 }
+// The probes: no x staged, copied or counted; dma_only copies no scales.
+template <int MODE> __host__ __device__ constexpr bool lt_probe() { return MODE >= kFDecodeOnly; }
+template <int MODE> __host__ __device__ constexpr bool lt_scales() {
+  return MODE != kFW16 && MODE != kFDmaOnly;
+}
 template <int MODE> __host__ __device__ constexpr int lt_rows() { return MODE == kFW16 ? 32 : 16; }
 template <int MODE> __host__ __device__ constexpr int lt_col_bytes() { return MODE == kFW16 ? 2 : 1; }
 template <int MODE> __host__ __device__ constexpr int lt_ld() {
@@ -142,16 +148,23 @@ template <int MODE> __host__ __device__ constexpr int lt_stages() { return MODE 
 template <int MODE> __host__ __device__ constexpr int lt_blocks_per_sm() {
   return MODE == kFW16 ? 2 : 3;
 }
-// One stage: the weight rows, x (8 rows of 32 bf16, 80 bytes apart), then
-// the block's 512 bf16 scales (none for L12).
+// One stage: the weight rows, x (8 rows of 32 bf16, 80 bytes apart; none
+// for the probes), then the block's 512 bf16 scales (none for L12 and
+// dma_only).
+template <int MODE> __host__ __device__ constexpr int lt_x_bytes() {
+  return lt_probe<MODE>() ? 0 : 8 * kDtXLd;
+}
 template <int MODE> __host__ __device__ constexpr int lt_stage_bytes() {
-  return lt_rows<MODE>() * lt_ld<MODE>() + 8 * kDtXLd + (MODE == kFW16 ? 0 : 2 * kDtBlockCols);
+  return lt_rows<MODE>() * lt_ld<MODE>() + lt_x_bytes<MODE>() +
+         (lt_scales<MODE>() ? 2 * kDtBlockCols : 0);
 }
 template <int MODE> __host__ __device__ constexpr int lt_smem_bytes() {
   return lt_stages<MODE>() * (lt_stage_bytes<MODE>() + 8);
 }
 static_assert(lt_stage_bytes<kFI4>() % 16 == 0 && lt_stage_bytes<kFQ4Bf16>() % 16 == 0 &&
-                  lt_stage_bytes<kFW16>() % 16 == 0,
+                  lt_stage_bytes<kFW16>() % 16 == 0 &&
+                  lt_stage_bytes<kFDecodeOnly>() % 16 == 0 &&
+                  lt_stage_bytes<kFDmaOnly>() % 16 == 0,
               "stages and barriers stay aligned");
 static_assert(lt_smem_bytes<kFQ4Bf16>() >= kDtWarps * 8 * kDtCols * 4 &&
                   lt_smem_bytes<kFI4>() >= kDtWarps * 8 * kDtCols * 4,
@@ -234,7 +247,7 @@ __device__ __forceinline__ void lt_tile(const uint4 (&w)[4], const uint32_t (&xb
   lt_a_frag<MODE, T, 1>(w, a);
   lt_scale<MODE>(a, sp);
   mma_bf16(part, a, xb[2], xb[3]);
-  if constexpr (MODE == kFI4) {
+  if constexpr (MODE == kFI4 || MODE == kFDecodeOnly) {
     const float f0 = __uint_as_float(sp[0] << 16), f1 = __uint_as_float(sp[1] << 16);
     acc[0] = fmaf(f0, part[0], acc[0]);
     acc[1] = fmaf(f0, part[1], acc[1]);
@@ -257,7 +270,8 @@ __device__ __forceinline__ void lt_tile(const uint4 (&w)[4], const uint32_t (&xb
 // A fragments are ldmatrix.trans of the bf16 rows, so tile T is columns c
 // = 512x + 128w + 16T .. +15, its row gid column c+gid, row gid+8 c+8+gid.
 // Writes f32 to dst[(y*tm + 8z + m)*N + n]: the output when ksplit is 1,
-// else the split's partials.
+// else the split's partials. The probe modes (grid z 1, no x) write one row
+// of column sums a split, dst[y*N + n].
 template <int MODE>
 __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_decode_tc(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ x_hi,
@@ -267,7 +281,8 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
   constexpr int ROWS = lt_rows<MODE>(), LD = lt_ld<MODE>(), STAGES = lt_stages<MODE>();
   constexpr int CB = lt_col_bytes<MODE>();
   constexpr int STAGE = lt_stage_bytes<MODE>();
-  constexpr int X_OFF = ROWS * LD, S_OFF = X_OFF + 8 * kDtXLd;
+  constexpr int X_OFF = ROWS * LD, S_OFF = X_OFF + lt_x_bytes<MODE>();
+  constexpr bool PROBE = lt_probe<MODE>();
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -278,7 +293,8 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
   const int n_it = min(per, K / 32 - kb0);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
   const uint32_t width = min(kDtBlockCols, N - nb0);  // columns: N is a multiple of 16
-  const uint32_t stage_tx = ROWS * width * CB + 8 * 64 + (W16 ? 0 : 2 * width);
+  const uint32_t stage_tx =
+      ROWS * width * CB + (PROBE ? 0 : 8 * 64) + (lt_scales<MODE>() ? 2 * width : 0);
   const uint64_t once = l2_evict_first();  // the weights are read once
   if (tid < STAGES) mbar_init(bars + tid);
   mbar_init_fence();
@@ -292,7 +308,7 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
     if (tid < ROWS) {
       bulk_copy(st + tid * LD, q + ((size_t)(kb * ROWS + tid) * N + nb0) * CB, width * CB,
                 bars + slot, once);
-    } else if (tid >= 32 && tid < 40) {
+    } else if (!PROBE && tid >= 32 && tid < 40) {
       const int m = tid - 32;
       unsigned char* xd = st + X_OFF + m * kDtXLd;
       if constexpr (MODE == kFQ4Bf16Fma) {  // of every 32-block the first and last 16
@@ -302,7 +318,7 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
       } else {
         bulk_copy(xd, x + (size_t)(row0 + m) * K + kb * 32, 64, bars + slot);
       }
-    } else if (!W16 && tid == 64) {
+    } else if (lt_scales<MODE>() && tid == 64) {
       bulk_copy(st + S_OFF, s + (size_t)kb * N + nb0, 2 * width, bars + slot);
     }
   };
@@ -312,6 +328,19 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
   for (int t = 0; t < 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  // dma_only: the byte sums of the lane's 16 columns, even and odd bytes of
+  // word i (columns 4i .. 4i+3) in 16-bit lanes, flushed to 32 bits; and
+  // decode_bitcast's f32 sums
+  uint32_t ev[4] = {0u, 0u, 0u, 0u}, od[4] = {0u, 0u, 0u, 0u}, tot[16] = {};
+  float bsum[16] = {};
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tot[4 * i] += ev[i] & 0xFFFFu, tot[4 * i + 2] += ev[i] >> 16;
+      tot[4 * i + 1] += od[i] & 0xFFFFu, tot[4 * i + 3] += od[i] >> 16;
+      ev[i] = od[i] = 0u;
+    }
+  };
 
   const int cw = warp * kDtCols + 16 * gid;  // nibble modes: this lane's columns, in the block
   // L12: this lane's ldmatrix row, K row 8 (mat >> 1) + mr of a k16 step,
@@ -328,8 +357,11 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
     if (it + STAGES - 1 < n_it) load((it + STAGES - 1) % STAGES, it + STAGES - 1);
 
     const unsigned char* st = smem + (it % STAGES) * STAGE;
-    uint32_t xb[4];  // x row gid at k = 2 tig + {0, 8, 16, 24}
-    {
+    uint32_t xb[4];  // x row gid at k = 2 tig + {0, 8, 16, 24}; decode_only: bf16 ones
+    if constexpr (MODE == kFDecodeOnly) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xb[j] = 0x3F803F80u;
+    } else if constexpr (!PROBE) {
       const unsigned char* xr = st + X_OFF + gid * kDtXLd + 4 * tig;
 #pragma unroll
       for (int j = 0; j < 4; ++j) xb[j] = *reinterpret_cast<const uint32_t*>(xr + 16 * j);
@@ -358,8 +390,56 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
           w[r].z ^= 0x88888888u, w[r].w ^= 0x88888888u;
         }
       }
+      if constexpr (MODE == kFDmaOnly) {
+        // 4 rows of at most 255 a block: 16-bit lanes hold 64 blocks
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t wd[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ev[i] += wd[i] & 0x00FF00FFu;
+            od[i] += (wd[i] >> 8) & 0x00FF00FFu;
+          }
+        }
+        if ((it & 63) == 63) flush();
+        continue;
+      }
       const uint4 s0 = *reinterpret_cast<const uint4*>(st + S_OFF + 2 * cw);
       const uint4 s1 = *reinterpret_cast<const uint4*>(st + S_OFF + 2 * cw + 16);
+      if constexpr (MODE == kFDecodeBitcast) {
+        // ((f_lo * s + bias) + f_hi * s) + bias a byte, f = 2^23 + nib and
+        // bias = fl(-(2^23 + 8) * s), every product and sum rounded on its
+        // own (no contraction into FMA); the lane's rows in order
+        // a word's low and high nibbles, then each as f = 0x4B0000nn by
+        // one byte_perm
+        const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        uint32_t lo[4][4], hi[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t wd[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[r][i] = wd[i] & 0x0F0F0F0Fu;
+            hi[r][i] = (wd[i] >> 4) & 0x0F0F0F0Fu;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float sc = __uint_as_float((c & 1) ? sw[c >> 1] & 0xFFFF0000u : sw[c >> 1] << 16);
+          const float bias = __fmul_rn(-(8388608.f + 8.f), sc);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t sel = 0x7440u | (c & 3);
+            const float f_lo = __uint_as_float(__byte_perm(lo[r][c >> 2], 0x4B000000u, sel));
+            const float f_hi = __uint_as_float(__byte_perm(hi[r][c >> 2], 0x4B000000u, sel));
+            float t = __fadd_rn(__fmul_rn(f_lo, sc), bias);
+            t = __fadd_rn(t, __fmul_rn(f_hi, sc));
+            t = __fadd_rn(t, bias);
+            bsum[c] += t;
+          }
+        }
+        continue;
+      }
       lt_tile<MODE, 0>(w, xb, s0, s1, acc[0]);
       lt_tile<MODE, 1>(w, xb, s0, s1, acc[1]);
       lt_tile<MODE, 2>(w, xb, s0, s1, acc[2]);
@@ -369,6 +449,42 @@ __global__ void __launch_bounds__(kDtThreads, lt_blocks_per_sm<MODE>()) lab_deco
       lt_tile<MODE, 6>(w, xb, s0, s1, acc[6]);
       lt_tile<MODE, 7>(w, xb, s0, s1, acc[7]);
     }
+  }
+
+  if constexpr (PROBE) {
+    // one row of sums [N] a split: the lane's 16 columns, its four rows of
+    // each packed row pair added over the four lanes of its gid (decode_only:
+    // every slot holds the same column sums, so lane tig 0 has them)
+    float v[16];
+    if constexpr (MODE == kFDecodeOnly) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[t] = acc[t][0], v[8 + t] = acc[t][2];
+    } else if constexpr (MODE == kFDmaOnly) {
+      flush();
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        uint32_t a = tot[c];
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        v[c] = (float)a;  // exact: a column of a split is below 2^24
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        float a = bsum[c];
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        v[c] = a;
+      }
+    }
+    const int c = nb0 + cw;
+    if (tig == 0 && c < N) {
+      float4* p = reinterpret_cast<float4*>(dst + (size_t)blockIdx.y * N + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    }
+    return;
   }
 
   // The warp's 8 rows x 128 columns through shared memory, then 4
@@ -435,77 +551,6 @@ __global__ void __launch_bounds__(128) lab_quantize_x(const __nv_bfloat16* __res
 
 // ---------------------------------------------------------------------- probes
 
-// Column sums over the block's rows, no x. grid = (ceil(N/128), ksplit);
-// block y covers quant blocks [y*upb, (y+1)*upb); partial sums to ws[y][N].
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) lab_probe(const uint8_t* __restrict__ q,
-                                                      const __nv_bfloat16* __restrict__ s,
-                                                      float* __restrict__ ws, int K, int N,
-                                                      int upb) {
-  __shared__ float red[4 * 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kCols + lane * 4;
-  const bool valid = n < N;
-  const int u0 = blockIdx.y * upb, u1 = min(u0 + upb, K / 32);
-  const int upw = (u1 - u0 + kWarps - 1) / kWarps;
-  const int ua = u0 + warp * upw, ub = min(ua + upw, u1);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int isum[4] = {0, 0, 0, 0};
-  if (valid) {
-    for (int u = ua; u < ub; ++u) {
-      uint32_t wd[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        wd[j] = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(u * 16 + j) * N + n));
-      if constexpr (MODE == kPDmaOnly) {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) isum[c] += (wd[j] >> (8 * c)) & 0xFF;
-      } else {
-        float sc[4];
-        load_scales4(s + (size_t)u * N + n, sc);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int byte = (wd[j] >> (8 * c)) & 0xFF;
-            if constexpr (MODE == kPDecode) {
-              acc[c] += nibble_minus_8(byte & 0xF) * sc[c] + nibble_minus_8(byte >> 4) * sc[c];
-            } else {
-              // ((f_lo * s + bias) + f_hi * s) + bias, every step rounded
-              const float bias = __fmul_rn(-(8388608.f + 8.f), sc[c]);
-              const float f_lo = __uint_as_float(0x4B000000u | (byte & 0xF));
-              const float f_hi = __uint_as_float(0x4B000000u | (byte >> 4));
-              float t = __fadd_rn(__fmul_rn(f_lo, sc[c]), bias);
-              t = __fadd_rn(t, __fmul_rn(f_hi, sc[c]));
-              t = __fadd_rn(t, bias);
-              acc[c] += t;
-            }
-          }
-      }
-    }
-  }
-  if constexpr (MODE == kPDmaOnly) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = (float)isum[c];  // exact below 2^24
-  }
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c * 32 + lane;
-        red[i] = (w == 0 ? 0.f : red[i]) + acc[c];
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < kCols) {
-    const int cc = threadIdx.x, nn = blockIdx.x * kCols + cc;
-    if (nn < N) ws[(size_t)blockIdx.y * N + nn] = red[(cc & 3) * 32 + (cc >> 2)];
-  }
-}
-
 constexpr int kStages = 4;
 constexpr int kStageRows = 32;  // packed rows of 128 bytes per stage: 256 x 16 bytes
 
@@ -556,6 +601,31 @@ __global__ void lab_reduce(const float* __restrict__ ws, float* __restrict__ out
   out[i] = a;
 }
 
+// out[m][n] = the sum over the ksplit rows ws[y][n], for every m < tm (the
+// probe modes of lab_decode_tc). A block is 32 columns by 8 warps: warp g
+// adds the rows y = g, g + 8, ... in order, then every warp adds the 8
+// warps' sums in order and writes rows g, g + 8, ...: a fixed order, the
+// same bits every call, each partial read once and a few loads a thread
+// (lab_reduce with ws_rows 1 reads every partial again for each row, one
+// thread adding all ksplit of them).
+__global__ void __launch_bounds__(256) lab_reduce_cols(const float* __restrict__ ws,
+                                                       float* __restrict__ out, int tm, int N,
+                                                       int ksplit) {
+  __shared__ float part[8][32];
+  const int c = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int n = blockIdx.x * 32 + c;
+  float a = 0.f;
+  if (n < N)
+    for (int y = g; y < ksplit; y += 8) a += ws[(size_t)y * N + n];
+  part[g][c] = a;
+  __syncthreads();
+  if (n >= N) return;
+  float t = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t += part[j][c];
+  for (int m = g; m < tm; m += 8) out[(size_t)m * N + n] = t;
+}
+
 void reduce(const float* ws, float* out, int tm, int N, int ws_rows, int ksplit,
             cudaStream_t st) {
   const size_t mn = (size_t)tm * N;
@@ -577,6 +647,24 @@ cudaError_t launch_decode_i8tc(const ItArgs& a, int ksplit, cudaStream_t st) {
   const dim3 grid((a.N + kItBlockCols - 1) / kItBlockCols, ksplit, a.tm / kTM);
   lab_decode_i8tc<FMT><<<grid, kItThreads, smem, st>>>(a);
   return cudaSuccess;
+}
+
+// A probe mode of lab_decode_tc: grid = (ceil(N/512), ksplit), one row of
+// column sums a split into ws [ksplit, N], which lab_reduce_cols adds in a
+// fixed order into every one of out's tm rows.
+template <int MODE>
+cudaError_t launch_probe_tc(const void* q, const void* s, float* out, float* ws, int tm, int K,
+                            int N, int per, int ksplit, cudaStream_t st) {
+  constexpr int smem = lt_smem_bytes<MODE>();
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      lab_decode_tc<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid((N + kDtBlockCols - 1) / kDtBlockCols, ksplit);
+  lab_decode_tc<MODE><<<grid, kDtThreads, smem, st>>>(
+      nullptr, nullptr, static_cast<const uint8_t*>(q), static_cast<const __nv_bfloat16*>(s),
+      ws, tm, K, N, per);
+  lab_reduce_cols<<<(N + 31) / 32, 256, 0, st>>>(ws, out, tm, N, ksplit);
+  return cudaGetLastError();
 }
 
 template <int MODE>
@@ -686,31 +774,32 @@ extern "C" int llamago_lab_quantize_x(const void* x, void* xq, void* sx, int tm,
   return (int)cudaGetLastError();
 }
 
-// Row L11. mode: 0 decode_only, 1 decode_bitcast, 2 dma_only, 3 dma_pure. q
-// Q4_0 bytes [K/2, N], s bf16 [K/32, N], out f32 [tm, N] (every row the same),
-// ws f32 [ksplit, N]; a block covers `rows` rows of K (dma_pure: its span tk),
-// ksplit = ceil(K / rows).
+// Row L11. mode: 0 decode_only, 1 decode_bitcast, 2 dma_only (each a probe
+// mode of lab_decode_tc), 3 dma_pure. q Q4_0 bytes [K/2, N], s bf16 [K/32,
+// N], out f32 [tm, N] (every row the same), ws f32 [ksplit, N]; a block
+// covers `rows` rows of K, ksplit = ceil(K / rows): for modes 0-2 a split of
+// rows / 32 quant blocks (ops/lab_kernels.py probe_plan), for dma_pure its
+// span tk.
 extern "C" int llamago_lab_probe(const void* q, const void* s, void* out, void* ws, int tm,
                                  int K, int N, int mode, int rows, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tm < 1 || K < 32 || K % 32 || N < 16 || N % 16 || rows < 32 || rows % 32 ||
-      ksplit != (K + rows - 1) / rows || mode < 0 || mode > 3)
+      ksplit != (K + rows - 1) / rows || mode < 0 || mode > 3 || ws == nullptr)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kCols - 1) / kCols, ksplit);
   const auto* qp = static_cast<const uint8_t*>(q);
-  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  float* o = static_cast<float*>(out);
   float* w = static_cast<float*>(ws);
-  const int upb = rows / 32;
-  if (mode == kPDecode)
-    lab_probe<kPDecode><<<grid, kThreads, 0, st>>>(qp, sp, w, K, N, upb);
-  else if (mode == kPDecodeBitcast)
-    lab_probe<kPDecodeBitcast><<<grid, kThreads, 0, st>>>(qp, sp, w, K, N, upb);
-  else if (mode == kPDmaOnly)
-    lab_probe<kPDmaOnly><<<grid, kThreads, 0, st>>>(qp, sp, w, K, N, upb);
-  else if (mode == kPDmaPure && K % rows == 0)
-    lab_probe_dma_pure<<<grid, kThreads, 0, st>>>(qp, w, N, rows / 2);
-  else
-    return (int)cudaErrorInvalidValue;
-  reduce(w, static_cast<float*>(out), tm, N, 1, ksplit, st);
+  const int per = rows / 32;
+  switch (mode) {
+    case kPDecode: return launch_probe_tc<kFDecodeOnly>(q, s, o, w, tm, K, N, per, ksplit, st);
+    case kPDecodeBitcast:
+      return launch_probe_tc<kFDecodeBitcast>(q, s, o, w, tm, K, N, per, ksplit, st);
+    case kPDmaOnly: return launch_probe_tc<kFDmaOnly>(q, s, o, w, tm, K, N, per, ksplit, st);
+    default: break;
+  }
+  if (K % rows) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kCols - 1) / kCols, ksplit);
+  lab_probe_dma_pure<<<grid, kThreads, 0, st>>>(qp, w, N, rows / 2);
+  reduce(w, o, tm, N, 1, ksplit, st);
   return (int)cudaGetLastError();
 }

@@ -118,10 +118,14 @@ def _l1(hoist=None, fmt="q4"):
 
 
 def _probe(kind):
+    """L11's probes: decode_only sums on the bf16 tensor cores (the decode
+    form's own A fragments against ones), decode_bitcast's chain runs in f32
+    on the CUDA cores, the byte probes take no products."""
+    rate = {"decode_only": "bf16", "decode_bitcast": "f32"}.get(kind)
     return Variant("L11", "q4", None,
                    lambda ops, w, tk: lk.probe(kind, ops[0], w, tk),
                    lambda ops, w, tk: lk.probe_plain(kind, w, ops[0].shape[0], tk),
-                   "f32" if kind.startswith("decode") else None, (lk.probe, "launches"))
+                   rate, (lk.probe, "launches"))
 
 
 def _l10(hoist, g128):

@@ -17,9 +17,10 @@ does (llamago_tpu/ops/kernels.py):
                 (`dequant_matmul_so`, replacing `_dequant_mm_kernel_so`,
                 CUDA: `csrc/dequant_matmul_so.cu`), when max(8, m) is at most
                 `SCALE_ON_OUTPUT_MAX_M` (0 = off, env
-                LLAMAGO_KERNEL_SO_MAX_M), in the form `k9_form` picks: up
-                to 8 rows the bf16 tensor-core decode form, for f32 x on
-                x's three exact bf16 parts, else the split-K GEMV; else
+                LLAMAGO_KERNEL_SO_MAX_M), in the form `k9_form` picks,
+                K1's forms on the raw integers: up to 8 rows the bf16
+                tensor-core decode form, above that the bf16 tensor-core
+                tile, each for f32 x on x's three exact bf16 parts; else
                 K1, the dequant-matmul (replacing `_dequant_mm_kernel`,
                 bits 8 and 4, CUDA: `csrc/dequant_matmul.cu`) in the form
                 `k1_form` picks: up to 8 rows the bf16 tensor-core decode
@@ -42,8 +43,9 @@ with bf16 x, `.launches_f32_tc` the tile with f32 x,
 `w4x8_matmul.launches_a8` and `.launches_stream` (K6, of which
 `.launches_tc` took the tensor-core tile with bf16 x and `.launches_f32_tc`
 with f32 x), `dequant_matmul_so.launches` (of which `.launches_decode_tc`
-took the tensor-core decode form and `.launches_f32_decode_tc` the decode
-form with f32 x)).
+took the tensor-core decode form, `.launches_f32_decode_tc` the decode form
+with f32 x, `.launches_tc` the tensor-core tile and `.launches_f32_tc` the
+tile with f32 x)).
 
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`, one trip to memory in the launch `norm_plan`
@@ -68,11 +70,8 @@ from llamago_tpu_torch.ops import _build
 from llamago_tpu_torch.ops.quant import G4X8, QK, dequantize, unpack_q4, unpack_w4x8
 from llamago_tpu_torch.utils.timing import H100_SMS
 
-# Blocks K9's GEMV aims to have in flight: four per SM of an H100.
-_TARGET_BLOCKS = 4 * H100_SMS
 # The most rows the decode forms take (the n8 columns of B)
 _DECODE_MAX_M = 8
-_GEMV_COLS = 512  # columns per GEMV block (csrc/dequant_matmul_so.cu)
 # The tensor-core tiles of K1 (csrc/dequant_matmul.cu) and K6
 # (csrc/w4x8_matmul.cu): rows and columns per block, the blocks below which
 # they split K (two per SM), how many they then aim for, and the fewest rows
@@ -96,9 +95,9 @@ _TC_MIN_SPLIT_ROWS = 256
 _DT_COLS = 512
 _DT_MAX_BLOCKS = 3 * H100_SMS
 _DT_MIN_SPLIT_BLOCKS = 4
-# K1's and K9's forms, numbered as the C entry points take them: K1 takes
-# codes 1-4, K9 0 (its GEMV), 3 and 4
-K1_FORMS = ("gemv", "f32_tc", "tensor_core", "decode_tc", "f32_decode_tc")
+# K1's and K9's forms by the code both C entry points take (code 0 was K9's
+# GEMV, which is gone)
+K1_FORMS = {"f32_tc": 1, "tensor_core": 2, "decode_tc": 3, "f32_decode_tc": 4}
 
 # Rows up to which a w4x8 leaf takes K5, whose int8 activation rounding
 # changes the numerics; above it K6 (exact given the format).
@@ -193,13 +192,6 @@ def w4x8_matmul_stream_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 # ------------------------------------------------------------------ launchers
 
-def ksplit_for(k: int, n: int) -> int:
-    """K-split of K9's GEMV: enough blocks to fill the card, and
-    at least eight quant blocks (one per warp) in each split."""
-    col_blocks = -(-n // _GEMV_COLS)
-    return max(1, min((k // QK) // 8, -(-_TARGET_BLOCKS // col_blocks)))
-
-
 def k1_form(m: int, x_dtype: torch.dtype) -> str:
     """K1's kernel on the card for m rows of x. bf16 x takes bf16 mma.sync:
     "decode_tc" (the slots are the n8 columns of B) up to 8 rows,
@@ -263,30 +255,29 @@ def k1_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int
     return form, ksplit, ksplit * m * n if ksplit > 1 else 0
 
 
-def gemv_plan(m: int, k: int, n: int) -> tuple[str, int, int]:
-    """(form, ksplit, f32 workspace elements) of K9's split-K GEMV over m
-    rows, its form above 8 rows (its GEMV walks all m rows a few at a
-    time). The GEMV's reduce writes the output: one partial per split,
-    always."""
-    ksplit = ksplit_for(k, n)
-    return "gemv", ksplit, ksplit * m * n
-
-
 def k9_form(m: int, x_dtype: torch.dtype) -> str:
-    """K9's kernel on the card for m rows of x: up to 8 rows K1's decode
-    form (`k1_form`) on the raw integers, else "gemv" (its split-K GEMV),
-    which only a switch above 8 reaches."""
-    return k1_form(m, x_dtype) if m <= _DECODE_MAX_M else "gemv"
+    """K9's kernel on the card for m rows of x: K1's (`k1_form`) on the raw
+    integers. Above 8 rows, which only a switch above 8 reaches, the
+    tensor-core tile ("tensor_core", "f32_tc")."""
+    return k1_form(m, x_dtype)
+
+
+def k9_workspace(m: int, k: int, n: int, ksplit: int) -> int:
+    """f32 workspace elements of K9's tile with f32 x ("f32_tc"): x's three
+    bf16 planes (3 * m * k bf16), x's block sums [K/32, m rounded up to 4]
+    (the raw Q4_0 nibbles' offset; a quant block's rows start 16-byte
+    aligned, and so do the partials after them), then the split-K partials
+    when it splits K."""
+    sums = (k // QK) * (-(-m // 4) * 4)
+    return 3 * m * k // 2 + sums + (ksplit * m * n if ksplit > 1 else 0)
 
 
 def k9_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[str, int, int]:
     """(form, ksplit, f32 workspace elements) of one K9 launch over m rows:
-    the decode forms split K as K1's do (`decode_tc_split_for`)."""
-    form = k9_form(m, x_dtype)
-    if form == "gemv":
-        return gemv_plan(m, k, n)
-    ksplit = decode_tc_split_for(k, n)[0]
-    return form, ksplit, ksplit * m * n if ksplit > 1 else 0
+    each form splits K as K1's does (`k1_plan`); the tile with f32 x keeps
+    x's block sums beside its planes."""
+    form, ksplit, ws = k1_plan(m, k, n, x_dtype)
+    return form, ksplit, k9_workspace(m, k, n, ksplit) if form == "f32_tc" else ws
 
 
 def w4x8_form(m: int, x_dtype: torch.dtype) -> str:
@@ -519,7 +510,7 @@ def _launch_q(lib_fn, what: str, x: torch.Tensor, w: dict, plan) -> tuple[torch.
     err = lib_fn()(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                    ws.data_ptr(), m, k, n, 8 if key == "q8" else 4,
                    int(x2.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16),
-                   K1_FORMS.index(form), ksplit, _stream(x2))
+                   K1_FORMS[form], ksplit, _stream(x2))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n), form
 
@@ -532,9 +523,13 @@ def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
     _cuda_or_raise(x, "dequant_matmul_so")
     out, form = _launch_q(_lib_so, "dequant_matmul_so", x, w, k9_plan)
     dequant_matmul_so.launches += 1
-    if form == "decode_tc":
+    if form == "tensor_core":
+        dequant_matmul_so.launches_tc += 1
+    elif form == "decode_tc":
         dequant_matmul_so.launches_decode_tc += 1
-    elif form == "f32_decode_tc":
+    elif form == "f32_tc":
+        dequant_matmul_so.launches_f32_tc += 1
+    else:
         dequant_matmul_so.launches_f32_decode_tc += 1
     return out
 
@@ -542,6 +537,8 @@ def dequant_matmul_so(x: torch.Tensor, w: dict) -> torch.Tensor:
 dequant_matmul_so.launches = 0  # K9, any form
 dequant_matmul_so.launches_decode_tc = 0  # K9's tensor-core decode form
 dequant_matmul_so.launches_f32_decode_tc = 0  # the same on f32 x's three parts
+dequant_matmul_so.launches_tc = 0  # K9's tensor-core tile
+dequant_matmul_so.launches_f32_tc = 0  # the same on f32 x's three parts
 
 
 def dequant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:

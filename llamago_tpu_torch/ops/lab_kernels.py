@@ -44,7 +44,9 @@ A CPU tensor takes the plain version (`*_plain`); a CUDA tensor takes the
 kernel of `csrc/lab_matmul.cu`, or the wrapper raises. The float rows (L2,
 L3, L9, L12) run its tensor-core decode form (`lab_plan`): bf16 mma.sync
 with the weights as the A operand, 8 rows of x a group, K split into one
-wave of blocks. The integer rows (L6, L7, L8, L10) run K5's int8
+wave of blocks; L11's decode_only, decode_bitcast and dma_only run probe
+modes of the same form, its ring and split with no x (`probe_plan`). The
+integer rows (L6, L7, L8, L10) run K5's int8
 tensor-core decode form (`lab_i8_plan`, csrc/decode_i8_tc.cuh): int8
 mma.sync with exact int32 sums per scale group, the same layout. Each
 wrapper counts its launches (`.launches`).
@@ -73,7 +75,6 @@ G128 = 128  # scale-group size of the g128 variants
 HALF = QK // 2
 PROBES = ("decode_only", "decode_bitcast", "dma_only", "dma_pure")
 _MAGIC = 8388608.0  # 2^23: 0x4B000000 | nib read as f32 is 2^23 + nib
-_PROBE_ROWS_PER_BLOCK = 1024  # K rows one probe block walks (csrc/lab_matmul.cu)
 
 
 def default_tk(k: int) -> int:
@@ -365,6 +366,16 @@ def ksplit_for(k: int, rows: int) -> int:
     return -(-k // rows)
 
 
+def probe_plan(k: int, n: int) -> tuple[int, int]:
+    """(ksplit, quant blocks per split) of L11's decode_only, decode_bitcast
+    and dma_only, probe modes of the float rows' tensor-core decode form:
+    K split as `lab_plan` splits it for one group of 8 rows in the nibble
+    modes (one wave of three blocks an SM of 512 columns, at least 4 quant
+    blocks a split where K allows, none empty)."""
+    ksplit = lab_plan(_LT_ROWS, k, n, _F_Q4_BF16)[0]
+    return ksplit, -(-(k // QK) // ksplit)
+
+
 def lab_plan(tm: int, k: int, n: int, mode: int) -> tuple[int, int]:
     """(ksplit, f32 workspace elements) of one launch of the float rows'
     tensor-core decode form (modes `_F_*`; tm a multiple of 8, one group of
@@ -626,8 +637,8 @@ def probe(kind: str, x: torch.Tensor, leaf: dict, tk: int) -> torch.Tensor:
                                "s": (s, torch.bfloat16, (k // QK, n))}, k, n)
     if k % tk or tk % QK or tk < QK:
         raise ValueError(f"probe: K={k} does not divide into k-tiles of {tk}")
-    # dma_pure: one block per span; the others: one per 1024 rows
-    rows = tk if kind == "dma_pure" else _PROBE_ROWS_PER_BLOCK
+    # dma_pure: one block per span; the others: the decode form's split
+    rows = tk if kind == "dma_pure" else QK * probe_plan(k, n)[1]
     ksplit = ksplit_for(k, rows)
     out = torch.empty((tm, n), dtype=torch.float32, device=x.device)
     ws = torch.empty((ksplit, n), dtype=torch.float32, device=x.device)

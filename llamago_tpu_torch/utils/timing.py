@@ -45,12 +45,14 @@ def device_us_by_name(events) -> dict[str, float]:
     return by_name
 
 
-def profiled(fn, attempts: int = 8):
+def profiled(fn, attempts: int = 8, min_events: int = 1):
     """Run fn() under a device-side torch.profiler trace, synchronize, and
-    return the trace's events. A trace that comes back without device events
-    (seen once in many, three times in a row once) is taken again, after a
-    pause that grows with each attempt, at most `attempts` times in all;
-    then it raises. No other clock stands in for the trace's."""
+    return the trace's events. A trace can lose events: none at all (seen
+    once in many, three times in a row once), or most of them (4 of 50
+    launches of one small kernel, seen once). A trace that holds fewer than
+    `min_events` device events, the least that fn() launches, is taken
+    again, after a pause that grows with each attempt, at most `attempts`
+    times in all; then it raises. No other clock stands in for the trace's."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(attempts):
@@ -58,17 +60,21 @@ def profiled(fn, attempts: int = 8):
             fn()
             torch.cuda.synchronize()
         events = prof.events()
-        if device_busy_us(events) > 0:
+        held = len(_device_events(events))
+        if held >= min_events and device_busy_us(events) > 0:
             return events
-        print(f"[timing] the trace holds no device events (attempt {attempt + 1})",
+        print(f"[timing] the trace holds {held} device events, fewer than the "
+              f"{max(min_events, 1)} launched (attempt {attempt + 1})",
               file=sys.stderr, flush=True)
         time.sleep(0.5 * (attempt + 1))
-    raise AssertionError("the profiler recorded no device activity")
+    raise AssertionError("the profiler recorded too few device events")
 
 
 def timed(fns, iters: int) -> float:
     """Device time in ms per call over `iters` calls cycling through `fns`,
-    after one warm-up pass: the card's busy time in a torch.profiler trace."""
+    after one warm-up pass: the card's busy time in a torch.profiler trace.
+    Each call launches at least one device operation, so a trace with fewer
+    than `iters` of them lost some and is taken again."""
     for f in fns:
         f()
     torch.cuda.synchronize()
@@ -77,7 +83,7 @@ def timed(fns, iters: int) -> float:
         for i in range(iters):
             fns[i % len(fns)]()
 
-    return device_busy_us(profiled(run)) / 1e3 / iters
+    return device_busy_us(profiled(run, min_events=iters)) / 1e3 / iters
 
 
 def bound_ms(nbytes: float, ops: float,

@@ -82,9 +82,10 @@ def test_f32_decode_rows_take_the_form_in_k1_and_k9(m):
 
 @pytest.mark.parametrize("m", [9, 16, 17, 64, 256])
 def test_more_rows_keep_their_forms(m):
-    """Above 8 rows K1 takes its tile on x's three parts, K9 its GEMV."""
+    """Above 8 rows K1 takes its tile on x's three parts, and so does K9
+    (its GEMV is gone)."""
     assert kernels.k1_form(m, torch.float32) == "f32_tc"
-    assert kernels.k9_form(m, torch.float32) == "gemv"
+    assert kernels.k9_form(m, torch.float32) == "f32_tc"
 
 
 # ---------------------------------------------------------------- the plans
@@ -105,9 +106,11 @@ def test_plans_split_as_the_decode_form_with_no_planes(m, k, n):
 # ---------------------------------------------------------------- the C side
 
 def test_form_code_in_both_entry_points():
-    """Code 4 in both enums; codes 0-3 keep their meaning."""
-    assert kernels.K1_FORMS == ("gemv", "f32_tc", "tensor_core", "decode_tc", "f32_decode_tc")
-    assert kernels.K1_FORMS.index("f32_decode_tc") == FORM
+    """Code 4 in both enums; codes 1-3 keep their meaning (code 0, K9's
+    GEMV, is gone)."""
+    assert kernels.K1_FORMS == {"f32_tc": 1, "tensor_core": 2, "decode_tc": 3,
+                                "f32_decode_tc": 4}
+    assert kernels.K1_FORMS["f32_decode_tc"] == FORM
     for name in ("dequant_matmul.cu", "dequant_matmul_so.cu"):
         enum = re.search(r"enum Form \{[^}]*kDecodeTc = 3, kF32DecodeTc = (\d) \};", _src(name))
         assert enum is not None and int(enum.group(1)) == FORM, name
@@ -175,23 +178,26 @@ def test_entry_points_refuse_what_the_form_cannot_take(source, name):
             assert refuses(bits, 0, FORM, m, 16, None)  # split, no workspace
             assert not refuses(bits, 1, 3, m, 16, ws) and refuses(bits, 0, 3, m, 16, ws)
         assert refuses(bits, 0, FORM, 9, 1, ws)
-        # code 0: K9's GEMV, at any rows; K1's is gone, so K1 refuses it
-        k1 = name == "llamago_dequant_matmul"
-        assert all(refuses(bits, xb, 0, m, 4, ws) == k1 for xb in (0, 1) for m in (1, 8, 16))
+        # code 0 was K9's GEMV (K1's went first): both refuse it
+        assert all(refuses(bits, xb, 0, m, 4, ws) for xb in (0, 1) for m in (1, 8, 16))
     assert refuses(5, 0, FORM, 4, 1, ws) and refuses(8, 0, 5, 4, 1, ws)
 
 
 def test_k1s_gemv_is_gone_and_k9s_stays_above_8_rows():
     """The new form won every cell of the mirrored pair against K1's GEMV
     (m = 1, 2, 4, 8; Q8_0 and Q4_0; f32 and bf16 scales), so `dq_gemv` and
-    its launcher are gone; K9's `so_gemv` stays for more than 8 rows."""
+    its launcher are gone; K9's `so_gemv`, which took more than 8 rows,
+    went the same way once K1's tile on the raw integers won its pair: above
+    8 rows K9 plans as K1's tile, with x's block sums in the f32 workspace."""
     k1 = _src("dequant_matmul.cu")
     assert "dq_gemv" not in k1 and "launch_gemv" not in k1
-    assert "__launch_bounds__(256) so_gemv(" in _src("dequant_matmul_so.cu")
+    assert "so_gemv" not in _src("dequant_matmul_so.cu")
     for m in range(1, 9):
         assert "gemv" not in (kernels.k1_plan(m, 4096, 4096, torch.float32)[0],
                               kernels.k9_plan(m, 4096, 4096, torch.float32)[0])
-    assert kernels.k9_plan(9, 4096, 4096, torch.float32) == kernels.gemv_plan(9, 4096, 4096)
+    ks = kernels.k1_plan(9, 4096, 4096, torch.float32)[1]
+    assert kernels.k9_plan(9, 4096, 4096, torch.float32) == (
+        "f32_tc", ks, kernels.k9_workspace(9, 4096, 4096, ks))
 
 
 # ---------------------------------------------------- the stage and its launch

@@ -188,11 +188,11 @@ def test_f32_x_above_the_decode_rows_takes_the_new_form(m):
 def test_the_old_f32_tiles_are_gone():
     """`dq_tiled` and `w4x8_stream` and their form code went with the new
     form: code 1 is the tile on x's three parts in both entry points."""
-    assert "tiled_f32" not in kernels.K1_FORMS + kernels.W4X8_FORMS
+    assert "tiled_f32" not in (*kernels.K1_FORMS, *kernels.W4X8_FORMS)
     for name, gone in (("dequant_matmul.cu", "dq_tiled"), ("w4x8_matmul.cu", "w4x8_stream<")):
         assert gone not in _src(name)
-    assert re.search(r"enum Form \{ kGemv = 0, kF32Tc = (\d), kTensorCore = 2, kDecodeTc = 3,",
-                     _src("dequant_matmul.cu")).group(1) == str(kernels.K1_FORMS.index("f32_tc"))
+    assert re.search(r"enum Form \{ kF32Tc = (\d), kTensorCore = 2, kDecodeTc = 3,",
+                     _src("dequant_matmul.cu")).group(1) == str(kernels.K1_FORMS["f32_tc"])
     assert re.search(r"enum W4x8Form \{ kA8 = 0, kF32Tc = (\d), kTensorCore = 2 \}",
                      _src("w4x8_matmul.cu")).group(1) == str(kernels.W4X8_FORMS.index("f32_tc"))
 
@@ -301,7 +301,7 @@ def _k6_stage(mt: int, parts: int) -> int:
 
 
 def test_the_layout_constants_are_the_sources():
-    k1 = _src("dequant_matmul.cu")
+    k1 = _src("tile_tc.cuh") + _src("dequant_matmul.cu")
     for line in ("constexpr int kTcWLd = kTcCols + 16;", "constexpr int kTcXLd = 32 + 8;",
                  "return PARTS == 1 ? 4 : 3;",
                  "return PARTS == 3 && MT == 2 ? 3 : 0;",

@@ -94,7 +94,7 @@ def test_decode_form_code_matches_the_c_entry_point():
     src = (CSRC / "dequant_matmul.cu").read_text()
     enum = re.search(r"enum Form \{[^}]*kDecodeTc = (\d),", src)
     assert enum is not None
-    assert int(enum.group(1)) == kernels.K1_FORMS.index("decode_tc") == 3
+    assert int(enum.group(1)) == kernels.K1_FORMS["decode_tc"] == 3
     # the entry point takes the code, for bf16 x and at most 8 rows only;
     # the f32 forms only f32 x
     assert "form > kF32DecodeTc" in src
@@ -216,17 +216,18 @@ def test_k1_hands_the_decode_form_to_its_entry_point(monkeypatch, m, bits):
 @pytest.mark.parametrize("m", [1, 3, 8, 16])
 def test_k9_keeps_its_own_gemv_plan(monkeypatch, m, dtype):
     """K9 shares the launcher but plans with `k9_plan`, through its own
-    entry point (`csrc/dequant_matmul_so.cu` takes the GEMV's code and the
-    two decode forms', no other): decode rows hand it the decode form's
-    code for x's dtype and its split, more than 8 rows its GEMV's."""
-    assert "(form != kGemv && form != kDecodeTc && form != kF32DecodeTc)" in (
-        CSRC / "dequant_matmul_so.cu").read_text()
+    entry point (`csrc/dequant_matmul_so.cu` takes K1's four codes, no
+    other; its GEMV's code 0 is gone): decode rows hand it the decode form's
+    code for x's dtype and its split, more than 8 rows the tile's and the
+    tile's split."""
+    assert "form < kF32Tc || form > kF32DecodeTc" in (CSRC / "dequant_matmul_so.cu").read_text()
     calls = _launch_on_meta(monkeypatch, kernels.dequant_matmul_so, "_lib_so", m, 8, dtype)
     if m <= 8:
         form = 3 if dtype == torch.bfloat16 else 4
         ksplit = kernels.decode_tc_split_for(4096, 4096)[0]
     else:
-        form, ksplit = 0, kernels.ksplit_for(4096, 4096)
+        form = 2 if dtype == torch.bfloat16 else 1
+        ksplit = kernels.k1_plan(m, 4096, 4096, dtype)[1]
     assert calls == [dict(m=m, k=4096, n=4096, bits=8, x_bf16=int(dtype == torch.bfloat16),
                           form=form, ksplit=ksplit)]
 

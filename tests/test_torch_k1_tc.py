@@ -78,11 +78,11 @@ def test_k1_form_routes_by_rows_and_dtype(m, dtype):
 
 def test_k1_form_codes_match_the_c_entry_point():
     src = (pathlib.Path(kernels.__file__).parents[1] / "csrc" / "dequant_matmul.cu").read_text()
-    enum = re.search(r"enum Form \{ kGemv = (\d), kF32Tc = (\d), kTensorCore = (\d), "
+    enum = re.search(r"enum Form \{ kF32Tc = (\d), kTensorCore = (\d), "
                      r"kDecodeTc = (\d), kF32DecodeTc = (\d) \}", src)
     assert enum is not None
-    assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f) for f in
-                                               ("gemv", "f32_tc", "tensor_core",
+    assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS[f] for f in
+                                               ("f32_tc", "tensor_core",
                                                 "decode_tc", "f32_decode_tc")]
 
 
@@ -131,10 +131,12 @@ def test_k1_plan_workspace_by_form():
     assert kernels.k1_plan(4, k, n, torch.float32) == ("f32_decode_tc", ks, ks * 4 * n)
     # bf16 x at decode: the tensor-core decode form, partials when it splits K
     assert kernels.k1_plan(4, k, n, torch.bfloat16) == ("decode_tc", ks, ks * 4 * n)
-    # K9 plans as a one-row GEMV and walks all of its rows, for either x
-    form, ksplit, ws = kernels.gemv_plan(8, k, n)
-    assert (form, ksplit, ws) == ("gemv", kernels.ksplit_for(k, n),
-                                  kernels.ksplit_for(k, n) * 8 * n)
+    # K9 above 8 rows takes K1's tile and its split, for either x; with f32
+    # x its workspace holds x's block sums [m, K/32] between the planes and
+    # the partials
+    assert kernels.k9_plan(64, k, n, torch.bfloat16) == ("tensor_core", 6, 6 * 64 * n)
+    assert kernels.k9_plan(64, k, n, torch.float32) == (
+        "f32_tc", 5, 3 * 64 * k // 2 + 64 * (k // 32) + 5 * 64 * n)
     # the tile with f32 x: x's three bf16 planes, then the partials when it
     # splits K; 96 column strips at m = 64: five splits (480 blocks, a wave
     # of the three an SM holds)

@@ -74,6 +74,15 @@ def test_every_file_a_kernel_builds_from_ships_as_package_data(name):
         assert any(fnmatch.fnmatch(f"csrc/{rel}", g) for g in globs), (rel, globs)
 
 
+def test_the_shared_tile_header_ships_with_both_matmuls():
+    """K1's and K9's tile body lives in tile_tc.cuh: both sources build
+    from it, and it matches a package-data glob."""
+    globs = _package_globs()
+    for name in ("dequant_matmul", "dequant_matmul_so"):
+        assert "tile_tc.cuh" in _build.source_files(name)
+    assert any(fnmatch.fnmatch("csrc/tile_tc.cuh", g) for g in globs)
+
+
 def test_a_missing_quoted_include_raises_with_its_name(monkeypatch, tmp_path):
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "gone.cuh"\n')
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))

@@ -12,8 +12,9 @@ raw nibbles (0..15) are the A operand as exact bf16, the block's x sum is
 taken in f32 by the lanes of each slot and comes off the block sum before
 the scale, and the splits of K are added in a fixed order. Here, without a
 card, the wrapper takes the plain version; the tests pin the routing rule
-(more than 8 rows keep the GEMV; f32 x at decode rows takes the same form
-on its three bf16 parts), the split plan, the form code
+(more than 8 rows take K1's tile on the raw integers, tests/
+test_torch_k9_tile.py; f32 x at decode rows takes the same form on its
+three bf16 parts), the split plan, the form code
 and the arguments the launcher hands the entry point, the shared memory
 three blocks an SM need, a numpy emulation of what each lane copies,
 builds, multiplies and folds, and a torch emulation of the order of sums,
@@ -104,10 +105,15 @@ def test_decode_rows_route_by_dtype(m):
 
 @pytest.mark.parametrize("m", [9, 16, 17, 64])
 def test_more_rows_keep_the_gemv(m):
-    """Only a switch above 8 sends more rows to K9: they keep its GEMV."""
+    """Only a switch above 8 sends more rows to K9: they take K1's tile on
+    the raw integers (its GEMV is gone), split as K1's, and with f32 x a
+    workspace that adds x's block sums to K1's."""
     for dt in (torch.bfloat16, torch.float32):
-        assert kernels.k9_form(m, dt) == "gemv"
-        assert kernels.k9_plan(m, 4096, 4096, dt) == kernels.gemv_plan(m, 4096, 4096)
+        assert kernels.k9_form(m, dt) == kernels.k1_form(m, dt)
+        form, ksplit, ws = kernels.k1_plan(m, 4096, 4096, dt)
+        if dt == torch.float32:  # [K/32, m rounded up to 4]
+            ws += 4096 // 32 * (-(-m // 4) * 4)
+        assert kernels.k9_plan(m, 4096, 4096, dt) == (form, ksplit, ws)
 
 
 @pytest.mark.parametrize("m", MS)
@@ -123,16 +129,17 @@ def test_decode_plan_is_k1s(m, k, n):
 
 
 def test_form_codes_match_the_c_entry_point():
-    enum = re.search(r"enum Form \{ kGemv = (\d), kDecodeTc = (\d), kF32DecodeTc = (\d) \};",
-                     _src())
+    enum = re.search(r"enum Form \{ kF32Tc = (\d), kTensorCore = (\d), kDecodeTc = (\d), "
+                     r"kF32DecodeTc = (\d) \};", _src())
     assert enum is not None
-    assert [int(v) for v in enum.groups()] == [kernels.K1_FORMS.index(f)
-                                               for f in ("gemv", "decode_tc", "f32_decode_tc")]
-    # the decode forms for their x dtype and at most 8 rows only; a
-    # workspace for the GEMV, and for the decode forms when K is split
-    assert "(form == kDecodeTc && (!x_bf16 || M > 8))" in _src()
-    assert "(form == kF32DecodeTc && (x_bf16 || M > 8))" in _src()
-    assert "(w == nullptr && (form == kGemv || ksplit > 1))" in _src()
+    assert [int(v) for v in enum.groups()] == [
+        kernels.K1_FORMS[f] for f in ("f32_tc", "tensor_core", "decode_tc", "f32_decode_tc")]
+    # each form for its x dtype, the decode forms at most 8 rows only; a
+    # workspace for the tile with f32 x, and for every form when K is split
+    assert "const bool bf16_form = form == kTensorCore || form == kDecodeTc;" in _src()
+    assert "((form == kDecodeTc || form == kF32DecodeTc) && M > 8)" in _src()
+    assert "bf16_form != (x_bf16 != 0)" in _src()
+    assert "((ksplit > 1 || form == kF32Tc) && w == nullptr)" in _src()
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
@@ -157,7 +164,8 @@ def test_k9_and_k1_share_the_decode_form_from_one_header():
     """One body (decode_tc.cuh), instantiated raw in K9 and centred in K1,
     each kernel under its own name; both sources ship their headers."""
     assert _build.source_files("dequant_matmul_so") == ["dequant_matmul_so.cu",
-                                                        "decode_tc.cuh", "tc_common.cuh"]
+                                                        "decode_tc.cuh", "tc_common.cuh",
+                                                        "tile_tc.cuh"]
     assert "decode_tc.cuh" in _build.source_files("dequant_matmul")
     assert "decode_tc_body<ST, BITS, true>" in _src()
     assert "decode_tc_body<ST, BITS, false>" in _src("dequant_matmul.cu")
@@ -210,8 +218,10 @@ class _FakeEntry:
 def test_launcher_counts_and_hands_the_form(monkeypatch, m, bits, sdt):
     """K9 through `dequant_matmul` with the switch at 16 on meta tensors:
     the form code, split and workspace it hands its entry point, and its
-    counts (`launches`, `launches_decode_tc`)."""
-    for attr in ("launches", "launches_decode_tc", "launches_f32_decode_tc"):
+    counts (`launches`, `launches_decode_tc`, and above 8 rows `launches_tc`
+    and `launches_f32_tc`, the tile's)."""
+    for attr in ("launches", "launches_decode_tc", "launches_f32_decode_tc", "launches_tc",
+                 "launches_f32_tc"):
         monkeypatch.setattr(kernels.dequant_matmul_so, attr, 0)
     monkeypatch.setattr(kernels, "SCALE_ON_OUTPUT_MAX_M", 16)
     entry = _FakeEntry()
@@ -241,19 +251,24 @@ def test_launcher_counts_and_hands_the_form(monkeypatch, m, bits, sdt):
         assert out.shape == (m, n) and out.dtype == x.dtype
     tc = m <= 8
     form, ksplit, ws = kernels.k9_plan(m, k, n, torch.bfloat16)
-    assert (form == "decode_tc") == tc and (ws > 0) == (ksplit > 1)
-    # f32 x: the decode form on its three parts at decode rows, same split
-    assert kernels.k9_plan(m, k, n, torch.float32) == (("f32_decode_tc", ksplit, ws) if tc
-                                                       else (form, ksplit, ws))
+    assert form == ("decode_tc" if tc else "tensor_core") and (ws > 0) == (ksplit > 1)
+    # f32 x: the same form on its three parts; the decode form splits as
+    # with bf16 x, the tile as K1's f32 tile with x's block sums
+    form32, ksplit32, ws32 = kernels.k9_plan(m, k, n, torch.float32)
+    if tc:
+        assert (form32, ksplit32, ws32) == ("f32_decode_tc", ksplit, ws)
+    else:
+        assert form32 == "f32_tc" and ws32 == kernels.k9_workspace(m, k, n, ksplit32)
     want = [dict(m=m, bits=bits, x_bf16=1, s_bf16=int(sdt == torch.bfloat16),
-                 form=3 if tc else 0, ksplit=ksplit),
+                 form=3 if tc else 2, ksplit=ksplit),
             dict(m=m, bits=bits, x_bf16=0, s_bf16=int(sdt == torch.bfloat16),
-                 form=4 if tc else 0, ksplit=ksplit)]
+                 form=4 if tc else 1, ksplit=ksplit32)]
     assert entry.calls == want
-    # one f32 workspace a call where it takes partials (the GEMV's always)
-    assert workspaces == [n_ for n_ in (ws, ws) if n_]
-    assert (kernels.dequant_matmul_so.launches, kernels.dequant_matmul_so.launches_decode_tc,
-            kernels.dequant_matmul_so.launches_f32_decode_tc) == (2, int(tc), int(tc))
+    # one f32 workspace a call where it takes one
+    assert workspaces == [n_ for n_ in (ws, ws32) if n_]
+    so = kernels.dequant_matmul_so
+    assert (so.launches, so.launches_decode_tc, so.launches_f32_decode_tc, so.launches_tc,
+            so.launches_f32_tc) == (2, int(tc), int(tc), int(not tc), int(not tc))
 
 
 def test_lab_row_l4_is_held_to_the_bf16_rate():
