@@ -20,20 +20,23 @@ Phases, each of which fails the run (exit code 1, no result line):
      bf16 parts split in the kernel (f32_decode_tc), checked at m = 1 to 8
      into NaN-filled memory and timed at 4 and 8; above that the
      tensor-core tile for bf16 x and for f32 x as its three exact bf16
-     parts, f32_tc, checked at m = 9 to 256 into NaN-filled memory and
-     timed at 64 and 256 against three bf16 passes), K2 (its
+     parts, f32_tc, checked at m = 9 to 256 and at 512 (a perplexity
+     window) into NaN-filled memory and timed at 64, 256 and 512 against
+     three bf16 passes), K2 (its
      tensor-core form for a bf16 cache, checked and timed at t = 1 for
-     fills 1 to 1024 with the serving fill 101 and the split's edges, and
-     at t = 32; GQA at hd = 64 checked; its f32 form, 3xTF32 on the
-     tensor cores, checked at t = 1, 16 and 32, fills 101 and 1024, within
+     fills 1 to 1024 with the serving fill 101 and the split's edges, at
+     t = 8 (the speculative verify window, fills 101 and 1024) and at
+     t = 32; GQA at hd = 64 checked; its f32 form, 3xTF32 on the
+     tensor cores, checked at t = 1, 8, 16 and 32, fills 101 and 1024, within
      1e-4, into NaN-filled memory, and timed beside SDPA on the same f32
      tensors), K3 (on
      contiguous rows with int32 positions and on the serving path's own
      inputs, v a strided view of the fused projection and int64
      positions, where one call must be one device kernel), K4 (its
      tensor-core form at S = 1024, checked and timed at t = 1 for fills 1
-     to 1024 with the serving fill 101 and the S-block's edges, at t = 16
-     and 32; its CUDA-core form at S = 520 checked), K8 (its tensor-core
+     to 1024 with the serving fill 101 and the S-block's edges, at t = 8
+     (the verify window), 16 and 32; its CUDA-core form at S = 520
+     checked), K8 (its tensor-core
      form with bf16 q, timed at t = 1 and 32 and checked on its splits'
      edges; its CUDA-core form with f32 q, and at S = 520); K3, K4 and K8
      with f32 and with bf16 scale planes; K4 and K8 repeat their bits into
@@ -52,7 +55,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      for bf16 x and for f32 x as three bf16 parts, checked at m = 9, 16,
      17, 32, 64 and 256 into NaN-filled memory and timed at 16 and 64 for
      Q8_0 and Q4_0 beside x @ W), K7 (flash
-     prefill attention; its 3xTF32 f32 form checked within 1e-4 into
+     prefill attention, bf16 and f32, at the 7B prefill windows and the
+     512-token perplexity window; its 3xTF32 f32 form checked within 1e-4 into
      NaN-filled memory and timed beside SDPA on f32 tensors) and
      K10 (fused RMSNorm, into NaN-filled memory);
      K3 and K10 are timed beside the card's floor for one small launch (a
@@ -143,16 +147,43 @@ Phases, each of which fails the run (exit code 1, no result line):
      chunks among them) in its 3xTF32 form, the 64-token forward against
      the plain matmuls and plain attention within 1e-3 of max|logit|, the
      256-token chunk's `attention_ms` profiled;
+  4f. speculative decoding (--spec --draft 7) over phase 4's weights,
+     decode chunks of 32, greedy jobs of 64 tokens whose prompts repeat
+     their bytes: 8 jobs on 4 slots with the bf16 cache (K1's tile takes
+     the 32-row verify windows, K2 the t = 8 windows) and 8 with the int8
+     cache (K4 the t = 8 windows, K3 the restore forwards' rows), then one
+     job on 1 slot (K1's decode form takes the 8-row windows) with --spec
+     and without it: 0 failed jobs, 64 in-vocabulary tokens a job, verify
+     steps and accepted drafts counted (some verify step must run), the
+     launch counts of the path's kernels rise and every other one stays 0;
+     then one verify window of 4 slots against the same 8 tokens decoded
+     one at a time on a copy of the same cache, in bf16 within 5e-2 of
+     max|logit| and within 5e-2 of the same window through the plain
+     versions, argmaxes equal wherever the steps' top-two gap is above the
+     plain pair's own difference; in f32 within 1e-3, argmaxes equal
+     wherever the gap is above that;
+  4g. the perplexity subcommand's path over phase 4's weights: 2 windows
+     of 512 token ids (numpy, seed 0) in bf16 and in f32 compute, on the
+     default routes and with K7 and K10 on: each mean NLL within 1e-2
+     (bf16) or 1e-4 (f32) of the same run's with the plain matmuls,
+     attention and norm, relative, and the first window's logits position
+     by position within 6e-2 (bf16) or 1e-2 (f32) of max|logit| of the
+     plain window's, or within twice the plain versions' own difference
+     there over two chunks of 256 (at most 5 such positions); K1's tile (f32_tc in f32) takes every
+     512-row matmul, K7 launches with the opt-in routes and only then;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
 matmul and attention kernels of phases 4, 4d, 4b, 4c and 4e side by side,
-JSON), the card line, the kernels line (JSON) and, last, the device line
-(JSON). `--out` names a file for the detail (per-shape kernel times,
-the serving numbers, the decode-step profile) as JSON. `--only` runs the
+with phase 4f's tokens/s, TTFT and accepted drafts a verify step, JSON),
+the perplexity line (phase 4g, JSON), the card line, the kernels line
+(JSON) and, last, the device line (JSON). `--out` names a file for the
+detail (per-shape kernel times, the serving numbers, the decode-step
+profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
-small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32.
+small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32,
+serve_spec, ppl.
 """
 
 from __future__ import annotations
@@ -201,14 +232,14 @@ K4_TOL = 1e-2
 K4_SHAPE = dict(b=8, kv=32, g=1, hd=128, s=1024)
 K4_COPIES = 3  # 3 x 68 MB of int8 K and V and their scales at K4_SHAPE
 # K7 at the 7B prefill shapes: (t, pos0) of the buckets and chunks phase 4d
-# runs. As K2's, but |d| / max(1, |ref|): one bf16 rounding of the output,
+# runs, and the 512-token window phase 4g's perplexity runs. As K2's, but |d| / max(1, |ref|): one bf16 rounding of the output,
 # and the kernel rounds p to bf16 against a running maximum where the plain
 # version rounds the normalized p against the final one; a row near
 # position 0 sees a few slots only and returns values of V's own size (up to
 # 4 here, where one bf16 step is 0.016), so the error scales with the output
 K7_TOL = K2_TOL
 K7_SHAPE = dict(b=1, kv=32, g=1, hd=128, s=1024)
-K7_WINDOWS = ((64, 0), (256, 0), (256, 512), (128, 640))
+K7_WINDOWS = ((64, 0), (256, 0), (256, 512), (128, 640), (512, 0))
 K7_COPIES = 4  # 4 x 17 MB of K and V at K7_SHAPE
 # K10, f32: the order of the f32 sum of squares, and 1 / sqrt against rsqrt
 K10_RTOL_F32 = 1e-5
@@ -233,9 +264,10 @@ TF32X3_OPS_PER_S = 495e12 / 3
 # K2's and K7's f32 forms against their plain versions: f32 outputs, 3xTF32
 # products (under 2^-20 of a product off) and f32 sums in another order
 F32_ATTN_TOL = 1e-4
-# K2's f32 windows (t, fill) at K2_SHAPE: the decode step and the prefill
-# buckets of 16 and 32 rows
-K2_F32_WINDOWS = ((1, 101), (1, 1024), (16, 101), (16, 1024), (32, 101), (32, 1024))
+# K2's f32 windows (t, fill) at K2_SHAPE: the decode step, the speculative
+# verify window (draft 7 + 1 rows) and the prefill buckets of 16 and 32 rows
+K2_F32_WINDOWS = ((1, 101), (1, 1024), (8, 101), (8, 1024), (16, 101), (16, 1024),
+                  (32, 101), (32, 1024))
 
 
 def log(msg: str) -> None:
@@ -414,13 +446,14 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
     """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms, at the five
     7B shapes, against the plain version with f32 and bf16 x: at m = 1 to 8
     (decode: the tensor-core decode form, for f32 x on x's three bf16
-    parts, "f32_decode_tc"), and 9, 16, 17, 32, 64, 100 and 256 (every row
-    tiling of the tensor-core tile, ragged ones: bf16 x, and f32 x as its
-    three bf16 parts, "f32_tc"). Timed with bf16 x at m=4 and 8 (the
-    decode form at 4 and 8 slots), 64 (the prefill bucket of the smoke's
-    prompts) and 256 (the long prompts' chunks), all against the bf16
-    rate; and with f32 x at m=4 and 8 (the decode form on three parts) and
-    64 and 256 (the tile on three parts), against three bf16 passes
+    parts, "f32_decode_tc"), and 9, 16, 17, 32, 64, 100, 256 and 512 (every
+    row tiling of the tensor-core tile, ragged ones, and a perplexity
+    window: bf16 x, and f32 x as its three bf16 parts, "f32_tc"). Timed
+    with bf16 x at m=4 and 8 (the decode form at 4 and 8 slots), 64 (the
+    prefill bucket of the smoke's prompts), 256 (the long prompts'
+    chunks) and 512 (a perplexity window), all against the bf16 rate; and
+    with f32 x at m=4 and 8 (the decode form on three parts) and 64, 256
+    and 512 (the tile on three parts), against three bf16 passes
     (F32_TC_OPS_PER_S: the bytes bound every decode row count; f32 FMA's
     bound logged beside the tile's). Every call must take the form
     `k1_form` names (`launches_tc` counts the tensor-core tile,
@@ -445,18 +478,19 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
     tag = "K1" if fmt == "q8" else "K1 q4"
     shapes = tuple(name for name, *_ in K1_SHAPES)
     errs, steps = check_matmul(
-        dev, detail, tag, fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 8, 64, 256),
+        dev, detail, tag, fmt, k1, kernels.dequant_matmul_plain, timed_m=(4, 8, 64, 256, 512),
         other_m=(1, 2, 3, 5, 6, 7, 9, 16, 17, 32, 100), ops_per_s=lambda m: BF16_OPS_PER_S,
         seed=1 if fmt == "q8" else 7, other_shapes=shapes, checked=k1_nan)
     errs32, steps32 = check_matmul(
         dev, detail, f"{tag} f32", fmt, k1, kernels.dequant_matmul_plain,
-        timed_m=(4, 8, 64, 256), other_m=(), ops_per_s=lambda m: F32_TC_OPS_PER_S,
+        timed_m=(4, 8, 64, 256, 512), other_m=(), ops_per_s=lambda m: F32_TC_OPS_PER_S,
         seed=2 if fmt == "q8" else 8, timed_dtype="float32", checked=k1_nan)
     f32_decode = lambda m, xdt: m <= 8 and xdt == "float32"  # noqa: E731
     if sorted(m for m, xdt in errs if f32_decode(m, xdt)) != list(range(1, 9)):
         raise AssertionError("K1: the decode form with f32 x was not checked at m = 1 to 8")
-    if not any(m > 8 and xdt == "float32" for m, xdt in errs):
-        raise AssertionError("K1: the tile with f32 x was not checked")
+    if not any(m > 8 and xdt == "float32" for m, xdt in errs) or \
+            not {(512, "float32"), (512, "bfloat16")} <= set(errs):
+        raise AssertionError("K1: the tile with f32 x, or a window of 512 rows, was not checked")
     for m in (4, 8):
         log(f"{tag} at m={m}: the decode form {steps[m]['ms']:.3f} ms per step (bf16 x), "
             f"x@W {steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms")
@@ -467,7 +501,7 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
             f"{steps32[m]['bound_ms']:.3f} ms ({steps32[m]['bound_by']}); largest error over "
             f"m <= 8 {max(e for key, e in both.items() if f32_decode(*key)):.2e}")
     f32_tc = lambda m, xdt: m > 8 and xdt == "float32"  # noqa: E731
-    for m in (64, 256):
+    for m in (64, 256, 512):
         log(f"{tag} at m={m}, f32 x: the f32_tc form {steps32[m]['ms']:.3f} ms per pass, "
             f"x@W f32 {steps32[m]['library_ms']:.3f} ms, bound {steps32[m]['bound_ms']:.3f} ms "
             f"(three bf16 passes or bytes), f32 FMA's {_f32_fma_pass_ms(m, fmt):.3f} ms; "
@@ -750,8 +784,9 @@ def _k2_error(q, kc, vc, positions, c, got=None) -> float:
 def check_k2(dev, detail: dict) -> tuple[dict, dict]:
     """K2 at b=4, KV=32, hd=128, S=1024, in bf16 (the tensor-core form),
     checked and timed: window t=1 (decode) at fills 1, 101 (the serving
-    fill), the split's edges (its slots - 1, + 0, + 1), 300 and 1024, and
-    t=32 (prefill bucket) at fills 1, 300 and 1024; in f32 (its 3xTF32
+    fill), the split's edges (its slots - 1, + 0, + 1), 300 and 1024, t=8
+    (the speculative verify window) at fills 101 and 1024, and t=32
+    (prefill bucket) at fills 1, 300 and 1024; in f32 (its 3xTF32
     tensor-core form, within F32_ATTN_TOL) at K2_F32_WINDOWS, timed beside
     SDPA on the same f32 tensors; other geometries checked only: GQA g=8 at
     hd=64 in bf16, and in f32 at g=2 and g=8 (t = 1, 7, 16, 32). Each timed
@@ -779,6 +814,7 @@ def check_k2(dev, detail: dict) -> tuple[dict, dict]:
             log(f"K2 {shape} {dtype} t={t}: max|d| {err:.2e}")
     sps = attention.decode_attn_plan(c["b"], c["kv"], 1, c["g"], c["hd"], c["s"])[0]
     windows = [(1, f) for f in sorted({1, 101, sps - 1, sps, sps + 1, 300, c["s"]})]
+    windows += [(8, f) for f in (101, c["s"])]  # the speculative verify window
     windows += [(32, f) for f in (1, 300, c["s"])]
     for t, fill in windows:
         q, kc, vc, positions = _k2_inputs(dev, gen, t, fill)
@@ -1078,13 +1114,15 @@ def _k4_error(q, k8, v8, positions, ks, vs, plain, got=None) -> float:
 
 
 # K4's timed windows (t, fill) at K4_SHAPE: decode at the serving fill
-# (101), on an S-block's edges (255, 256, 257) and up to full; prefill
-# buckets 16 and 32. K8 keeps its six, timed with bf16 q (its
+# (101), on an S-block's edges (255, 256, 257) and up to full; the
+# speculative verify window (t = 8) at fills 101 and 1024; prefill buckets
+# 16 and 32. K8 keeps its six, timed with bf16 q (its
 # tensor-core form), and checks its splits' edges (64 slots a split at t =
 # 1, 128 at t = 16, 256 at t = 32) and the serving fill; with f32 q (its
 # CUDA-core form) two windows are checked and t = 1 at full fill timed.
 K4_WINDOWS = ([(1, f) for f in (1, 101, 255, 256, 257, 300, 1024)]
-              + [(16, f) for f in (101, 1024)] + [(32, f) for f in (1, 300, 1024)])
+              + [(8, f) for f in (101, 1024)] + [(16, f) for f in (101, 1024)]
+              + [(32, f) for f in (1, 300, 1024)])
 K8_WINDOWS = [(t, f) for t in (1, 32) for f in (1, 300, 1024)]
 K8_CHECKED = [(1, 63), (1, 64), (1, 65), (1, 101), (16, 101), (16, 1024), (32, 255),
               (32, 257)]
@@ -1312,7 +1350,8 @@ def check_k7(dev, detail: dict) -> tuple[dict, dict]:
     """K7 at b=1, KV=32, hd=128, S=1024 in bf16 (its tensor-core form,
     chunks of `k7_chunk` slots) and in f32 (its 3xTF32 tensor-core form,
     the same chunks, within F32_ATTN_TOL) for the windows (t, pos0) of the
-    7B prefill (buckets 64, 128, 256; chunks at positions 0, 512, 640),
+    7B prefill (buckets 64, 128, 256; chunks at positions 0, 512, 640)
+    and the 512-token perplexity window at position 0,
     checked and timed beside its plain version, SDPA with a boolean mask
     over the visible prefix (on the same f32 tensors for f32) and, in bf16,
     the port's einsum math (the default route of these windows); GQA
@@ -1768,8 +1807,12 @@ def check_small_model(dev) -> int:
     last, logits with bf16 compute on the card against the CPU's f32 ones,
     of the dense cache (K1's tensor-core tile takes the prefill windows,
     its decode form the decode step) and of the int8 cache under K8 (its
-    tensor-core form, every call). With f32 x every K1 call takes a form on
-    x's three bf16 parts, in every f32 run: its decode form (f32_decode_tc)
+    tensor-core form, every call); and greedy speculative decoding in f32
+    on the dense cache, whose stream must equal the card's plain greedy
+    stream and the CPU's speculative one, and a speculative chunk whose
+    history is planted with the greedy stream (`_planted_spec`: drafts land)
+    on the card and the CPU. With f32 x every K1 call takes a form on x's
+    three bf16 parts, in every f32 run: its decode form (f32_decode_tc)
     in decode steps and its tile (f32_tc) in the prefill windows; over the
     dense cache K2 and K7 (opt-in) take their f32 tensor-core forms.
     Returns the launches of K8 in its f32 run (its CUDA-core form: f32 q),
@@ -1888,6 +1931,36 @@ def check_small_model(dev) -> int:
     attention._I8DOT = default
     attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = floor, fused
     kv_cache._SCALE_DTYPE_NAME = scale_name
+    # greedy speculative decoding in f32 (dense cache): the card's stream
+    # equals the card's plain greedy stream and the CPU's speculative one
+    reset_launch_counts()
+    prompt = "spec check: abcabcabcabcabcabc"
+    streams = {}
+    for key, params, d, speculative in (("card, spec", gpu, dev, True),
+                                        ("card, plain", gpu, dev, False),
+                                        ("CPU, spec", cpu, "cpu", True)):
+        eng = Engine(dense, params, vocab, slots=2, decode_chunk_size=4, device=d,
+                     speculative=speculative, draft_len=SPEC_DRAFT)
+        with spec_tally() as tally:
+            streams[key] = eng.generate(prompt, GenerateConfig(max_tokens=24, ctx_size=256,
+                                                               temp=0.0)).output_tokens
+        if speculative and not tally["verify_steps"]:
+            raise AssertionError(f"small model, {key}: no speculative step ran")
+    log(f"small model, greedy speculative decoding in f32: {streams}")
+    if not streams["card, spec"] == streams["card, plain"] == streams["CPU, spec"] \
+            or len(streams["card, spec"]) != 24:
+        raise AssertionError(f"small model: the speculative streams differ: {streams}")
+    counts = launch_counts()
+    if counts["flash_attention_decode_f32tc"] == 0 or counts["dequant_matmul_f32_tc"] == 0:
+        raise AssertionError(f"small model, spec: K2's f32 form or K1's f32 tile never "
+                             f"launched: {counts}")
+    planted = {d: _planted_spec(params, dense, d, toks[:, :12])
+               for d, params in ((dev, gpu), ("cpu", cpu))}
+    log(f"small model, speculative chunk with a planted history, f32: card {planted[dev]}, "
+        f"CPU {planted['cpu']}")
+    if planted[dev] != planted["cpu"]:
+        raise AssertionError("small model: the planted speculative chunks differ between "
+                             "card and CPU")
     # bf16 compute on the card (dense cache) against the CPU's f32 logits:
     # the prefill windows (80 and 32 rows) take K1's tensor-core tile
     counts = _small_bf16_logits(dev, dense, gpu, cpu, toks, "small model")
@@ -1909,6 +1982,57 @@ def check_small_model(dev) -> int:
     if k8_launches == 0:
         raise AssertionError("small model: K8 was never launched in its run")
     return k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, f32_attn
+
+
+def _planted_spec(params, cfg, dev, prompt) -> dict:
+    """Drafts that land, on a random model: greedy decode of 2 slots from
+    `prompt` [2, P] gives each slot's stream t_0..t_40; a speculative chunk
+    of 4 steps (draft 7) from the same prefill then proposes from a
+    history that holds [p_last, t_0..t_40] ahead of the prompt, so each
+    step's drafts are the stream's next tokens. The emitted tokens must be
+    the stream's, with drafts accepted (the acceptance path: several
+    tokens a step, the history written at its length, positions advanced
+    by the counts). Returns the counts and the emitted tokens of each
+    slot."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.decode_loop import decode_chunk
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+    from llamago_tpu_torch.runtime.speculative import assemble_tokens, speculative_decode_chunk
+
+    prompt = prompt.to(dev)
+    b, p = prompt.shape
+    zeros = torch.zeros(b, dtype=torch.long, device=dev)
+
+    def prefilled():
+        cache = KVCache.create(cfg, batch=b, device=dev)
+        logits, cache = forward_impl(params, prompt, cache, zeros, cfg)
+        return torch.argmax(logits, dim=-1), cache
+
+    t0, cache = prefilled()
+    rest, *_ = decode_chunk(params, t0, cache, zeros + p, cfg, 40)
+    stream = torch.cat([t0[:, None], rest], dim=1)  # [2, 41]
+    t0, cache = prefilled()
+    seg = torch.cat([prompt[:, -1:], stream], dim=1)
+    hist = torch.zeros((b, cfg.max_seq_len), dtype=torch.long, device=dev)
+    n = seg.shape[1]
+    hist[:, :n], hist[:, n:n + p], hist[:, n + p] = seg, prompt, t0
+    toks, counts, _, pos, _, hlen = speculative_decode_chunk(
+        params, t0, cache, zeros + p, hist, torch.full((b,), n + p + 1, device=dev), cfg,
+        n_steps=4, draft_len=SPEC_DRAFT)
+    out = {"counts": counts.tolist(), "emitted": []}
+    for i in range(b):
+        emitted = [int(t0[i])] + assemble_tokens(toks[i], counts[i])
+        if emitted != stream[i, :len(emitted)].tolist() or int(counts[i].max()) < 2 \
+                or int(pos[i]) != p + int(counts[i].sum()) \
+                or int(hlen[i]) != n + p + 1 + int(counts[i].sum()):
+            raise AssertionError(f"small model, planted speculative chunk on {dev}, slot {i}: "
+                                 f"emitted {emitted}, stream {stream[i].tolist()}, counts "
+                                 f"{counts[i].tolist()}, position {int(pos[i])}, history "
+                                 f"length {int(hlen[i])}")
+        out["emitted"].append(emitted)
+    return out
 
 
 def _small_bf16_logits(dev, cfg, gpu, cpu, toks, what: str) -> dict:
@@ -2227,6 +2351,32 @@ def opt_in_routes():
         attention._MIN_PREFILL_SCORES, kernels.USE_FUSED_NORM = floor, fused
 
 
+def _http_get(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _http_jobs(port: int, bodies: list[dict], timeout_s: float = 600) -> list[dict]:
+    """POST each job body to the job server on `port`, poll until every job
+    has finished or failed, and return their records in `bodies`' order."""
+    for body in bodies:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/jobs/",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            r.read()
+    done, deadline = {}, time.time() + timeout_s
+    while len(done) < len(bodies) and time.time() < deadline:
+        time.sleep(0.05)
+        for b in bodies:
+            if b["id"] not in done and \
+                    _http_get(port, f"/jobs/status/{b['id']}")["status"] in ("finished",
+                                                                             "failed"):
+                done[b["id"]] = _http_get(port, f"/jobs/{b['id']}")
+    if len(done) < len(bodies):
+        raise AssertionError(f"serve: {len(bodies) - len(done)} jobs did not finish")
+    return [done[b["id"]] for b in bodies]
+
+
 def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
           long_jobs: int = 0) -> dict:
     """Serve n_jobs sampled HTTP jobs on `slots` decode slots, then the
@@ -2257,30 +2407,6 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     server.start_background()
     port = server.port
     try:
-        def post(body):
-            req = urllib.request.Request(f"http://127.0.0.1:{port}/jobs/",
-                                         data=json.dumps(body).encode())
-            with urllib.request.urlopen(req, timeout=60) as r:
-                return json.loads(r.read())
-
-        def get(path):
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
-                return json.loads(r.read())
-
-        def run_jobs(bodies, timeout_s=600):
-            for b in bodies:
-                post(b)
-            done, deadline = {}, time.time() + timeout_s
-            while len(done) < len(bodies) and time.time() < deadline:
-                time.sleep(0.05)
-                for b in bodies:
-                    if b["id"] not in done and \
-                            get(f"/jobs/status/{b['id']}")["status"] in ("finished", "failed"):
-                        done[b["id"]] = get(f"/jobs/{b['id']}")
-            if len(done) < len(bodies):
-                raise AssertionError(f"serve: {len(bodies) - len(done)} jobs did not finish")
-            return [done[b["id"]] for b in bodies]
-
         # one token per byte, plus BOS and the leading space
         lengths = [long_tokens if i % 2 and i // 2 < long_jobs else prompt_tokens + 1
                    for i in range(n_jobs)]
@@ -2289,9 +2415,9 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
         bodies = [{"id": str(uuid.uuid4()), "prompt": p, "seed": 11 + i}
                   for i, p in enumerate(prompts)]
         t_start = time.time()
-        jobs = run_jobs(bodies)
+        jobs = _http_jobs(port, bodies)
         t_total = time.time() - t_start
-        metrics = get("/metrics")
+        metrics = _http_get(port, "/metrics")
         launches = launch_counts()
         failed = [j for j in jobs if j["status"] != "finished"]
         if failed:
@@ -2321,7 +2447,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
         def greedy_job(prompt):
             body = {"id": str(uuid.uuid4()), "prompt": prompt, "temp": 0,
                     "max_tokens": 32}
-            out = run_jobs([body])[0]
+            out = _http_jobs(port, [body])[0]
             return out["output"], server.jobs[body["id"]].output_tokens
 
         g_prompt = ("greedy check: " + "ijklmnop" * 40)[: prompt_tokens - 1]
@@ -2356,25 +2482,31 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
 
 @contextlib.contextmanager
 def plans_seen():
-    """Record (rows, form) of every K1 and w4x8 launch plan while open: a
-    list for each of "k1" and "w4x8"."""
-    from llamago_tpu_torch.ops import kernels
+    """Record every launch plan while open: (rows, form) of K1's and the
+    w4x8 matmuls' ("k1", "w4x8"), (query rows t, form) of K2's and of K4's
+    or K8's ("k2", "quant")."""
+    from llamago_tpu_torch.ops import attention, kernels
 
-    seen = {"k1": [], "w4x8": []}
-    k1_plan, w4x8_plan = kernels.k1_plan, kernels.w4x8_plan
+    seen = {"k1": [], "w4x8": [], "k2": [], "quant": []}
+    # (module, plan, key, the position of the rows among its arguments)
+    plans = ((kernels, "k1_plan", "k1", 0), (kernels, "w4x8_plan", "w4x8", 0),
+             (attention, "k2_plan", "k2", 3), (attention, "quant_plan", "quant", 3))
+    originals = [getattr(mod, name) for mod, name, _, _ in plans]
 
-    def recorded(plan, key):
-        def call(m, k, n, x_dtype):
-            out = plan(m, k, n, x_dtype)
-            seen[key].append((m, out[0]))
+    def recorded(plan, key, at):
+        def call(*args):
+            out = plan(*args)
+            seen[key].append((args[at], out[0]))
             return out
         return call
 
-    kernels.k1_plan, kernels.w4x8_plan = recorded(k1_plan, "k1"), recorded(w4x8_plan, "w4x8")
+    for (mod, name, key, at), plan in zip(plans, originals):
+        setattr(mod, name, recorded(plan, key, at))
     try:
         yield seen
     finally:
-        kernels.k1_plan, kernels.w4x8_plan = k1_plan, w4x8_plan
+        for (mod, name, _, _), plan in zip(plans, originals):
+            setattr(mod, name, plan)
 
 
 @contextlib.contextmanager
@@ -2535,6 +2667,424 @@ def serve_f32(dev, weight_dtype: str) -> dict:
     return served
 
 
+@contextlib.contextmanager
+def plain_norm():
+    """Every K10 call of the forward on its plain version (on the card's
+    tensors)."""
+    from llamago_tpu_torch.ops import kernels
+
+    kernel = kernels.fused_rms_norm
+    kernels.fused_rms_norm = kernels.fused_rms_norm_plain
+    try:
+        yield
+    finally:
+        kernels.fused_rms_norm = kernel
+
+
+# speculative serving (phase 4f) at the CLI's default draft length
+SPEC_DRAFT = 7
+# a verify window's logits against the same positions decoded one token at
+# a time on the same cache in bf16, x max|logit|: the window takes K1's tile
+# (32 rows) and K2 at t = 8 where a step takes K1's decode form (4 rows) and
+# K2 at t = 1, so the f32 sums run in another order and a layer's bf16
+# roundings may land a step apart, which 32 layers of random weights carry
+# on. On an H100 this pair differs by 3.3e-2, the same pair through the
+# plain matmuls and attention (cuBLAS at 32 rows against 4) by 3.7e-2, and
+# the window against the plain window by 4.3e-2, in every run: the floor
+# of bf16 arithmetic lies above 1e-2. The bound sits just above those
+# readings and holds both the window against the steps and the window
+# against the plain window. The f32 pair is held to F32_LOGIT_TOL.
+SPEC_WINDOW_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def spec_tally():
+    """Count the engines' speculative path while open: dispatches, verify
+    steps (one a step for each active slot) and accepted drafts (the
+    emitted tokens of a step less its bonus token). Warmup's chunks, which
+    no dispatch makes, are not counted."""
+    import torch
+
+    from llamago_tpu_torch.runtime import speculative
+    from llamago_tpu_torch.runtime.engine import Engine
+
+    tally = {"dispatches": 0, "verify_steps": 0, "accepted_drafts": 0}
+    chunk, decode = speculative.speculative_decode_chunk, Engine._decode_speculative
+    active_rows: list = []
+
+    def counted_decode(self, active, n_steps):
+        active_rows.append(torch.as_tensor(active.nonzero()[0]))
+        try:
+            decode(self, active, n_steps)
+        finally:
+            active_rows.clear()
+
+    def counted_chunk(*args, **kw):
+        out = chunk(*args, **kw)
+        if active_rows:
+            counts = out[1].cpu()[active_rows[0]]  # [active slots, n_steps]
+            tally["dispatches"] += 1
+            tally["verify_steps"] += counts.numel()
+            tally["accepted_drafts"] += int((counts - 1).sum())
+        return out
+
+    speculative.speculative_decode_chunk, Engine._decode_speculative = (counted_chunk,
+                                                                        counted_decode)
+    try:
+        yield tally
+    finally:
+        speculative.speculative_decode_chunk, Engine._decode_speculative = chunk, decode
+
+
+def _serve_greedy(dev, cfg, params, slots: int, prompts: list[str], speculative: bool,
+                  rise: tuple, card: str) -> dict:
+    """Serve one greedy HTTP job (temp 0, 64 tokens) a prompt on `slots`
+    decode slots with decode chunks of 32, speculative or not. Every launch
+    count is set to 0 before the engine warms up; those named in `rise` must
+    have risen by the end, every other one must still be 0. Fails on a
+    failed job, a job of another length than 64 tokens or a token outside
+    the vocabulary, and with `speculative` when no verify step ran."""
+    import torch
+
+    from llamago_tpu_torch.config import GenerateConfig, ServerConfig
+    from llamago_tpu_torch.runtime.engine import Engine
+    from llamago_tpu_torch.server.api import JobServer
+
+    predict = 64
+    engine = Engine(cfg, params, _byte_vocab(cfg.vocab_size), slots=slots,
+                    decode_chunk_size=32, prefill_chunk=256, speculative=speculative,
+                    draft_len=SPEC_DRAFT, device=dev)
+    gen = GenerateConfig(max_tokens=predict, ctx_size=cfg.max_seq_len, temp=0.0)
+    server = JobServer(engine, ServerConfig(host="127.0.0.1", port=0), gen,
+                       model_name=f"7B-{cfg.weight_dtype}")
+    reset_launch_counts()
+    warm_s = engine.warmup(max_bucket=engine._bucket(max(len(p) for p in prompts) + 2),
+                           include_embed=False)
+    server.start_background()
+    try:
+        bodies = [{"id": str(uuid.uuid4()), "prompt": p, "temp": 0, "max_tokens": predict}
+                  for p in prompts]
+        with spec_tally() as tally, plans_seen() as seen:
+            t0 = time.time()
+            jobs = _http_jobs(server.port, bodies)
+            secs = time.time() - t0
+        metrics = _http_get(server.port, "/metrics")
+        launches = launch_counts()
+    finally:
+        server.shutdown()
+    what = (f"serve, spec: {cfg.kv_dtype} cache, {slots} slot(s), "
+            f"{'--spec' if speculative else 'no --spec'}")
+    failed = [j for j in jobs if j["status"] != "finished"]
+    if failed:
+        raise AssertionError(f"{what}: {len(failed)} jobs failed: {failed[0].get('error')}")
+    toks = [server.jobs[b["id"]].output_tokens for b in bodies]
+    # where a verify step's time goes (32 steps of 4 slots x 8 rows)
+    step = profile_decode(engine, 32, speculative=True) if speculative and slots > 1 else {}
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(len(t) != predict for t in toks) or \
+            any(not 0 <= x < cfg.vocab_size for t in toks for x in t):
+        raise AssertionError(f"{what}: token counts {[len(t) for t in toks]}, or a token "
+                             "outside the vocabulary")
+    if speculative and tally["verify_steps"] == 0:
+        raise AssertionError(f"{what}: no verify step ran")
+    if any((launches[k] > 0) != (k in rise) for k in launches):
+        raise AssertionError(f"{what}: launches {launches}; each of {rise} must rise and "
+                             "every other count stay 0")
+    generated = metrics["generated_tokens"]
+    out = {"slots": slots, "kv_dtype": cfg.kv_dtype, "speculative": speculative,
+           "jobs": len(bodies), "predict": predict, "warmup_s": warm_s,
+           "served_tokens": generated, "seconds": secs,
+           "served_tokens_per_s": generated / secs,
+           "ttft_ms_p50": metrics["ttft_ms"]["p50"], "ttft_ms_p95": metrics["ttft_ms"]["p95"],
+           **tally, "accepted_drafts_per_verify_step":
+               tally["accepted_drafts"] / max(tally["verify_steps"], 1),
+           "launches": launches, "tokens": toks, "verify_step": step,
+           "k1_rows_forms": sorted(set(seen["k1"]), key=str),
+           "k2_windows": sorted(set(seen["k2"]), key=str),
+           "quant_windows": sorted(set(seen["quant"]), key=str)}
+    log(f"{what}: served {generated} tokens in {secs:.2f} s = "
+        f"{out['served_tokens_per_s']:.1f} tok/s, TTFT p50 {out['ttft_ms_p50']} ms p95 "
+        f"{out['ttft_ms_p95']} ms, {tally['verify_steps']} verify steps, "
+        f"{tally['accepted_drafts']} accepted drafts "
+        f"({out['accepted_drafts_per_verify_step']:.2f} a step) on {card}; launches {launches}")
+    return out
+
+
+def _window_and_steps(dev, cfg, params, feed=None) -> tuple:
+    """After a 40-token prompt in each of 4 slots (the bf16 or f32 cache),
+    8 greedy single steps from the prompt's greedy token t_last, then the
+    verify window [t_last, g_1..g_7] of those steps' own tokens (drafts a
+    verify step accepts in full where its argmaxes agree) in one forward
+    over a copy of the same cache: the same inputs at the same positions.
+    `feed` [4, 8], where given, replaces t_last, g_1..g_7 (another run's
+    tokens). Returns the window's and the steps' logits [4, 8, V] in f32,
+    the tokens fed [4, 8] and the launch plans of each (`plans_seen`)."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    b, plen, s = 4, 40, 256
+    toks = torch.tensor([list((f"window {i}: " + "abcdefgh" * 8)[:plen].encode())
+                         for i in range(b)], device=dev) + 3  # byte pieces start at 3
+    cache = KVCache.create(cfg, batch=b, max_seq=s, device=dev)
+    logits, cache = forward_impl(params, toks, cache, torch.zeros(b, dtype=torch.long,
+                                                                  device=dev), cfg)
+    copy = KVCache(k=[a.clone() for a in cache.k], v=[a.clone() for a in cache.v])
+    pos = torch.full((b,), plen, dtype=torch.long, device=dev)
+    fed, steps = [torch.argmax(logits, dim=-1) if feed is None else feed[:, 0]], []
+    with plans_seen() as step_plans:
+        for j in range(SPEC_DRAFT + 1):
+            lg, _ = forward_impl(params, fed[-1][:, None], copy, pos + j, cfg)
+            steps.append(lg.float())
+            fed.append(torch.argmax(lg, dim=-1) if feed is None or j == SPEC_DRAFT
+                       else feed[:, j + 1])
+    seq = torch.stack(fed[:-1], dim=1)
+    with plans_seen() as window_plans:
+        window, _ = forward_impl(params, seq, cache, pos, cfg, return_all_logits=True)
+    return window.float(), torch.stack(steps, dim=1), seq, window_plans, step_plans
+
+
+def _logit_diff(a, b) -> float:
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def spec_window_vs_steps(dev, cfg, params) -> dict:
+    """One verify window of 4 slots at 7B width against the same 8 tokens
+    decoded one at a time on the same cache (`_window_and_steps`), in bf16
+    and in f32 compute. The logits must agree within SPEC_WINDOW_TOL (bf16)
+    or F32_LOGIT_TOL (f32) of max|logit|; in bf16 the same pair runs once
+    more with the plain matmuls and attention on the card, the window must
+    lie within SPEC_WINDOW_TOL of the plain window too, and the plain pair's
+    difference is the noise floor of bf16 arithmetic over other shapes. The
+    argmaxes must agree wherever the single steps' top-two gap is above the
+    noise: the plain pair's difference in bf16, F32_LOGIT_TOL in f32 (a
+    difference d moves the argmax only where the gap is under 2 d). The
+    window must take K1's tile (32 rows; f32_tc in f32) and K2 at t = 8,
+    the single steps K1's decode form and K2 at t = 1."""
+    out = {}
+    for dtype, tol in (("bfloat16", SPEC_WINDOW_TOL), ("float32", F32_LOGIT_TOL)):
+        c = cfg.replace(dtype=dtype)
+        f32 = dtype == "float32"
+        window, steps, seq, window_plans, step_plans = _window_and_steps(dev, c, params)
+        if not (window.isfinite().all() and steps.isfinite().all()):
+            raise AssertionError(f"serve, spec, {dtype}: non-finite logits in the "
+                                 "verify-window check")
+        scale = steps.abs().max().item()
+        err = _logit_diff(window, steps)
+        row = {"max_abs_err_over_max_logit": err, "tolerance": tol}
+        gap_tol, errs = tol, [err]
+        if not f32:
+            # the same tokens through the plain matmuls and attention
+            with plain_matmuls(), plain_attention():
+                p_window, p_steps, *_ = _window_and_steps(dev, c, params, feed=seq)
+            gap_tol = _logit_diff(p_window, p_steps)
+            row.update(plain_window_vs_plain_steps=gap_tol,
+                       window_vs_plain_window=_logit_diff(window, p_window),
+                       steps_vs_plain_steps=_logit_diff(steps, p_steps))
+            errs.append(row["window_vs_plain_window"])
+        top2 = steps.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]) / scale
+        clear = gap > gap_tol
+        agree = window.argmax(dim=-1) == steps.argmax(dim=-1)
+        # drafts the window accepts: g_1..g_7 while its argmaxes agree
+        accepted = agree[:, :-1].long().cumprod(dim=1).sum(dim=1)
+        row.update(gap_tolerance=gap_tol, positions=agree.numel(),
+                   clear_positions=int(clear.sum()), argmax_agree=int(agree.sum()),
+                   argmax_disagree_where_clear=int((clear & ~agree).sum()),
+                   gaps_where_argmax_differs=gap[~agree].tolist(),
+                   accepted_drafts=accepted.tolist())
+        log(f"serve, spec, {dtype}: verify window of 4 slots x 8 vs single steps on the "
+            f"same cache: {row}")
+        out[dtype] = row
+        if not max(errs) <= tol or row["argmax_disagree_where_clear"]:
+            raise AssertionError(f"serve, spec, {dtype}: the verify window's logits differ "
+                                 f"from the single steps' or the plain window's: {row}")
+        tile, dec = ("f32_tc", "f32_decode_tc") if f32 else ("tensor_core", "decode_tc")
+        attn = "decode_f32tc" if f32 else "decode_tc"
+        for plans, key, want in ((window_plans, "k1", (32, tile)),
+                                 (window_plans, "k2", (8, attn)),
+                                 (step_plans, "k1", (4, dec)),
+                                 (step_plans, "k2", (1, attn))):
+            if want not in plans[key]:
+                raise AssertionError(f"serve, spec, {dtype}: {key} never planned {want}: "
+                                     f"{plans[key]}")
+    return out
+
+
+def serve_spec(dev, cfg, params, card: str) -> dict:
+    """Phase 4f: the REST server over 7B Q8_0 (the caller's parameters, bf16
+    compute) with --spec --draft 7 and decode chunks of 32, greedy jobs of
+    64 tokens whose prompts repeat their bytes: 8 jobs on 4 slots with the
+    bf16 cache (K1's tile takes the 32-row verify windows and its decode
+    form the restore forwards; K2 its t = 8 windows), 8 on 4 slots with
+    the int8 cache (K4 its t = 8 windows, K3 the restore forwards' rows;
+    the verify windows' rows are written by the plain quantize-and-write),
+    then one job on 1 slot with --spec (K1's decode form takes the 8-row
+    windows) and without it on the same prompt; last the verify-window
+    check (`spec_window_vs_steps`)."""
+    prompts = [(f"spec {i:03d}: " + "abcdefgh" * 8)[:46] for i in range(8)]  # 48 tokens
+    k1 = ("dequant_matmul", "dequant_matmul_tc", "dequant_matmul_decode_tc")
+    k2 = ("flash_attention", "flash_attention_decode_tc")
+    k3k4 = ("cache_append_quant", "flash_attention_quant_i8dot",
+            "flash_attention_quant_i8dot_tc")
+    runs = {"4 slots, bf16 cache": _serve_greedy(dev, cfg, params, 4, prompts, True,
+                                                 k1 + k2, card),
+            "4 slots, int8 cache": _serve_greedy(dev, cfg.replace(kv_dtype="int8"), params,
+                                                 4, prompts, True, k1 + k3k4, card)}
+    one = ["one slot: " + "ijklmnop" * 5]
+    runs["1 slot, --spec"] = _serve_greedy(dev, cfg, params, 1, one, True, k1 + k2, card)
+    runs["1 slot, no --spec"] = _serve_greedy(dev, cfg, params, 1, one, False, k1 + k2, card)
+    for name, run, key, want in (
+            ("4 slots, bf16 cache", runs["4 slots, bf16 cache"], "k1_rows_forms",
+             (32, "tensor_core")),
+            ("4 slots, bf16 cache", runs["4 slots, bf16 cache"], "k2_windows",
+             (8, "decode_tc")),
+            ("4 slots, int8 cache", runs["4 slots, int8 cache"], "quant_windows",
+             (8, "i8dot_tc")),
+            ("1 slot, --spec", runs["1 slot, --spec"], "k1_rows_forms", (8, "decode_tc"))):
+        if want not in run[key]:
+            raise AssertionError(f"serve, spec, {name}: {key} {run[key]} lacks {want}")
+    pair = (runs["1 slot, --spec"], runs["1 slot, no --spec"])
+    log(f"serve, spec, 1 slot on {card}: {pair[0]['served_tokens_per_s']:.1f} tok/s with "
+        f"--spec, {pair[1]['served_tokens_per_s']:.1f} without; the same tokens: "
+        f"{pair[0]['tokens'] == pair[1]['tokens']}")
+    runs["window"] = spec_window_vs_steps(dev, cfg, params)
+    return runs
+
+
+# perplexity (phase 4g): the mean NLL against the same run with every kernel
+# on its plain version, relative to it. f32 compute: the kernels' products
+# are exact (x as three bf16 parts; 3xTF32 in K7) and only the order of the
+# f32 sums differs; bf16: a layer's bf16 roundings may land a step apart
+PPL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The mean NLL hides a kernel that errs at the logits' own scale (random
+# 7B weights give logits of hundreds and an NLL near 197 at every
+# position), so the first window's logits are held position by position
+# too, x max|logit|, against the same window through the plain versions.
+# Random weights make a few positions ill-conditioned: on an H100 the plain
+# versions over two chunks of 256 against one window of 512 (the same
+# function in another order of sums) differ by up to 0.46 in bf16, by more
+# than 6e-2 at two positions, and by up to 8.5e-3 in f32; the kernels
+# against the plain window by up to 0.47 in bf16, and by at most 4.8e-2
+# (bf16) or 7.7e-3 (f32) where the plain pair stays within the limit. So
+# every position must lie within PPL_LOGIT_TOL, or within twice the plain
+# pair's own difference there, and at most PPL_ILL_MAX positions may have
+# a plain pair wider than PPL_LOGIT_TOL
+PPL_LOGIT_TOL = {"float32": 1e-2, "bfloat16": 6e-2}
+PPL_ILL_MAX = 5
+PPL_CTX = 512
+
+
+def _ppl_logits(params, cfg, ids, chunks: tuple):
+    """The first window of `ids` through `forward_impl` as `perplexity`
+    runs it (a fresh batch-1 cache of PPL_CTX slots), fed in `chunks` of
+    tokens one after another on that cache: its logits [PPL_CTX, V] in
+    f32."""
+    import torch
+
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    dev = params["tok_embeddings"].device
+    win = torch.from_numpy(ids[:PPL_CTX][None, :]).to(dev)
+    cache = KVCache.create(cfg, batch=1, max_seq=PPL_CTX, device=dev)
+    out, pos = [], 0
+    for n in chunks:
+        logits, cache = forward_impl(params, win[:, pos:pos + n], cache,
+                                     torch.full((1,), pos, dtype=torch.long, device=dev),
+                                     cfg, return_all_logits=True)
+        out.append(logits[0].float())
+        pos += n
+    return torch.cat(out)
+
+
+def ppl_phase(dev, cfg, params, card: str) -> dict:
+    """Phase 4g: `perplexity` over 2 windows of 512 token ids (numpy, seed
+    0) at 7B Q8_0 (the caller's parameters) in bf16 and in f32 compute, on
+    the default routes (K1's tile at m = 512, the einsum attention) and
+    with the opt-in routes (K7 and K10 as well): each run's mean NLL within
+    PPL_TOL of the same run with the plain matmuls, attention and norm on
+    the card, and the first window's logits position by position within
+    PPL_LOGIT_TOL of the same window through the plain versions, or within
+    twice the plain versions' own difference there over two chunks of 256
+    (at most PPL_ILL_MAX such positions); K1's tile (its f32_tc form in f32) must take the
+    512-row windows, and K7 (its f32 form in f32) launch with the opt-in
+    routes on and only then. Each run is made once to warm the card, then
+    timed. Every run's readings are logged before a failed one raises."""
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.eval.perplexity import perplexity
+
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 2 * PPL_CTX)
+    out, failed = {}, []
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(dtype=dtype)
+        f32 = dtype == "float32"
+        tile = "f32_tc" if f32 else "tensor_core"
+        for routes, opt_in in (("default routes", False), ("K7 and K10 on", True)):
+            name = f"{dtype}, {routes}"
+            rise = ("dequant_matmul", "dequant_matmul_f32_tc" if f32 else "dequant_matmul_tc")
+            if opt_in:
+                rise += ("flash_attention_prefill", "fused_rms_norm",
+                         "flash_attention_prefill_f32tc" if f32
+                         else "flash_attention_prefill_tc")
+            with opt_in_routes() if opt_in else contextlib.nullcontext():
+                perplexity(params, c, ids, ctx=PPL_CTX)  # warm
+                reset_launch_counts()
+                with plans_seen() as seen:
+                    t0 = time.perf_counter()
+                    got = perplexity(params, c, ids, ctx=PPL_CTX)
+                    secs = time.perf_counter() - t0
+                launches = launch_counts()
+                kern = _ppl_logits(params, c, ids, (PPL_CTX,))
+                with plain_matmuls(), plain_attention(), plain_norm():
+                    plain = perplexity(params, c, ids, ctx=PPL_CTX)
+                    ref = _ppl_logits(params, c, ids, (PPL_CTX,))
+                    ref2 = _ppl_logits(params, c, ids, (PPL_CTX // 2,) * 2)
+            rel = abs(got["nll"] - plain["nll"]) / abs(plain["nll"])
+            scale, tol = ref.abs().max(), PPL_LOGIT_TOL[dtype]
+            err = (kern - ref).abs().amax(dim=-1) / scale  # per position
+            noise = (ref2 - ref).abs().amax(dim=-1) / scale
+            over = err > torch.clamp(2 * noise, min=tol)
+            ill = noise > tol
+            finite = bool(np.isfinite(got["nll"]) and kern.isfinite().all().item())
+            logits = {"max": err.max().item(), "max_where_plain_pair_within": (
+                          err[~ill].max().item() if (~ill).any() else None),
+                      "median": err.median().item(), "plain_pair_max": noise.max().item(),
+                      "plain_pair_wider_positions": ill.nonzero()[:, 0].tolist(),
+                      "over_positions": over.nonzero()[:, 0].tolist()}
+            del kern, ref, ref2
+            run = {**got, "plain_nll": plain["nll"], "rel_diff": rel, "logit_diff": logits,
+                   "seconds_per_window": secs / got["n_windows"],
+                   "tokens_per_s": got["n_windows"] * PPL_CTX / secs, "launches": launches}
+            log(f"ppl, {name}: nll {got['nll']:.6f} (plain {plain['nll']:.6f}, relative "
+                f"difference {rel:.2e}), window 0's logits x max|logit| against the plain "
+                f"window {logits}, ppl {got['ppl']:.6g}, "
+                f"{run['seconds_per_window'] * 1e3:.1f} ms a {PPL_CTX}-token window, "
+                f"{run['tokens_per_s']:.0f} tokens/s on {card}; launches {launches}")
+            if not (finite and rel <= PPL_TOL[dtype] and not logits["over_positions"]
+                    and len(logits["plain_pair_wider_positions"]) <= PPL_ILL_MAX):
+                failed.append(f"ppl, {name}: against the plain versions the mean nll "
+                              f"{rel:.3g} (limit {PPL_TOL[dtype]}), window 0's logits "
+                              f"{logits} (limit {tol}, or twice the plain pair; at most "
+                              f"{PPL_ILL_MAX} positions with a plain pair wider than "
+                              f"{tol}); finite: {finite}")
+            if (PPL_CTX, tile) not in seen["k1"] or \
+                    any(form != tile for m, form in seen["k1"] if m == PPL_CTX):
+                raise AssertionError(f"ppl, {name}: K1's {PPL_CTX}-row plans {seen['k1']}")
+            if any((launches[k] > 0) != (k in rise) for k in launches):
+                raise AssertionError(f"ppl, {name}: launches {launches}; each of {rise} must "
+                                     "rise and every other count stay 0")
+            out[name] = run
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 # the attention kernels of a trace: attn_* (K2, K7) and the int8 cache's
 # quant_partial / quant_partial_tc / widening_tc and their merge
 # quant_merge (K4, K8; quant_combine in checkouts before the one merge)
@@ -2611,26 +3161,36 @@ def profile_prefill(engine, t: int, traced: int = 3) -> dict:
     return out
 
 
-def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
+def profile_decode(engine, chunk: int, traced: int = 4, speculative: bool = False) -> dict:
     """Where a decode step's time goes: one greedy decode chunk of all
     slots, timed by the host clock (synchronized), then `traced` steps
     under torch.profiler for the device time per step, the kernels and
     host ops that take it, and the device-side operations (kernels, copies)
     and host op calls a step. The profiler's own host cost lengthens the
     traced window, so the device's busy share is taken against the
-    untraced step time."""
+    untraced step time. With `speculative`, the steps are the engine's
+    verify steps (`speculative_decode_chunk`: a forward over draft + 1
+    tokens a slot, the proposals and the acceptance)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from llamago_tpu_torch.runtime.decode_loop import decode_chunk
+    from llamago_tpu_torch.runtime.speculative import speculative_decode_chunk
 
     n = engine.n_slots
     dev = engine.device
     tok = torch.full((n,), 7, dtype=torch.long, device=dev)
     pos = torch.full((n,), 100, dtype=torch.long, device=dev)
+    hist = torch.zeros((n, engine.config.max_seq_len), dtype=torch.long, device=dev)
+    hlen = torch.full((n,), 101, dtype=torch.long, device=dev)
 
     def run(steps):
-        decode_chunk(engine.params, tok, engine.cache, pos, engine.config, steps)
+        if speculative:
+            speculative_decode_chunk(engine.params, tok, engine.cache, pos, hist, hlen,
+                                     engine.config, n_steps=steps,
+                                     draft_len=engine.draft_len)
+        else:
+            decode_chunk(engine.params, tok, engine.cache, pos, engine.config, steps)
         torch.cuda.synchronize()
 
     run(chunk)
@@ -2671,7 +3231,8 @@ def profile_decode(engine, chunk: int, traced: int = 4) -> dict:
            "norm_ms": sum(v for k, v in by_name.items() if NORM_KERNELS.search(k)) / 1e3 / traced,
            "append_ms": sum(v for k, v in by_name.items()
                             if APPEND_KERNELS.search(k)) / 1e3 / traced}
-    log(f"decode step ({n} slots): {step_ms:.2f} ms host-timed, {traced_ms:.2f} ms traced, "
+    log(f"{'verify' if speculative else 'decode'} step ({n} slots): {step_ms:.2f} ms "
+        f"host-timed, {traced_ms:.2f} ms traced, "
         f"device busy {device_ms:.3f} ms/step, matmul kernels {mm_ms:.3f} ms/step, "
         f"attention kernels {out['attention_ms']:.3f} ms/step, "
         f"{out['device_kernels_per_step']:.1f} device kernels and "
@@ -2757,7 +3318,10 @@ def main(argv: list[str]) -> int:
     none = {"launches": launch_counts()}  # all 0: a phase that --only left out
     served = served_d = served_p = served_q = served_k89 = served_4 = none
     served_f8 = served_f4 = none
-    if want("serve") or want("serve_prefill") or want("serve_int8"):
+    served_spec: dict = {}
+    ppl: dict = {}
+    if want("serve") or want("serve_prefill") or want("serve_int8") or want("serve_spec") \
+            or want("ppl"):
         cfg, params = make_7b_params(dev)
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
         if want("serve"):
@@ -2831,6 +3395,16 @@ def main(argv: list[str]) -> int:
             for key in ("attention_ms", "matmul_ms", "device_busy_ms"):
                 log(f"phase 4b decode step {key}: default routes "
                     f"{served_q['decode_step'][key]:.4f} ms, K8 and K9 on {step[key]:.4f} ms")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("ppl"):
+            # phase 4g: the perplexity subcommand's path, bf16 and f32 compute
+            ppl = ppl_phase(dev, cfg, params, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if want("serve_spec"):
+            # phase 4f: --spec over the bf16 and the int8 cache, and 1 slot
+            served_spec = serve_spec(dev, cfg, params, card)
         del params
         gc.collect()  # the int8 weights, the phase 4b engine and its cache
         torch.cuda.empty_cache()
@@ -2855,6 +3429,11 @@ def main(argv: list[str]) -> int:
     detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
     detail["serve_f32_q8_0"], detail["serve_f32_w4x8"] = served_f8, served_f4
+    detail["serve_spec"], detail["ppl"] = served_spec, ppl
+
+    def new_paths(key, runs):
+        """A kernel's launches in phase 4f's or 4g's runs."""
+        return sum(r["launches"][key] for r in runs.values() if "launches" in r)
     served_f8k7 = served_f8.get("k7", none)
     # K2's and K7's f32 forms: phases 4e (Q8_0, w4x8, Q8_0 with K7 on) and 3
     k2_f32tc_launches = small_f32_attn.get("flash_attention_decode_f32tc", 0) + sum(
@@ -2864,16 +3443,21 @@ def main(argv: list[str]) -> int:
     q4_run, so_run = small4.get("q4_0", {}), small4.get("q4_0, scale on output", {})
     so256_run = small4.get("q4_0, scale on output at 256", {})
     kernels_line = {"kernels": [
-        # K1's tensor-core decode form: its launches in phase 4, one decode step at m=4
+        # K1's tensor-core decode form: its launches in phases 4 and 4f, one
+        # decode step at m=4
         {"name": "dequant_matmul_decode_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": served["launches"]["dequant_matmul_decode_tc"], **k1dt},
-        # K1's tensor-core tile: its launches in phase 4, one prefill pass at m=64
+         "launches": served["launches"]["dequant_matmul_decode_tc"]
+         + new_paths("dequant_matmul_decode_tc", served_spec), **k1dt},
+        # K1's tensor-core tile: its launches in phases 4, 4f and 4g (bf16),
+        # one prefill pass at m=64
         {"name": "dequant_matmul_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": served["launches"]["dequant_matmul_tc"], **k1tc},
+         "launches": served["launches"]["dequant_matmul_tc"]
+         + new_paths("dequant_matmul_tc", served_spec) + new_paths("dequant_matmul_tc", ppl),
+         **k1tc},
         # K1's decode form on f32 x's three bf16 parts runs f32 x up to 8
         # rows, which phases 3 and 4e (Q8_0) drive; one decode step at m=4
         {"name": "dq_decode_f32tc", "route": "cuda",
@@ -2882,18 +3466,20 @@ def main(argv: list[str]) -> int:
          "launches": k1_f32_decode_launches
          + served_f8["launches"]["dequant_matmul_f32_decode_tc"], **k1},
         # K1's tile on f32 x's three bf16 parts: its launches in phases 3
-        # (the dense cache's f32 run) and 4e (Q8_0), one prefill pass at m=64
+        # (the dense cache's f32 run), 4e (Q8_0) and 4g (f32), one prefill
+        # pass at m=64
         {"name": "dequant_matmul_f32_tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
          "replaces": "llamago_tpu/ops/kernels.py:237",
-         "launches": k1_f32_tc_launches + served_f8["launches"]["dequant_matmul_f32_tc"],
-         **k1f32},
-        # K2's tensor-core form (bf16 cache): its launches in phase 4, one
-        # decode step at b=4, full fill
+         "launches": k1_f32_tc_launches + served_f8["launches"]["dequant_matmul_f32_tc"]
+         + new_paths("dequant_matmul_f32_tc", ppl), **k1f32},
+        # K2's tensor-core form (bf16 cache): its launches in phases 4 and
+        # 4f, one decode step at b=4, full fill
         {"name": "flash_attention", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode.cu",
          "replaces": "llamago_tpu/ops/attention.py:230",
-         "launches": served["launches"]["flash_attention_decode_tc"], **k2},
+         "launches": served["launches"]["flash_attention_decode_tc"]
+         + new_paths("flash_attention_decode_tc", served_spec), **k2},
         # K2's f32 form (3xTF32): its launches in phases 4e and 3, one
         # decode step at b=4, full fill
         {"name": "flash_attention_decode_f32tc", "route": "cuda",
@@ -2903,13 +3489,15 @@ def main(argv: list[str]) -> int:
         {"name": "cache_append_quant", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/cache_append.cu",
          "replaces": "llamago_tpu/ops/cache_write.py:63",
-         "launches": served_q["launches"]["cache_append_quant"], **k3},
-        # K4's tensor-core form: its launches in phase 4b (every K4 call
-        # there), one decode step at b=8, full fill
+         "launches": served_q["launches"]["cache_append_quant"]
+         + new_paths("cache_append_quant", served_spec), **k3},
+        # K4's tensor-core form: its launches in phases 4b (every K4 call
+        # there) and 4f (the int8 cache), one decode step at b=8, full fill
         {"name": "flash_attention_quant_i8dot", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:406",
-         "launches": served_q["launches"]["flash_attention_quant_i8dot_tc"], **k4},
+         "launches": served_q["launches"]["flash_attention_quant_i8dot_tc"]
+         + new_paths("flash_attention_quant_i8dot_tc", served_spec), **k4},
         # K8's tensor-core form (bf16 q): its launches in phase 4b with K8
         # and K9 on, one decode step at b=8, full fill
         {"name": "flash_attention_quant_widening_tc", "route": "cuda",
@@ -2972,17 +3560,20 @@ def main(argv: list[str]) -> int:
         {"name": "flash_attention_prefill", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",
-         "launches": served_p["launches"]["flash_attention_prefill_tc"], **k7},
-        # K7's f32 tensor-core form: its launches in phase 4e (Q8_0, K7 and
-        # K10 on) and phase 3, one 256-token pass at 512
+         "launches": served_p["launches"]["flash_attention_prefill_tc"]
+         + new_paths("flash_attention_prefill_tc", ppl), **k7},
+        # K7's f32 tensor-core form: its launches in phases 4e (Q8_0, K7 and
+        # K10 on), 4g (f32, K7 and K10 on) and 3, one 256-token pass at 512
         {"name": "flash_attention_prefill_f32tc", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/attn_prefill.cu",
          "replaces": "llamago_tpu/ops/attention.py:577",
-         "launches": k7_f32tc_launches, **k7f32},
+         "launches": k7_f32tc_launches + new_paths("flash_attention_prefill_f32tc", ppl),
+         **k7f32},
         {"name": "fused_rms_norm", "route": "cuda",
          "source": "llamago_tpu_torch/csrc/rms_norm.cu",
          "replaces": "llamago_tpu/ops/kernels.py:599",
-         "launches": served_p["launches"]["fused_rms_norm"], **k10},
+         "launches": served_p["launches"]["fused_rms_norm"]
+         + new_paths("fused_rms_norm", ppl), **k10},
         # the lab's nine kernels, launches counted in the lab's run (phase 5)
         *(lab.get(wrapper, {"name": wrapper, "launches": 0})
           for _, wrapper, *_ in LAB_KERNELS),
@@ -3007,6 +3598,19 @@ def main(argv: list[str]) -> int:
                           ("4e: f32 compute, Q8_0, one 600-token prompt", served_f8),
                           ("4e: f32 compute, Q8_0, K7 and K10 on", served_f8k7),
                           ("4e: f32 compute, w4x8, one 600-token prompt", served_f4))}}
+    spec_keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95", "verify_steps",
+                 "accepted_drafts_per_verify_step")
+    serving_line["serving"].update({
+        f"4f: greedy, {name}": {**{k: run[k] for k in spec_keys},
+                                "verify_step": {k: run["verify_step"].get(k)
+                                                for k in ("step_ms", *step_keys)}}
+        for name, run in served_spec.items() if name != "window"})
+    if served_spec:
+        serving_line["serving"]["4f: verify window vs single steps"] = served_spec["window"]
+    ppl_line = {"perplexity": {name: {k: run[k] for k in (
+        "nll", "plain_nll", "rel_diff", "logit_diff", "ppl",
+        "seconds_per_window", "tokens_per_s")}
+        for name, run in ppl.items()}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3019,6 +3623,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"a kernel was never launched on its path: {kernels_line}")
     print(json.dumps({"ptxas_spills": spills}))
     print(json.dumps(serving_line))
+    print(json.dumps(ppl_line))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

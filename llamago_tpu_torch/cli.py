@@ -4,7 +4,9 @@ Counterpart of the JAX package's `cli.py`, with the same flags and
 defaults plus `--device` (reference flags: main.go:24-41, defaults
 main.go:352-382). One-shot mode streams the job's output as it grows and
 prints the per-job report; `--server` serves the REST job API; `--chat`
-is the interactive loop.
+is the interactive loop; `perplexity --file F` prints the perplexity of a
+text file; `--spec` turns on prompt-lookup speculative decoding for
+greedy requests.
 
 The port runs on CUDA unless `--device cpu` is given. The compute dtype
 defaults to bfloat16 on CUDA and float32 on the CPU, and the decode chunk
@@ -37,7 +39,6 @@ _UNPORTED_COMMANDS = {
     "load": "checkpoint tools",
     "convert": "checkpoint tools",
     "quantize": "checkpoint tools",
-    "perplexity": "eval",
     "finetune": "training",
 }
 
@@ -46,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="llamago-tpu-torch", description="LLaMA inference on PyTorch/CUDA")
     p.add_argument("command", nargs="?", default=None,
-                   help="optional subcommand: load | convert | quantize | "
-                        "perplexity | finetune (not yet ported)")
+                   help="optional subcommand: perplexity; load | convert | "
+                        "quantize | finetune are not yet ported")
     p.add_argument("--file", default="", help="text file for `perplexity`/`finetune`")
     p.add_argument("--out", default="", help="output path for `quantize`/`convert`")
     p.add_argument("--vocab-only", action="store_true",
@@ -141,8 +142,6 @@ def unported_reason(args) -> str | None:
     if args.command in _UNPORTED_COMMANDS:
         return (f"the `{args.command}` subcommand is not yet ported "
                 f"({_UNPORTED_COMMANDS[args.command]} slice of the port)")
-    if args.spec:
-        return "--spec is not yet ported (speculative-decoding slice of the port)"
     if args.tp > 1 or args.dp != 1 or args.sp != 1:
         return "--tp/--dp/--sp are not yet ported (parallel slice of the port)"
     if args.multihost or args.coordinator or args.nprocs or args.procid >= 0:
@@ -163,7 +162,7 @@ def main(argv: list[str] | None = None) -> int:
     if not args.silent:
         colorize("[magenta]" + LOGO)
 
-    if args.command is not None and args.command not in _UNPORTED_COMMANDS:
+    if args.command is not None and args.command not in (*_UNPORTED_COMMANDS, "perplexity"):
         print(f"unknown command: {args.command}", file=sys.stderr)
         return 2
     reason = unported_reason(args)
@@ -171,7 +170,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {reason}", file=sys.stderr)
         return 2
 
-    if not args.model:
+    if not args.model and args.command is None:
         print("error: --model is required", file=sys.stderr)
         return 2
 
@@ -188,6 +187,8 @@ def main(argv: list[str] | None = None) -> int:
             torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
     try:
+        if args.command == "perplexity":
+            return cmd_perplexity(args)
         return run(args)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -239,9 +240,31 @@ def _load_engine(args):
     if args.prefill_buckets:
         kwargs["buckets"] = tuple(sorted(int(b) for b in args.prefill_buckets.split(",")))
     engine = Engine(config, params, ckpt.vocab, slots=args.pods,
-                    decode_chunk_size=chunk, prefill_chunk=args.prefill_chunk,
+                    decode_chunk_size=chunk, speculative=args.spec,
+                    draft_len=args.draft, prefill_chunk=args.prefill_chunk,
                     device=device, **kwargs)
     return engine, ckpt, config
+
+
+def cmd_perplexity(args) -> int:
+    """Perplexity over a text file (the BASELINE.md quality metric), in
+    windows of min(--context, 512) tokens."""
+    if not args.model or not args.file:
+        print("error: perplexity needs --model and --file", file=sys.stderr)
+        return 2
+    engine, ckpt, config = _load_engine(args)
+    with open(args.file, encoding="utf-8") as f:
+        text = f.read()
+    from llamago_tpu_torch.eval import perplexity
+    from llamago_tpu_torch.tokenizer import tokenize
+
+    ids = tokenize(ckpt.vocab, " " + text, bos=True)
+    ctx = min(args.context, 512)
+    result = perplexity(engine.params, config, ids, ctx=ctx)
+    print(f"[PPL] perplexity {result['ppl']:.4f} | nll {result['nll']:.4f} | "
+          f"{result['n_tokens']} tokens in {result['n_windows']} windows "
+          f"(ctx {ctx}, {config.weight_dtype} weights)")
+    return 0
 
 
 def _gen_config(args):

@@ -19,13 +19,15 @@ model decodes a slot-batched step; "pods" are decode slots:
 Inactive rows still flow through the batched forward and still write one
 cache row per step (the cache write clamps like dynamic_update_slice,
 runtime/kv_cache.py); `_decode_positions` parks them where that write is
-harmless. Speculative decoding and multi-host lockstep come with later
-slices of the port.
+harmless. With `speculative=True`, all-greedy batches take prompt-lookup
+speculative decoding (runtime/speculative.py) while their drafts keep
+being accepted. Multi-host lockstep comes with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 import uuid
@@ -42,6 +44,10 @@ from llamago_tpu_torch.runtime.kv_cache import KVCache
 from llamago_tpu_torch.tokenizer import EOS_TOKEN, Vocab, detokenize, tokenize
 from llamago_tpu_torch.utils import debug as _dbg
 from llamago_tpu_torch.utils.device import resolve_device
+
+# trace of the speculative gate: each engine step's spec / chunked
+# decision with the acceptance EMAs
+_SPEC_DEBUG = os.environ.get("LLAMAGO_SPEC_DEBUG", "0") == "1"
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -124,6 +130,8 @@ class Engine:
         slots: int = 1,
         buckets: tuple[int, ...] = DEFAULT_BUCKETS,
         decode_chunk_size: int = 1,
+        speculative: bool = False,
+        draft_len: int = 7,
         prefill_chunk: int = 256,
         device="cuda",
     ):
@@ -142,6 +150,20 @@ class Engine:
         self.generators = [self._generator(i) for i in range(slots)]
         self.slots = [_Slot() for _ in range(slots)]
         self.decode_chunk_size = decode_chunk_size
+        # prompt-lookup speculative decoding for all-greedy batches
+        self.speculative = speculative
+        self.draft_len = draft_len
+        # Adaptive gate: a verify step streams every weight whether or not
+        # its drafts land, so on text that does not repeat it emits about
+        # one token per weight stream and loses to chunked decode. Each
+        # slot keeps an EMA of accepted drafts per step, starting at the
+        # optimistic draft_len; while every active slot's EMA is below the
+        # threshold, _spec_steps yields to chunked decode and only probes
+        # with one verify step every spec_probe_interval decisions.
+        self.spec_accept_ema = np.full(slots, float(draft_len), np.float32)
+        self.spec_gate_threshold = 1.5  # accepted drafts per step
+        self.spec_probe_interval = 8  # gated decisions between probes
+        self._spec_probe_countdown = 0
         self.prefill_chunk = max(16, min(prefill_chunk, self.buckets[-1]))
         self._queue: list[Job] = []
         self._lock = threading.Lock()
@@ -165,6 +187,18 @@ class Engine:
             if t in self._eos_ids:
                 return i
         return -1
+
+    def _halving_rungs(self) -> list[int]:
+        """Every n_steps the speculative path can select (the halving
+        ladder of _spec_steps)."""
+        rungs = []
+        n = max(1, self.decode_chunk_size)
+        while n >= 1:
+            rungs.append(n)
+            if n == 1:
+                break
+            n //= 2
+        return rungs
 
     def _make_cache(self) -> KVCache:
         return KVCache.create(self.config, batch=self.n_slots, device=self.device)
@@ -267,6 +301,11 @@ class Engine:
         slot.job = job
         slot.history = list(ids)
         slot.remaining = gen.max_tokens
+        # a new tenant inherits the slot's acceptance EMA: resetting it to
+        # the optimistic prior would force a speculative burst at the start
+        # of every job under churn; the periodic probes of _spec_steps
+        # re-open the gate within one probe interval when the traffic
+        # really repeats itself
         slot.swap_point = None
         slot.pos = reuse
         slot.pending = list(ids[reuse:])
@@ -440,7 +479,19 @@ class Engine:
             if active[i]:
                 self._maybe_context_swap(i)
 
+        n_spec = self._spec_steps(active, temp)
+        if _SPEC_DEBUG and self.speculative:
+            emas = [round(float(e), 2) for e in self.spec_accept_ema]
+            print(f"[spec] t={time.time():.3f} n_spec={n_spec}"
+                  f" active={active.astype(int).tolist()}"
+                  f" ema={emas} probe_cd={self._spec_probe_countdown}", flush=True)
+        if n_spec > 0:
+            self._decode_speculative(active, n_spec)
+            return True
+
         n_chunk = self._chunkable(active)
+        if _SPEC_DEBUG and self.speculative:
+            print(f"[spec] t={time.time():.3f} -> chunked n={n_chunk}", flush=True)
         if n_chunk > 1:
             self._decode_chunked(active, n_chunk, temp, top_k, top_p, rp)
             return True
@@ -459,6 +510,139 @@ class Engine:
                 slot.job.eval_ms.append(eval_dt)
                 slot.pos += 1
         return True
+
+    # ------------------------------------------------- speculative decode
+
+    def _spec_steps(self, active: np.ndarray, temp: np.ndarray) -> int:
+        """Speculative steps to run now (0: none). Only all-greedy batches
+        speculate (temp <= 0 is pure argmax in ops/sampling.py, so
+        prompt-lookup greedy is lossless), never while a prefill is in
+        flight or a queued job could enter a free slot, and only with
+        context headroom for the worst case."""
+        if not self.speculative:
+            return 0
+        if any(active[i] and temp[i] > 0 for i in range(self.n_slots)):
+            return 0
+        if any(s.pending for s in self.slots):
+            return 0
+        with self._lock:
+            if self._queue and any(s.free for s in self.slots):
+                return 0
+        probing = False
+        emas = [self.spec_accept_ema[i] for i in range(self.n_slots) if active[i]]
+        # Occupancy-aware threshold: chunked decode emits n_active tokens per
+        # weight stream with one host sync per chunk, while each speculative
+        # dispatch waits for its tokens on the host before its restore
+        # forward, so with more active slots speculation must clear a
+        # higher bar. The
+        # occupancy term (not the floor) is capped at draft_len - 1: the EMA
+        # never exceeds draft_len, and an unreachable bar would close the
+        # gate for good while the probes kept costing; capping the whole
+        # expression would zero the floor at draft_len = 1.
+        thresh = max(self.spec_gate_threshold,
+                     min(0.875 * float(len(emas)), float(self.draft_len) - 1.0))
+        if emas and max(emas) < thresh:
+            if self._spec_probe_countdown > 0:
+                self._spec_probe_countdown -= 1
+                return 0
+            self._spec_probe_countdown = self.spec_probe_interval
+            probing = True
+        allowed = max(1, self.decode_chunk_size)
+        per_step = self.draft_len + 1
+        rem_max = 0
+        for i, slot in enumerate(self.slots):
+            if not active[i] or slot.job is None:
+                continue
+            ctx = min(slot.job.gen.ctx_size, self.config.max_seq_len)
+            headroom = ctx - slot.pos - 2
+            allowed = min(allowed, max(headroom // per_step, 0))
+            rem_max = max(rem_max, slot.remaining)
+        if probing:
+            allowed = min(allowed, 1)
+        # bound by the token budget at the EXPECTED emission per step
+        # (1 + the acceptance EMA): bounding at full acceptance would shrink
+        # the rungs to a step or two for most of a job, each paying its
+        # host syncs. The overshoot is trimmed on the host, as chunked
+        # decode's is.
+        expected = 1.0 + max(float(np.mean(emas)) if emas else 0.0, 0.0)
+        allowed = min(allowed, max(1, -(-rem_max // max(int(expected), 1))))
+        if allowed < 1:
+            return 0
+        # the largest rung that fits
+        for n in self._halving_rungs():
+            if n <= allowed:
+                return n
+        return 1
+
+    def _decode_speculative(self, active: np.ndarray, n_steps: int) -> None:
+        from llamago_tpu_torch.runtime.speculative import speculative_decode_chunk
+
+        h = self.config.max_seq_len
+        # history headroom for every token this chunk can emit, so the
+        # history writes never hit their clamp and proposals stay aligned
+        writes = n_steps * (self.draft_len + 1) + 1
+        tail = max(1, h - writes)
+        hist = np.zeros((self.n_slots, h), np.int64)
+        hlen = np.ones(self.n_slots, np.int64)
+        feed = np.zeros(self.n_slots, np.int64)
+        pos = self._decode_positions(active, writes=writes)
+        for i, slot in enumerate(self.slots):
+            if active[i]:
+                hs = slot.history[-tail:]
+                hist[i, : len(hs)] = hs
+                hlen[i] = len(hs)
+                feed[i] = slot.history[-1]
+        t0 = time.time()
+        toks, counts, self.cache, pos_out, _, _ = speculative_decode_chunk(
+            self.params, self._tensor(feed), self.cache, self._tensor(pos),
+            self._tensor(hist), self._tensor(hlen), self.config,
+            n_steps=n_steps, draft_len=self.draft_len)
+        toks_h = toks.cpu().numpy()  # host sync
+        counts_h = counts.cpu().numpy()
+        pos_h = pos_out.cpu().numpy()
+        # restore the pending-logits invariant: one forward of each slot's
+        # last emitted token (as the chunked decode's final forward)
+        last = np.zeros((self.n_slots, 1), np.int64)
+        for i in range(self.n_slots):
+            if active[i]:
+                last[i, 0] = toks_h[i, -1, counts_h[i, -1] - 1]
+        self.logits, self.cache = forward_impl(
+            self.params, self._tensor(last), self.cache, pos_out, self.config)
+        dt_ms = (time.time() - t0) * 1000.0
+
+        for i, slot in enumerate(self.slots):
+            if not active[i] or slot.job is None:
+                continue
+            # the gate's EMA: counts[i, s] = accepted drafts + 1 bonus token
+            accepted = float(counts_h[i].mean()) - 1.0
+            self.spec_accept_ema[i] = 0.7 * self.spec_accept_ema[i] + 0.3 * accepted
+            job = slot.job
+            emitted: list[int] = []
+            for s in range(n_steps):
+                emitted.extend(int(t) for t in toks_h[i, s, : counts_h[i, s]])
+            kept = emitted
+            if job.gen.stop_at_eos:
+                e = self._first_eos(emitted)
+                if e >= 0:
+                    kept = emitted[: e + 1]
+            kept = kept[: slot.remaining]
+            job.output_tokens.extend(kept)
+            slot.history.extend(kept)
+            slot.remaining -= len(kept)
+            # history[-1] is in the cache (the bonus via the restore
+            # forward, earlier tokens via the verify writes) and
+            # self.logits[i] is its successor distribution. A truncation
+            # (EOS or budget) always finishes the job below, so the stale
+            # logits are never used.
+            slot.pos = int(pos_h[i]) + 1
+            if kept:
+                job.eval_ms.extend([dt_ms / len(kept)] * len(kept))
+            done = self._publish_output(job) or slot.remaining <= 0 or (
+                job.gen.stop_at_eos and kept and kept[-1] in self._eos_ids)
+            if done:
+                job.status = JobStatus.FINISHED
+                job.finished = time.time()
+                slot.job = None
 
     # ----------------------------------------------------- chunked decode
 
@@ -530,8 +714,12 @@ class Engine:
                include_embed: bool = True) -> float:
         """Run the serving path once before traffic — one prefill (and
         embedding) per bucket up to `max_bucket`, the sampler, a decode
-        step and a decode chunk — so the kernels are built and loaded and
-        the allocator holds its working set before the first request.
+        step, a decode chunk and, with `speculative`, one speculative step
+        — so the kernels are built and loaded (with each shape's launch
+        attributes set) and the allocator holds its working set before the
+        first request. Every rung of the speculative ladder runs the same
+        verify forward, only more times, so one step warms them all (the
+        restore forward is the decode step's).
         The slots, cache and sampler state are wiped afterwards. Returns
         seconds spent."""
         t0 = time.time()
@@ -568,6 +756,15 @@ class Engine:
                 repeat_penalty=self._tensor(ones_f), greedy=False,
                 return_final_logits=True)
             toks.tolist()
+        if self.speculative:
+            from llamago_tpu_torch.runtime.speculative import speculative_decode_chunk
+
+            hist = torch.zeros((self.n_slots, self.config.max_seq_len), dtype=torch.long,
+                               device=self.device)
+            hlen = torch.ones(self.n_slots, dtype=torch.long, device=self.device)
+            _, _, self.cache, _, hist, hlen = speculative_decode_chunk(
+                self.params, zeros, self.cache, zeros, hist, hlen, self.config,
+                n_steps=1, draft_len=self.draft_len)
         self.logits.cpu()  # waits for the device
         self.cache = self._make_cache()
         reset_slots(self.sampler_state,

@@ -2,9 +2,9 @@
 rules the port keeps (no JAX imports, CUDA unless the CPU is asked for,
 unported flags fail by name).
 
-The CLI test builds a tiny Q8_0 ggjt with the JAX package's writer and
-quantizer; `--temp 0 --device cpu` one-shot output must equal the JAX
-CLI's output.
+The CLI tests build a tiny Q8_0 ggjt with the JAX package's writer and
+quantizer; `--temp 0 --device cpu` one-shot output, with and without
+`--spec`, must equal the JAX CLI's output.
 """
 
 import ast
@@ -52,6 +52,21 @@ def test_oneshot_greedy_output_matches_jax_cli(q8_model, capsys):
     assert cli.main(argv + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out
     assert got == want and got.startswith("hello world")
+
+
+@pytest.mark.parametrize("chunk", ["1", "4"])
+def test_oneshot_spec_output_matches_jax_cli_and_plain(q8_model, chunk, capsys):
+    """`--spec --temp 0` one-shot: the output equals the JAX CLI's with the
+    same flags and the port's without --spec (speculation is lossless)."""
+    argv = ["--model", q8_model, "--prompt", "hello hello hello", "--temp", "0",
+            "--predict", "24", "--context", "64", "--silent", "--chunk", chunk, "--draft", "4"]
+    assert jcli.main(argv + ["--spec", "--tp", "1"]) == 0
+    want = capsys.readouterr().out
+    assert cli.main(argv + ["--spec", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and got.startswith("hello hello hello")
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == got
 
 
 def test_read_ggjt_and_host_parameters_match_jax(q8_model):
@@ -114,12 +129,10 @@ def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--sp", "2"], "parallel"),
-    (["--spec"], "speculative"),
     (["--tp", "2"], "parallel"),
     (["--dp", "2"], "parallel"),
     (["--multihost"], "parallel"),
     (["--lora", "a.npz"], "training"),
-    (["perplexity"], "eval"),
     (["convert"], "checkpoint tools"),
 ])
 def test_unported_flags_fail_naming_the_slice(flags, slice_name, capsys):
