@@ -60,7 +60,16 @@ Phases, each of which fails the run (exit code 1, no result line):
      NaN-filled memory and timed beside SDPA on f32 tensors) and
      K10 (fused RMSNorm, into NaN-filled memory);
      K3 and K10 are timed beside the card's floor for one small launch (a
-     `fill_` of one element);
+     `fill_` of one element); then (`llama3`) the shapes LLaMA-3-8B gives
+     them: K1 (Q8_0) at its projections (wqkv 4096 x 6144, wo 4096 x 4096,
+     w13 4096 x 28672, w2 14336 x 4096, the head padded to 131,072 columns)
+     checked at m = 1, 4, 8, 9 and 64 with bf16 and f32 x and timed at m = 4
+     and 64 in each x dtype, every call counted as its form; K2 at b = 4,
+     KV = 8, 4 query rows a kv head, hd = 128, S = 1024, bf16 and f32; K3
+     at b = 8, KV = 8 on the serving path's GQA rows, bit for bit, fills 101
+     and 1024; K4 at b = 8, KV = 8, g = 4 in its tensor-core form; the
+     attention kernels timed at fills 101 and 1024 beside SDPA with
+     enable_gqa;
   3. check the port end to end on a small model: logits and greedy tokens
      on the card (through the kernels) against the CPU (plain versions),
      with the dense cache, then the int8 cache under K4 and under K8, then
@@ -171,19 +180,43 @@ Phases, each of which fails the run (exit code 1, no result line):
      plain window's, or within twice the plain versions' own difference
      there over two chunks of 256 (at most 5 such positions); K1's tile (f32_tc in f32) takes every
      512-row matmul, K7 launches with the opt-in routes and only then;
+  6. (`gguf`) the checkpoint tools and LLaMA-3-8B from a GGUF file: a
+     dim-512 GQA model written as an f32 ggjt by write_ggjt, quantized by
+     the port's `quantize` to q8_0, q4_0, q4_1 and a q8_0 GGUF, and a Meta
+     directory made here (dim 4096, 8 kv heads, 2 layers; torch.save,
+     write_sp_model) converted by `convert` and quantized, each read back
+     and held card (kernels) against CPU (plain versions) in f32: logits
+     within 1e-3 of max|logit| and equal greedy tokens; the ggjt and GGUF
+     copies of one model give bit-identical logits on the card. Then
+     MODEL_PRESETS["llama3-8B"] at full width and depth (32 layers, 8 kv
+     heads, FFN 14,336, vocab 128,256, rope theta 500,000) as a random Q8_0
+     GGUF of about 8.5 GB written by write_gguf into a temporary directory,
+     its byte-level BPE vocab built here (the 256 byte tokens, merges
+     learned from README.md and SURVEY.md, reserved specials,
+     <|begin_of_text|> = 128000, <|end_of_text|> = 128001, llama-bpe), read
+     by read_checkpoint, loaded to the card and served over the REST job
+     API as phases 4 and 4b serve 7B (bf16 cache, 4 slots, 8 jobs; int8
+     cache, 8 slots, 16 jobs; 49-token prompts, 64 tokens a job): K1, K2
+     (and K3, K4) launch and nothing else; then the file with f32 compute,
+     a 64-token forward through the kernels against the plain matmuls
+     within 1e-3 of max|logit|; the file's bytes, its write, read and load
+     times, the decode step beside phase 4's, tok/s, TTFT and peak memory
+     logged; the file deleted;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
-matmul and attention kernels of phases 4, 4d, 4b, 4c and 4e side by side,
-with phase 4f's tokens/s, TTFT and accepted drafts a verify step, JSON),
-the perplexity line (phase 4g, JSON), the card line, the kernels line
+matmul and attention kernels of phases 4, 4d, 4b, 4c, 4e and 6 side by
+side, with phase 4f's tokens/s, TTFT and accepted drafts a verify step,
+JSON), the perplexity line (phase 4g, JSON), the GGUF line (phase 6: the
+file, its times, the small models' card-vs-CPU errors; JSON), the card
+line, the kernels line
 (JSON) and, last, the device line (JSON). `--out` names a file for the
 detail (per-shape kernel times, the serving numbers, the decode-step
 profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
 small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32,
-serve_spec, ppl.
+serve_spec, ppl, llama3 (phase 2 at LLaMA-3-8B's shapes), gguf (phase 6).
 """
 
 from __future__ import annotations
@@ -217,6 +250,14 @@ K1_SHAPES = (("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
              ("lm_head", 4096, 32768, 1))
 # the same with int4 weights: the head is not padded
 INT4_SHAPES = K1_SHAPES[:4] + (("lm_head", 4096, 32000, 1),)
+# LLaMA-3-8B's projections of one decode step (GQA: 32 query heads, 8 kv
+# heads of 128), the head padded from 128,256 to 131,072 columns
+LLAMA3_SHAPES = (("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
+                 ("w13", 4096, 28672, 32), ("w2", 14336, 4096, 32),
+                 ("lm_head", 4096, 131072, 1))
+# LLaMA-3-8B's attention in phase 6: 4 query rows folded per kv head, hd 128
+L3_K2_SHAPE = dict(b=4, kv=8, g=4, hd=128, s=1024)  # the bf16 cache, 4 slots
+L3_K4_SHAPE = dict(b=8, kv=8, g=4, hd=128, s=1024)  # the int8 cache, 8 slots
 # x max|ref|, for every quantized matmul (K1, K5, K6, K9): the kernel's f32
 # sums run in another order than the plain version's (split K, warps, FMA);
 # a bf16 output adds one rounding
@@ -324,7 +365,7 @@ def _leaf_bytes(w: dict) -> int:
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
                  other_m: tuple, ops_per_s, seed: int, other_shapes: tuple = ("wqkv",),
                  timed_dtype: str = "bfloat16", checked=None,
-                 scale_dtype: str = "bfloat16") -> tuple[dict, dict]:
+                 scale_dtype: str = "bfloat16", shapes: tuple | None = None) -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
     and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
@@ -337,7 +378,8 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
     of the five shapes (one decode step at decode rows, one prefill pass at
     prefill rows). `checked`, where given, takes the kernel's place in the
     checks (not in the timing). The leaves' scales are `scale_dtype` (bf16,
-    or f32 for Q8_0 and Q4_0)."""
+    or f32 for Q8_0 and Q4_0). `shapes` replaces the 7B shapes, as (name,
+    K, N, launches per pass)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
@@ -347,7 +389,7 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
              for m in timed_m}
     errs: dict = {}
     rows = []
-    for name, k, n, per_step in (K1_SHAPES if fmt == "q8" else INT4_SHAPES):
+    for name, k, n, per_step in shapes or (K1_SHAPES if fmt == "q8" else INT4_SHAPES):
         ws = [_random_leaf(gen, dev, fmt, k, n, scale_dtype)]
         # copies enough that a cycle of calls streams past the 50 MB L2,
         # as the decode step's weight stream does
@@ -442,6 +484,25 @@ def _f32_fma_pass_ms(m: int, fmt: str) -> float:
     return sum(per * 2.0 * m * k * n for _, k, n, per in shapes) / F32_OPS_PER_S * 1e3
 
 
+def _k1_checked():
+    """K1 as the checks call it: each call must take the form `k1_form`
+    names (counted by form), and the checked one writes into NaN-filled
+    memory."""
+    from llamago_tpu_torch.ops import kernels
+
+    fn = kernels.dequant_matmul
+    k1 = _counted(fn, lambda: {"tensor_core": fn.launches_tc, "f32_tc": fn.launches_f32_tc,
+                               "decode_tc": fn.launches_decode_tc,
+                               "f32_decode_tc": fn.launches_f32_decode_tc}, kernels.k1_form)
+
+    def k1_nan(x, w):
+        n = w["s"].shape[1]
+        _nan_first(x, n, kernels.k1_plan(x.shape[0], x.shape[1], n, x.dtype)[2])
+        return k1(x, w)
+
+    return k1, k1_nan
+
+
 def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict]:
     """K1 (Q8_0, or Q4_0 with fmt "q4") in each of its forms, at the five
     7B shapes, against the plain version with f32 and bf16 x: at m = 1 to 8
@@ -465,16 +526,7 @@ def check_k1(dev, detail: dict, fmt: str = "q8") -> tuple[dict, dict, dict, dict
     of the tile with f32 x (one prefill pass at m=64)."""
     from llamago_tpu_torch.ops import kernels
 
-    fn = kernels.dequant_matmul
-    k1 = _counted(fn, lambda: {"tensor_core": fn.launches_tc, "f32_tc": fn.launches_f32_tc,
-                               "decode_tc": fn.launches_decode_tc,
-                               "f32_decode_tc": fn.launches_f32_decode_tc}, kernels.k1_form)
-
-    def k1_nan(x, w):
-        n = w["s"].shape[1]
-        _nan_first(x, n, kernels.k1_plan(x.shape[0], x.shape[1], n, x.dtype)[2])
-        return k1(x, w)
-
+    k1, k1_nan = _k1_checked()
     tag = "K1" if fmt == "q8" else "K1 q4"
     shapes = tuple(name for name, *_ in K1_SHAPES)
     errs, steps = check_matmul(
@@ -2378,7 +2430,8 @@ def _http_jobs(port: int, bodies: list[dict], timeout_s: float = 600) -> list[di
 
 
 def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
-          long_jobs: int = 0) -> dict:
+          long_jobs: int = 0, vocab=None, prompts: list[str] | None = None,
+          model: str = "7B") -> dict:
     """Serve n_jobs sampled HTTP jobs on `slots` decode slots, then the
     repeated greedy job, then profile one decode chunk. Every launch count
     is set to 0 before the engine warms up; those named in `rise` must have
@@ -2386,19 +2439,23 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     The first `long_jobs` odd-numbered jobs bring a prompt of 600 tokens
     (prefill chunks of 256, 256 and 88 tokens, the last in a 128 bucket);
     with any, a 256-token prefill chunk is profiled beside the 64-token
-    one."""
+    one. `vocab` (default: the byte vocab) and `prompts` (default: 49
+    tokens each under the byte vocab) serve a file's own tokenizer; the
+    prompts' token counts are then those the vocab gives them."""
     import torch
 
     from llamago_tpu_torch.config import GenerateConfig, ServerConfig
     from llamago_tpu_torch.runtime.engine import Engine
     from llamago_tpu_torch.server.api import JobServer
+    from llamago_tpu_torch.tokenizer import tokenize
 
     predict, prompt_tokens, long_tokens, chunk = 64, 48, 600, 32
-    engine = Engine(cfg, params, _byte_vocab(cfg.vocab_size), slots=slots,
+    vocab = vocab or _byte_vocab(cfg.vocab_size)
+    engine = Engine(cfg, params, vocab, slots=slots,
                     decode_chunk_size=chunk, prefill_chunk=256, device=dev)
     gen = GenerateConfig(max_tokens=predict, ctx_size=cfg.max_seq_len, temp=0.8, seed=11)
     server = JobServer(engine, ServerConfig(host="127.0.0.1", port=0), gen,
-                       model_name=f"7B-{cfg.weight_dtype}")
+                       model_name=f"{model}-{cfg.weight_dtype}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2407,11 +2464,15 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     server.start_background()
     port = server.port
     try:
-        # one token per byte, plus BOS and the leading space
-        lengths = [long_tokens if i % 2 and i // 2 < long_jobs else prompt_tokens + 1
-                   for i in range(n_jobs)]
-        prompts = [(f"request {i:03d}: " + "abcdefgh" * 80)[: n - 2]
-                   for i, n in enumerate(lengths)]
+        if prompts is None:
+            # one token per byte, plus BOS and the leading space
+            lengths = [long_tokens if i % 2 and i // 2 < long_jobs else prompt_tokens + 1
+                       for i in range(n_jobs)]
+            prompts = [(f"request {i:03d}: " + "abcdefgh" * 80)[: n - 2]
+                       for i, n in enumerate(lengths)]
+        else:
+            prefix = " " if getattr(vocab, "space_prefix", True) else ""
+            lengths = [len(tokenize(vocab, prefix + p, bos=True)) for p in prompts]
         bodies = [{"id": str(uuid.uuid4()), "prompt": p, "seed": 11 + i}
                   for i, p in enumerate(prompts)]
         t_start = time.time()
@@ -2462,7 +2523,7 @@ def serve(dev, cfg, params, slots: int, n_jobs: int, rise: tuple,
     prefill = {t: profile_prefill(engine, t) for t in ((64, 256) if long_jobs else (64,))}
     step = profile_decode(engine, chunk)
     result = {
-        "model": f"7B {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
+        "model": f"{model} {cfg.weight_dtype} (random, seed 0)", "kv_dtype": cfg.kv_dtype,
         "slots": slots, "jobs": n_jobs,
         "predict": predict, "prompt_tokens": lengths, "decode_chunk": chunk,
         "ttft_ms_p50_by_prompt_tokens": ttft,
@@ -3244,6 +3305,673 @@ def profile_decode(engine, chunk: int, traced: int = 4, speculative: bool = Fals
     return out
 
 
+# ------------------------------------------------ phase 2 at LLaMA-3-8B
+
+
+def _sdpa_gqa(qh, k, v, mask):
+    """SDPA over a GQA cache: k and v [b, kv, s, hd] serve q [b, h, t, hd]."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def _l3_attn_rows(dev, gen, name: str, c: dict, windows, timed_at, dtype: str, tol: float,
+                  call, error, plain, make_cache, cache_bytes, deq, rate) -> list[dict]:
+    """One attention kernel at a GQA geometry `c`: every (t, fill) of
+    `windows` checked within `tol` (and its form asserted by `call`), those
+    in `timed_at` timed beside the plain version, SDPA on `deq(cache)` with
+    enable_gqa and the bound, then called again into NaN-filled memory for
+    its first call's bits."""
+    import torch
+
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    h = kv * g
+    dt = getattr(torch, dtype)
+    copies = max(2, -(-150_000_000 // cache_bytes))
+    caches = [make_cache() for _ in range(copies)]
+    rows = []
+    for t, fill in windows:
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(dt)
+        positions = (torch.full((b, 1), max(fill - t, 0), device=dev)
+                     + torch.arange(t, device=dev)[None, :])
+        first = call(q, caches[0], positions)
+        err = error(q, caches[0], positions, first)
+        if not err <= tol:
+            raise AssertionError(f"{name} t={t} fill={fill}: max|d| {err:.3g} > {tol}")
+        row = dict(t=t, fill=fill, max_abs_err=err)
+        if (t, fill) in timed_at:
+            visible = min(max(fill, t), s)
+            pos0 = positions[:, 0].to(torch.int32)
+            q5 = q.reshape(b, t, kv, g, hd)
+            kern = timed([lambda c_=c_: call(q, c_, positions, counted=False)
+                          for c_ in caches], 50 * copies)
+            plain_ms = timed([lambda c_=c_: plain(q5, c_, pos0) for c_ in caches], 2 * copies)
+            qh = q.transpose(1, 2)
+            mask = (None if t == 1 else
+                    torch.arange(visible, device=dev)[None, :] <= positions[0][:, None])
+            deqs = [deq(c_, visible) for c_ in caches]
+            lib = timed([lambda d=d: _sdpa_gqa(qh, d[0], d[1], mask) for d in deqs],
+                        50 * copies)
+            del deqs
+            if not torch.equal(call(q, caches[0], positions), first):
+                raise AssertionError(f"{name} t={t} fill={fill}: a second call into NaN-filled "
+                                     "memory gave other bits")
+            per_slot = cache_bytes / (b * s)  # K and V bytes of one slot (scales included)
+            nbytes = b * visible * per_slot + 2 * b * t * h * hd * q.element_size() + b * 4
+            bnd, by = bound_ms(nbytes, 4.0 * b * h * t * visible * hd, rate)
+            row.update(visible=visible, ms=kern, plain_ms=plain_ms, library_ms=lib,
+                       bound_ms=bnd, bound_by=by)
+            log(f"{name} t={t:2d} fill={fill:4d}: kernel {kern:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"sdpa (enable_gqa) {lib:.4f} ms, bound {bnd:.4f} ms ({by}), max|d| {err:.2e}")
+        else:
+            log(f"{name} t={t:2d} fill={fill:4d}: max|d| {err:.2e}")
+        rows.append(row)
+    del caches
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _step(rows: list[dict], s: int) -> dict:
+    """The kernels line's numbers of an attention row set: one decode step
+    at full fill (a call per layer, 32) and the largest error."""
+    rec = next(r for r in rows if r["t"] == 1 and r["fill"] == s and "ms" in r)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "bound_by": rec["bound_by"],
+            **{k: 32 * rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
+
+def check_llama3(dev, detail: dict) -> dict:
+    """Phase 2 at LLaMA-3-8B's shapes, the ones phase 6 serves: K1 (Q8_0)
+    at LLAMA3_SHAPES with bf16 x and f32 x, each checked within K1_TOL at m =
+    1, 4, 8 (its decode form) and 9, 64 (its tile) and timed at m = 4 and
+    64 (bf16 x against bf16 operations, f32 x against three bf16 passes),
+    every call counted as the form `k1_form` names, into NaN-filled memory;
+    K2 at L3_K2_SHAPE (g = 4, hd = 128) in bf16 (its tensor-core form)
+    within K2_TOL and in f32 (its 3xTF32 form) within F32_ATTN_TOL; K3 at
+    b = 8, KV = 8 on the serving path's GQA rows (v a strided view of the
+    fused [q | k | v] projection, int64 positions), bit for bit, at fills
+    101 and 1024; K4 at L3_K4_SHAPE in its tensor-core form within K4_TOL.
+    The attention kernels are checked at t = 1 for fills 1, 101 and 1024
+    (K2 also at its split's edges) and t = 8 and 32, timed at t = 1 for
+    fills 101 and 1024 beside SDPA with enable_gqa. Returns the kernels
+    line's numbers: K1's decode form and tile (bf16 x) and its tile with f32
+    x, each one pass; K2 (bf16), K3 and K4, each one decode step at full
+    fill."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention, cache_write, kernels
+
+    k1, k1_nan = _k1_checked()
+    errs, steps = check_matmul(dev, detail, "K1 llama3", "q8", k1, kernels.dequant_matmul_plain,
+                               timed_m=(4, 64), other_m=(1, 8, 9), shapes=LLAMA3_SHAPES,
+                               ops_per_s=lambda m: BF16_OPS_PER_S, seed=41,
+                               other_shapes=tuple(n for n, *_ in LLAMA3_SHAPES), checked=k1_nan)
+    errs32, steps32 = check_matmul(dev, detail, "K1 llama3 f32", "q8", k1,
+                                   kernels.dequant_matmul_plain, timed_m=(4, 64), other_m=(),
+                                   shapes=LLAMA3_SHAPES, ops_per_s=lambda m: F32_TC_OPS_PER_S,
+                                   seed=42, timed_dtype="float32", checked=k1_nan)
+    both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
+    for m, form in ((4, "the decode form"), (64, "the tile")):
+        log(f"K1 llama3 at m={m}: {form} {steps[m]['ms']:.3f} ms per pass (bf16 x; x@W "
+            f"{steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms), "
+            f"{steps32[m]['ms']:.3f} ms (f32 x; x@W f32 {steps32[m]['library_ms']:.3f} ms, "
+            f"bound {steps32[m]['bound_ms']:.3f} ms)")
+    out = {"k1_decode": _line(errs, steps, 4, lambda m, xdt: m <= 8 and xdt == "bfloat16"),
+           "k1_tile": _line(errs, steps, 64, lambda m, xdt: m > 8 and xdt == "bfloat16"),
+           "k1_f32_tile": _line(both, steps32, 64, lambda m, xdt: m > 8 and xdt == "float32")}
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    # K2, the bf16 and the f32 cache
+    c = L3_K2_SHAPE
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    for dtype, tol, rate in (("bfloat16", K2_TOL, BF16_OPS_PER_S),
+                             ("float32", F32_ATTN_TOL, TF32X3_OPS_PER_S)):
+        dt = getattr(torch, dtype)
+        sps = attention.decode_attn_plan(b, kv, 1, g, hd, s, dt)[0]
+        windows = [(1, f) for f in sorted({1, 101, sps - 1, sps, sps + 1, s})]
+        windows += [(8, 101), (8, s), (32, 300), (32, s)]
+
+        def k2(q, cache, positions, counted=True):
+            return (_k2_call if counted else attention.flash_attention)(q, *cache, positions)
+
+        def k2_error(q, cache, positions, got):
+            return _k2_error(q, *cache, positions, c, got)
+
+        def k2_plain(q5, cache, pos0):
+            return attention.flash_attention_plain(q5, *cache, pos0)
+
+        rows = _l3_attn_rows(
+            dev, gen, f"K2 llama3 {dtype}", c, windows, {(1, 101), (1, s)}, dtype, tol, k2,
+            k2_error, k2_plain,
+            lambda: tuple(torch.randn((b, kv, s, hd), generator=gen, device=dev).to(dt)
+                          for _ in range(2)),
+            2 * b * kv * s * hd * dt.itemsize, lambda cache, vis: (cache[0][:, :, :vis],
+                                                                   cache[1][:, :, :vis]), rate)
+        detail[f"k2_llama3_{dtype}"] = rows
+        out["k2" if dtype == "bfloat16" else "k2_f32"] = _step(rows, s)
+
+    # K4, the int8 cache (its tensor-core form at S = 1024)
+    c = L3_K4_SHAPE
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    plain4 = attention.flash_attention_quant_i8dot_plain
+
+    def k4(q, cache, positions, counted=True):
+        k8, ks, v8, vs = cache
+        if counted:
+            return _k4_call(q, k8, v8, positions, ks, vs)
+        return attention.flash_attention_quant(q, k8, v8, positions, ks, vs)
+
+    def k4_error(q, cache, positions, got):
+        k8, ks, v8, vs = cache
+        return _k4_error(q, k8, v8, positions, ks, vs, plain4, got)
+
+    def k4_deq(cache, vis):
+        k8, ks, v8, vs = cache
+        return ((k8[:, :, :vis].float() * ks[:, :, :vis, None]).bfloat16(),
+                (v8[:, :, :vis].float() * vs[:, :, :vis, None]).bfloat16())
+
+    if attention.quant_plan(attention._I8DOT, b, kv, 1, g, hd, s, torch.bfloat16)[0] != "i8dot_tc":
+        raise AssertionError("K4 llama3: the serving geometry does not take the tensor-core form")
+    rows = _l3_attn_rows(
+        dev, gen, "K4 llama3", c, [(1, 1), (1, 101), (1, s), (8, 101), (8, s), (32, s)],
+        {(1, 101), (1, s)}, "bfloat16", K4_TOL, k4, k4_error,
+        lambda q5, cache, pos0: plain4(q5, cache[0], cache[2], pos0, cache[1], cache[3]),
+        lambda: (*_quant_cache(dev, gen, b, kv, s, hd), *_quant_cache(dev, gen, b, kv, s, hd)),
+        2 * b * kv * s * (hd + 4), k4_deq, INT8_OPS_PER_S)
+    detail["k4_llama3"] = rows
+    out["k4"] = _step(rows, s)
+
+    # K3 on the serving path's GQA rows: v a view of the fused projection
+    h = kv * g
+    floor = launch_floor_ms()
+    cache = [torch.randint(-127, 128, (b, kv, s, hd), generator=gen, dtype=torch.int8,
+                           device=dev) for _ in range(2)]
+    cache += [torch.rand((b, kv, s), generator=gen, device=dev) for _ in range(2)]
+
+    def new_rows(dtype):
+        qkv = torch.randn((b, 1, (h + 2 * kv) * hd), generator=gen, device=dev).to(dtype)
+        k = qkv[..., h * hd:(h + kv) * hd].reshape(b, 1, kv, hd).contiguous()
+        return [k, qkv[..., (h + kv) * hd:].reshape(b, 1, kv, hd)]
+
+    k3_rows = []
+    for fill in (101, s):
+        pos = torch.full((b,), fill - 1, dtype=torch.int64, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            new = new_rows(dtype)
+            got, want = [a.clone() for a in cache], [a.clone() for a in cache]
+            launches = cache_write.cache_append_quant.launches
+            cache_write.cache_append_quant(*got, *new, pos)
+            cache_write.cache_append_quant_plain(*want, *new, pos)
+            torch.cuda.synchronize()
+            if cache_write.cache_append_quant.launches != launches + 1 or \
+                    not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"K3 llama3 fill={fill} {dtype}: not bit-exact against "
+                                     "the plain version, or no launch counted")
+        new = new_rows(torch.bfloat16)
+        kern = timed([lambda: cache_write.cache_append_quant(*cache, *new, pos)], 200)
+        plain = timed([lambda: cache_write.cache_append_quant_plain(*cache, *new, pos)], 20)
+        n = b * kv * hd
+        bnd, by = bound_ms(2 * n * 2 + 8 * b + 2 * n + 2 * b * kv * 4, 4.0 * 2 * n,
+                           F32_OPS_PER_S)
+        k3_rows.append(dict(fill=fill, ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                            bound_by=by, launch_floor_ms=floor))
+        log(f"K3 llama3 b={b} KV={kv} fill={fill}: bit-exact (bf16 and f32 rows), kernel "
+            f"{kern:.5f} ms, plain {plain:.4f} ms, bound {bnd:.6f} ms, launch floor "
+            f"{floor:.5f} ms")
+    detail["k3_llama3"] = k3_rows
+    row = k3_rows[-1]
+    out["k3"] = {"max_abs_err": 0.0, "bound_by": row["bound_by"], "library_ms": None,
+                 **{k: 32 * row[k] for k in ("ms", "plain_ms", "bound_ms")}}
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+# random Q8_0 blocks of the full-width file: q uniform in [-127, 127],
+# scales uniform in [0.005, 0.015) (the 7B phases' 0.01 on average)
+GGUF_SCALE = (0.005, 0.01)
+
+
+def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
+    """Byte-level BPE merges learned from `text` (LLaMA-3's pre-tokenizer,
+    GPT-2's byte alphabet): the most frequent adjacent pair first (ties by
+    the pair's text), until `n_merges` or no pair occurs twice."""
+    import collections
+
+    from llamago_tpu_torch.tokenizer_bpe import bytes_to_unicode, split_llama3
+
+    b2u = bytes_to_unicode()
+    words = collections.Counter("".join(b2u[c] for c in w.encode()) for w in split_llama3(text))
+    seqs, freq = [list(w) for w in words], list(words.values())
+    pairs: collections.Counter = collections.Counter()
+    where = collections.defaultdict(set)
+    for i, sym in enumerate(seqs):
+        for pair in zip(sym, sym[1:]):
+            pairs[pair] += freq[i]
+            where[pair].add(i)
+    merges = []
+    while len(merges) < n_merges and pairs:
+        (a, b), count = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if count < 2:
+            break
+        merges.append((a, b))
+        for i in where.pop((a, b), ()):
+            sym, f = seqs[i], freq[i]
+            for pair in zip(sym, sym[1:]):
+                pairs[pair] -= f
+                if pairs[pair] <= 0:
+                    del pairs[pair]
+            merged, j = [], 0
+            while j < len(sym):
+                if sym[j:j + 2] == [a, b]:
+                    merged.append(a + b)
+                    j += 2
+                else:
+                    merged.append(sym[j])
+                    j += 1
+            seqs[i] = merged
+            for pair in zip(merged, merged[1:]):
+                pairs[pair] += f
+                where[pair].add(i)
+        pairs.pop((a, b), None)
+    return merges
+
+
+def llama3_vocab(vocab_size: int = 128256):
+    """LLaMA-3's vocabulary layout, built here: the 256 byte tokens, merges
+    learned from the repository's README.md and SURVEY.md, reserved special
+    tokens for the rest, <|begin_of_text|> = 128000 and <|end_of_text|> =
+    128001 (bos and eos), the llama-bpe pre-tokenizer."""
+    from llamago_tpu_torch.tokenizer_bpe import BPEVocab, bytes_to_unicode
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    text = "".join(open(os.path.join(root, f), encoding="utf-8").read()
+                   for f in ("README.md", "SURVEY.md"))
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    merges = {}
+    for a, b in learn_merges(text, 4000):
+        merges[(a, b)] = len(merges)
+        if a + b not in tokens:
+            tokens.append(a + b)
+    regular = len(tokens)
+    names = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>"}
+    reserved = iter(range(vocab_size))
+    tokens += [names.get(i) or f"<|reserved_special_token_{next(reserved)}|>"
+               for i in range(regular, vocab_size)]
+    return BPEVocab(tokens=tokens, merges=merges, bos_id=128000, eos_id=128001,
+                    pattern="llama-bpe", special_ids=frozenset(range(regular, vocab_size)))
+
+
+def bpe_prompt(vocab, i: int, n: int) -> str:
+    """A prompt of README text that the vocab encodes (with bos) to n tokens."""
+    from llamago_tpu_torch.tokenizer import tokenize
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    text = open(os.path.join(root, "README.md"), encoding="utf-8").read()
+    head = f"request {i:03d}: "
+    for start in range(200 * i, len(text)):
+        for end in range(start, len(text)):
+            count = len(tokenize(vocab, head + text[start:end], bos=True))
+            if count == n:
+                return head + text[start:end]
+            if count > n:
+                break
+    raise AssertionError(f"no slice of README.md encodes to {n} tokens")
+
+
+def write_random_q8_gguf(dev, path: str, cfg, vocab, seed: int = 0) -> int:
+    """A full-size Q8_0 GGUF of `cfg` written by write_gguf: every 2-D
+    tensor random Q8_0 blocks (GGUF_SCALE) made on the card from one
+    generator and copied to the host as blocks, never as floats; norm gains
+    ones. Returns the file's bytes."""
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.checkpoint.gguf import write_gguf
+    from llamago_tpu_torch.checkpoint.quant_file import QuantTensor
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, width = GGUF_SCALE
+
+    def blocks(out, k):
+        nb = k // 32
+        q = torch.randint(-127, 128, (out, nb, 32), generator=gen, dtype=torch.int8,
+                          device=dev).view(torch.uint8)
+        d = (torch.rand((out, nb, 1), generator=gen, device=dev) * width + lo).half()
+        raw = torch.cat([d.view(torch.uint8), q], dim=2).reshape(out, nb * 34)
+        return QuantTensor("q8_0", raw.cpu().numpy(), (out, k))
+
+    d, f, v = cfg.dim, cfg.ffn_hidden, cfg.vocab_size
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    ones = np.ones(d, np.float32)
+    tensors = {"tok_embeddings.weight": blocks(v, d), "norm.weight": ones,
+               "output.weight": blocks(v, d)}
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        tensors |= {p + "attention_norm.weight": ones, p + "ffn_norm.weight": ones,
+                    p + "attention.wq.weight": blocks(qd, d),
+                    p + "attention.wk.weight": blocks(kvd, d),
+                    p + "attention.wv.weight": blocks(kvd, d),
+                    p + "attention.wo.weight": blocks(d, qd),
+                    p + "feed_forward.w1.weight": blocks(f, d),
+                    p + "feed_forward.w2.weight": blocks(d, f),
+                    p + "feed_forward.w3.weight": blocks(f, d)}
+    write_gguf(path, cfg, vocab, tensors)
+    return os.path.getsize(path)
+
+
+def _load(ckpt, cfg, dev):
+    """A checkpoint's tensors as the CLI loads them: the device tree,
+    unstacked and fused."""
+    from llamago_tpu_torch.checkpoint.params import (
+        fuse_layer_weights,
+        load_parameters,
+        unstack_layer_params,
+    )
+
+    return fuse_layer_weights(unstack_layer_params(load_parameters(cfg, ckpt.tensors, device=dev),
+                                                   cfg.n_layers))
+
+
+@contextlib.contextmanager
+def int4_exec(fmt: str):
+    """LLAMAGO_INT4_EXEC=fmt while open (both devices read it at load)."""
+    env = os.environ.get("LLAMAGO_INT4_EXEC")
+    os.environ["LLAMAGO_INT4_EXEC"] = fmt
+    try:
+        yield
+    finally:
+        if env is None:
+            del os.environ["LLAMAGO_INT4_EXEC"]
+        else:
+            os.environ["LLAMAGO_INT4_EXEC"] = env
+
+
+def _file_card_vs_cpu(dev, path: str, what: str, tol: float) -> dict:
+    """A model file read with read_checkpoint and loaded as the CLI loads
+    it (f32 compute; a quantized file in its own weight format, a dense one
+    in f32) on the card and on the CPU: logits of a 40-token window, a
+    16-token window and a decode step within `tol` of max|logit|, greedy
+    tokens of a short engine run equal. Returns the error, the tokens, the
+    card's logits and the card's launch counts."""
+    import torch
+
+    from llamago_tpu_torch.checkpoint.gguf import read_checkpoint
+    from llamago_tpu_torch.config import GenerateConfig
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.engine import Engine
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    ckpt = read_checkpoint(path, max_seq_len=256)
+    quantized = ckpt.ftype in (2, 3, 7)
+    cfg = ckpt.config.replace(dtype="float32", max_seq_len=256,
+                              weight_dtype=ckpt.config.weight_dtype if quantized else "float32")
+    gpu, cpu = _load(ckpt, cfg, dev), _load(ckpt, cfg, "cpu")
+    toks = torch.randint(3, min(cfg.vocab_size, 259), (2, 40),
+                         generator=torch.Generator().manual_seed(44))
+    reset_launch_counts()
+    worst, card_logits = 0.0, []
+    for t in (40, 16, 1):
+        x, wp = toks[:, :t], torch.tensor([0, 7])
+        lg, _ = forward_impl(gpu, x.to(dev), KVCache.create(cfg, batch=2, device=dev),
+                             wp.to(dev), cfg)
+        lc, _ = forward_impl(cpu, x, KVCache.create(cfg, batch=2, device="cpu"), wp, cfg)
+        lg = lg.cpu()
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"gguf, {what}, t={t}: non-finite logits on the card")
+        err = (lg - lc).abs().max().item() / lc.abs().max().item()
+        log(f"gguf, {what}, t={t}: card vs CPU logits max|d|/max|ref| {err:.2e}")
+        if not err <= tol:
+            raise AssertionError(f"gguf, {what}, t={t}: logits differ, {err:.3g} > {tol}")
+        worst = max(worst, err)
+        card_logits.append(lg)
+    gen = GenerateConfig(max_tokens=12, ctx_size=256, temp=0.0)
+    outs = [Engine(cfg, params, ckpt.vocab, slots=2, decode_chunk_size=4, device=d)
+            .generate("smoke test prompt", gen).output_tokens
+            for params, d in ((gpu, dev), (cpu, "cpu"))]
+    log(f"gguf, {what}, greedy tokens: card {outs[0]}, CPU {outs[1]}")
+    if outs[0] != outs[1] or len(outs[0]) != 12:
+        raise AssertionError(f"gguf, {what}: greedy tokens differ between card and CPU")
+    counts = launch_counts()
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logit_err": worst, "tokens": outs[0], "logits": card_logits, "launches": counts,
+            "ftype": ckpt.ftype, "config": {k: getattr(ckpt.config, k) for k in (
+                "vocab_size", "dim", "n_layers", "n_heads", "kv_heads", "ffn_hidden",
+                "rope_theta", "weight_dtype")}}
+
+
+def _cli(argv: list[str]) -> None:
+    """The port's CLI in this process, its report on stderr."""
+    from llamago_tpu_torch import cli
+
+    with contextlib.redirect_stdout(sys.stderr):
+        code = cli.main(argv + ["--silent"])
+    if code != 0:
+        raise AssertionError(f"llamago_tpu_torch.cli {' '.join(argv)} exited {code}")
+
+
+def gguf_small_models(dev, tmp: str) -> dict:
+    """Phase 6, step 1: the checkpoint tools on a small GQA model and a
+    converted Meta directory. A dim-512 GQA model (4 heads, 2 kv heads of
+    128, 2 layers, rope theta 500,000, a sentencepiece vocab) is written
+    as an f32 ggjt by write_ggjt with its sidecar, then quantized by the
+    port's `quantize` to q8_0, q4_0, q4_1 ggjt and a q8_0 .gguf. A Meta
+    directory made here (params.json at dim 4096, 32 heads, 8 kv heads, 2
+    layers, FFN 1024; consolidated.00.pth by torch.save; tokenizer.model
+    by write_sp_model) is converted by `convert` to an f16 ggjt, which
+    `quantize` takes to q8_0. Each output is read back and held card
+    (kernels) against CPU (plain versions): logits within 1e-3 of
+    max|logit| and equal greedy tokens, int4 files in their Q4_0 / Q4_1
+    format (LLAMAGO_INT4_EXEC=q4_0). The q8_0 ggjt and the q8_0 GGUF must
+    give bit-identical logits on the card."""
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.checkpoint.convert import vocab_from_sp_model
+    from llamago_tpu_torch.checkpoint.ggjt import write_ggjt, write_meta_sidecar
+    from llamago_tpu_torch.checkpoint.sp_model import (
+        BYTE,
+        CONTROL,
+        NORMAL,
+        UNKNOWN,
+        SentencePiece,
+        write_sp_model,
+    )
+    from llamago_tpu_torch.config import ModelConfig
+
+    pieces = [SentencePiece("<unk>", 0.0, UNKNOWN), SentencePiece("<s>", 0.0, CONTROL),
+              SentencePiece("</s>", 0.0, CONTROL)]
+    pieces += [SentencePiece(f"<0x{b:02X}>", -1000.0, BYTE) for b in range(256)]
+    pieces += [SentencePiece(w, -float(i), NORMAL)
+               for i, w in enumerate(("▁smoke", "▁test", "▁prompt", "▁the", "st", "te"))]
+    sp_path = os.path.join(tmp, "tokenizer.model")
+    write_sp_model(sp_path, pieces)
+    vocab = vocab_from_sp_model(sp_path)
+    rng = np.random.default_rng(45)
+
+    def tensors_of(d, h, kv, f, n_layers, scale):
+        hd = d // h
+
+        def mat(o, i):
+            return (rng.standard_normal((o, i)) * scale).astype(np.float32)
+
+        def gain():
+            return (1 + rng.standard_normal(d) * 0.01).astype(np.float32)
+
+        t = {"tok_embeddings.weight": mat(len(vocab), d), "norm.weight": gain(),
+             "output.weight": mat(len(vocab), d)}
+        for i in range(n_layers):
+            p = f"layers.{i}."
+            t |= {p + "attention_norm.weight": gain(), p + "ffn_norm.weight": gain(),
+                  p + "attention.wq.weight": mat(h * hd, d),
+                  p + "attention.wk.weight": mat(kv * hd, d),
+                  p + "attention.wv.weight": mat(kv * hd, d),
+                  p + "attention.wo.weight": mat(d, h * hd),
+                  p + "feed_forward.w1.weight": mat(f, d), p + "feed_forward.w2.weight": mat(d, f),
+                  p + "feed_forward.w3.weight": mat(f, d)}
+        return t
+
+    cfg = ModelConfig(vocab_size=len(vocab), dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      ffn_dim=1024, max_seq_len=256, rope_theta=500000.0)
+    f32 = os.path.join(tmp, "small-f32.bin")
+    write_ggjt(f32, cfg, vocab, tensors_of(512, 4, 2, 1024, 2, 0.05))
+    write_meta_sidecar(f32, cfg)
+    files = {"f32 ggjt": f32}
+    for kind, ext in (("q8_0", ".bin"), ("q4_0", ".bin"), ("q4_1", ".bin"), ("q8_0", ".gguf")):
+        out = os.path.join(tmp, f"small-{kind}{ext}")
+        _cli(["quantize", "--model", f32, "--out", out, "--qkind", kind])
+        files[f"{kind} {'gguf' if ext == '.gguf' else 'ggjt'}"] = out
+    meta = os.path.join(tmp, "meta", "8B")
+    os.makedirs(meta)
+    with open(os.path.join(meta, "params.json"), "w") as f:
+        json.dump({"dim": 4096, "n_heads": 32, "n_kv_heads": 8, "n_layers": 2,
+                   "multiple_of": 1024, "rope_theta": 500000.0, "norm_eps": 1e-5,
+                   "vocab_size": -1}, f)
+    write_sp_model(os.path.join(tmp, "meta", "tokenizer.model"), pieces)
+    state = {k: torch.from_numpy(v) for k, v in tensors_of(4096, 32, 8, 1024, 2, 0.02).items()}
+    state["rope.freqs"] = torch.ones(64)
+    torch.save(state, os.path.join(meta, "consolidated.00.pth"))
+    del state
+    files["meta f16 ggjt"] = os.path.join(tmp, "meta-f16.bin")
+    _cli(["convert", "--model", meta, "--out", files["meta f16 ggjt"]])
+    files["meta q8_0 ggjt"] = os.path.join(tmp, "meta-q8_0.bin")
+    _cli(["quantize", "--model", files["meta f16 ggjt"], "--out", files["meta q8_0 ggjt"],
+          "--qkind", "q8_0"])
+    out = {}
+    with int4_exec("q4_0"):
+        for what, path in files.items():
+            out[what] = _file_card_vs_cpu(dev, path, what, 1e-3)
+    want_ftype = {"f32 ggjt": 0, "q8_0 ggjt": 7, "q4_0 ggjt": 2, "q4_1 ggjt": 3,
+                  "q8_0 gguf": 7, "meta f16 ggjt": 1, "meta q8_0 ggjt": 7}
+    for what, run in out.items():
+        if run["ftype"] != want_ftype[what]:
+            raise AssertionError(f"gguf, {what}: ftype {run['ftype']}")
+        n = run["launches"]
+        k1 = n["dequant_matmul"] + n["dequant_matmul_q4"]
+        if (k1 > 0) != (what.startswith(("q8_0", "q4_0", "meta q8_0"))) or \
+                k1 != n["dequant_matmul_f32_tc"] + n["dequant_matmul_f32_decode_tc"] or \
+                n["flash_attention_decode_f32tc"] == 0:
+            raise AssertionError(f"gguf, {what}: K1 ({k1} launches) must run the Q8_0 / Q4_0 "
+                                 f"files' matmuls only, each call in a form on f32 x's three "
+                                 f"bf16 parts, and K2's f32 form every decode step: {n}")
+        if what.startswith("meta") and run["config"]["kv_heads"] != 8:
+            raise AssertionError(f"gguf, {what}: config {run['config']}")
+    if out["q4_0 ggjt"]["launches"]["dequant_matmul_q4"] == 0:
+        raise AssertionError("gguf, q4_0 ggjt: K1 bits=4 never launched")
+    same = all(torch.equal(a, b) for a, b in zip(out["q8_0 ggjt"]["logits"],
+                                                 out["q8_0 gguf"]["logits"]))
+    log(f"gguf: the q8_0 ggjt and the q8_0 GGUF give bit-identical logits on the card: {same}")
+    if not same or out["q8_0 ggjt"]["tokens"] != out["q8_0 gguf"]["tokens"]:
+        raise AssertionError("gguf: the ggjt and GGUF copies of one model differ on the card")
+    return {what: {k: v for k, v in run.items() if k != "logits"} for what, run in out.items()}
+
+
+def gguf_phase(dev, card: str, phase4: dict | None = None) -> dict:
+    """Phase 6: the checkpoint tools (gguf_small_models), then LLaMA-3-8B
+    at full width and depth (MODEL_PRESETS["llama3-8B"]) from a Q8_0 GGUF:
+    written by write_gguf (write_random_q8_gguf) with a byte-level BPE vocab
+    of 128,256 entries built here (llama3_vocab) into a temporary
+    directory, read by read_checkpoint and loaded to the card as the CLI
+    loads it, served over the REST job API with the bf16 cache (4 slots, 8
+    jobs) and the int8 cache (8 slots, 16 jobs), 49-token prompts that the
+    vocab encodes, 64 tokens a job at temp 0.8, as phases 4 and 4b: 0 failed
+    jobs, a repeated greedy job, K1's decode form and tile and K2 (K3 and K4
+    on the int8 cache) launch and no other kernel; then the same file loaded
+    with f32 compute, one 64-token forward through the kernels against the
+    plain matmuls on the card within F32_LOGIT_TOL. The file is deleted at
+    the end."""
+    import tempfile
+
+    import torch
+
+    from llamago_tpu_torch.checkpoint.gguf import read_checkpoint
+    from llamago_tpu_torch.config import MODEL_PRESETS
+
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gguf_") as tmp:
+        t0 = time.time()
+        out["small"] = gguf_small_models(dev, tmp)
+        log(f"gguf: the small models in {time.time() - t0:.1f} s")
+        cfg = MODEL_PRESETS["llama3-8B"]
+        t0 = time.time()
+        vocab = llama3_vocab(cfg.vocab_size)
+        out["vocab"] = {"entries": len(vocab), "merges": len(vocab.merges),
+                        "specials": len(vocab.special_ids), "seconds": time.time() - t0}
+        path = os.path.join(tmp, "llama3-8B-q8_0.gguf")
+        t0 = time.time()
+        out["file_bytes"] = write_random_q8_gguf(dev, path, cfg, vocab)
+        out["write_s"] = time.time() - t0
+        t0 = time.time()
+        ckpt = read_checkpoint(path, max_seq_len=1024)
+        out["read_s"] = time.time() - t0
+        log(f"gguf: LLaMA-3-8B Q8_0 GGUF of {out['file_bytes']} bytes written in "
+            f"{out['write_s']:.1f} s, read in {out['read_s']:.2f} s; vocab {out['vocab']}")
+        c = ckpt.config
+        if (c.vocab_size, c.dim, c.n_layers, c.n_heads, c.kv_heads, c.ffn_hidden, c.rope_theta,
+                ckpt.ftype, type(ckpt.vocab).__name__, ckpt.vocab.pattern) != (
+                128256, 4096, 32, 32, 8, 14336, 500000.0, 7, "BPEVocab", "llama-bpe"):
+            raise AssertionError(f"gguf: read back {c}, ftype {ckpt.ftype}")
+        prompts = [bpe_prompt(ckpt.vocab, i, 49) for i in range(16)]
+        cfg = c.replace(dtype="bfloat16", max_seq_len=1024)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = _load(ckpt, cfg, dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.time() - t0
+        out["load_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"gguf: loaded to the card in {out['load_s']:.1f} s, peak "
+            f"{out['load_peak_gib']:.2f} GiB")
+        k1 = ("dequant_matmul", "dequant_matmul_tc", "dequant_matmul_decode_tc")
+        out["bf16"] = serve(dev, cfg, params, slots=4, n_jobs=8, vocab=ckpt.vocab,
+                            prompts=prompts[:8], model="llama3-8B",
+                            rise=k1 + ("flash_attention", "flash_attention_decode_tc"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["int8"] = serve(dev, cfg.replace(kv_dtype="int8"), params, slots=8, n_jobs=16,
+                            vocab=ckpt.vocab, prompts=prompts, model="llama3-8B",
+                            rise=k1 + ("cache_append_quant", "flash_attention_quant_i8dot",
+                                       "flash_attention_quant_i8dot_tc"))
+        q = out["int8"]["launches"]
+        if q["flash_attention_quant_i8dot_tc"] != q["flash_attention_quant_i8dot"]:
+            raise AssertionError(f"gguf, int8 cache: a K4 call did not take its tensor-core "
+                                 f"form: {q}")
+        for key, run in (("bf16", out["bf16"]), ("int8", out["int8"])):
+            step = run["decode_step"]
+            ref = (phase4 or {}).get("decode_step", {})
+            log(f"gguf, {key} cache: {run['served_tokens_per_s']:.1f} tok/s, TTFT p50 "
+                f"{run['ttft_ms_p50']} ms p95 {run['ttft_ms_p95']} ms, peak "
+                f"{run['peak_gib']:.2f} GiB; decode step: host {step['step_ms']:.2f} ms, "
+                f"device busy {step['device_busy_ms']:.3f} ms, matmul {step['matmul_ms']:.3f} "
+                f"ms, attention {step['attention_ms']:.3f} ms (phase 4, 7B: host "
+                f"{ref.get('step_ms', float('nan')):.2f}, busy "
+                f"{ref.get('device_busy_ms', float('nan')):.3f}, matmul "
+                f"{ref.get('matmul_ms', float('nan')):.3f}, attention "
+                f"{ref.get('attention_ms', float('nan')):.3f})")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same file with f32 compute: K1's f32 forms at LLaMA-3's shapes
+        cfg32 = cfg.replace(dtype="float32")
+        params = _load(ckpt, cfg32, dev)
+        reset_launch_counts()
+        out["f32_forward_64_vs_plain"] = _forward_vs_plain(dev, cfg32, params, "llama3-8B GGUF",
+                                                           (plain_matmuls,))
+        out["f32_launches"] = launch_counts()
+        if out["f32_launches"]["dequant_matmul_f32_tc"] == 0:
+            raise AssertionError(f"gguf, f32: K1's tile on f32 x never launched: "
+                                 f"{out['f32_launches']}")
+        del params, ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if os.path.exists(path):
+        raise AssertionError(f"gguf: {path} was not deleted")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv: list[str]) -> int:
@@ -3311,6 +4039,7 @@ def main(argv: list[str]) -> int:
     k7, k7f32 = check_k7(dev, detail) if want("k7") else ({}, {})
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
+    l3 = check_llama3(dev, detail) if want("llama3") else {}
     k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, small_f32_attn = (
         check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
@@ -3425,6 +4154,13 @@ def main(argv: list[str]) -> int:
         # phase 4e: the --dtype float32 route, Q8_0 and then w4x8
         served_f8 = serve_f32(dev, "int8")
         served_f4 = serve_f32(dev, "int4")
+    # phase 6: the checkpoint tools, then LLaMA-3-8B from a Q8_0 GGUF
+    gguf = gguf_phase(dev, card, served) if want("gguf") else {}
+    detail["gguf"] = gguf
+
+    def g6(run: str, key: str) -> int:
+        """A kernel's launches in one of phase 6's runs."""
+        return gguf.get(run, {}).get("launches", {}).get(key, 0)
     detail["serve"], detail["serve_int8"], detail["serve_int4"] = served, served_q, served_4
     detail["serve_int8_k8_k9"] = served_k89
     detail["serve_prefill_default"], detail["serve_prefill"] = served_d, served_p
@@ -3574,6 +4310,38 @@ def main(argv: list[str]) -> int:
          "replaces": "llamago_tpu/ops/kernels.py:599",
          "launches": served_p["launches"]["fused_rms_norm"]
          + new_paths("fused_rms_norm", ppl), **k10},
+        # LLaMA-3-8B from a GGUF (phase 6): K1's decode form and tile, K2
+        # (g = 4), K3 (KV = 8) and K4 (g = 4), each with phase 2's numbers at
+        # LLaMA-3's shapes (a decode step at m=4 or full fill, a prefill
+        # pass at m=64) and its launches in phase 6's serving; K1's tile on
+        # f32 x with its launches in phase 6's f32 forward
+        {"name": "dequant_matmul_decode_tc@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": g6("bf16", "dequant_matmul_decode_tc")
+         + g6("int8", "dequant_matmul_decode_tc"), **l3.get("k1_decode", {})},
+        {"name": "dequant_matmul_tc@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": g6("bf16", "dequant_matmul_tc") + g6("int8", "dequant_matmul_tc"),
+         **l3.get("k1_tile", {})},
+        {"name": "dequant_matmul_f32_tc@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/dequant_matmul.cu",
+         "replaces": "llamago_tpu/ops/kernels.py:237",
+         "launches": gguf.get("f32_launches", {}).get("dequant_matmul_f32_tc", 0),
+         **l3.get("k1_f32_tile", {})},
+        {"name": "flash_attention@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_decode.cu",
+         "replaces": "llamago_tpu/ops/attention.py:230",
+         "launches": g6("bf16", "flash_attention_decode_tc"), **l3.get("k2", {})},
+        {"name": "cache_append_quant@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/cache_append.cu",
+         "replaces": "llamago_tpu/ops/cache_write.py:63",
+         "launches": g6("int8", "cache_append_quant"), **l3.get("k3", {})},
+        {"name": "flash_attention_quant_i8dot@llama3-8B", "route": "cuda",
+         "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
+         "replaces": "llamago_tpu/ops/attention.py:406",
+         "launches": g6("int8", "flash_attention_quant_i8dot_tc"), **l3.get("k4", {})},
         # the lab's nine kernels, launches counted in the lab's run (phase 5)
         *(lab.get(wrapper, {"name": wrapper, "launches": 0})
           for _, wrapper, *_ in LAB_KERNELS),
@@ -3597,7 +4365,10 @@ def main(argv: list[str]) -> int:
                           ("4c: int4 (w4x8), 48-token prompts", served_4),
                           ("4e: f32 compute, Q8_0, one 600-token prompt", served_f8),
                           ("4e: f32 compute, Q8_0, K7 and K10 on", served_f8k7),
-                          ("4e: f32 compute, w4x8, one 600-token prompt", served_f4))}}
+                          ("4e: f32 compute, w4x8, one 600-token prompt", served_f4),
+                          ("6: LLaMA-3-8B Q8_0 GGUF, bf16 cache, 4 slots", gguf.get("bf16", {})),
+                          ("6: LLaMA-3-8B Q8_0 GGUF, int8 cache, 8 slots",
+                           gguf.get("int8", {})))}}
     spec_keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95", "verify_steps",
                  "accepted_drafts_per_verify_step")
     serving_line["serving"].update({
@@ -3611,6 +4382,11 @@ def main(argv: list[str]) -> int:
         "nll", "plain_nll", "rel_diff", "logit_diff", "ppl",
         "seconds_per_window", "tokens_per_s")}
         for name, run in ppl.items()}}
+    gguf_line = {"gguf": {
+        **{k: gguf.get(k) for k in ("card", "vocab", "file_bytes", "write_s", "read_s", "load_s",
+                                    "load_peak_gib", "f32_forward_64_vs_plain")},
+        "small_models_card_vs_cpu": {what: run["logit_err"]
+                                     for what, run in gguf.get("small", {}).items()}}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3624,6 +4400,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"ptxas_spills": spills}))
     print(json.dumps(serving_line))
     print(json.dumps(ppl_line))
+    print(json.dumps(gguf_line))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

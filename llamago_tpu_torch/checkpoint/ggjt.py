@@ -1,7 +1,9 @@
-"""ggjt v1 checkpoint reader (numpy only).
+"""ggjt v1 checkpoint format: reader and writer (numpy only).
 
-The port's own copy of the reading half of the JAX package's
-`checkpoint/ggjt.py` (reference loader: pkg/llama/llama.go:712-976):
+The port's own copy of the JAX package's `checkpoint/ggjt.py` (reference
+loader: pkg/llama/llama.go:712-976; converter:
+scripts/convert-pth-to-ggml.py:109-232). The writer emits the JAX
+package's bytes for the same inputs:
 
   header:  int32 magic 0x67676a74 ('ggjt'), int32 version 1,
            int32 vocab_size, dim, multiple_of, n_heads, n_layers,
@@ -13,8 +15,8 @@ The port's own copy of the reading half of the JAX package's
                       raw data } until EOF
 
 A 2-D tensor with file dims ne=[in, out] is row-major [out, in] as a numpy
-array. F32, F16, Q8_0, Q4_0 and Q4_1 tensors load; GGUF files belong to the
-GGUF/BPE slice of the port.
+array. F32, F16, Q8_0, Q4_0 and Q4_1 tensors load and write. GGUF files
+read through `checkpoint/gguf.py:read_checkpoint`, which sniffs the magic.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from llamago_tpu_torch.tokenizer import Vocab
 
 GGJT_MAGIC = 0x67676A74
 GGJT_VERSION = 1
-GGUF_MAGIC = 0x46554747  # b"GGUF" read as little-endian int32
 ALIGNMENT = 32
 
 DTYPE_F32 = 0
@@ -40,7 +41,9 @@ DTYPE_Q4_0 = 2
 DTYPE_Q4_1 = 3
 DTYPE_Q8_0 = 8
 _DTYPE_TO_NP = {DTYPE_F32: np.float32, DTYPE_F16: np.float16}
+_NP_TO_DTYPE = {np.dtype(np.float32): DTYPE_F32, np.dtype(np.float16): DTYPE_F16}
 _QUANT_KINDS = {DTYPE_Q4_0: "q4_0", DTYPE_Q4_1: "q4_1", DTYPE_Q8_0: "q8_0"}
+_KIND_TO_DTYPE = {kind: code for code, kind in _QUANT_KINDS.items()}
 
 
 @dataclass
@@ -78,10 +81,6 @@ def read_ggjt(path: str, max_seq_len: int = 1024) -> GGJTCheckpoint:
         return v
 
     magic = read_i32()
-    if magic == GGUF_MAGIC:
-        raise NotImplementedError(
-            f"{path}: GGUF files are not yet ported (GGUF/BPE slice of the "
-            "port); convert to ggjt or use the JAX package")
     if magic != GGJT_MAGIC:
         raise ValueError(f"{path}: bad magic {magic:#x}, want {GGJT_MAGIC:#x} ('ggjt')")
     version = read_i32()
@@ -174,11 +173,93 @@ def read_ggjt(path: str, max_seq_len: int = 1024) -> GGJTCheckpoint:
     return GGJTCheckpoint(config=config, vocab=vocab, tensors=tensors, ftype=ftype)
 
 
+def sidecar_path(path: str) -> str:
+    return path + ".meta.json"
+
+
 def read_meta_sidecar(path: str) -> dict:
     """Optional `<model>.bin.meta.json` with fields the v1 header cannot
     carry (rope_theta, norm_eps)."""
-    p = path + ".meta.json"
+    p = sidecar_path(path)
     if not os.path.exists(p):
         return {}
     with open(p, encoding="utf-8") as f:
         return json.load(f)
+
+
+def write_meta_sidecar(path: str, config: ModelConfig) -> None:
+    """Write the sidecar only when the config departs from v1 defaults."""
+    extra = {}
+    if config.rope_theta != 10000.0:
+        extra["rope_theta"] = config.rope_theta
+    if config.norm_eps != 1e-5:
+        extra["norm_eps"] = config.norm_eps
+    if extra:
+        with open(sidecar_path(path), "w", encoding="utf-8") as f:
+            json.dump(extra, f)
+
+
+def write_ggjt(path: str, config: ModelConfig, vocab: Vocab, tensors: dict,
+               ftype: int | None = None) -> None:
+    """Emit a ggjt v1 file byte-compatible with the reference loader.
+
+    Tensors are in the file's row-major layout ([out, in] for 2-D): numpy
+    float32 or float16 arrays, or QuantTensor blocks. The default ftype is
+    1 (f16) when any tensor is float16, else 0."""
+    if ftype is None:
+        ftype = 1 if any(getattr(t, "dtype", None) == np.float16
+                         for t in tensors.values()) else 0
+    with open(path, "wb") as f:
+        write_header_and_vocab(f, config, vocab, ftype)
+        for name, arr in tensors.items():
+            if hasattr(arr, "kind"):  # QuantTensor
+                dtype = _KIND_TO_DTYPE[arr.kind]
+                ne = [arr.shape[1], arr.shape[0]]  # (in, out)
+                payload = np.ascontiguousarray(arr.raw)
+                ndim = 2
+            else:
+                payload = np.ascontiguousarray(arr)
+                dtype = _NP_TO_DTYPE[payload.dtype]
+                ne = list(reversed(payload.shape))
+                ndim = payload.ndim
+            write_tensor_meta(f, name, ndim, ne, dtype)
+            write_array(f, payload)
+
+
+def write_array(f, arr: np.ndarray) -> None:
+    """A C-contiguous array's bytes, written from its own memory."""
+    if arr.size:
+        f.write(memoryview(arr).cast("B"))
+
+
+def write_header_and_vocab(f, config: ModelConfig, vocab: Vocab, ftype: int) -> None:
+    """File header + scored vocab (shared by write_ggjt and the streaming
+    converters, checkpoint/convert.py). A vocab shorter than the header's
+    vocab_size is padded with unreachable pieces (GGUF inputs can carry
+    embeddings padded past the tokenizer list); a longer one cannot be
+    represented and raises."""
+    f.write(struct.pack("<9i", GGJT_MAGIC, GGJT_VERSION, config.vocab_size, config.dim,
+                        config.multiple_of, config.n_heads, config.n_layers,
+                        config.head_dim,  # rot, obsolete
+                        ftype))
+    tokens = list(vocab.tokens)
+    if len(tokens) > config.vocab_size:
+        raise ValueError(
+            f"vocab has {len(tokens)} pieces but header vocab_size is "
+            f"{config.vocab_size}; ggjt cannot represent the overflow")
+    tokens += [(f"<pad{i}>".encode(), -1e9) for i in range(config.vocab_size - len(tokens))]
+    for piece, score in tokens:
+        f.write(struct.pack("<i", len(piece)))
+        f.write(piece)
+        f.write(struct.pack("<f", score))
+
+
+def write_tensor_meta(f, name: str, ndim: int, ne: list[int], dtype: int) -> None:
+    """Tensor header + alignment pad; leaves the file positioned at the
+    tensor's data offset."""
+    sname = name.encode("utf-8")
+    f.write(struct.pack("<3i", ndim, len(sname), dtype))
+    for d in ne:
+        f.write(struct.pack("<i", d))
+    f.write(sname)
+    f.write(b"\x00" * (-f.tell() % ALIGNMENT))

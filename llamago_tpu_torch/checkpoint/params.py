@@ -18,6 +18,8 @@ multiple of 128 is re-laid or quantized into w4x8, the others stay Q4_0, so
 one tree may mix both. `unstack_layer_params` turns the stacked layers
 into a tuple of per-layer dicts and `fuse_layer_weights` concatenates
 wq/wk/wv -> wqkv and w1/w3 -> w13, the layout the engine serves from.
+`export_ggjt_tensors` is the way back: a dense tree to file-layout numpy
+tensors for `write_ggjt` / `write_gguf`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from llamago_tpu_torch.checkpoint.quant_file import to_device_leaf
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.quant import (
     G4X8,
@@ -60,36 +63,24 @@ def _is_file_quant(x) -> bool:
     return hasattr(x, "kind") and hasattr(x, "raw")  # quant_file.QuantTensor
 
 
-def _qt_to_host_leaf(qt) -> dict:
-    """File-quantized tensor -> host leaf {q8 [in, out] | q4 [in/2, out], s
-    f32 [in/32, out]} (and m for Q4_1): a transpose of the blocks."""
-    from llamago_tpu_torch.checkpoint.quant_file import split_blocks
-
-    parts = split_blocks(qt)
-    key = "q8" if qt.kind == "q8_0" else "q4"
-    leaf = {key: np.ascontiguousarray(parts[0].T), "s": np.ascontiguousarray(parts[1].T)}
-    if qt.kind == "q4_1":
-        leaf["m"] = np.ascontiguousarray(parts[2].T)
-    return leaf
-
-
-def _stack_layers(tensors: dict, n_layers: int, key: str):
+def _stack_layers(tensors: dict, n_layers: int, key: str, dev: torch.device):
     suffix = _LAYER_KEYS[key]
     mats = [tensors[f"layers.{i}.{suffix}"] for i in range(n_layers)]
     if _is_file_quant(mats[0]):
-        leaves = [_qt_to_host_leaf(m) for m in mats]
-        return {k: np.stack([lf[k] for lf in leaves]) for k in leaves[0]}
+        leaves = [to_device_leaf(m, dev) for m in mats]
+        return {k: torch.stack([lf.pop(k) for lf in leaves]) for k in list(leaves[0])}
     out = np.stack([np.asarray(m) for m in mats])
     if out.ndim == 3:
         out = out.transpose(0, 2, 1)  # [L, out, in] -> [L, in, out]
     return out
 
 
-def host_parameters(config: ModelConfig, tensors: dict) -> Params:
-    """Host-side (numpy) parameter tree from checkpoint tensors. Q8_0, Q4_0
-    and Q4_1 file tensors become quantized leaves; a quantized embedding
-    table is dequantized (the lookup needs dense rows)."""
-    from llamago_tpu_torch.checkpoint.quant_file import dequantize_rows
+def _file_tree(config: ModelConfig, tensors: dict, dev: torch.device) -> Params:
+    """The parameter tree of checkpoint tensors: dense leaves as numpy
+    (transposed to [in, out]), file-quantized leaves as torch leaves
+    already on `dev`, a quantized embedding table dequantized there (the
+    lookup needs dense rows; f32, dequantize_rows's bits)."""
+    from llamago_tpu_torch.ops.quant import dequantize
 
     if "tok_embeddings.weight" not in tensors:
         raise ValueError(
@@ -97,15 +88,30 @@ def host_parameters(config: ModelConfig, tensors: dict) -> Params:
             "download truncated after the vocab section) — it can "
             "provide a tokenizer but cannot be loaded as a model")
     emb = tensors["tok_embeddings.weight"]
-    emb = dequantize_rows(emb) if _is_file_quant(emb) else np.asarray(emb)
+    if _is_file_quant(emb):
+        emb = dequantize(to_device_leaf(emb, dev), torch.float32).T.contiguous()
+    else:
+        emb = np.asarray(emb)
     out_w = tensors["output.weight"]
-    out_w = _qt_to_host_leaf(out_w) if _is_file_quant(out_w) else np.asarray(out_w).T
+    out_w = to_device_leaf(out_w, dev) if _is_file_quant(out_w) else np.asarray(out_w).T
     return {
         "tok_embeddings": emb,
         "norm": np.asarray(tensors["norm.weight"]),
         "output": out_w,
-        "layers": {k: _stack_layers(tensors, config.n_layers, k) for k in _LAYER_KEYS},
+        "layers": {k: _stack_layers(tensors, config.n_layers, k, dev) for k in _LAYER_KEYS},
     }
+
+
+def host_parameters(config: ModelConfig, tensors: dict) -> Params:
+    """Host-side (numpy) parameter tree from checkpoint tensors. Q8_0, Q4_0
+    and Q4_1 file tensors become quantized leaves; a quantized embedding
+    table is dequantized (the lookup needs dense rows)."""
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x.numpy() if isinstance(x, torch.Tensor) else x
+
+    return host(_file_tree(config, tensors, torch.device("cpu")))
 
 
 def to_torch(arr, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -118,6 +124,13 @@ def to_torch(arr, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _on(x, dev: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array or a torch tensor as a torch tensor on dev (in dtype)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype or x.dtype)
+    return to_torch(x, dev, dtype)
 
 
 def params_from_numpy(tree, device="cuda") -> Params:
@@ -143,7 +156,7 @@ def load_parameters(config: ModelConfig, tensors: dict, device="cuda") -> Params
     everything else in the compute dtype (dense weights in
     `weight_dtype`)."""
     dev = resolve_device(device)
-    host = host_parameters(config, tensors)
+    host = _file_tree(config, tensors, dev)
     has_prequant = is_quantized(host["output"]) or any(
         is_quantized(v) for v in host["layers"].values())
     if config.weight_dtype in ("int8", "int4") or has_prequant:
@@ -153,7 +166,7 @@ def load_parameters(config: ModelConfig, tensors: dict, device="cuda") -> Params
     def put(x):
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
-        return to_torch(x, dev, wdt)
+        return _on(x, dev, wdt)
 
     return put(host)
 
@@ -187,14 +200,14 @@ def _quantize_params(config: ModelConfig, host: Params, dev: torch.device) -> Pa
 
     def handle(key, leaf):
         if is_quantized(leaf):
-            leaf = {k: to_torch(v, dev) for k, v in leaf.items()}
+            leaf = {k: _on(v, dev) for k, v in leaf.items()}
             return _per_layer(w4x8_from_leaf, leaf) if exec_w4x8 else leaf
-        if key in QUANT_LEAVES and np.shape(leaf)[-2] % QK == 0:
-            arr = to_torch(leaf, dev, dtype)
+        if key in QUANT_LEAVES and leaf.shape[-2] % QK == 0:
+            arr = _on(leaf, dev, dtype)
             if exec_w4x8 and arr.shape[-2] % G4X8 == 0:
                 return _per_layer(quantize_w4x8, arr)
             return _per_layer(lambda a: quantize(a, bits), arr)
-        return to_torch(leaf, dev, dtype)
+        return _on(leaf, dev, dtype)
 
     out = {k: handle(k, host[k]) for k in ("tok_embeddings", "norm", "output")}
     out["output"] = pad_lm_head(out["output"], vocab_size=config.vocab_size)
@@ -245,6 +258,78 @@ def fuse_layer_weights(params: Params) -> Params:
     else:
         layers = fuse_one(layers)
     return {**params, "layers": layers}
+
+
+def export_ggjt_tensors(config: ModelConfig, params: Params) -> dict:
+    """Inverse of host_parameters / params_from_numpy for DENSE trees: the
+    port's tree ([in, out] on any device, stacked or per-layer, not fused)
+    -> ggjt-named numpy tensors in the file's row-major [out, in] layout,
+    ready for `write_ggjt`. float32 and float16 leaves keep their dtype;
+    bfloat16 ones, which a file cannot hold, widen to float32 (exactly)."""
+    def host(t):
+        if isinstance(t, dict):
+            raise ValueError("export_ggjt_tensors handles dense params; "
+                             "quantize the FILE via checkpoint/quant_file.py")
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def host2d(t):  # [in, out] -> [out, in]
+        return np.ascontiguousarray(host(t).T)
+
+    tensors = {"tok_embeddings.weight": host(params["tok_embeddings"]),
+               "norm.weight": host(params["norm"]),
+               "output.weight": host2d(params["output"])}
+    layers = params["layers"]
+    for i in range(config.n_layers):
+        for key, suffix in _LAYER_KEYS.items():
+            leaf = layers[i][key] if isinstance(layers, (list, tuple)) else layers[key]
+            if not isinstance(layers, (list, tuple)) and not isinstance(leaf, dict):
+                leaf = leaf[i]
+            tensors[f"layers.{i}.{suffix}"] = host(leaf) if key.endswith("norm") else host2d(leaf)
+    return tensors
+
+
+def random_parameters(config: ModelConfig, seed: int = 0, scale: float = 0.02,
+                      device="cuda") -> Params:
+    """Random parameters in the stacked layout, generated leaf by leaf on
+    the device from one torch.Generator seeded with `seed`: matmul weights
+    and embeddings normal * `scale`, norm gains ones. Dense leaves are in
+    `weight_dtype` (bfloat16 for int8 / int4). With int8 or int4 weights
+    each matmul leaf is quantized as soon as it is made (so the peak is
+    one dense leaf above the final footprint): Q8_0, or int4 in the
+    device's exec format (w4x8 where K is a multiple of 128, else Q4_0),
+    the int8 head column-padded. The JAX function's shapes, dtypes and
+    leaf layouts; the numbers differ from its threefry draws."""
+    dev = resolve_device(device)
+    quant_bits = {"int8": 8, "int4": 4}.get(config.weight_dtype)
+    dtype = torch_dtype("bfloat16" if quant_bits else config.weight_dtype)
+    use_w4x8 = quant_bits == 4 and int4_exec_format(dev) == "w4x8"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, v, f = config.dim, config.vocab_size, config.ffn_hidden
+    h, kv, hd, n_l = config.n_heads, config.kv_heads, config.head_dim, config.n_layers
+
+    def make(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=dtype, device=dev)
+        w = (torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+             * scale).to(dtype)
+        if quant_bits is None or name not in QUANT_LEAVES:
+            return w
+        if use_w4x8 and shape[-2] % G4X8 == 0:
+            return _per_layer(quantize_w4x8, w)
+        leaf = _per_layer(lambda a: quantize(a, quant_bits), w)
+        return pad_lm_head(leaf, vocab_size=v) if name == "output" else leaf
+
+    layer_shapes = {
+        "attention_norm": (n_l, d), "ffn_norm": (n_l, d),
+        "wq": (n_l, d, h * hd), "wk": (n_l, d, kv * hd), "wv": (n_l, d, kv * hd),
+        "wo": (n_l, h * hd, d), "w1": (n_l, d, f), "w2": (n_l, f, d), "w3": (n_l, d, f),
+    }
+    return {"tok_embeddings": make("tok_embeddings", (v, d)),
+            "norm": make("norm", (d,)),
+            "output": make("output", (d, v)),
+            "layers": {k: make(k, s) for k, s in layer_shapes.items()}}
 
 
 def random_quantized_parameters(config: ModelConfig, seed: int = 0,

@@ -6,7 +6,11 @@ main.go:352-382). One-shot mode streams the job's output as it grows and
 prints the per-job report; `--server` serves the REST job API; `--chat`
 is the interactive loop; `perplexity --file F` prints the perplexity of a
 text file; `--spec` turns on prompt-lookup speculative decoding for
-greedy requests.
+greedy requests. `--model` takes a ggjt or a GGUF file (the magic decides).
+The checkpoint tools: `quantize` (ggjt or GGUF f32/f16 -> Q8_0 / Q4_0 /
+Q4_1 ggjt, or GGUF when --out ends in .gguf), `convert` (a Meta or HF
+checkpoint directory -> ggjt, or GGUF for BPE-tokenizer models), `load`
+(fetch a model file by name).
 
 The port runs on CUDA unless `--device cpu` is given. The compute dtype
 defaults to bfloat16 on CUDA and float32 on the CPU, and the decode chunk
@@ -35,20 +39,16 @@ LOGO = r"""
 """
 
 # subcommand -> the slice of the port that brings it
-_UNPORTED_COMMANDS = {
-    "load": "checkpoint tools",
-    "convert": "checkpoint tools",
-    "quantize": "checkpoint tools",
-    "finetune": "training",
-}
+_UNPORTED_COMMANDS = {"finetune": "training"}
+_COMMANDS = ("load", "convert", "quantize", "perplexity")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="llamago-tpu-torch", description="LLaMA inference on PyTorch/CUDA")
     p.add_argument("command", nargs="?", default=None,
-                   help="optional subcommand: perplexity; load | convert | "
-                        "quantize | finetune are not yet ported")
+                   help="optional subcommand: load | convert | quantize | "
+                        "perplexity; finetune is not yet ported")
     p.add_argument("--file", default="", help="text file for `perplexity`/`finetune`")
     p.add_argument("--out", default="", help="output path for `quantize`/`convert`")
     p.add_argument("--vocab-only", action="store_true",
@@ -59,14 +59,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bit width for `quantize` [8]")
     # --- reference flag parity (main.go:24-41)
     p.add_argument("--prompt", default="", help="text prompt to feed the model")
-    p.add_argument("--model", default="", help="path of converted .bin ggjt model")
+    p.add_argument("--model", default="",
+                   help="path of a ggjt (.bin) or GGUF model file; `convert`: the "
+                        "checkpoint directory; `load`: the file name to fetch")
     p.add_argument("--server", action="store_true", help="start REST API server mode")
     p.add_argument("--host", default="localhost", help="server host [localhost]")
     p.add_argument("--port", type=int, default=8080, help="server port [8080]")
     p.add_argument("--pods", type=int, default=1,
                    help="parallel decode slots in server mode [1]")
     p.add_argument("--threads", type=int, default=0,
-                   help="host CPU threads for PyTorch's CPU ops [0 = default]")
+                   help="host CPU threads for PyTorch's CPU ops and the native "
+                        "quantizers [0 = default]")
     p.add_argument("--context", type=int, default=1024, help="context size [1024]")
     p.add_argument("--predict", type=int, default=512, help="tokens to predict [512]")
     p.add_argument("--temp", type=float, default=0.5, help="temperature [0.5]")
@@ -158,11 +161,13 @@ def main(argv: list[str] | None = None) -> int:
         import torch
 
         torch.set_num_threads(args.threads)
+        # also read by the native C++ data path (native/__init__.py)
+        os.environ["LLAMAGO_THREADS"] = str(args.threads)
 
     if not args.silent:
         colorize("[magenta]" + LOGO)
 
-    if args.command is not None and args.command not in (*_UNPORTED_COMMANDS, "perplexity"):
+    if args.command is not None and args.command not in (*_UNPORTED_COMMANDS, *_COMMANDS):
         print(f"unknown command: {args.command}", file=sys.stderr)
         return 2
     reason = unported_reason(args)
@@ -170,8 +175,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {reason}", file=sys.stderr)
         return 2
 
+    if args.command == "load":
+        return cmd_load(args)
+    if args.command == "convert":
+        return cmd_convert(args)
+    if args.command == "quantize":
+        return cmd_quantize(args)
     if not args.model and args.command is None:
-        print("error: --model is required", file=sys.stderr)
+        print("error: --model is required (or use the `load`/`convert` commands)",
+              file=sys.stderr)
         return 2
 
     if args.debug:
@@ -204,7 +216,7 @@ def main(argv: list[str] | None = None) -> int:
 
 def _load_engine(args):
     """Load checkpoint -> device params -> engine."""
-    from llamago_tpu_torch.checkpoint.ggjt import read_ggjt
+    from llamago_tpu_torch.checkpoint.gguf import read_checkpoint
     from llamago_tpu_torch.checkpoint.params import (
         fuse_layer_weights,
         load_parameters,
@@ -219,7 +231,8 @@ def _load_engine(args):
     t0 = time.time()
     if not args.silent:
         log("info", f"loading model {args.model} ...")
-    ckpt = read_ggjt(args.model, max_seq_len=args.context)
+    # magic-sniffing loader: ggjt v1 or GGUF (llama.cpp ecosystem)
+    ckpt = read_checkpoint(args.model, max_seq_len=args.context)
     file_quantized = ckpt.ftype in (2, 3, 7)  # Q4_0 / Q4_1 / Q8_0
     config = ckpt.config.replace(
         dtype=args.dtype,
@@ -244,6 +257,54 @@ def _load_engine(args):
                     draft_len=args.draft, prefill_chunk=args.prefill_chunk,
                     device=device, **kwargs)
     return engine, ckpt, config
+
+
+def cmd_load(args) -> int:
+    """Download a model file (reference: downloadModel, main.go:435-463)."""
+    import urllib.request
+
+    if not args.model:
+        print("error: --model names the file to download", file=sys.stderr)
+        return 2
+    url = f"https://nogpu.com/{args.model}"
+    dest = os.path.join(args.dir, args.model)
+    print(f"[LOAD] downloading {url} -> {dest}")
+    try:
+        urllib.request.urlretrieve(url, dest)
+    except Exception as e:  # noqa: BLE001 — report any network failure
+        print(f"[ERROR] model was not downloaded: {e}", file=sys.stderr)
+        return 1
+    size = os.path.getsize(dest)
+    if size < 1024 * 1024:  # sanity check >1MB, parity main.go:455-459
+        print("[ERROR] downloaded file is suspiciously small", file=sys.stderr)
+        return 1
+    print(f"[LOAD] model of size {size / 2**30:.2f} GiB downloaded")
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    """ggjt or GGUF f32/f16 -> Q8_0 / Q4_0 / Q4_1 (llama.cpp-compatible bit
+    layout; --out ending in .gguf writes GGUF). The native C++ quantizers
+    run where g++ can build them; `native=` says whether they did."""
+    if not args.model:
+        print("error: quantize needs --model <ggjt file>", file=sys.stderr)
+        return 2
+    from llamago_tpu_torch import native
+    from llamago_tpu_torch.checkpoint.quant_file import quantize_ggjt
+
+    kind = args.qkind or ("q8_0" if args.bits == 8 else "q4_0")
+    out = args.out or args.model.replace(".bin", f"-{kind}.bin")
+    t0 = time.time()
+    quantize_ggjt(args.model, out, kind)
+    print(f"[QUANT] wrote {out} ({kind}, native={native.available()}) "
+          f"in {time.time() - t0:.1f}s")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from llamago_tpu_torch.checkpoint.convert import convert_cli
+
+    return convert_cli(args)
 
 
 def cmd_perplexity(args) -> int:

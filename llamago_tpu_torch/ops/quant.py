@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -52,11 +53,16 @@ def int4_exec_format(device="cuda") -> str:
 # parameter leaves that get quantized (matmul weights only)
 QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "output"}
 
-# LM-head column padding (int8 only): the head is padded to a multiple of
+# LM-head column padding: an int8 head is padded to a multiple of
 # LM_HEAD_PAD columns (32000 -> 32768 for LLaMA) when that adds at most 5%
-# columns. Pad columns quantize to scale 0, so they dequantize to exactly
-# 0, and forward_impl slices logits back to vocab_size before any consumer.
+# columns, else to a multiple of HEAD_COL_UNIT, the column unit of the
+# quantized-matmul kernels (ops/kernels.py: _check_cuda_args), so that a
+# vocab such as 32001 or 265 still runs on them. A Q4_0 or w4x8 head is
+# padded only where its width is no multiple of that unit, to the same
+# width. Pad columns carry scale 0, so they dequantize to exactly 0, and
+# forward_impl slices logits back to vocab_size before any consumer.
 LM_HEAD_PAD = 4096
+HEAD_COL_UNIT = 16
 _LM_HEAD_PAD_MAX_OVERHEAD = 0.05
 
 
@@ -64,23 +70,26 @@ def lm_head_pad_cols(n: int) -> int:
     """Padded column count for an int8 lm head (0 = leave unpadded)."""
     pad = (-n) % LM_HEAD_PAD
     if pad == 0 or pad > n * _LM_HEAD_PAD_MAX_OVERHEAD:
-        return 0
+        return (-n) % HEAD_COL_UNIT
     return pad
 
 
 def pad_lm_head(leaf, vocab_size: int | None = None):
-    """Column-pad a Q8_0 leaf to the aligned width (no-op otherwise).
-    With `vocab_size`, pad only a head whose width equals it: wider heads
+    """Column-pad a quantized head to `lm_head_padded_cols` of its width: a
+    Q8_0 head always, a Q4_0 or w4x8 head only when its width is no
+    multiple of HEAD_COL_UNIT; Q4_1 and dense heads stay as they are. With
+    `vocab_size`, pad only a head whose width equals it: wider heads
     carried by converted checkpoints stay addressable."""
-    if not (is_quantized(leaf) and "q8" in leaf and "m" not in leaf):
+    if not is_quantized(leaf) or "m" in leaf:
         return leaf
-    n = leaf["q8"].shape[-1]
-    if vocab_size is not None and n != vocab_size:
+    key = next(k for k in ("q8", "q4", "q4x") if k in leaf)
+    n = leaf[key].shape[-1]
+    if (vocab_size is not None and n != vocab_size) or (key != "q8" and n % HEAD_COL_UNIT == 0):
         return leaf
     pad = lm_head_pad_cols(n)
     if not pad:
         return leaf
-    return {"q8": F.pad(leaf["q8"], (0, pad)), "s": F.pad(leaf["s"], (0, pad))}
+    return {k: F.pad(v, (0, pad)) for k, v in leaf.items()}
 
 
 def lm_head_padded_cols(vocab_size: int) -> int:
@@ -210,3 +219,18 @@ def quant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     from llamago_tpu_torch.ops import kernels
 
     return kernels.dequant_matmul(x, w)
+
+
+def quantize_ggjt_tensors(tensors: dict, bits: int = 8) -> dict:
+    """Host-side quantization of raw checkpoint tensors (file layout [out,
+    in], numpy; the converter path): each 2-D matmul weight becomes a
+    quantized leaf ({q8 | q4, s} of `quantize` on its [in, out] transpose,
+    CPU torch tensors), every other tensor stays a numpy array."""
+    out: dict = {}
+    for name, arr in tensors.items():
+        if arr.ndim == 2 and any(k in name for k in QUANT_LEAVES):
+            w = torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.float32).T))
+            out[name] = quantize(w, bits)
+        else:
+            out[name] = np.asarray(arr)
+    return out

@@ -12,8 +12,9 @@ with the reference tokenizer, pkg/ml/ml.go:2648-2848):
     with id = byte + 3 (no wrap for bytes 253..255);
   * BOS=1 / EOS=2, newline = token 13.
 
-The byte-level BPE tokenizer of the LLaMA-3 family comes with a later
-slice of the port.
+Byte-level BPE vocabs (tokenizer_bpe.BPEVocab, the LLaMA-3 family) carry
+their own encoder and decoder; `tokenize` and `detokenize` dispatch to
+them.
 """
 
 from __future__ import annotations
@@ -60,7 +61,12 @@ class Vocab:
 
 
 def tokenize(vocab: Vocab, text: str | bytes, bos: bool = False) -> list[int]:
-    """Greedy score-priority BPE (reference: Tokenize, ml.go:2761-2848)."""
+    """Greedy score-priority BPE (reference: Tokenize, ml.go:2761-2848).
+    Byte-level BPE vocabs dispatch to their own encoder."""
+    if hasattr(vocab, "encode"):
+        if isinstance(text, bytes):
+            text = text.decode("utf-8", "replace")
+        return vocab.encode(text, bos=bos)
     data = text.encode("utf-8") if isinstance(text, str) else text
     output: list[int] = []
     if bos:
@@ -121,5 +127,8 @@ def tokenize(vocab: Vocab, text: str | bytes, bos: bool = False) -> list[int]:
 
 
 def detokenize(vocab: Vocab, token_ids: list[int]) -> str:
-    """Concatenate raw pieces (reference: Token2Str in server.go:228-236)."""
+    """Concatenate raw pieces (reference: Token2Str in server.go:228-236);
+    byte-level BPE vocabs decode themselves."""
+    if hasattr(vocab, "decode"):
+        return vocab.decode(token_ids)
     return b"".join(vocab.id_to_piece(t) for t in token_ids).decode("utf-8", errors="replace")

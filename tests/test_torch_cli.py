@@ -2,12 +2,13 @@
 rules the port keeps (no JAX imports, CUDA unless the CPU is asked for,
 unported flags fail by name).
 
-The CLI tests build a tiny Q8_0 ggjt with the JAX package's writer and
+The CLI tests build a tiny Q8_0 ggjt with the port's writer and
 quantizer; `--temp 0 --device cpu` one-shot output, with and without
-`--spec`, must equal the JAX CLI's output.
+`--spec`, must equal the JAX CLI's output on the same file.
 """
 
 import ast
+import filecmp
 import pathlib
 
 import jax
@@ -16,14 +17,12 @@ import pytest
 import torch
 
 from llamago_tpu import cli as jcli
-from llamago_tpu.checkpoint import write_ggjt
 from llamago_tpu.checkpoint import params as jparams
 from llamago_tpu.checkpoint.ggjt import read_ggjt as jread_ggjt
-from llamago_tpu.checkpoint.quant_file import quantize_ggjt
-from llamago_tpu.config import MODEL_PRESETS as JPRESETS
 from llamago_tpu_torch import cli
-from llamago_tpu_torch.checkpoint import params
-from llamago_tpu_torch.checkpoint.ggjt import read_ggjt
+from llamago_tpu_torch.checkpoint import params, write_ggjt
+from llamago_tpu_torch.checkpoint.ggjt import read_ggjt, write_meta_sidecar
+from llamago_tpu_torch.checkpoint.quant_file import quantize_ggjt
 from llamago_tpu_torch.config import MODEL_PRESETS
 from llamago_tpu_torch.runtime.engine import Engine
 from llamago_tpu_torch.tokenizer import Vocab
@@ -38,9 +37,9 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "llamago_tpu_torch"
 @pytest.fixture(scope="module")
 def q8_model(tmp_path_factory):
     d = tmp_path_factory.mktemp("q8")
-    cfg = JPRESETS["tiny-gqa"]
+    cfg = MODEL_PRESETS["tiny-gqa"]
     f32 = str(d / "tiny-f32.bin")
-    write_ggjt(f32, cfg, make_test_vocab(), random_ggjt_tensors(cfg, seed=6))
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=6))
     return quantize_ggjt(f32, str(d / "tiny-q8_0.bin"), "q8_0")
 
 
@@ -86,9 +85,9 @@ def test_read_ggjt_and_host_parameters_match_jax(q8_model):
 @pytest.fixture(scope="module")
 def f32_and_q4_models(tmp_path_factory):
     d = tmp_path_factory.mktemp("q4")
-    cfg = JPRESETS["tiny-gqa"]
+    cfg = MODEL_PRESETS["tiny-gqa"]
     f32 = str(d / "tiny-f32.bin")
-    write_ggjt(f32, cfg, make_test_vocab(), random_ggjt_tensors(cfg, seed=7))
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=7))
     return {"f32": f32, "q4_0": quantize_ggjt(f32, str(d / "tiny-q4_0.bin"), "q4_0"),
             "q4_1": quantize_ggjt(f32, str(d / "tiny-q4_1.bin"), "q4_1")}
 
@@ -133,20 +132,12 @@ def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
     (["--dp", "2"], "parallel"),
     (["--multihost"], "parallel"),
     (["--lora", "a.npz"], "training"),
-    (["convert"], "checkpoint tools"),
+    (["finetune"], "training"),
 ])
 def test_unported_flags_fail_naming_the_slice(flags, slice_name, capsys):
     assert cli.main(["--model", "m.bin", "--silent", "--device", "cpu"] + flags) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and slice_name in err
-
-
-def test_gguf_file_is_not_yet_ported(tmp_path, capsys):
-    path = tmp_path / "m.gguf"
-    path.write_bytes(b"GGUF" + bytes(60))
-    assert cli.main(["--model", str(path), "--prompt", "x", "--silent",
-                     "--device", "cpu"]) == 2
-    assert "GGUF" in capsys.readouterr().err
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, q8_model):
@@ -196,3 +187,126 @@ def test_every_cuda_source_is_built_and_says_what_it_replaces():
         assert "replaces llamago_tpu/" in low or "replaces scripts/kernel_lab.py" in low, name
         assert "bound" in low, name
         assert 'extern "C"' in text and "#include <torch" not in text, name
+
+
+# ------------------------------------------------- the checkpoint tools
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_0", "q4_1"])
+@pytest.mark.parametrize("ext", [".bin", ".gguf"])
+def test_quantize_subcommand_matches_the_jax_cli(tmp_path, kind, ext, capsys):
+    """`quantize --qkind K [--out X.gguf]`: both CLIs write the same bytes
+    (and sidecar) and report the native path."""
+    cfg = MODEL_PRESETS["tiny-gqa"].replace(rope_theta=500000.0)
+    f32 = str(tmp_path / "tiny-f32.bin")
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=4))
+    write_meta_sidecar(f32, cfg)
+    outs = [str(tmp_path / f"{who}-{kind}{ext}") for who in ("j", "p")]
+    assert jcli.main(["quantize", "--model", f32, "--out", outs[0], "--qkind", kind,
+                      "--silent"]) == 0
+    jout = capsys.readouterr().out
+    assert cli.main(["quantize", "--model", f32, "--out", outs[1], "--qkind", kind,
+                     "--silent"]) == 0
+    out = capsys.readouterr().out
+    assert filecmp.cmp(*outs, shallow=False)
+    if ext == ".bin":
+        assert filecmp.cmp(outs[0] + ".meta.json", outs[1] + ".meta.json", shallow=False)
+    assert out.startswith(f"[QUANT] wrote {outs[1]} ({kind}, native=True) in ")
+    assert jout.split(" in ")[0].replace(outs[0], outs[1]) == out.split(" in ")[0]
+
+
+def test_quantize_default_output_name_and_bits(tmp_path, capsys):
+    cfg = MODEL_PRESETS["tiny-gqa"]
+    f32 = str(tmp_path / "m.bin")
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=5))
+    assert cli.main(["quantize", "--model", f32, "--bits", "4", "--silent"]) == 0
+    assert read_ggjt(str(tmp_path / "m-q4_0.bin")).ftype == 2
+    assert cli.main(["quantize", "--silent"]) == 2
+    assert "needs --model" in capsys.readouterr().err
+
+
+def test_convert_subcommand_matches_the_jax_cli(tmp_path, capsys):
+    from test_torch_convert import _meta_dir
+
+    d, _ = _meta_dir(tmp_path, n_kv_heads=2, rope_theta=500000.0)
+    outs = [str(tmp_path / f"{who}.bin") for who in ("j", "p")]
+    for main, out in ((jcli.main, outs[0]), (cli.main, outs[1])):
+        assert main(["convert", "--model", str(d), "--out", out, "--dtype", "float32",
+                     "--silent"]) == 0
+        assert capsys.readouterr().out == f"[CONVERT] wrote {out}\n"
+    assert filecmp.cmp(*outs, shallow=False)
+    assert filecmp.cmp(outs[0] + ".meta.json", outs[1] + ".meta.json", shallow=False)
+    for main in (jcli.main, cli.main):
+        assert main(["convert", "--model", str(d), "--out", str(tmp_path / "v.bin"),
+                     "--vocab-only", "--silent"]) == 0
+    assert read_ggjt(str(tmp_path / "v.bin")).tensors == {}
+
+
+def _bpe_vocab(pattern):
+    from llamago_tpu_torch.tokenizer_bpe import BPEVocab, bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    tokens = ["<|begin_of_text|>", "<|end_of_text|>"] + [b2u[b] for b in range(256)]
+    merges = {}
+    for a, b in (("h", "e"), ("l", "l"), ("he", "ll"), ("Ġ", "w"), ("o", "r"), ("Ġw", "or")):
+        merges[(a, b)] = len(merges)
+        tokens.append(a + b)
+    return BPEVocab(tokens=tokens, merges=merges, bos_id=0, eos_id=1, pattern=pattern,
+                    special_ids=frozenset({0, 1}))
+
+
+@pytest.mark.parametrize("vocab_kind", ["llama", "llama-bpe", "gpt2"])
+def test_oneshot_greedy_from_a_gguf_matches_the_jax_cli(tmp_path, vocab_kind, capsys):
+    """A Q8_0 GGUF with a sentencepiece (`llama`) vocab or a byte-level BPE
+    (`gpt2`) vocab under either pre-tokenizer: greedy one-shot output of
+    both CLIs from the same file."""
+    from llamago_tpu_torch.checkpoint.gguf import write_gguf
+
+    vocab = (Vocab(make_test_vocab().tokens) if vocab_kind == "llama"
+             else _bpe_vocab(vocab_kind))
+    cfg = MODEL_PRESETS["tiny-gqa"].replace(vocab_size=len(vocab), rope_theta=500000.0)
+    f32 = str(tmp_path / "m-f32.gguf")
+    write_gguf(f32, cfg, vocab, random_ggjt_tensors(cfg, seed=13))
+    q8 = quantize_ggjt(f32, str(tmp_path / "m-q8_0.gguf"), "q8_0")
+    argv = ["--model", q8, "--prompt", "hello world", "--temp", "0", "--predict", "12",
+            "--context", "64", "--silent"]
+    assert jcli.main(argv + ["--tp", "1"]) == 0
+    want = capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and got.startswith("hello world")
+
+
+@pytest.mark.parametrize("size,rc,says", [(2 << 20, 0, "[LOAD] model of size 0.00 GiB"),
+                                          (100, 1, "suspiciously small"),
+                                          (None, 1, "was not downloaded")])
+def test_load_subcommand_matches_the_jax_cli_without_fetching(tmp_path, monkeypatch,
+                                                              capsys, size, rc, says):
+    """`load --model NAME --dir D` builds the URL and checks the size as the
+    JAX CLI does; urlretrieve is replaced, so nothing is fetched."""
+    import urllib.request
+
+    calls = []
+
+    def fake_urlretrieve(url, dest):
+        calls.append((url, dest))
+        if size is None:
+            raise OSError("no network")
+        with open(dest, "wb") as f:
+            f.write(bytes(size))
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", fake_urlretrieve)
+    argv = ["load", "--model", "7B.bin", "--dir", str(tmp_path), "--silent"]
+    results = []
+    for main in (jcli.main, cli.main):
+        code = main(argv)
+        captured = capsys.readouterr()
+        results.append((code, captured.out, captured.err))
+    assert results[0] == results[1]
+    assert results[1][0] == rc and says in results[1][1] + results[1][2]
+    assert calls == [("https://nogpu.com/7B.bin", str(tmp_path / "7B.bin"))] * 2
+
+
+def test_load_without_a_model_name(capsys):
+    assert cli.main(["load", "--silent"]) == 2
+    assert "names the file" in capsys.readouterr().err

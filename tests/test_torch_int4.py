@@ -21,22 +21,19 @@ import pytest
 import torch
 
 from llamago_tpu.checkpoint import params as jparams
-from llamago_tpu.checkpoint import write_ggjt
 from llamago_tpu.checkpoint.ggjt import read_ggjt as jread_ggjt
 from llamago_tpu.checkpoint.quant_file import dequantize_rows as jdequantize_rows
-from llamago_tpu.checkpoint.quant_file import quantize_ggjt
 from llamago_tpu.config import GenerateConfig as JGen
 from llamago_tpu.config import ModelConfig as JModelConfig
-from llamago_tpu.config import MODEL_PRESETS as JPRESETS
 from llamago_tpu.models import llama as jllama
 from llamago_tpu.ops import kernels as jkernels
 from llamago_tpu.ops import quant as jquant
 from llamago_tpu.runtime.engine import Engine as JEngine
 from llamago_tpu.runtime.kv_cache import KVCache as JKVCache
 from llamago_tpu_torch.checkpoint import params
-from llamago_tpu_torch.checkpoint.ggjt import read_ggjt
-from llamago_tpu_torch.checkpoint.quant_file import dequantize_rows
-from llamago_tpu_torch.config import GenerateConfig, ModelConfig
+from llamago_tpu_torch.checkpoint.ggjt import read_ggjt, write_ggjt
+from llamago_tpu_torch.checkpoint.quant_file import dequantize_rows, quantize_ggjt
+from llamago_tpu_torch.config import MODEL_PRESETS, GenerateConfig, ModelConfig
 from llamago_tpu_torch.models import llama
 from llamago_tpu_torch.ops import basic, kernels, quant
 from llamago_tpu_torch.runtime.engine import Engine
@@ -428,9 +425,9 @@ def test_k5_split_cuts_at_whole_groups(m, k, n):
 @pytest.fixture(scope="module")
 def q4_files(tmp_path_factory):
     d = tmp_path_factory.mktemp("q4")
-    cfg = JPRESETS["tiny-gqa"]
+    cfg = MODEL_PRESETS["tiny-gqa"]
     f32 = str(d / "tiny-f32.bin")
-    write_ggjt(f32, cfg, make_test_vocab(), random_ggjt_tensors(cfg, seed=30))
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=30))
     return {kind: quantize_ggjt(f32, str(d / f"tiny-{kind}.bin"), kind)
             for kind in ("q4_0", "q4_1")} | {"f32": f32}
 

@@ -83,6 +83,16 @@ def test_the_shared_tile_header_ships_with_both_matmuls():
     assert any(fnmatch.fnmatch("csrc/tile_tc.cuh", g) for g in globs)
 
 
+def test_the_native_host_library_source_ships_as_package_data():
+    """native/ builds from ggjt_kernels.cpp at first use: the source matches
+    a package-data glob, so an installed package can build it."""
+    from llamago_tpu_torch import native
+
+    rel = pathlib.Path(native._SRC).relative_to(ROOT / "llamago_tpu_torch").as_posix()
+    assert rel == "native/ggjt_kernels.cpp"
+    assert any(fnmatch.fnmatch(rel, g) for g in _package_globs()), _package_globs()
+
+
 def test_a_missing_quoted_include_raises_with_its_name(monkeypatch, tmp_path):
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "gone.cuh"\n')
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))

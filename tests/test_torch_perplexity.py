@@ -13,14 +13,14 @@ import pytest
 import torch
 
 from llamago_tpu import cli as jcli
-from llamago_tpu.checkpoint import write_ggjt
-from llamago_tpu.checkpoint.quant_file import quantize_ggjt
-from llamago_tpu.config import MODEL_PRESETS as JPRESETS
 from llamago_tpu.eval.perplexity import _window_nll as j_window_nll
 from llamago_tpu.eval.perplexity import perplexity as jperplexity
 from llamago_tpu.eval.perplexity import perplexity_of_text as jperplexity_of_text
 from llamago_tpu_torch import cli
 from llamago_tpu_torch.eval import perplexity as port_perplexity
+from llamago_tpu_torch.checkpoint.ggjt import write_ggjt
+from llamago_tpu_torch.checkpoint.quant_file import quantize_ggjt
+from llamago_tpu_torch.config import MODEL_PRESETS
 from llamago_tpu_torch.eval.perplexity import _window_nll, perplexity, perplexity_of_text
 from llamago_tpu_torch.tokenizer import Vocab, tokenize
 
@@ -101,9 +101,9 @@ def test_too_short_input_raises_like_jax():
 @pytest.fixture(scope="module")
 def q8_model(tmp_path_factory):
     d = tmp_path_factory.mktemp("ppl")
-    cfg = JPRESETS["tiny-gqa"]
+    cfg = MODEL_PRESETS["tiny-gqa"]
     f32 = str(d / "tiny-f32.bin")
-    write_ggjt(f32, cfg, make_test_vocab(), random_ggjt_tensors(cfg, seed=8))
+    write_ggjt(f32, cfg, Vocab(make_test_vocab().tokens), random_ggjt_tensors(cfg, seed=8))
     text = d / "text.txt"
     text.write_text("hello world, the world said hello to the world. " * 12)
     return quantize_ggjt(f32, str(d / "tiny-q8_0.bin"), "q8_0"), str(text)
