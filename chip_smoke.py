@@ -202,21 +202,53 @@ Phases, each of which fails the run (exit code 1, no result line):
      within 1e-3 of max|logit|; the file's bytes, its write, read and load
      times, the decode step beside phase 4's, tok/s, TTFT and peak memory
      logged; the file deleted;
+  7. (`train`, run before phase 3) training, LoRA and the quality gate:
+     K1's tile at the 7B
+     training step's 2,048 rows (bf16 x, and f32 x on its three bf16 parts)
+     against its plain version, timed over one forward's matmuls; 7a: one
+     lora_train_step (rank 8, B random) of a small GQA model (dim 256, head
+     dim 64) for each base (dense, Q8_0, Q4_0, w4x8), f32 and bf16 compute,
+     a window of 8 rows at t = 8 (K1's and K5's decode forms, K2) and one of
+     128 rows at t = 64 with K7 on (K1's and K6's tiles, K7), and one
+     full-weight train_step of the dense model: loss and every gradient
+     through the kernels (forward; the backward is plain PyTorch, as JAX's
+     custom VJPs) against the plain matmuls and attention on the card and,
+     in f32, the CPU, within 1e-4 of max|grad| in f32 and within twice the
+     plain pair's bf16-against-f32 difference in bf16; layer 0's wqkv
+     gradient non-zero; the window's forms launch, the plain step launches
+     nothing; 7b: the 7B QLoRA step of scripts/train_bench.py (random Q8_0
+     base from seed 0, bf16, batch 4 x 512, rank 8, remat): a warm step and
+     five timed (ms, train tokens/s, peak memory, each loss finite and
+     falling on the repeated batch), one profiled (device busy, K1's time,
+     the backward's dequantize + matmul), one in f32 (K1's f32_tc), and the
+     first 4 layers against the plain matmuls; 7c: `finetune --file
+     README.md --steps 20 --seq 64` on a small Q8_0 file on the card, then
+     `--lora` in f32: greedy tokens on the card equal to the CPU's, a
+     window's logits within 1e-3 of max|logit|; 7d: the
+     quality gate at its defaults (400 steps, d256, L6, ctx 256) with its
+     bf16 rows on the kernels: every ppl finite, the exported f32 file's
+     ppl on the card within 1e-4 relative of the CPU's, K5 taking every
+     w4x8 matmul of the w4x8_a8 row and K1 bits=4 launching in the bf16
+     q4_0 row (the 0.1-ppl thresholds reported, not enforced), then the
+     dense and Q8_0 files in bf16 with K10 on and the int8 cache with bf16
+     scale planes;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
 matmul and attention kernels of phases 4, 4d, 4b, 4c, 4e and 6 side by
 side, with phase 4f's tokens/s, TTFT and accepted drafts a verify step,
 JSON), the perplexity line (phase 4g, JSON), the GGUF line (phase 6: the
-file, its times, the small models' card-vs-CPU errors; JSON), the card
-line, the kernels line
+file, its times, the small models' card-vs-CPU errors; JSON), the training
+line (phase 7: the 7B step's numbers, the small steps' errors, the gate's
+rows; JSON), the card line, the kernels line
 (JSON) and, last, the device line (JSON). `--out` names a file for the
 detail (per-shape kernel times, the serving numbers, the decode-step
 profile) as JSON. `--only` runs the
 named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
 small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32,
-serve_spec, ppl, llama3 (phase 2 at LLaMA-3-8B's shapes), gguf (phase 6).
+serve_spec, ppl, llama3 (phase 2 at LLaMA-3-8B's shapes), gguf (phase 6),
+train (phase 7).
 """
 
 from __future__ import annotations
@@ -365,7 +397,8 @@ def _leaf_bytes(w: dict) -> int:
 def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: tuple,
                  other_m: tuple, ops_per_s, seed: int, other_shapes: tuple = ("wqkv",),
                  timed_dtype: str = "bfloat16", checked=None,
-                 scale_dtype: str = "bfloat16", shapes: tuple | None = None) -> tuple[dict, dict]:
+                 scale_dtype: str = "bfloat16", shapes: tuple | None = None,
+                 copies: int | None = None) -> tuple[dict, dict]:
     """One quantized matmul kernel at the five 7B projection shapes (the
     head at its width in that format): kernel against plain version for f32
     and bf16 x (and, at the wqkv shape, f32 scales as a file brings them,
@@ -379,7 +412,8 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
     prefill rows). `checked`, where given, takes the kernel's place in the
     checks (not in the timing). The leaves' scales are `scale_dtype` (bf16,
     or f32 for Q8_0 and Q4_0). `shapes` replaces the 7B shapes, as (name,
-    K, N, launches per pass)."""
+    K, N, launches per pass). `copies` replaces the copies of each leaf
+    that stream past the L2 (compute-bound row counts need none)."""
     import torch
 
     from llamago_tpu_torch.ops import quant
@@ -393,8 +427,8 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
         ws = [_random_leaf(gen, dev, fmt, k, n, scale_dtype)]
         # copies enough that a cycle of calls streams past the 50 MB L2,
         # as the decode step's weight stream does
-        copies = max(1, -(-200_000_000 // _leaf_bytes(ws[0])))
-        ws += [_random_leaf(gen, dev, fmt, k, n, scale_dtype) for _ in range(copies - 1)]
+        n_copies = copies or max(1, -(-200_000_000 // _leaf_bytes(ws[0])))
+        ws += [_random_leaf(gen, dev, fmt, k, n, scale_dtype) for _ in range(n_copies - 1)]
         cases = [("float32", ws[0]), ("bfloat16", ws[0])]
         if name == "wqkv" and fmt != "q4x":
             f32_scales = {**ws[0], "s": ws[0]["s"].float()}
@@ -419,9 +453,9 @@ def check_matmul(dev, detail: dict, tag: str, fmt: str, kernel, plain, timed_m: 
             check(m)
             x = torch.randn((m, k), generator=gen, device=dev).to(getattr(torch, timed_dtype))
             deqs = [quant.dequantize(w, x.dtype) for w in ws]
-            kern = timed([lambda w=w: kernel(x, w) for w in ws], 20 * copies)
-            plain_ms = timed([lambda w=w: plain(x, w) for w in ws], max(3, copies))
-            lib = timed([lambda d=d: x @ d for d in deqs], 20 * copies)
+            kern = timed([lambda w=w: kernel(x, w) for w in ws], 20 * n_copies)
+            plain_ms = timed([lambda w=w: plain(x, w) for w in ws], max(3, n_copies))
+            lib = timed([lambda d=d: x @ d for d in deqs], 20 * n_copies)
             del deqs
             bnd, by = bound_ms(_leaf_bytes(ws[0]) + (m * k + m * n) * x.element_size(),
                                2.0 * m * k * n, ops_per_s(m))
@@ -3974,6 +4008,640 @@ def gguf_phase(dev, card: str, phase4: dict | None = None) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# ---------------------------------------------------------------- phase 7: train
+
+# the small model of phase 7a: GQA with head_dim 64 (K2 and K7 take it),
+# every width a multiple of 128 (w4x8 takes every leaf)
+TRAIN_SMALL = dict(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                   ffn_dim=512, max_seq_len=128)
+TRAIN_BASES = ("dense", "q8_0", "q4_0", "w4x8")
+# (name, batch, tokens, K7 on): 8 rows of x at t = 8 take K1's decode form,
+# K5 and K2; 128 rows at t = 64 with the prefill floor at 0 K1's tile, K6
+# and K7
+TRAIN_WINDOWS = (("K2", 1, 8, False), ("K7", 2, 64, True))
+# f32 losses and gradients on the card against the plain versions on the
+# card and on the CPU, x max|ref| of each tensor: exact products (three
+# bf16 parts, 3xTF32) with the f32 sums in another order
+TRAIN_F32_TOL = 1e-4
+# bf16: gradients within twice the plain pair's own difference (plain bf16
+# against plain f32); the loss, one mean whose pair difference may cancel
+# to nothing, within that or PPL_TOL's bf16 limit on a mean NLL
+TRAIN_BF16_LOSS_TOL = 1e-2
+# the forms each base and dtype launch at 8 rows and at 128 rows of x
+TRAIN_FORMS = {
+    ("q8_0", "bfloat16"): ("dequant_matmul_decode_tc", "dequant_matmul_tc"),
+    ("q8_0", "float32"): ("dequant_matmul_f32_decode_tc", "dequant_matmul_f32_tc"),
+    ("q4_0", "bfloat16"): ("dequant_matmul_decode_tc", "dequant_matmul_tc"),
+    ("q4_0", "float32"): ("dequant_matmul_f32_decode_tc", "dequant_matmul_f32_tc"),
+    ("w4x8", "bfloat16"): ("w4x8_matmul_a8", "w4x8_matmul_tc"),
+    ("w4x8", "float32"): ("w4x8_matmul_a8", "w4x8_matmul_f32_tc"),
+}
+TRAIN_ATTN_FORMS = {"bfloat16": ("flash_attention_decode_tc", "flash_attention_prefill_tc"),
+                    "float32": ("flash_attention_decode_f32tc", "flash_attention_prefill_f32tc")}
+# phase 7b: scripts/train_bench.py's 7B QLoRA step (batch 4, seq 512, rank
+# 8, Q8_0 base from seed 0, bf16 compute, remat), one warm step and five
+# timed on one batch; the plain comparison on the first 4 layers
+TRAIN_7B = dict(batch=4, seq=512, rank=8, timed_steps=5, check_layers=4)
+
+
+@contextlib.contextmanager
+def k7_route():
+    """Every window of t > 32 over the dense cache on K7, as
+    LLAMAGO_ATTN_PREFILL_FLOOR=0 sets it (switched as a module attribute).
+    K10 stays off: it has no backward."""
+    from llamago_tpu_torch.ops import attention
+
+    floor = attention._MIN_PREFILL_SCORES
+    attention._MIN_PREFILL_SCORES = 0
+    try:
+        yield
+    finally:
+        attention._MIN_PREFILL_SCORES = floor
+
+
+def _train_tensors(cfg, seed: int) -> dict:
+    """Random checkpoint tensors of a small model ([out, in], numpy):
+    matmuls normal * 0.05, norm gains near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, f, hd = cfg.dim, cfg.ffn_hidden, cfg.head_dim
+
+    def mat(o, i):
+        return (rng.standard_normal((o, i)) * 0.05).astype(np.float32)
+
+    def gain():
+        return (1 + rng.standard_normal(d) * 0.01).astype(np.float32)
+
+    t = {"tok_embeddings.weight": mat(cfg.vocab_size, d), "norm.weight": gain(),
+         "output.weight": mat(cfg.vocab_size, d)}
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        t |= {p + "attention_norm.weight": gain(), p + "ffn_norm.weight": gain(),
+              p + "attention.wq.weight": mat(cfg.n_heads * hd, d),
+              p + "attention.wk.weight": mat(cfg.kv_heads * hd, d),
+              p + "attention.wv.weight": mat(cfg.kv_heads * hd, d),
+              p + "attention.wo.weight": mat(d, cfg.n_heads * hd),
+              p + "feed_forward.w1.weight": mat(f, d), p + "feed_forward.w2.weight": mat(d, f),
+              p + "feed_forward.w3.weight": mat(f, d)}
+    return t
+
+
+def _train_small_params(dev, base: str, dtype: str):
+    """(config, fused per-layer params) of phase 7a's model on `dev`:
+    `base` weights (dense in the compute dtype, Q8_0, Q4_0 or w4x8) and
+    `dtype` compute."""
+    from llamago_tpu_torch.checkpoint.params import (
+        fuse_layer_weights,
+        load_parameters,
+        unstack_layer_params,
+    )
+    from llamago_tpu_torch.config import ModelConfig
+
+    wdt = {"dense": dtype, "q8_0": "int8", "q4_0": "int4", "w4x8": "int4"}[base]
+    cfg = ModelConfig(**TRAIN_SMALL, dtype=dtype, weight_dtype=wdt)
+    with int4_exec("w4x8" if base == "w4x8" else "q4_0"):
+        p = load_parameters(cfg, _train_tensors(cfg, 70), device=dev)
+    return cfg, fuse_layer_weights(unstack_layer_params(p, cfg.n_layers))
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _lora_tree(params, rank: int = 8, b_seed: int = 71):
+    """init_lora (seed 0) over `params`, each B drawn normal * 0.05 from a
+    CPU generator seeded `b_seed`, the same on every device (B = 0 would
+    leave A without a gradient)."""
+    import torch
+
+    from llamago_tpu_torch.models import lora
+
+    tree = lora.init_lora(params, rank=rank, alpha=16.0, seed=0)
+    gen = torch.Generator().manual_seed(b_seed)
+    for lp in tree["layers"]:
+        for leaf in lp.values():
+            if lora.is_lora(leaf):
+                leaf["lora_b"].copy_(torch.randn(leaf["lora_b"].shape, generator=gen) * 0.05)
+    return tree
+
+
+def _step_grads(tree, cfg, tokens, full: bool = False, first: str = "wqkv"):
+    """One lora_train_step on a wrapped tree (with `full`, one full-weight
+    train_step on a dense one): (its loss, every trained tensor's gradient
+    in f32 on the CPU in tree order, the launch counts of the step, the
+    largest |gradient| of layer 0's `first` leaf: its A, or with `full`
+    the weight)."""
+    import torch
+
+    from llamago_tpu_torch.models import lora, training
+
+    reset_launch_counts()
+    if full:
+        opt = training.make_optimizer(tree)
+        tree, opt, loss = training.train_step(tree, opt, tokens, cfg)
+        ts = training.trainable(tree)
+    else:
+        opt = lora.init_lora_opt_state(tree)
+        tree, opt, loss = lora.lora_train_step(tree, opt, tokens, cfg)
+        ts = lora.adapter_tensors(tree)
+    if tokens.device.type == "cuda":
+        torch.cuda.synchronize()
+    leaf = tree["layers"][0][first]
+    a0 = (leaf if full else leaf["lora_a"]).grad.abs().max().item()
+    return float(loss), [t.grad.float().cpu() for t in ts], launch_counts(), a0
+
+
+def _grad_err(got, ref) -> float:
+    """The largest max|d| / max|ref| over the tensors of two gradient lists."""
+    return max((g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+               for g, r in zip(got, ref, strict=True))
+
+
+def train_small(dev) -> dict:
+    """Phase 7a: one lora_train_step (rank 8, B random) of a small GQA model
+    for each base (dense, Q8_0, Q4_0, w4x8), compute dtype (f32, bf16) and
+    window (TRAIN_WINDOWS), and one full-weight train_step of the dense
+    model: the loss and every A / B gradient (every parameter's for the
+    full step) through the kernels on the card against the same step with
+    the plain matmuls and plain attention on the card, and in f32 against
+    the CPU: f32 within TRAIN_F32_TOL, bf16 within twice the plain pair's
+    own difference (plain bf16 against plain f32). Layer 0's A on wqkv must
+    get a non-zero gradient (the edge back through attention and the frozen
+    matmuls); the window's forms must launch in the kernels' steps, and
+    nothing in the plain steps. Returns the errors and launches by step."""
+    import numpy as np
+    import torch
+
+    out, failed = {}, []
+    for base in TRAIN_BASES:
+        fulls = (False, True) if base == "dense" else (False,)
+        for wname, b, t, k7 in TRAIN_WINDOWS:
+            toks = torch.from_numpy(np.random.default_rng(72 + t).integers(
+                3, TRAIN_SMALL["vocab_size"], (b, t)))
+            runs = {}
+            with k7_route() if k7 else contextlib.nullcontext():
+                for dtype in ("float32", "bfloat16"):
+                    cfg, params = _train_small_params(dev, base, dtype)
+                    cpu = _to_cpu(params)
+                    for full in fulls:
+                        def tree(p, full=full):
+                            return _clone_tree(p) if full else _lora_tree(p)
+                        runs[dtype, full, "kernels"] = _step_grads(tree(params), cfg,
+                                                                   toks.to(dev), full)
+                        with plain_matmuls(), plain_attention():
+                            runs[dtype, full, "plain"] = _step_grads(tree(params), cfg,
+                                                                     toks.to(dev), full)
+                        if dtype == "float32":
+                            runs[dtype, full, "cpu"] = _step_grads(tree(cpu), cfg, toks, full)
+                    del params, cpu
+            for full in fulls:
+                what = f"train, {base}, {wname} window, {'full-weight' if full else 'LoRA'} step"
+                k32, p32, c32 = (runs["float32", full, w] for w in ("kernels", "plain", "cpu"))
+                k16, p16 = (runs["bfloat16", full, w] for w in ("kernels", "plain"))
+                errs = {"f32_vs_plain": _grad_err(k32[1], p32[1]),
+                        "f32_vs_cpu": _grad_err(k32[1], c32[1]),
+                        "f32_loss_vs_plain": abs(k32[0] - p32[0]) / abs(p32[0]),
+                        "f32_loss_vs_cpu": abs(k32[0] - c32[0]) / abs(c32[0]),
+                        "bf16_vs_plain": _grad_err(k16[1], p16[1]),
+                        "bf16_plain_pair": _grad_err(p16[1], p32[1]),
+                        "bf16_loss_vs_plain": abs(k16[0] - p16[0]) / abs(p16[0]),
+                        "bf16_loss_plain_pair": abs(p16[0] - p32[0]) / abs(p32[0])}
+                a0 = {dt: runs[dt, full, "kernels"][3] for dt in ("float32", "bfloat16")}
+                launches = {dt: {k: v for k, v in runs[dt, full, "kernels"][2].items() if v}
+                            for dt in ("float32", "bfloat16")}
+                plain_launched = {dt: sum(runs[dt, full, "plain"][2].values())
+                                  for dt in ("float32", "bfloat16")}
+                log(f"{what}: loss f32 {k32[0]:.6f} (plain {p32[0]:.6f}, CPU {c32[0]:.6f}), "
+                    f"bf16 {k16[0]:.6f} (plain {p16[0]:.6f}); x max|ref| {errs}; layer 0's "
+                    f"wqkv {'A ' if not full else ''}gradient max {a0}; launches {launches}")
+                if not (errs["f32_vs_plain"] <= TRAIN_F32_TOL
+                        and errs["f32_vs_cpu"] <= TRAIN_F32_TOL
+                        and errs["f32_loss_vs_plain"] <= TRAIN_F32_TOL
+                        and errs["f32_loss_vs_cpu"] <= TRAIN_F32_TOL
+                        and errs["bf16_vs_plain"] <= 2 * errs["bf16_plain_pair"]
+                        and errs["bf16_loss_vs_plain"] <= max(2 * errs["bf16_loss_plain_pair"],
+                                                              TRAIN_BF16_LOSS_TOL)
+                        and np.isfinite([k32[0], k16[0]]).all()
+                        and all(v > 0 for v in a0.values())):
+                    failed.append(f"{what}: {errs}, layer 0's wqkv gradient max {a0}")
+                for dt in ("float32", "bfloat16"):
+                    want = (TRAIN_ATTN_FORMS[dt][int(k7)],)
+                    if base != "dense":
+                        want += (TRAIN_FORMS[base, dt][int(k7)],)
+                    if base == "q4_0":
+                        want += ("dequant_matmul_q4",)
+                    if any(not launches[dt].get(k) for k in want) or plain_launched[dt]:
+                        failed.append(f"{what}, {dt}: {want} must launch in the kernels' step "
+                                      f"and nothing in the plain step: {launches[dt]}, "
+                                      f"plain {plain_launched[dt]}")
+                out[what] = {"errors": errs, "loss_f32": k32[0], "loss_bf16": k16[0],
+                             "layer0_wqkv_grad_max": a0, "launches": launches}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def train_7b(dev, card: str) -> dict:
+    """Phase 7b: the 7B QLoRA step at full width and depth
+    (MODEL_PRESETS["7B"], random Q8_0 base from seed 0, unfused as
+    scripts/train_bench.py builds it, bf16 compute, adapters of rank 8 on
+    wq, wk, wv and wo, remat on) on one batch of 4 x 512 tokens (numpy,
+    seed 0): one warm step, five timed (ms per step, train tokens/s, the
+    loss of each step: finite and falling on the repeated batch, peak
+    device memory), one step under torch.profiler (device busy, K1's
+    kernels (`matmul_ms`: its tile at m = 2048), the backward's dequantize
+    + matmul (the device time under FrozenQuantMatmul's span)); then one
+    step with f32 compute (K1's f32_tc at m = 2048). Then the first 4
+    layers, their block scales set to keep the activations O(1): one step
+    (B random) through the kernels against the plain matmuls on the card,
+    bf16 within twice the plain pair's own difference and f32 within
+    TRAIN_F32_TOL, loss and layer-0 gradients."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llamago_tpu_torch.checkpoint.params import random_quantized_parameters
+    from llamago_tpu_torch.config import MODEL_PRESETS
+    from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.ops import kernels
+
+    c = TRAIN_7B
+    cfg = MODEL_PRESETS["7B"].replace(weight_dtype="int8", dtype="bfloat16",
+                                      max_seq_len=c["seq"])
+    t0 = time.time()
+    params = random_quantized_parameters(cfg, seed=0, layered=True, device=dev)
+    torch.cuda.synchronize()
+    log(f"train, 7B: Q8_0 base in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (c["batch"], c["seq"]))).to(dev)
+    tree = lora.init_lora(params, rank=c["rank"], alpha=16.0, seed=0)
+    opt = lora.init_lora_opt_state(tree)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+
+    def step():
+        nonlocal tree, opt
+        tree, opt, loss = lora.lora_train_step(tree, opt, tokens, cfg)
+        losses.append(loss)
+
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(c["timed_steps"]):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / c["timed_steps"]
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a trace can lose events (utils/timing.profiled): take the step again
+    # until the trace holds every K1 launch the counters saw
+    for attempt in range(4):
+        before = kernels.dequant_matmul.launches_tc
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = prof.events()
+        held = sum(e.device_type == torch.autograd.DeviceType.CUDA and "dq_tc" in e.name
+                   for e in events)
+        if held == kernels.dequant_matmul.launches_tc - before:
+            break
+        log(f"train, 7B: the trace holds {held} of the step's "
+            f"{kernels.dequant_matmul.launches_tc - before} K1 launches (attempt {attempt + 1})")
+    else:
+        raise AssertionError("train, 7B: the profiler lost events of every traced step")
+    device = [e for e in events if e.name != kernels.BACKWARD_SPAN]
+    busy = device_busy_us(device) / 1e3
+    by_name = device_us_by_name(device)
+    bwd = sum(e.device_time_total for e in events if e.name == kernels.BACKWARD_SPAN
+              and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    losses = [float(x) for x in losses]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"config": "7B Q8_0 (random, seed 0), bf16, LoRA rank 8 on wq/wk/wv/wo, remat",
+           "batch": c["batch"], "seq": c["seq"], "warm_step_s": warm_s, "ms_per_step": ms,
+           "train_tokens_per_s": c["batch"] * c["seq"] / ms * 1e3, "peak_gib": peak,
+           "losses": losses, "device_busy_ms": busy, "device_busy_share": busy / ms,
+           "matmul_ms": _matmul_us(by_name, prefill=True) / 1e3,
+           "backward_dequant_matmul_ms": bwd, "launches": launches,
+           "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+    log(f"train, 7B QLoRA step on {card}: {ms:.1f} ms a step "
+        f"({out['train_tokens_per_s']:.0f} train tokens/s), warm step {warm_s:.1f} s, peak "
+        f"{peak:.2f} GiB, losses {losses}; profiled step: device busy {busy:.1f} ms "
+        f"({out['device_busy_share']:.1%} of the step), K1 {out['matmul_ms']:.1f} ms, the "
+        f"backward's dequantize + matmul {bwd:.1f} ms; launches {launches}")
+    for k, v in out["top_kernels_ms"].items():
+        log(f"  device {v:8.3f} ms/step  {k}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train, 7B: the losses on the repeated batch {losses} must be "
+                             "finite and fall")
+    if not launches["dequant_matmul_tc"] or launches["dequant_matmul_f32_tc"] or \
+            not bwd > 0:
+        raise AssertionError(f"train, 7B: K1's tile must take the step's matmuls and the "
+                             f"backward's span hold device time ({bwd} ms): {launches}")
+
+    # one step with f32 compute: K1's tile on x's three bf16 parts
+    f32 = cfg.replace(dtype="float32")
+    tree32 = lora.init_lora(params, rank=c["rank"], alpha=16.0, seed=0)
+    opt32 = lora.init_lora_opt_state(tree32)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree32, opt32, loss32 = lora.lora_train_step(tree32, opt32, tokens, f32)
+    torch.cuda.synchronize()
+    out["f32_step"] = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss32),
+                       "launches": launch_counts()}
+    log(f"train, 7B QLoRA step, f32 compute: {out['f32_step']['ms']:.1f} ms, loss "
+        f"{float(loss32):.6f}, launches {out['f32_step']['launches']}")
+    if not (np.isfinite(float(loss32)) and out["f32_step"]["launches"]["dequant_matmul_f32_tc"]):
+        raise AssertionError(f"train, 7B, f32: {out['f32_step']}")
+    del tree32, opt32, tree, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first layers: kernels against the plain matmuls at full width.
+    # The random blocks' scales of 0.01 give logits in the hundreds (a loss
+    # near 196), where the softmax is one-hot and a gradient turns on the
+    # last bits of the forward; scales of 1 / (74 sqrt(K)) (uniform int8 has
+    # a spread of 74) keep the activations O(1) and the gradients well
+    # conditioned, the bytes and shapes unchanged
+    n = c["check_layers"]
+
+    def rescaled(leaf):
+        k = leaf["q8"].shape[0]
+        return {**leaf, "s": torch.full_like(leaf["s"], 1.0 / (74.0 * k ** 0.5))}
+
+    cut = {**params, "output": rescaled(params["output"]),
+           "layers": tuple({k: rescaled(v) if isinstance(v, dict) else v for k, v in lp.items()}
+                           for lp in params["layers"][:n])}
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cc = cfg.replace(n_layers=n, dtype=dtype)
+        runs[dtype, "kernels"] = _step_grads(_lora_tree(cut, rank=c["rank"]), cc, tokens,
+                                             first="wq")
+        with plain_matmuls(), plain_attention():
+            runs[dtype, "plain"] = _step_grads(_lora_tree(cut, rank=c["rank"]), cc, tokens,
+                                               first="wq")
+    # layer 0's adapters: A and B of wq, wk, wv and wo
+    layer0 = slice(0, 8)
+    k32, p32 = runs["float32", "kernels"], runs["float32", "plain"]
+    k16, p16 = runs["bfloat16", "kernels"], runs["bfloat16", "plain"]
+    errs = {"f32_vs_plain": _grad_err(k32[1][layer0], p32[1][layer0]),
+            "f32_loss_vs_plain": abs(k32[0] - p32[0]) / abs(p32[0]),
+            "bf16_vs_plain": _grad_err(k16[1][layer0], p16[1][layer0]),
+            "bf16_plain_pair": _grad_err(p16[1][layer0], p32[1][layer0]),
+            "bf16_loss_vs_plain": abs(k16[0] - p16[0]) / abs(p16[0]),
+            "bf16_loss_plain_pair": abs(p16[0] - p32[0]) / abs(p32[0])}
+    out["check_4_layers"] = errs
+    log(f"train, 7B, the first {n} layers: losses f32 {k32[0]:.6f} (plain {p32[0]:.6f}), "
+        f"bf16 {k16[0]:.6f} (plain {p16[0]:.6f}); layer 0's gradients x max|ref| {errs}")
+    if not (errs["f32_vs_plain"] <= TRAIN_F32_TOL and errs["f32_loss_vs_plain"] <= TRAIN_F32_TOL
+            and errs["bf16_vs_plain"] <= 2 * errs["bf16_plain_pair"]
+            and errs["bf16_loss_vs_plain"] <= max(2 * errs["bf16_loss_plain_pair"],
+                                                  TRAIN_BF16_LOSS_TOL)
+            and k16[3] > 0 and k32[3] > 0):
+        raise AssertionError(f"train, 7B, the first {n} layers against the plain matmuls: "
+                             f"{errs}")
+    del params, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli(dev, tmp: str) -> dict:
+    """Phase 7c: `finetune` then `--lora` through the CLI. A small model
+    (phase 7a's shapes, byte vocab) written by write_ggjt and quantized to
+    Q8_0 by the port's `quantize`; `finetune --file README.md --steps 20
+    --seq 64` on the card (bf16, K1 under grad); then `--lora` one-shot
+    greedy generation in f32 on the card, and the same load's greedy tokens
+    on the card and on the CPU (equal) and logits of a 40-token window
+    (within F32_LOGIT_TOL of max|logit|)."""
+    import io
+
+    import torch
+
+    from llamago_tpu_torch import cli
+    from llamago_tpu_torch.checkpoint.ggjt import write_ggjt
+    from llamago_tpu_torch.config import GenerateConfig, ModelConfig
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.kv_cache import KVCache
+
+    cfg = ModelConfig(**TRAIN_SMALL)
+    f32 = os.path.join(tmp, "train-f32.bin")
+    write_ggjt(f32, cfg, _byte_vocab(cfg.vocab_size), _train_tensors(cfg, 73))
+    q8 = os.path.join(tmp, "train-q8_0.bin")
+    _cli(["quantize", "--model", f32, "--out", q8, "--qkind", "q8_0"])
+    adapters = os.path.join(tmp, "train.lora.npz")
+    readme = os.path.join(os.path.dirname(os.path.abspath(__file__)), "README.md")
+    reset_launch_counts()
+    t0 = time.time()
+    _cli(["finetune", "--model", q8, "--file", readme, "--steps", "20", "--seq", "64",
+          "--out", adapters])
+    secs = time.time() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if not launches.get("dequant_matmul_tc"):
+        raise AssertionError(f"train, finetune: K1's tile did not launch: {launches}")
+    argv = ["--model", q8, "--lora", adapters, "--prompt", "The port", "--temp", "0",
+            "--predict", "24", "--context", "128", "--dtype", "float32", "--silent"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    if code != 0:
+        raise AssertionError(f"train, --lora on the card exited {code}")
+    # the same load (adapters merged as --lora merges them), greedy tokens
+    # on the card and on the CPU
+    gen = GenerateConfig(max_tokens=24, ctx_size=128, temp=0.0)
+    window = torch.randint(3, 259, (2, 40), generator=torch.Generator().manual_seed(74))
+    tokens, logits = {}, {}
+    for device in ("cuda", "cpu"):
+        engine, _, cfg = cli._load_engine(cli.build_parser().parse_args(argv + ["--device",
+                                                                              device]))
+        tokens[device] = engine.generate("The port", gen).output_tokens
+        lg, _ = forward_impl(engine.params, window.to(engine.device),
+                             KVCache.create(cfg, batch=2, device=engine.device),
+                             torch.zeros(2, dtype=torch.long, device=engine.device), cfg,
+                             return_all_logits=True)
+        logits[device] = lg.float().cpu()
+        del engine
+    err = ((logits["cuda"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max()).item()
+    log(f"train, finetune (20 steps of 2 x 64 tokens on the card) in {secs:.1f} s, launches "
+        f"{launches}; --lora on the card printed {buf.getvalue()!r}; greedy tokens: card "
+        f"{tokens['cuda']}, CPU {tokens['cpu']}; a 40-token window's logits card vs CPU "
+        f"max|d|/max|ref| {err:.2e}")
+    if tokens["cuda"] != tokens["cpu"] or len(tokens["cuda"]) != 24 or \
+            not err <= F32_LOGIT_TOL:
+        raise AssertionError(f"train, --lora: the card's greedy tokens or logits ({err:.3g}, "
+                             f"limit {F32_LOGIT_TOL}) differ from the CPU's")
+    return {"finetune_s": secs, "launches": launches, "text": buf.getvalue(),
+            "tokens": tokens["cuda"], "logit_err": err}
+
+
+# the gate's rows, in the order run_gate measures them
+GATE_ROWS = ("fp32", "q8_0", "q4_0", "q4_1", "kv_int8", "dense_bf16", "q8_0 bf16",
+             "q4_0 bf16", "q4_1 bf16", "w4x8", "w4x8_a8", "w4x8_direct")
+GATE_CPU_RTOL = 1e-4
+
+
+def train_gate(dev, tmp: str, card: str) -> dict:
+    """Phase 7d: the quality gate (eval/quality_gate.py run_gate at its
+    defaults: 400 steps, d256, L6, ctx 256, batch 8) on the card, with the
+    bf16 rows on the kernels. Fails on a perplexity that is not finite, on
+    the exported f32 file's perplexity on the card differing from the CPU's
+    by more than GATE_CPU_RTOL (relative), on a w4x8 matmul of the
+    `w4x8_a8` row that K5 did not take (K6 must not launch there), and on
+    K1 bits=4 not launching in the bf16 `q4_0` row. The gate's 0.1-ppl
+    thresholds are reported, not enforced. Then three more rows on the same
+    files, beside the gate's: the dense file and the Q8_0 file in bf16
+    with K10 on (a candidate default; it must launch; K7 does not take the
+    model's head dim of 32), and the dense file over the int8 cache with
+    bf16 scale planes (f32 compute)."""
+    import numpy as np
+
+    from llamago_tpu_torch.eval import quality_gate
+
+    rows = []
+    measure = quality_gate.ppl_of_file
+
+    def counted(*args, **kw):
+        reset_launch_counts()
+        ppl = measure(*args, **kw)
+        rows.append({"ppl": ppl, "launches": {k: v for k, v in launch_counts().items() if v}})
+        return ppl
+
+    t0 = time.time()
+    quality_gate.ppl_of_file = counted
+    try:
+        result = quality_gate.run_gate(tmp_dir=tmp, device=dev)
+    finally:
+        quality_gate.ppl_of_file = measure
+    secs = time.time() - t0
+    if len(rows) != len(GATE_ROWS):
+        raise AssertionError(f"train, gate: {len(rows)} perplexity runs, want {len(GATE_ROWS)}")
+    by_row = dict(zip(GATE_ROWS, rows))
+    eval_ids = quality_gate._byte_ids(quality_gate._corpus()[1])
+    cpu_fp32 = measure(os.path.join(tmp, "model-f32.bin"), eval_ids, result["ctx"], "cpu")
+    card_fp32 = by_row["fp32"]["ppl"]
+    rel = abs(card_fp32 - cpu_fp32) / cpu_fp32
+    out = {"seconds": secs, "result": result, "cpu_fp32_ppl": cpu_fp32,
+           "card_fp32_ppl": card_fp32, "fp32_card_vs_cpu": rel,
+           "launches": {k: r["launches"] for k, r in by_row.items()}}
+    log(f"train, gate on {card} in {secs:.1f} s: ppl {result['ppl']}, deltas "
+        f"{result['ppl_delta_vs_fp32']}, bf16 rows {result['fused']['ppl']}, deltas "
+        f"{result['fused']['ppl_delta_vs_dense_bf16']}; passes: int4 "
+        f"{result['gate_int4_pass']}, kv_int8 {result['gate_kv_int8_pass']}, bf16 q4_0 "
+        f"{result['fused']['gate_int4_pass']}, w4x8_a8 {result['fused']['gate_w4x8_pass']}; "
+        f"fp32 card {card_fp32!r} vs CPU {cpu_fp32!r} ({rel:.2e} relative)")
+    for k, r in by_row.items():
+        log(f"  gate row {k}: ppl {r['ppl']!r}, launches {r['launches']}")
+    a8 = by_row["w4x8_a8"]["launches"]
+    windows = len(eval_ids) // result["ctx"]
+    if not np.isfinite([r["ppl"] for r in rows]).all():
+        raise AssertionError(f"train, gate: a perplexity is not finite: {out['launches']}")
+    if not rel <= GATE_CPU_RTOL:
+        raise AssertionError(f"train, gate: the fp32 file's perplexity on the card {card_fp32} "
+                             f"and on the CPU {cpu_fp32} differ by {rel:.3g}")
+    if not a8.get("w4x8_matmul_a8") or a8.get("w4x8_matmul_stream") or \
+            a8["w4x8_matmul_a8"] % windows:
+        raise AssertionError(f"train, gate: K5 must take every w4x8 matmul of the w4x8_a8 row "
+                             f"({windows} windows): {a8}")
+    if not by_row["q4_0 bf16"]["launches"].get("dequant_matmul_q4"):
+        raise AssertionError(f"train, gate: K1 bits=4 did not launch in the bf16 q4_0 row: "
+                             f"{by_row['q4_0 bf16']['launches']}")
+    # a candidate default and the int8 cache's bf16 scale planes on the
+    # same files: K10 in bf16 (K7 takes head dims 64 and 128; the gate's
+    # model has 32, so its windows stay on the einsum math), and bf16
+    # scales in f32 compute
+    from llamago_tpu_torch.ops import kernels
+    from llamago_tpu_torch.runtime import kv_cache
+
+    extra = {}
+    with int4_exec("q4_0"):
+        for name, path in (("dense_bf16", "model-f32.bin"), ("q8_0 bf16", "model-q8_0.bin")):
+            fused, kernels.USE_FUSED_NORM = kernels.USE_FUSED_NORM, True
+            try:
+                extra[f"{name}, K10"] = counted(os.path.join(tmp, path), eval_ids,
+                                                result["ctx"], dev, "bfloat16")
+            finally:
+                kernels.USE_FUSED_NORM = fused
+            if not rows[-1]["launches"].get("fused_rms_norm"):
+                raise AssertionError(f"train, gate, {name} with K10: {rows[-1]}")
+        saved, kv_cache._SCALE_DTYPE_NAME = kv_cache._SCALE_DTYPE_NAME, "bfloat16"
+        try:
+            extra["kv_int8, bf16 scales"] = counted(os.path.join(tmp, "model-f32.bin"), eval_ids,
+                                                    result["ctx"], dev, kv="int8")
+        finally:
+            kv_cache._SCALE_DTYPE_NAME = saved
+    default = {"dense_bf16, K10": by_row["dense_bf16"]["ppl"],
+               "q8_0 bf16, K10": by_row["q8_0 bf16"]["ppl"],
+               "kv_int8, bf16 scales": by_row["kv_int8"]["ppl"]}
+    out["candidate_defaults"] = {name: {"ppl": ppl, "default_ppl": default[name],
+                                        "delta": ppl - default[name]}
+                                 for name, ppl in extra.items()}
+    log(f"train, gate, candidate defaults on {card}: {out['candidate_defaults']}")
+    if not np.isfinite(list(extra.values())).all():
+        raise AssertionError(f"train, gate: a perplexity is not finite: {extra}")
+    return out
+
+
+# the matmuls of one forward of the 7B training step, unfused as
+# scripts/train_bench.py builds it: (names, K, N, calls a forward)
+TRAIN_SHAPES = (("wq, wk, wv, wo", 4096, 4096, 128), ("w1, w3", 4096, 11008, 64),
+                ("w2", 11008, 4096, 32), ("lm_head", 4096, 32768, 1))
+
+
+def train_phase(dev, detail: dict, card: str) -> dict:
+    """Phase 7 (`train`): K1's tile at the 7B step's 2,048 rows (bf16 x and
+    f32 x, against its plain version, timed over one forward's matmuls),
+    then 7a to 7d, each a function above. `launches` sums the kernels'
+    launches over the training steps of 7a, 7b and 7c."""
+    import tempfile
+
+    import torch
+
+    from llamago_tpu_torch.ops import kernels
+
+    k1, _ = _k1_checked()
+    rows = {}
+    for tag, dtype, rate in (("K1 train", "bfloat16", BF16_OPS_PER_S),
+                             ("K1 train f32", "float32", F32_TC_OPS_PER_S)):
+        errs, steps = check_matmul(dev, detail, tag, "q8", k1, kernels.dequant_matmul_plain,
+                                   timed_m=(2048,), other_m=(), ops_per_s=lambda m, r=rate: r,
+                                   seed=9, other_shapes=(), timed_dtype=dtype,
+                                   shapes=TRAIN_SHAPES, copies=2)
+        rows[dtype] = _line(errs, steps, 2048, lambda m, xdt, d=dtype: xdt == d)
+    out = {"k1_rows": rows, "small": train_small(dev)}
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    for run in out["small"].values():
+        for counts in run["launches"].values():
+            add(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["7B"] = train_7b(dev, card)
+    add(out["7B"]["launches"])
+    add(out["7B"]["f32_step"]["launches"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = train_cli(dev, tmp)
+    add(out["cli"]["launches"])
+    out["launches"] = total
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["gate"] = train_gate(dev, tmp, card)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4026,7 +4694,10 @@ def main(argv: list[str]) -> int:
     only = set(args.only.split(",")) if args.only else None
 
     def want(phase: str) -> bool:
-        return only is None or phase in only
+        if only is None or phase in only:
+            log(f"{time.time() - t0:.0f} s since the build began: {phase}")
+            return True
+        return False
 
     k1, k1tc, k1dt, k1f32 = check_k1(dev, detail) if want("k1") else ({}, {}, {}, {})
     k2, k2f32 = check_k2(dev, detail) if want("k2") else ({}, {})
@@ -4040,6 +4711,13 @@ def main(argv: list[str]) -> int:
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
     l3 = check_llama3(dev, detail) if want("llama3") else {}
+    # phase 7: training, LoRA, finetune / --lora and the quality gate. It
+    # runs before phase 3: after phase 3's runs its first `timed` trace was
+    # seen on an H100 to hold one device event fewer than launched in forty,
+    # in every retake, which `timed` refuses
+    train = train_phase(dev, detail, card) if want("train") else {}
+    detail["train"] = train
+    trained = train.get("launches", {})
     k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, small_f32_attn = (
         check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
@@ -4345,6 +5023,39 @@ def main(argv: list[str]) -> int:
         # the lab's nine kernels, launches counted in the lab's run (phase 5)
         *(lab.get(wrapper, {"name": wrapper, "launches": 0})
           for _, wrapper, *_ in LAB_KERNELS),
+        # the training path (phase 7): each form's launches over the training
+        # steps of 7a, 7b and 7c (forward and remat recomputation; the
+        # backward is plain PyTorch); K1's tile with its numbers over one
+        # forward of the 7B step at m = 2048 (bf16 x, and f32 x on its three
+        # bf16 parts), the other forms with phase 2's numbers
+        *({"name": f"{name}@train", "route": "cuda",
+           "source": f"llamago_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+           "launches": trained.get(counter, 0), **numbers}
+          for name, source, replaces, counter, numbers in (
+              ("dequant_matmul_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_tc", train.get("k1_rows", {}).get("bfloat16", {})),
+              ("dequant_matmul_f32_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_f32_tc", train.get("k1_rows", {}).get("float32", {})),
+              ("dequant_matmul_decode_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_decode_tc", k1dt),
+              ("dq_decode_f32tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_f32_decode_tc", k1),
+              ("dequant_matmul_q4", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_q4", k1q4),
+              ("w4x8_matmul_a8_tc", "w4x8_matmul", "llamago_tpu/ops/kernels.py:308",
+               "w4x8_matmul_a8", k5),
+              ("w4x8_matmul_tc", "w4x8_matmul", "llamago_tpu/ops/kernels.py:334",
+               "w4x8_matmul_tc", k6tc),
+              ("w4x8_matmul_f32_tc", "w4x8_matmul", "llamago_tpu/ops/kernels.py:334",
+               "w4x8_matmul_f32_tc", k6),
+              ("flash_attention", "attn_decode", "llamago_tpu/ops/attention.py:230",
+               "flash_attention_decode_tc", k2),
+              ("flash_attention_decode_f32tc", "attn_decode", "llamago_tpu/ops/attention.py:230",
+               "flash_attention_decode_f32tc", k2f32),
+              ("flash_attention_prefill", "attn_prefill", "llamago_tpu/ops/attention.py:577",
+               "flash_attention_prefill_tc", k7),
+              ("flash_attention_prefill_f32tc", "attn_prefill",
+               "llamago_tpu/ops/attention.py:577", "flash_attention_prefill_f32tc", k7f32))),
     ]}
     keys = ("served_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
             "ttft_ms_p50_by_prompt_tokens", "peak_gib")
@@ -4387,6 +5098,24 @@ def main(argv: list[str]) -> int:
                                     "load_peak_gib", "f32_forward_64_vs_plain")},
         "small_models_card_vs_cpu": {what: run["logit_err"]
                                      for what, run in gguf.get("small", {}).items()}}}
+    t7 = train.get("7B", {})
+    gate = train.get("gate", {})
+    train_line = {"train": {
+        "7B QLoRA step": {k: t7.get(k) for k in (
+            "config", "batch", "seq", "ms_per_step", "train_tokens_per_s", "peak_gib", "losses",
+            "device_busy_ms", "device_busy_share", "matmul_ms", "backward_dequant_matmul_ms")},
+        "7B f32 step": {k: t7.get("f32_step", {}).get(k) for k in ("ms", "loss")},
+        "7B first 4 layers vs plain": t7.get("check_4_layers"),
+        "small steps vs plain and CPU": {what: run["errors"]
+                                         for what, run in train.get("small", {}).items()},
+        "finetune": {k: train.get("cli", {}).get(k) for k in ("finetune_s", "tokens",
+                                                              "logit_err")},
+        "quality gate": {**{k: gate.get("result", {}).get(k) for k in (
+            "ppl", "ppl_delta_vs_fp32", "gate_int4_pass", "gate_kv_int8_pass", "fused",
+            "eval_tokens", "train_steps")},
+            **{k: gate.get(k) for k in ("seconds", "cpu_fp32_ppl", "fp32_card_vs_cpu",
+                                        "candidate_defaults")}},
+        "card": card}}
     detail["kernels"] = kernels_line
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4401,6 +5130,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps(serving_line))
     print(json.dumps(ppl_line))
     print(json.dumps(gguf_line))
+    print(json.dumps(train_line))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

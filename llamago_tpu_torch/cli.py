@@ -6,7 +6,10 @@ main.go:352-382). One-shot mode streams the job's output as it grows and
 prints the per-job report; `--server` serves the REST job API; `--chat`
 is the interactive loop; `perplexity --file F` prints the perplexity of a
 text file; `--spec` turns on prompt-lookup speculative decoding for
-greedy requests. `--model` takes a ggjt or a GGUF file (the magic decides).
+greedy requests; `finetune --file F` trains LoRA adapters over a text file
+(the base frozen, quantized or not) and saves them as .npz, and `--lora A`
+merges saved adapters into the weights at load. `--model` takes a ggjt or
+a GGUF file (the magic decides).
 The checkpoint tools: `quantize` (ggjt or GGUF f32/f16 -> Q8_0 / Q4_0 /
 Q4_1 ggjt, or GGUF when --out ends in .gguf), `convert` (a Meta or HF
 checkpoint directory -> ggjt, or GGUF for BPE-tokenizer models), `load`
@@ -14,9 +17,9 @@ checkpoint directory -> ggjt, or GGUF for BPE-tokenizer models), `load`
 
 The port runs on CUDA unless `--device cpu` is given. The compute dtype
 defaults to bfloat16 on CUDA and float32 on the CPU, and the decode chunk
-to 32 tokens per host sync on CUDA and 1 on the CPU. Flags and
-subcommands whose slice of the port has not landed fail with a message
-that names the slice.
+to 32 tokens per host sync on CUDA and 1 on the CPU. Flags whose
+slice of the port has not landed (--tp/--dp/--sp, --multihost) fail with a
+message that names the slice.
 """
 
 from __future__ import annotations
@@ -38,9 +41,7 @@ LOGO = r"""
  LLaMA inference  (PyTorch / CUDA)
 """
 
-# subcommand -> the slice of the port that brings it
-_UNPORTED_COMMANDS = {"finetune": "training"}
-_COMMANDS = ("load", "convert", "quantize", "perplexity")
+_COMMANDS = ("load", "convert", "quantize", "perplexity", "finetune")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,9 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="llamago-tpu-torch", description="LLaMA inference on PyTorch/CUDA")
     p.add_argument("command", nargs="?", default=None,
                    help="optional subcommand: load | convert | quantize | "
-                        "perplexity; finetune is not yet ported")
+                        "perplexity | finetune")
     p.add_argument("--file", default="", help="text file for `perplexity`/`finetune`")
-    p.add_argument("--out", default="", help="output path for `quantize`/`convert`")
+    p.add_argument("--out", default="",
+                   help="output path for `quantize`/`convert`/`finetune`")
     p.add_argument("--vocab-only", action="store_true",
                    help="`convert`: write only the scored vocab, no tensors")
     p.add_argument("--qkind", default="", choices=["", "q8_0", "q4_0", "q4_1"],
@@ -118,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-chunk", type=int, default=256,
                    help="max prompt tokens absorbed per engine step [256]")
     p.add_argument("--draft", type=int, default=7, help="speculative draft length [7]")
-    # --- LoRA fine-tuning flags (the training slice)
+    # --- LoRA fine-tuning
     p.add_argument("--rank", type=int, default=8, help="LoRA rank [8]")
     p.add_argument("--lora-alpha", type=float, default=16.0,
                    help="LoRA alpha (scale = alpha/rank) [16]")
@@ -142,15 +144,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported_reason(args) -> str | None:
     """Why these flags cannot run yet (the slice that brings them), or None."""
-    if args.command in _UNPORTED_COMMANDS:
-        return (f"the `{args.command}` subcommand is not yet ported "
-                f"({_UNPORTED_COMMANDS[args.command]} slice of the port)")
     if args.tp > 1 or args.dp != 1 or args.sp != 1:
         return "--tp/--dp/--sp are not yet ported (parallel slice of the port)"
     if args.multihost or args.coordinator or args.nprocs or args.procid >= 0:
         return "--multihost is not yet ported (parallel slice of the port)"
-    if args.lora:
-        return "--lora is not yet ported (training slice of the port)"
     return None
 
 
@@ -167,7 +164,7 @@ def main(argv: list[str] | None = None) -> int:
     if not args.silent:
         colorize("[magenta]" + LOGO)
 
-    if args.command is not None and args.command not in (*_UNPORTED_COMMANDS, *_COMMANDS):
+    if args.command is not None and args.command not in _COMMANDS:
         print(f"unknown command: {args.command}", file=sys.stderr)
         return 2
     reason = unported_reason(args)
@@ -201,6 +198,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if args.command == "perplexity":
             return cmd_perplexity(args)
+        if args.command == "finetune":
+            return cmd_finetune(args)
         return run(args)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -244,6 +243,14 @@ def _load_engine(args):
     )
     params = load_parameters(config, ckpt.tensors, device=device)
     params = fuse_layer_weights(unstack_layer_params(params, config.n_layers))
+    if args.lora:
+        # merge saved adapters into the weights at load: serving runs the
+        # plain kernel path afterwards, with no per-step cost
+        from llamago_tpu_torch.models.lora import attach_lora, load_lora, merge_lora
+
+        params = merge_lora(attach_lora(params, load_lora(args.lora)))
+        if not args.silent:
+            log("info", f"merged LoRA adapters from {args.lora}")
     if not args.silent:
         log("info", f"model ready in {time.time() - t0:.1f}s",
             layers=config.n_layers, dim=config.dim,
@@ -325,6 +332,59 @@ def cmd_perplexity(args) -> int:
     print(f"[PPL] perplexity {result['ppl']:.4f} | nll {result['nll']:.4f} | "
           f"{result['n_tokens']} tokens in {result['n_windows']} windows "
           f"(ctx {ctx}, {config.weight_dtype} weights)")
+    return 0
+
+
+def cmd_finetune(args) -> int:
+    """LoRA / QLoRA fine-tuning over a text file (models/lora.py): the base
+    stays frozen (a quantized base streams through the quantized matmul
+    kernels, whose autograd Function freezes it) and rank-r adapters train
+    with AdamW. Saves a small .npz; serve it with `--lora` (merged at load,
+    so serving speed is unchanged)."""
+    if not args.model or not args.file:
+        print("error: finetune needs --model and --file", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.tokenizer import tokenize
+
+    engine, ckpt, config = _load_engine(args)
+    params, device = engine.params, engine.device
+    engine = None  # its cache is not needed for training
+
+    with open(args.file, encoding="utf-8") as f:
+        text = f.read()
+    ids = np.asarray(tokenize(ckpt.vocab, " " + text, bos=True), np.int32)
+    seq = min(args.seq, args.context)
+    n_blocks = len(ids) // seq
+    if n_blocks == 0:
+        print(f"error: --file tokenizes to {len(ids)} tokens, fewer than "
+              f"--seq {seq}", file=sys.stderr)
+        return 2
+    blocks = ids[: n_blocks * seq].reshape(n_blocks, seq)
+    log("info", f"finetune: {len(ids)} tokens -> {n_blocks} blocks of {seq}",
+        rank=args.rank, steps=args.steps, lr=args.lr)
+
+    params = lora.init_lora(params, rank=args.rank, alpha=args.lora_alpha)
+    opt = lora.init_lora_opt_state(params, lr=args.lr)
+    rng = np.random.default_rng(args.seed if args.seed >= 0 else 0)
+    t0 = time.time()
+    loss = None
+    for step in range(args.steps):
+        take = rng.integers(0, n_blocks, size=args.train_batch)
+        batch = torch.from_numpy(blocks[take]).to(device)
+        params, opt, loss = lora.lora_train_step(params, opt, batch, config, lr=args.lr)
+        if not args.silent and (step % 10 == 0 or step == args.steps - 1):
+            log("info", f"step {step:4d} loss {float(loss):.4f} "
+                f"({time.time() - t0:.1f}s)")
+    out = args.out or (args.model + ".lora.npz")
+    lora.save_lora(out, params)
+    tps = args.steps * args.train_batch * seq / (time.time() - t0)
+    print(f"[FINETUNE] {args.steps} steps, final loss {float(loss):.4f}, "
+          f"{tps:.0f} tok/s -> adapters saved to {out}")
+    print(f"[FINETUNE] serve with: --model {args.model} --lora {out}")
     return 0
 
 

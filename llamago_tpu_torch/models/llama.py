@@ -10,8 +10,10 @@ final: logits = output @ (RMSNorm(x)*norm)   (llama.go:374-384)
 Parameter tree (checkpoint/params.py): {"tok_embeddings" [V, D], "norm"
 [D], "output" [D, V] or a quantized leaf, "layers": a tuple of per-layer dicts,
 or one dict of [L, ...] stacked leaves}, with fused "wqkv"/"w13" leaves or
-separate "wq"/"wk"/"wv"/"w1"/"w3". Rotated K is cached once; the KV cache
-is updated in place (runtime/kv_cache.py).
+separate "wq"/"wk"/"wv"/"w1"/"w3", or LoRA leaves over them
+(models/lora.py). Rotated K is cached once; the KV cache is updated in
+place (runtime/kv_cache.py), or, where autograd tracks the new rows
+(training), through copies that the cache then holds.
 
 Attention routing follows the JAX package (ops/attention.py
 can_fuse_attention): windows of t <= 32 query rows (decode steps, prefill
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.attention import (
@@ -68,10 +71,15 @@ def _attention(q, k_cache, v_cache, positions, k_scale=None, v_scale=None):
 
 def _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos):
     """Write the new rows k / v [B, T, KV, hd] into one layer of the cache
-    in place. On the int8 cache a decode step takes K3; a prefill window is
-    quantized and written by plain PyTorch, as the JAX package does (it has
-    no kernel for t > 1)."""
+    and return the layer's (k, v). On the int8 cache a decode step takes
+    K3; a prefill window is quantized and written by plain PyTorch, as the
+    JAX package does (it has no kernel for t > 1). The writes are in place,
+    except where autograd tracks k or v (training, dense cache only): then
+    they go into copies, so that neither the backward nor a recomputed
+    layer finds a saved tensor overwritten."""
     if ks_l is None:
+        if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+            k_layer, v_layer = k_layer.clone(), v_layer.clone()
         write_rows(k_layer, k, write_pos)
         write_rows(v_layer, v, write_pos)
     elif k.shape[1] == 1:
@@ -83,6 +91,7 @@ def _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos):
         write_rows(v_layer, vq, write_pos)
         write_scale_rows(ks_l, ks_new, write_pos)
         write_scale_rows(vs_l, vs_new, write_pos)
+    return k_layer, v_layer
 
 
 def _layer_list(layers, n_layers: int) -> list[dict]:
@@ -96,6 +105,41 @@ def _layer_list(layers, n_layers: int) -> list[dict]:
     return [{k: at(v, i) for k, v in layers.items()} for i in range(n_layers)]
 
 
+def _block(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, cos, sin,
+           config: ModelConfig):
+    """One transformer layer over x [B, T, D]: attention over the cache
+    layer (written first) and the FFN, each added to the residual. Returns
+    (x, k_layer, v_layer): the cache layer's tensors after the write."""
+    b, t = x.shape[:2]
+    q_dim = config.n_heads * config.head_dim
+    kv_dim = config.kv_heads * config.head_dim
+    hidden = config.ffn_hidden
+    h = rms_norm(x, lp["attention_norm"], config.norm_eps)
+    if "wqkv" in lp:
+        qkv = linear(h, lp["wqkv"])
+        q = qkv[..., :q_dim]
+        k = qkv[..., q_dim:q_dim + kv_dim]
+        v = qkv[..., q_dim + kv_dim:]
+    else:
+        q, k, v = linear(h, lp["wq"]), linear(h, lp["wk"]), linear(h, lp["wv"])
+    q = rotate(q.reshape(b, t, config.n_heads, config.head_dim), cos, sin)
+    k = rotate(k.reshape(b, t, config.kv_heads, config.head_dim), cos, sin)
+    v = v.reshape(b, t, config.kv_heads, config.head_dim)
+
+    k_layer, v_layer = _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos)
+    attn = _attention(q, k_layer, v_layer, positions, ks_l, vs_l)
+    x = x + linear(attn, lp["wo"])
+
+    h = rms_norm(x, lp["ffn_norm"], config.norm_eps)
+    if "w13" in lp:
+        h13 = linear(h, lp["w13"])
+        gate = F.silu(h13[..., :hidden].to(torch.float32)).to(h.dtype)
+        x = x + linear(gate * h13[..., hidden:], lp["w2"])
+    else:
+        x = x + swiglu(h, lp["w1"], lp["w2"], lp["w3"])
+    return x, k_layer, v_layer
+
+
 def forward_impl(
     params,
     tokens: torch.Tensor,  # [B, T] integer
@@ -105,13 +149,17 @@ def forward_impl(
     return_all_logits: bool = False,
     logit_index: torch.Tensor | None = None,  # [B] per-batch position
     return_embedding: bool = False,
+    remat: bool = False,  # recompute each layer's activations in the backward
 ):
     """One transformer step (prefill when T>1, decode when T=1).
 
     Returns (logits, cache): logits [B, T, V] f32 if return_all_logits,
     else [B, V] at `logit_index` (right-padded bucketed prefill) or the
     last position. With return_embedding a third element [B, D] f32 is
-    appended: the final-RMSNorm'd hidden state at that position."""
+    appended: the final-RMSNorm'd hidden state at that position. With
+    remat (training) each layer runs under torch.utils.checkpoint, so the
+    backward recomputes its activations instead of keeping them, as
+    jax.checkpoint does in the JAX package."""
     b, t = tokens.shape
     dtype = torch_dtype(config.dtype)
     dev = cache.k[0].device
@@ -121,36 +169,16 @@ def forward_impl(
 
     x = params["tok_embeddings"][tokens.to(device=dev, dtype=torch.long)].to(dtype)
 
-    q_dim = config.n_heads * config.head_dim
-    kv_dim = config.kv_heads * config.head_dim
-    hidden = config.ffn_hidden
     no_scales = [None] * config.n_layers
-    for lp, k_layer, v_layer, ks_l, vs_l in zip(
-            _layer_list(params["layers"], config.n_layers), cache.k, cache.v,
-            cache.ks or no_scales, cache.vs or no_scales):
-        h = rms_norm(x, lp["attention_norm"], config.norm_eps)
-        if "wqkv" in lp:
-            qkv = linear(h, lp["wqkv"])
-            q = qkv[..., :q_dim]
-            k = qkv[..., q_dim:q_dim + kv_dim]
-            v = qkv[..., q_dim + kv_dim:]
+    layers = _layer_list(params["layers"], config.n_layers)
+    for i, (lp, ks_l, vs_l) in enumerate(zip(layers, cache.ks or no_scales,
+                                             cache.vs or no_scales)):
+        args = (x, lp, cache.k[i], cache.v[i], ks_l, vs_l, write_pos, positions, cos, sin,
+                config)
+        if remat:
+            x, cache.k[i], cache.v[i] = checkpoint(_block, *args, use_reentrant=False)
         else:
-            q, k, v = linear(h, lp["wq"]), linear(h, lp["wk"]), linear(h, lp["wv"])
-        q = rotate(q.reshape(b, t, config.n_heads, config.head_dim), cos, sin)
-        k = rotate(k.reshape(b, t, config.kv_heads, config.head_dim), cos, sin)
-        v = v.reshape(b, t, config.kv_heads, config.head_dim)
-
-        _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos)
-        attn = _attention(q, k_layer, v_layer, positions, ks_l, vs_l)
-        x = x + linear(attn, lp["wo"])
-
-        h = rms_norm(x, lp["ffn_norm"], config.norm_eps)
-        if "w13" in lp:
-            h13 = linear(h, lp["w13"])
-            gate = F.silu(h13[..., :hidden].to(torch.float32)).to(h.dtype)
-            x = x + linear(gate * h13[..., hidden:], lp["w2"])
-        else:
-            x = x + swiglu(h, lp["w1"], lp["w2"], lp["w3"])
+            x, cache.k[i], cache.v[i] = _block(*args)
 
     x = rms_norm(x, params["norm"], config.norm_eps)
     if not return_all_logits:

@@ -15,6 +15,10 @@ takes `flash_attention_plain`, the TPU kernel's online softmax over
 S-blocks written in PyTorch; a CUDA tensor takes the kernel, or the
 wrapper raises.
 
+Under grad `flash_attention` goes through `FlashAttention`, the JAX
+package's custom VJP: K2 or K7 forward, autograd of `attention_math`
+backward.
+
 For longer windows, and for every window when LLAMAGO_ATTN_LENAWARE is
 "0", `flash_attention` is K7. It replaces `_attn_kernel`; the CUDA kernel
 is `csrc/attn_prefill.cu` (an online softmax over S-tiles that stops at the
@@ -364,7 +368,12 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     (`launches`, `launches_prefill`), and its form's (`k2_form`, `k7_form`):
     `launches_decode_tc` and `launches_prefill_tc` the bf16 forms,
     `launches_decode_f32tc` and `launches_prefill_f32tc` the f32 forms.
+    Where grad is enabled and q, k or v requires it, the call goes
+    through `FlashAttention`, whose backward is that of `attention_math`.
     Returns [B, t, H*hd] in q.dtype."""
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        return FlashAttention.apply(q, k_cache, v_cache, positions)
     b, t, h, hd = q.shape
     kv = k_cache.shape[1]
     q5 = q.reshape(b, t, kv, h // kv, hd)
@@ -403,6 +412,31 @@ flash_attention.launches_decode_f32tc = 0  # K2's f32 tensor-core form (3xTF32)
 flash_attention.launches_prefill = 0  # K7, either form
 flash_attention.launches_prefill_tc = 0  # K7's bf16 tensor-core form
 flash_attention.launches_prefill_f32tc = 0  # K7's f32 tensor-core form (3xTF32)
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` for training: the JAX package's custom VJP
+    (`_flash_fwd` / `_flash_bwd`). The forward is `flash_attention` itself,
+    K2 or K7 (their plain versions on the CPU), which Function.apply runs
+    with grad off; the backward is autograd of `attention_math` on the
+    saved q, k and v, as JAX differentiates it, in plain PyTorch (JAX has
+    no backward kernel either). `positions` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, positions):
+        ctx.save_for_backward(q, k_cache, v_cache, positions)
+        return flash_attention(q, k_cache, v_cache, positions)  # grad is off here
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_cache, v_cache, positions = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(need)
+                   for a, need in zip((q, k_cache, v_cache), ctx.needs_input_grad)]
+            out = attention_math(*ins, positions)
+            want = [a for a in ins if a.requires_grad]
+            grads = iter(torch.autograd.grad(out, want, g))
+        return (*(next(grads) if a.requires_grad else None for a in ins), None)
 
 
 def quant_fits(t: int, s: int) -> bool:

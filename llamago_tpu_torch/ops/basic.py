@@ -4,7 +4,7 @@ Counterparts of the JAX package's `ops/basic.py` (reference kernels:
 RMSNorm ml.go:1753-1812, RoPE ml.go:2253-2328, SiLU ml.go:2599). `linear`
 is the seam where block-quantized weights (Q8_0, Q4_0, Q4_1, w4x8)
 dispatch to the quantized matmuls (ops/quant.py:quant_matmul,
-ops/kernels.py).
+ops/kernels.py) and LoRA leaves add their low-rank update.
 """
 
 from __future__ import annotations
@@ -64,10 +64,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def linear(x: torch.Tensor, w, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """x @ w. `w` is a dense [in, out] tensor or a quantized leaf
+    """x @ w. `w` is a dense [in, out] tensor, a quantized leaf
     ({"q8" | "q4" | "q4x", "s"[, "m"]}, ops/quant.py), which goes to
-    `quant_matmul`."""
+    `quant_matmul`, or a LoRA leaf ({"base", "lora_a", "lora_b",
+    "lora_scale"}, models/lora.py): base(x) + ((x @ a) @ b) * scale, with
+    a, b and scale in x.dtype. A dense base is detached (frozen, as
+    `stop_gradient` freezes it in the JAX package); a quantized base is
+    frozen by `kernels.FrozenQuantMatmul`."""
     if isinstance(w, dict):
+        if "lora_a" in w:
+            base_w = w["base"]
+            if not isinstance(base_w, dict):
+                base_w = base_w.detach()
+            base = linear(x, base_w, compute_dtype=compute_dtype)
+            a, b = w["lora_a"].to(x.dtype), w["lora_b"].to(x.dtype)
+            delta = torch.matmul(torch.matmul(x, a), b) * w["lora_scale"].to(x.dtype)
+            return base + delta.to(base.dtype)
         from llamago_tpu_torch.ops.quant import quant_matmul
 
         return quant_matmul(x, w)

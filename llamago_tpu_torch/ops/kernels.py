@@ -47,6 +47,10 @@ took the tensor-core decode form, `.launches_f32_decode_tc` the decode form
 with f32 x, `.launches_tc` the tensor-core tile and `.launches_f32_tc` the
 tile with f32 x)).
 
+Under grad, `ops/quant.py:quant_matmul` calls `dequant_matmul` through
+`FrozenQuantMatmul`, the JAX package's custom VJP: the kernels forward, and
+dx = g @ dequantize(w)^T in plain PyTorch backward; the leaf is frozen.
+
 `fused_rms_norm(x, w, eps)` is K10, replacing `_rms_norm_kernel`
 (CUDA: `csrc/rms_norm.cu`, one trip to memory in the launch `norm_plan`
 gives): the whole norm in f32 with one rounding to x.dtype, which in bf16
@@ -577,6 +581,35 @@ dequant_matmul.launches_f32_tc = 0
 dequant_matmul.launches_f32_decode_tc = 0
 
 
+class FrozenQuantMatmul(torch.autograd.Function):
+    """x @ a quantized leaf with the leaf frozen, for training: the JAX
+    package's `dequant_matmul` custom VJP (`_dm_fwd` / `_dm_bwd`). The
+    forward is `dequant_matmul`, looked up as this module's attribute at
+    each call, so whatever stands there (the kernels, or a plain version
+    swapped in) runs under grad as it runs without. The backward is plain
+    PyTorch, as JAX computes it outside any kernel: dx = g @ dequantize(w)^T
+    in x.dtype; the leaf gets no gradient. Launch counts count the forward
+    only. `ops/quant.py:quant_matmul` sends Q8_0, Q4_0 and w4x8 leaves here
+    when grad is enabled and x requires it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: dict) -> torch.Tensor:
+        ctx.w, ctx.x_dtype = w, x.dtype
+        return dequant_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # the span's device time is the backward's dequantize + matmul
+        with torch.autograd.profiler.record_function(BACKWARD_SPAN):
+            deq = dequantize(ctx.w, ctx.x_dtype)
+            dx = torch.matmul(g.to(ctx.x_dtype), deq.T)
+        return dx, None
+
+
+# the profiler span around FrozenQuantMatmul's backward
+BACKWARD_SPAN = "dequant_matmul_backward"
+
+
 # ------------------------------------------------------------------ RMSNorm
 
 def fused_rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -641,7 +674,14 @@ def _alignment(*xs: torch.Tensor) -> int:
 
 
 def fused_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """K10: RMSNorm of x [..., d] times w [d] as one pass, in x.dtype."""
+    """K10: RMSNorm of x [..., d] times w [d] as one pass, in x.dtype. It
+    has no backward, as the JAX package's has none (`jax.grad` through it
+    fails there): where grad is enabled and x or w requires it, it raises
+    rather than drop the gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "fused_rms_norm (K10) has no backward, as in the JAX package: "
+            "train with ops.kernels.USE_FUSED_NORM off")
     if x.device.type == "cpu":
         return fused_rms_norm_plain(x, w, eps)
     _cuda_or_raise(x, "fused_rms_norm")

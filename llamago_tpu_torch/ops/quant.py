@@ -211,13 +211,17 @@ def dequantize(w: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
 def quant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
     """x [..., in] @ quantized w -> [..., out]. Q8_0, Q4_0 and w4x8 leaves
     go to the kernels of ops/kernels.py (the CUDA kernel on a CUDA tensor,
-    its plain version on a CPU tensor). A Q4_1 leaf is dequantized to
-    x.dtype and multiplied by torch.matmul: the JAX package has no kernel
-    for it either."""
+    its plain version on a CPU tensor); where grad is enabled and x
+    requires it, through `kernels.FrozenQuantMatmul`, which gives x its
+    gradient and freezes the leaf. A Q4_1 leaf is dequantized to x.dtype
+    and multiplied by torch.matmul: the JAX package has no kernel for it
+    either."""
     if "m" in w:
         return torch.matmul(x, dequantize(w, x.dtype))
     from llamago_tpu_torch.ops import kernels
 
+    if torch.is_grad_enabled() and x.requires_grad:
+        return kernels.FrozenQuantMatmul.apply(x, w)
     return kernels.dequant_matmul(x, w)
 
 

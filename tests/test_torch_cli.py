@@ -131,8 +131,6 @@ def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
     (["--tp", "2"], "parallel"),
     (["--dp", "2"], "parallel"),
     (["--multihost"], "parallel"),
-    (["--lora", "a.npz"], "training"),
-    (["finetune"], "training"),
 ])
 def test_unported_flags_fail_naming_the_slice(flags, slice_name, capsys):
     assert cli.main(["--model", "m.bin", "--silent", "--device", "cpu"] + flags) == 2
