@@ -89,8 +89,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      bf16 parts in the prefill windows, K1 and K9 their decode form on
      x's three bf16 parts in the decode steps, K2 and K7 their 3xTF32
      forms);
-  4. serve full-width LLaMA-7B with random Q8_0 weights (depth and weights
-     as MODEL_PRESETS["7B"], random from seed 0) over the REST job API:
+  4. serve full-width LLaMA-7B with random Q8_0 weights (widths and
+     weights as MODEL_PRESETS["7B"], random from seed 0; 16 of its 32 layers
+     since phase 8 joined, for the time limit, in phases 4 to 4d, 4f and
+     4g) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
      greedy job twice. The launch counts of K1, its tensor-core decode
      form (`launches_decode_tc`: every decode step), its tensor-core tile
@@ -141,8 +143,9 @@ Phases, each of which fails the run (exit code 1, no result line):
      versions' times and `x @ W` on a bf16 copy as the library yardstick.
      The launch counts of the nine kernels and of K1 (both formats) and K9,
      which carry the lab's other rows, must rise in the lab's run;
-  4e. the --dtype float32 route at full width: 7B with random Q8_0 and
-     then w4x8 weights (seed 0) and f32 compute, the f32 cache, 4 slots, 4
+  4e. the --dtype float32 route at full width: 7B (8 of its 32 layers
+     since phase 8 joined, for the time limit) with random Q8_0 and then
+     w4x8 weights (seed 0) and f32 compute, the f32 cache, 4 slots, 4
      jobs of which one brings a 600-token prompt: 0 failed jobs,
      in-vocabulary tokens, the repeated greedy job; every K1 call over 8
      rows and every K6 call takes its tile on x's three bf16 parts, every
@@ -188,9 +191,10 @@ Phases, each of which fails the run (exit code 1, no result line):
      and held card (kernels) against CPU (plain versions) in f32: logits
      within 1e-3 of max|logit| and equal greedy tokens; the ggjt and GGUF
      copies of one model give bit-identical logits on the card. Then
-     MODEL_PRESETS["llama3-8B"] at full width and depth (32 layers, 8 kv
-     heads, FFN 14,336, vocab 128,256, rope theta 500,000) as a random Q8_0
-     GGUF of about 8.5 GB written by write_gguf into a temporary directory,
+     MODEL_PRESETS["llama3-8B"] at full width (8 kv heads, FFN 14,336,
+     vocab 128,256, rope theta 500,000; 8 of its 32 layers since phase 8
+     joined, for the time limit) as a random Q8_0 GGUF of about 2.8 GB
+     written by write_gguf into a temporary directory,
      its byte-level BPE vocab built here (the 256 byte tokens, merges
      learned from README.md and SURVEY.md, reserved specials,
      <|begin_of_text|> = 128000, <|end_of_text|> = 128001, llama-bpe), read
@@ -232,6 +236,33 @@ Phases, each of which fails the run (exit code 1, no result line):
      q4_0 row (the 0.1-ppl thresholds reported, not enforced), then the
      dense and Q8_0 files in bf16 with K10 on and the int8 cache with bf16
      scale planes;
+  8. (`parallel`, run after phase 7, before phase 3) the parallel path,
+     as two rank processes sharing the one
+     card over gloo (NCCL refuses two ranks on one GPU; these are numbers
+     of a bring-up, not of two cards): 8.1 the CLI's `--server --pods 2
+     --tp 2` as two processes (`--coordinator 127.0.0.1:P --nprocs 2
+     --procid 0|1`) on a small Q8_0 file in f32 at temp 0: the outputs of 3
+     jobs posted to rank 0 equal a one-process server's, /v1/embeddings
+     (through embed_routed) within 1e-4 of max|e|, each rank's K1 and K2
+     launch counts (logged by the rank when SIGTERM stops both through
+     rank 0's broadcast) above 0; 8.2 LLaMA-7B Q8_0 at full width and depth
+     (seed 0, drawn as world size 1 draws it and cut per rank), tp = 2 over
+     the bf16 and the int8 cache, dp = 2 and sp = 2 on 4 slots, each in bf16
+     and f32: the last position's logits of a 16-token prefill against
+     world size 1 on the card within 5e-2 (bf16) and 1e-4 (f32) of
+     max|logit|, 4 greedy jobs of 8 tokens equal on both ranks and, in f32,
+     equal to world size 1's, and each rank's K1, K2, K3 and K4 launches
+     above 0 where the setup reaches them; 8.3 LLaMA-2-70B (dim 8192, 64 /
+     8 heads, FFN 28672, vocab 32000, 80 layers) with random w4x8 weights at
+     tp = 2, each rank drawing and cutting its blocks layer by layer (its
+     memory logged): 4 sampled jobs served over REST on rank 0 through
+     serve_lockstep, both ranks running the same jobs to the same tokens,
+     K5, K6 and K2 (g = 8) launched on both ranks; then K5 (m = 1, 4, 16),
+     K6 (m = 17, 64) and K2 (4 slots, 4 kv heads, g = 8, hd = 128, S = 512)
+     at a rank's shard shapes against their plain versions, timed beside
+     x @ W / SDPA and their bounds; 8.4 one decode step of the 70B ranks
+     profiled (host ms, device busy, kernels and host op calls a step, the
+     collectives' count, host time and host copies);
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
@@ -240,7 +271,7 @@ side, with phase 4f's tokens/s, TTFT and accepted drafts a verify step,
 JSON), the perplexity line (phase 4g, JSON), the GGUF line (phase 6: the
 file, its times, the small models' card-vs-CPU errors; JSON), the training
 line (phase 7: the 7B step's numbers, the small steps' errors, the gate's
-rows; JSON), the card line, the kernels line
+rows; JSON), the parallel line (phase 8; JSON), the card line, the kernels line
 (JSON) and, last, the device line (JSON). `--out` names a file for the
 detail (per-shape kernel times, the serving numbers, the decode-step
 profile) as JSON. `--only` runs the
@@ -248,7 +279,7 @@ named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
 small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32,
 serve_spec, ppl, llama3 (phase 2 at LLaMA-3-8B's shapes), gguf (phase 6),
-train (phase 7).
+train (phase 7), parallel (phase 8).
 """
 
 from __future__ import annotations
@@ -2319,64 +2350,25 @@ def _byte_vocab(vocab_size: int):
 
 def _launch_counters():
     """(wrapper, attribute) holding each kernel's launch count, by name."""
-    from llamago_tpu_torch.ops import attention, cache_write, kernels
-    from llamago_tpu_torch.ops import lab_kernels as lk
+    from llamago_tpu_torch.ops import launches
 
-    return {"dequant_matmul": (kernels.dequant_matmul, "launches"),
-            "dequant_matmul_q4": (kernels.dequant_matmul, "launches_q4"),
-            "dequant_matmul_tc": (kernels.dequant_matmul, "launches_tc"),
-            "dequant_matmul_decode_tc": (kernels.dequant_matmul, "launches_decode_tc"),
-            "dequant_matmul_f32_tc": (kernels.dequant_matmul, "launches_f32_tc"),
-            "dequant_matmul_f32_decode_tc": (kernels.dequant_matmul, "launches_f32_decode_tc"),
-            "w4x8_matmul_a8": (kernels.w4x8_matmul, "launches_a8"),
-            "w4x8_matmul_stream": (kernels.w4x8_matmul, "launches_stream"),
-            "w4x8_matmul_tc": (kernels.w4x8_matmul, "launches_tc"),
-            "w4x8_matmul_f32_tc": (kernels.w4x8_matmul, "launches_f32_tc"),
-            "dequant_matmul_so": (kernels.dequant_matmul_so, "launches"),
-            "dequant_matmul_so_decode_tc": (kernels.dequant_matmul_so, "launches_decode_tc"),
-            "dequant_matmul_so_f32_decode_tc": (kernels.dequant_matmul_so,
-                                                "launches_f32_decode_tc"),
-            "dequant_matmul_so_tc": (kernels.dequant_matmul_so, "launches_tc"),
-            "dequant_matmul_so_f32_tc": (kernels.dequant_matmul_so, "launches_f32_tc"),
-            "flash_attention": (attention.flash_attention, "launches"),
-            "flash_attention_decode_tc": (attention.flash_attention, "launches_decode_tc"),
-            "flash_attention_decode_f32tc": (attention.flash_attention,
-                                             "launches_decode_f32tc"),
-            "flash_attention_prefill": (attention.flash_attention, "launches_prefill"),
-            "flash_attention_prefill_tc": (attention.flash_attention, "launches_prefill_tc"),
-            "flash_attention_prefill_f32tc": (attention.flash_attention,
-                                              "launches_prefill_f32tc"),
-            "fused_rms_norm": (kernels.fused_rms_norm, "launches"),
-            "cache_append_quant": (cache_write.cache_append_quant, "launches"),
-            "flash_attention_quant_i8dot": (attention.flash_attention_quant,
-                                            "launches_i8dot"),
-            "flash_attention_quant_i8dot_tc": (attention.flash_attention_quant,
-                                               "launches_i8dot_tc"),
-            "flash_attention_quant_widening": (attention.flash_attention_quant,
-                                               "launches_widening"),
-            "flash_attention_quant_widening_tc": (attention.flash_attention_quant,
-                                                  "launches_widening_tc"),
-            "lab_i4_matmul": (lk.i4_matmul, "launches"),
-            "lab_bf16_dequant_matmul": (lk.bf16_dequant_matmul, "launches"),
-            "lab_w4a8_matmul": (lk.w4a8_matmul, "launches"),
-            "lab_w8a8_matmul": (lk.w8a8_matmul, "launches"),
-            "lab_fulltk_matmul": (lk.fulltk_matmul, "launches"),
-            "lab_bitcast_i4_matmul": (lk.bitcast_i4_matmul, "launches"),
-            "lab_bitcast_i4_i8dot": (lk.bitcast_i4_i8dot, "launches"),
-            "lab_probe": (lk.probe, "launches"),
-            "lab_w16_matmul": (lk.w16_matmul, "launches")}
+    return launches.counters()
 
 
 def reset_launch_counts() -> None:
-    for fn, attr in _launch_counters().values():
-        setattr(fn, attr, 0)
+    from llamago_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def launch_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in _launch_counters().items()}
+    from llamago_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
-def make_7b_params(dev, weight_dtype: str = "int8", dtype: str = "bfloat16"):
+def make_7b_params(dev, weight_dtype: str = "int8", dtype: str = "bfloat16",
+                   n_layers: int = 32):
     """Full-width, full-depth LLaMA-7B with random Q8_0 weights, or int4
     weights in the w4x8 format (seed 0), fused wqkv/w13, bf16 compute (or
     `dtype`'s: float32 is the --dtype float32 route)."""
@@ -2388,7 +2380,7 @@ def make_7b_params(dev, weight_dtype: str = "int8", dtype: str = "bfloat16"):
     )
     from llamago_tpu_torch.config import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["7B"].replace(weight_dtype=weight_dtype, dtype=dtype)
+    cfg = MODEL_PRESETS["7B"].replace(weight_dtype=weight_dtype, dtype=dtype, n_layers=n_layers)
     env = os.environ.get("LLAMAGO_INT4_EXEC")
     os.environ["LLAMAGO_INT4_EXEC"] = "w4x8"
     t0 = time.time()
@@ -2688,7 +2680,7 @@ def _forward_vs_plain(dev, cfg, params, what: str, swaps) -> float:
 
 def serve_f32(dev, weight_dtype: str) -> dict:
     """Phase 4e: the --dtype float32 route end to end at full width. 7B
-    with random weights (seed 0; Q8_0, or int4 as w4x8) and f32 compute,
+    (F32_ROUTE_LAYERS of its layers) with random weights (seed 0; Q8_0, or int4 as w4x8) and f32 compute,
     the f32 cache, 4 slots, 4 jobs of which one brings a 600-token prompt
     (256-token chunks): 0 failed jobs, in-vocabulary tokens, a repeated
     greedy job (`serve`); every K1 launch plan over 8 rows and every K6 one
@@ -2706,7 +2698,7 @@ def serve_f32(dev, weight_dtype: str) -> dict:
 
     from llamago_tpu_torch.ops import kernels
 
-    cfg, params = make_7b_params(dev, weight_dtype, dtype="float32")
+    cfg, params = make_7b_params(dev, weight_dtype, dtype="float32", n_layers=F32_ROUTE_LAYERS)
     int8 = weight_dtype == "int8"
     rise = (("dequant_matmul", "dequant_matmul_f32_tc", "dequant_matmul_f32_decode_tc")
             if int8 else
@@ -3405,12 +3397,12 @@ def _l3_attn_rows(dev, gen, name: str, c: dict, windows, timed_at, dtype: str, t
     return rows
 
 
-def _step(rows: list[dict], s: int) -> dict:
+def _step(rows: list[dict], s: int, layers: int = 32) -> dict:
     """The kernels line's numbers of an attention row set: one decode step
-    at full fill (a call per layer, 32) and the largest error."""
+    at full fill (a call per layer) and the largest error."""
     rec = next(r for r in rows if r["t"] == 1 and r["fill"] == s and "ms" in r)
     return {"max_abs_err": max(r["max_abs_err"] for r in rows), "bound_by": rec["bound_by"],
-            **{k: 32 * rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+            **{k: layers * rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
 def check_llama3(dev, detail: dict) -> dict:
@@ -3432,37 +3424,66 @@ def check_llama3(dev, detail: dict) -> dict:
     fill."""
     import torch
 
-    from llamago_tpu_torch.ops import attention, cache_write, kernels
+    out = _k1_at(dev, detail, "llama3", LLAMA3_SHAPES, (41, 42), other_m=(1, 8, 9))
+    gen = torch.Generator(device=dev).manual_seed(43)
+    out.update(_gqa_k2(dev, gen, detail, "llama3", L3_K2_SHAPE))
+    out["k4"] = _gqa_k4(dev, gen, detail, "llama3", L3_K4_SHAPE)
+    out["k3"] = _gqa_k3(dev, gen, detail, "llama3", L3_K4_SHAPE, fused=True)
+    return out
+
+
+def _k1_at(dev, detail: dict, name: str, shapes: tuple, seeds: tuple, other_m: tuple) -> dict:
+    """K1 (Q8_0) at `shapes` with bf16 x and f32 x, each checked within
+    K1_TOL at `other_m` and at m = 4 (its decode form) and 64 (its tile),
+    timed at m = 4 and 64 (bf16 x against bf16 operations, f32 x against
+    three bf16 passes), every call counted as the form `k1_form` names,
+    into NaN-filled memory. Returns the kernels line's numbers, each one
+    pass of `shapes`: the decode form and the tile with bf16 x
+    ("k1_decode", "k1_tile") and with f32 x ("k1_f32_decode",
+    "k1_f32_tile")."""
+    from llamago_tpu_torch.ops import kernels
 
     k1, k1_nan = _k1_checked()
-    errs, steps = check_matmul(dev, detail, "K1 llama3", "q8", k1, kernels.dequant_matmul_plain,
-                               timed_m=(4, 64), other_m=(1, 8, 9), shapes=LLAMA3_SHAPES,
-                               ops_per_s=lambda m: BF16_OPS_PER_S, seed=41,
-                               other_shapes=tuple(n for n, *_ in LLAMA3_SHAPES), checked=k1_nan)
-    errs32, steps32 = check_matmul(dev, detail, "K1 llama3 f32", "q8", k1,
+    tag = f"K1 {name}"
+    errs, steps = check_matmul(dev, detail, tag, "q8", k1, kernels.dequant_matmul_plain,
+                               timed_m=(4, 64), other_m=other_m, shapes=shapes,
+                               ops_per_s=lambda m: BF16_OPS_PER_S, seed=seeds[0],
+                               other_shapes=tuple(n for n, *_ in shapes), checked=k1_nan)
+    errs32, steps32 = check_matmul(dev, detail, f"{tag} f32", "q8", k1,
                                    kernels.dequant_matmul_plain, timed_m=(4, 64), other_m=(),
-                                   shapes=LLAMA3_SHAPES, ops_per_s=lambda m: F32_TC_OPS_PER_S,
-                                   seed=42, timed_dtype="float32", checked=k1_nan)
+                                   shapes=shapes, ops_per_s=lambda m: F32_TC_OPS_PER_S,
+                                   seed=seeds[1], timed_dtype="float32", checked=k1_nan)
     both = {key: max(errs.get(key, 0.0), errs32.get(key, 0.0)) for key in {*errs, *errs32}}
     for m, form in ((4, "the decode form"), (64, "the tile")):
-        log(f"K1 llama3 at m={m}: {form} {steps[m]['ms']:.3f} ms per pass (bf16 x; x@W "
+        log(f"{tag} at m={m}: {form} {steps[m]['ms']:.3f} ms per pass (bf16 x; x@W "
             f"{steps[m]['library_ms']:.3f} ms, bound {steps[m]['bound_ms']:.3f} ms), "
             f"{steps32[m]['ms']:.3f} ms (f32 x; x@W f32 {steps32[m]['library_ms']:.3f} ms, "
             f"bound {steps32[m]['bound_ms']:.3f} ms)")
-    out = {"k1_decode": _line(errs, steps, 4, lambda m, xdt: m <= 8 and xdt == "bfloat16"),
-           "k1_tile": _line(errs, steps, 64, lambda m, xdt: m > 8 and xdt == "bfloat16"),
-           "k1_f32_tile": _line(both, steps32, 64, lambda m, xdt: m > 8 and xdt == "float32")}
+    return {"k1_decode": _line(errs, steps, 4, lambda m, xdt: m <= 8 and xdt == "bfloat16"),
+            "k1_tile": _line(errs, steps, 64, lambda m, xdt: m > 8 and xdt == "bfloat16"),
+            "k1_f32_decode": _line(both, steps32, 4, lambda m, xdt: m <= 8 and xdt == "float32"),
+            "k1_f32_tile": _line(both, steps32, 64, lambda m, xdt: m > 8 and xdt == "float32")}
 
-    gen = torch.Generator(device=dev).manual_seed(43)
-    # K2, the bf16 and the f32 cache
-    c = L3_K2_SHAPE
+
+def _gqa_k2(dev, gen, detail: dict, name: str, c: dict, layers: int = 32) -> dict:
+    """K2 at the geometry `c` in bf16 (its tensor-core form) within K2_TOL
+    and in f32 (its 3xTF32 form) within F32_ATTN_TOL: checked at t = 1 for
+    fills 1, 101, its split's edges and S, and at t = 8 and 32, timed at
+    t = 1 for fills 101 and S beside SDPA with enable_gqa. Returns the
+    kernels line's numbers of one decode step at full fill, "k2" (bf16)
+    and "k2_f32"."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+
     b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    out = {}
     for dtype, tol, rate in (("bfloat16", K2_TOL, BF16_OPS_PER_S),
                              ("float32", F32_ATTN_TOL, TF32X3_OPS_PER_S)):
         dt = getattr(torch, dtype)
         sps = attention.decode_attn_plan(b, kv, 1, g, hd, s, dt)[0]
         windows = [(1, f) for f in sorted({1, 101, sps - 1, sps, sps + 1, s})]
-        windows += [(8, 101), (8, s), (32, 300), (32, s)]
+        windows += [(8, 101), (8, s), (32, min(300, s)), (32, s)]
 
         def k2(q, cache, positions, counted=True):
             return (_k2_call if counted else attention.flash_attention)(q, *cache, positions)
@@ -3474,17 +3495,26 @@ def check_llama3(dev, detail: dict) -> dict:
             return attention.flash_attention_plain(q5, *cache, pos0)
 
         rows = _l3_attn_rows(
-            dev, gen, f"K2 llama3 {dtype}", c, windows, {(1, 101), (1, s)}, dtype, tol, k2,
+            dev, gen, f"K2 {name} {dtype}", c, windows, {(1, 101), (1, s)}, dtype, tol, k2,
             k2_error, k2_plain,
             lambda: tuple(torch.randn((b, kv, s, hd), generator=gen, device=dev).to(dt)
                           for _ in range(2)),
             2 * b * kv * s * hd * dt.itemsize, lambda cache, vis: (cache[0][:, :, :vis],
                                                                    cache[1][:, :, :vis]), rate)
-        detail[f"k2_llama3_{dtype}"] = rows
-        out["k2" if dtype == "bfloat16" else "k2_f32"] = _step(rows, s)
+        detail[f"k2_{name.replace(' ', '_')}_{dtype}"] = rows
+        out["k2" if dtype == "bfloat16" else "k2_f32"] = _step(rows, s, layers)
+    return out
 
-    # K4, the int8 cache (its tensor-core form at S = 1024)
-    c = L3_K4_SHAPE
+
+def _gqa_k4(dev, gen, detail: dict, name: str, c: dict, layers: int = 32) -> dict:
+    """K4 at the geometry `c` in its tensor-core form within K4_TOL,
+    checked at t = 1 for fills 1, 101 and S and at t = 8 and 32, timed at
+    t = 1 for fills 101 and S beside SDPA on the dequantized cache. Returns
+    the kernels line's numbers of one decode step at full fill."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention
+
     b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
     plain4 = attention.flash_attention_quant_i8dot_plain
 
@@ -3504,17 +3534,32 @@ def check_llama3(dev, detail: dict) -> dict:
                 (v8[:, :, :vis].float() * vs[:, :, :vis, None]).bfloat16())
 
     if attention.quant_plan(attention._I8DOT, b, kv, 1, g, hd, s, torch.bfloat16)[0] != "i8dot_tc":
-        raise AssertionError("K4 llama3: the serving geometry does not take the tensor-core form")
+        raise AssertionError(f"K4 {name}: the serving geometry does not take the tensor-core "
+                             "form")
     rows = _l3_attn_rows(
-        dev, gen, "K4 llama3", c, [(1, 1), (1, 101), (1, s), (8, 101), (8, s), (32, s)],
+        dev, gen, f"K4 {name}", c, [(1, 1), (1, 101), (1, s), (8, 101), (8, s), (32, s)],
         {(1, 101), (1, s)}, "bfloat16", K4_TOL, k4, k4_error,
         lambda q5, cache, pos0: plain4(q5, cache[0], cache[2], pos0, cache[1], cache[3]),
         lambda: (*_quant_cache(dev, gen, b, kv, s, hd), *_quant_cache(dev, gen, b, kv, s, hd)),
         2 * b * kv * s * (hd + 4), k4_deq, INT8_OPS_PER_S)
-    detail["k4_llama3"] = rows
-    out["k4"] = _step(rows, s)
+    detail[f"k4_{name.replace(' ', '_')}"] = rows
+    return _step(rows, s, layers)
 
-    # K3 on the serving path's GQA rows: v a view of the fused projection
+
+def _gqa_k3(dev, gen, detail: dict, name: str, c: dict, fused: bool,
+            layers: int = 32) -> dict:
+    """K3 at the geometry `c` (b slots, kv heads of hd, S positions), bit
+    for bit against its plain version with bf16 and f32 rows at fills 101
+    and S (int64 positions), then timed beside its bound and the launch
+    floor. The new rows are laid out as the serving path makes them: v a
+    strided view of the fused [q | k | v] projection (`fused`), or k and v
+    each their own projection's output (unfused leaves, as under tp).
+    Returns the kernels line's numbers of one decode step at full fill."""
+    import torch
+
+    from llamago_tpu_torch.ops import cache_write
+
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
     h = kv * g
     floor = launch_floor_ms()
     cache = [torch.randint(-127, 128, (b, kv, s, hd), generator=gen, dtype=torch.int8,
@@ -3522,6 +3567,9 @@ def check_llama3(dev, detail: dict) -> dict:
     cache += [torch.rand((b, kv, s), generator=gen, device=dev) for _ in range(2)]
 
     def new_rows(dtype):
+        if not fused:
+            return [torch.randn((b, 1, kv * hd), generator=gen, device=dev).to(dtype)
+                    .reshape(b, 1, kv, hd) for _ in range(2)]
         qkv = torch.randn((b, 1, (h + 2 * kv) * hd), generator=gen, device=dev).to(dtype)
         k = qkv[..., h * hd:(h + kv) * hd].reshape(b, 1, kv, hd).contiguous()
         return [k, qkv[..., (h + kv) * hd:].reshape(b, 1, kv, hd)]
@@ -3538,7 +3586,7 @@ def check_llama3(dev, detail: dict) -> dict:
             torch.cuda.synchronize()
             if cache_write.cache_append_quant.launches != launches + 1 or \
                     not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"K3 llama3 fill={fill} {dtype}: not bit-exact against "
+                raise AssertionError(f"K3 {name} fill={fill} {dtype}: not bit-exact against "
                                      "the plain version, or no launch counted")
         new = new_rows(torch.bfloat16)
         kern = timed([lambda: cache_write.cache_append_quant(*cache, *new, pos)], 200)
@@ -3548,16 +3596,15 @@ def check_llama3(dev, detail: dict) -> dict:
                            F32_OPS_PER_S)
         k3_rows.append(dict(fill=fill, ms=kern, plain_ms=plain, library_ms=None, bound_ms=bnd,
                             bound_by=by, launch_floor_ms=floor))
-        log(f"K3 llama3 b={b} KV={kv} fill={fill}: bit-exact (bf16 and f32 rows), kernel "
+        log(f"K3 {name} b={b} KV={kv} fill={fill}: bit-exact (bf16 and f32 rows), kernel "
             f"{kern:.5f} ms, plain {plain:.4f} ms, bound {bnd:.6f} ms, launch floor "
             f"{floor:.5f} ms")
-    detail["k3_llama3"] = k3_rows
+    detail[f"k3_{name.replace(' ', '_')}"] = k3_rows
     row = k3_rows[-1]
-    out["k3"] = {"max_abs_err": 0.0, "bound_by": row["bound_by"], "library_ms": None,
-                 **{k: 32 * row[k] for k in ("ms", "plain_ms", "bound_ms")}}
     del cache
     torch.cuda.empty_cache()
-    return out
+    return {"max_abs_err": 0.0, "bound_by": row["bound_by"], "library_ms": None,
+            **{k: layers * row[k] for k in ("ms", "plain_ms", "bound_ms")}}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3906,7 +3953,8 @@ def gguf_small_models(dev, tmp: str) -> dict:
 
 def gguf_phase(dev, card: str, phase4: dict | None = None) -> dict:
     """Phase 6: the checkpoint tools (gguf_small_models), then LLaMA-3-8B
-    at full width and depth (MODEL_PRESETS["llama3-8B"]) from a Q8_0 GGUF:
+    at full width (MODEL_PRESETS["llama3-8B"], GGUF_8B_LAYERS of its
+    layers) from a Q8_0 GGUF:
     written by write_gguf (write_random_q8_gguf) with a byte-level BPE vocab
     of 128,256 entries built here (llama3_vocab) into a temporary
     directory, read by read_checkpoint and loaded to the card as the CLI
@@ -3930,7 +3978,7 @@ def gguf_phase(dev, card: str, phase4: dict | None = None) -> dict:
         t0 = time.time()
         out["small"] = gguf_small_models(dev, tmp)
         log(f"gguf: the small models in {time.time() - t0:.1f} s")
-        cfg = MODEL_PRESETS["llama3-8B"]
+        cfg = MODEL_PRESETS["llama3-8B"].replace(n_layers=GGUF_8B_LAYERS)
         t0 = time.time()
         vocab = llama3_vocab(cfg.vocab_size)
         out["vocab"] = {"entries": len(vocab), "merges": len(vocab.merges),
@@ -3947,7 +3995,8 @@ def gguf_phase(dev, card: str, phase4: dict | None = None) -> dict:
         c = ckpt.config
         if (c.vocab_size, c.dim, c.n_layers, c.n_heads, c.kv_heads, c.ffn_hidden, c.rope_theta,
                 ckpt.ftype, type(ckpt.vocab).__name__, ckpt.vocab.pattern) != (
-                128256, 4096, 32, 32, 8, 14336, 500000.0, 7, "BPEVocab", "llama-bpe"):
+                128256, 4096, GGUF_8B_LAYERS, 32, 8, 14336, 500000.0, 7, "BPEVocab",
+                "llama-bpe"):
             raise AssertionError(f"gguf: read back {c}, ftype {ckpt.ftype}")
         prompts = [bpe_prompt(ckpt.vocab, i, 49) for i in range(16)]
         cfg = c.replace(dtype="bfloat16", max_seq_len=1024)
@@ -4642,6 +4691,636 @@ def train_phase(dev, detail: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 8: the parallel path
+
+# LLaMA-2-70B's projections at tp = 2, one rank's blocks: (name, K, N,
+# launches in a decode step); the head is split on the vocab (32,000 / 2)
+PAR_70B_SHAPES = (("wq", 8192, 4096, 80), ("wk", 8192, 512, 80), ("wv", 8192, 512, 80),
+                  ("wo", 4096, 8192, 80), ("w1", 8192, 14336, 80), ("w3", 8192, 14336, 80),
+                  ("w2", 14336, 8192, 80), ("lm_head", 8192, 16000, 1))
+PAR_CTX = 512  # the context (cache positions) of phase 8's engines
+PAR_SLOTS = 4
+# LLaMA-2-7B's Q8_0 projections at tp = 2, one rank's blocks, unfused as
+# the ranks hold them: (name, K, N, launches in a decode step); the head
+# is split on the vocab (32,000 / 2, a multiple of 16: not padded)
+PAR_7B_SHAPES = (("wq", 4096, 2048, 32), ("wk", 4096, 2048, 32), ("wv", 4096, 2048, 32),
+                 ("wo", 2048, 4096, 32), ("w1", 4096, 5504, 32), ("w3", 4096, 5504, 32),
+                 ("w2", 5504, 4096, 32), ("lm_head", 4096, 16000, 1))
+# K2, K3 and K4 at a 7B tp = 2 rank's attention: PAR_SLOTS slots, 16 of the
+# 32 heads (no GQA), hd = 128, S = PAR_CTX
+PAR_7B_ATTN = dict(b=PAR_SLOTS, kv=16, g=1, hd=128, s=PAR_CTX)
+# K2 at a 70B rank's attention: 4 slots, 4 of the 8 kv heads, g = 8, hd = 128
+PAR_70B_K2 = dict(b=4, kv=4, g=8, hd=128, s=PAR_CTX)
+# 7B at world size 1 against tp / dp / sp of two ranks sharing the card,
+# x max|logit| by (compute dtype, KV cache): in bf16 the gate phase 4 uses;
+# in f32 over the f32 cache the ranks differ from world size 1 only in the
+# order of the tp partial sums and of the sp combine. In f32 the greedy
+# tokens must equal world size 1's over either cache
+PAR_TOL = {("bfloat16", "auto"): 5e-2, ("bfloat16", "int8"): 5e-2, ("float32", "auto"): 1e-4}
+# f32 over the int8 cache: K3 rounds each new K / V row to int8 and K4
+# rounds q and p to int8, step functions that turn a 1-ulp difference
+# upstream into a whole int8 step, so no fixed 1e-4 holds. The limit is
+# this many times a witness whose difference is only the sums' order:
+# world size 1 against itself with its matmuls on their plain versions
+# (the same products, summed in another order; tp = 2 changes that order
+# too, with its split sums), and no less than PAR_TOL's f32 1e-4. Read on
+# an H100 80GB HBM3 at 700 W: the witness 5.94e-3 of max|logit|, tp = 2
+# 2.07e-3, so tp = 2 may differ no more than the witness does
+PAR_INT8_WITNESS_X = 1
+# (setup, mesh, KV cache, the kernels each rank must launch in it)
+PAR_7B_SETUPS = (
+    ("tp2", {"tp": 2}, "auto", ("dequant_matmul", "flash_attention")),
+    ("tp2 int8 cache", {"tp": 2}, "int8",
+     ("dequant_matmul", "cache_append_quant", "flash_attention_quant_i8dot")),
+    ("dp2", {"dp": 2}, "auto", ("dequant_matmul", "flash_attention")),
+    ("sp2", {"sp": 2}, "auto", ("dequant_matmul",)))
+# The depth of the earlier paths, cut (at full width) so that the whole
+# script, build included, aims at half of the 1200 s it must finish in:
+# the other half is headroom for a card capped below 700 W, which is
+# slower under load, for the spread between runs and for later phases. On
+# an H100 80GB HBM3 at 700 W the script with phase 8 ran 780 s and 926 s
+# (77 % of the limit) at every path's full depth, and 665 s with these
+# cuts; with check_7b_shards and the int8 witness added, 881 s in a run
+# whose every phase was slower (the 7B QLoRA step 767.9 ms against 665.0),
+# where full depth would have neared the limit. Phase 4e's 7B and phase
+# 6's LLaMA-3-8B run this many of their 32 layers
+F32_ROUTE_LAYERS = 8
+GGUF_8B_LAYERS = 8
+# the 7B of phases 4, 4b, 4c, 4d, 4f and 4g: 16 of its 32 layers
+SERVE_7B_LAYERS = 16
+PAR_RANK_TIMEOUT_S = 420  # a rank process of phase 8 is joined within this
+PAR_70B_LAYERS = 80  # full depth
+
+
+def _par_prompts(n: int, length: int) -> list[str]:
+    return [("The quick brown fox %d jumps over the lazy dog. " % i * 8)[:length]
+            for i in range(n)]
+
+
+def _par_run(params, cfg, dev) -> tuple:
+    """The library path on a mesh or at world size 1: the last position's
+    logits of a 16-token prefill of PAR_SLOTS rows at position 0, then
+    PAR_SLOTS greedy jobs of 8 tokens through the Engine."""
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.config import GenerateConfig
+    from llamago_tpu_torch.models.llama import forward_impl
+    from llamago_tpu_torch.runtime.engine import Engine, JobStatus
+
+    engine = Engine(cfg, params, _byte_vocab(cfg.vocab_size), slots=PAR_SLOTS,
+                    decode_chunk_size=1, device=dev)
+    toks = np.random.default_rng(7).integers(3, cfg.vocab_size, (PAR_SLOTS, 16))
+    logits, _ = forward_impl(params, torch.from_numpy(toks).to(dev), engine.cache,
+                             torch.zeros(PAR_SLOTS, dtype=torch.long, device=dev), cfg)
+    logits = logits.float().cpu().numpy()
+    engine.cache = engine._make_cache()
+    gen = GenerateConfig(max_tokens=8, ctx_size=PAR_CTX, temp=0.0)
+    jobs = [engine.submit(p, gen) for p in _par_prompts(PAR_SLOTS, 24)]
+    while any(j.status in (JobStatus.QUEUED, JobStatus.PROCESSING) for j in jobs):
+        engine.step()
+    if any(j.status != JobStatus.FINISHED for j in jobs):
+        raise AssertionError(f"parallel: jobs failed: {[j.error for j in jobs]}")
+    shape = list(engine.cache.k[0].shape)
+    del engine
+    return logits, [j.output_tokens for j in jobs], shape
+
+
+def _par_7b_rank(rank: int, out: str, dev) -> dict:
+    """A rank's side of phase 8's 7B setups: for each, the mesh (both ranks
+    on the one card), Q8_0 weights drawn as world size 1 draws them and cut
+    to this rank's blocks, and _par_run in bf16 and in f32, its kernels'
+    launches counted."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import (
+        fuse_layer_weights,
+        random_quantized_parameters,
+    )
+    from llamago_tpu_torch.config import MODEL_PRESETS
+    from llamago_tpu_torch.ops import launches
+    from llamago_tpu_torch.parallel import make_mesh
+    from llamago_tpu_torch.parallel.tp_kernels import activate_mesh
+
+    cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX)
+    results, params, params_tp = {}, None, None
+    for name, grid, kv, _ in PAR_7B_SETUPS:
+        mesh = make_mesh(**grid, devices=[dev] * 2)
+        activate_mesh(mesh)
+        if params_tp != mesh.tp:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = random_quantized_parameters(cfg7, seed=0, device=dev, mesh=mesh)
+            if mesh.tp == 1:
+                params = fuse_layer_weights(params)
+            params_tp = mesh.tp
+            results[f"memory tp={mesh.tp}"] = torch.cuda.memory_allocated(dev) / 2**30
+        for dtype in ("bfloat16", "float32"):
+            launches.reset()
+            logits, tokens, shape = _par_run(params, cfg7.replace(dtype=dtype, kv_dtype=kv), dev)
+            np.save(os.path.join(out, f"{name}-{dtype}.rank{rank}.npy"), logits)
+            results[f"{name} {dtype}"] = {"tokens": tokens, "launches": launches.counts(),
+                                          "cache": shape}
+        activate_mesh(None)
+    return results
+
+
+def _par_70b_rank(rank: int, out: str, dev) -> dict:
+    """A rank's side of LLaMA-2-70B (w4x8) at tp = 2: its random int4
+    blocks drawn layer by layer, an Engine of PAR_SLOTS slots serving 4
+    jobs over REST through serve_lockstep (rank 0 owns HTTP and its client
+    thread sets the stop flag), then one profiled decode step on both
+    ranks (the collectives need both)."""
+    import threading
+
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import random_quantized_parameters
+    from llamago_tpu_torch.config import MODEL_PRESETS, GenerateConfig, ServerConfig
+    from llamago_tpu_torch.ops import launches
+    from llamago_tpu_torch.parallel import make_mesh
+    from llamago_tpu_torch.parallel import mesh as mesh_mod
+    from llamago_tpu_torch.parallel.multihost import serve_lockstep
+    from llamago_tpu_torch.parallel.tp_kernels import activate_mesh
+    from llamago_tpu_torch.runtime.decode_loop import decode_chunk
+    from llamago_tpu_torch.runtime.engine import Engine
+    from llamago_tpu_torch.server.api import JobServer
+
+    cfg = MODEL_PRESETS["llama2-70B"].replace(weight_dtype="int4", dtype="bfloat16",
+                                              max_seq_len=PAR_CTX, n_layers=PAR_70B_LAYERS)
+    mesh = make_mesh(tp=2, devices=[dev] * 2)
+    activate_mesh(mesh)
+    t0 = time.time()
+    params = random_quantized_parameters(cfg, seed=0, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    res = {"load_s": time.time() - t0, "weights_gib": torch.cuda.memory_allocated(dev) / 2**30,
+           "wq_block": list(params["layers"][0]["wq"]["q4x"].shape),
+           "head_block": list(params["output"]["s"].shape)}
+    engine = Engine(cfg, params, _byte_vocab(cfg.vocab_size), slots=PAR_SLOTS,
+                    decode_chunk_size=1, device=dev)
+    res["gib_with_cache"] = torch.cuda.memory_allocated(dev) / 2**30
+    records: dict = {}
+    submit = engine.submit
+
+    def recorded(prompt, gen, job_id=None):
+        job = submit(prompt, gen, job_id=job_id)
+        records[job.id] = job
+        return job
+
+    engine.submit = recorded
+    launches.reset()
+    mesh_mod.host_copies = mesh_mod.collective_calls = 0
+    mesh_mod.collective_s = 0.0
+    t0 = time.time()
+    if rank == 0:
+        port = int(open(os.path.join(out, "http_port")).read())
+        server = JobServer(engine, ServerConfig(host="127.0.0.1", port=port, max_pods=PAR_SLOTS),
+                           GenerateConfig(max_tokens=16, ctx_size=PAR_CTX, temp=0.7),
+                           model_name="llama2-70B")
+        done, box = threading.Event(), {}
+
+        def client():
+            try:
+                while True:
+                    try:
+                        _http_get(port, "/health")
+                        break
+                    except OSError:
+                        time.sleep(0.2)
+                bodies = [{"id": str(uuid.uuid4()), "prompt": p}
+                          for p in _par_prompts(4, 40)]
+                box["jobs"] = _http_jobs(port, bodies, timeout_s=300)
+            except Exception as e:  # noqa: BLE001 — reported by the rank
+                box["error"] = repr(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=client, daemon=True).start()
+        serve_lockstep(engine, server, stop_when=done.is_set)
+        if "error" in box:
+            raise AssertionError(f"70B client: {box['error']}")
+        res["served"] = [{"status": j["status"], "output": j["output"]} for j in box["jobs"]]
+    else:
+        serve_lockstep(engine, None)
+    res["serve_s"] = time.time() - t0
+    res["launches"] = launches.counts()
+    res["jobs"] = {jid: {"tokens": j.output_tokens, "status": j.status.value}
+                   for jid, j in records.items()}
+    res["serve_collectives"] = {"calls": mesh_mod.collective_calls,
+                                "host_s": mesh_mod.collective_s,
+                                "host_copies": mesh_mod.host_copies}
+    # one decode step of the 4 slots, host-timed, its collectives counted,
+    # then traced (profile_decode); every rank runs the same steps
+    tok = torch.full((PAR_SLOTS,), 7, dtype=torch.long, device=dev)
+    pos = torch.full((PAR_SLOTS,), 100, dtype=torch.long, device=dev)
+    decode_chunk(engine.params, tok, engine.cache, pos, cfg, 1)
+    torch.cuda.synchronize()
+    calls0, s0, copies0 = mesh_mod.collective_calls, mesh_mod.collective_s, mesh_mod.host_copies
+    t0 = time.perf_counter()
+    decode_chunk(engine.params, tok, engine.cache, pos, cfg, 1)
+    torch.cuda.synchronize()
+    res["step_host_ms"] = (time.perf_counter() - t0) * 1e3
+    res["step_collectives"] = {"calls": mesh_mod.collective_calls - calls0,
+                               "host_ms": (mesh_mod.collective_s - s0) * 1e3,
+                               "host_copies": mesh_mod.host_copies - copies0}
+    res["profile"] = profile_decode(engine, chunk=1, traced=2)
+    activate_mesh(None)
+    return res
+
+
+def _par_rank(rank: int, port: int, out: str, job: str) -> None:
+    """A rank process of phase 8: joins the 2-rank world on `port` (gloo:
+    the ranks share the one card), runs `job` and writes its result."""
+    import torch
+    import torch.distributed as dist
+
+    from llamago_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev = initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda")
+    try:
+        res = {"7b": _par_7b_rank, "70b": _par_70b_rank}[job](rank, out, dev)
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(os.path.join(out, f"{job}.rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_spawn(job: str, out: str) -> list[dict]:
+    """Run `job` on two rank processes (spawned, sharing the card), joined
+    with a timeout: a rank that fails, dies or outlasts it fails phase 8."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _par_free_port()
+    procs = [ctx.Process(target=_par_rank, args=(r, port, out, job)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PAR_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"parallel {job}: rank exit codes {codes} (a rank failed, died "
+                             f"or outlasted {PAR_RANK_TIMEOUT_S} s)")
+    out_ = []
+    for r in range(2):
+        with open(os.path.join(out, f"{job}.rank{r}.json")) as f:
+            out_.append(json.load(f))
+    return out_
+
+
+def _par_cli(dev, tmp: str) -> dict:
+    """8.1: the CLI's --tp 2 server as two processes on the one card
+    (--coordinator, gloo) against a one-process server on a small Q8_0
+    file, both in f32 at temp 0: the same job outputs; /v1/embeddings
+    through embed_routed within 1e-4 of max|e|; each rank's K1 and K2
+    launch counts (logged by the rank at the end) above 0."""
+    import signal
+
+    import numpy as np
+
+    from llamago_tpu_torch.checkpoint.ggjt import write_ggjt
+    from llamago_tpu_torch.checkpoint.quant_file import quantize_ggjt
+    from llamago_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=265, dim=512, n_layers=2, n_heads=4, ffn_dim=1536,
+                      max_seq_len=256)
+    rng = np.random.default_rng(3)
+
+    def mat(o, i):
+        return (rng.standard_normal((o, i)) * 0.05).astype(np.float32)
+
+    tensors = {"tok_embeddings.weight": mat(265, 512), "norm.weight": np.ones(512, np.float32),
+               "output.weight": mat(265, 512)}
+    for i in range(2):
+        p = f"layers.{i}."
+        tensors.update({p + "attention_norm.weight": np.ones(512, np.float32),
+                        p + "ffn_norm.weight": np.ones(512, np.float32),
+                        p + "attention.wq.weight": mat(512, 512),
+                        p + "attention.wk.weight": mat(512, 512),
+                        p + "attention.wv.weight": mat(512, 512),
+                        p + "attention.wo.weight": mat(512, 512),
+                        p + "feed_forward.w1.weight": mat(1536, 512),
+                        p + "feed_forward.w2.weight": mat(512, 1536),
+                        p + "feed_forward.w3.weight": mat(1536, 512)})
+    f32 = os.path.join(tmp, "par-f32.bin")
+    write_ggjt(f32, cfg, _byte_vocab(265), tensors)
+    q8 = quantize_ggjt(f32, os.path.join(tmp, "par-q8_0.bin"), "q8_0")
+    flags = ["--model", q8, "--server", "--host", "127.0.0.1", "--pods", "2", "--dtype",
+             "float32", "--context", "256", "--temp", "0", "--predict", "12", "--chunk", "1",
+             "--silent"]
+    prompts = _par_prompts(3, 30)
+
+    def serve(extra: list[list[str]]) -> tuple:
+        port = _par_free_port()
+        procs = [subprocess.Popen([sys.executable, "-m", "llamago_tpu_torch.cli", *flags,
+                                   "--port", str(port), *e], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for e in extra]
+        try:
+            deadline = time.time() + 240
+            while True:
+                try:
+                    _http_get(port, "/health")
+                    break
+                except OSError:
+                    if time.time() > deadline or any(p.poll() is not None for p in procs):
+                        raise AssertionError("parallel CLI: the server did not come up: "
+                                             + " | ".join(p.stderr.read()[-2000:] for p in procs
+                                                          if p.poll() is not None))
+                    time.sleep(0.5)
+            jobs = _http_jobs(port, [{"id": str(uuid.uuid4()), "prompt": p} for p in prompts],
+                              timeout_s=120)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/embeddings",
+                                         data=json.dumps({"input": prompts[0]}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                emb = np.asarray(json.loads(r.read())["data"][0]["embedding"], np.float32)
+        finally:
+            for p in procs:
+                p.send_signal(signal.SIGTERM)
+        errs = []
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                raise AssertionError("parallel CLI: a server did not stop on SIGTERM") from None
+            errs.append(err)
+        return [j["output"] for j in jobs], [j["status"] for j in jobs], emb, errs, procs
+
+    one, st1, emb1, _, _ = serve([[]])
+    coord = f"127.0.0.1:{_par_free_port()}"
+    two, st2, emb2, errs, procs = serve(
+        [["--tp", "2", "--coordinator", coord, "--nprocs", "2", "--procid", str(i)]
+         for i in range(2)])
+    if st1 != ["finished"] * 3 or st2 != ["finished"] * 3:
+        raise AssertionError(f"parallel CLI: job statuses {st1}, {st2}")
+    if one != two:
+        raise AssertionError(f"parallel CLI: the --tp 2 outputs {two} differ from the "
+                             f"one-process server's {one}")
+    emb_err = float(np.abs(emb1 - emb2).max() / np.abs(emb1).max())
+    if not emb_err <= 1e-4:
+        raise AssertionError(f"parallel CLI: embeddings differ by {emb_err:.2e} of max|e|")
+    ranks = []
+    for err, p in zip(errs, procs):
+        lines = [json.loads(ln) for ln in err.splitlines() if ln.startswith('{"rank"')]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"parallel CLI: a rank exited {p.returncode} or logged no "
+                                 f"launch counts: {err[-2000:]}")
+        ranks.append(lines[0])
+    for r in ranks:
+        if not (r["launches"]["dequant_matmul"] and r["launches"]["flash_attention"]):
+            raise AssertionError(f"parallel CLI: rank {r['rank']} launched K1 "
+                                 f"{r['launches']['dequant_matmul']} and K2 "
+                                 f"{r['launches']['flash_attention']} times")
+    log(f"parallel CLI: --tp 2 (two processes, gloo) outputs equal the one-process server's, "
+        f"embedding max|d| {emb_err:.2e}; launches by rank: "
+        + "; ".join(f"rank {r['rank']} K1 {r['launches']['dequant_matmul']} K2 "
+                    f"{r['launches']['flash_attention']}, host copies {r['host_copies']}"
+                    for r in ranks))
+    return {"outputs_equal": True, "embedding_err": emb_err, "ranks": ranks}
+
+
+def check_70b_shards(dev, detail: dict) -> dict:
+    """Phase 8's kernel rows (run with phase 2, where the timing traces of
+    one process hold every event): K5 (m = 1, 4, 16), K6 (m = 17, 64) and K2
+    (4 slots, 4 kv heads, g = 8, hd = 128, S = 512) at a LLaMA-2-70B tp = 2
+    rank's shapes against their plain versions, timed beside x @ W / SDPA
+    and their bounds. Returns the kernels line's numbers: K5 one decode step
+    at m = 4, K6 one prefill pass at m = 64, K2 one decode step at full
+    fill (80 layers)."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention, kernels
+
+    calls = [0]
+
+    def counted(fn):
+        def call(x, w):
+            calls[0] += 1
+            return fn(x, w)
+        return call
+
+    before = kernels.w4x8_matmul.launches_a8
+    k5_errs, k5_steps = check_matmul(dev, detail, "K5 70B tp2", "q4x",
+                                     counted(kernels.w4x8_matmul), kernels.w4x8_matmul_a8_plain,
+                                     timed_m=(4,), other_m=(1, 16), shapes=PAR_70B_SHAPES,
+                                     ops_per_s=lambda m: INT8_OPS_PER_S, seed=81,
+                                     other_shapes=tuple(n for n, *_ in PAR_70B_SHAPES),
+                                     checked=counted(_k5_call))
+    if kernels.w4x8_matmul.launches_a8 - before != calls[0]:
+        raise AssertionError(f"K5 70B tp2: {calls[0]} calls of at most 16 rows, "
+                             f"{kernels.w4x8_matmul.launches_a8 - before} of K5's form")
+    k6 = _counted(kernels.w4x8_matmul, lambda: {"tensor_core": kernels.w4x8_matmul.launches_tc,
+                                                "f32_tc": kernels.w4x8_matmul.launches_f32_tc},
+                  kernels.w4x8_form)
+    k6_errs, k6_steps = check_matmul(dev, detail, "K6 70B tp2", "q4x", k6,
+                                     kernels.w4x8_matmul_stream_plain, timed_m=(64,),
+                                     other_m=(17,), shapes=PAR_70B_SHAPES,
+                                     ops_per_s=lambda m: BF16_OPS_PER_S, seed=82,
+                                     other_shapes=tuple(n for n, *_ in PAR_70B_SHAPES))
+    gen = torch.Generator(device=dev).manual_seed(83)
+    c = PAR_70B_K2
+    b, kv, g, hd, s = c["b"], c["kv"], c["g"], c["hd"], c["s"]
+    rows = _l3_attn_rows(
+        dev, gen, "K2 70B tp2", c, [(1, 1), (1, 101), (1, s), (8, 101), (32, s)],
+        {(1, s)}, "bfloat16", K2_TOL,
+        lambda q, cache, positions, counted=True: (
+            _k2_call if counted else attention.flash_attention)(q, *cache, positions),
+        lambda q, cache, positions, got: _k2_error(q, *cache, positions, c, got),
+        lambda q5, cache, pos0: attention.flash_attention_plain(q5, *cache, pos0),
+        lambda: tuple(torch.randn((b, kv, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2)),
+        2 * b * kv * s * hd * 2, lambda cache, vis: (cache[0][:, :, :vis], cache[1][:, :, :vis]),
+        BF16_OPS_PER_S)
+    detail["k2_70b_tp2"] = rows
+    return {"k5": _line(k5_errs, k5_steps, 4), "k6": _line(k6_errs, k6_steps, 64),
+            "k2": _step(rows, s, layers=80)}
+
+
+def check_7b_shards(dev, detail: dict) -> dict:
+    """Phase 8's 7B kernel rows (run with phase 2, as check_70b_shards):
+    K1 at a LLaMA-2-7B tp = 2 rank's blocks (PAR_7B_SHAPES) with bf16 and
+    f32 x, checked at m = 1, 2 (a dp = 2 rank's decode rows), 4, 8, 9, 16,
+    32 (a prefill bucket) and 64, timed at m = 4 and 64; K2 (bf16 and f32),
+    K4 and K3 at the rank's 16 heads (PAR_7B_ATTN), each against its plain
+    version and timed beside its bound and SDPA. Returns the kernels line's
+    numbers: K1's four forms, each one pass of the rank's blocks, and K2,
+    K2 f32, K3 and K4, each one decode step at full fill (32 layers)."""
+    import torch
+
+    out = _k1_at(dev, detail, "7b tp2", PAR_7B_SHAPES, (91, 92),
+                 other_m=(1, 2, 8, 9, 16, 32))
+    gen = torch.Generator(device=dev).manual_seed(93)
+    out.update(_gqa_k2(dev, gen, detail, "7b tp2", PAR_7B_ATTN))
+    out["k4"] = _gqa_k4(dev, gen, detail, "7b tp2", PAR_7B_ATTN)
+    out["k3"] = _gqa_k3(dev, gen, detail, "7b tp2", PAR_7B_ATTN, fused=False)
+    return out
+
+
+def parallel_phase(dev, detail: dict, card: str, shards: dict) -> dict:
+    """Phase 8 (`parallel`): 8.1 the CLI (_par_cli); 8.2 7B Q8_0 at full
+    width and depth on two ranks sharing the card (tp = 2 over the bf16 and
+    the int8 cache, dp = 2, sp = 2) against world size 1, in bf16 and f32
+    (`shards["shards_7b"]`: K1-K4 at a tp = 2 rank's shapes,
+    check_7b_shards); 8.3 LLaMA-2-70B w4x8 at tp = 2 served over REST
+    (`shards`: K5, K6 and K2 (g = 8) at the ranks' shapes,
+    check_70b_shards); 8.4 a rank's decode step profiled. The ranks share
+    one card and talk over gloo: these are numbers of a bring-up, not of
+    two cards."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import (
+        fuse_layer_weights,
+        random_quantized_parameters,
+    )
+    from llamago_tpu_torch.config import MODEL_PRESETS
+
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        out["cli"] = _par_cli(dev, tmp)
+        log(f"parallel CLI took {time.time() - t0:.1f} s")
+
+        # 8.2: the ranks first, then world size 1 in this process
+        t0 = time.time()
+        ranks = _par_spawn("7b", tmp)
+        out["7b_ranks_s"] = time.time() - t0
+        log(f"parallel 7B: the ranks' setups took {out['7b_ranks_s']:.1f} s")
+        cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX)
+        params = fuse_layer_weights(random_quantized_parameters(cfg7, seed=0, device=dev))
+        ref = {}
+        for kv in ("auto", "int8"):
+            for dtype in ("bfloat16", "float32"):
+                ref[kv, dtype] = _par_run(params, cfg7.replace(dtype=dtype, kv_dtype=kv), dev)
+        with plain_matmuls():
+            witness = _par_run(params, cfg7.replace(dtype="float32", kv_dtype="int8"), dev)[0]
+        want = ref["int8", "float32"][0]
+        out["7b_int8_f32_witness"] = float(np.abs(witness - want).max() / np.abs(want).max())
+        tols = {**PAR_TOL, ("float32", "int8"): max(PAR_TOL["float32", "auto"],
+                                                    PAR_INT8_WITNESS_X
+                                                    * out["7b_int8_f32_witness"])}
+        log(f"parallel 7B: f32 over the int8 cache, world size 1 with the plain matmuls "
+            f"{out['7b_int8_f32_witness']:.2e} of max|logit| off its kernels (the witness): "
+            f"limit {tols['float32', 'int8']:.2e}")
+        del params, witness
+        gc.collect()
+        torch.cuda.empty_cache()
+        setups = {}
+        for name, grid, kv, must in PAR_7B_SETUPS:
+            for dtype in ("bfloat16", "float32"):
+                want, want_toks, _ = ref[kv, dtype]
+                row = {"launches": [r[f"{name} {dtype}"]["launches"] for r in ranks],
+                       "cache": ranks[0][f"{name} {dtype}"]["cache"]}
+                toks = [r[f"{name} {dtype}"]["tokens"] for r in ranks]
+                if toks[0] != toks[1]:
+                    raise AssertionError(f"parallel 7B {name} {dtype}: the ranks emitted "
+                                         f"other tokens: {toks}")
+                errs = [float(np.abs(np.load(os.path.join(tmp, f"{name}-{dtype}.rank{r}.npy"))
+                                     - want).max() / np.abs(want).max()) for r in range(2)]
+                row["logit_err"] = max(errs)
+                row["tokens_equal_world_1"] = toks[0] == want_toks
+                if not row["logit_err"] <= tols[dtype, kv]:
+                    raise AssertionError(f"parallel 7B {name} {dtype}: logits {row['logit_err']:.2e} "
+                                         f"of max|logit| off world size 1 (> {tols[dtype, kv]:.2e})")
+                if dtype == "float32" and not row["tokens_equal_world_1"]:
+                    raise AssertionError(f"parallel 7B {name} f32: greedy tokens {toks[0]} "
+                                         f"differ from world size 1's {want_toks}")
+                for r, counts in enumerate(row["launches"]):
+                    if any(counts[k] == 0 for k in must):
+                        raise AssertionError(f"parallel 7B {name} {dtype}: rank {r} launched "
+                                             f"{ {k: counts[k] for k in must} }")
+                log(f"parallel 7B {name} {dtype}: logits {row['logit_err']:.2e} of max|logit| "
+                    f"off world size 1, tokens equal world 1: {row['tokens_equal_world_1']}, "
+                    f"cache block {row['cache']}, launches rank 0 "
+                    f"{ {k: row['launches'][0][k] for k in must} } rank 1 "
+                    f"{ {k: row['launches'][1][k] for k in must} }")
+                setups[f"{name} {dtype}"] = row
+        out["7b"] = setups
+        out["7b_memory_gib"] = {k: [r[k] for r in ranks] for k in ranks[0] if k.startswith("memory")}
+
+        # 8.3: LLaMA-2-70B w4x8 at tp = 2
+        env = os.environ.get("LLAMAGO_INT4_EXEC")
+        os.environ["LLAMAGO_INT4_EXEC"] = "w4x8"
+        try:
+            with open(os.path.join(tmp, "http_port"), "w") as f:
+                f.write(str(_par_free_port()))
+            t0 = time.time()
+            big = _par_spawn("70b", tmp)
+            out["70b_s"] = time.time() - t0
+            log(f"parallel 70B: the ranks took {out['70b_s']:.1f} s")
+        finally:
+            if env is None:
+                del os.environ["LLAMAGO_INT4_EXEC"]
+            else:
+                os.environ["LLAMAGO_INT4_EXEC"] = env
+    served = big[0]["served"]
+    if [j["status"] for j in served] != ["finished"] * 4:
+        raise AssertionError(f"parallel 70B: served {served}")
+    if big[0]["jobs"] != big[1]["jobs"]:
+        raise AssertionError("parallel 70B: the ranks ran other jobs or tokens")
+    for r, res in enumerate(big):
+        c = res["launches"]
+        if not (c["w4x8_matmul_a8"] and c["w4x8_matmul_tc"] and c["flash_attention_decode_tc"]):
+            raise AssertionError(f"parallel 70B: rank {r} launched K5 {c['w4x8_matmul_a8']}, "
+                                 f"K6 {c['w4x8_matmul_tc']}, K2 {c['flash_attention_decode_tc']}")
+        log(f"parallel 70B rank {r}: weights {res['weights_gib']:.2f} GiB, with the cache "
+            f"{res['gib_with_cache']:.2f} GiB, peak {res['peak_gib']:.2f} GiB, drawn in "
+            f"{res['load_s']:.1f} s; 4 jobs served in {res['serve_s']:.1f} s; K5 "
+            f"{c['w4x8_matmul_a8']}, K6 {c['w4x8_matmul_tc']}, K2 "
+            f"{c['flash_attention_decode_tc']} launches; serving collectives "
+            f"{res['serve_collectives']}; decode step host {res['step_host_ms']:.1f} ms, "
+            f"collectives {res['step_collectives']}, device busy "
+            f"{res['profile']['device_busy_ms']:.3f} ms")
+    out["70b"] = [{k: v for k, v in r.items() if k not in ("jobs",)} for r in big]
+
+    out.update(shards)
+    out["launches_70b"] = {k: sum(r["launches"][k] for r in big) for k in big[0]["launches"]}
+    total = dict.fromkeys(big[0]["launches"], 0)
+    for row in setups.values():
+        for counts in row["launches"]:
+            for k, v in counts.items():
+                total[k] += v
+    for r in out["cli"]["ranks"]:
+        for k, v in r["launches"].items():
+            total[k] += v
+    out["launches_7b_cli"] = total
+    sh7 = out["shards_7b"]
+    log(f"parallel 7B tp2 shard shapes: K1 one decode step {sh7['k1_decode']['ms']:.3f} ms "
+        f"(bound {sh7['k1_decode']['bound_ms']:.3f}), one prefill pass at m=64 "
+        f"{sh7['k1_tile']['ms']:.3f} ms (bound {sh7['k1_tile']['bound_ms']:.3f}); K2 a decode "
+        f"step {sh7['k2']['ms']:.3f} ms (bound {sh7['k2']['bound_ms']:.3f}), K4 "
+        f"{sh7['k4']['ms']:.3f} ms (bound {sh7['k4']['bound_ms']:.3f}), K3 {sh7['k3']['ms']:.4f} "
+        f"ms (bound {sh7['k3']['bound_ms']:.4f})")
+    log(f"parallel 70B tp2 shard shapes: K5 one decode step {out['k5']['ms']:.3f} ms (bound "
+        f"{out['k5']['bound_ms']:.3f}), K6 one prefill pass at m=64 {out['k6']['ms']:.3f} ms "
+        f"(bound {out['k6']['bound_ms']:.3f}), K2 g=8 a decode step {out['k2']['ms']:.3f} ms "
+        f"(bound {out['k2']['bound_ms']:.3f})")
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4711,6 +5390,8 @@ def main(argv: list[str]) -> int:
     k10 = check_k10(dev, detail) if want("k10") else {}
     lab = check_lab(dev, detail) if want("lab") else {}
     l3 = check_llama3(dev, detail) if want("llama3") else {}
+    shards = ({**check_70b_shards(dev, detail), "shards_7b": check_7b_shards(dev, detail)}
+              if want("parallel") else {})
     # phase 7: training, LoRA, finetune / --lora and the quality gate. It
     # runs before phase 3: after phase 3's runs its first `timed` trace was
     # seen on an H100 to hold one device event fewer than launched in forty,
@@ -4718,6 +5399,10 @@ def main(argv: list[str]) -> int:
     train = train_phase(dev, detail, card) if want("train") else {}
     detail["train"] = train
     trained = train.get("launches", {})
+    # phase 8: the parallel path (ranks sharing the card over gloo), before
+    # phase 3 too, for its kernels' timing traces
+    par = parallel_phase(dev, detail, card, shards) if shards else {}
+    detail["parallel"] = par
     k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, small_f32_attn = (
         check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
@@ -4729,7 +5414,7 @@ def main(argv: list[str]) -> int:
     ppl: dict = {}
     if want("serve") or want("serve_prefill") or want("serve_int8") or want("serve_spec") \
             or want("ppl"):
-        cfg, params = make_7b_params(dev)
+        cfg, params = make_7b_params(dev, n_layers=SERVE_7B_LAYERS)
         # phase 4: the bf16 cache on 4 slots; phase 4b: the int8 cache on 8
         if want("serve"):
             served = serve(dev, cfg, params, slots=4, n_jobs=8,
@@ -4817,7 +5502,7 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
     if want("serve_int4"):
         # phase 4c: int4 weights (w4x8), the bf16 cache on 4 slots
-        cfg, params = make_7b_params(dev, "int4")
+        cfg, params = make_7b_params(dev, "int4", n_layers=SERVE_7B_LAYERS)
         served_4 = serve(dev, cfg, params, slots=4, n_jobs=8,
                          rise=("w4x8_matmul_a8", "w4x8_matmul_stream", "w4x8_matmul_tc",
                                "flash_attention", "flash_attention_decode_tc"))
@@ -4835,6 +5520,9 @@ def main(argv: list[str]) -> int:
     # phase 6: the checkpoint tools, then LLaMA-3-8B from a Q8_0 GGUF
     gguf = gguf_phase(dev, card, served) if want("gguf") else {}
     detail["gguf"] = gguf
+    par7 = par.get("launches_7b_cli", {})
+    par70 = par.get("launches_70b", {})
+    sh7 = par.get("shards_7b", {})  # K1-K4 at a 7B tp = 2 rank's shapes
 
     def g6(run: str, key: str) -> int:
         """A kernel's launches in one of phase 6's runs."""
@@ -5020,6 +5708,38 @@ def main(argv: list[str]) -> int:
          "source": "llamago_tpu_torch/csrc/attn_decode_quant.cu",
          "replaces": "llamago_tpu/ops/attention.py:406",
          "launches": g6("int8", "flash_attention_quant_i8dot_tc"), **l3.get("k4", {})},
+        # the parallel path (phase 8): each form's launches summed over both
+        # ranks of the CLI's --tp 2 server and of the 7B setups (K1, K2, K3,
+        # K4 with their numbers at a 7B tp = 2 rank's shapes), and of
+        # LLaMA-2-70B at tp = 2 (K5, K6 and K2 at g = 8, with their numbers
+        # at a rank's shapes)
+        *({"name": name if "@" in name else f"{name}@parallel", "route": "cuda",
+           "source": f"llamago_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+           "launches": counts.get(counter, 0), **numbers}
+          for name, source, replaces, counts, counter, numbers in (
+              ("dequant_matmul_decode_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               par7, "dequant_matmul_decode_tc", sh7.get("k1_decode", {})),
+              ("dequant_matmul_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               par7, "dequant_matmul_tc", sh7.get("k1_tile", {})),
+              ("dq_decode_f32tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               par7, "dequant_matmul_f32_decode_tc", sh7.get("k1_f32_decode", {})),
+              ("dequant_matmul_f32_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               par7, "dequant_matmul_f32_tc", sh7.get("k1_f32_tile", {})),
+              ("flash_attention", "attn_decode", "llamago_tpu/ops/attention.py:230",
+               par7, "flash_attention_decode_tc", sh7.get("k2", {})),
+              ("flash_attention_decode_f32tc", "attn_decode", "llamago_tpu/ops/attention.py:230",
+               par7, "flash_attention_decode_f32tc", sh7.get("k2_f32", {})),
+              ("cache_append_quant", "cache_append", "llamago_tpu/ops/cache_write.py:63",
+               par7, "cache_append_quant", sh7.get("k3", {})),
+              ("flash_attention_quant_i8dot", "attn_decode_quant",
+               "llamago_tpu/ops/attention.py:406", par7, "flash_attention_quant_i8dot_tc",
+               sh7.get("k4", {})),
+              ("w4x8_matmul_a8_tc@parallel-70B", "w4x8_matmul", "llamago_tpu/ops/kernels.py:308",
+               par70, "w4x8_matmul_a8", par.get("k5", {})),
+              ("w4x8_matmul_tc@parallel-70B", "w4x8_matmul", "llamago_tpu/ops/kernels.py:334",
+               par70, "w4x8_matmul_tc", par.get("k6", {})),
+              ("flash_attention@parallel-70B", "attn_decode", "llamago_tpu/ops/attention.py:230",
+               par70, "flash_attention_decode_tc", par.get("k2", {})))),
         # the lab's nine kernels, launches counted in the lab's run (phase 5)
         *(lab.get(wrapper, {"name": wrapper, "launches": 0})
           for _, wrapper, *_ in LAB_KERNELS),
@@ -5131,6 +5851,20 @@ def main(argv: list[str]) -> int:
     print(json.dumps(ppl_line))
     print(json.dumps(gguf_line))
     print(json.dumps(train_line))
+    print(json.dumps({"parallel": {
+        "note": "ranks share one card and talk over gloo: a bring-up, not two cards",
+        "card": card, "cli": {k: par["cli"][k] for k in ("outputs_equal", "embedding_err")},
+        "7B vs world size 1": {k: {"logit_err": v["logit_err"],
+                                   "tokens_equal_world_1": v["tokens_equal_world_1"]}
+                               for k, v in par["7b"].items()},
+        "7B f32 int8 cache witness": par["7b_int8_f32_witness"],
+        "70B tp2": [{k: r.get(k) for k in ("weights_gib", "gib_with_cache", "peak_gib",
+                                           "load_s", "serve_s", "step_host_ms",
+                                           "step_collectives", "serve_collectives")}
+                    | {"device_busy_ms": r["profile"]["device_busy_ms"],
+                       "device_kernels_per_step": r["profile"]["device_kernels_per_step"],
+                       "host_op_calls_per_step": r["profile"]["host_op_calls_per_step"]}
+                    for r in par["70b"]]}}))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

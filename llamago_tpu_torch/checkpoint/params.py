@@ -20,6 +20,14 @@ into a tuple of per-layer dicts and `fuse_layer_weights` concatenates
 wq/wk/wv -> wqkv and w1/w3 -> w13, the layout the engine serves from.
 `export_ggjt_tensors` is the way back: a dense tree to file-layout numpy
 tensors for `write_ggjt` / `write_gguf`.
+
+Under a mesh (parallel/), `load_parameters`, `random_quantized_parameters`
+and `params_from_numpy` keep only this rank's block of each leaf
+(parallel/sharding.py): each leaf is built as the single card would build
+it, one layer at a time, and cut at once, so the whole model never sits on
+a rank and the transient is one layer's leaf. A head that is cut is not
+column-padded (its gathered logits are exactly the vocab); a replicated one
+is, as on one card.
 """
 
 from __future__ import annotations
@@ -63,6 +71,16 @@ def _is_file_quant(x) -> bool:
     return hasattr(x, "kind") and hasattr(x, "raw")  # quant_file.QuantTensor
 
 
+def _file_layer(tensors: dict, i: int, key: str, dev: torch.device):
+    """Layer i's leaf `key`: a file-quantized leaf as torch tensors on
+    dev, a dense one as numpy ([in, out] for a matrix)."""
+    m = tensors[f"layers.{i}.{_LAYER_KEYS[key]}"]
+    if _is_file_quant(m):
+        return to_device_leaf(m, dev)
+    m = np.asarray(m)
+    return m.T if m.ndim == 2 else m
+
+
 def _stack_layers(tensors: dict, n_layers: int, key: str, dev: torch.device):
     suffix = _LAYER_KEYS[key]
     mats = [tensors[f"layers.{i}.{suffix}"] for i in range(n_layers)]
@@ -80,6 +98,12 @@ def _file_tree(config: ModelConfig, tensors: dict, dev: torch.device) -> Params:
     (transposed to [in, out]), file-quantized leaves as torch leaves
     already on `dev`, a quantized embedding table dequantized there (the
     lookup needs dense rows; f32, dequantize_rows's bits)."""
+    return {**_file_top(tensors, dev),
+            "layers": {k: _stack_layers(tensors, config.n_layers, k, dev) for k in _LAYER_KEYS}}
+
+
+def _file_top(tensors: dict, dev: torch.device) -> Params:
+    """`_file_tree`'s leaves outside the layers."""
     from llamago_tpu_torch.ops.quant import dequantize
 
     if "tok_embeddings.weight" not in tensors:
@@ -94,12 +118,8 @@ def _file_tree(config: ModelConfig, tensors: dict, dev: torch.device) -> Params:
         emb = np.asarray(emb)
     out_w = tensors["output.weight"]
     out_w = to_device_leaf(out_w, dev) if _is_file_quant(out_w) else np.asarray(out_w).T
-    return {
-        "tok_embeddings": emb,
-        "norm": np.asarray(tensors["norm.weight"]),
-        "output": out_w,
-        "layers": {k: _stack_layers(tensors, config.n_layers, k, dev) for k in _LAYER_KEYS},
-    }
+    return {"tok_embeddings": emb, "norm": np.asarray(tensors["norm.weight"]),
+            "output": out_w}
 
 
 def host_parameters(config: ModelConfig, tensors: dict) -> Params:
@@ -133,42 +153,88 @@ def _on(x, dev: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
     return to_torch(x, dev, dtype)
 
 
-def params_from_numpy(tree, device="cuda") -> Params:
+def params_from_numpy(tree, device="cuda", mesh=None, config: ModelConfig | None = None
+                      ) -> Params:
     """Carry a parameter tree across from the JAX package: dense arrays or
     quantized leaves ({q8 | q4 | q4x, s[, m]}) as numpy, stacked or layered,
     fused or not. The layout and every leaf's dtype stay as they are (f32
-    file scales stay f32, packed nibbles stay uint8)."""
+    file scales stay f32, packed nibbles stay uint8). Under `mesh` (with
+    `config`) each leaf of an unfused tree becomes this rank's block."""
     dev = resolve_device(device)
+    cut = _cutter(config, mesh)
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+    def conv(x, key=None):
+        if isinstance(x, dict) and not is_quantized(x):
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return tuple(conv(v) for v in x)
-        return to_torch(x, dev)
+        if isinstance(x, dict):
+            return cut(key, {k: to_torch(v, dev) for k, v in x.items()})
+        return cut(key, to_torch(x, dev))
 
     return conv(tree)
 
 
-def load_parameters(config: ModelConfig, tensors: dict, device="cuda") -> Params:
+def _cutter(config: ModelConfig | None, mesh):
+    """(key, leaf) -> this rank's block of the leaf, or the leaf whole
+    where the sharding rules keep it whole; the identity off a mesh or at
+    tp = 1 (dp and sp split no weight)."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return lambda key, leaf: leaf
+    from llamago_tpu_torch.parallel.sharding import param_shardings, shard_leaf, split_ok
+
+    kinds = param_shardings(config, mesh)
+    kinds = {**kinds, **kinds.pop("layers")}
+    tp, index = mesh.shape["tp"], mesh.coord("tp")
+
+    def cut(key, leaf):
+        if key in ("wqkv", "w13"):
+            raise ValueError("a fused tree cannot be cut for tensor parallelism")
+        kind = kinds.get(key)
+        return shard_leaf(leaf, kind, tp, index) if split_ok(leaf, kind, tp) else leaf
+
+    return cut
+
+
+def _local_head(cut, leaf, vocab_size: int):
+    """This rank's block of the head, or the whole head column-padded as
+    on one card where it stays whole."""
+    local = cut("output", leaf)
+    return local if local is not leaf else pad_lm_head(leaf, vocab_size=vocab_size)
+
+
+def load_parameters(config: ModelConfig, tensors: dict, device="cuda", mesh=None) -> Params:
     """Checkpoint tensors -> device tree in the configured dtypes: matmul
-    weights quantized when the file or `weight_dtype` says int8 or int4,
-    everything else in the compute dtype (dense weights in
-    `weight_dtype`)."""
+    weights quantized when the file or `weight_dtype` says int8 or int4
+    (`_quantize_handler`), everything else in the compute dtype (dense
+    weights in `weight_dtype`). Each layer's leaf is built on its own and,
+    under `mesh`, cut to this rank's block before the next one is built
+    (module docstring); the layers are stacked again. Off a mesh the cut
+    is the identity, so the transient is one layer's leaf on one card too."""
     dev = resolve_device(device)
-    host = _file_tree(config, tensors, dev)
-    has_prequant = is_quantized(host["output"]) or any(
-        is_quantized(v) for v in host["layers"].values())
-    if config.weight_dtype in ("int8", "int4") or has_prequant:
-        return _quantize_params(config, host, dev)
-    wdt = torch_dtype(config.weight_dtype)
+    top = _file_top(tensors, dev)
+    quant = config.weight_dtype in ("int8", "int4") or is_quantized(top["output"]) or any(
+        _is_file_quant(tensors[f"layers.0.{suffix}"]) for suffix in _LAYER_KEYS.values())
+    if quant:
+        convert = _quantize_handler(config, dev)
+    else:
+        wdt = torch_dtype(config.weight_dtype)
 
-    def put(x):
-        if isinstance(x, dict):
-            return {k: put(v) for k, v in x.items()}
-        return _on(x, dev, wdt)
+        def convert(key, leaf):
+            return _on(leaf, dev, wdt)
 
-    return put(host)
+    cut = _cutter(config, mesh)
+    out = {k: convert(k, top[k]) for k in ("tok_embeddings", "norm")}
+    head = convert("output", top["output"])
+    out["output"] = _local_head(cut, head, config.vocab_size) if quant else cut("output", head)
+    layers = {}
+    for key in _LAYER_KEYS:
+        per = [cut(key, convert(key, _file_layer(tensors, i, key, dev)))
+               for i in range(config.n_layers)]
+        layers[key] = ({k: torch.stack([lf.pop(k) for lf in per]) for k in list(per[0])}
+                       if isinstance(per[0], dict) else torch.stack(per))
+    out["layers"] = layers
+    return out
 
 
 def _per_layer(fn, leaf):
@@ -187,13 +253,13 @@ def _per_layer(fn, leaf):
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
-def _quantize_params(config: ModelConfig, host: Params, dev: torch.device) -> Params:
-    """Quantized matmul leaves, the compute dtype for the rest. int8: Q8_0
-    (file leaves kept as they are), the lm head column-padded. int4: Q4_0,
-    or under the w4x8 exec format w4x8 for every leaf whose in-dim is a
-    multiple of 128 (Q4_0 file leaves re-laid by `w4x8_from_leaf`; Q4_1 and
-    Q8_0 file leaves kept). A leaf whose in-dim is no multiple of 32 stays
-    dense."""
+def _quantize_handler(config: ModelConfig, dev: torch.device):
+    """(key, leaf) -> a quantized matmul leaf, the compute dtype for the
+    rest, for a stacked or a one-layer leaf. int8: Q8_0 (file leaves kept
+    as they are). int4: Q4_0, or under the w4x8 exec format w4x8 for every
+    leaf whose in-dim is a multiple of 128 (Q4_0 file leaves re-laid by
+    `w4x8_from_leaf`; Q4_1 and Q8_0 file leaves kept). A leaf whose in-dim
+    is no multiple of 32 stays dense."""
     dtype = torch_dtype(config.dtype)
     bits = 4 if config.weight_dtype == "int4" else 8
     exec_w4x8 = bits == 4 and int4_exec_format(dev) == "w4x8"
@@ -209,10 +275,7 @@ def _quantize_params(config: ModelConfig, host: Params, dev: torch.device) -> Pa
             return _per_layer(lambda a: quantize(a, bits), arr)
         return _on(leaf, dev, dtype)
 
-    out = {k: handle(k, host[k]) for k in ("tok_embeddings", "norm", "output")}
-    out["output"] = pad_lm_head(out["output"], vocab_size=config.vocab_size)
-    out["layers"] = {k: handle(k, v) for k, v in host["layers"].items()}
-    return out
+    return handle
 
 
 def unstack_layer_params(params: Params, n_layers: int) -> Params:
@@ -333,7 +396,7 @@ def random_parameters(config: ModelConfig, seed: int = 0, scale: float = 0.02,
 
 
 def random_quantized_parameters(config: ModelConfig, seed: int = 0,
-                                layered: bool = True, device="cuda") -> Params:
+                                layered: bool = True, device="cuda", mesh=None) -> Params:
     """Random int8 or int4 parameters created directly as quantized leaves
     on the device (uniform random bytes, constant 0.01 bf16 scales; dense
     leaves normal * 0.02 in bf16, norm gains ones) from one torch.Generator
@@ -341,7 +404,9 @@ def random_quantized_parameters(config: ModelConfig, seed: int = 0,
     without a dense transient or a quantize pass. int4 leaves come in the
     device's exec format (`int4_exec_format`): w4x8 leaves with [K/64, N]
     scales where K is a multiple of 128, else Q4_0 leaves. The numbers
-    differ from the JAX package's threefry draws."""
+    differ from the JAX package's threefry draws. Under `mesh` each leaf is
+    drawn whole, in the same order as on one card, and cut to this rank's
+    block at once: the ranks' blocks are the one-card model's."""
     if config.weight_dtype not in ("int8", "int4"):
         raise ValueError(f"random_quantized_parameters: weight_dtype "
                          f"{config.weight_dtype!r} is not a quantized one")
@@ -375,8 +440,10 @@ def random_quantized_parameters(config: ModelConfig, seed: int = 0,
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev) * 0.02
         return w.to(torch.bfloat16)
 
+    cut = _cutter(config, mesh)
+
     def mat(name, shape):
-        return qleaf(shape) if name in QUANT_LEAVES else dense(shape)
+        return cut(name, qleaf(shape) if name in QUANT_LEAVES else dense(shape))
 
     layer_shapes = {
         "attention_norm": (d,), "ffn_norm": (d,),
@@ -391,6 +458,6 @@ def random_quantized_parameters(config: ModelConfig, seed: int = 0,
     return {
         "tok_embeddings": dense((v, d)),
         "norm": dense((d,)),
-        "output": pad_lm_head(mat("output", (d, v)), vocab_size=v),
+        "output": _local_head(cut, qleaf((d, v)), v),
         "layers": layers,
     }

@@ -17,16 +17,30 @@ checkpoint directory -> ggjt, or GGUF for BPE-tokenizer models), `load`
 
 The port runs on CUDA unless `--device cpu` is given. The compute dtype
 defaults to bfloat16 on CUDA and float32 on the CPU, and the decode chunk
-to 32 tokens per host sync on CUDA and 1 on the CPU. Flags whose
-slice of the port has not landed (--tp/--dp/--sp, --multihost) fail with a
-message that names the slice.
+to 32 tokens per host sync on CUDA and 1 on the CPU.
+
+`--tp/--dp/--sp` run one process a rank (parallel/): without
+`--coordinator` or `--multihost` this process spawns the tp*dp*sp ranks
+here, one card each (it refuses when fewer cards are visible; the CPU takes
+any number), and each rank re-enters `main` as `--coordinator
+127.0.0.1:<port> --nprocs N --procid i`; `--coordinator host:port --nprocs
+N --procid i` makes this process rank i of N on cuda:(i mod local cards),
+and `--multihost` alone reads torchrun's environment. `--tp 0` takes
+world // (dp*sp). Rank 0 owns HTTP (`--server`) and prints; every rank runs
+the lockstep tick (parallel/multihost.py) and, at the end, logs its
+kernels' launch counts as one JSON line on stderr. Training and perplexity run on one
+card: under a mesh they are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import signal
+import socket
 import sys
+import threading
 import time
 
 from llamago_tpu_torch.utils import colorize, log
@@ -142,17 +156,73 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def unported_reason(args) -> str | None:
-    """Why these flags cannot run yet (the slice that brings them), or None."""
-    if args.tp > 1 or args.dp != 1 or args.sp != 1:
-        return "--tp/--dp/--sp are not yet ported (parallel slice of the port)"
-    if args.multihost or args.coordinator or args.nprocs or args.procid >= 0:
-        return "--multihost is not yet ported (parallel slice of the port)"
-    return None
+def _grid(args, n: int) -> tuple[int, int, int]:
+    """(tp, dp, sp); --tp 0 takes n // (dp * sp) of n devices or ranks."""
+    dp, sp = max(args.dp, 1), max(args.sp, 1)
+    return (args.tp if args.tp > 0 else max(n // (dp * sp), 1)), dp, sp
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(index: int, argv: list[str]) -> None:
+    """A locally spawned rank: main() as rank `index` of the coordinator's
+    world."""
+    code = main(argv + ["--procid", str(index)])
+    if code:
+        raise SystemExit(code)
+
+
+def _spawn_ranks(argv: list[str], world: int) -> int:
+    """Run this command as `world` local processes, one a rank."""
+    import torch.multiprocessing as mp
+
+    argv = argv + ["--coordinator", f"127.0.0.1:{_free_port()}", "--nprocs", str(world)]
+    try:
+        mp.spawn(_spawned_rank, args=(argv,), nprocs=world, join=True)
+    except mp.ProcessExitedException as e:
+        print(f"error: rank {e.error_index} exited with code {e.exit_code}", file=sys.stderr)
+        return e.exit_code or 1
+    except mp.ProcessRaisedException as e:
+        print(f"error: a rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _join_mesh(args):
+    """This process as a rank of --coordinator / --multihost's world: the
+    mesh of --tp/--dp/--sp over it, made active."""
+    import torch.distributed as dist
+
+    from llamago_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from llamago_tpu_torch.parallel.tp_kernels import activate_mesh
+
+    initialize_distributed(coordinator=args.coordinator or None,
+                           num_processes=args.nprocs or None,
+                           process_id=args.procid if args.procid >= 0 else None,
+                           device=args.device)
+    world = dist.get_world_size()
+    tp, dp, sp = _grid(args, world)
+    if tp * dp * sp != world:
+        raise ValueError(f"--tp {tp} --dp {dp} --sp {sp} make {tp * dp * sp} ranks, "
+                         f"the world has {world} processes")
+    mesh = make_mesh(tp=tp, dp=dp, sp=sp)
+    activate_mesh(mesh)
+    return mesh
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    ranked = bool(args.multihost or args.coordinator)
+    if ranked:
+        import torch.distributed as dist
+
+        if args.procid > 0 or (args.multihost and int(os.environ.get("RANK", "0")) > 0):
+            args.silent = True  # rank 0 prints
 
     if args.threads > 0:
         import torch
@@ -161,16 +231,47 @@ def main(argv: list[str] | None = None) -> int:
         # also read by the native C++ data path (native/__init__.py)
         os.environ["LLAMAGO_THREADS"] = str(args.threads)
 
-    if not args.silent:
-        colorize("[magenta]" + LOGO)
-
     if args.command is not None and args.command not in _COMMANDS:
         print(f"unknown command: {args.command}", file=sys.stderr)
         return 2
-    reason = unported_reason(args)
-    if reason is not None:
-        print(f"error: {reason}", file=sys.stderr)
+    if not ranked and args.command is None and args.model:
+        from llamago_tpu_torch.parallel.mesh import check_local_devices
+
+        tp, dp, sp = _grid(args, _cuda_count() if args.device != "cpu" else 1)
+        if tp * dp * sp > 1:
+            try:
+                check_local_devices(args.device, tp * dp * sp)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+            return _spawn_ranks(argv, tp * dp * sp)
+    if not args.silent:
+        colorize("[magenta]" + LOGO)
+    if (ranked or max(args.tp, args.dp, args.sp) > 1) and args.command is not None:
+        print(f"error: `{args.command}` runs on one card: sharded training and "
+              "perplexity are not ported yet", file=sys.stderr)
         return 2
+    if ranked:
+        try:
+            _join_mesh(args)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            dist.destroy_process_group()
+            return 2
+        try:
+            return _main(args)
+        finally:
+            dist.destroy_process_group()
+    return _main(args)
+
+
+def _cuda_count() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _main(args) -> int:
 
     if args.command == "load":
         return cmd_load(args)
@@ -221,10 +322,12 @@ def _load_engine(args):
         load_parameters,
         unstack_layer_params,
     )
+    from llamago_tpu_torch.parallel.tp_kernels import active_mesh
     from llamago_tpu_torch.runtime.engine import Engine
     from llamago_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    mesh = active_mesh()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.dtype is None:
         args.dtype = "bfloat16" if device.type == "cuda" else "float32"
     t0 = time.time()
@@ -241,8 +344,15 @@ def _load_engine(args):
         kv_dtype=args.kv_dtype,
         max_seq_len=args.context,
     )
-    params = load_parameters(config, ckpt.tensors, device=device)
-    params = fuse_layer_weights(unstack_layer_params(params, config.n_layers))
+    params = load_parameters(config, ckpt.tensors, device=device, mesh=mesh)
+    params = unstack_layer_params(params, config.n_layers)
+    if mesh is None or mesh.tp == 1:
+        # fused wqkv / w13; a rank's blocks under tp stay unfused, as the
+        # JAX package keeps them under a mesh
+        params = fuse_layer_weights(params)
+    if args.lora and mesh is not None:
+        raise NotImplementedError("--lora merges adapters into whole weights: it "
+                                  "runs on one card")
     if args.lora:
         # merge saved adapters into the weights at load: serving runs the
         # plain kernel path afterwards, with no per-step cost
@@ -254,7 +364,8 @@ def _load_engine(args):
     if not args.silent:
         log("info", f"model ready in {time.time() - t0:.1f}s",
             layers=config.n_layers, dim=config.dim,
-            weights=config.weight_dtype, device=str(device))
+            weights=config.weight_dtype, device=str(device),
+            **({} if mesh is None else mesh.shape))
     chunk = args.chunk or (32 if device.type == "cuda" else 1)
     kwargs = {}
     if args.prefill_buckets:
@@ -407,6 +518,13 @@ def _gen_config(args):
 def run(args) -> int:
     engine, ckpt, config = _load_engine(args)
     gen = _gen_config(args)
+    from llamago_tpu_torch.parallel.tp_kernels import active_mesh
+
+    if active_mesh() is not None and active_mesh().world > 1:
+        try:
+            return run_ranked(engine, gen, args)
+        finally:
+            _log_rank(active_mesh())
 
     if args.server:
         from llamago_tpu_torch.config import ServerConfig
@@ -438,22 +556,106 @@ def run(args) -> int:
     return run_oneshot(engine, gen, args)
 
 
-def run_oneshot(engine, gen, args) -> int:
-    """One-shot generation with streamed output (main.go:131-147) and the
-    end-of-job performance report (server.go:244-274)."""
+def run_ranked(engine, gen, args) -> int:
+    """`run` as one rank of a mesh: every rank runs the lockstep tick
+    (parallel/multihost.py); rank 0 owns HTTP with --server, and reads and
+    prints with --chat / --prompt."""
+    from llamago_tpu_torch.parallel.multihost import is_primary, serve_lockstep
+
+    primary = is_primary()
+    if args.server:
+        from llamago_tpu_torch.config import ServerConfig
+        from llamago_tpu_torch.server.api import JobServer
+
+        server = JobServer(
+            engine,
+            ServerConfig(host=args.host, port=args.port, max_pods=args.pods,
+                         prefill_buckets=engine.buckets),
+            gen, model_name=os.path.basename(args.model)) if primary else None
+        warm_s = engine.warmup()
+        if not args.silent:
+            log("info", f"engine warm in {warm_s:.1f}s")
+            log("info", f"listening on http://{args.host}:{args.port}", pods=args.pods)
+        # SIGTERM / SIGINT stop every rank through rank 0's broadcast
+        stop = threading.Event()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_: stop.set())
+        serve_lockstep(engine, server, stop_when=stop.is_set)
+        return 0
+    if args.chat:
+        return run_chat(engine, gen, args)
+    if not args.prompt:
+        print("error: --prompt is required (or --server / --chat)", file=sys.stderr)
+        return 2
+    return run_oneshot(engine, gen, args)
+
+
+def _log_rank(mesh) -> None:
+    """One JSON line on stderr: this rank's kernel launch counts and the
+    collectives that went through host memory. One write: ranks spawned
+    here share the parent's stderr, and a pipe keeps a write of up to 4 KiB
+    whole."""
+    from llamago_tpu_torch.ops import launches
+    from llamago_tpu_torch.parallel import mesh as mesh_mod
+
+    line = json.dumps({"rank": mesh.rank, "launches": launches.counts(),
+                       "host_copies": mesh_mod.host_copies})
+    sys.stderr.flush()
+    os.write(sys.stderr.fileno(), (line + "\n").encode())
+
+
+def _drive(engine, prompt: str, gen, show):
+    """Run one job to its end and return it, calling show(job) as its output
+    grows: one process steps the engine; under a mesh every rank runs the
+    lockstep tick until rank 0's job is done (rank 0 submits it; the other
+    ranks get it from the broadcast and return None)."""
+    from llamago_tpu_torch.parallel.tp_kernels import active_mesh
     from llamago_tpu_torch.runtime.engine import JobStatus
 
-    job = engine.submit(args.prompt, gen)
+    def done(job):
+        show(job)
+        return job.status not in (JobStatus.QUEUED, JobStatus.PROCESSING)
+
+    if active_mesh() is None or active_mesh().world == 1:
+        job = engine.submit(prompt, gen)
+        while not done(job):
+            engine.step()
+        return job
+    from llamago_tpu_torch.parallel.multihost import is_primary, serve_lockstep
+
+    job = engine.submit(prompt, gen) if is_primary() else None
+    serve_lockstep(engine, None, poll_interval=0.0,
+                   stop_when=(lambda: done(job)) if job is not None else None)
+    return job
+
+
+def _printer():
+    """show(job): print the part of job.output not printed yet."""
     shown = 0
-    print(args.prompt, end="", flush=True)
-    while job.status in (JobStatus.QUEUED, JobStatus.PROCESSING):
-        engine.step()
-        out = job.output
-        if len(out) > shown:
-            print(out[shown:], end="", flush=True)
-            shown = len(out)
-    if len(job.output) > shown:
-        print(job.output[shown:], end="", flush=True)
+
+    def show(job):
+        nonlocal shown
+        if len(job.output) > shown:
+            print(job.output[shown:], end="", flush=True)
+            shown = len(job.output)
+
+    return show
+
+
+def run_oneshot(engine, gen, args) -> int:
+    """One-shot generation with streamed output (main.go:131-147) and the
+    end-of-job performance report (server.go:244-274). Under a mesh rank 0
+    prints; the other ranks only run the tick."""
+    from llamago_tpu_torch.parallel.multihost import is_primary
+    from llamago_tpu_torch.runtime.engine import JobStatus
+
+    if is_primary():
+        print(args.prompt, end="", flush=True)
+    show = _printer()
+    job = _drive(engine, args.prompt, gen, show)
+    if job is None:
+        return 0
+    show(job)
     print()
     if job.status == JobStatus.FAILED:
         log("error", job.error)
@@ -466,8 +668,19 @@ def run_oneshot(engine, gen, args) -> int:
 def run_chat(engine, gen, args) -> int:
     """Interactive chat carrying the conversation: each turn submits
     history+reply+new input, so the slot's prefix cache re-prefills only
-    the new suffix. History trims oldest-first near the context budget."""
+    the new suffix. History trims oldest-first near the context budget.
+    Under a mesh rank 0 reads and prints, and tells the other ranks over the
+    broadcast whether another turn comes."""
+    from llamago_tpu_torch.parallel.multihost import broadcast_pytree, is_primary
     from llamago_tpu_torch.runtime.engine import JobStatus
+
+    if not is_primary():
+        while broadcast_pytree(None)["go"]:
+            _drive(engine, "", gen, lambda job: None)
+        return 0
+
+    def turn(go: bool) -> None:
+        broadcast_pytree({"go": go})  # one process: nothing to tell
 
     print("[CHAT] interactive mode — empty line or Ctrl-D to exit\n")
     history = ""
@@ -476,8 +689,10 @@ def run_chat(engine, gen, args) -> int:
             prompt = input("user> ")
         except (EOFError, KeyboardInterrupt):
             print()
+            turn(False)
             return 0
         if not prompt.strip():
+            turn(False)
             return 0
         if len(prompt) + 1 >= gen.ctx_size:
             print(f"[chat] input of {len(prompt)} chars exceeds the "
@@ -488,15 +703,12 @@ def run_chat(engine, gen, args) -> int:
         while history and len(full) + 1 >= budget:
             history = history[max(1, len(history) // 2):]  # always shrinks
             full = history + prompt
-        job = engine.submit(full, gen)
-        shown = 0
         print("model> ", end="", flush=True)
-        while job.status in (JobStatus.QUEUED, JobStatus.PROCESSING):
-            engine.step()
-            if len(job.output) > shown:
-                print(job.output[shown:], end="", flush=True)
-                shown = len(job.output)
-        print(job.output[shown:] if len(job.output) > shown else "")
+        turn(True)
+        show = _printer()
+        job = _drive(engine, full, gen, show)
+        show(job)
+        print()
         if job.status == JobStatus.FAILED:
             print(f"[chat] turn failed: {job.error}", file=sys.stderr)
             if "too long" in job.error or "does not fit" in job.error:

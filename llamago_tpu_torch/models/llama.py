@@ -27,6 +27,19 @@ writes its new rows through K3 (ops/cache_write.py) and a prefill window
 through quantize_kv_rows + write_rows / write_scale_rows; windows of
 t <= 32 whose S has an S-block of the TPU kernels take K4/K8
 (flash_attention_quant), the rest the scale-folded einsum math.
+
+Under an active mesh (parallel/tp_kernels.py:activate_mesh) each rank runs
+this forward on its blocks of the weights and of the cache and calls the
+collectives the JAX package leaves to GSPMD (`_Shards`): a leaf's shape
+tells whether it is this rank's block (parallel/sharding.py); column
+blocks give the local heads or FFN columns, row blocks are all-reduced
+over tp (ops/basic.py:linear), activations are sliced or all-gathered over
+tp where a leaf wants the other layout, the vocab-split head's logits are
+gathered over tp; the forward takes its rows of the batch where the cache's
+slots are split over dp and gathers the logits over dp; under sp the
+attention is attention_math_sp and the cache writes go to the rank's
+positions (K3 stays off there, as the JAX package's under any mesh).
+Weights stay unfused under tp (the JAX package's choice under a mesh).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.attention import (
     attention_math,
+    attention_math_sp,
     can_fuse_attention,
     flash_attention,
     flash_attention_quant,
@@ -46,10 +60,14 @@ from llamago_tpu_torch.ops.attention import (
 from llamago_tpu_torch.ops.basic import linear, rms_norm, rope_tables, rotate, swiglu
 from llamago_tpu_torch.ops.cache_write import cache_append_quant
 from llamago_tpu_torch.ops.quant import lm_head_padded_cols
+from llamago_tpu_torch.parallel.mesh import all_gather, broadcast, tp_slice
+from llamago_tpu_torch.parallel.tp_kernels import active_mesh, tp_kinds
 from llamago_tpu_torch.runtime.kv_cache import (
     KVCache,
     quantize_kv_rows,
+    sp_starts,
     write_rows,
+    write_rows_sp,
     write_scale_rows,
 )
 from llamago_tpu_torch.utils.device import torch_dtype
@@ -105,11 +123,129 @@ def _layer_list(layers, n_layers: int) -> list[dict]:
     return [{k: at(v, i) for k, v in layers.items()} for i in range(n_layers)]
 
 
+class _Shards:
+    """One rank's side of a forward under the mesh: which leaves are this
+    rank's blocks, the tp slicing and gathering of activations, and, where
+    the cache's positions are split over sp, this rank's first position
+    (`offset`) and the window's global write starts (`starts`, host)."""
+
+    def __init__(self, mesh, config: ModelConfig, cache: KVCache, write_pos, t: int):
+        self.mesh = mesh
+        self.tp = mesh.shape["tp"]
+        self.kinds = tp_kinds(config, mesh)
+        self.seq_split = cache.seq_split > 1
+        self.starts = self.offset = None
+        if self.seq_split:
+            s_l = cache.max_seq
+            self.offset = mesh.coord("sp") * s_l
+            self.starts = sp_starts(write_pos, s_l * cache.seq_split, t)
+
+    def linear(self, x, x_split: bool, w, key: str, k_glob: int, n_glob: int):
+        """(x @ w, whether the output is this rank's column block), for x
+        whole or this rank's block of its features (`x_split`). Where
+        tp_kinds splits the leaf `key`, its shape says whether the loader
+        cut it (parallel/sharding.py:split_ok): a row block has depth
+        k_glob / tp (x is sliced to this rank's block, the product
+        all-reduced over tp), a column block width n_glob / tp; else it is
+        whole (x is gathered whole)."""
+        kind = self.kinds.get(key)
+        if kind == "row" and _depth(w) * self.tp == k_glob:
+            return linear(self.split(x, x_split), w, tp_kind="row"), False
+        x = self.full(x, x_split)
+        if kind == "col" and _width(w) * self.tp == n_glob:
+            return linear(x, w, tp_kind="col"), True
+        return linear(x, w), False
+
+    def split(self, x, is_split: bool):
+        return x if is_split or self.tp == 1 else tp_slice(x, self.mesh)
+
+    def full(self, x, is_split: bool):
+        return all_gather(x, self.mesh, "tp", dim=-1) if is_split else x
+
+
+def _width(w) -> int:
+    """A leaf's output width (its N)."""
+    if isinstance(w, dict):
+        return w["s"].shape[-1] if "s" in w else _width(w["base"])
+    return w.shape[-1]
+
+
+def _depth(w) -> int:
+    """A leaf's input depth (its K)."""
+    if isinstance(w, dict):
+        if "q8" in w:
+            return w["q8"].shape[-2]
+        if "q4" in w or "q4x" in w:
+            return 2 * w["q4" if "q4" in w else "q4x"].shape[-2]
+        return _depth(w["base"])
+    return w.shape[-2]
+
+
+def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, cos, sin,
+                   config: ModelConfig, sh: _Shards):
+    """`_block` on this rank's blocks: attention on the cache's local kv
+    heads (the local query heads; all heads where tp does not divide the
+    kv heads, as the JAX package then attends over the whole cache), row
+    blocks all-reduced over tp."""
+    b, t = x.shape[:2]
+    hd, h_all, kv_all, f = config.head_dim, config.n_heads, config.kv_heads, config.ffn_hidden
+    d = config.dim
+    h = rms_norm(x, lp["attention_norm"], config.norm_eps)
+    if "wqkv" in lp:  # fused leaves are whole: tp = 1
+        qkv = linear(h, lp["wqkv"])
+        q, k, v = qkv.split([h_all * hd, kv_all * hd, kv_all * hd], dim=-1)
+        q_split = k_split = v_split = False
+    else:
+        q, q_split = sh.linear(h, False, lp["wq"], "wq", d, h_all * hd)
+        k, k_split = sh.linear(h, False, lp["wk"], "wk", d, kv_all * hd)
+        v, v_split = sh.linear(h, False, lp["wv"], "wv", d, kv_all * hd)
+    heads_split = sh.tp > 1 and k_layer.shape[1] * sh.tp == kv_all
+    conv = sh.split if heads_split else sh.full
+    q, k, v = conv(q, q_split), conv(k, k_split), conv(v, v_split)
+    q = rotate(q.reshape(b, t, q.shape[-1] // hd, hd), cos, sin)
+    k = rotate(k.reshape(b, t, k.shape[-1] // hd, hd), cos, sin)
+    v = v.reshape(b, t, v.shape[-1] // hd, hd)
+
+    if sh.seq_split:
+        if ks_l is None:
+            write_rows_sp(k_layer, k, sh.starts, sh.offset)
+            write_rows_sp(v_layer, v, sh.starts, sh.offset)
+        else:
+            kq, ks_new = quantize_kv_rows(k)
+            vq, vs_new = quantize_kv_rows(v)
+            for layer, new in ((k_layer, kq), (v_layer, vq), (ks_l, ks_new), (vs_l, vs_new)):
+                write_rows_sp(layer, new, sh.starts, sh.offset)
+    else:
+        k_layer, v_layer = _write_cache(k_layer, v_layer, ks_l, vs_l, k, v, write_pos)
+    if sh.seq_split:
+        attn = attention_math_sp(q, k_layer, v_layer, positions, sh.mesh, ks_l, vs_l)
+    else:
+        attn = _attention(q, k_layer, v_layer, positions, ks_l, vs_l)
+    o, _ = sh.linear(attn, heads_split, lp["wo"], "wo", h_all * hd, d)
+    x = x + o
+
+    h = rms_norm(x, lp["ffn_norm"], config.norm_eps)
+    if "w13" in lp:
+        g1, g3 = linear(h, lp["w13"]).split([f, f], dim=-1)
+        s1 = s3 = False
+    else:
+        g1, s1 = sh.linear(h, False, lp["w1"], "w1", d, f)
+        g3, s3 = sh.linear(h, False, lp["w3"], "w3", d, f)
+    if s1 != s3:
+        g1, g3, s1 = sh.full(g1, s1), sh.full(g3, s3), False
+    gate = F.silu(g1.to(torch.float32)).to(h.dtype)
+    o, _ = sh.linear(gate * g3, s1, lp["w2"], "w2", f, d)
+    return x + o, k_layer, v_layer
+
+
 def _block(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, cos, sin,
-           config: ModelConfig):
+           config: ModelConfig, sh: _Shards | None = None):
     """One transformer layer over x [B, T, D]: attention over the cache
     layer (written first) and the FFN, each added to the residual. Returns
     (x, k_layer, v_layer): the cache layer's tensors after the write."""
+    if sh is not None:
+        return _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions,
+                              cos, sin, config, sh)
     b, t = x.shape[:2]
     q_dim = config.n_heads * config.head_dim
     kv_dim = config.kv_heads * config.head_dim
@@ -160,10 +296,18 @@ def forward_impl(
     remat (training) each layer runs under torch.utils.checkpoint, so the
     backward recomputes its activations instead of keeping them, as
     jax.checkpoint does in the JAX package."""
+    mesh = active_mesh()
+    dp_rows = mesh is not None and cache.batch_split > 1
+    if dp_rows:  # this rank's rows of the batch: its slots of the cache
+        rows = slice(mesh.coord("dp") * cache.batch, (mesh.coord("dp") + 1) * cache.batch)
+        tokens, write_pos = tokens[rows], write_pos[rows]
+        if logit_index is not None:
+            logit_index = logit_index[rows]
     b, t = tokens.shape
     dtype = torch_dtype(config.dtype)
     dev = cache.k[0].device
     write_pos = write_pos.to(device=dev, dtype=torch.long)
+    sh = None if mesh is None or mesh.world == 1 else _Shards(mesh, config, cache, write_pos, t)
     positions = write_pos[:, None] + torch.arange(t, device=dev)[None, :]  # [B, T]
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta, dtype)
 
@@ -174,7 +318,7 @@ def forward_impl(
     for i, (lp, ks_l, vs_l) in enumerate(zip(layers, cache.ks or no_scales,
                                              cache.vs or no_scales)):
         args = (x, lp, cache.k[i], cache.v[i], ks_l, vs_l, write_pos, positions, cos, sin,
-                config)
+                config, sh)
         if remat:
             x, cache.k[i], cache.v[i] = checkpoint(_block, *args, use_reentrant=False)
         else:
@@ -187,7 +331,11 @@ def forward_impl(
         else:
             idx = logit_index.to(device=dev, dtype=torch.long)
             x = x[torch.arange(b, device=dev), idx]
-    logits = linear(x, params["output"], compute_dtype=dtype).to(torch.float32)
+    if sh is not None and "output" in sh.kinds and _width(params["output"]) * sh.tp == config.vocab_size:
+        logits = all_gather(linear(x, params["output"], compute_dtype=dtype, tp_kind="col"),
+                            mesh, "tp", dim=-1).to(torch.float32)
+    else:
+        logits = linear(x, params["output"], compute_dtype=dtype).to(torch.float32)
     # The int8 lm head may be column-padded (ops/quant.py:pad_lm_head).
     # Slice BEFORE anything consumes logits: the pad columns dequantize to
     # exactly 0, which would beat negative real logits under argmax. Slice
@@ -197,8 +345,12 @@ def forward_impl(
             and logits.shape[-1] == lm_head_padded_cols(config.vocab_size)):
         logits = logits[..., :config.vocab_size]
 
+    if dp_rows:
+        logits = all_gather(logits, mesh, "dp", dim=0)
     if return_embedding:
         emb = (x[:, -1, :] if return_all_logits else x).to(torch.float32)
+        if dp_rows:
+            emb = all_gather(emb, mesh, "dp", dim=0)
         return logits, cache, emb
     return logits, cache
 
@@ -214,7 +366,18 @@ def prefill_into_slot(
 ):
     """Prefill one decode slot of a multi-slot cache at batch 1. The
     forward pass writes through views of the slot's rows, so the full
-    cache is updated in place. Returns (logits [V], cache)."""
-    logits, _ = forward_impl(params, tokens, cache.slot(slot), write_pos, config,
-                             logit_index=logit_index)
-    return logits[0], cache
+    cache is updated in place. Where the slots are split over dp, the
+    ranks that hold the slot run it and send its logits to the rest of
+    their dp group. Returns (logits [V], cache)."""
+    if cache.batch_split == 1:
+        logits, _ = forward_impl(params, tokens, cache.slot(slot), write_pos, config,
+                                 logit_index=logit_index)
+        return logits[0], cache
+    mesh = active_mesh()
+    owner, local = divmod(slot, cache.batch)
+    if mesh.coord("dp") == owner:
+        logits = forward_impl(params, tokens, cache.slot(local), write_pos, config,
+                              logit_index=logit_index)[0][0]
+    else:
+        logits = torch.empty(config.vocab_size, dtype=torch.float32, device=cache.k[0].device)
+    return broadcast(logits, mesh, "dp", owner), cache

@@ -55,6 +55,11 @@ also leaves attention to the compiler); with row scales it is the int8
 cache's scale-folded math, which every window of t > 32 over the int8 cache
 takes (the JAX package has no quantized K7).
 
+`attention_math_sp` is the same math over a cache whose positions are
+split over the mesh's sp ranks (parallel/): partial softmax statistics of
+the local rows, combined by one all_reduce(MAX) and two all_reduce(SUM).
+The JAX package has no kernel there either.
+
 Cache layout is [B, KV, S, hd] (runtime/kv_cache.py). Causal mask: cache
 slot j is visible to a query at absolute position p iff j <= p.
 """
@@ -701,3 +706,45 @@ def attention_math(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
     probs = probs.to(q.dtype)
     out = torch.einsum("bkgts,bksd->btkgd", probs.to(acc), v_cache.to(acc))
     return out.reshape(b, t, h * hd).to(q.dtype)
+
+
+def attention_math_sp(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      positions: torch.Tensor, mesh, k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention over a cache whose S dim is split over the mesh's sp axis:
+    this rank holds the S_l rows from sp_index * S_l. Masked partial
+    softmax statistics over the local rows, then the two-pass flash
+    combine over sp, as the JAX package's `attention_math_sp`:
+
+        out = sum_i exp(m_i - M) V_i / sum_i exp(m_i - M) s_i,  M = max_i m_i
+
+    one all_reduce(MAX) for M and two all_reduce(SUM), for the denominator
+    and the numerator. A shard that sees no visible slot contributes
+    exp(-inf - M) = 0; M is finite since slot 0 is visible to every
+    position. With the int8 cache's scales the local scales fold in as in
+    `attention_math`. Serving only: there is no backward through the MAX.
+    q [B, T, H, hd], caches [B, KV, S_l, hd]; returns [B, T, H*hd]."""
+    from llamago_tpu_torch.parallel.mesh import all_reduce
+
+    b, t, h, hd = q.shape
+    kv, s_l = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    acc = torch.promote_types(q.dtype, torch.float32)
+    offset = mesh.coord("sp") * s_l
+    qg = q.reshape(b, t, kv, g, hd)
+    if k_scale is not None:
+        k_cache = k_cache.to(q.dtype)
+    scores = torch.einsum("btkgd,bksd->bkgts", qg.to(acc), k_cache.to(acc)) * (1.0 / (hd ** 0.5))
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, None, :].to(acc)
+    slot = offset + torch.arange(s_l, device=q.device)
+    allowed = slot[None, None, :] <= positions[:, :, None]  # [B, T, S_l]
+    scores = scores.masked_fill(~allowed[:, None, None, :, :], NEG_INF)
+    m = all_reduce(scores.amax(dim=-1, keepdim=True), mesh, "sp", "max")
+    p = torch.exp(scores - m)
+    denom = all_reduce(p.sum(dim=-1, keepdim=True), mesh, "sp")
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, None, :].to(acc)
+    num = all_reduce(torch.einsum("bkgts,bksd->bkgtd", p, v_cache.to(acc)), mesh, "sp")
+    out = num / denom  # [B, KV, G, T, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h * hd).to(q.dtype)

@@ -63,28 +63,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, cos, sin)
 
 
-def linear(x: torch.Tensor, w, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, compute_dtype: torch.dtype | None = None,
+           tp_kind: str | None = None) -> torch.Tensor:
     """x @ w. `w` is a dense [in, out] tensor, a quantized leaf
     ({"q8" | "q4" | "q4x", "s"[, "m"]}, ops/quant.py), which goes to
     `quant_matmul`, or a LoRA leaf ({"base", "lora_a", "lora_b",
     "lora_scale"}, models/lora.py): base(x) + ((x @ a) @ b) * scale, with
     a, b and scale in x.dtype. A dense base is detached (frozen, as
     `stop_gradient` freezes it in the JAX package); a quantized base is
-    frozen by `kernels.FrozenQuantMatmul`."""
+    frozen by `kernels.FrozenQuantMatmul`. `tp_kind` ("col" / "row" /
+    None) says that w is this rank's column or row block under the active
+    mesh (parallel/): a row block's partial product is all-reduced over
+    tp."""
     if isinstance(w, dict):
         if "lora_a" in w:
             base_w = w["base"]
             if not isinstance(base_w, dict):
                 base_w = base_w.detach()
-            base = linear(x, base_w, compute_dtype=compute_dtype)
+            base = linear(x, base_w, compute_dtype=compute_dtype, tp_kind=tp_kind)
             a, b = w["lora_a"].to(x.dtype), w["lora_b"].to(x.dtype)
             delta = torch.matmul(torch.matmul(x, a), b) * w["lora_scale"].to(x.dtype)
             return base + delta.to(base.dtype)
         from llamago_tpu_torch.ops.quant import quant_matmul
 
-        return quant_matmul(x, w)
+        return quant_matmul(x, w, tp_kind=tp_kind)
     dtype = compute_dtype or x.dtype
-    return torch.matmul(x.to(dtype), w.to(dtype))
+    out = torch.matmul(x.to(dtype), w.to(dtype))
+    if tp_kind == "row":
+        from llamago_tpu_torch.parallel.mesh import all_reduce
+        from llamago_tpu_torch.parallel.tp_kernels import active_mesh
+
+        out = all_reduce(out, active_mesh(), "tp")
+    return out
 
 
 def swiglu(x: torch.Tensor, w1, w2, w3) -> torch.Tensor:

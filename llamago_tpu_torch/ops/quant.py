@@ -208,14 +208,25 @@ def dequantize(w: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return out.to(dtype)
 
 
-def quant_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
+def quant_matmul(x: torch.Tensor, w: dict, tp_kind: str | None = None) -> torch.Tensor:
     """x [..., in] @ quantized w -> [..., out]. Q8_0, Q4_0 and w4x8 leaves
     go to the kernels of ops/kernels.py (the CUDA kernel on a CUDA tensor,
     its plain version on a CPU tensor); where grad is enabled and x
     requires it, through `kernels.FrozenQuantMatmul`, which gives x its
     gradient and freezes the leaf. A Q4_1 leaf is dequantized to x.dtype
     and multiplied by torch.matmul: the JAX package has no kernel for it
-    either."""
+    either. Under an active mesh, a rank's block of a leaf goes through
+    parallel/tp_kernels.py:maybe_tp_matmul (the local kernel, all-reduced
+    over tp for a row block, `tp_kind`)."""
+    from llamago_tpu_torch.parallel.tp_kernels import active_mesh, maybe_tp_matmul
+
+    if active_mesh() is not None:
+        out = maybe_tp_matmul(x, w, tp_kind)
+        if out is not None:
+            return out
+        if tp_kind == "row":  # a partial product must not pass as the result
+            raise ValueError("quant_matmul: this row block has no local kernel; the "
+                             "loader replicates such leaves (parallel/sharding.py)")
     if "m" in w:
         return torch.matmul(x, dequantize(w, x.dtype))
     from llamago_tpu_torch.ops import kernels

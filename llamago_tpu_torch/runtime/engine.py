@@ -21,7 +21,17 @@ cache row per step (the cache write clamps like dynamic_update_slice,
 runtime/kv_cache.py); `_decode_positions` parks them where that write is
 harmless. With `speculative=True`, all-greedy batches take prompt-lookup
 speculative decoding (runtime/speculative.py) while their drafts keep
-being accepted. Multi-host lockstep comes with a later slice of the port.
+being accepted.
+
+Under a mesh (parallel/) every rank runs its own Engine over its blocks of
+the weights and of the cache, with the same host state: the forward's
+collectives bind the ranks, and the logits every rank samples from are the
+whole [slots, vocab] (gathered over tp and dp), sampled with the same
+per-slot generators. Lockstep admission keeps the host state equal:
+`enable_lockstep_admission` lets `step` admit only the jobs every rank
+agreed on (parallel/multihost.py:serve_lockstep broadcasts them), embedding
+requests ride the same broadcast (`embed_routed`, `run_embeds`), and
+deadline expiry is decided on rank 0 (`expired_job_ids`, `apply_expiry`).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch
 from llamago_tpu_torch.config import GenerateConfig, ModelConfig
 from llamago_tpu_torch.models.llama import forward_impl, prefill_into_slot
 from llamago_tpu_torch.ops.sampling import SamplerState, push_tokens, reset_slots, sample
+from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 from llamago_tpu_torch.runtime.kv_cache import KVCache
 from llamago_tpu_torch.tokenizer import EOS_TOKEN, Vocab, detokenize, tokenize
 from llamago_tpu_torch.utils import debug as _dbg
@@ -166,6 +177,15 @@ class Engine:
         self._spec_probe_countdown = 0
         self.prefill_chunk = max(16, min(prefill_chunk, self.buckets[-1]))
         self._queue: list[Job] = []
+        # None = every queued job is admissible (one process). Lockstep
+        # serving sets 0 (enable_lockstep_admission): step() then admits
+        # only the first _agreed_n jobs, the prefix every rank agreed on
+        self._agreed_n: int | None = None
+        # lockstep embedding requests: an HTTP thread must not run a forward
+        # that holds collectives on rank 0 alone; the request waits here for
+        # the tick's broadcast, and every rank computes it (embed_routed)
+        self._embed_pending: list[tuple[str, str, threading.Event, dict]] = []
+        self._embed_inflight: dict[str, tuple[threading.Event, dict]] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -201,7 +221,10 @@ class Engine:
         return rungs
 
     def _make_cache(self) -> KVCache:
-        return KVCache.create(self.config, batch=self.n_slots, device=self.device)
+        """The slots' cache: under a mesh this rank's block of it, so that
+        warmup's wipe and _rebuild_device_state keep the layout."""
+        return KVCache.create(self.config, batch=self.n_slots, device=self.device,
+                              mesh=active_mesh())
 
     # ------------------------------------------------------------- queue
 
@@ -229,7 +252,8 @@ class Engine:
     def _embed_ids(self, ids: list[int]) -> tuple[np.ndarray, int]:
         bucket = self._bucket(len(ids))
         padded = ids + [0] * (bucket - len(ids))
-        cache = KVCache.create(self.config, batch=1, max_seq=bucket, device=self.device)
+        cache = KVCache.create(self.config, batch=1, max_seq=bucket, device=self.device,
+                               mesh=active_mesh())
         with (torch.cuda.device(self.device) if self.device.type == "cuda"
               else contextlib.nullcontext()):
             _, _, emb = forward_impl(
@@ -238,6 +262,53 @@ class Engine:
                 logit_index=self._tensor([len(ids) - 1], torch.long),
                 return_embedding=True)
             return emb[0].cpu().numpy().astype(np.float32), len(ids)
+
+    def embed_routed(self, text: str, timeout_s: float = 120.0) -> tuple[np.ndarray, int]:
+        """`embed` that an HTTP handler thread may call. One process: it
+        computes at once. Under lockstep admission the forward holds
+        collectives, so it must run on every rank: the request waits for the
+        next tick's broadcast (parallel/multihost.py:serve_lockstep ->
+        run_embeds), and the handler blocks on the result."""
+        if self._agreed_n is None:
+            return self.embed(text)
+        done = threading.Event()
+        box: dict = {}
+        with self._lock:
+            self._embed_pending.append((str(uuid.uuid4()), text, done, box))
+        self._wake.set()
+        if not done.wait(timeout_s):
+            raise TimeoutError("embedding request timed out awaiting the lockstep tick")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def drain_embeds(self) -> list[dict]:
+        """Rank 0, each tick: take the queued embedding requests for the
+        broadcast; their waiters stay registered until run_embeds."""
+        with self._lock:
+            pending, self._embed_pending = self._embed_pending, []
+            for rid, _text, done, box in pending:
+                self._embed_inflight[rid] = (done, box)
+        return [{"id": rid, "text": text} for rid, text, _, _ in pending]
+
+    def run_embeds(self, reqs: list[dict]) -> None:
+        """Every rank, each tick: compute the broadcast embedding requests in
+        their order. A too-long input fails the same way on every rank, so
+        the error is kept for the waiter, not raised."""
+        for r in reqs:
+            try:
+                result, err = self.embed(r["text"]), None
+            except ValueError as e:
+                result, err = None, e
+            waiter = self._embed_inflight.pop(r["id"], None)
+            if waiter is None:  # not rank 0: nobody waits here
+                continue
+            done, box = waiter
+            if err is not None:
+                box["error"] = err
+            else:
+                box["result"] = result
+            done.set()
 
     # --------------------------------------------------------- admission
 
@@ -412,7 +483,7 @@ class Engine:
         parked where their writes cannot clobber live data: a slot
         mid-prefill at its prefill cursor; a free slot at its mapped-prefix
         end (lower, shrinking the mapping, if that would overrun)."""
-        s_max = self.cache.max_seq
+        s_max = self.cache.max_seq * self.cache.seq_split  # all positions, under sp too
         pos = np.zeros(self.n_slots, np.int64)
         for i, slot in enumerate(self.slots):
             if active[i]:
@@ -431,10 +502,15 @@ class Engine:
         """One engine iteration. Returns True if any work was done."""
         with self._lock:
             for i, slot in enumerate(self.slots):
-                if not self._queue:
+                if not self._queue or self._agreed_n == 0:
+                    # lockstep admits only the agreed prefix of the queue: a
+                    # job submitted since the drain waits for the next tick
                     break
                 if slot.free:
-                    self._admit(i, self._queue.pop(0))
+                    job = self._queue.pop(0)
+                    if self._agreed_n is not None:
+                        self._agreed_n -= 1
+                    self._admit(i, job)
 
         did_prefill = self._advance_prefills()
 
@@ -526,7 +602,7 @@ class Engine:
         if any(s.pending for s in self.slots):
             return 0
         with self._lock:
-            if self._queue and any(s.free for s in self.slots):
+            if self._queue and self._agreed_n != 0 and any(s.free for s in self.slots):
                 return 0
         probing = False
         emas = [self.spec_accept_ema[i] for i in range(self.n_slots) if active[i]]
@@ -656,7 +732,7 @@ class Engine:
         if any(s.pending for s in self.slots):
             return 1
         with self._lock:
-            if self._queue and any(s.free for s in self.slots):
+            if self._queue and self._agreed_n != 0 and any(s.free for s in self.slots):
                 return 1
         allowed = self.decode_chunk_size
         for i, slot in enumerate(self.slots):
@@ -820,19 +896,66 @@ class Engine:
         job.output = text
         return stopped
 
-    def _expire_deadlines(self) -> None:
-        """Fail active jobs past their wall-clock deadline (the reference's
-        unwritten background watcher, server.go:55)."""
-        now = time.time()
+    def expired_job_ids(self, now: float | None = None) -> list[str]:
+        """Active jobs past their wall-clock deadline. Apart from the expiry
+        itself so that under lockstep rank 0 decides and broadcasts it: the
+        ranks' clocks may disagree."""
+        now = time.time() if now is None else now
+        return [slot.job.id for slot in self.slots
+                if slot.job is not None and slot.job.gen.deadline_s > 0
+                and now - slot.job.started > slot.job.gen.deadline_s]
+
+    def apply_expiry(self, job_ids: list[str]) -> None:
+        """Fail the active jobs named."""
+        if not job_ids:
+            return
+        idset = set(job_ids)
         for slot in self.slots:
             job = slot.job
-            if (job is not None and job.gen.deadline_s > 0
-                    and now - job.started > job.gen.deadline_s):
+            if job is not None and job.id in idset:
                 job.status = JobStatus.FAILED
                 job.error = f"deadline exceeded ({job.gen.deadline_s:.0f}s)"
                 job.output = _render_output(self.vocab, job)
                 job.finished = time.time()
                 slot.job = None
+
+    def _expire_deadlines(self) -> None:
+        """Fail active jobs past their wall-clock deadline (the reference's
+        unwritten background watcher, server.go:55)."""
+        self.apply_expiry(self.expired_job_ids())
+
+    def enable_lockstep_admission(self) -> None:
+        """Gate admissions on the ranks' agreement (see _agreed_n)."""
+        with self._lock:
+            self._agreed_n = 0
+
+    def approve(self, n: int) -> None:
+        """Mark the next n queued jobs agreed (the other ranks call this
+        after submitting the broadcast's jobs)."""
+        with self._lock:
+            if self._agreed_n is not None:
+                self._agreed_n += n
+
+    def drain_pending(self) -> list:
+        """Take the queue's tail that is not agreed yet (rank 0 drains,
+        broadcasts, then requeues the same Job objects, so that the HTTP
+        side's references stay live)."""
+        with self._lock:
+            agreed = self._agreed_n or 0
+            jobs, self._queue = self._queue[agreed:], self._queue[:agreed]
+        return jobs
+
+    def requeue(self, jobs: list) -> None:
+        """Put agreed jobs back right behind the agreed prefix (jobs that
+        came in since the drain stay behind them, for the next tick)."""
+        if not jobs:
+            return
+        with self._lock:
+            a = self._agreed_n or 0
+            self._queue = self._queue[:a] + list(jobs) + self._queue[a:]
+            if self._agreed_n is not None:
+                self._agreed_n += len(jobs)
+        self._wake.set()
 
     def run_forever(self, poll_interval: float = 0.05) -> None:
         """Engine loop; an event wakes it immediately on submit. Kernel

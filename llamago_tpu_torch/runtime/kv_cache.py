@@ -18,6 +18,13 @@ are [B, KV, S] per layer, zero-initialized, and the attention folds them
 into its scores and probabilities (ops/attention.py). They hold f32, or
 bf16 under LLAMAGO_KV_SCALE_DTYPE=bfloat16: a row is still quantized against
 its f32 scale, and the scale is rounded as it is written into the plane.
+
+Under a mesh (parallel/) each rank holds its block of the cache, as the
+JAX package's `cache_sharding` lays it out: slots split over dp
+(`batch_split`), kv heads over tp, positions over sp (`seq_split`: this
+rank holds the S_l positions from sp_index * S_l). A write under sp clamps
+its GLOBAL start as dynamic_update_slice does, then each sp rank writes the
+part of the rows that falls in its block (`write_rows_sp`).
 """
 
 from __future__ import annotations
@@ -55,6 +62,9 @@ class KVCache:
     # int8 mode only: n_layers scale planes [B, KV, S]; None => dense
     ks: list | None = None
     vs: list | None = None
+    # ways the slots / the positions are split over the mesh (1: whole)
+    batch_split: int = 1
+    seq_split: int = 1
 
     @property
     def quantized(self) -> bool:
@@ -70,7 +80,9 @@ class KVCache:
 
     @staticmethod
     def create(config: ModelConfig, batch: int = 1, max_seq: int | None = None,
-               dtype: torch.dtype | None = None, device="cuda") -> "KVCache":
+               dtype: torch.dtype | None = None, device="cuda", mesh=None) -> "KVCache":
+        """A zeroed cache of `batch` slots and `max_seq` positions; under
+        `mesh` this rank's block of it (parallel/sharding.py:cache_sharding)."""
         device = resolve_device(device)
         quantized = config.kv_dtype == "int8"
         if quantized:
@@ -78,27 +90,37 @@ class KVCache:
         elif dtype is None:
             dtype = torch_dtype(config.kv_dtype if config.kv_dtype != "auto"
                                 else config.dtype)
-        shape = (batch, config.kv_heads, max_seq or config.max_seq_len,
-                 config.head_dim)
+        s = max_seq or config.max_seq_len
+        split = None
+        if mesh is not None and mesh.world > 1:
+            from llamago_tpu_torch.parallel.sharding import cache_sharding
+
+            split = cache_sharding(config, mesh, batch=batch, max_seq=s)
+            batch, kv, s = split.local_shape(batch, config.kv_heads, s)
+        else:
+            kv = config.kv_heads
+        shape = (batch, kv, s, config.head_dim)
+        ways = {} if split is None else {"batch_split": split.batch, "seq_split": split.seq}
 
         def mk(shp, dt):
             return [torch.zeros(shp, dtype=dt, device=device)
                     for _ in range(config.n_layers)]
 
         if not quantized:
-            return KVCache(k=mk(shape, dtype), v=mk(shape, dtype))
+            return KVCache(k=mk(shape, dtype), v=mk(shape, dtype), **ways)
         # zero scales: an unwritten row dequantizes to exactly zero
         return KVCache(k=mk(shape, dtype), v=mk(shape, dtype),
                        ks=mk(shape[:-1], scale_dtype()),
-                       vs=mk(shape[:-1], scale_dtype()))
+                       vs=mk(shape[:-1], scale_dtype()), **ways)
 
     def slot(self, i: int) -> "KVCache":
-        """Views of batch row i: writes through them land in this cache."""
+        """Views of (local) batch row i: writes through them land in this
+        cache."""
         def rows(planes):
             return None if planes is None else [a[i:i + 1] for a in planes]
 
         return KVCache(k=rows(self.k), v=rows(self.v), ks=rows(self.ks),
-                       vs=rows(self.vs))
+                       vs=rows(self.vs), seq_split=self.seq_split)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -146,3 +168,25 @@ def write_scale_rows(scale_layer: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(b, device=dev)[:, None]
     cols = start[:, None] + torch.arange(t, device=dev)[None, :]
     scale_layer[rows, :, cols] = new.to(scale_layer.dtype)
+
+
+def sp_starts(write_pos: torch.Tensor, s_global: int, t: int) -> list[int]:
+    """The global write starts of a window of t rows into a cache of
+    s_global positions, placed by `_starts`, on the host: every sp rank
+    computes the same ones."""
+    return _starts(write_pos, s_global, t, torch.device("cpu")).tolist()
+
+
+def write_rows_sp(layer: torch.Tensor, new: torch.Tensor, starts: list[int],
+                  offset: int) -> None:
+    """In place, under sp: the part of each batch row's window
+    new[b] ([T, KV, hd] rows, or [T, KV] scales) at global positions
+    starts[b] .. starts[b] + T - 1 that falls in this rank's block of the
+    positions, [offset, offset + S_l), of `layer` ([B, KV, S_l, hd] or
+    [B, KV, S_l])."""
+    t, s_l = new.shape[1], layer.shape[2]
+    for b, st in enumerate(starts):
+        lo, hi = max(st, offset), min(st + t, offset + s_l)
+        if lo < hi:
+            layer[b, :, lo - offset:hi - offset] = new[b, lo - st:hi - st].transpose(0, 1).to(
+                layer.dtype)

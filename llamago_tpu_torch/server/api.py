@@ -18,7 +18,9 @@ OpenAI-style /v1/completions, /v1/chat/completions, /v1/embeddings and
 
 The HTTP handlers run on the server's threads; the engine steps on its
 own thread (runtime/engine.py), which owns every kernel launch except an
-embedding request's forward pass.
+embedding request's forward pass. Under a mesh rank 0 alone owns HTTP and
+the lockstep tick steps the engine (parallel/multihost.py); an embedding
+request then rides the tick's broadcast (Engine.embed_routed).
 """
 
 from __future__ import annotations
@@ -323,9 +325,12 @@ class JobServer:
         finally:
             self.engine.stop()
 
-    def start_background(self) -> None:
-        """Engine thread + HTTP server thread; returns at once."""
-        self.engine.start()
+    def start_background(self, start_engine: bool = True) -> None:
+        """Engine thread + HTTP server thread; returns at once.
+        start_engine=False leaves the stepping to an outer loop (lockstep
+        serving, parallel/multihost.py:serve_lockstep)."""
+        if start_engine:
+            self.engine.start()
         handler = _make_handler(self)
         self._httpd = ThreadingHTTPServer((self.config.host, self.config.port), handler)
         threading.Thread(target=self._httpd.serve_forever, daemon=True).start()
@@ -423,7 +428,7 @@ def _make_handler(server: JobServer):
             data, total = [], 0
             try:
                 for i, text in enumerate(inputs):
-                    emb, n_tok = server.engine.embed(text)
+                    emb, n_tok = server.engine.embed_routed(text)
                     total += n_tok
                     data.append({"object": "embedding", "index": i,
                                  "embedding": [float(v) for v in emb]})

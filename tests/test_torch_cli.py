@@ -1,6 +1,6 @@
 """Port parity and guards: the CLI (cli.py), the ggjt reader, and the
-rules the port keeps (no JAX imports, CUDA unless the CPU is asked for,
-unported flags fail by name).
+rules the port keeps (no JAX imports, CUDA unless the CPU is asked for),
+and the --tp / --dp / --sp / --coordinator one-shots on the CPU.
 
 The CLI tests build a tiny Q8_0 ggjt with the port's writer and
 quantizer; `--temp 0 --device cpu` one-shot output, with and without
@@ -9,6 +9,7 @@ quantizer; `--temp 0 --device cpu` one-shot output, with and without
 
 import ast
 import filecmp
+import json
 import pathlib
 
 import jax
@@ -126,16 +127,105 @@ def test_oneshot_int8_kv_cache_runs(q8_model, capsys):
     assert out.startswith("hello world") and len(out.strip()) > len("hello world")
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    (["--sp", "2"], "parallel"),
-    (["--tp", "2"], "parallel"),
-    (["--dp", "2"], "parallel"),
-    (["--multihost"], "parallel"),
+def _ranked_cli(argv: list[str], nprocs: int = 1, timeout: float = 120,
+                torchrun: bool = False, stdin: str = "") -> list[tuple]:
+    """Run `python -m llamago_tpu_torch.cli argv` (with nprocs > 1 as ranks
+    0..nprocs-1 of one world on a free port: --coordinator, or with
+    `torchrun` --multihost and the environment torchrun sets); `stdin` goes
+    to rank 0. The (returncode, stdout, stderr) of each process."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent), OMP_NUM_THREADS="1")
+    cmds = [[sys.executable, "-m", "llamago_tpu_torch.cli", *argv]]
+    envs = [env]
+    if nprocs > 1:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if torchrun:
+            cmds = [cmds[0] + ["--multihost"]] * nprocs
+            envs = [dict(env, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(i),
+                         LOCAL_RANK=str(i), WORLD_SIZE=str(nprocs)) for i in range(nprocs)]
+        else:
+            cmds = [cmds[0] + ["--coordinator", f"127.0.0.1:{port}", "--nprocs", str(nprocs),
+                               "--procid", str(i)] for i in range(nprocs)]
+            envs = [env] * nprocs
+    procs = [subprocess.Popen(c, env=e, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, e in zip(cmds, envs)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(stdin if i == 0 else "", timeout=timeout)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            p.kill()
+    return outs
+
+
+@pytest.mark.parametrize("flags,nprocs", [
+    (["--tp", "2"], 1),
+    (["--dp", "2", "--pods", "2"], 1),
+    (["--sp", "2"], 1),
+    (["--tp", "2"], 2),  # --coordinator 127.0.0.1:P --nprocs 2 --procid 0 / 1
 ])
-def test_unported_flags_fail_naming_the_slice(flags, slice_name, capsys):
-    assert cli.main(["--model", "m.bin", "--silent", "--device", "cpu"] + flags) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and slice_name in err
+def test_parallel_oneshot_output_matches_one_process(q8_model, flags, nprocs, capsys):
+    """--tp / --dp / --sp one-shots on --device cpu (the CLI spawns the
+    ranks, or two processes join one --coordinator world): rank 0 prints the
+    one-process output exactly, the other ranks print nothing, and every
+    rank logs its launch counts."""
+    argv = ["--model", q8_model, "--prompt", "hello world", "--temp", "0",
+            "--predict", "12", "--context", "64", "--silent", "--device", "cpu"]
+    assert cli.main(argv + ["--tp", "1"]) == 0
+    want = capsys.readouterr().out
+    runs = _ranked_cli(argv + flags, nprocs)
+    for code, _, err in runs:
+        assert code == 0, err[-3000:]
+    assert runs[0][1] == want and want.startswith("hello world")
+    assert all(out == "" for _, out, _ in runs[1:])
+    ranks = sorted(json.loads(line)["rank"] for _, _, err in runs
+                   for line in err.splitlines() if line.startswith('{"rank"'))
+    assert ranks == [0, 1]
+
+
+def test_multihost_reads_the_torchrun_environment(q8_model, capsys):
+    """--multihost alone: the world from MASTER_ADDR / MASTER_PORT / RANK /
+    WORLD_SIZE, --tp 0 taking world // (dp * sp) = 2."""
+    argv = ["--model", q8_model, "--prompt", "hello world", "--temp", "0",
+            "--predict", "12", "--context", "64", "--silent", "--device", "cpu"]
+    assert cli.main(argv + ["--tp", "1"]) == 0
+    want = capsys.readouterr().out
+    runs = _ranked_cli(argv, 2, torchrun=True)
+    for code, _, err in runs:
+        assert code == 0, err[-3000:]
+    assert runs[0][1] == want and runs[1][1] == ""
+    assert "[mesh] tp=2 dp=1 sp=1" in runs[0][2]
+
+
+def test_chat_under_tp_matches_one_process(q8_model):
+    """--chat over two --coordinator ranks: rank 0 reads the turns and
+    prints what one process prints; rank 1 follows the broadcast and ends
+    with it."""
+    argv = ["--model", q8_model, "--chat", "--temp", "0", "--predict", "8", "--context", "64",
+            "--silent", "--device", "cpu"]
+    turns = "hello\nworld\n\n"
+    (code, want, err), = _ranked_cli(argv, 1, stdin=turns)
+    assert code == 0, err[-3000:]
+    runs = _ranked_cli(argv + ["--tp", "2"], 2, stdin=turns)
+    for code, _, err in runs:
+        assert code == 0, err[-3000:]
+    assert runs[0][1] == want and want.count("model> ") == 2
+    assert runs[1][1] == ""
+
+
+def test_more_ranks_than_cards_is_refused(monkeypatch, q8_model, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cli.main(["--model", q8_model, "--prompt", "x", "--silent", "--tp", "2"]) == 2
+    assert "mesh needs 2 devices, have 1" in capsys.readouterr().err
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, q8_model):
@@ -171,6 +261,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if top in ("jax", "jaxlib", "llamago_tpu"):
                     bad.append(f"{path.relative_to(PKG.parent)}: {name}")
     assert len(list(PKG.rglob("*.py"))) > 15
+    scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"parallel/{m}.py" for m in ("mesh", "sharding", "tp_kernels", "multihost")} <= scanned
     assert bad == []
 
 

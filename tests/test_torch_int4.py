@@ -490,20 +490,24 @@ def test_load_parameters_from_q4_file_matches_jax(monkeypatch, q4_files, kind, e
 
 
 def test_load_parameters_relays_q4_0_file_leaves_under_w4x8(monkeypatch):
+    """Q4_0 file tensors (the matmul leaves and the head) through
+    load_parameters under w4x8: re-laid where K is a multiple of 128, kept
+    as Q4_0 with their f32 file scales elsewhere, as the JAX loader does
+    with the same bytes."""
+    from llamago_tpu.checkpoint.quant_file import QuantTensor as JQuantTensor
+    from llamago_tpu_torch.checkpoint.quant_file import QuantTensor, quantize_rows_q4_0
+
     monkeypatch.setenv("LLAMAGO_INT4_EXEC", "w4x8")
     jcfg, cfg = _mixed_config(JModelConfig), _mixed_config(ModelConfig)
-    host = jparams.host_parameters(jcfg, random_ggjt_tensors(jcfg, seed=32))
-
-    def file_leaf(a):  # what a Q4_0 file gives: f32 scales
-        leaf = quant.quantize(t(np.asarray(a, np.float32)), 4)
-        return {"q4": leaf["q4"].numpy(), "s": leaf["s"].float().numpy()}
-
-    host = dict(host, output=file_leaf(host["output"]),
-                layers={k: (file_leaf(v) if k in quant.QUANT_LEAVES else v)
-                        for k, v in host["layers"].items()})
-    want = jquant.quantize_params(jcfg, host)
-    got = params._quantize_params(cfg, host, torch.device("cpu"))
-    assert_tree_equal(got, want)
+    dense = random_ggjt_tensors(jcfg, seed=32)
+    quantized = {name: quantize_rows_q4_0(m) for name, m in dense.items()
+                 if m.ndim == 2 and name != "tok_embeddings.weight"}
+    tensors = {**dense, **{name: QuantTensor("q4_0", raw, dense[name].shape)
+                           for name, raw in quantized.items()}}
+    jtensors = {**dense, **{name: JQuantTensor("q4_0", raw, dense[name].shape)
+                            for name, raw in quantized.items()}}
+    got = params.load_parameters(cfg, tensors, device="cpu")
+    assert_tree_equal(got, jparams.load_parameters(jcfg, jtensors))
     assert "q4x" in got["layers"]["wq"] and got["layers"]["w2"]["s"].dtype == torch.float32
 
 
