@@ -91,8 +91,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      forms);
   4. serve full-width LLaMA-7B with random Q8_0 weights (widths and
      weights as MODEL_PRESETS["7B"], random from seed 0; 16 of its 32 layers
-     since phase 8 joined, for the time limit, in phases 4 to 4d, 4f and
-     4g) over the REST job API:
+     since phase 8 joined and 8 since phase 8b joined, for the time limit,
+     in phases 4 to 4d, 4f and 4g) over the REST job API:
      8 sampled jobs over HTTP on 4 slots with decode chunks of 32, then a
      greedy job twice. The launch counts of K1, its tensor-core decode
      form (`launches_decode_tc`: every decode step), its tensor-core tile
@@ -245,8 +245,8 @@ Phases, each of which fails the run (exit code 1, no result line):
      jobs posted to rank 0 equal a one-process server's, /v1/embeddings
      (through embed_routed) within 1e-4 of max|e|, each rank's K1 and K2
      launch counts (logged by the rank when SIGTERM stops both through
-     rank 0's broadcast) above 0; 8.2 LLaMA-7B Q8_0 at full width and depth
-     (seed 0, drawn as world size 1 draws it and cut per rank), tp = 2 over
+     rank 0's broadcast) above 0; 8.2 LLaMA-7B Q8_0 at full width, 16 of
+     its 32 layers since phase 8b joined (seed 0, drawn as world size 1 draws it and cut per rank), tp = 2 over
      the bf16 and the int8 cache, dp = 2 and sp = 2 on 4 slots, each in bf16
      and f32: the last position's logits of a 16-token prefill against
      world size 1 on the card within 5e-2 (bf16) and 1e-4 (f32) of
@@ -263,6 +263,23 @@ Phases, each of which fails the run (exit code 1, no result line):
      x @ W / SDPA and their bounds; 8.4 one decode step of the 70B ranks
      profiled (host ms, device busy, kernels and host op calls a step, the
      collectives' count, host time and host copies);
+ 8b. sharded training (`par_train`), two rank processes sharing the card
+     over gloo as in phase 8: K1's tile (bf16 and f32 x) and K7 (bf16 and
+     f32) at a 7B tp = 2 rank's training shapes against their plain
+     versions, timed beside x @ W / SDPA and their bounds; 8b.1 the 7B
+     QLoRA step at full width (4 of its 32 layers, random Q8_0 base of
+     seed 0 with O(1) activations, 2 x 256 tokens, rank 8 on wq / wk / wv /
+     wo with B from a seed, remat, K7 on) at tp = 2, dp = 2 and sp = 2
+     against world size 1: f32 loss within 1e-5 and every adapter's
+     gradient within 1e-4 of max|g|, bf16 within twice the plain pair's own
+     difference; K1 launched on each rank, K7 under tp and dp; ms a step,
+     collectives a step (host ms, host copies), peak GiB a rank and device
+     busy share; 8b.2 phase 7a's small model, one full-weight f32 step at
+     tp = 2 and dp = 2 against world size 1; 8b.3 `finetune --tp 2`, then
+     `--lora` of its adapters at --tp 2 against one card (the same text)
+     and `perplexity` at --tp 2 and --sp 2 against one process (the NLL
+     within 1e-4), as --coordinator processes; 8b.4 `python -m
+     llamago_tpu_torch.dryrun --n 2` exits 0;
 
 then print the serving line (tokens/s, TTFT, peak memory, the prefill
 chunks' device time and matmul share and the decode step's device time,
@@ -271,7 +288,8 @@ side, with phase 4f's tokens/s, TTFT and accepted drafts a verify step,
 JSON), the perplexity line (phase 4g, JSON), the GGUF line (phase 6: the
 file, its times, the small models' card-vs-CPU errors; JSON), the training
 line (phase 7: the 7B step's numbers, the small steps' errors, the gate's
-rows; JSON), the parallel line (phase 8; JSON), the card line, the kernels line
+rows; JSON), the parallel line (phase 8; JSON), the parallel training line
+(phase 8b; JSON), the card line, the kernels line
 (JSON) and, last, the device line (JSON). `--out` names a file for the
 detail (per-shape kernel times, the serving numbers, the decode-step
 profile) as JSON. `--only` runs the
@@ -279,7 +297,7 @@ named phases alone (after the build) for work on one of them, and prints no
 result lines: k1, k2, k3, k4k8, k1q4, k5, k6, k9, k7, k10, lab, small,
 small_int4, serve, serve_prefill, serve_int8, serve_int4, serve_f32,
 serve_spec, ppl, llama3 (phase 2 at LLaMA-3-8B's shapes), gguf (phase 6),
-train (phase 7), parallel (phase 8).
+train (phase 7), parallel (phase 8), par_train (phase 8b).
 """
 
 from __future__ import annotations
@@ -4742,12 +4760,16 @@ PAR_7B_SETUPS = (
 # (77 % of the limit) at every path's full depth, and 665 s with these
 # cuts; with check_7b_shards and the int8 witness added, 881 s in a run
 # whose every phase was slower (the 7B QLoRA step 767.9 ms against 665.0),
-# where full depth would have neared the limit. Phase 4e's 7B and phase
-# 6's LLaMA-3-8B run this many of their 32 layers
+# where full depth would have neared the limit. Phase 8b (sharded
+# training) adds some 150 s to that run's 881 s, so the 7B of the serving
+# phases went from 16 layers to 8 and phase 8's 7B setups from 32 to 16.
+# Phase 4e's 7B and phase 6's LLaMA-3-8B run this many of their 32 layers
 F32_ROUTE_LAYERS = 8
 GGUF_8B_LAYERS = 8
-# the 7B of phases 4, 4b, 4c, 4d, 4f and 4g: 16 of its 32 layers
-SERVE_7B_LAYERS = 16
+# the 7B of phases 4, 4b, 4c, 4d, 4f and 4g: 8 of its 32 layers
+SERVE_7B_LAYERS = 8
+# the 7B of phase 8's setups (ranks and world size 1): 16 of its 32 layers
+PAR_7B_LAYERS = 16
 PAR_RANK_TIMEOUT_S = 420  # a rank process of phase 8 is joined within this
 PAR_70B_LAYERS = 80  # full depth
 
@@ -4805,7 +4827,8 @@ def _par_7b_rank(rank: int, out: str, dev) -> dict:
     from llamago_tpu_torch.parallel import make_mesh
     from llamago_tpu_torch.parallel.tp_kernels import activate_mesh
 
-    cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX)
+    cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX,
+                                       n_layers=PAR_7B_LAYERS)
     results, params, params_tp = {}, None, None
     for name, grid, kv, _ in PAR_7B_SETUPS:
         mesh = make_mesh(**grid, devices=[dev] * 2)
@@ -4942,7 +4965,8 @@ def _par_rank(rank: int, port: int, out: str, job: str) -> None:
 
     dev = initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda")
     try:
-        res = {"7b": _par_7b_rank, "70b": _par_70b_rank}[job](rank, out, dev)
+        res = {"7b": _par_7b_rank, "70b": _par_70b_rank, "train": _par_train_rank}[job](
+            rank, out, dev)
         res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         with open(os.path.join(out, f"{job}.rank{rank}.json"), "w") as f:
             json.dump(res, f)
@@ -4988,14 +5012,9 @@ def _par_spawn(job: str, out: str) -> list[dict]:
     return out_
 
 
-def _par_cli(dev, tmp: str) -> dict:
-    """8.1: the CLI's --tp 2 server as two processes on the one card
-    (--coordinator, gloo) against a one-process server on a small Q8_0
-    file, both in f32 at temp 0: the same job outputs; /v1/embeddings
-    through embed_routed within 1e-4 of max|e|; each rank's K1 and K2
-    launch counts (logged by the rank at the end) above 0."""
-    import signal
-
+def _par_small_model(tmp: str) -> str:
+    """The small Q8_0 ggjt file of 8.1 and 8b.3 (dim 512, 4 heads, FFN
+    1536, 2 layers, byte vocab of 265) in `tmp`: its path."""
     import numpy as np
 
     from llamago_tpu_torch.checkpoint.ggjt import write_ggjt
@@ -5025,6 +5044,20 @@ def _par_cli(dev, tmp: str) -> dict:
     f32 = os.path.join(tmp, "par-f32.bin")
     write_ggjt(f32, cfg, _byte_vocab(265), tensors)
     q8 = quantize_ggjt(f32, os.path.join(tmp, "par-q8_0.bin"), "q8_0")
+    return q8
+
+
+def _par_cli(dev, tmp: str) -> dict:
+    """8.1: the CLI's --tp 2 server as two processes on the one card
+    (--coordinator, gloo) against a one-process server on a small Q8_0
+    file, both in f32 at temp 0: the same job outputs; /v1/embeddings
+    through embed_routed within 1e-4 of max|e|; each rank's K1 and K2
+    launch counts (logged by the rank at the end) above 0."""
+    import signal
+
+    import numpy as np
+
+    q8 = _par_small_model(tmp)
     flags = ["--model", q8, "--server", "--host", "127.0.0.1", "--pods", "2", "--dtype",
              "float32", "--context", "256", "--temp", "0", "--predict", "12", "--chunk", "1",
              "--silent"]
@@ -5178,7 +5211,7 @@ def check_7b_shards(dev, detail: dict) -> dict:
 
 def parallel_phase(dev, detail: dict, card: str, shards: dict) -> dict:
     """Phase 8 (`parallel`): 8.1 the CLI (_par_cli); 8.2 7B Q8_0 at full
-    width and depth on two ranks sharing the card (tp = 2 over the bf16 and
+    width (PAR_7B_LAYERS of its layers) on two ranks sharing the card (tp = 2 over the bf16 and
     the int8 cache, dp = 2, sp = 2) against world size 1, in bf16 and f32
     (`shards["shards_7b"]`: K1-K4 at a tp = 2 rank's shapes,
     check_7b_shards); 8.3 LLaMA-2-70B w4x8 at tp = 2 served over REST
@@ -5209,7 +5242,8 @@ def parallel_phase(dev, detail: dict, card: str, shards: dict) -> dict:
         ranks = _par_spawn("7b", tmp)
         out["7b_ranks_s"] = time.time() - t0
         log(f"parallel 7B: the ranks' setups took {out['7b_ranks_s']:.1f} s")
-        cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX)
+        cfg7 = MODEL_PRESETS["7B"].replace(weight_dtype="int8", max_seq_len=PAR_CTX,
+                                           n_layers=PAR_7B_LAYERS)
         params = fuse_layer_weights(random_quantized_parameters(cfg7, seed=0, device=dev))
         ref = {}
         for kv in ("auto", "int8"):
@@ -5321,6 +5355,540 @@ def parallel_phase(dev, detail: dict, card: str, shards: dict) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 8b: sharded training
+
+# 8b's 7B QLoRA setups at full width (dim 4096, 32 heads, FFN 11008, vocab
+# 32000) on PAR_TRAIN["layers"] of the 32 layers (the depth is cut to fit
+# the script's time, the widths are not), a batch of 2 x 256 tokens (dp = 2
+# trains one row a rank, sp = 2 128 positions a rank), adapters of rank 8
+# on wq / wk / wv / wo with B drawn from a seed, remat on, K7 on every
+# window (the prefill floor at 0); one check step in each dtype, then one
+# warm and `timed_steps` timed bf16 steps and one traced
+PAR_TRAIN = dict(layers=4, batch=2, seq=256, rank=8, timed_steps=3)
+# (setup, mesh, the kernels each rank must launch in its steps)
+PAR_TRAIN_SETUPS = (("tp2", {"tp": 2}, ("dequant_matmul", "flash_attention_prefill")),
+                    ("dp2", {"dp": 2}, ("dequant_matmul", "flash_attention_prefill")),
+                    ("sp2", {"sp": 2}, ("dequant_matmul",)))
+# K7 at a 7B tp = 2 rank's training window: the batch, 16 of the 32 heads,
+# the whole window of PAR_TRAIN["seq"] positions
+PAR_TRAIN_K7 = dict(b=PAR_TRAIN["batch"], kv=16, g=1, hd=128, s=PAR_TRAIN["seq"])
+# 8b.2's full-weight train_step: phase 7a's small model, f32, 2 x 64 tokens
+PAR_DENSE_SETUPS = (("tp2", {"tp": 2}), ("dp2", {"dp": 2}))
+
+
+def _par_train_params(cfg, dev, mesh):
+    """The 7B Q8_0 base of seed 0 on this rank (drawn whole as world size 1
+    draws it, then cut), every block's scales set to 1 / (74 sqrt(K)) of
+    its leaf's whole K, as phase 7b's check sets them to keep the
+    activations O(1) (uniform int8 has a spread of 74)."""
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import random_quantized_parameters
+    from llamago_tpu_torch.parallel.sharding import global_dims
+
+    params = random_quantized_parameters(cfg, seed=0, device=dev, mesh=mesh)
+    dims = global_dims(cfg)
+
+    def rescaled(key, leaf):
+        return {**leaf, "s": torch.full_like(leaf["s"], 1.0 / (74.0 * dims[key][0] ** 0.5))}
+
+    return {**params, "output": rescaled("output", params["output"]),
+            "layers": tuple({k: rescaled(k, v) if isinstance(v, dict) else v
+                             for k, v in lp.items()} for lp in params["layers"])}
+
+
+def _par_train_tree(params, cfg, mesh):
+    """init_lora (rank 8, seed 0) over the rank's blocks, each B drawn whole
+    (normal x 0.05 from a CPU generator seeded 71, in tree order) and cut
+    as its base is: world size 1's adapters, cut."""
+    import torch
+
+    from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.parallel.sharding import block_kind, global_dims
+
+    r = PAR_TRAIN["rank"]
+    tree = lora.init_lora(params, rank=r, alpha=16.0, seed=0, config=cfg)
+    gen = torch.Generator().manual_seed(71)
+    for lp in tree["layers"]:
+        for key, leaf in lp.items():
+            if lora.is_lora(leaf):
+                b = torch.randn((r, global_dims(cfg)[key][1]), generator=gen) * 0.05
+                if block_kind(key, leaf, cfg, mesh) == "col":
+                    n = b.shape[1] // mesh.tp
+                    b = b[:, mesh.coord("tp") * n:(mesh.coord("tp") + 1) * n]
+                leaf["lora_b"] = b.contiguous().to(leaf["lora_a"].device)
+    return tree
+
+
+def _adapter_grads(tree) -> dict:
+    """Every adapter's gradient ("layer/key/lora_a") as f32 numpy."""
+    from llamago_tpu_torch.models import lora
+
+    return {f"{i}/{key}/{half}": leaf[half].grad.float().cpu().numpy()
+            for i, lp in enumerate(tree["layers"]) for key, leaf in lp.items()
+            if lora.is_lora(leaf) for half in ("lora_a", "lora_b")}
+
+
+def _par_train_grads(params, cfg, tokens, mesh) -> tuple:
+    """One lora_train_step from a fresh tree: (loss, this rank's gradients)."""
+    import torch
+
+    from llamago_tpu_torch.models import lora
+
+    tree = _par_train_tree(params, cfg, mesh)
+    opt = lora.init_lora_opt_state(tree)
+    tree, opt, loss = lora.lora_train_step(tree, opt, tokens, cfg)
+    torch.cuda.synchronize()
+    return float(loss), _adapter_grads(tree)
+
+
+def _par_train_timed(params, cfg, tokens, mesh, dev) -> dict:
+    """One warm and PAR_TRAIN["timed_steps"] timed bf16 steps (ms a step, the
+    collectives a step with their host ms and host copies, the peak device
+    memory of this rank), then one traced step (device busy). Every rank
+    runs the same steps: the trace is taken once, never retaken."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.parallel import mesh as mesh_mod
+
+    tree = _par_train_tree(params, cfg, mesh)
+    opt = lora.init_lora_opt_state(tree)
+    losses = []
+
+    def step():
+        nonlocal tree, opt
+        tree, opt, loss = lora.lora_train_step(tree, opt, tokens, cfg)
+        losses.append(loss)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = PAR_TRAIN["timed_steps"]
+    calls0, s0, copies0 = mesh_mod.collective_calls, mesh_mod.collective_s, mesh_mod.host_copies
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    coll = {"calls": (mesh_mod.collective_calls - calls0) / n,
+            "host_ms": (mesh_mod.collective_s - s0) * 1e3 / n,
+            "host_copies": (mesh_mod.host_copies - copies0) / n}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = device_busy_us(prof.events()) / 1e3
+    return {"ms_per_step": ms, "collectives_per_step": coll, "peak_gib": peak,
+            "device_busy_ms": busy, "device_busy_share": busy / ms,
+            "collective_host_share": coll["host_ms"] / ms,
+            "losses": [float(x) for x in losses]}
+
+
+def _par_dense_tensors():
+    from llamago_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(**TRAIN_SMALL, dtype="float32", weight_dtype="float32")
+    return cfg, _train_tensors(cfg, 70)
+
+
+def _par_dense_step(dev, mesh) -> tuple:
+    """8b.2: one full-weight train_step of phase 7a's small model in f32
+    on this rank (or at world size 1): (loss, every parameter's gradient by
+    path, as f32 numpy)."""
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.checkpoint.params import load_parameters, unstack_layer_params
+    from llamago_tpu_torch.models import training
+
+    cfg, tensors = _par_dense_tensors()
+    params = unstack_layer_params(load_parameters(cfg, tensors, device=dev, mesh=mesh),
+                                  cfg.n_layers)
+    toks = torch.from_numpy(np.random.default_rng(75).integers(
+        3, cfg.vocab_size, (2, 64))).to(dev)
+    opt = training.make_optimizer(params)
+    with k7_route():
+        params, opt, loss = training.train_step(params, opt, toks, cfg)
+    torch.cuda.synchronize()
+    grads = {"tok_embeddings": params["tok_embeddings"].grad, "norm": params["norm"].grad,
+             "output": params["output"].grad}
+    for i, lp in enumerate(params["layers"]):
+        grads.update({f"{i}/{k}": v.grad for k, v in lp.items()})
+    return float(loss), {k: v.float().cpu().numpy() for k, v in grads.items()}
+
+
+def _par_train_rank(rank: int, out: str, dev) -> dict:
+    """A rank's side of phase 8b: for each 7B setup the mesh (both ranks on
+    the one card), the base cut to this rank's blocks, a check step in f32
+    and in bf16 (gradients written to `out`), the timed steps, each
+    setup's launches counted; then 8b.2's dense step at tp 2 and dp 2."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.config import MODEL_PRESETS
+    from llamago_tpu_torch.ops import launches
+    from llamago_tpu_torch.parallel import make_mesh
+    from llamago_tpu_torch.parallel.tp_kernels import activate_mesh
+
+    c = PAR_TRAIN
+    cfg = MODEL_PRESETS["7B"].replace(weight_dtype="int8", n_layers=c["layers"],
+                                      max_seq_len=c["seq"])
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (c["batch"], c["seq"]))).to(dev)
+    res = {}
+    for name, grid, _ in PAR_TRAIN_SETUPS:
+        mesh = make_mesh(**grid, devices=[dev] * 2)
+        activate_mesh(mesh)
+        params = _par_train_params(cfg, dev, mesh)
+        row = {}
+        with k7_route():
+            launches.reset()
+            for dtype in ("float32", "bfloat16"):
+                loss, grads = _par_train_grads(params, cfg.replace(dtype=dtype), tokens, mesh)
+                np.savez(os.path.join(out, f"train-{name}-{dtype}.rank{rank}.npz"), **grads)
+                row[dtype] = {"loss": loss}
+            row["check_launches"] = launches.counts()
+            launches.reset()
+            row["timed"] = _par_train_timed(params, cfg.replace(dtype="bfloat16"), tokens,
+                                            mesh, dev)
+            row["timed"]["launches"] = launches.counts()
+        res[name] = row
+        activate_mesh(None)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, grid in PAR_DENSE_SETUPS:
+        mesh = make_mesh(**grid, devices=[dev] * 2)
+        activate_mesh(mesh)
+        launches.reset()
+        loss, grads = _par_dense_step(dev, mesh)
+        np.savez(os.path.join(out, f"dense-{name}.rank{rank}.npz"), **grads)
+        res[f"dense {name}"] = {"loss": loss, "launches": launches.counts()}
+        activate_mesh(None)
+    return res
+
+
+def _whole(parts: list, shape) -> "np.ndarray":
+    """A tensor whole from two ranks' copies: rank 0's where it is whole,
+    else the two blocks put together along the dim that differs."""
+    import numpy as np
+
+    a = parts[0]
+    if a.shape == tuple(shape):
+        return a
+    ax = next(d for d in range(a.ndim) if a.shape[d] != shape[d])
+    return np.concatenate(parts, axis=ax)
+
+
+def _grads_err(ranks: list, ref: dict) -> float:
+    """The largest max|d| / max|ref| over every tensor, the ranks' blocks
+    put together."""
+    import numpy as np
+
+    return max(float(np.abs(_whole([r[k] for r in ranks], w.shape) - w).max()
+                     / max(np.abs(w).max(), 1e-30)) for k, w in ref.items())
+
+
+def check_train_shards(dev, detail: dict) -> dict:
+    """Phase 8b's kernel rows (run with phase 2, as check_7b_shards): K1's
+    tile at a 7B tp = 2 rank's blocks (PAR_7B_SHAPES) at the training
+    step's PAR_TRAIN batch x seq rows, bf16 x and f32 x (its f32_tc form),
+    against its plain version and timed over one forward of the 32 layers'
+    blocks; K7 at the rank's training window (PAR_TRAIN_K7) in bf16 and f32,
+    timed beside SDPA and the bound, one call a layer. Returns the kernels
+    line's numbers."""
+    import torch
+
+    from llamago_tpu_torch.ops import attention, kernels
+
+    k1, _ = _k1_checked()
+    m = PAR_TRAIN["batch"] * PAR_TRAIN["seq"]
+    out = {}
+    for tag, dtype, rate in (("K1 train tp2", "bfloat16", BF16_OPS_PER_S),
+                             ("K1 train tp2 f32", "float32", F32_TC_OPS_PER_S)):
+        errs, steps = check_matmul(dev, detail, tag, "q8", k1, kernels.dequant_matmul_plain,
+                                   timed_m=(m,), other_m=(), ops_per_s=lambda m_, r=rate: r,
+                                   seed=95, other_shapes=(), timed_dtype=dtype,
+                                   shapes=PAR_7B_SHAPES, copies=2)
+        out[f"k1_{dtype}"] = _line(errs, steps, m, lambda m_, xdt, d=dtype: xdt == d)
+    c = PAR_TRAIN_K7
+    gen = torch.Generator(device=dev).manual_seed(96)
+    b, kv, hd, s = c["b"], c["kv"], c["hd"], c["s"]
+    for dtype, tol, rate in (("bfloat16", K7_TOL, BF16_OPS_PER_S),
+                             ("float32", F32_ATTN_TOL, TF32X3_OPS_PER_S)):
+        dt = getattr(torch, dtype)
+        rows = _l3_attn_rows(
+            dev, gen, f"K7 train tp2 {dtype}", c, [(s, s)], {(s, s)}, dtype, tol,
+            lambda q, cache, positions, counted=True: (
+                _k7_call if counted else attention.flash_attention)(q, *cache, positions),
+            lambda q, cache, positions, got: _k7_error(q, *cache, positions, c, got),
+            lambda q5, cache, pos0: attention.flash_attention_prefill_plain(q5, *cache, pos0),
+            lambda dt=dt: tuple(torch.randn((b, kv, s, hd), generator=gen, device=dev).to(dt)
+                                for _ in range(2)),
+            2 * b * kv * s * hd * dt.itemsize,
+            lambda cache, vis: (cache[0][:, :, :vis], cache[1][:, :, :vis]), rate)
+        rec = rows[0]
+        out[f"k7_{dtype}"] = {"max_abs_err": rec["max_abs_err"], "bound_by": rec["bound_by"],
+                              **{k: 32 * rec[k] for k in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms")}}
+        detail[f"k7_train_tp2_{dtype}"] = rows
+    return out
+
+
+def _cli_start(argv: list[str], nprocs: int) -> tuple:
+    """Start `python -m llamago_tpu_torch.cli argv` as nprocs ranks of one
+    --coordinator world on the one card (gloo), or `argv` as it is (another
+    module's command line) with nprocs 0: (argv, the processes)."""
+    if nprocs == 0:
+        cmds = [[sys.executable, "-m", *argv]]
+    else:
+        coord = f"127.0.0.1:{_par_free_port()}"
+        cmds = [[sys.executable, "-m", "llamago_tpu_torch.cli", *argv, "--coordinator", coord,
+                 "--nprocs", str(nprocs), "--procid", str(i)] for i in range(nprocs)]
+    return argv, [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                  for c in cmds]
+
+
+def _cli_wait(started: tuple, timeout: float = 300) -> list[tuple]:
+    """Each process's (exit code, stdout, stderr) of a _cli_start, every
+    process stopped; a process that fails fails the phase."""
+    argv, procs = started
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            outs.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for code, _, err in outs:
+        if code != 0:
+            raise AssertionError(f"{' '.join(argv)} on {len(procs)} process(es) exited {code}: "
+                                 f"{err[-2000:]}")
+    return outs
+
+
+def _cli_here(argv: list[str]) -> str:
+    """The port's CLI in this process (one card): its standard output."""
+    import io
+
+    from llamago_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    if code != 0:
+        raise AssertionError(f"llamago_tpu_torch.cli {' '.join(argv)} exited {code}")
+    return buf.getvalue()
+
+
+def _rank_launches(err: str) -> dict:
+    lines = [json.loads(ln) for ln in err.splitlines() if ln.startswith('{"rank"')]
+    if len(lines) != 1:
+        raise AssertionError(f"a rank logged {len(lines)} launch lines: {err[-2000:]}")
+    return lines[0]
+
+
+def _ppl_line(text: str) -> tuple[float, float]:
+    m = re.search(r"\[PPL\] perplexity ([0-9.]+) \| nll ([0-9.]+)", text)
+    if m is None:
+        raise AssertionError(f"no [PPL] line in {text!r}")
+    return float(m.group(1)), float(m.group(2))
+
+
+def _par_train_cli(tmp: str) -> dict:
+    """8b.3: the CLI on the small Q8_0 file of 8.1, ranks as --coordinator
+    processes on the one card: `finetune --tp 2` (bf16, K1 under grad on
+    both ranks); then, side by side, `--lora` of its adapters at --tp 2,
+    `perplexity` at --tp 2 and at --sp 2, and `python -m
+    llamago_tpu_torch.dryrun --n 2` (8b.4), each held against this process
+    on one card in f32 (the same greedy text; the NLL within PPL_TOL)."""
+    q8 = _par_small_model(tmp)
+    # the first 6,000 characters of README.md: 46 windows of 128 tokens
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "README.md"),
+              encoding="utf-8") as f:
+        text = f.read()[:6000]
+    readme = os.path.join(tmp, "par-text.txt")
+    with open(readme, "w", encoding="utf-8") as f:
+        f.write(text)
+    adapters = os.path.join(tmp, "par.lora.npz")
+    t0 = time.time()
+    runs = _cli_wait(_cli_start(["finetune", "--model", q8, "--file", readme, "--steps", "5",
+                                 "--seq", "64", "--context", "128", "--train-batch", "2",
+                                 "--out", adapters, "--silent", "--tp", "2"], 2))
+    out = {"finetune_s": time.time() - t0,
+           "finetune_ranks": [_rank_launches(e) for _, _, e in runs]}
+    if not runs[0][1].startswith("[FINETUNE] 5 steps") or runs[1][1]:
+        raise AssertionError(f"finetune --tp 2 printed {runs[0][1]!r} and {runs[1][1]!r}")
+    for r in out["finetune_ranks"]:
+        if not r["launches"]["dequant_matmul"]:
+            raise AssertionError(f"finetune --tp 2: rank {r['rank']} launched no K1")
+    gen = ["--model", q8, "--lora", adapters, "--prompt", "The port", "--temp", "0",
+           "--predict", "16", "--context", "128", "--dtype", "float32", "--silent"]
+    ppl = ["perplexity", "--model", q8, "--file", readme, "--context", "128", "--dtype",
+           "float32", "--silent"]
+    t0 = time.time()
+    started = {"lora": _cli_start(gen + ["--tp", "2"], 2),
+               "ppl_tp2": _cli_start(ppl + ["--tp", "2"], 2),
+               "ppl_sp2": _cli_start(ppl + ["--sp", "2"], 2),
+               "dryrun": _cli_start(["llamago_tpu_torch.dryrun", "--n", "2"], 0)}
+    one = _cli_here(gen)
+    want = _ppl_line(_cli_here(ppl))
+    done = {k: _cli_wait(v, timeout=PAR_RANK_TIMEOUT_S) for k, v in started.items()}
+    out["side_by_side_s"] = time.time() - t0
+    if done["lora"][0][1] != one or not one.startswith("The port"):
+        raise AssertionError(f"--lora at --tp 2 printed {done['lora'][0][1]!r}, one card {one!r}")
+    out["lora_text"] = one
+    out["ppl_one"] = want
+    for key in ("ppl_tp2", "ppl_sp2"):
+        got = out[key] = _ppl_line(done[key][0][1])
+        if not abs(got[1] - want[1]) <= PPL_TOL["float32"] * abs(want[1]):
+            raise AssertionError(f"perplexity {key}: nll {got[1]}, one process {want[1]}")
+    out["dryrun"] = done["dryrun"][0][1].strip()
+    if "dryrun_multichip OK: mesh dp=1 sp=1 tp=2" not in out["dryrun"]:
+        raise AssertionError(f"the dry run printed {out['dryrun']!r}")
+    log(f"parallel training CLI: finetune --tp 2 in {out['finetune_s']:.1f} s (K1 launches "
+        f"by rank {[r['launches']['dequant_matmul'] for r in out['finetune_ranks']]}), then in "
+        f"{out['side_by_side_s']:.1f} s side by side: --lora at --tp 2 printed one card's "
+        f"text, perplexity one process {want}, --tp 2 {out['ppl_tp2']}, --sp 2 "
+        f"{out['ppl_sp2']}; the dry run: {out['dryrun']!r}")
+    return out
+
+
+def par_train_phase(dev, detail: dict, card: str, shards: dict) -> dict:
+    """Phase 8b (`par_train`): 8b.1 the 7B QLoRA step at full width
+    (PAR_TRAIN) on two ranks sharing the card at tp 2, dp 2 and sp 2 against
+    world size 1 on the same batch and adapters: f32 loss within 1e-5 and
+    every adapter's gradient within TRAIN_F32_TOL of max|g|, bf16 within
+    twice the plain pair's own difference (world size 1, plain bf16 against
+    plain f32), as phase 7b; K1 must launch on each rank, K7 too under tp
+    and dp; ms a step, collectives a step (host ms, host copies), peak GiB
+    a rank and device busy share recorded. 8b.2 phase 7a's small model,
+    one full-weight f32 step at tp 2 and dp 2 against world size 1 within
+    TRAIN_F32_TOL. 8b.3 the CLI and 8b.4 `python -m
+    llamago_tpu_torch.dryrun --n 2` (_par_train_cli). The ranks share one
+    card and talk over gloo: numbers of a bring-up, not of two cards."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from llamago_tpu_torch.config import MODEL_PRESETS
+    from llamago_tpu_torch.ops import launches
+
+    c = PAR_TRAIN
+    out: dict = {"card": card, **shards}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ranks = _par_spawn("train", tmp)
+        out["ranks_s"] = time.time() - t0
+        log(f"parallel training: the ranks took {out['ranks_s']:.1f} s")
+        cfg = MODEL_PRESETS["7B"].replace(weight_dtype="int8", n_layers=c["layers"],
+                                          max_seq_len=c["seq"])
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (c["batch"], c["seq"]))).to(dev)
+        t0 = time.time()
+        params = _par_train_params(cfg, dev, None)
+        ref = {}
+        with k7_route():
+            for dtype in ("float32", "bfloat16"):
+                ref[dtype, "kernels"] = _par_train_grads(params, cfg.replace(dtype=dtype),
+                                                         tokens, None)
+                with plain_matmuls(), plain_attention():
+                    ref[dtype, "plain"] = _par_train_grads(params, cfg.replace(dtype=dtype),
+                                                           tokens, None)
+            launches.reset()
+            out["world1"] = _par_train_timed(params, cfg.replace(dtype="bfloat16"), tokens,
+                                             None, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["world1_s"] = time.time() - t0
+        pair = _grads_err([ref["bfloat16", "plain"][1]], ref["float32", "plain"][1])
+        loss_pair = abs(ref["bfloat16", "plain"][0] - ref["float32", "plain"][0]) / abs(
+            ref["float32", "plain"][0])
+        out["bf16_plain_pair"] = {"grads": pair, "loss": loss_pair}
+        log(f"parallel training, world size 1: losses f32 {ref['float32', 'kernels'][0]:.6f} "
+            f"bf16 {ref['bfloat16', 'kernels'][0]:.6f}; the plain pair (bf16 against f32) "
+            f"{pair:.3e} of max|g|, loss {loss_pair:.3e}; a bf16 step "
+            f"{out['world1']['ms_per_step']:.1f} ms, peak {out['world1']['peak_gib']:.2f} GiB, "
+            f"device busy {out['world1']['device_busy_share']:.1%}")
+        for name, _, must in PAR_TRAIN_SETUPS:
+            row = {"timed": [r[name]["timed"] for r in ranks]}
+            for dtype in ("float32", "bfloat16"):
+                got = []
+                for r in range(2):
+                    with np.load(os.path.join(tmp, f"train-{name}-{dtype}.rank{r}.npz")) as z:
+                        got.append({k: z[k] for k in z.files})
+                loss_w, grads_w = ref[dtype, "kernels"]
+                err = _grads_err(got, grads_w)
+                losses = [r[name][dtype]["loss"] for r in ranks]
+                lerr = max(abs(x - loss_w) / abs(loss_w) for x in losses)
+                row[dtype] = {"grads_err": err, "loss_err": lerr, "losses": losses}
+                ok = (err <= TRAIN_F32_TOL and lerr <= 1e-5) if dtype == "float32" else (
+                    err <= 2 * pair and lerr <= max(2 * loss_pair, TRAIN_BF16_LOSS_TOL))
+                if not ok:
+                    failed.append(f"parallel training {name} {dtype}: gradients {err:.3e} "
+                                  f"of max|g|, loss {lerr:.3e} off world size 1")
+            for r, res in enumerate(ranks):
+                counts = res[name]["check_launches"]
+                timed_counts = res[name]["timed"]["launches"]
+                if any(not counts[k] or not timed_counts[k] for k in must):
+                    failed.append(f"parallel training {name}: rank {r} launched "
+                                  f"{ {k: (counts[k], timed_counts[k]) for k in must} }")
+            t = row["timed"]
+            log(f"parallel training {name} on {card}: f32 gradients {row['float32']['grads_err']:.2e}"
+                f", loss {row['float32']['loss_err']:.2e}; bf16 gradients "
+                f"{row['bfloat16']['grads_err']:.2e}, loss {row['bfloat16']['loss_err']:.2e} off "
+                f"world size 1; a bf16 step {[round(x['ms_per_step'], 1) for x in t]} ms by rank, "
+                f"collectives a step {[x['collectives_per_step'] for x in t]}, peak "
+                f"{[round(x['peak_gib'], 2) for x in t]} GiB, device busy "
+                f"{[round(x['device_busy_share'], 3) for x in t]}; K1 launches "
+                f"{[x['launches']['dequant_matmul'] for x in t]}, K7 "
+                f"{[x['launches']['flash_attention_prefill'] for x in t]}")
+            out[name] = row
+        # 8b.2: the dense step against world size 1
+        launches.reset()
+        loss1, grads1 = _par_dense_step(dev, None)
+        for name, _ in PAR_DENSE_SETUPS:
+            got = []
+            for r in range(2):
+                with np.load(os.path.join(tmp, f"dense-{name}.rank{r}.npz")) as z:
+                    got.append({k: z[k] for k in z.files})
+            err = _grads_err(got, grads1)
+            lerr = max(abs(r[f"dense {name}"]["loss"] - loss1) / abs(loss1) for r in ranks)
+            counts = [r[f"dense {name}"]["launches"] for r in ranks]
+            out[f"dense {name}"] = {"grads_err": err, "loss_err": lerr, "launches": counts}
+            log(f"parallel training, dense {name}: gradients {err:.2e} of max|g|, loss "
+                f"{lerr:.2e} off world size 1; K7 launches "
+                f"{[x['flash_attention_prefill'] for x in counts]}")
+            if not (err <= TRAIN_F32_TOL and lerr <= 1e-5) or not all(
+                    x["flash_attention_prefill"] for x in counts):
+                failed.append(f"parallel training, dense {name}: gradients {err:.3e}, loss "
+                              f"{lerr:.3e}, K7 launches "
+                              f"{[x['flash_attention_prefill'] for x in counts]}")
+        t0 = time.time()
+        out["cli"] = _par_train_cli(tmp)
+        out["cli_s"] = time.time() - t0
+    if failed:
+        raise AssertionError("; ".join(failed))
+    total = dict.fromkeys(ranks[0]["tp2"]["check_launches"], 0)
+    for res in ranks:
+        for name, _, _ in PAR_TRAIN_SETUPS:
+            for counts in (res[name]["check_launches"], res[name]["timed"]["launches"]):
+                for k, v in counts.items():
+                    total[k] += v
+    out["launches"] = total
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -5392,6 +5960,10 @@ def main(argv: list[str]) -> int:
     l3 = check_llama3(dev, detail) if want("llama3") else {}
     shards = ({**check_70b_shards(dev, detail), "shards_7b": check_7b_shards(dev, detail)}
               if want("parallel") else {})
+    train_shards = {}
+    if want("par_train"):
+        t0 = time.time()
+        train_shards = {**check_train_shards(dev, detail), "shards_s": time.time() - t0}
     # phase 7: training, LoRA, finetune / --lora and the quality gate. It
     # runs before phase 3: after phase 3's runs its first `timed` trace was
     # seen on an H100 to hold one device event fewer than launched in forty,
@@ -5403,6 +5975,9 @@ def main(argv: list[str]) -> int:
     # phase 3 too, for its kernels' timing traces
     par = parallel_phase(dev, detail, card, shards) if shards else {}
     detail["parallel"] = par
+    # phase 8b: sharded training (ranks sharing the card over gloo)
+    par_train = par_train_phase(dev, detail, card, train_shards) if train_shards else {}
+    detail["par_train"] = par_train
     k8_launches, k1_f32_decode_launches, k1_f32_tc_launches, small_f32_attn = (
         check_small_model(dev) if want("small") else (0, 0, 0, {}))
     small4 = check_small_model_int4(dev) if want("small_int4") else {}
@@ -5740,6 +6315,25 @@ def main(argv: list[str]) -> int:
                par70, "w4x8_matmul_tc", par.get("k6", {})),
               ("flash_attention@parallel-70B", "attn_decode", "llamago_tpu/ops/attention.py:230",
                par70, "flash_attention_decode_tc", par.get("k2", {})))),
+        # the sharded training path (phase 8b): each form's launches summed
+        # over both ranks' check and timed steps of the three 7B setups, with
+        # the numbers at a 7B tp = 2 rank's training shapes (K1's tile over
+        # one forward of the rank's blocks at 512 rows, K7 one call a layer
+        # over the rank's 16 heads and the 256-token window)
+        *({"name": f"{name}@train-parallel", "route": "cuda",
+           "source": f"llamago_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+           "launches": par_train.get("launches", {}).get(counter, 0),
+           **par_train.get(key, {})}
+          for name, source, replaces, counter, key in (
+              ("dequant_matmul_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_tc", "k1_bfloat16"),
+              ("dequant_matmul_f32_tc", "dequant_matmul", "llamago_tpu/ops/kernels.py:237",
+               "dequant_matmul_f32_tc", "k1_float32"),
+              ("flash_attention_prefill", "attn_prefill", "llamago_tpu/ops/attention.py:577",
+               "flash_attention_prefill_tc", "k7_bfloat16"),
+              ("flash_attention_prefill_f32tc", "attn_prefill",
+               "llamago_tpu/ops/attention.py:577", "flash_attention_prefill_f32tc",
+               "k7_float32"))),
         # the lab's nine kernels, launches counted in the lab's run (phase 5)
         *(lab.get(wrapper, {"name": wrapper, "launches": 0})
           for _, wrapper, *_ in LAB_KERNELS),
@@ -5865,6 +6459,24 @@ def main(argv: list[str]) -> int:
                        "device_kernels_per_step": r["profile"]["device_kernels_per_step"],
                        "host_op_calls_per_step": r["profile"]["host_op_calls_per_step"]}
                     for r in par["70b"]]}}))
+    print(json.dumps({"parallel_training": {
+        "note": "ranks share one card and talk over gloo: a bring-up, not two cards",
+        "card": card, "config": (f"7B Q8_0 at full width, {PAR_TRAIN['layers']} of 32 "
+                                 f"layers, LoRA rank 8, {PAR_TRAIN['batch']} x "
+                                 f"{PAR_TRAIN['seq']} tokens, remat, K7 on"),
+        "world size 1": {k: par_train["world1"][k] for k in (
+            "ms_per_step", "peak_gib", "device_busy_share")},
+        **{name: {"f32": par_train[name]["float32"], "bf16": par_train[name]["bfloat16"],
+                  "by_rank": [{k: t[k] for k in ("ms_per_step", "collectives_per_step",
+                                                 "collective_host_share", "peak_gib",
+                                                 "device_busy_share")}
+                              for t in par_train[name]["timed"]]}
+           for name, _, _ in PAR_TRAIN_SETUPS},
+        **{f"dense {name}": {k: par_train[f"dense {name}"][k] for k in ("grads_err", "loss_err")}
+           for name, _ in PAR_DENSE_SETUPS},
+        "cli": {k: par_train["cli"][k] for k in ("ppl_one", "ppl_tp2", "ppl_sp2", "finetune_s",
+                                                 "side_by_side_s", "dryrun")},
+        "seconds": {k: par_train[k] for k in ("shards_s", "ranks_s", "world1_s", "cli_s")}}}))
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -139,11 +139,12 @@ def to_torch(arr, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     arr = np.asarray(arr)
     if not arr.flags.writeable:  # a read-only file mapping
         arr = arr.copy()
+    # ascontiguousarray gives a 0-d array one dim: keep the array's shape
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.reshape(arr.shape).to(device=device, dtype=dtype or t.dtype)
 
 
 def _on(x, dev: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -203,14 +204,30 @@ def _local_head(cut, leaf, vocab_size: int):
     return local if local is not leaf else pad_lm_head(leaf, vocab_size=vocab_size)
 
 
-def load_parameters(config: ModelConfig, tensors: dict, device="cuda", mesh=None) -> Params:
+def _layer_adapter(adapters, i: int, key: str):
+    """Layer i's adapter of leaf `key` in an adapter subtree (models/lora.py
+    load_lora: per-layer lists or stacked arrays), or None."""
+    la = adapters.get("layers")
+    if isinstance(la, (list, tuple)):
+        return la[i].get(key) if i < len(la) else None
+    if isinstance(la, dict) and key in la:
+        return {k: v[i] for k, v in la[key].items()}
+    return None
+
+
+def load_parameters(config: ModelConfig, tensors: dict, device="cuda", mesh=None,
+                    adapters=None) -> Params:
     """Checkpoint tensors -> device tree in the configured dtypes: matmul
     weights quantized when the file or `weight_dtype` says int8 or int4
     (`_quantize_handler`), everything else in the compute dtype (dense
     weights in `weight_dtype`). Each layer's leaf is built on its own and,
     under `mesh`, cut to this rank's block before the next one is built
     (module docstring); the layers are stacked again. Off a mesh the cut
-    is the identity, so the transient is one layer's leaf on one card too."""
+    is the identity, so the transient is one layer's leaf on one card too.
+    `adapters` (models/lora.py:load_lora's subtree, on unfused layer
+    leaves) are merged into each whole layer leaf before its cut
+    (models/lora.py:merge_lora), so a rank's merged block is the slice of
+    the one-card merged leaf; an adapter that names no leaf raises."""
     dev = resolve_device(device)
     top = _file_top(tensors, dev)
     quant = config.weight_dtype in ("int8", "int4") or is_quantized(top["output"]) or any(
@@ -227,13 +244,32 @@ def load_parameters(config: ModelConfig, tensors: dict, device="cuda", mesh=None
     out = {k: convert(k, top[k]) for k in ("tok_embeddings", "norm")}
     head = convert("output", top["output"])
     out["output"] = _local_head(cut, head, config.vocab_size) if quant else cut("output", head)
+    merged = 0
+
+    def build(i, key):
+        nonlocal merged
+        leaf = convert(key, _file_layer(tensors, i, key, dev))
+        ad = None if adapters is None else _layer_adapter(adapters, i, key)
+        if ad is not None:
+            from llamago_tpu_torch.models.lora import LORA_KEYS, merge_lora
+
+            leaf = merge_lora({"base": leaf, **{k: to_torch(ad[k], dev, torch.float32)
+                                                for k in LORA_KEYS}})
+            merged += 1
+        return cut(key, leaf)
+
     layers = {}
     for key in _LAYER_KEYS:
-        per = [cut(key, convert(key, _file_layer(tensors, i, key, dev)))
-               for i in range(config.n_layers)]
+        per = [build(i, key) for i in range(config.n_layers)]
         layers[key] = ({k: torch.stack([lf.pop(k) for lf in per]) for k in list(per[0])}
                        if isinstance(per[0], dict) else torch.stack(per))
     out["layers"] = layers
+    if adapters is not None:
+        from llamago_tpu_torch.models.lora import _count_lora
+
+        if merged < _count_lora(adapters):
+            raise ValueError(f"only {merged}/{_count_lora(adapters)} adapters name a layer "
+                             "leaf of this model (fused wqkv/w13 vs split projections?)")
     return out
 
 
@@ -353,7 +389,7 @@ def export_ggjt_tensors(config: ModelConfig, params: Params) -> dict:
 
 
 def random_parameters(config: ModelConfig, seed: int = 0, scale: float = 0.02,
-                      device="cuda") -> Params:
+                      device="cuda", mesh=None) -> Params:
     """Random parameters in the stacked layout, generated leaf by leaf on
     the device from one torch.Generator seeded with `seed`: matmul weights
     and embeddings normal * `scale`, norm gains ones. Dense leaves are in
@@ -362,8 +398,10 @@ def random_parameters(config: ModelConfig, seed: int = 0, scale: float = 0.02,
     one dense leaf above the final footprint): Q8_0, or int4 in the
     device's exec format (w4x8 where K is a multiple of 128, else Q4_0),
     the int8 head column-padded. The JAX function's shapes, dtypes and
-    leaf layouts; the numbers differ from its threefry draws."""
+    leaf layouts; the numbers differ from its threefry draws. Under `mesh`
+    each leaf is drawn whole, as on one card, and cut to this rank's block."""
     dev = resolve_device(device)
+    cut = _cutter(config, mesh)
     quant_bits = {"int8": 8, "int4": 4}.get(config.weight_dtype)
     dtype = torch_dtype("bfloat16" if quant_bits else config.weight_dtype)
     use_w4x8 = quant_bits == 4 and int4_exec_format(dev) == "w4x8"
@@ -378,11 +416,11 @@ def random_parameters(config: ModelConfig, seed: int = 0, scale: float = 0.02,
         w = (torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
              * scale).to(dtype)
         if quant_bits is None or name not in QUANT_LEAVES:
-            return w
+            return cut(name, w)
         if use_w4x8 and shape[-2] % G4X8 == 0:
-            return _per_layer(quantize_w4x8, w)
+            return cut(name, _per_layer(quantize_w4x8, w))
         leaf = _per_layer(lambda a: quantize(a, quant_bits), w)
-        return pad_lm_head(leaf, vocab_size=v) if name == "output" else leaf
+        return _local_head(cut, leaf, v) if name == "output" else cut(name, leaf)
 
     layer_shapes = {
         "attention_norm": (n_l, d), "ffn_norm": (n_l, d),

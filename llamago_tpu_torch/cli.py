@@ -26,10 +26,12 @@ any number), and each rank re-enters `main` as `--coordinator
 127.0.0.1:<port> --nprocs N --procid i`; `--coordinator host:port --nprocs
 N --procid i` makes this process rank i of N on cuda:(i mod local cards),
 and `--multihost` alone reads torchrun's environment. `--tp 0` takes
-world // (dp*sp). Rank 0 owns HTTP (`--server`) and prints; every rank runs
-the lockstep tick (parallel/multihost.py) and, at the end, logs its
-kernels' launch counts as one JSON line on stderr. Training and perplexity run on one
-card: under a mesh they are refused.
+world // (dp*sp). Serving, `perplexity` and `finetune` run on the mesh
+(`--lora` merges in the loader, before each rank's cut). Rank 0 owns HTTP
+(`--server`), prints and writes; every rank runs the lockstep tick
+(parallel/multihost.py) or the meshed step (models/training.py) and, at
+the end, logs its kernels' launch counts as one JSON line on stderr.
+`load`, `convert` and `quantize` run in one process.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ LOGO = r"""
 """
 
 _COMMANDS = ("load", "convert", "quantize", "perplexity", "finetune")
+# what runs on a mesh of ranks: serving (no command), perplexity, finetune
+_MESH_COMMANDS = (None, "perplexity", "finetune")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -234,7 +238,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.command is not None and args.command not in _COMMANDS:
         print(f"unknown command: {args.command}", file=sys.stderr)
         return 2
-    if not ranked and args.command is None and args.model:
+    if not ranked and args.command in _MESH_COMMANDS and args.model:
         from llamago_tpu_torch.parallel.mesh import check_local_devices
 
         tp, dp, sp = _grid(args, _cuda_count() if args.device != "cpu" else 1)
@@ -247,13 +251,13 @@ def main(argv: list[str] | None = None) -> int:
             return _spawn_ranks(argv, tp * dp * sp)
     if not args.silent:
         colorize("[magenta]" + LOGO)
-    if (ranked or max(args.tp, args.dp, args.sp) > 1) and args.command is not None:
-        print(f"error: `{args.command}` runs on one card: sharded training and "
-              "perplexity are not ported yet", file=sys.stderr)
+    if (ranked or max(args.tp, args.dp, args.sp) > 1) and args.command not in _MESH_COMMANDS:
+        print(f"error: `{args.command}` runs in one process: --tp/--dp/--sp and the "
+              "multi-process flags do not apply", file=sys.stderr)
         return 2
     if ranked:
         try:
-            _join_mesh(args)
+            mesh = _join_mesh(args)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             dist.destroy_process_group()
@@ -261,6 +265,7 @@ def main(argv: list[str] | None = None) -> int:
         try:
             return _main(args)
         finally:
+            _log_rank(mesh)
             dist.destroy_process_group()
     return _main(args)
 
@@ -344,23 +349,30 @@ def _load_engine(args):
         kv_dtype=args.kv_dtype,
         max_seq_len=args.context,
     )
-    params = load_parameters(config, ckpt.tensors, device=device, mesh=mesh)
+    # saved adapters merge into the weights at load: serving runs the plain
+    # kernel path afterwards, with no per-step cost. Adapters on split
+    # projections (trained under tp) merge in the loader, into each whole
+    # layer leaf before a rank's cut; adapters on the fused wqkv / w13 (one
+    # card) merge into the fused leaves, which exist at tp = 1 only.
+    adapters = fused = None
+    if args.lora:
+        from llamago_tpu_torch.models.lora import load_lora
+
+        adapters = load_lora(args.lora)
+        fused = _names_fused(adapters)
+    params = load_parameters(config, ckpt.tensors, device=device, mesh=mesh,
+                             adapters=None if fused else adapters)
     params = unstack_layer_params(params, config.n_layers)
     if mesh is None or mesh.tp == 1:
         # fused wqkv / w13; a rank's blocks under tp stay unfused, as the
         # JAX package keeps them under a mesh
         params = fuse_layer_weights(params)
-    if args.lora and mesh is not None:
-        raise NotImplementedError("--lora merges adapters into whole weights: it "
-                                  "runs on one card")
-    if args.lora:
-        # merge saved adapters into the weights at load: serving runs the
-        # plain kernel path afterwards, with no per-step cost
-        from llamago_tpu_torch.models.lora import attach_lora, load_lora, merge_lora
+    if fused:
+        from llamago_tpu_torch.models.lora import attach_lora, merge_lora
 
-        params = merge_lora(attach_lora(params, load_lora(args.lora)))
-        if not args.silent:
-            log("info", f"merged LoRA adapters from {args.lora}")
+        params = merge_lora(attach_lora(params, adapters))
+    if args.lora and not args.silent:
+        log("info", f"merged LoRA adapters from {args.lora}")
     if not args.silent:
         log("info", f"model ready in {time.time() - t0:.1f}s",
             layers=config.n_layers, dim=config.dim,
@@ -375,6 +387,13 @@ def _load_engine(args):
                     draft_len=args.draft, prefill_chunk=args.prefill_chunk,
                     device=device, **kwargs)
     return engine, ckpt, config
+
+
+def _names_fused(adapters) -> bool:
+    """Whether an adapter subtree names the fused wqkv / w13 leaves."""
+    la = adapters.get("layers") if isinstance(adapters, dict) else None
+    keys = set(la) if isinstance(la, dict) else {k for layer in la or () for k in layer}
+    return bool(keys & {"wqkv", "w13"})
 
 
 def cmd_load(args) -> int:
@@ -440,9 +459,12 @@ def cmd_perplexity(args) -> int:
     ids = tokenize(ckpt.vocab, " " + text, bos=True)
     ctx = min(args.context, 512)
     result = perplexity(engine.params, config, ids, ctx=ctx)
-    print(f"[PPL] perplexity {result['ppl']:.4f} | nll {result['nll']:.4f} | "
-          f"{result['n_tokens']} tokens in {result['n_windows']} windows "
-          f"(ctx {ctx}, {config.weight_dtype} weights)")
+    from llamago_tpu_torch.parallel.multihost import is_primary
+
+    if is_primary():  # every rank ran the windows; rank 0 prints
+        print(f"[PPL] perplexity {result['ppl']:.4f} | nll {result['nll']:.4f} | "
+              f"{result['n_tokens']} tokens in {result['n_windows']} windows "
+              f"(ctx {ctx}, {config.weight_dtype} weights)")
     return 0
 
 
@@ -451,7 +473,9 @@ def cmd_finetune(args) -> int:
     stays frozen (a quantized base streams through the quantized matmul
     kernels, whose autograd Function freezes it) and rank-r adapters train
     with AdamW. Saves a small .npz; serve it with `--lora` (merged at load,
-    so serving speed is unchanged)."""
+    so serving speed is unchanged). Under a mesh every rank draws the same
+    batches from --seed and runs the meshed step (a dp rank trains on its
+    rows); rank 0 prints and writes the whole adapters."""
     if not args.model or not args.file:
         print("error: finetune needs --model and --file", file=sys.stderr)
         return 2
@@ -459,6 +483,7 @@ def cmd_finetune(args) -> int:
     import torch
 
     from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.parallel.multihost import is_primary
     from llamago_tpu_torch.tokenizer import tokenize
 
     engine, ckpt, config = _load_engine(args)
@@ -475,10 +500,11 @@ def cmd_finetune(args) -> int:
               f"--seq {seq}", file=sys.stderr)
         return 2
     blocks = ids[: n_blocks * seq].reshape(n_blocks, seq)
-    log("info", f"finetune: {len(ids)} tokens -> {n_blocks} blocks of {seq}",
-        rank=args.rank, steps=args.steps, lr=args.lr)
+    if is_primary():
+        log("info", f"finetune: {len(ids)} tokens -> {n_blocks} blocks of {seq}",
+            rank=args.rank, steps=args.steps, lr=args.lr)
 
-    params = lora.init_lora(params, rank=args.rank, alpha=args.lora_alpha)
+    params = lora.init_lora(params, rank=args.rank, alpha=args.lora_alpha, config=config)
     opt = lora.init_lora_opt_state(params, lr=args.lr)
     rng = np.random.default_rng(args.seed if args.seed >= 0 else 0)
     t0 = time.time()
@@ -491,11 +517,12 @@ def cmd_finetune(args) -> int:
             log("info", f"step {step:4d} loss {float(loss):.4f} "
                 f"({time.time() - t0:.1f}s)")
     out = args.out or (args.model + ".lora.npz")
-    lora.save_lora(out, params)
-    tps = args.steps * args.train_batch * seq / (time.time() - t0)
-    print(f"[FINETUNE] {args.steps} steps, final loss {float(loss):.4f}, "
-          f"{tps:.0f} tok/s -> adapters saved to {out}")
-    print(f"[FINETUNE] serve with: --model {args.model} --lora {out}")
+    lora.save_lora(out, params, config)
+    if is_primary():
+        tps = args.steps * args.train_batch * seq / (time.time() - t0)
+        print(f"[FINETUNE] {args.steps} steps, final loss {float(loss):.4f}, "
+              f"{tps:.0f} tok/s -> adapters saved to {out}")
+        print(f"[FINETUNE] serve with: --model {args.model} --lora {out}")
     return 0
 
 
@@ -521,10 +548,7 @@ def run(args) -> int:
     from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 
     if active_mesh() is not None and active_mesh().world > 1:
-        try:
-            return run_ranked(engine, gen, args)
-        finally:
-            _log_rank(active_mesh())
+        return run_ranked(engine, gen, args)
 
     if args.server:
         from llamago_tpu_torch.config import ServerConfig

@@ -23,6 +23,7 @@ import torch
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.models.llama import forward_impl
+from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 from llamago_tpu_torch.runtime.kv_cache import KVCache
 from llamago_tpu_torch.tokenizer import Vocab, tokenize
 
@@ -30,10 +31,11 @@ from llamago_tpu_torch.tokenizer import Vocab, tokenize
 def _window_nll(params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Next-token NLL at every position of one [1, T] window: [T-1] f32 on
     the parameters' device (the min_context mask is applied by the
-    caller)."""
+    caller). Under the active mesh (parallel/) the cache is the rank's
+    block, and every rank gets the whole window's NLL."""
     dev = params["tok_embeddings"].device
     b, t = tokens.shape
-    cache = KVCache.create(config, batch=b, max_seq=t, device=dev)
+    cache = KVCache.create(config, batch=b, max_seq=t, device=dev, mesh=active_mesh())
     tokens = tokens.to(device=dev, dtype=torch.long)
     logits, _ = forward_impl(params, tokens, cache, torch.zeros(b, dtype=torch.long, device=dev),
                              config, return_all_logits=True)

@@ -26,7 +26,8 @@ On the int8 cache (runtime/kv_cache.py, `cache.quantized`) a decode step
 writes its new rows through K3 (ops/cache_write.py) and a prefill window
 through quantize_kv_rows + write_rows / write_scale_rows; windows of
 t <= 32 whose S has an S-block of the TPU kernels take K4/K8
-(flash_attention_quant), the rest the scale-folded einsum math.
+(flash_attention_quant; on the card where its geometry is one the CUDA
+kernels take, `quant_takes`), the rest the scale-folded einsum math.
 
 Under an active mesh (parallel/tp_kernels.py:activate_mesh) each rank runs
 this forward on its blocks of the weights and of the cache and calls the
@@ -40,13 +41,18 @@ slots are split over dp and gathers the logits over dp; under sp the
 attention is attention_math_sp and the cache writes go to the rank's
 positions (K3 stays off there, as the JAX package's under any mesh).
 Weights stay unfused under tp (the JAX package's choice under a mesh).
+Under grad (training, parallel/mesh.py) every collective is the
+differentiable form: activations enter column blocks through copy_to,
+row blocks and the sp softmax sums reduce through reduce_from, the tp
+slices and gathers carry their gradients back, and the new K/V rows enter
+the sp ranks' positions through copy_to.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.attention import (
@@ -55,13 +61,20 @@ from llamago_tpu_torch.ops.attention import (
     can_fuse_attention,
     flash_attention,
     flash_attention_quant,
-    quant_fits,
+    quant_takes,
 )
 from llamago_tpu_torch.ops.basic import linear, rms_norm, rope_tables, rotate, swiglu
 from llamago_tpu_torch.ops.cache_write import cache_append_quant
 from llamago_tpu_torch.ops.quant import lm_head_padded_cols
-from llamago_tpu_torch.parallel.mesh import all_gather, broadcast, tp_slice
-from llamago_tpu_torch.parallel.tp_kernels import active_mesh, tp_kinds
+from llamago_tpu_torch.parallel.mesh import (
+    all_gather,
+    broadcast,
+    copy_to,
+    gather_from,
+    tp_slice,
+)
+from llamago_tpu_torch.parallel.sharding import block_kind
+from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 from llamago_tpu_torch.runtime.kv_cache import (
     KVCache,
     quantize_kv_rows,
@@ -79,7 +92,7 @@ def _attention(q, k_cache, v_cache, positions, k_scale=None, v_scale=None):
     holds the token at absolute position j). k_scale / v_scale are the
     int8 cache's row scales, None for the dense cache."""
     if k_scale is not None:
-        if quant_fits(q.shape[1], k_cache.shape[2]):
+        if quant_takes(q, k_cache):
             return flash_attention_quant(q, k_cache, v_cache, positions, k_scale, v_scale)
         return attention_math(q, k_cache, v_cache, positions, k_scale, v_scale)
     if can_fuse_attention(q, k_cache):
@@ -127,12 +140,14 @@ class _Shards:
     """One rank's side of a forward under the mesh: which leaves are this
     rank's blocks, the tp slicing and gathering of activations, and, where
     the cache's positions are split over sp, this rank's first position
-    (`offset`) and the window's global write starts (`starts`, host)."""
+    (`offset`) and the window's global write starts (`starts`, host).
+    Under grad the slicing and gathering are the differentiable forms of
+    parallel/mesh.py."""
 
     def __init__(self, mesh, config: ModelConfig, cache: KVCache, write_pos, t: int):
         self.mesh = mesh
+        self.config = config
         self.tp = mesh.shape["tp"]
-        self.kinds = tp_kinds(config, mesh)
         self.seq_split = cache.seq_split > 1
         self.starts = self.offset = None
         if self.seq_split:
@@ -140,19 +155,18 @@ class _Shards:
             self.offset = mesh.coord("sp") * s_l
             self.starts = sp_starts(write_pos, s_l * cache.seq_split, t)
 
-    def linear(self, x, x_split: bool, w, key: str, k_glob: int, n_glob: int):
+    def linear(self, x, x_split: bool, w, key: str):
         """(x @ w, whether the output is this rank's column block), for x
-        whole or this rank's block of its features (`x_split`). Where
-        tp_kinds splits the leaf `key`, its shape says whether the loader
-        cut it (parallel/sharding.py:split_ok): a row block has depth
-        k_glob / tp (x is sliced to this rank's block, the product
-        all-reduced over tp), a column block width n_glob / tp; else it is
-        whole (x is gathered whole)."""
-        kind = self.kinds.get(key)
-        if kind == "row" and _depth(w) * self.tp == k_glob:
+        whole or this rank's block of its features (`x_split`). Where the
+        loader cut the leaf `key` (parallel/sharding.py:block_kind), a row
+        block takes this rank's slice of x and its product is all-reduced
+        over tp, a column block gives this rank's columns; a whole leaf
+        takes x whole (gathered over tp)."""
+        kind = block_kind(key, w, self.config, self.mesh)
+        if kind == "row":
             return linear(self.split(x, x_split), w, tp_kind="row"), False
         x = self.full(x, x_split)
-        if kind == "col" and _width(w) * self.tp == n_glob:
+        if kind == "col":
             return linear(x, w, tp_kind="col"), True
         return linear(x, w), False
 
@@ -160,25 +174,7 @@ class _Shards:
         return x if is_split or self.tp == 1 else tp_slice(x, self.mesh)
 
     def full(self, x, is_split: bool):
-        return all_gather(x, self.mesh, "tp", dim=-1) if is_split else x
-
-
-def _width(w) -> int:
-    """A leaf's output width (its N)."""
-    if isinstance(w, dict):
-        return w["s"].shape[-1] if "s" in w else _width(w["base"])
-    return w.shape[-1]
-
-
-def _depth(w) -> int:
-    """A leaf's input depth (its K)."""
-    if isinstance(w, dict):
-        if "q8" in w:
-            return w["q8"].shape[-2]
-        if "q4" in w or "q4x" in w:
-            return 2 * w["q4" if "q4" in w else "q4x"].shape[-2]
-        return _depth(w["base"])
-    return w.shape[-2]
+        return gather_from(x, self.mesh, "tp", dim=-1) if is_split else x
 
 
 def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, cos, sin,
@@ -189,16 +185,15 @@ def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, co
     blocks all-reduced over tp."""
     b, t = x.shape[:2]
     hd, h_all, kv_all, f = config.head_dim, config.n_heads, config.kv_heads, config.ffn_hidden
-    d = config.dim
     h = rms_norm(x, lp["attention_norm"], config.norm_eps)
     if "wqkv" in lp:  # fused leaves are whole: tp = 1
         qkv = linear(h, lp["wqkv"])
         q, k, v = qkv.split([h_all * hd, kv_all * hd, kv_all * hd], dim=-1)
         q_split = k_split = v_split = False
     else:
-        q, q_split = sh.linear(h, False, lp["wq"], "wq", d, h_all * hd)
-        k, k_split = sh.linear(h, False, lp["wk"], "wk", d, kv_all * hd)
-        v, v_split = sh.linear(h, False, lp["wv"], "wv", d, kv_all * hd)
+        q, q_split = sh.linear(h, False, lp["wq"], "wq")
+        k, k_split = sh.linear(h, False, lp["wk"], "wk")
+        v, v_split = sh.linear(h, False, lp["wv"], "wv")
     heads_split = sh.tp > 1 and k_layer.shape[1] * sh.tp == kv_all
     conv = sh.split if heads_split else sh.full
     q, k, v = conv(q, q_split), conv(k, k_split), conv(v, v_split)
@@ -208,6 +203,12 @@ def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, co
 
     if sh.seq_split:
         if ks_l is None:
+            # under grad the new rows enter each rank's positions through
+            # copy_to (their gradient is summed over sp) and go into copies
+            # of the cache layer, as _write_cache writes them on one card
+            k, v = copy_to(k, sh.mesh, "sp"), copy_to(v, sh.mesh, "sp")
+            if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+                k_layer, v_layer = k_layer.clone(), v_layer.clone()
             write_rows_sp(k_layer, k, sh.starts, sh.offset)
             write_rows_sp(v_layer, v, sh.starts, sh.offset)
         else:
@@ -221,7 +222,7 @@ def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, co
         attn = attention_math_sp(q, k_layer, v_layer, positions, sh.mesh, ks_l, vs_l)
     else:
         attn = _attention(q, k_layer, v_layer, positions, ks_l, vs_l)
-    o, _ = sh.linear(attn, heads_split, lp["wo"], "wo", h_all * hd, d)
+    o, _ = sh.linear(attn, heads_split, lp["wo"], "wo")
     x = x + o
 
     h = rms_norm(x, lp["ffn_norm"], config.norm_eps)
@@ -229,12 +230,12 @@ def _block_sharded(x, lp, k_layer, v_layer, ks_l, vs_l, write_pos, positions, co
         g1, g3 = linear(h, lp["w13"]).split([f, f], dim=-1)
         s1 = s3 = False
     else:
-        g1, s1 = sh.linear(h, False, lp["w1"], "w1", d, f)
-        g3, s3 = sh.linear(h, False, lp["w3"], "w3", d, f)
+        g1, s1 = sh.linear(h, False, lp["w1"], "w1")
+        g3, s3 = sh.linear(h, False, lp["w3"], "w3")
     if s1 != s3:
         g1, g3, s1 = sh.full(g1, s1), sh.full(g3, s3), False
     gate = F.silu(g1.to(torch.float32)).to(h.dtype)
-    o, _ = sh.linear(gate * g3, s1, lp["w2"], "w2", f, d)
+    o, _ = sh.linear(gate * g3, s1, lp["w2"], "w2")
     return x + o, k_layer, v_layer
 
 
@@ -286,6 +287,7 @@ def forward_impl(
     logit_index: torch.Tensor | None = None,  # [B] per-batch position
     return_embedding: bool = False,
     remat: bool = False,  # recompute each layer's activations in the backward
+    gather_dp: bool = True,  # gather the logits rows over dp (False: training)
 ):
     """One transformer step (prefill when T>1, decode when T=1).
 
@@ -295,7 +297,12 @@ def forward_impl(
     appended: the final-RMSNorm'd hidden state at that position. With
     remat (training) each layer runs under torch.utils.checkpoint, so the
     backward recomputes its activations instead of keeping them, as
-    jax.checkpoint does in the JAX package."""
+    jax.checkpoint does in the JAX package; under a mesh the recomputation
+    re-runs the layer's collectives, so it never stops early (every rank
+    recomputes the same ops in the same order). Where the cache's slots
+    are split over dp, the logits (and embeddings) of this rank's rows are
+    gathered over dp unless `gather_dp` is False: training keeps each dp
+    rank's loss over its own rows (models/training.py)."""
     mesh = active_mesh()
     dp_rows = mesh is not None and cache.batch_split > 1
     if dp_rows:  # this rank's rows of the batch: its slots of the cache
@@ -320,7 +327,8 @@ def forward_impl(
         args = (x, lp, cache.k[i], cache.v[i], ks_l, vs_l, write_pos, positions, cos, sin,
                 config, sh)
         if remat:
-            x, cache.k[i], cache.v[i] = checkpoint(_block, *args, use_reentrant=False)
+            with set_checkpoint_early_stop(False):
+                x, cache.k[i], cache.v[i] = checkpoint(_block, *args, use_reentrant=False)
         else:
             x, cache.k[i], cache.v[i] = _block(*args)
 
@@ -331,9 +339,9 @@ def forward_impl(
         else:
             idx = logit_index.to(device=dev, dtype=torch.long)
             x = x[torch.arange(b, device=dev), idx]
-    if sh is not None and "output" in sh.kinds and _width(params["output"]) * sh.tp == config.vocab_size:
-        logits = all_gather(linear(x, params["output"], compute_dtype=dtype, tp_kind="col"),
-                            mesh, "tp", dim=-1).to(torch.float32)
+    if sh is not None and block_kind("output", params["output"], config, mesh) == "col":
+        logits = gather_from(linear(x, params["output"], compute_dtype=dtype, tp_kind="col"),
+                             mesh, "tp", dim=-1).to(torch.float32)
     else:
         logits = linear(x, params["output"], compute_dtype=dtype).to(torch.float32)
     # The int8 lm head may be column-padded (ops/quant.py:pad_lm_head).
@@ -345,11 +353,11 @@ def forward_impl(
             and logits.shape[-1] == lm_head_padded_cols(config.vocab_size)):
         logits = logits[..., :config.vocab_size]
 
-    if dp_rows:
+    if dp_rows and gather_dp:
         logits = all_gather(logits, mesh, "dp", dim=0)
     if return_embedding:
         emb = (x[:, -1, :] if return_all_logits else x).to(torch.float32)
-        if dp_rows:
+        if dp_rows and gather_dp:
             emb = all_gather(emb, mesh, "dp", dim=0)
         return logits, cache, emb
     return logits, cache

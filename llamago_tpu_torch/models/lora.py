@@ -14,6 +14,14 @@ and ops/basic.py:linear dispatches it as base(x) + ((x A) B) * scale.
 A is Kaiming-normal from numpy (the JAX package's draws, bit for bit), B
 zero, so the wrapped model is exactly the base model at step 0. Optimizer
 state exists only for the adapters' A and B.
+
+Under the active mesh (parallel/) with tp > 1 an adapter is cut with its
+base (ops/basic.py:_lora_linear): a column block holds B's columns, a row
+block A's rows, the other half whole. `init_lora` draws every A whole, as
+one card draws it, and cuts it; `save_lora` gathers whole adapters to rank
+0 in the JAX layout, so a file trained on any mesh serves on any other and
+in the JAX package. Serving merges adapters into whole leaves in the loader
+(checkpoint/params.py:load_parameters), before each leaf is cut.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ import torch
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.models.training import ADAMW, _step, loss_fn, trainable
 from llamago_tpu_torch.ops.quant import QK, dequantize, is_quantized, quantize
+from llamago_tpu_torch.parallel.mesh import all_gather
+from llamago_tpu_torch.parallel.sharding import block_kind
+from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 
 # layer leaves eligible for adapters; fused projections included so
 # fuse_layer_weights'd params wrap cleanly
@@ -60,28 +71,49 @@ def _on(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+def _tp_cut(config: ModelConfig | None):
+    """The active mesh where it splits leaves over tp (init_lora and
+    save_lora then need the model's config to tell blocks from whole
+    leaves), else None."""
+    mesh = active_mesh()
+    if mesh is None or mesh.tp == 1:
+        return None
+    if config is None:
+        raise ValueError("under tp the leaves are the rank's blocks: pass the model's "
+                         "config")
+    return mesh
+
+
 def init_lora(params, rank: int = 8, alpha: float = 16.0,
-              targets: tuple[str, ...] = DEFAULT_TARGETS, seed: int = 0):
+              targets: tuple[str, ...] = DEFAULT_TARGETS, seed: int = 0,
+              config: ModelConfig | None = None):
     """Wrap targeted layer leaves with zero-initialized adapters on their
     base's device. Returns a new tree (leaves shared with the input; only
     the targeted leaves are replaced by wrapper dicts). A is drawn from
     np.random.default_rng(seed) layer by layer, each layer's leaves in
-    their dict order, as the JAX package draws it."""
+    their dict order, as the JAX package draws it; under tp (`config`
+    given) each A is drawn whole and a row block keeps its rows."""
     rng = np.random.default_rng(seed)
+    mesh = _tp_cut(config)
 
-    def wrap(leaf):
+    def wrap(key, leaf):
         lead, k, n = _leaf_dims(leaf)
         dev = _device(leaf)
-        a = rng.standard_normal((*lead, k, rank)) * (1.0 / np.sqrt(k))
+        row = mesh is not None and block_kind(key, leaf, config, mesh) == "row"
+        k_all = k * mesh.tp if row else k
+        a = rng.standard_normal((*lead, k_all, rank)) * (1.0 / np.sqrt(k_all))
+        if row:
+            i = mesh.coord("tp")
+            a = a[..., i * k:(i + 1) * k, :]
         return {
             "base": leaf,
-            "lora_a": torch.from_numpy(a.astype(np.float32)).to(dev),
+            "lora_a": torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev),
             "lora_b": torch.zeros((*lead, rank, n), dtype=torch.float32, device=dev),
             "lora_scale": torch.full(lead, alpha / rank, dtype=torch.float32, device=dev),
         }
 
     def wrap_layer(lp):
-        return {key: (wrap(leaf) if key in targets else leaf) for key, leaf in lp.items()}
+        return {key: (wrap(key, leaf) if key in targets else leaf) for key, leaf in lp.items()}
 
     layers = params["layers"]
     return {**params, "layers": (tuple(wrap_layer(lp) for lp in layers)
@@ -151,9 +183,36 @@ def merge_lora(params):
     return unwrap(params)
 
 
-def save_lora(path: str, params) -> None:
+def _whole_lora(params, config: ModelConfig | None = None):
+    """extract_lora's subtree with every adapter whole: under tp each
+    cut half is gathered over the tp group (every rank must call this)."""
+    mesh = _tp_cut(config)
+    if mesh is None:
+        return extract_lora(params)
+
+    def walk(node, key=None):
+        if is_lora(node):
+            out = {k: node[k] for k in LORA_KEYS}
+            kind = block_kind(key, node, config, mesh)
+            if kind == "row":
+                out["lora_a"] = all_gather(node["lora_a"].detach().contiguous(), mesh, "tp", -2)
+            elif kind == "col":
+                out["lora_b"] = all_gather(node["lora_b"].detach().contiguous(), mesh, "tp", -1)
+            return out
+        if isinstance(node, dict):
+            sub = {k: walk(v, k) for k, v in node.items()}
+            return {k: v for k, v in sub.items() if v is not None}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key) for v in node]
+        return None
+
+    return walk(params)
+
+
+def save_lora(path: str, params, config: ModelConfig | None = None) -> None:
     """Write the adapter subtree as a flat .npz ("layers/0/wq/lora_a"
-    keys), the JAX package's file format."""
+    keys), the JAX package's file format. Under a mesh every rank calls it
+    and rank 0 writes the whole adapters (`_whole_lora`)."""
     flat: dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -166,7 +225,11 @@ def save_lora(path: str, params) -> None:
         else:
             flat[prefix] = node.detach().cpu().numpy()
 
-    walk(extract_lora(params), "")
+    tree = _whole_lora(params, config)
+    mesh = active_mesh()
+    if mesh is not None and mesh.rank != 0:
+        return
+    walk(tree, "")
     np.savez(path, **flat)
 
 
@@ -265,8 +328,9 @@ def lora_train_step(params, opt_state: torch.optim.AdamW, tokens: torch.Tensor,
     """One adapter-only training step over the standard LM loss: gradients
     and AdamW updates of A and B alone (in place; each keeps this step's
     gradient in `.grad`), the base frozen. Returns (params, opt_state,
-    loss), as the JAX step does."""
+    loss), as the JAX step does; under a mesh the step of every rank, the
+    gradients synced as models/training.py:train_step syncs them."""
     for group in opt_state.param_groups:
         group["lr"] = lr
-    loss = _step(opt_state, lambda: loss_fn(params, tokens, config))
+    loss = _step(opt_state, lambda: loss_fn(params, tokens, config), params, config)
     return params, opt_state, loss

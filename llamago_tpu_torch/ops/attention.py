@@ -452,6 +452,20 @@ def quant_fits(t: int, s: int) -> bool:
     return _LENAWARE and t <= MAX_T and _tpu_sb(s) is not None
 
 
+def quant_takes(q: torch.Tensor, k_cache: torch.Tensor) -> bool:
+    """Whether `flash_attention_quant` (K4 or K8) takes q [B, t, H, hd] over
+    the int8 cache [B, KV, S, hd]: `quant_fits`, and on the card a geometry
+    the CUDA kernels take (as `can_fuse_attention` refuses one for the dense
+    cache); the plain versions take any. Elsewhere the window takes the
+    scale-folded `attention_math`."""
+    b, t, h, hd = q.shape
+    if q.device.type != "cpu" and not (
+            q.dtype in (torch.bfloat16, torch.float32)
+            and 1 <= h // k_cache.shape[1] <= _MAX_G and hd in _HEAD_DIMS):
+        return False
+    return quant_fits(t, k_cache.shape[2])
+
+
 def _quant_plain(q5, k8, v8, pos0, ks, vs, i8dot: bool) -> torch.Tensor:
     """The TPU kernels' online softmax over S-blocks on the int8 cache, in
     PyTorch (see flash_attention_quant_i8dot_plain / _plain). The int8
@@ -722,16 +736,22 @@ def attention_math_sp(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     and the numerator. A shard that sees no visible slot contributes
     exp(-inf - M) = 0; M is finite since slot 0 is visible to every
     position. With the int8 cache's scales the local scales fold in as in
-    `attention_math`. Serving only: there is no backward through the MAX.
+    `attention_math`. Differentiable as the JAX function is (its lines
+    730-760): M is detached (JAX's stop_gradient; the result does not
+    depend on it), the two sums pass their gradient to each rank's partial
+    as it is (parallel/mesh.py:reduce_from), and q enters through
+    `copy_to`, whose backward sums over sp the parts of q's gradient that
+    each rank's positions give (the new K/V rows enter the same way before
+    their write, models/llama.py).
     q [B, T, H, hd], caches [B, KV, S_l, hd]; returns [B, T, H*hd]."""
-    from llamago_tpu_torch.parallel.mesh import all_reduce
+    from llamago_tpu_torch.parallel.mesh import all_reduce, copy_to, reduce_from
 
     b, t, h, hd = q.shape
     kv, s_l = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     acc = torch.promote_types(q.dtype, torch.float32)
     offset = mesh.coord("sp") * s_l
-    qg = q.reshape(b, t, kv, g, hd)
+    qg = copy_to(q, mesh, "sp").reshape(b, t, kv, g, hd)
     if k_scale is not None:
         k_cache = k_cache.to(q.dtype)
     scores = torch.einsum("btkgd,bksd->bkgts", qg.to(acc), k_cache.to(acc)) * (1.0 / (hd ** 0.5))
@@ -740,11 +760,11 @@ def attention_math_sp(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     slot = offset + torch.arange(s_l, device=q.device)
     allowed = slot[None, None, :] <= positions[:, :, None]  # [B, T, S_l]
     scores = scores.masked_fill(~allowed[:, None, None, :, :], NEG_INF)
-    m = all_reduce(scores.amax(dim=-1, keepdim=True), mesh, "sp", "max")
+    m = all_reduce(scores.detach().amax(dim=-1, keepdim=True), mesh, "sp", "max")
     p = torch.exp(scores - m)
-    denom = all_reduce(p.sum(dim=-1, keepdim=True), mesh, "sp")
+    denom = reduce_from(p.sum(dim=-1, keepdim=True), mesh, "sp")
     if v_scale is not None:
         p = p * v_scale[:, :, None, None, :].to(acc)
-    num = all_reduce(torch.einsum("bkgts,bksd->bkgtd", p, v_cache.to(acc)), mesh, "sp")
+    num = reduce_from(torch.einsum("bkgts,bksd->bkgtd", p, v_cache.to(acc)), mesh, "sp")
     out = num / denom  # [B, KV, G, T, hd]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h * hd).to(q.dtype)

@@ -73,28 +73,57 @@ def linear(x: torch.Tensor, w, compute_dtype: torch.dtype | None = None,
     `stop_gradient` freezes it in the JAX package); a quantized base is
     frozen by `kernels.FrozenQuantMatmul`. `tp_kind` ("col" / "row" /
     None) says that w is this rank's column or row block under the active
-    mesh (parallel/): a row block's partial product is all-reduced over
-    tp."""
+    mesh (parallel/): x enters a column block through `copy_to` and a row
+    block's partial product is summed over tp by `reduce_from`, the
+    differentiable collectives of parallel/mesh.py."""
+    if isinstance(w, dict) and "lora_a" in w:
+        return _lora_linear(x, w, compute_dtype, tp_kind)
+    if tp_kind == "col":
+        from llamago_tpu_torch.parallel.mesh import copy_to
+        from llamago_tpu_torch.parallel.tp_kernels import active_mesh
+
+        x = copy_to(x, active_mesh(), "tp")
     if isinstance(w, dict):
-        if "lora_a" in w:
-            base_w = w["base"]
-            if not isinstance(base_w, dict):
-                base_w = base_w.detach()
-            base = linear(x, base_w, compute_dtype=compute_dtype, tp_kind=tp_kind)
-            a, b = w["lora_a"].to(x.dtype), w["lora_b"].to(x.dtype)
-            delta = torch.matmul(torch.matmul(x, a), b) * w["lora_scale"].to(x.dtype)
-            return base + delta.to(base.dtype)
         from llamago_tpu_torch.ops.quant import quant_matmul
 
         return quant_matmul(x, w, tp_kind=tp_kind)
     dtype = compute_dtype or x.dtype
     out = torch.matmul(x.to(dtype), w.to(dtype))
     if tp_kind == "row":
-        from llamago_tpu_torch.parallel.mesh import all_reduce
+        from llamago_tpu_torch.parallel.mesh import reduce_from
         from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 
-        out = all_reduce(out, active_mesh(), "tp")
+        out = reduce_from(out, active_mesh(), "tp")
     return out
+
+
+def _lora_linear(x: torch.Tensor, w: dict, compute_dtype, tp_kind: str | None) -> torch.Tensor:
+    """A LoRA leaf's product. On a rank's blocks under tp the adapter is cut
+    with its base: a column block holds B's columns [r, N/tp] (A whole, its
+    x @ A entering through `copy_to`), a row block A's rows [K/tp, r] (B
+    whole): x @ A is then a partial sum, reduced in the same all_reduce as
+    the base's partial product. Every adapter's gradient is whole on the
+    rank that holds it."""
+    from llamago_tpu_torch.parallel.mesh import copy_to, reduce_from
+    from llamago_tpu_torch.parallel.tp_kernels import active_mesh
+
+    base_w = w["base"]
+    if not isinstance(base_w, dict):
+        base_w = base_w.detach()
+    a, b = w["lora_a"].to(x.dtype), w["lora_b"].to(x.dtype)
+    if tp_kind == "row":
+        part = linear(x, base_w, compute_dtype=compute_dtype)  # this rank's partial
+        n = part.shape[-1]
+        both = reduce_from(torch.cat([part, torch.matmul(x, a).to(part.dtype)], dim=-1),
+                           active_mesh(), "tp")
+        base, xa = both[..., :n], both[..., n:].to(x.dtype)
+    else:
+        base = linear(x, base_w, compute_dtype=compute_dtype, tp_kind=tp_kind)
+        xa = torch.matmul(x, a)
+        if tp_kind == "col":
+            xa = copy_to(xa, active_mesh(), "tp")
+    delta = torch.matmul(xa, b) * w["lora_scale"].to(x.dtype)
+    return base + delta.to(base.dtype)
 
 
 def swiglu(x: torch.Tensor, w1, w2, w3) -> torch.Tensor:

@@ -24,6 +24,11 @@ choice is logged. There is no switch and no retry on the other backend.
 Gloo moves host memory: a CUDA tensor that reaches a collective under gloo is
 copied to the host and back here, in f32, and every such copy is counted in
 `host_copies`.
+
+Training runs the same collectives under autograd through their
+differentiable forms (`copy_to`, `reduce_from`, `gather_from`, `tp_slice`,
+below), each with Megatron's conjugate in the backward: the loss is whole
+on every tp and sp rank, so a gradient is never summed twice.
 """
 
 from __future__ import annotations
@@ -234,21 +239,26 @@ def _back(w: torch.Tensor, x: torch.Tensor, t0: float) -> torch.Tensor:
     return out
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum",
+               fresh: bool = False) -> torch.Tensor:
     """x reduced (sum or max) over this rank's `axis` group; x itself where
-    the axis has one rank. The result may share x's memory."""
+    the axis has one rank. No gradient (the differentiable forms are
+    below). The result may share x's memory (the collective then ran in
+    place on x) unless `fresh` asks for a new tensor."""
     group = mesh.groups.get(axis)
     if group is None:
         return x
     t0 = time.perf_counter()
     w = _wire(x, mesh)
+    if fresh and w.data_ptr() == x.data_ptr():
+        w = w.clone()
     dist.all_reduce(w, op=_OPS[op], group=group)
     return _back(w, x, t0)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.Tensor:
     """The `axis` group's tensors concatenated along `dim` in the group's
-    order; x itself where the axis has one rank."""
+    order; x itself where the axis has one rank. No gradient."""
     group = mesh.groups.get(axis)
     if group is None:
         return x
@@ -261,7 +271,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.T
 
 def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
     """x of the rank at index `src` of this rank's `axis` group, on every
-    rank of the group."""
+    rank of the group. No gradient."""
     group = mesh.groups.get(axis)
     if group is None:
         return x
@@ -271,7 +281,110 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
     return _back(w, x, t0)
 
 
+def _slice(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // mesh.shape[axis]
+    return x.narrow(dim, mesh.coord(axis) * n, n)
+
+
+# ---------------------------------------------- differentiable collectives
+#
+# Training computes the loss whole on every tp and sp rank, so a tensor
+# that is the same on every rank of an axis (replicated) carries its whole
+# gradient on every rank, and a rank's block carries the gradient of its
+# block. Each collective of the forward then has Megatron's conjugate in
+# the backward:
+#
+#   copy_to      forward identity      backward all_reduce(SUM)
+#                (a replicated tensor entering per-rank work: each rank's
+#                gradient is the part its work sees)
+#   reduce_from  forward all_reduce    backward identity
+#   gather_from  forward all_gather    backward the rank's slice
+#   tp_slice     forward the slice     backward all_gather
+#
+# torch.distributed.nn.functional.all_reduce's backward all-reduces again,
+# which would count a replicated loss once a rank. Each form runs its plain
+# collective where no gradient is asked for; its results never share memory
+# with its input (autograd may have saved the input).
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis, fresh=True), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis, fresh=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
+class _SliceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _slice(x, mesh, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """x, replicated over `axis`, as the input of this rank's share of the
+    work: the identity, whose backward sums the ranks' gradients."""
+    if mesh is None or axis not in mesh.groups or not _wants_grad(x):
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over `axis` of the ranks' partials x (a row block's product,
+    the sp softmax sums), replicated; the backward passes the gradient to
+    each partial as it is."""
+    if mesh is None or axis not in mesh.groups:
+        return x
+    if not _wants_grad(x):
+        return all_reduce(x, mesh, axis)
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks x concatenated along `dim` (all_gather); the
+    backward keeps this rank's slice of the gradient."""
+    if mesh is None or axis not in mesh.groups:
+        return x
+    if not _wants_grad(x):
+        return all_gather(x, mesh, axis, dim)
+    return _GatherFrom.apply(x, mesh, axis, dim)
+
+
 def tp_slice(x: torch.Tensor, mesh: Mesh, dim: int = -1) -> torch.Tensor:
-    """This rank's contiguous block of x along `dim`, split tp ways."""
-    n = x.shape[dim] // mesh.tp
-    return x.narrow(dim, mesh.coord("tp") * n, n)
+    """This rank's contiguous block of x along `dim`, split tp ways; under
+    grad the backward all-gathers the ranks' gradient slices."""
+    if "tp" in mesh.groups and _wants_grad(x):
+        return _SliceTo.apply(x, mesh, "tp", dim)
+    return _slice(x, mesh, "tp", dim)

@@ -22,12 +22,14 @@ multiple of the kernels' column unit, a K block of whole groups, no Q4_1
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from llamago_tpu_torch.config import ModelConfig
 from llamago_tpu_torch.ops.quant import G4X8, HEAD_COL_UNIT, QK, is_quantized
+from llamago_tpu_torch.parallel.mesh import Mesh
 
 _LAYER_KINDS = {
     "attention_norm": None,
@@ -73,6 +75,55 @@ def param_shardings(config: ModelConfig, mesh) -> dict:
 
     return {**{k: kind(k, r) for k, r in _TOP_KINDS.items()},
             "layers": {k: kind(k, r) for k, r in _LAYER_KINDS.items()}}
+
+
+def global_dims(config: ModelConfig) -> dict[str, tuple[int, int]]:
+    """(in, out) of each matmul leaf of the whole model."""
+    d, v, f = config.dim, config.vocab_size, config.ffn_hidden
+    q, kv = config.n_heads * config.head_dim, config.kv_heads * config.head_dim
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d), "w1": (d, f),
+            "w3": (d, f), "w2": (f, d), "output": (d, v)}
+
+
+def leaf_width(w) -> int:
+    """A matmul leaf's output width (its N): dense, quantized or LoRA."""
+    if isinstance(w, dict):
+        return w["s"].shape[-1] if "s" in w else leaf_width(w["base"])
+    return w.shape[-1]
+
+
+def leaf_depth(w) -> int:
+    """A matmul leaf's input depth (its K): dense, quantized or LoRA."""
+    if isinstance(w, dict):
+        if "q8" in w:
+            return w["q8"].shape[-2]
+        if "q4" in w or "q4x" in w:
+            return 2 * w["q4" if "q4" in w else "q4x"].shape[-2]
+        return leaf_depth(w["base"])
+    return w.shape[-2]
+
+
+@functools.lru_cache(maxsize=64)
+def _split_table(config: ModelConfig, tp: int) -> dict[str, tuple[str | None, int, int]]:
+    """(kind, in, out) of each matmul leaf at tp ways."""
+    kinds = param_shardings(config, Mesh(tp=tp))
+    kinds = {**kinds, **kinds["layers"]}
+    return {key: (kinds[key], k, n) for key, (k, n) in global_dims(config).items()}
+
+
+def block_kind(key: str, leaf, config: ModelConfig, mesh) -> str | None:
+    """"col" or "row" where `leaf` (the matmul leaf `key`, dense, quantized
+    or LoRA) is this rank's column or row block, None where it is whole:
+    the leaf's shape tells whether the loader cut it (split_ok)."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return None
+    tp = mesh.shape["tp"]
+    kind, k, n = _split_table(config, tp).get(key, (None, 0, 0))
+    if kind == "col" and leaf_width(leaf) * tp == n:
+        return "col"
+    if kind == "row" and leaf_depth(leaf) * tp == k:
+        return "row"
+    return None
 
 
 def _quant_key(leaf: dict) -> str:

@@ -6,11 +6,18 @@ process holding its local blocks (parallel/sharding.py), so a "shard map"
 is the local call itself, followed by the collective XLA would insert:
 
   col-parallel (wq wk wv w1 w3 output): x replicated over tp -> the local
-      kernel on the [K, N/tp] block -> [m, N/tp], no collective.
+      kernel on the [K, N/tp] block -> [m, N/tp], no collective (under
+      grad x enters through parallel/mesh.py:copy_to, in ops/basic.py:
+      linear, whose backward sums the ranks' input gradients).
   row-parallel (wo w2): x's features split over tp -> the local kernel on
-      the [K/tp, N] block -> partial [m, N] -> all_reduce(SUM) over tp.
+      the [K/tp, N] block -> partial [m, N] -> all_reduce(SUM) over tp
+      (mesh.py:reduce_from, the identity in the backward).
   dp only: the forward already holds its rows of the batch
       (models/llama.py), the local kernel runs on them.
+
+Under grad the local kernel runs through ops/kernels.py:FrozenQuantMatmul,
+as on one card: the kernel forward at the block's shape, JAX's `_dm_bwd`
+in plain PyTorch backward.
 
 Attention needs no wrapper here (the JAX package's maybe_tp_attention and
 maybe_tp_attention_quant): models/llama.py:_block_sharded calls the
@@ -61,7 +68,10 @@ def tp_kinds(config: ModelConfig, mesh) -> dict[str, str]:
 
 def maybe_tp_matmul(x: torch.Tensor, w: dict, kind: str | None):
     """x @ the rank's block of a quantized leaf w through the local kernel
-    (ops/kernels.py:dequant_matmul), all-reduced over tp for a row block.
+    (ops/kernels.py:dequant_matmul, or its autograd Function
+    FrozenQuantMatmul where grad is enabled and x requires it),
+    all-reduced over tp for a row block (parallel/mesh.py:reduce_from,
+    whose backward hands every rank the whole gradient).
 
     Returns None where the JAX function does, and the caller then runs
     the leaf as a whole: no active mesh, a Q4_1 or stacked leaf, a row
@@ -73,14 +83,19 @@ def maybe_tp_matmul(x: torch.Tensor, w: dict, kind: str | None):
     if "m" in w or w["s"].dim() != 2:
         return None
     from llamago_tpu_torch.ops import kernels
-    from llamago_tpu_torch.parallel.mesh import all_reduce
+    from llamago_tpu_torch.parallel.mesh import reduce_from
+
+    def local():
+        if torch.is_grad_enabled() and x.requires_grad:
+            return kernels.FrozenQuantMatmul.apply(x, w)
+        return kernels.dequant_matmul(x, w)
 
     tp, dp = mesh.shape["tp"], mesh.shape["dp"]
     blk = G4X8 if "q4x" in w else QK
     if kind == "col" and tp > 1:
-        return kernels.dequant_matmul(x, w)
+        return local()
     if kind == "row" and tp > 1 and x.shape[-1] % blk == 0:
-        return all_reduce(kernels.dequant_matmul(x, w), mesh, "tp")
+        return reduce_from(local(), mesh, "tp")
     if tp == 1 and dp > 1:
-        return kernels.dequant_matmul(x, w)
+        return local()
     return None

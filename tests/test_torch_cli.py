@@ -221,6 +221,92 @@ def test_chat_under_tp_matches_one_process(q8_model):
     assert runs[1][1] == ""
 
 
+def _one_process_finetune(model, text, steps, seq, batch, rank, lr):
+    """What `finetune` computes, in this process on the unfused model (the
+    layout the ranks train): the adapters after `steps` LoRA steps on the
+    CLI's batches."""
+    from llamago_tpu_torch.checkpoint.gguf import read_checkpoint
+    from llamago_tpu_torch.models import lora
+    from llamago_tpu_torch.tokenizer import tokenize
+
+    ckpt = read_checkpoint(model, max_seq_len=64)
+    cfg = ckpt.config.replace(dtype="float32", max_seq_len=64)
+    p = params.unstack_layer_params(params.load_parameters(cfg, ckpt.tensors, device="cpu"),
+                                    cfg.n_layers)
+    with open(text, encoding="utf-8") as f:
+        ids = np.asarray(tokenize(ckpt.vocab, " " + f.read(), bos=True), np.int32)
+    blocks = ids[: len(ids) // seq * seq].reshape(-1, seq)
+    p = lora.init_lora(p, rank=rank, alpha=16.0)
+    opt = lora.init_lora_opt_state(p, lr=lr)
+    rng = np.random.default_rng(0)
+    for _ in range(steps):
+        take = rng.integers(0, len(blocks), size=batch)
+        p, opt, _ = lora.lora_train_step(p, opt, torch.from_numpy(blocks[take]), cfg, lr=lr)
+    return {k: v.detach().numpy() for k, v in _flat_lora(lora.extract_lora(p)).items()}
+
+
+def _flat_lora(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat_lora(v, f"{prefix}/{k}" if prefix else k).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat_lora(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def test_finetune_lora_and_perplexity_run_under_tp(q8_model, tmp_path, capsys):
+    """`finetune --tp 2` on two spawned CPU ranks: rank 0 reports and writes
+    whole adapters in the JAX layout, within 1e-6 of one process's training
+    on the same draws, which the JAX package's load_lora reads and attaches
+    to its meshed (unfused) tree; `--lora` of them at --tp 2 greedy-decodes
+    one process's tokens; `perplexity --tp 2` prints one process's line."""
+    from llamago_tpu.models import lora as jlora
+
+    text = tmp_path / "train.txt"
+    text.write_text("hello world, the world says hello again and again.\n" * 12)
+    out = str(tmp_path / "tp.npz")
+    tune = ["finetune", "--model", q8_model, "--file", str(text), "--steps", "3", "--seq",
+            "32", "--context", "64", "--train-batch", "2", "--rank", "4", "--silent",
+            "--device", "cpu", "--out", out, "--tp", "2"]
+    (code, stdout, err), = _ranked_cli(tune, 1, timeout=180)
+    assert code == 0, err[-3000:]
+    assert stdout.startswith("[FINETUNE] 3 steps, final loss ") and stdout.count("[FINETUNE]") == 2
+    assert sorted(json.loads(line)["rank"] for line in err.splitlines()
+                  if line.startswith('{"rank"')) == [0, 1]
+    want = _one_process_finetune(q8_model, str(text), 3, 32, 2, 4, 1e-3)
+    with np.load(out) as z:
+        assert sorted(z.files) == sorted(want)
+        assert "layers/1/wq/lora_a" in z.files and "layers/1/wo/lora_b" in z.files
+        for k in z.files:
+            np.testing.assert_allclose(z[k], want[k], rtol=0, atol=1e-6, err_msg=k)
+    jtree = jparams.host_parameters(*_jax_file(q8_model))
+    # four stacked leaves (wq wk wv wo), each with both layers' adapters
+    assert jlora._count_lora(jlora.attach_lora(jtree, jlora.load_lora(out))) == 4
+
+    gen = ["--model", q8_model, "--lora", out, "--prompt", "hello world", "--temp", "0",
+           "--predict", "12", "--context", "64", "--silent", "--device", "cpu"]
+    assert cli.main(gen) == 0
+    one = capsys.readouterr().out
+    (code, stdout, err), = _ranked_cli(gen + ["--tp", "2"], 1)
+    assert code == 0, err[-3000:]
+    assert stdout == one and one.startswith("hello world")
+
+    ppl = ["perplexity", "--model", q8_model, "--file", str(text), "--context", "64",
+           "--silent", "--device", "cpu"]
+    assert cli.main(ppl) == 0
+    one = capsys.readouterr().out
+    (code, stdout, err), = _ranked_cli(ppl + ["--tp", "2"], 1)
+    assert code == 0, err[-3000:]
+    assert stdout == one and one.startswith("[PPL] perplexity ")
+
+
+def _jax_file(path):
+    """(JAX config, file tensors) of a ggjt file, as the JAX package reads it."""
+    ck = jread_ggjt(path)
+    return ck.config, ck.tensors
+
+
 def test_more_ranks_than_cards_is_refused(monkeypatch, q8_model, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -263,6 +349,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(list(PKG.rglob("*.py"))) > 15
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {f"parallel/{m}.py" for m in ("mesh", "sharding", "tp_kernels", "multihost")} <= scanned
+    assert "dryrun.py" in scanned
     assert bad == []
 
 

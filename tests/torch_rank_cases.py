@@ -7,6 +7,7 @@ ranks, and writes `<name>.rank<r>.pkl`. Nothing here imports JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import threading
 import time
@@ -285,3 +286,212 @@ def lockstep_stop(workdir, rank):
     serve_lockstep(engine, None, poll_interval=0.0,
                    stop_when=(lambda: next(calls) >= 3) if rank == 0 else None)
     save(workdir, f"stop.rank{rank}.pkl", {"ticks": ticks})
+
+
+# ------------------------------------------------------------- training
+
+def _flat(tree, prefix: str = "", grads: bool = False) -> dict:
+    """path ("layers/0/wq/lora_a") -> numpy of every tensor of a tree (its
+    `.grad` with `grads`, where it has one)."""
+    out: dict = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k, grads))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}/{i}", grads))
+    elif isinstance(tree, torch.Tensor):
+        t = tree.grad if grads else tree
+        if t is not None:
+            # a copy: the optimizer updates the tensors in place afterwards
+            out[prefix] = t.detach().float().numpy().copy() if t.is_floating_point() else (
+                t.numpy().copy())
+    return out
+
+
+def _set_whole(tree, whole: dict, config, mesh, key_name: str) -> None:
+    """Put the whole adapter halves `whole` ({path: numpy}, e.g. every B)
+    into a wrapped tree, as this rank's block where the leaf is cut."""
+    from llamago_tpu_torch.parallel.sharding import block_kind
+
+    for i, lp in enumerate(tree["layers"]):
+        for key, node in lp.items():
+            path = f"layers/{i}/{key}/{key_name}"
+            if path not in whole:
+                continue
+            w = torch.from_numpy(np.ascontiguousarray(whole[path], np.float32))
+            kind = block_kind(key, node, config, mesh)
+            dim = {"lora_b": "col", "lora_a": "row"}[key_name]
+            if kind == dim:
+                ax = -1 if dim == "col" else -2
+                n = w.shape[ax] // mesh.tp
+                w = w.narrow(ax, mesh.coord("tp") * n, n).contiguous()
+            node[key_name] = w
+
+
+def _model_on_mesh(run, mesh):
+    """A run's model on this rank (from a copy of its numpy tree: a leaf
+    kept whole shares its numpy array, which training updates in place)."""
+    config = ModelConfig(**run["config"])
+    params = unstack_layer_params(
+        params_from_numpy(copy.deepcopy(run["params"]), "cpu", mesh=mesh, config=config),
+        config.n_layers)
+    lo = run.get("lora")
+    init_a = {}
+    if lo is not None:
+        from llamago_tpu_torch.models import lora
+
+        params = lora.init_lora(params, rank=lo["rank"], alpha=lo["alpha"], seed=lo["seed"],
+                                config=config)
+        init_a = {k: v for k, v in _flat(params).items() if k.endswith("lora_a")}
+        for half in ("lora_a", "lora_b"):
+            _set_whole(params, lo.get(half[-1], {}), config, mesh, half)
+    return config, params, init_a
+
+
+def _steps(run, config, params, steps):
+    """(optimizer, losses, the first step's gradients and parameters) of
+    `steps` train steps (LoRA where the run says)."""
+    from llamago_tpu_torch.models import lora, training
+
+    if run.get("lora") is not None:
+        opt = lora.init_lora_opt_state(params)
+
+        def step(p, o, x):
+            return lora.lora_train_step(p, o, x, config)
+    else:
+        opt = training.make_optimizer(params)
+
+        def step(p, o, x):
+            return training.train_step(p, o, x, config)
+
+    losses, first = [], None
+    for i, tok in enumerate(steps):
+        params, opt, loss = step(params, opt, torch.from_numpy(tok))
+        losses.append(float(loss))
+        if i == 0:
+            first = {"grads": _flat(params, grads=True), "params": _flat(params)}
+    return opt, losses, first
+
+
+def train(workdir, rank, name: str, tp=1, dp=1, sp=1):
+    """Each run of `<name>.pkl` ({"config", "params" (numpy, stacked and
+    unfused), "steps": [tokens], optional "lora": {"rank", "alpha", "seed",
+    "b": {path: whole B}, optional "a" the same for A}, "resume": whether to also save after two steps,
+    restore into a fresh tree and take the third, "remat": whether to also
+    take loss_fn's gradients with and without remat}): each step's loss,
+    the first step's gradients and parameters and the last step's
+    parameters, all this rank's blocks."""
+    mesh = _mesh(tp, dp, sp)
+    out = []
+    for run in load(workdir, f"{name}.pkl"):
+        config, params, init_a = _model_on_mesh(run, mesh)
+        _, losses, first = _steps(run, config, params, run["steps"])
+        res = {"losses": losses, **first, "last": _flat(params), "init_a": init_a}
+        if run.get("resume"):
+            res["resumed"] = _resume(workdir, rank, run, mesh)
+        if run.get("remat"):
+            res["remat"] = [_loss_grads(run, mesh, remat) for remat in (True, False)]
+        out.append(res)
+    save(workdir, f"{name}.rank{rank}.pkl", out)
+
+
+def _loss_grads(run, mesh, remat: bool) -> dict:
+    """loss_fn's value and its raw gradients (before any sync) on the first
+    batch, with and without remat."""
+    from llamago_tpu_torch.models import lora, training
+
+    config, params, _ = _model_on_mesh(run, mesh)
+    ts = lora.adapter_tensors(params) if run.get("lora") else training.trainable(params)
+    for t in ts:
+        t.requires_grad_(True)
+    loss = training.loss_fn(params, torch.from_numpy(run["steps"][0]), config, remat=remat)
+    loss.backward()
+    return {"loss": float(loss), "grads": _flat(params, grads=True)}
+
+
+def _resume(workdir, rank, run, mesh) -> dict:
+    """Two steps, save, restore into a fresh tree and optimizer, one more
+    step: the parameters then (this rank's blocks)."""
+    from llamago_tpu_torch.models import training
+
+    config, params, _ = _model_on_mesh(run, mesh)
+    opt, _, _ = _steps(run, config, params, run["steps"][:2])
+    path = f"{workdir}/state"
+    training.save_train_state(path, params, opt, 2)
+    _, fresh, _ = _model_on_mesh(run, mesh)
+    opt2 = training.make_optimizer(fresh, lr=5e-3)
+    fresh, opt2, step = training.load_train_state(path, fresh, opt2)
+    assert step == 2 and opt2.param_groups[0]["lr"] == 1e-4
+    fresh, opt2, _ = training.train_step(fresh, opt2, torch.from_numpy(run["steps"][2]), config)
+    return _flat(fresh)
+
+
+def ppl(workdir, rank, name: str, tp=1, dp=1, sp=1):
+    """perplexity() of each run of `<name>.pkl` ({"config", "params",
+    "ids", "ctx", "min_context"}) and window 0's NLL, on this rank."""
+    from llamago_tpu_torch.eval.perplexity import _window_nll, perplexity
+
+    mesh = _mesh(tp, dp, sp)
+    out = []
+    for run in load(workdir, f"{name}.pkl"):
+        config = ModelConfig(**run["config"])
+        params = unstack_layer_params(
+            params_from_numpy(run["params"], "cpu", mesh=mesh, config=config), config.n_layers)
+        res = perplexity(params, config, run["ids"], ctx=run["ctx"],
+                         min_context=run["min_context"])
+        window = torch.from_numpy(np.asarray(run["ids"][:run["ctx"]], np.int64)[None])
+        out.append({**res, "nll0": _np(_window_nll(params, window, config))})
+    save(workdir, f"{name}.rank{rank}.pkl", out)
+
+
+def merged(workdir, rank, tp=2):
+    """load_parameters with adapters (merge.pkl: {"config", "tensors",
+    "adapters"}): this rank's merged blocks."""
+    mesh = _mesh(tp)
+    inp = load(workdir, "merge.pkl")
+    config = ModelConfig(**inp["config"])
+    params = load_parameters(config, inp["tensors"], device="cpu", mesh=mesh,
+                             adapters=inp["adapters"])
+    save(workdir, f"merge.rank{rank}.pkl", _flat(params))
+
+
+def collectives(workdir, rank):
+    """The differentiable collectives of parallel/mesh.py on a tp = 2 mesh
+    (coll.pkl: {"x" [4, 6], "w" [6, 4], "g" [4, 6]}): for each case the
+    forward's value and x's gradient, where the loss's gradient on the
+    case's output is the matching part of g (tests/test_torch_parallel_
+    train.py holds them against one process's autograd)."""
+    from llamago_tpu_torch.parallel.mesh import copy_to, gather_from, reduce_from, tp_slice
+
+    mesh = _mesh(tp=2)
+    inp = {k: torch.from_numpy(v) for k, v in load(workdir, "coll.pkl").items()}
+    w, g = inp["w"], inp["g"]
+    i = mesh.coord("tp")
+    rows, cols2, cols3 = slice(3 * i, 3 * i + 3), slice(2 * i, 2 * i + 2), slice(3 * i, 3 * i + 3)
+    cases = {
+        # (output, its gradient)
+        "copy_to": lambda x: (copy_to(x, mesh, "tp") @ w[:, cols2], g[:, :4][:, cols2]),
+        "reduce_from": lambda x: (reduce_from(x[:, rows] @ w[rows], mesh, "tp"), g[:, :4]),
+        "gather_from": lambda x: (gather_from(x[:, cols3], mesh, "tp"), g),
+        "tp_slice": lambda x: (tp_slice(x, mesh), g[:, cols3]),
+        "column_block": lambda x: (gather_from(copy_to(x, mesh, "tp") @ w[:, cols2], mesh, "tp"),
+                                   g[:, :4]),
+        "row_block": lambda x: (reduce_from(tp_slice(x, mesh) @ w[rows], mesh, "tp"), g[:, :4]),
+    }
+    out = {}
+    for name, fn in cases.items():
+        x = inp["x"].clone().requires_grad_(True)
+        y, gy = fn(x)
+        y.backward(gy)
+        out[name] = {"y": _np(y), "dx": _np(x.grad)}
+    save(workdir, f"coll.rank{rank}.pkl", out)
+
+
+def dryrun(workdir, rank, n: int):
+    """llamago_tpu_torch.dryrun.dryrun_multichip(n) on the CPU with the
+    bf16 training parameters of dry.pkl (numpy, stacked)."""
+    from llamago_tpu_torch.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(n, device="cpu", params=load(workdir, "dry.pkl"))
+    save(workdir, f"dry.rank{rank}.pkl", out)
