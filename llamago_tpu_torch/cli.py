@@ -743,10 +743,25 @@ def run_chat(engine, gen, args) -> int:
 
 
 def _report(job) -> None:
-    """Per-job performance table (parity: server.go:244-274)."""
+    """Per-job performance table (parity: server.go:244-274), per emitted
+    token, from the engine's spans since the job's admission (the one job
+    of a one-shot run): eval is the time the host spent launching device
+    work outside sampling and waiting for the card, sample the `sample`
+    spans' time."""
+    from llamago_tpu_torch.runtime.spans import LAUNCH, SPANS, parents, self_times
+
     n = len(job.output_tokens)
-    avg_eval = sum(job.eval_ms) / max(len(job.eval_ms), 1)
-    avg_sample = sum(job.sample_ms) / max(len(job.sample_ms), 1)
+    held = SPANS.spans()
+    first = max((i for i, s in enumerate(held) if s.name == "admit" and s.job == job.id),
+                default=len(held))
+    spans = [s for s in held[first:] if s.t1 >= s.t0]
+    own, up = self_times(spans), parents(spans)
+    sample = sum(s.t1 - s.t0 for s in spans if s.name == "sample")
+    launch = sum(t for s, t in zip(spans, own) if s.name in LAUNCH and s.name != "sample")
+    wait = sum(s.t1 - s.t0 for s, p in zip(spans, up)
+               if s.name == "wait" and (p < 0 or spans[p].name != "sample"))
+    avg_eval = 1e3 * (launch + wait) / max(n, 1)
+    avg_sample = 1e3 * sample / max(n, 1)
     print(f"\n[ HALT ] Time per token: {avg_eval + avg_sample:.2f} ms | "
           f"eval {avg_eval:.2f} ms | sample {avg_sample:.2f} ms | "
           f"TTFT {job.ttft_ms:.0f} ms | "

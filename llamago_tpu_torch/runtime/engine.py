@@ -14,7 +14,9 @@ model decodes a slot-batched step; "pods" are decode slots:
   * context swap (server.go:165-172): when a slot hits the context limit,
     keep the first keep_count positions, re-feed half of the remaining
     most-recent tokens, and continue;
-  * per-job phase timers and tok/s accounting (server.go:244-274).
+  * per-job tok/s accounting (server.go:244-274), and the spans of every
+    step (runtime/spans.py): admission, each launch, each host wait on the
+    device.
 
 Inactive rows still flow through the batched forward and still write one
 cache row per step (the cache write clamps like dynamic_update_slice,
@@ -37,7 +39,6 @@ deadline expiry is decided on rank 0 (`expired_job_ids`, `apply_expiry`).
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 import time
 import uuid
@@ -52,13 +53,10 @@ from llamago_tpu_torch.models.llama import forward_impl, prefill_into_slot
 from llamago_tpu_torch.ops.sampling import SamplerState, push_tokens, reset_slots, sample
 from llamago_tpu_torch.parallel.tp_kernels import active_mesh
 from llamago_tpu_torch.runtime.kv_cache import KVCache
+from llamago_tpu_torch.runtime.spans import H2D, READ_CHUNK, READ_SPEC, READ_TOKENS, SPANS
 from llamago_tpu_torch.tokenizer import EOS_TOKEN, Vocab, detokenize, tokenize
 from llamago_tpu_torch.utils import debug as _dbg
 from llamago_tpu_torch.utils.device import resolve_device
-
-# trace of the speculative gate: each engine step's spec / chunked
-# decision with the acceptance EMAs
-_SPEC_DEBUG = os.environ.get("LLAMAGO_SPEC_DEBUG", "0") == "1"
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -85,8 +83,6 @@ class Job:
     output: str = ""
     error: str = ""
     ttft_ms: float = 0.0
-    eval_ms: list[float] = field(default_factory=list)
-    sample_ms: list[float] = field(default_factory=list)
 
     @property
     def tokens_per_second(self) -> float:
@@ -175,6 +171,7 @@ class Engine:
         self.spec_gate_threshold = 1.5  # accepted drafts per step
         self.spec_probe_interval = 8  # gated decisions between probes
         self._spec_probe_countdown = 0
+        self._spec_probing = False  # the last decision was a probe
         self.prefill_chunk = max(16, min(prefill_chunk, self.buckets[-1]))
         self._queue: list[Job] = []
         # None = every queued job is admissible (one process). Lockstep
@@ -200,7 +197,10 @@ class Engine:
         return g
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+        # a blocking copy from pageable memory: on the card it waits for the
+        # work queued before it
+        with SPANS.wait(H2D):
+            return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
 
     def _first_eos(self, emitted: list[int]) -> int:
         for i, t in enumerate(emitted):
@@ -333,6 +333,14 @@ class Engine:
         return True
 
     def _admit(self, slot_idx: int, job: Job) -> None:
+        # the `admit` span: a = the slot (-1 if the job failed), b = prompt tokens
+        with SPANS.span("admit", job.id, slot_idx) as span:
+            if not self._place(slot_idx, job):
+                span.a = -1
+            span.b = job.prompt_tokens
+
+    def _place(self, slot_idx: int, job: Job) -> bool:
+        """Tokenize `job` into slot `slot_idx`; False if it failed there."""
         slot = self.slots[slot_idx]
         gen = job.gen
         job.started = time.time()
@@ -344,7 +352,7 @@ class Engine:
             job.status = JobStatus.FAILED
             job.error = f"prompt is too long: {len(ids)} tokens >= context {ctx}"
             job.finished = time.time()
-            return
+            return False
 
         job.status = JobStatus.PROCESSING
         job.prompt_tokens = len(ids)
@@ -363,7 +371,7 @@ class Engine:
                          f"context layout (context {ctx}, prefill buckets "
                          f"{self.buckets})")
             job.finished = time.time()
-            return
+            return False
         job.reused_tokens = reuse
         _dbg.check(0 <= reuse <= slot.mapped,
                    "reuse exceeds the slot's mapped prefix",
@@ -392,6 +400,7 @@ class Engine:
                          np.int64)
         reset_slots(self.sampler_state, self._tensor(mask), self._tensor(window))
         self._push_slot_tokens(slot_idx, ids)
+        return True
 
     def _advance_prefills(self) -> bool:
         """Absorb ONE pending prefill chunk (at most) into its slot."""
@@ -403,9 +412,7 @@ class Engine:
                 slot.pos + self._bucket(len(chunk)) <= self.config.max_seq_len,
                 "prefill chunk bucket would clamp past the cache end",
                 pos=slot.pos, chunk=len(chunk))
-            t0 = time.time()
             self._prefill(i, chunk, write_pos=slot.pos)
-            slot.job.eval_ms.append((time.time() - t0) * 1000.0)
             slot.pos += len(chunk)
             slot.pending = slot.pending[len(chunk):]
             return True
@@ -426,11 +433,13 @@ class Engine:
                 f"bucket={bucket} max_seq_len={self.config.max_seq_len}")
         padded = np.zeros((1, bucket), np.int64)
         padded[0, : len(ids)] = ids
-        logits, self.cache = prefill_into_slot(
-            self.params, self._tensor(padded), self.cache, slot_idx,
-            self._tensor([write_pos], torch.long),
-            self._tensor([len(ids) - 1], torch.long), self.config)
-        self.logits[slot_idx] = logits
+        job = self.slots[slot_idx].job
+        with SPANS.span("prefill", job and job.id, len(ids), write_pos):
+            logits, self.cache = prefill_into_slot(
+                self.params, self._tensor(padded), self.cache, slot_idx,
+                self._tensor([write_pos], torch.long),
+                self._tensor([len(ids) - 1], torch.long), self.config)
+            self.logits[slot_idx] = logits
 
     # ------------------------------------------------------ context swap
 
@@ -449,7 +458,8 @@ class Engine:
         evaluated = slot.history[:-1]  # pending token is history[-1]
         refeed = evaluated[len(evaluated) - left // 2:] if left // 2 else []
         if refeed:
-            self._prefill(slot_idx, refeed, write_pos=keep)
+            with SPANS.span("swap", slot.job.id, len(refeed)):
+                self._prefill(slot_idx, refeed, write_pos=keep)
         slot.pos = keep + len(refeed)
         slot.swap_point = keep if slot.swap_point is None else min(slot.swap_point, keep)
 
@@ -500,92 +510,84 @@ class Engine:
 
     def step(self) -> bool:
         """One engine iteration. Returns True if any work was done."""
-        with self._lock:
+        with SPANS.step():
+            with self._lock:
+                for i, slot in enumerate(self.slots):
+                    if not self._queue or self._agreed_n == 0:
+                        # lockstep admits only the agreed prefix of the queue:
+                        # a job submitted since the drain waits for the next tick
+                        break
+                    if slot.free:
+                        job = self._queue.pop(0)
+                        if self._agreed_n is not None:
+                            self._agreed_n -= 1
+                        self._admit(i, job)
+
+            did_prefill = self._advance_prefills()
+
+            temp, top_k, top_p, rp, active = self._gather_gen_arrays()
+            if not active.any():
+                return did_prefill
+
+            # --- sample one token per active slot from the pending logits
+            rows = int(active.sum())
+            with SPANS.span("sample", a=rows):
+                tokens_dev = sample(
+                    self.logits, self.sampler_state, self._tensor(temp), self._tensor(top_k),
+                    self._tensor(top_p), self._tensor(rp), self.generators,
+                    max_top_k=self._static_top_k(top_k, active))
+                with SPANS.wait(READ_TOKENS):
+                    tokens = tokens_dev.tolist()
+                push_tokens(self.sampler_state, tokens_dev[:, None], self._tensor(active))
+
+            now = time.time()
             for i, slot in enumerate(self.slots):
-                if not self._queue or self._agreed_n == 0:
-                    # lockstep admits only the agreed prefix of the queue: a
-                    # job submitted since the drain waits for the next tick
-                    break
-                if slot.free:
-                    job = self._queue.pop(0)
-                    if self._agreed_n is not None:
-                        self._agreed_n -= 1
-                    self._admit(i, job)
+                if slot.job is None or not active[i]:
+                    continue
+                tok = int(tokens[i])
+                job = slot.job
+                job.output_tokens.append(tok)
+                if len(job.output_tokens) == 1:
+                    job.ttft_ms = (now - job.started) * 1000.0
+                slot.history.append(tok)
+                slot.remaining -= 1
+                stopped = self._publish_output(job)
+                if (stopped or slot.remaining <= 0
+                        or (job.gen.stop_at_eos and tok in self._eos_ids)):
+                    self._finish(slot)
+                    active[i] = False
 
-        did_prefill = self._advance_prefills()
+            if not active.any():
+                return True
 
-        temp, top_k, top_p, rp, active = self._gather_gen_arrays()
-        if not active.any():
-            return did_prefill
+            for i in range(self.n_slots):
+                if active[i]:
+                    self._maybe_context_swap(i)
 
-        # --- sample one token per active slot from the pending logits
-        t0 = time.time()
-        tokens_dev = sample(
-            self.logits, self.sampler_state, self._tensor(temp), self._tensor(top_k),
-            self._tensor(top_p), self._tensor(rp), self.generators,
-            max_top_k=self._static_top_k(top_k, active))
-        tokens = tokens_dev.tolist()  # host sync
-        sample_dt = (time.time() - t0) * 1000.0
-        push_tokens(self.sampler_state, tokens_dev[:, None], self._tensor(active))
+            n_spec = self._spec_steps(active, temp)
+            if n_spec > 0:
+                self._decode_speculative(active, n_spec)
+                return True
 
-        now = time.time()
-        for i, slot in enumerate(self.slots):
-            if slot.job is None or not active[i]:
-                continue
-            tok = int(tokens[i])
-            job = slot.job
-            job.sample_ms.append(sample_dt)
-            job.output_tokens.append(tok)
-            if len(job.output_tokens) == 1:
-                job.ttft_ms = (now - job.started) * 1000.0
-            slot.history.append(tok)
-            slot.remaining -= 1
-            stopped = self._publish_output(job)
-            if (stopped or slot.remaining <= 0
-                    or (job.gen.stop_at_eos and tok in self._eos_ids)):
-                job.status = JobStatus.FINISHED
-                job.finished = time.time()
-                slot.job = None
-                active[i] = False
+            n_chunk = self._chunkable(active)
+            if n_chunk > 1:
+                self._decode_chunked(active, n_chunk, temp, top_k, top_p, rp)
+                return True
 
-        if not active.any():
+            feed = np.zeros((self.n_slots, 1), np.int64)
+            pos = self._decode_positions(active, writes=1)
+            for i, slot in enumerate(self.slots):
+                if active[i]:
+                    feed[i, 0] = slot.history[-1]
+            rows = int(active.sum())
+            # the `decode` span: a = rows, b = the sum of their cache positions
+            with SPANS.span("decode", None, rows, int(pos[active].sum())):
+                self.logits, self.cache = forward_impl(
+                    self.params, self._tensor(feed), self.cache, self._tensor(pos), self.config)
+            for i, slot in enumerate(self.slots):
+                if active[i] and slot.job is not None:
+                    slot.pos += 1
             return True
-
-        for i in range(self.n_slots):
-            if active[i]:
-                self._maybe_context_swap(i)
-
-        n_spec = self._spec_steps(active, temp)
-        if _SPEC_DEBUG and self.speculative:
-            emas = [round(float(e), 2) for e in self.spec_accept_ema]
-            print(f"[spec] t={time.time():.3f} n_spec={n_spec}"
-                  f" active={active.astype(int).tolist()}"
-                  f" ema={emas} probe_cd={self._spec_probe_countdown}", flush=True)
-        if n_spec > 0:
-            self._decode_speculative(active, n_spec)
-            return True
-
-        n_chunk = self._chunkable(active)
-        if _SPEC_DEBUG and self.speculative:
-            print(f"[spec] t={time.time():.3f} -> chunked n={n_chunk}", flush=True)
-        if n_chunk > 1:
-            self._decode_chunked(active, n_chunk, temp, top_k, top_p, rp)
-            return True
-
-        feed = np.zeros((self.n_slots, 1), np.int64)
-        pos = self._decode_positions(active, writes=1)
-        for i, slot in enumerate(self.slots):
-            if active[i]:
-                feed[i, 0] = slot.history[-1]
-        t0 = time.time()
-        self.logits, self.cache = forward_impl(
-            self.params, self._tensor(feed), self.cache, self._tensor(pos), self.config)
-        eval_dt = (time.time() - t0) * 1000.0
-        for i, slot in enumerate(self.slots):
-            if active[i] and slot.job is not None:
-                slot.job.eval_ms.append(eval_dt)
-                slot.pos += 1
-        return True
 
     # ------------------------------------------------- speculative decode
 
@@ -623,6 +625,7 @@ class Engine:
                 return 0
             self._spec_probe_countdown = self.spec_probe_interval
             probing = True
+        self._spec_probing = probing
         allowed = max(1, self.decode_chunk_size)
         per_step = self.draft_len + 1
         rem_max = 0
@@ -668,24 +671,24 @@ class Engine:
                 hist[i, : len(hs)] = hs
                 hlen[i] = len(hs)
                 feed[i] = slot.history[-1]
-        t0 = time.time()
-        toks, counts, self.cache, pos_out, _, _ = speculative_decode_chunk(
-            self.params, self._tensor(feed), self.cache, self._tensor(pos),
-            self._tensor(hist), self._tensor(hlen), self.config,
-            n_steps=n_steps, draft_len=self.draft_len)
-        toks_h = toks.cpu().numpy()  # host sync
-        counts_h = counts.cpu().numpy()
-        pos_h = pos_out.cpu().numpy()
-        # restore the pending-logits invariant: one forward of each slot's
-        # last emitted token (as the chunked decode's final forward)
-        last = np.zeros((self.n_slots, 1), np.int64)
-        for i in range(self.n_slots):
-            if active[i]:
-                last[i, 0] = toks_h[i, -1, counts_h[i, -1] - 1]
-        self.logits, self.cache = forward_impl(
-            self.params, self._tensor(last), self.cache, pos_out, self.config)
-        dt_ms = (time.time() - t0) * 1000.0
-
+        # the `spec` span: a = verify steps, b = 1 if the gate was probing
+        with SPANS.span("spec", None, n_steps, int(self._spec_probing)):
+            toks, counts, self.cache, pos_out, _, _ = speculative_decode_chunk(
+                self.params, self._tensor(feed), self.cache, self._tensor(pos),
+                self._tensor(hist), self._tensor(hlen), self.config,
+                n_steps=n_steps, draft_len=self.draft_len)
+            with SPANS.wait(READ_SPEC):
+                toks_h = toks.cpu().numpy()
+                counts_h = counts.cpu().numpy()
+                pos_h = pos_out.cpu().numpy()
+            # restore the pending-logits invariant: one forward of each slot's
+            # last emitted token (as the chunked decode's final forward)
+            last = np.zeros((self.n_slots, 1), np.int64)
+            for i in range(self.n_slots):
+                if active[i]:
+                    last[i, 0] = toks_h[i, -1, counts_h[i, -1] - 1]
+            self.logits, self.cache = forward_impl(
+                self.params, self._tensor(last), self.cache, pos_out, self.config)
         for i, slot in enumerate(self.slots):
             if not active[i] or slot.job is None:
                 continue
@@ -711,14 +714,10 @@ class Engine:
             # (EOS or budget) always finishes the job below, so the stale
             # logits are never used.
             slot.pos = int(pos_h[i]) + 1
-            if kept:
-                job.eval_ms.extend([dt_ms / len(kept)] * len(kept))
             done = self._publish_output(job) or slot.remaining <= 0 or (
                 job.gen.stop_at_eos and kept and kept[-1] in self._eos_ids)
             if done:
-                job.status = JobStatus.FINISHED
-                job.finished = time.time()
-                slot.job = None
+                self._finish(slot)
 
     # ----------------------------------------------------- chunked decode
 
@@ -751,16 +750,18 @@ class Engine:
         for i, slot in enumerate(self.slots):
             if active[i]:
                 feed[i] = slot.history[-1]
-        t0 = time.time()
-        toks_dev, self.cache, _, self.sampler_state, self.logits = decode_chunk(
-            self.params, self._tensor(feed), self.cache, self._tensor(pos),
-            self.config, n_chunk, generators=self.generators,
-            state=self.sampler_state, temp=self._tensor(temp),
-            top_k=self._tensor(top_k), top_p=self._tensor(top_p),
-            repeat_penalty=self._tensor(rp), greedy=False,
-            return_final_logits=True, max_top_k=self._static_top_k(top_k, active))
-        toks = toks_dev.tolist()  # host sync, one per chunk
-        dt_per_tok = (time.time() - t0) * 1000.0 / n_chunk
+        rows = int(active.sum())
+        # the `decode_chunk` span: a = rows, b = the chunk's steps
+        with SPANS.span("decode_chunk", None, rows, n_chunk):
+            toks_dev, self.cache, _, self.sampler_state, self.logits = decode_chunk(
+                self.params, self._tensor(feed), self.cache, self._tensor(pos),
+                self.config, n_chunk, generators=self.generators,
+                state=self.sampler_state, temp=self._tensor(temp),
+                top_k=self._tensor(top_k), top_p=self._tensor(top_p),
+                repeat_penalty=self._tensor(rp), greedy=False,
+                return_final_logits=True, max_top_k=self._static_top_k(top_k, active))
+            with SPANS.wait(READ_CHUNK):
+                toks = toks_dev.tolist()  # one host sync a chunk
         for i, slot in enumerate(self.slots):
             if not active[i] or slot.job is None:
                 continue
@@ -776,13 +777,10 @@ class Engine:
             slot.history.extend(emitted)
             slot.remaining -= len(emitted)
             slot.pos += n_chunk + 1
-            job.eval_ms.extend([dt_per_tok] * len(emitted))
             done = self._publish_output(job) or slot.remaining <= 0 or (
                 job.gen.stop_at_eos and emitted and emitted[-1] in self._eos_ids)
             if done:
-                job.status = JobStatus.FINISHED
-                job.finished = time.time()
-                slot.job = None
+                self._finish(slot)
 
     # ----------------------------------------------------------- warmup
 
@@ -870,6 +868,12 @@ class Engine:
             slot.pending = []
             slot.pos = 0
             slot.swap_point = None
+
+    def _finish(self, slot: _Slot) -> None:
+        """The slot's job is done: finished now, and the slot free."""
+        slot.job.status = JobStatus.FINISHED
+        slot.job.finished = time.time()
+        slot.job = None
 
     def _fail_active(self, exc: Exception) -> None:
         """Mark every in-flight job failed; the engine loop survives."""
