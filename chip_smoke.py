@@ -3,6 +3,14 @@
 
     python3 chip_smoke.py [--out DETAIL.json] [--only PHASE,...]
 
+Every phase runs at the JAX package's prefill floor (1024 GiB: windows of
+t > 32 over the dense cache on the einsum math) unless
+LLAMAGO_ATTN_PREFILL_FLOOR is set, so that "the default routes" below are
+the JAX package's and "the opt-in routes" put K7 (and K10) in their place.
+The card's own default sends those windows to K7 (ops/attention.py
+can_fuse_attention): the opt-in routes' K7 without K10, which `k2_pair.py
+--kernel k7cells` and the benchmark's cells run.
+
 Phases, each of which fails the run (exit code 1, no result line):
 
   1. print the card (nvidia-smi name and power limit) and build every
@@ -5903,8 +5911,10 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         log("CUDA is not available: this smoke test needs a GPU")
         return 1
-    from llamago_tpu_torch.ops import _build
+    from llamago_tpu_torch.ops import _build, attention
 
+    if attention._MIN_PREFILL_SCORES is None:  # the JAX package's routes (docstring)
+        attention._MIN_PREFILL_SCORES = attention._JAX_PREFILL_SCORES
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()

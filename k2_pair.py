@@ -5,8 +5,8 @@ and K9's decode matmuls with f32 x, K9 above 8 rows, K3 (the int8 cache
 append), K10 (RMSNorm), the lab's float or integer rows or its probes of
 several checkouts on one card, side by side.
 
-    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|attn32|k5|f32mm|f32dec|k9tile|k10|lab|
-                                 labint|probe]
+    python3 k2_pair.py [--kernel k2|k3|k4|k8|k7|k7cells|attn32|k5|f32mm|f32dec|k9tile|k10|
+                                 lab|labint|probe]
                        [--k8-splits N,...]
                        [--k7-chunks N,...] [--k3-warps N,...] [--k10-threads N,...]
                        [--out FILE.json] ROOT [ROOT ...]
@@ -57,6 +57,18 @@ package (and this checkout's chip_smoke.py for the helpers), it reports:
     slots, chip_smoke's `opt_in_routes`): device busy and `attention_ms`.
     With `--k7-chunks`, the rows again for each number of slots a chunk (a
     multiple of 64) in place of `k7_chunk`'s, in the checkouts that have it.
+  - `--kernel k7cells`: K7 (bf16) at the benchmark cells' shapes,
+    Mistral-7B's b=1, KV=8, g=4, hd=128 (K7_CELL_WINDOWS): longdoc's
+    1024-row chunks over S=8192 at write positions 0, 3072 and 6144, and
+    chat's 256-row chunks over S=2048 at 0, 512 and 1536 and a 64-row
+    bucket at 0. Each window is called once into NaN-filled memory (every
+    call must take the prefill_tc form), held against the plain version
+    (max |d| / max(1, |plain|) within chip_smoke's K7_TOL), called again,
+    which must give the same bits, and timed beside the plain version, the
+    einsum math (`attention_math`, the route these windows took before K7
+    was the card's default), SDPA with enable_gqa and a boolean mask over
+    the visible prefix, and the bound of the visible causal work (bytes
+    or bf16 operations, chip_smoke's `bound_ms`).
   - `--kernel attn32`: K7 and K2 over f32 caches, the form each checkout
     takes there: K7 at chip_smoke's K7_SHAPE and K7_WINDOWS, K2 at its
     K2_SHAPE (b=4, KV=32, hd=128, S=1024) at t=1, 16 and 32, each at fills
@@ -302,6 +314,64 @@ def run_k7(cs, root: str, chunks: list[int]) -> dict:
     out["prefill_chunk_256"] = {k: chunk[k] for k in ("device_busy_ms", "attention_ms",
                                                        "matmul_ms")}
     return out
+
+
+# K7 at the benchmark cells' shapes (`--kernel k7cells`): Mistral-7B's
+# attention geometry and its windows (S, t, pos0) in the two cells
+K7_CELL_SHAPE = dict(b=1, kv=8, g=4, hd=128)
+K7_CELL_WINDOWS = ((8192, 1024, 0), (8192, 1024, 3072), (8192, 1024, 6144),
+                   (2048, 256, 0), (2048, 256, 512), (2048, 256, 1536), (2048, 64, 0))
+K7_CELL_STREAM_BYTES = 120e6  # a cycle of cache copies at least this long passes the L2
+
+
+def run_k7cells(cs, root: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from llamago_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    rows = []
+    for s, t, pos0 in K7_CELL_WINDOWS:
+        c = dict(K7_CELL_SHAPE, s=s)
+        h = c["kv"] * c["g"]
+        gen = torch.Generator(device=dev).manual_seed(1000 * t + pos0 + s)
+        q, kc, vc, positions = cs._k7_inputs(dev, gen, t, pos0, c, "bfloat16")
+        first = cs._k7_call(q, kc, vc, positions)
+        err = cs._k7_error(q, kc, vc, positions, c, got=first)
+        if not err <= cs.K7_TOL:
+            raise AssertionError(f"K7 S={s} t={t} pos0={pos0}: max|d| {err:.3g} > {cs.K7_TOL}")
+        if not torch.equal(cs._k7_call(q, kc, vc, positions), first):
+            raise AssertionError(f"K7 S={s} t={t} pos0={pos0}: a second call gave other bits")
+        pair = 2 * kc.numel() * kc.element_size()
+        n = max(2, -(-int(K7_CELL_STREAM_BYTES) // pair))
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+        q5 = q.reshape(c["b"], t, c["kv"], c["g"], c["hd"])
+        p0 = positions[:, 0].to(torch.int32)
+        visible = pos0 + t
+        kern = cs.timed([lambda kv=kv: attention.flash_attention(q, *kv, positions)
+                         for kv in caches], 10 * n)
+        plain = cs.timed([lambda kv=kv: attention.flash_attention_prefill_plain(q5, *kv, p0)
+                          for kv in caches], n)
+        math = cs.timed([lambda kv=kv: attention.attention_math(q, *kv, positions)
+                         for kv in caches], n)
+        qh = q.transpose(1, 2)
+        mask = torch.arange(visible, device=dev)[None, :] <= positions[0][:, None]
+        sdpa = cs.timed([lambda kv=kv: F.scaled_dot_product_attention(
+            qh, kv[0][:, :, :visible], kv[1][:, :, :visible], attn_mask=mask, enable_gqa=True)
+            for kv in caches], 10 * n)
+        del caches
+        nbytes = (2 * c["b"] * c["kv"] * visible * c["hd"] * 2
+                  + 2 * c["b"] * t * h * c["hd"] * 2 + c["b"] * 4)
+        ops = 4.0 * c["b"] * h * c["hd"] * (t * pos0 + t * (t + 1) / 2)
+        bnd, by = cs.bound_ms(nbytes, ops)
+        rows.append(dict(s=s, t=t, pos0=pos0, ms=kern, plain_ms=plain, math_ms=math,
+                         sdpa_ms=sdpa, bound_ms=bnd, bound_by=by, bound_share=bnd / kern,
+                         tflop_s=ops / kern / 1e9, max_abs_err=err))
+        cs.log(f"{root}: K7 S={s} t={t:4d} pos0={pos0:4d}: {kern:.4f} ms ({100 * bnd / kern:.1f}% "
+               f"of its bound {bnd:.4f} ms, {by}; {ops / kern / 1e9:.0f} TFLOP/s), plain "
+               f"{plain:.4f}, einsum math {math:.4f}, SDPA {sdpa:.4f} ms, max|d| {err:.2e}")
+    return {"root": root, "card": cs.card_line(), "k7cells": rows}
 
 
 def run_attn32(cs, root: str) -> dict:
@@ -750,6 +820,8 @@ def run_one(root: str, kernel: str, sweeps: dict) -> dict:
         return run_k8(cs, root, splits)
     if kernel == "k7":
         return run_k7(cs, root, chunks)
+    if kernel == "k7cells":
+        return run_k7cells(cs, root)
     if kernel == "attn32":
         return run_attn32(cs, root)
     if kernel == "lab":
@@ -803,8 +875,9 @@ SWEEPS = {"k8_splits": "slots a split to time K8 at, beside its plan",
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "attn32", "k5", "f32mm",
-                                         "f32dec", "k9tile", "k10", "lab", "labint", "probe"),
+    ap.add_argument("--kernel", choices=("k2", "k3", "k4", "k8", "k7", "k7cells", "attn32", "k5",
+                                         "f32mm", "f32dec", "k9tile", "k10", "lab", "labint",
+                                         "probe"),
                     default="k2")
     for name, what in SWEEPS.items():
         ap.add_argument("--" + name.replace("_", "-"), default="",

@@ -15,13 +15,16 @@ separate "wq"/"wk"/"wv"/"w1"/"w3", or LoRA leaves over them
 place (runtime/kv_cache.py), or, where autograd tracks the new rows
 (training), through copies that the cache then holds.
 
-Attention routing follows the JAX package (ops/attention.py
+Attention routing follows the JAX package's gate (ops/attention.py
 can_fuse_attention): windows of t <= 32 query rows (decode steps, prefill
 buckets of 16 and 32) take K2 through `flash_attention`; longer windows
-take the einsum math by default, and K7, the flash prefill kernel, also
-through `flash_attention`, once their f32 scores reach
-LLAMAGO_ATTN_PREFILL_FLOOR bytes (0: every prefill). RMSNorm is the plain
-one unless ops.kernels.USE_FUSED_NORM is set, then K10 (ops/basic.py).
+take K7, the flash prefill kernel, also through `flash_attention`, on the
+card wherever its geometry is one K7 takes (else the einsum math), and the
+einsum math on the CPU, as the JAX package's default does; a
+LLAMAGO_ATTN_PREFILL_FLOOR in the environment rules on both devices (K7
+once a window's f32 scores reach that many bytes; 0: every prefill).
+RMSNorm is the plain one unless ops.kernels.USE_FUSED_NORM is set, then
+K10 (ops/basic.py).
 On the int8 cache (runtime/kv_cache.py, `cache.quantized`) a decode step
 writes its new rows through K3 (ops/cache_write.py) and a prefill window
 through quantize_kv_rows + write_rows / write_scale_rows; windows of

@@ -30,12 +30,17 @@ products (`k7_form`; both take the chunks of slots planned by
 `flash_attention_prefill_plain`: -inf mask and one softmax over the whole
 row, as the TPU kernel computes it.
 
-`can_fuse_attention` is the JAX package's gate under its names and
-defaults, read at import: LLAMAGO_ATTN_PREFILL_FLOOR (bytes of f32 scores
-4*b*kv*g*t*s from which a window of t > 32 takes K7; default 1024 GiB, so
-prefill takes the einsum math, and 0 sends every prefill to K7),
+`can_fuse_attention` is the JAX package's gate under its names, read at
+import: LLAMAGO_ATTN_PREFILL_FLOOR (bytes of f32 scores 4*b*kv*g*t*s from
+which a window of t > 32 takes K7; 0 sends every prefill to K7),
 LLAMAGO_ATTN_DECODE_FLOOR (bytes of cache from which t <= 32 takes a
-kernel; default 0) and LLAMAGO_ATTN_LENAWARE (default "1").
+kernel; default 0) and LLAMAGO_ATTN_LENAWARE (default "1"). Where
+LLAMAGO_ATTN_PREFILL_FLOOR is not set, the default depends on the tensor's
+device: on the card every window of t > 32 that K7's geometry takes goes
+to K7 (it stops at the last visible slot, where the einsum math scores
+every slot in f32); on the CPU it is the JAX package's 1024 GiB, so prefill
+takes the einsum math there and the CPU parity tests compare like with
+like. Where it is set, it rules on both devices.
 
 `flash_attention_quant` is the same over the int8 cache (runtime/
 kv_cache.py), for windows of t <= 32 whose S has an S-block of the TPU
@@ -50,8 +55,9 @@ that is a multiple of 64, on the CUDA cores for f32 q (`k8_form`);
 `quant_plan` plans a call.
 
 `attention_math` is the plain einsum path that the model uses where the
-gate says no (by default every window of t > 32, where the JAX package
-also leaves attention to the compiler); with row scales it is the int8
+gate says no (by default every window of t > 32 on the CPU, where the JAX
+package also leaves attention to the compiler, and on the card a geometry
+that K7 does not take); with row scales it is the int8
 cache's scale-folded math, which every window of t > 32 over the int8 cache
 takes (the JAX package has no quantized K7).
 
@@ -103,10 +109,14 @@ _MASK = -1e9  # finite: -inf - -inf = nan would poison the online stats
 # int8-cache decode attention: K4 (int8 dot products) unless "0", K8
 _I8DOT = os.environ.get("LLAMAGO_ATTN_I8DOT", "1") == "1"
 
-# The gate's switches (module docstring), as the JAX package reads them.
+# The gate's switches (module docstring), as the JAX package reads them. The
+# prefill floor is None where the environment sets none: the gate then reads
+# the tensor's device, 0 on the card and the JAX package's default on the CPU.
 _GB = 1024 * 1024 * 1024
+_JAX_PREFILL_SCORES = 1024 * _GB
 _MIN_DECODE_TRAFFIC = int(os.environ.get("LLAMAGO_ATTN_DECODE_FLOOR", 0))
-_MIN_PREFILL_SCORES = int(os.environ.get("LLAMAGO_ATTN_PREFILL_FLOOR", 1024 * _GB))
+_MIN_PREFILL_SCORES = (int(os.environ["LLAMAGO_ATTN_PREFILL_FLOOR"])
+                       if "LLAMAGO_ATTN_PREFILL_FLOOR" in os.environ else None)
 _LENAWARE = os.environ.get("LLAMAGO_ATTN_LENAWARE", "1") == "1"
 
 
@@ -114,17 +124,23 @@ def can_fuse_attention(q: torch.Tensor, k_cache: torch.Tensor) -> bool:
     """Whether `flash_attention` (K2 or K7) takes q [B, T, H, hd] over the
     dense cache [B, KV, S, hd], or the window goes to `attention_math`: the
     JAX package's gate. A geometry the CUDA kernels do not take (K2 and K7
-    share it) is refused on the card only; the plain versions take any."""
+    share it) is refused on the card only; the plain versions take any.
+    With LLAMAGO_ATTN_PREFILL_FLOOR unset, a window of t > 32 takes K7 on
+    the card and the einsum math on the CPU (the JAX package's default)."""
     b, t, h, hd = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
-    if q.device.type != "cpu" and not (
+    on_card = q.device.type != "cpu"
+    if on_card and not (
             q.dtype in (torch.bfloat16, torch.float32) and k_cache.dtype == q.dtype
             and 1 <= g <= _MAX_G and hd in _HEAD_DIMS):
         return False
     if t <= MAX_T:
         return 2 * b * kv * s * hd * k_cache.element_size() >= _MIN_DECODE_TRAFFIC
-    return 4 * b * kv * g * t * s >= _MIN_PREFILL_SCORES
+    floor = _MIN_PREFILL_SCORES
+    if floor is None:
+        floor = 0 if on_card else _JAX_PREFILL_SCORES
+    return 4 * b * kv * g * t * s >= floor
 
 
 def _tpu_sb(s: int) -> int | None:

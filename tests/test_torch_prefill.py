@@ -28,7 +28,7 @@ from llamago_tpu.ops import attention as jattention
 from llamago_tpu.ops import kernels as jkernels
 from llamago_tpu.runtime.engine import Engine as JEngine
 from llamago_tpu.runtime.kv_cache import KVCache as JKVCache
-from llamago_tpu_torch.checkpoint.params import params_from_numpy
+from llamago_tpu_torch.checkpoint.params import params_from_numpy, random_parameters
 from llamago_tpu_torch.config import MODEL_PRESETS, GenerateConfig
 from llamago_tpu_torch.models import llama
 from llamago_tpu_torch.ops import attention, kernels
@@ -204,11 +204,19 @@ def test_k7_cuda_arg_checks(case):
 
 
 def test_gate_defaults_are_the_jax_defaults():
-    assert attention._MIN_PREFILL_SCORES == jattention._MIN_PREFILL_SCORES == 1024 * GB
+    """The JAX package's switches and, on the CPU, its routing; the card
+    ("meta") has a default of its own for windows of t > 32: with no floor
+    in the environment (None) it sends them to K7."""
+    assert attention._MIN_PREFILL_SCORES is None
+    assert attention._JAX_PREFILL_SCORES == jattention._MIN_PREFILL_SCORES == 1024 * GB
     assert attention._MIN_DECODE_TRAFFIC == jattention._MIN_DECODE_TRAFFIC == 0
     assert attention._LENAWARE is jattention._LENAWARE is True
     q, kc = torch.zeros((1, 40, 4, 16)), torch.zeros((1, 2, 64, 16))
-    assert not attention.can_fuse_attention(q, kc)  # prefill: the einsum math
+    assert not attention.can_fuse_attention(q, kc)  # prefill on the CPU: the einsum math
+    assert attention.can_fuse_attention(q[:, :32], kc)  # t <= 32: K2
+    q, kc = torch.empty((1, 40, 4, 128), device="meta"), torch.empty((1, 2, 64, 128),
+                                                                      device="meta")
+    assert attention.can_fuse_attention(q, kc)  # prefill on the card: K7
     assert attention.can_fuse_attention(q[:, :32], kc)  # t <= 32: K2
 
 
@@ -266,6 +274,177 @@ def test_gate_refuses_on_the_card_what_the_kernels_do_not_take(monkeypatch, case
     ok = torch.empty((1, 64, 8, 128), dtype=torch.bfloat16, device="meta")
     assert attention.can_fuse_attention(ok, torch.empty((1, 2, 64, 128), dtype=torch.bfloat16,
                                                         device="meta"))
+
+
+# The cells' geometry per batch row: Mistral-7B's 32 query heads over 8 KV
+# heads of 128 (g = 4), a bf16 cache.
+_CELL_H, _CELL_KV, _CELL_HD = 32, 8, 128
+
+
+def _jax_gate_on_the_card(monkeypatch, t, s, dtype):
+    """What the JAX gate says on a TPU at its default floor (nothing is
+    launched: the gate reads shapes)."""
+    monkeypatch.setattr(jkernels, "FORCE_INTERPRET", False)
+    monkeypatch.setattr(jkernels, "_on_tpu", lambda: True)
+    return jattention.can_fuse_attention(jnp.zeros((1, t, _CELL_H, _CELL_HD), dtype),
+                                         jnp.zeros((1, _CELL_KV, s, _CELL_HD), dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("t,s", [(33, 2048), (256, 2048), (1024, 8192)])
+def test_card_default_sends_long_windows_to_k7(monkeypatch, t, s, dtype):
+    """No floor in the environment: the card takes K7 for every window of
+    t > 32 over the dense bf16 or f32 cache, the CPU the einsum math as
+    the JAX gate does at its default."""
+    monkeypatch.setattr(attention, "_MIN_PREFILL_SCORES", None)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    assert not _jax_gate_on_the_card(monkeypatch, t, s, jdtype)
+    for dev, want in (("meta", True), ("cpu", False)):
+        q = torch.empty((1, t, _CELL_H, _CELL_HD), dtype=dtype, device=dev)
+        kc = torch.empty((1, _CELL_KV, s, _CELL_HD), dtype=dtype, device=dev)
+        assert attention.can_fuse_attention(q, kc) == want, dev
+        assert attention.can_fuse_attention(q[:, :32], kc), dev  # t <= 32: K2 on both
+
+
+_FLOOR_PROBE = """
+import torch
+from llamago_tpu_torch.ops import attention
+out = []
+for dev in ("cpu", "meta"):
+    q = torch.empty((1, 64, 32, 128), dtype=torch.bfloat16, device=dev)
+    kc = torch.empty((1, 8, 2048, 128), dtype=torch.bfloat16, device=dev)
+    out.append(attention.can_fuse_attention(q, kc))
+print(attention._MIN_PREFILL_SCORES, *out)
+"""
+
+
+@pytest.mark.parametrize("floor,want", [
+    (None, "None False True"), ("0", "0 True True"),
+    (str(1024 * GB), f"{1024 * GB} False False"),
+    (str(4 * 8 * 4 * 64 * 2048), f"{4 * 8 * 4 * 64 * 2048} True True"),
+    (str(4 * 8 * 4 * 64 * 2048 + 1), f"{4 * 8 * 4 * 64 * 2048 + 1} False False")],
+    ids=["unset", "zero", "jax-default", "at-the-scores", "above-the-scores"])
+def test_prefill_floor_in_the_environment_rules_on_both_devices(floor, want):
+    """LLAMAGO_ATTN_PREFILL_FLOOR as the process reads it at import: where
+    it is set, the CPU and the card ("meta") route a 64-row window over a
+    2048-slot cache alike; unset, each device takes its own default."""
+    import os
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k != "LLAMAGO_ATTN_PREFILL_FLOOR"}
+    if floor is not None:
+        env["LLAMAGO_ATTN_PREFILL_FLOOR"] = floor
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FLOOR_PROBE], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[-2] == want
+
+
+def _route_calls(monkeypatch):
+    """The model's two routes for the dense and the int8 cache, recorded
+    and not run (meta tensors stand for the card's)."""
+    calls = []
+    monkeypatch.setattr(llama, "flash_attention", lambda *a: calls.append("k7"))
+    monkeypatch.setattr(llama, "flash_attention_quant", lambda *a: calls.append("quant"))
+    monkeypatch.setattr(llama, "attention_math", lambda *a: calls.append("math"))
+    return calls
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "hd", "g", "f16", "mixed", "int8"])
+def test_card_default_sends_refused_geometries_and_the_int8_cache_to_the_math(
+        monkeypatch, case):
+    """No floor in the environment, a 64-row window on the card: K7 where
+    its geometry holds; a head size, group or dtype it does not take, and
+    the int8 cache (there is no quantized K7), go to the einsum math."""
+    monkeypatch.setattr(attention, "_MIN_PREFILL_SCORES", None)
+    h, kv, hd, qd, cd = _CELL_H, _CELL_KV, _CELL_HD, torch.bfloat16, torch.bfloat16
+    if case == "f32":
+        qd = cd = torch.float32
+    elif case == "hd":
+        h, hd = 128, 32  # the quality gate's proxy: hd 32
+    elif case == "g":
+        h = 9 * kv
+    elif case == "f16":
+        qd = cd = torch.float16
+    elif case in ("mixed", "int8"):
+        cd = torch.float32 if case == "mixed" else torch.int8
+    q = torch.empty((1, 64, h, hd), dtype=qd, device="meta")
+    kc = torch.empty((1, kv, 2048, hd), dtype=cd, device="meta")
+    scales = (torch.empty((1, kv, 2048), device="meta"),) * 2 if case == "int8" else (None,) * 2
+    calls = _route_calls(monkeypatch)
+    llama._attention(q, kc, kc, torch.empty((1, 64), dtype=torch.long, device="meta"), *scales)
+    assert calls == (["k7"] if case in ("bf16", "f32") else ["math"])
+    assert attention.can_fuse_attention(q, kc) == (case in ("bf16", "f32"))
+
+
+# bf16 outputs of size ~1 (V's rows are unit normals): K7's plain version
+# and the einsum math compute the same f32 scores and softmax and round the
+# probabilities to bf16 alike; only the order of the f32 sums differs, so
+# they stay within one bf16 rounding of the output (2^-8 relative)
+_CELL_ATTN_TOL = 1e-2
+# the model's logits in bf16 through two layers: the attention outputs above
+# go on through bf16 matmuls and norms, where one rounding apart can become a
+# few; x max|logit|
+_CELL_LOGIT_TOL = 2e-2
+
+
+def test_k7_route_matches_the_math_at_the_cells_geometry():
+    """The cells' attention on the CPU, cut in length: 32 query heads over 8
+    KV heads of 128, a bf16 cache of 512 slots, a 64-row window written at
+    position 200. `flash_attention`'s K7 route (its plain version here)
+    against `attention_math`."""
+    q, k, v, pos = _inputs(1, 64, _CELL_H, _CELL_KV, _CELL_HD, 512, [200], seed=28)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tp = torch.from_numpy(pos)
+    calls = []
+    fn = attention.flash_attention_prefill_plain
+
+    def counted(*args):
+        calls.append(1)
+        return fn(*args)
+
+    attention.flash_attention_prefill_plain = counted
+    try:
+        got = attention.flash_attention(tq, tk, tv, tp)
+    finally:
+        attention.flash_attention_prefill_plain = fn
+    assert calls == [1] and got.dtype == torch.bfloat16
+    want = attention.attention_math(tq, tk, tv, tp)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _CELL_ATTN_TOL, err
+
+
+def test_forward_through_the_k7_route_at_the_cells_geometry(monkeypatch):
+    """Two layers of a bf16 model with the cells' head geometry (4 query
+    heads over 1 KV head of 128, g = 4) and a bf16 cache of 256 slots: a
+    40-token prefill, then a 64-token window at position 40, once through
+    the card's route (the floor at 0 on the CPU: K7's plain version, a call
+    a layer in each window) and once through the einsum math; the logits
+    agree and the K7 route's calls rise in both windows."""
+    cfg = MODEL_PRESETS["tiny-gqa"].replace(dim=512, n_heads=4, n_kv_heads=1, ffn_dim=256,
+                                            dtype="bfloat16", weight_dtype="bfloat16",
+                                            max_seq_len=256)
+    params = random_parameters(cfg, seed=28, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(28).integers(1, 500, (1, 104)))
+    logits = {}
+    for route, floor in (("k7", 0), ("math", 1024 * GB)):
+        monkeypatch.setattr(attention, "_MIN_PREFILL_SCORES", floor)
+        k7 = _count_calls(monkeypatch, attention, "flash_attention_prefill_plain")
+        cache = KVCache.create(cfg, batch=1, device="cpu")
+        assert cache.k[0].dtype == torch.bfloat16
+        seen = []
+        for lo, hi in ((0, 40), (40, 104)):
+            lg, cache = llama.forward_impl(params, toks[:, lo:hi], cache,
+                                           torch.tensor([lo]), cfg, return_all_logits=True)
+            seen.append(len(k7))
+        logits[route] = lg.float()
+        assert seen == ([cfg.n_layers, 2 * cfg.n_layers] if route == "k7" else [0, 0])
+        monkeypatch.undo()
+    scale = logits["math"].abs().max().item()
+    err = (logits["k7"] - logits["math"]).abs().max().item() / scale
+    assert err <= _CELL_LOGIT_TOL, err
 
 
 # ------------------------------------------------------ model and engine
